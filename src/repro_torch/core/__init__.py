@@ -1,0 +1,27 @@
+"""The port's core: fabric and schedule builders, CC policies, the fluid
+engine, scenario specs and the serial sweep runner."""
+from repro_torch.core.cc import (ALL_POLICIES, REGISTRY, FlowCtx,  # noqa: F401
+                                 ParamSpec, Policy, Signals, get_policy,
+                                 kernel_param_keys, kernel_state_keys,
+                                 make_dcqcn, make_dctcp, make_hpcc,
+                                 make_hpcc_pint, make_pfc_only,
+                                 make_static_window, make_timely,
+                                 pack_params, pack_state, unpack_state)
+from repro_torch.core.collectives import (COLLECTIVES,  # noqa: F401
+                                          Schedule, ScheduleBuilder,
+                                          allreduce_1d, allreduce_2d,
+                                          allreduce_hring, allreduce_ring,
+                                          alltoall, get_collective, incast)
+from repro_torch.core.engine import (EngineConfig,  # noqa: F401
+                                     FabricParams,
+                                     Results, Simulator, resolve_step_impl,
+                                     simulate)
+from repro_torch.core.faults import (FaultSpec, LaneStatus,  # noqa: F401
+                                     classify_lane, is_faulty)
+from repro_torch.core.scenario import (CollectiveSpec,  # noqa: F401
+                                       FabricSpec, IncastSpec, ScenarioSpec,
+                                       TOPOLOGIES, register_topology,
+                                       scenario_matrix)
+from repro_torch.core.sweep import SweepRunner  # noqa: F401
+from repro_torch.core.topology import (LINK_CLASSES, MAXHOP,  # noqa: F401
+                                       Topology, clos, route, single_switch)

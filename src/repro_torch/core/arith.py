@@ -1,0 +1,130 @@
+"""Float32 arithmetic in the reference's order of operations.
+
+The fluid simulator amplifies an ulp of difference into a different
+pause, cut or completion step, so the port follows the reference's
+rounding where its CPU backend (XLA through LLVM) departs from PyTorch's:
+multiply-adds contracted into one FMA, and row sums in a fixed
+association order.  The CUDA kernels do the same (``fmaf``, the same sum
+order), so the kernel path, the op path and the reference agree to the
+bit wherever the elementary functions agree.
+"""
+from __future__ import annotations
+
+import torch
+
+_FLT_MIN = float.fromhex("0x1p-126")     # smallest normal float32
+
+
+def fma(a, b, c):
+    """``a * b + c`` rounded once, like a fused multiply-add.
+
+    The reference's CPU backend (XLA through LLVM) contracts a multiply
+    that feeds an add or subtract into one FMA; where two products meet
+    (``x*y + u*v``) it fuses the first.  The port's op path does the same
+    at the same places, so its float32 results follow the reference's
+    rather than drifting by an ulp per step; the CUDA kernel calls
+    ``fmaf`` there.  Emulated in float64: the product of two float32
+    values is exact in float64, and the sum is rounded twice (to float64,
+    then float32), which differs from one rounding only in rare
+    half-way cases.  Scalars must already be float32 values."""
+    # one operand in float64 promotes the others within the operation
+    if isinstance(a, torch.Tensor):
+        prod = a.double() * b
+    else:
+        prod = a * b.double()
+    return ftz((prod + c).float())
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Flush float32 subnormals to (signed) zero, as the reference's CPU
+    backend does: the residue ``b - b*frac`` of a drained backlog decays
+    through the subnormal range there as exact zeros."""
+    return x * (x.abs() >= _FLT_MIN)
+
+
+def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
+    """``s / x`` for a scalar ``s``, rounded once: PyTorch evaluates a
+    scalar numerator as ``x.reciprocal() * s``, which rounds twice."""
+    return torch.full_like(x, s) / x
+
+
+def _seq(cols):
+    out = cols[0]
+    for c in cols[1:]:
+        out = out + c
+    return out
+
+
+def row_sum(rows: torch.Tensor, lanes: bool = False) -> torch.Tensor:
+    """Sum over the last axis (a power-of-two width C) in the order the
+    reference's compiled gather-and-sum reductions use on the CPU:
+
+      C <= 16   left to right (``lanes=False``: a gather plan's rows and
+                the hop slots), or as below (``lanes=True``: the second
+                level of a split-row ``gather2`` plan);
+      C <= 32   min(C, 8) strided partial sums (column k adds k, k+8, ...
+                left to right), then a halving tree over them;
+      C >= 64   each block of 32 left to right, then the block totals
+                left to right.
+
+    (Measured from the reference's compiled code, bit for bit.)  The port
+    adds in the same order, and so do the segment kernels, so a segment
+    sum is the reference's to the bit; PyTorch's own ``sum`` reorders, and
+    the simulator amplifies an ulp of difference into a different pause
+    or cut step."""
+    C = rows.shape[-1]
+    if C <= 16 and not lanes:
+        return _seq([rows[..., k] for k in range(C)])
+    if C <= 32:
+        V = min(C, 8)
+        acc = _seq([rows[..., V * j:V * j + V] for j in range(C // V)])
+        while acc.shape[-1] > 1:
+            h = acc.shape[-1] // 2
+            acc = acc[..., :h] + acc[..., h:]
+        return acc[..., 0]
+    blocks = rows.reshape(rows.shape[:-1] + (C // 32, 32))
+    totals = _seq([blocks[..., k] for k in range(32)])
+    return _seq([totals[..., b] for b in range(C // 32)])
+
+
+def row_prod(x: torch.Tensor) -> torch.Tensor:
+    """Product over a short last axis (the hop slots), left to right."""
+    out = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        out = out * x[..., k]
+    return out
+
+
+# Cephes single-precision expf, the polynomial the reference's CPU backend
+# evaluates for exp (with its multiply-adds contracted and results below
+# the smallest normal float flushed to zero).  Written out so that DCQCN's
+# p_cnp = 1 - exp(-pkts * ecn) is the reference's to the bit, on the CPU
+# and in the CUDA kernel (engine_step.cu: cephes_expf) alike.
+_EXP_LO = float.fromhex("-0x1.5f33340000000p+6")     # -87.8
+_EXP_HI = float.fromhex("0x1.6333340000000p+6")      # 88.8
+_LOG2E = float.fromhex("0x1.7154760000000p+0")
+_LN2_HI = float.fromhex("0x1.6300000000000p-1")      # 0.693359375
+_LN2_LO = float.fromhex("-0x1.bd01060000000p-13")
+_EXP_P = tuple(float.fromhex(h) for h in (
+    "0x1.a0d2ce0000000p-13", "0x1.6e879c0000000p-10", "0x1.1112100000000p-7",
+    "0x1.5553820000000p-5", "0x1.5555540000000p-3"))
+
+
+def expf(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of a float32 tensor, Cephes' range reduction and degree-7
+    polynomial (NaN propagates)."""
+    x = torch.where(x < _EXP_LO, _EXP_LO, x)
+    x = torch.where(x > _EXP_HI, _EXP_HI, x)
+    n = torch.floor(fma(x, _LOG2E, 0.5))
+    n = torch.where(n < -127.0, -127.0, n)
+    n = torch.where(n > 127.0, 127.0, n)
+    r = fma(-_LN2_HI, n, x)
+    r = fma(-_LN2_LO, n, r)
+    p = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:] + (0.5,):
+        p = fma(p, r, c)
+    y = 1.0 + fma(p, r * r, r)
+    scale = ((torch.nan_to_num(n).to(torch.int32) + 127) << 23).view(
+        torch.float32)
+    out = y * scale
+    return torch.where(out < _FLT_MIN, 0.0, out)

@@ -1,0 +1,862 @@
+"""Network layer: fixed-timestep, vectorized fluid-flow simulator in
+PyTorch (port of ``repro.core.engine``, lossless path).
+
+Per step Δt:
+  1. delayed signals (ECN fraction, RTT, HPCC INT utilisation) read from a
+     per-link history ring at t - base_rtt(flow)
+  2. CC policy update -> per-flow rate / window
+  3. paced, window-gated injection into the source NIC egress queue
+  4. PFC gates: paused ports transmit nothing
+  5. hop-ordered fluid forwarding with per-link capacity accounting and
+     proportional backlog drain
+  6. per-link and per-ingress-port queues
+  7. PFC per-port X_OFF/X_ON hysteresis; PAUSE frames are counted
+  8. completion, per flow and per dependency group
+  9. history ring + soft cost integrand
+ 10. run-health observers: pause storm, pause-cycle deadlock, non-finite
+     freeze
+
+Two step implementations, as in the reference (``step_impl``):
+
+* ``"torch"`` — the op path: plain PyTorch operations, on the CPU or the
+  card.  It is the reference's jnp step, operation for operation.
+* ``"cuda"`` — stages 1+2 run in the fused CUDA kernel and every
+  reduction whose plan is ``"gather"`` (fan-in <= 64) runs in the segment
+  kernels (``repro_torch.kernels.engine_step``); the PFC hysteresis fuses
+  into the per-port reduction where that plan is ``"gather"``.  Reductions
+  whose plan is ``"gather2"`` stay on the op path, exactly as the
+  reference's Pallas path leaves them to jnp.
+
+``"auto"`` resolves to ``"cuda"`` on a CUDA device and to ``"torch"`` on
+the CPU; ``"cuda"`` on the CPU raises.
+
+Early exit: ``Simulator.run`` integrates at most ``max_steps *
+(max_extends + 1)`` steps in chunks of ``chunk_steps``.  Each step is a
+no-op once every flow is done or the lane diverged (a per-step host read
+of that flag), and the run stops at the first chunk boundary after that,
+so results never depend on ``chunk_steps`` and ``meta["steps_run"]`` is
+the reference's chunk-rounded count.
+
+Not ported yet: the fault branches of the step (a faulty ``FaultSpec``
+raises), ``soft_cost_fn`` and autograd, batched lanes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch.core.arith import fma, row_prod, row_sum
+from repro_torch.core.cc import (FlowCtx, Policy, Signals,
+                                 kernel_state_keys, pack_params)
+from repro_torch.core.collectives import Schedule
+from repro_torch.core.faults import (FaultSpec, LaneStatus, _as_fault,
+                                     classify_lane, is_faulty)
+from repro_torch.core.topology import (LINK_CLASS_ID, MAXHOP,
+                                       N_LINK_CLASSES, Topology)
+from repro_torch.kernels.engine_step import ops as es_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    dt: float = 1e-6
+    max_steps: int = 20_000
+    max_extends: int = 4          # extra step budget: total = max_steps*(1+extends)
+    hist: int = 512               # feedback delay ring cap (steps)
+    # ECN / PFC defaults: these only seed the default FabricParams
+    kmin: float = 400e3
+    kmax: float = 1600e3
+    pmax: float = 0.2
+    xoff: float = 1e6
+    xon: float = 0.8e6
+    t_base_util: float = 10e-6    # HPCC qlen->util horizon
+    eps_done: float = 512.0       # completion slack (bytes)
+    pause_resend: float = 5e-6    # PAUSE frame refresh while a port is paused
+    # knobs that do not change simulated physics
+    chunk_steps: int = 256        # early-exit check granularity
+    queue_stride: int = 1         # record dev_queue every k steps; 0 = off
+    step_impl: str = "auto"       # "auto" | "torch" | "cuda"
+    deadlock_check_every: int = 64   # pause-cycle check cadence (steps)
+    storm_frac: float = 0.5          # pause storm: fraction of ports paused
+    storm_steps: int = 50            # ... for this many consecutive steps
+
+
+_FABRIC_DEFAULTS = dict(kmin=400e3, kmax=1600e3, pmax=0.2, xoff=1e6, xon=0.8e6)
+
+@dataclasses.dataclass(frozen=True)
+class FabricParams:
+    """Fabric tuning knobs: each leaf is a scalar (uniform fabric) or a
+    per-link-class array of shape ``(N_LINK_CLASSES,)`` indexed by
+    ``topology.LINK_CLASSES``."""
+    kmin: object = _FABRIC_DEFAULTS["kmin"]   # ECN marking ramp start (bytes)
+    kmax: object = _FABRIC_DEFAULTS["kmax"]   # ECN marking ramp end (bytes)
+    pmax: object = _FABRIC_DEFAULTS["pmax"]   # max marking probability
+    xoff: object = _FABRIC_DEFAULTS["xoff"]   # PFC pause threshold (bytes)
+    xon: object = _FABRIC_DEFAULTS["xon"]     # PFC resume threshold (bytes)
+
+    FIELDS = ("kmin", "kmax", "pmax", "xoff", "xon")
+
+    @classmethod
+    def from_config(cls, cfg: EngineConfig) -> "FabricParams":
+        return cls(kmin=cfg.kmin, kmax=cfg.kmax, pmax=cfg.pmax,
+                   xoff=cfg.xoff, xon=cfg.xon)
+
+    def replace(self, **kw) -> "FabricParams":
+        return dataclasses.replace(self, **kw)
+
+    def with_class(self, **field_overrides) -> "FabricParams":
+        """``fab.with_class(kmin={"spine_down": 100e3})``: expand a field
+        to a per-class array with the named classes replaced."""
+        out = {}
+        for field, overrides in field_overrides.items():
+            base = np.broadcast_to(
+                np.asarray(getattr(self, field), np.float32),
+                (N_LINK_CLASSES,)).copy()
+            for cls_name, v in overrides.items():
+                base[LINK_CLASS_ID[cls_name]] = v
+            out[field] = base
+        return dataclasses.replace(self, **out)
+
+
+def _as_fabric(fabric_params, cfg: EngineConfig) -> FabricParams:
+    return (FabricParams.from_config(cfg) if fabric_params is None
+            else fabric_params)
+
+
+def _per_class(v, device) -> torch.Tensor:
+    """Broadcast a FabricParams leaf to one float32 value per link class."""
+    return torch.as_tensor(np.broadcast_to(np.asarray(v, np.float32),
+                                           (N_LINK_CLASSES,)).copy(),
+                           device=device)
+
+
+def resolve_device(device) -> torch.device:
+    """The device a simulation runs on; a CUDA device must exist (no
+    silent CPU run)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the engine runs on the "
+                           "card by default; pass device='cpu' to run the "
+                           "op path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def resolve_step_impl(cfg: EngineConfig, device) -> str:
+    """``"auto"`` -> ``"cuda"`` on a CUDA device, ``"torch"`` on the CPU;
+    ``"cuda"`` on a CPU device raises."""
+    impl = cfg.step_impl
+    dev = torch.device(device)
+    if impl == "auto":
+        return "cuda" if dev.type == "cuda" else "torch"
+    if impl not in ("torch", "cuda"):
+        raise ValueError(f"step_impl must be 'auto', 'torch' or 'cuda', "
+                         f"got {impl!r}")
+    if impl == "cuda" and dev.type != "cuda":
+        raise ValueError("step_impl='cuda' runs the CUDA kernels and needs "
+                         f"a CUDA device, got {dev}")
+    return impl
+
+
+@dataclasses.dataclass
+class Results:
+    finished: bool
+    completion_time: float        # max flow finish (s)
+    t_finish: np.ndarray          # (F,)
+    group_time: np.ndarray        # (G,)
+    group_names: list
+    pause_count: np.ndarray       # (D,) PFC pause frames per device
+    dev_queue: np.ndarray         # (T//queue_stride, D) queue-bytes timeline
+    dt: float
+    delivered: np.ndarray
+    soft_cost: float
+    meta: dict
+    deadlocked: bool = False      # a PFC pause-graph cycle was detected
+    deadlock_step: int = -1       # first step the cycle was seen (-1 = never)
+    storm_step: int = -1          # first step a pause storm was sustained
+    diverged: bool = False        # non-finite state; lane frozen at detection
+    extend_exhausted: bool = False  # step budget ran out before completion
+    lost: np.ndarray | None = None  # (F,) bytes dropped (lossy mode; not ported)
+
+    @property
+    def status(self) -> LaneStatus:
+        return classify_lane(self.diverged, self.deadlocked, self.finished)
+
+
+# ---------------------------------------------------------------------------
+# static gather plans (scatter-free segment reductions)
+# ---------------------------------------------------------------------------
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
+
+
+# single-level padded-gather width cap: wider segments use the two-level
+# split-row plan
+_SPLIT_C = 64
+
+
+def _padded_rows(kept_ids, kept_pos, counts, n_out, n_in, width):
+    """(n_out, width) index matrix; slot ``n_in`` means "+0"."""
+    idx = np.full((n_out, width), n_in, np.int64)
+    order = np.argsort(kept_ids, kind="stable")
+    sid = kept_ids[order]
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    slot = np.arange(len(sid)) - starts[sid]
+    idx[sid, slot] = kept_pos[order]
+    return idx
+
+
+def _reduce_plan(ids: np.ndarray, n_in: int, n_out: int,
+                 drop: np.ndarray | None = None):
+    """Static plan for ``out[s] = sum(vals[ids == s])``, entries with
+    ``drop`` excluded.  Returns ``(numpy arrays, strategy)``:
+
+      empty    no live entries — the reduction is identically zero
+      gather   (n_out, C) padded gather + row sum, C = max segment size
+      gather2  split-row: segments padded to multiples of _SPLIT_C, one
+               flat gather + block sum, then a second padded gather over
+               the per-block partial sums
+    """
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    keep = (np.ones(ids.shape, bool) if drop is None
+            else ~np.asarray(drop).reshape(-1))
+    kept_ids = ids[keep]
+    kept_pos = np.nonzero(keep)[0]
+    if kept_ids.size == 0:
+        return {}, ("empty", n_out)
+    counts = np.bincount(kept_ids, minlength=n_out)
+    C = _next_pow2(int(counts.max()))
+    if C <= _SPLIT_C:
+        idx = _padded_rows(kept_ids, kept_pos, counts, n_out, n_in, C)
+        return {"idx": idx.reshape(-1)}, ("gather", n_out, C)
+    nblk = -(-counts // _SPLIT_C)
+    blk_start = np.concatenate([[0], np.cumsum(nblk)])
+    n_blocks = int(blk_start[-1])
+    perm = np.full(n_blocks * _SPLIT_C, n_in, np.int64)
+    order = np.argsort(kept_ids, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for s in np.nonzero(counts)[0]:
+        lo = blk_start[s] * _SPLIT_C
+        perm[lo:lo + counts[s]] = kept_pos[order[starts[s]:starts[s] + counts[s]]]
+    C2 = _next_pow2(int(nblk.max()))
+    bidx = np.full((n_out, C2), n_blocks, np.int64)
+    for s in np.nonzero(nblk)[0]:
+        bidx[s, :nblk[s]] = np.arange(blk_start[s], blk_start[s + 1])
+    return {"perm": perm, "bidx": bidx.reshape(-1)}, \
+        ("gather2", n_out, n_blocks, C2)
+
+
+def _plan_tensors(arrs: dict, device) -> dict:
+    """Plan index arrays on the device: int64 for the op path's indexing,
+    plus the int32 ``idx32`` the segment kernels take."""
+    out = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+           for k, v in arrs.items()}
+    if "idx" in arrs:
+        out["idx32"] = torch.as_tensor(arrs["idx"], dtype=torch.int32,
+                                       device=device)
+    return out
+
+
+def _zero_ext(vals: torch.Tensor) -> torch.Tensor:
+    """``vals`` with one appended zero: the OOB-fill slot of a plan."""
+    return torch.cat([vals, vals.new_zeros(1)])
+
+
+def _reduce(strategy, arrs, vals):
+    """Apply a ``_reduce_plan`` on the op path: (n_in,) -> (n_out,)."""
+    kind = strategy[0]
+    if kind == "empty":
+        return vals.new_zeros(strategy[1])
+    if kind == "gather":
+        _, n_out, C = strategy
+        return row_sum(_zero_ext(vals)[arrs["idx"]].reshape(n_out, C))
+    _, n_out, n_blocks, C2 = strategy
+    bsum = row_sum(_zero_ext(vals)[arrs["perm"]].reshape(n_blocks, _SPLIT_C))
+    return row_sum(_zero_ext(bsum)[arrs["bidx"]].reshape(n_out, C2),
+                   lanes=True)
+
+
+def _reduce_kernel(strategy, arrs, vals):
+    """Kernel-path reduction: the ``"gather"`` plan through the segment
+    kernel, every other plan on the op path (as the reference)."""
+    if strategy[0] == "gather":
+        return es_ops.segment_reduce(vals.contiguous()[None], arrs["idx32"],
+                                     strategy[1], strategy[2])[0]
+    return _reduce(strategy, arrs, vals)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """Static description of one prepared scenario (shapes + strategies)."""
+    n_flows: int                  # real flows (pre-padding)
+    n_flows_pad: int
+    n_groups: int
+    n_groups_pad: int
+    n_links: int
+    n_dev: int
+    ring: int                     # feedback history slots (pow2)
+    hop: tuple                    # per-hop demand reduction strategies
+    qlink: tuple
+    qport: tuple
+    group: tuple
+    pause: tuple
+    qdev: tuple
+
+
+def _prep(topo: Topology, sched: Schedule, cfg: EngineConfig,
+          pad_flows: int | None = None, pad_groups: int | None = None,
+          device="cpu"):
+    """Precompute static per-flow/per-link tensors + gather plans (numpy
+    on the host, then moved to ``device``).  ``pad_flows``/``pad_groups``
+    pad the flow and group axes with inert entries (done at t=0, zero
+    bytes, null links) that no reduction plan includes."""
+    Lk = topo.n_links
+    F = sched.n_flows
+    G = sched.n_groups
+    Fp = max(pad_flows or F, F)
+    Gp = max(pad_groups or G, G)
+
+    path = np.where(sched.path < 0, Lk, sched.path).astype(np.int32)
+    cap = np.concatenate([topo.cap, [1e18]]).astype(np.float32)
+    lat = np.concatenate([topo.lat, [0.0]]).astype(np.float32)
+    ecn_on = np.concatenate([topo.ecn_on, [False]])
+    dst_dev = np.concatenate([topo.dst_dev, [topo.n_devices]]).astype(np.int32)
+    link_class = np.concatenate([topo.link_class, [0]]).astype(np.int32)
+
+    # ingress map: backlog at hop h arrived via link path[:, h-1] (h >= 1)
+    ingress = np.full_like(path, Lk)
+    ingress[:, 1:] = np.where(sched.path[:, 1:] >= 0, path[:, :-1], Lk)
+    dev_sw_ext = np.concatenate([topo.dev_is_switch, [False]])
+    fabric_ext = np.concatenate([topo.fabric, [False]])
+    can_pause = dev_sw_ext[dst_dev] & fabric_ext
+    sw_sw = (topo.dev_is_switch[topo.src_dev]
+             & topo.dev_is_switch[topo.dst_dev] & topo.fabric)
+
+    # static fan-in: concurrent (same-group) flows sharing each flow's
+    # most-contended link
+    link_load = np.zeros(Lk + 1, np.float64)
+    for g in range(max(G, 1)):
+        in_g = (sched.group == g) & (sched.size > 0)
+        if not in_g.any():
+            continue
+        load_g = np.zeros(Lk + 1, np.float64)
+        for h in range(path.shape[1]):
+            np.add.at(load_g, path[in_g, h], 1.0)
+        link_load = np.maximum(link_load, load_g)
+    link_load[Lk] = 1.0
+    fanin = np.ones(F, np.float64)
+    for h in range(path.shape[1]):
+        valid = sched.path[:, h] >= 0
+        fanin = np.maximum(fanin, np.where(valid, link_load[path[:, h]], 1.0))
+
+    hopmask = (sched.path >= 0)
+    base_rtt = 2.0 * (lat[path] * hopmask).sum(1)
+    base_rtt = np.maximum(base_rtt, 1e-7).astype(np.float32)
+    delay_steps = np.clip(np.round(base_rtt / cfg.dt), 1,
+                          cfg.hist - 1).astype(np.int32)
+    first = path[:, 0]
+    line = cap[first].astype(np.float32)
+    bdp = (line * base_rtt).astype(np.float32)
+    gsize = np.zeros(G, np.float32)
+    np.add.at(gsize, sched.group, 1.0)
+
+    def fpad(a, fill):
+        if Fp == a.shape[0]:
+            return a
+        pad = np.full((Fp - a.shape[0],) + a.shape[1:], fill, a.dtype)
+        return np.concatenate([a, pad])
+
+    active = np.zeros(Fp, bool)
+    active[:F] = True
+    path = fpad(path, Lk)
+    ingress = fpad(ingress, Lk)
+    hopmask = fpad(hopmask, False)
+    n_hops = fpad(sched.n_hops.astype(np.int32), 0)
+    base_rtt = fpad(base_rtt, 1e-7)
+    delay_steps = fpad(delay_steps, 1)
+    line = fpad(line, 1.0)
+    bdp = fpad(bdp, 1.0)
+    fanin = fpad(fanin.astype(np.float32), 1.0)
+    size = fpad(sched.size.astype(np.float32), 0.0)
+    group = fpad(sched.group.astype(np.int32), 0)
+    dep = fpad(sched.dep.astype(np.int32), -1)
+    sdelay = fpad(sched.delay.astype(np.float32), 0.0)
+    gsize = np.concatenate([gsize, np.zeros(Gp - G, np.float32)])
+
+    invalid = ~hopmask
+    hop_arrs, hop_strats = [], []
+    for h in range(MAXHOP):
+        a, s = _reduce_plan(path[:, h], Fp, Lk + 1, drop=invalid[:, h])
+        hop_arrs.append(a)
+        hop_strats.append(s)
+    ql_a, ql_s = _reduce_plan(path.reshape(-1), Fp * MAXHOP, Lk + 1,
+                              drop=invalid.reshape(-1))
+    qp_a, qp_s = _reduce_plan(ingress.reshape(-1), Fp * MAXHOP, Lk + 1,
+                              drop=(ingress == Lk).reshape(-1))
+    gr_a, gr_s = _reduce_plan(group, Fp, Gp, drop=~active)
+    pa_a, pa_s = _reduce_plan(dst_dev[:Lk], Lk, topo.n_devices)
+    qd_a, qd_s = _reduce_plan(topo.src_dev, Lk, topo.n_devices)
+
+    ring = _next_pow2(int(delay_steps.max()) + 1)
+
+    plan = _Plan(
+        n_flows=F, n_flows_pad=Fp, n_groups=G, n_groups_pad=Gp,
+        n_links=Lk, n_dev=topo.n_devices, ring=ring,
+        hop=tuple(hop_strats), qlink=ql_s, qport=qp_s,
+        group=gr_s, pause=pa_s, qdev=qd_s,
+    )
+
+    def T(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    pp = dict(
+        path=T(path, torch.int64), cap=T(cap),
+        dst_dev=T(dst_dev, torch.int64), can_pause=T(can_pause),
+        hopmask=T(hopmask),
+        caps_path=T(cap[path]),
+        ecn_mask=T((ecn_on[path] & hopmask).astype(np.float32)),
+        link_class=T(link_class, torch.int64),
+        src_dev=T(topo.src_dev, torch.int64),
+        sw_sw=T(sw_sw),
+        cls_path=T(link_class[path], torch.int64),
+        n_hops=T(n_hops, torch.int64),
+        base_rtt=T(base_rtt), delay_steps=T(delay_steps, torch.int64),
+        line=T(line), bdp=T(bdp), fanin=T(fanin), size=T(size),
+        group=T(group, torch.int64), dep=T(dep, torch.int64),
+        sdelay=T(sdelay), gsize=T(gsize), active=T(active),
+        dev_buf=T(topo.dev_buf.astype(np.float32)),
+        r_hop=tuple(_plan_tensors(a, device) for a in hop_arrs),
+        r_qlink=_plan_tensors(ql_a, device),
+        r_qport=_plan_tensors(qp_a, device),
+        r_group=_plan_tensors(gr_a, device),
+        r_pause=_plan_tensors(pa_a, device),
+        r_qdev=_plan_tensors(qd_a, device),
+    )
+    return pp, plan
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _flow_ctx(pp: dict, F: int) -> FlowCtx:
+    return FlowCtx(line=pp["line"], bdp=pp["bdp"], fanin=pp["fanin"],
+                   n_flows=F)
+
+
+def _n_qrows(cfg: EngineConfig) -> int:
+    total = cfg.max_steps * (cfg.max_extends + 1)
+    return -(-total // cfg.queue_stride) if cfg.queue_stride > 0 else 0
+
+
+def _init_carry(pp, plan: _Plan, policy: Policy, cfg: EngineConfig):
+    Fp, Lk, D = plan.n_flows_pad, plan.n_links, plan.n_dev
+    dev = pp["line"].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    carry = dict(
+        backlog=torch.zeros((Fp, MAXHOP), **f32),
+        remaining=pp["size"] * _f32(policy.wire_factor),
+        injected=torch.zeros(Fp, **f32),
+        delivered=torch.zeros(Fp, **f32),
+        done=~pp["active"],           # padded flows are born finished
+        t_finish=torch.full((Fp,), float("inf"), **f32),
+        g_count=torch.zeros(plan.n_groups_pad, **f32),
+        # empty groups complete at t=0
+        g_time=torch.where(pp["gsize"] < 0.5, 0.0, float("inf")),
+        paused=torch.zeros(Lk + 1, dtype=torch.bool, device=dev),
+        pause_count=torch.zeros(D, **f32),
+        hist_q=torch.zeros((plan.ring, Lk + 1), **f32),
+        hist_tx=torch.zeros((plan.ring, Lk + 1), **f32),
+        cc={k: v.clone() for k, v in
+            policy.init(_flow_ctx(pp, Fp)).items()},
+        soft=torch.zeros((), **f32),
+        diverged=torch.zeros((), dtype=torch.bool, device=dev),
+        deadlock_step=torch.full((), -1, **i32),
+        storm_run=torch.zeros((), **i32),
+        storm_step=torch.full((), -1, **i32),
+    )
+    if cfg.queue_stride > 0:
+        carry["qbuf"] = torch.zeros((_n_qrows(cfg), D), **f32)
+    return carry
+
+
+def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
+               cc_params: dict, fab: FabricParams, use_kernels: bool):
+    """The lossless step ``step(carry, it) -> carry`` for one run.
+
+    Per-run constants (per-class fabric knobs gathered per hop, wire
+    sizes, thresholds) are computed once here; they are the values the
+    reference recomputes every step.  ``use_kernels`` routes stages 1+2,
+    the ``"gather"`` reductions and the PFC hysteresis through the CUDA
+    kernel wrappers (which run their plain versions on CPU tensors).
+    The history ring and the queue timeline are updated in place.
+    """
+    dt = cfg.dt
+    dt32 = _f32(dt)
+    Lk = plan.n_links
+    D = plan.n_dev
+    stride = cfg.queue_stride
+    dl_rounds = max(1, (max(D, 2) - 1).bit_length())
+    dev = pp["line"].device
+    params = {k: _f32(v) for k, v in dict(policy.params,
+                                          **(cc_params or {})).items()}
+    reduce_ = _reduce_kernel if use_kernels else _reduce
+
+    path, hopmask = pp["path"], pp["hopmask"]
+    cls_path = pp["cls_path"]
+    kmin_h = _per_class(fab.kmin, dev)[cls_path]          # (F, MAXHOP)
+    kmax_h = _per_class(fab.kmax, dev)[cls_path]
+    pmax_h = _per_class(fab.pmax, dev)[cls_path]
+    xoff_l = _per_class(fab.xoff, dev)[pp["link_class"]]  # (Lk+1,)
+    xon_l = _per_class(fab.xon, dev)[pp["link_class"]]
+    caps = pp["caps_path"]
+    can = pp["can_pause"]
+    wire_size = pp["size"] * _f32(policy.wire_factor)
+    done_thresh = wire_size - cfg.eps_done
+    wire_total = torch.clamp_min(wire_size.sum(), 1.0)
+    gthresh = pp["gsize"] - 0.5
+    dep_valid = pp["dep"] >= 0
+    dep_c = torch.clamp_min(pp["dep"], 0)
+    n_hops = pp["n_hops"]
+    has_hops = n_hops > 0
+    path_h = [path[:, h].contiguous() for h in range(MAXHOP)]
+    last_h = [n_hops == (h + 1) for h in range(MAXHOP)]
+    cap_dt = pp["cap"] * dt
+    n_pausable = torch.clamp_min(can[:Lk].to(torch.float32).sum(), 1.0)
+    frame_refresh = dt / cfg.pause_resend
+    inv_dt = _f32(1.0 / np.float32(dt))
+
+    if use_kernels:
+        # hop-major (1, MAXHOP, F) inputs of the fused kernel
+        def hm(x):
+            return x.to(torch.float32).T.contiguous()[None]
+        k_caps, k_emask, k_hmask = hm(caps), hm(pp["ecn_mask"]), hm(hopmask)
+        k_kmin, k_kmax, k_pmax = hm(kmin_h), hm(kmax_h), hm(pmax_h)
+        path_t = path.T.contiguous()
+        k_brtt, k_line = pp["base_rtt"][None], pp["line"][None]
+        k_loss = torch.zeros_like(k_line)       # lossless: no loss signal
+        k_params = pack_params(policy, params, device=dev)[None]
+        state_keys = kernel_state_keys(policy)
+        k_dummy = torch.zeros((1, 1, plan.n_flows_pad), dtype=torch.float32,
+                              device=dev)
+
+    def pause_cycle(paused):
+        """Any cycle in the switch->switch PFC wait-for graph?  Link l
+        paused means src_dev(l) waits on dst_dev(l) to resume."""
+        e = (paused[:Lk] & pp["sw_sw"]).to(torch.float32)
+        adj = torch.zeros((D, D), dtype=torch.float32, device=dev)
+        adj.index_put_((pp["src_dev"], pp["dst_dev"][:Lk]), e,
+                       accumulate=True)
+        S = torch.clamp_max(adj, 1.0)
+        for _ in range(dl_rounds):
+            S = torch.clamp_max(S + S @ S, 1.0)
+        return torch.any(torch.diagonal(S) > 0.5)
+
+    def step(c, it: int):
+        t = _f32(np.float32(it) * np.float32(dt))
+        t_end = _f32(np.float32(t) + np.float32(dt))
+        # the reference's compiler contracts the group stamp t + dt =
+        # it * dt + dt into one multiply-add (the flow stamp it does not)
+        t_end_g = _f32(float(np.float32(it)) * dt32 + dt32)
+        # ---- 1. delayed signals ------------------------------------------
+        slot = torch.clamp_min(it - pp["delay_steps"], 0) % plan.ring
+        if use_kernels:
+            # ---- 1+2 fused: signals + CC update in one kernel --------------
+            flat_t = slot[None, :] * (Lk + 1) + path_t          # (MAXHOP, F)
+            q_d = c["hist_q"].reshape(-1)[flat_t][None]
+            tx_d = c["hist_tx"].reshape(-1)[flat_t][None]
+            state = (torch.stack([c["cc"][k] for k in state_keys])[None]
+                     if state_keys else k_dummy)
+            st_out, rate, win = es_ops.fused_signals_policy(
+                policy, q_d, tx_d, k_caps, k_emask, k_hmask, k_kmin, k_kmax,
+                k_pmax, k_brtt, k_line, k_loss, state, k_params, t,
+                cfg.t_base_util)
+            cc = {k: st_out[0, j] for j, k in enumerate(state_keys)}
+            rate, win = rate[0], win[0]
+        else:
+            flat = slot[:, None] * (Lk + 1) + path               # (F, MAXHOP)
+            q_d = c["hist_q"].reshape(-1)[flat]
+            tx_d = c["hist_tx"].reshape(-1)[flat]
+            rtt = pp["base_rtt"] + row_sum(q_d / caps * hopmask)
+            mark = torch.clamp((q_d - kmin_h)
+                               / torch.clamp_min(kmax_h - kmin_h, 1.0),
+                               0.0, 1.0) * pmax_h
+            mark = mark * pp["ecn_mask"]
+            ecn = 1.0 - row_prod(1.0 - mark)
+            util_l = tx_d / caps + q_d / (caps * cfg.t_base_util)
+            util = torch.amax(torch.where(hopmask, util_l, 0.0), dim=1)
+            sig = Signals(ecn=ecn, rtt=rtt, util=util, t=t, dt=dt32,
+                          line=pp["line"], base_rtt=pp["base_rtt"])
+            # ---- 2. CC update ---------------------------------------------
+            cc, rate, win = policy.update(params, c["cc"], sig)
+
+        # ---- 3. injection --------------------------------------------------
+        g_done = c["g_count"] >= gthresh
+        dep_ok = torch.where(dep_valid, g_done[dep_c], True)
+        dep_t = torch.where(dep_valid, c["g_time"][dep_c], 0.0)
+        started = dep_ok & (t >= dep_t + pp["sdelay"])
+        inflight = c["injected"] - c["delivered"]
+        room = torch.clamp_min(win - inflight, 0.0)
+        inj = torch.minimum(torch.minimum(rate * dt, room), c["remaining"])
+        inj = torch.where(started & has_hops, torch.clamp_min(inj, 0.0), 0.0)
+        backlog = c["backlog"].clone()
+        backlog[:, 0] += inj
+        remaining = c["remaining"] - inj
+        injected = c["injected"] + inj
+
+        # ---- 4. PFC gates (per-port) ---------------------------------------
+        rem_cap = cap_dt * ~c["paused"]
+        rem_cap[Lk] = 1e18
+
+        # ---- 5. hop-ordered forwarding -------------------------------------
+        delivered = c["delivered"]
+        tx_bytes = None
+        for h in range(MAXHOP):
+            if plan.hop[h][0] == "empty":   # no flow ever uses this hop slot
+                continue
+            dem = reduce_(plan.hop[h], pp["r_hop"][h], backlog[:, h])
+            frac = torch.where(dem > 0,
+                               torch.clamp_max(
+                                   rem_cap / torch.clamp_min(dem, 1e-9), 1.0),
+                               0.0)
+            frac_f = frac[path_h[h]]
+            moved = backlog[:, h] * frac_f
+            # backlog - backlog*frac and the capacity/tx updates are
+            # multiply-adds the reference contracts (see cc.fma)
+            backlog[:, h] = fma(-backlog[:, h], frac_f, backlog[:, h])
+            delivered = delivered + torch.where(last_h[h], moved, 0.0)
+            if h + 1 < MAXHOP:
+                backlog[:, h + 1] += torch.where(last_h[h], 0.0, moved)
+            # frac * dem == per-link sum of `moved`
+            rem_cap = torch.clamp_min(fma(-frac, dem, rem_cap), 0.0)
+            # the reference's tx = 0 + m0 + m1 + ... folds to m0 + m1 + ...,
+            # whose first add contracts m0's multiply: fma(f0, d0, f1*d1)
+            if tx_bytes is None:
+                tx_bytes = (frac, dem)
+            elif isinstance(tx_bytes, tuple):
+                tx_bytes = fma(tx_bytes[0], tx_bytes[1], frac * dem)
+            else:
+                tx_bytes = fma(frac, dem, tx_bytes)
+        if isinstance(tx_bytes, tuple):
+            tx_bytes = tx_bytes[0] * tx_bytes[1]
+
+        # ---- 6. queues ------------------------------------------------------
+        q_link = reduce_(plan.qlink, pp["r_qlink"], backlog.reshape(-1))
+        if use_kernels and plan.qport[0] == "gather":
+            # ---- 6b+7 fused: per-port occupancy + hysteresis -------------
+            _, paused = es_ops.segment_reduce_pfc(
+                backlog.reshape(-1)[None], pp["r_qport"]["idx32"],
+                plan.qport[1], plan.qport[2], xoff_l[None], xon_l[None],
+                can[None], c["paused"][None])
+            paused = paused[0]
+        else:
+            q_port = reduce_(plan.qport, pp["r_qport"], backlog.reshape(-1))
+            # ---- 7. PFC per-port hysteresis ---------------------------------
+            over = (q_port > xoff_l) & can
+            under = q_port < xon_l
+            paused = torch.where(over, True,
+                                 torch.where(under, False, c["paused"]))
+        # PAUSE frames: one per off-transition + refreshes while paused
+        frames = ((paused & ~c["paused"])[:Lk].to(torch.float32)
+                  + paused[:Lk].to(torch.float32) * frame_refresh)
+        pause_count = c["pause_count"] + reduce_(plan.pause, pp["r_pause"],
+                                                 frames)
+
+        # ---- 8. completion --------------------------------------------------
+        data_done = delivered >= done_thresh
+        marker_done = ~has_hops & started
+        newly = ~c["done"] & torch.where(has_hops, data_done, marker_done)
+        done = c["done"] | newly
+        # completion happens at the END of this step's transfer window
+        t_finish = torch.where(newly, t_end, c["t_finish"])
+        g_count = c["g_count"] + reduce_(plan.group, pp["r_group"],
+                                         newly.to(torch.float32))
+        g_done_new = (g_count >= gthresh) & ~g_done
+        g_time = torch.where(g_done_new, t_end_g, c["g_time"])
+
+        # ---- 9. history + soft cost ----------------------------------------
+        hist_q, hist_tx = c["hist_q"], c["hist_tx"]
+        hist_q[it % plan.ring] = q_link
+        # the reference's compiler turns x / dt into x * (1/dt)
+        hist_tx[it % plan.ring] = tx_bytes * inv_dt
+        goodput = torch.minimum(delivered, wire_size)
+        undeliv = torch.sum(wire_size - goodput)
+        soft = c["soft"] + dt * undeliv / wire_total
+
+        # ---- 10. run health (observers) ------------------------------------
+        pfrac = torch.sum(paused[:Lk].to(torch.float32)) / n_pausable
+        storm_run = torch.where(pfrac >= cfg.storm_frac,
+                                c["storm_run"] + 1, 0).to(torch.int32)
+        storm_step = torch.where((c["storm_step"] < 0)
+                                 & (storm_run >= cfg.storm_steps),
+                                 it, c["storm_step"]).to(torch.int32)
+        deadlock_step = c["deadlock_step"]
+        if it % cfg.deadlock_check_every == 0:
+            # checked while switch->switch pauses exist and no cycle was
+            # seen yet
+            do_check = (torch.any(paused[:Lk] & pp["sw_sw"])
+                        & (deadlock_step < 0))
+            cycle = do_check & pause_cycle(paused)
+            deadlock_step = torch.where(cycle, it,
+                                        deadlock_step).to(torch.int32)
+        probe = (torch.sum(backlog) + torch.sum(remaining) + torch.sum(rate)
+                 + torch.sum(q_link) + soft)
+        diverged = c["diverged"] | ~torch.isfinite(probe)
+
+        new = dict(
+            backlog=backlog, remaining=remaining, injected=injected,
+            delivered=delivered, done=done, t_finish=t_finish,
+            g_count=g_count, g_time=g_time, paused=paused,
+            pause_count=pause_count, hist_q=hist_q, hist_tx=hist_tx,
+            cc=cc, soft=soft, diverged=diverged,
+            deadlock_step=deadlock_step, storm_run=storm_run,
+            storm_step=storm_step)
+        if stride > 0:
+            qbuf = c["qbuf"]
+            if it % stride == 0:
+                qbuf[it // stride] = reduce_(plan.qdev, pp["r_qdev"],
+                                             q_link[:Lk])
+            new["qbuf"] = qbuf
+        return new
+
+    return step
+
+
+def _halted(c) -> bool:
+    """The step no-op gate (one host read): every flow done or diverged."""
+    return bool((c["done"].all() | c["diverged"]).item())
+
+
+def _run_loop(step, carry, cfg: EngineConfig, early_exit: bool):
+    """Chunked stepping: returns ``(carry, steps_run, steps_executed)``
+    with the reference's chunk-rounded ``steps_run`` and the number of
+    steps that were not no-ops."""
+    total = cfg.max_steps * (cfg.max_extends + 1)
+    executed = 0
+    if not early_exit:
+        for it in range(total):
+            if _halted(carry):      # every later step is a no-op
+                break
+            carry = step(carry, it)
+            executed += 1
+        return carry, total, executed
+    chunk = max(1, min(cfg.chunk_steps, total))
+    it0 = 0
+    while it0 < total and not _halted(carry):
+        for it in range(it0, min(it0 + chunk, total)):
+            if it > it0 and _halted(carry):
+                break
+            carry = step(carry, it)
+            executed += 1
+        it0 += chunk
+    return carry, min(it0, total), executed
+
+
+class Simulator:
+    """Fluid simulation of one (topology, schedule, policy) on ``device``
+    (the card by default).  ``pad_flows``/``pad_groups`` pad the flow and
+    group axes with inert entries (see ``_prep``)."""
+
+    def __init__(self, topo: Topology, sched: Schedule, policy: Policy,
+                 cfg: EngineConfig = EngineConfig(),
+                 pad_flows: int | None = None, pad_groups: int | None = None,
+                 fabric_params: FabricParams | None = None,
+                 fault_spec: FaultSpec | None = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.step_impl = resolve_step_impl(cfg, self.device)
+        if self.step_impl == "cuda" and policy.kernel_id is None:
+            raise NotImplementedError(
+                f"policy {policy.name!r} has no device function in the "
+                "fused CUDA step kernel; use step_impl='torch'")
+        self.topo, self.sched, self.policy, self.cfg = topo, sched, policy, cfg
+        self.fabric = _as_fabric(fabric_params, cfg)
+        self.fault = _check_lossless(fault_spec)
+        self.pp, self.plan = _prep(topo, sched, cfg, pad_flows, pad_groups,
+                                   self.device)
+
+    def run(self, cc_params: dict | None = None, early_exit: bool = True,
+            fabric_params: FabricParams | None = None,
+            fault_spec: FaultSpec | None = None) -> Results:
+        fab = fabric_params if fabric_params is not None else self.fabric
+        if fault_spec is not None:
+            _check_lossless(fault_spec)
+        step = _make_step(self.policy, self.cfg, self.plan, self.pp,
+                          cc_params, fab, self.step_impl == "cuda")
+        carry = _init_carry(self.pp, self.plan, self.policy, self.cfg)
+        carry, steps, executed = _run_loop(step, carry, self.cfg, early_exit)
+        return self._results(carry, steps, executed)
+
+    def _results(self, carry, steps_run: int,
+                 steps_executed: int) -> Results:
+        F, G = self.plan.n_flows, self.plan.n_groups
+
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        t_fin = host(carry["t_finish"])[:F]
+        done = host(carry["done"])[:F]
+        if self.cfg.queue_stride > 0:
+            rows = -(-steps_run // self.cfg.queue_stride)
+            dev_queue = host(carry["qbuf"])[:rows]
+        else:
+            dev_queue = np.zeros((0, self.plan.n_dev), np.float32)
+        finished = bool(done.all())
+        diverged = bool(carry["diverged"])
+        deadlock_step = int(carry["deadlock_step"])
+        extend_exhausted = not finished and not diverged
+        if extend_exhausted:
+            total = self.cfg.max_steps * (self.cfg.max_extends + 1)
+            warnings.warn(
+                f"step budget exhausted: {int((~done).sum())}/{F} flows "
+                f"unfinished after {total} steps (max_steps="
+                f"{self.cfg.max_steps}, max_extends={self.cfg.max_extends}) "
+                f"for policy {self.policy.name!r} on {self.topo.name!r}; "
+                "completion_time is a lower bound — raise max_steps/"
+                "max_extends or treat this cell as invalid",
+                RuntimeWarning, stacklevel=3)
+        return Results(
+            finished=finished,
+            completion_time=float(np.max(np.where(np.isfinite(t_fin),
+                                                  t_fin, 0.0))),
+            t_finish=t_fin,
+            group_time=host(carry["g_time"])[:G],
+            group_names=self.sched.group_names,
+            pause_count=host(carry["pause_count"]),
+            dev_queue=dev_queue,
+            dt=self.cfg.dt,
+            delivered=host(carry["delivered"])[:F],
+            soft_cost=float(carry["soft"]),
+            meta={"policy": self.policy.name, "topo": self.topo.name,
+                  "n_flows": self.sched.n_flows, "steps_run": steps_run,
+                  "steps_executed": steps_executed,
+                  "queue_stride": self.cfg.queue_stride,
+                  "step_impl": self.step_impl, "device": str(self.device)},
+            deadlocked=deadlock_step >= 0,
+            deadlock_step=deadlock_step,
+            storm_step=int(carry["storm_step"]),
+            diverged=diverged,
+            extend_exhausted=extend_exhausted,
+        )
+
+
+def _check_lossless(fault_spec) -> FaultSpec:
+    flt = _as_fault(fault_spec)
+    if is_faulty(flt):
+        raise NotImplementedError(
+            "the port's engine runs the lossless step only; the fault "
+            "branches (loss, flaps, degradation, ECN/PFC misconfiguration) "
+            "are not ported yet")
+    return flt
+
+
+def simulate(topo, sched, policy, cfg: EngineConfig = EngineConfig(),
+             fabric_params: FabricParams | None = None,
+             fault_spec: FaultSpec | None = None, device="cuda") -> Results:
+    return Simulator(topo, sched, policy, cfg, fabric_params=fabric_params,
+                     fault_spec=fault_spec, device=device).run()

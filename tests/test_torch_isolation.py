@@ -1,0 +1,88 @@
+"""The port stands alone: no module of ``src/repro_torch`` (nor
+``chip_smoke.py`` or ``scripts/profile_step.py``) imports jax or the JAX package, it imports and runs
+with jax unavailable, and it never runs on the CPU unless asked to."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import (EngineConfig, Simulator, SweepRunner,
+                              get_policy, incast, simulate, single_switch)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_step.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_port_runs_with_jax_unavailable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "from repro_torch.core import *\n"
+        "topo = single_switch(4)\n"
+        "sched = incast(topo, [1, 2, 3], 0, 2e5)\n"
+        "r = simulate(topo, sched, get_policy('dcqcn'),\n"
+        "             EngineConfig(dt=1e-6, max_steps=400, max_extends=0,\n"
+        "                          queue_stride=0), device='cpu')\n"
+        "assert r.finished, r\n"
+        "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
+        "                     if sys.modules[m] is not None}\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def _tiny():
+    topo = single_switch(4)
+    return topo, incast(topo, [1, 2, 3], 0, 2e5)
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid")
+    topo, sched = _tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Simulator(topo, sched, get_policy("pfc"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate(topo, sched, get_policy("pfc"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SweepRunner()
+
+
+def test_cuda_step_impl_on_cpu_raises():
+    topo, sched = _tiny()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        Simulator(topo, sched, get_policy("dcqcn"),
+                  EngineConfig(step_impl="cuda"), device="cpu")
+    with pytest.raises(ValueError, match="step_impl"):
+        Simulator(topo, sched, get_policy("dcqcn"),
+                  EngineConfig(step_impl="pallas"), device="cpu")
+    sim = Simulator(topo, sched, get_policy("dcqcn"), EngineConfig(),
+                    device="cpu")
+    assert sim.step_impl == "torch"
