@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card: builds the engine-step kernels, holds each against its plain
-PyTorch version, drives the simulator's main path through the kernels at
-the paper's 128-GPU scale and at 32 GPUs, and checks the results against
-the op path and against the JAX reference's completion times.
+card: builds the engine-step and embedding-bag kernels, holds each against
+its plain PyTorch version, drives the simulator's main path through the
+kernels at the paper's 128-GPU scale and at 32 GPUs, scores a batch on the
+paper's Table II DLRM through the embedding-bag kernel, simulates that
+DLRM's training iteration on the 128-GPU platform under PFC and DCQCN, and
+checks the results against the plain paths and against constants from the
+JAX reference.
 
     python3 chip_smoke.py
 
@@ -27,10 +30,17 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 KERNEL_SOURCE = "src/repro_torch/kernels/engine_step/csrc/engine_step.cu"
+EMB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+SOURCES = {"fused_signals_policy": KERNEL_SOURCE,
+           "segment_reduce": KERNEL_SOURCE,
+           "segment_reduce_pfc": KERNEL_SOURCE,
+           "embedding_bag_rows": EMB_SOURCE}
 REPLACES = {
     "fused_signals_policy": "src/repro/kernels/engine_step/engine_step.py:96",
     "segment_reduce": "src/repro/kernels/engine_step/engine_step.py:171",
     "segment_reduce_pfc": "src/repro/kernels/engine_step/engine_step.py:195",
+    "embedding_bag_rows":
+        "src/repro/kernels/embedding_bag/embedding_bag.py:31",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -45,7 +55,72 @@ REFERENCE = {
     ("clos32_2d", "dcqcn"): 0.002959999954327941,
 }
 
+# The DLRM training iteration on the 128-GPU platform, 2D all-reduce, by
+# the JAX reference with the All-To-All salted by zlib.crc32 (the port's
+# salt), from the same script (jax 0.9.0, numpy 2.0.2): 152,581 flows.
+# Times must agree within two steps, PAUSE frames within rtol 1e-3 + 1.
+DLRM_ITER_REFERENCE = {
+    "pfc": {"iteration_time": 0.006173999939113856,
+            "exposed_comm": 0.0025939999391138557, "pfc_pauses": 27308},
+    "dcqcn": {"iteration_time": 0.0070779998376965525,
+              "exposed_comm": 0.0034979998376965526, "pfc_pauses": 10600},
+}
+DLRM_ITER_FLOWS = 152581
+
 DT = 4e-6
+
+# dlrm_reference: Table II widths with small tables, weights from numpy
+DLRM_REF_ROWS = 8192
+DLRM_REF_SEED = 0
+DLRM_REF_BATCH = 64
+DLRM_REF_RTOL, DLRM_REF_ATOL = 2e-2, 2e-3
+# its logits by the JAX reference (jnp embedding path, and the Pallas one
+# in interpret mode: equal), from the same script (jax 0.9.0, numpy 2.0.2)
+DLRM_REF_LOGITS = [
+    -1.7109375, -1.6875, -1.640625, -1.796875, -1.8828125, -1.75, -1.734375,
+    -1.4765625, -1.640625, -1.8515625, -1.8828125, -1.8828125, -1.796875,
+    -1.6328125, -1.65625, -1.640625, -1.8515625, -1.8203125, -1.7421875,
+    -1.5625, -1.9140625, -2.15625, -1.8984375, -1.71875, -2.3125, -1.6875,
+    -1.9609375, -2.109375, -1.5703125, -1.4375, -1.8671875, -1.9453125,
+    -1.7578125, -1.5859375, -1.9765625, -1.640625, -1.8828125, -1.8359375,
+    -1.640625, -1.5625, -1.515625, -1.5390625, -1.65625, -1.34375, -2.296875,
+    -1.75, -1.9609375, -1.5625, -2.109375, -1.7734375, -1.703125, -1.625,
+    -1.5859375, -1.65625, -1.640625, -1.859375, -1.578125, -1.3828125,
+    -2.171875, -1.8671875, -1.8125, -1.96875, -1.8125, -2.046875,
+]
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (uint16), rounded to nearest even
+    (finite inputs)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) >> 16
+            ).astype(np.uint16)
+
+
+def dlrm_numpy_params(shapes: dict, seed: int) -> dict:
+    """DLRM weights drawn by numpy from ``seed`` for a parameter tree of
+    ``shapes`` (``{"tables": (T, R, D), "bot": {name: shape}, "top":
+    {...}}`` in the models' leaf order): tables 0.02 * N(0, 1) (the models'
+    rule), MLP weights He-normal (std sqrt(2 / fan_in)) and biases 0.1 *
+    N(0, 1), so that the activations keep their scale through the 19 ReLU
+    layers and the logits are of order 1, where a tolerance on them bites.
+    The tables come as bf16 bit patterns (uint16), the rest float32.  The
+    JAX reference (``scripts/port_reference_times.py``) and the port are
+    fed the same bits."""
+    rng = np.random.default_rng(seed)
+    T, R, D = shapes["tables"]
+    tables = np.empty((T, R, D), np.uint16)
+    for t in range(T):
+        tables[t] = bf16_bits(0.02 * rng.standard_normal((R, D), np.float32))
+    tree = {"tables": tables}
+    for part in ("bot", "top"):
+        tree[part] = {}
+        for name, shape in shapes[part].items():
+            std = np.sqrt(2.0 / shape[0]) if len(shape) == 2 else 0.1
+            tree[part][name] = (rng.standard_normal(shape, np.float32)
+                                * np.float32(std))
+    return tree
 
 
 def emit(obj) -> None:
@@ -394,6 +469,261 @@ def run_main(runner, spec, label: str, impl: str) -> tuple:
     return r, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 6-9: the DLRM path
+# ---------------------------------------------------------------------------
+
+def dlrm_kernel_check(dev) -> dict:
+    """The embedding-bag kernel against its plain version, both wrappers,
+    bit for bit, over the widths, pooling factors, table counts and sizes
+    and batches of the DLRM path (the largest stack is 16 GB)."""
+    import torch
+    from repro_torch.common import init as init_mod
+    from repro_torch.kernels.embedding_bag import ops, ref
+    rng = np.random.default_rng(12)
+    n = elements = differing = 0
+    worst = 0.0
+    for T in (3, 64):
+        for R in (1000, 1_000_000):
+            for D in (8, 64, 128):
+                gen = torch.Generator(device=dev).manual_seed(T + R + D)
+                tab = init_mod.make((T, R, D), "normal", torch.bfloat16, gen,
+                                    dev)
+                offset = torch.arange(T, dtype=torch.int32, device=dev) * R
+                for P in (1, 5, 60):
+                    for B in (1, 7, 256):
+                        idx = torch.as_tensor(rng.integers(
+                            0, R, (B, T, P), dtype=np.int32), device=dev)
+                        rows = (idx + offset[None, :, None]).view(B * T, P)
+                        pairs = [
+                            (ops.embedding_bag_stacked(tab, idx),
+                             ref.embedding_bag_stacked_ref(tab, idx)),
+                            (ops.embedding_bag_rows(tab.view(T * R, D), rows),
+                             ref.embedding_bag_rows_ref(tab.view(T * R, D),
+                                                        rows))]
+                        for got, want in pairs:
+                            if got.dtype == torch.bfloat16:
+                                bad = got.view(torch.int16) != \
+                                    want.view(torch.int16)
+                            else:
+                                bad = got != want
+                            differing += int(bad.sum())
+                            elements += got.numel()
+                            worst = max(worst, float(
+                                (got.float() - want.float()).abs().max()))
+                        n += 1
+                del tab
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"cases": n, "elements": elements, "differing": differing,
+           "max_abs_err": worst, "tolerance": "bit-equal"}
+    if differing:
+        raise AssertionError(f"embedding_bag: {differing} elements differ "
+                             f"from the plain version: {out}")
+    return out
+
+
+def time_embedding(model, B: int, dev) -> dict:
+    """Kernel, plain version and ``F.embedding_bag`` on the model's Table
+    II tables, for a batch of B samples from ``dlrm_batch``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data import dlrm_batch
+    from repro_torch.kernels.embedding_bag import ops, ref
+    tables = model.tables.data
+    T, R, D = tables.shape
+    idx = torch.as_tensor(dlrm_batch(0, 1, B, model.cfg)["sparse_idx"],
+                          device=dev)
+    P = idx.shape[2]
+    NB = B * T
+    table2d, ids = tables.view(T * R, D), idx.view(NB, P)
+    out = torch.empty((NB, D), dtype=torch.bfloat16, device=dev)
+    fn = ops.kernel_function()
+    args = ops.kernel_args(table2d, ids, T, R, out)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(*args, stream) != 0:
+            raise RuntimeError("embedding_bag launch failed")
+    rows64 = (idx.long() + torch.arange(T, device=dev)[None, :, None] * R
+              ).view(NB, P)
+    library = cuda_ms(lambda: F.embedding_bag(rows64, table2d, mode="sum"),
+                      reps=10, inner=5)
+    ms = cuda_ms(launch, reps=10, inner=5)
+    plain = cuda_ms(lambda: ref.embedding_bag_stacked_ref(tables, idx),
+                    reps=5, inner=2)
+    # each gathered row, each id and each output element once
+    n_bytes = NB * P * D * 2 + NB * P * 4 + NB * D * 2
+    flops = NB * P * D                     # the float32 adds
+    bound = max(n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": library,
+            "shape": f"B={B} T={T} P={P} D={D} R={R}", "bytes": n_bytes}
+
+
+def dlrm_forward(gpu: str, dev) -> tuple:
+    """The paper's Table II DLRM (1,000,000 rows a table) built on the card
+    and scoring one batch of 256 through the entry points; the kernel path
+    against the plain one, and the kernel's times."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_model
+    from repro_torch.data import dlrm_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import DLRM
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model("dlrm", device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = model.cfg
+    batch = dlrm_batch(0, 0, 256, cfg)
+    ops.reset_launches()
+    logits = model(batch)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["embedding_bag_rows"] != 1:
+        raise AssertionError(f"dlrm_forward: {launches} embedding-bag "
+                             "launches for one forward")
+    plain = DLRM(dataclasses.replace(cfg, embedding_impl="torch"),
+                 device="cuda", params={
+                     "tables": model.tables.data,
+                     "bot": {k: v.data for k, v in model.bot.items()},
+                     "top": {k: v.data for k, v in model.top.items()}})
+    want = plain(batch)
+    if tuple(logits.shape) != (256,) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"dlrm_forward: logits of shape "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    if not torch.equal(logits.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("dlrm_forward: kernel and plain paths give "
+                             "different logits")
+    dev_batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    fwd_ms = cuda_ms(lambda: model(dev_batch), reps=10, inner=5)
+    plain_fwd_ms = cuda_ms(lambda: plain(dev_batch), reps=10, inner=5)
+    timing = {B: time_embedding(model, B, dev) for B in (256, 2048)}
+    emit({"phase": "dlrm_forward", "gpu": gpu, "batch": 256,
+          "rows_per_table": cfg.rows_per_table,
+          "tables_bytes": model.tables.numel() * 2,
+          "logits_equal_plain_path": True,
+          "logits_mean": float(logits.float().mean()),
+          "launches": launches, "build_s": build_s, "cuda_ms": fwd_ms,
+          "plain_path_cuda_ms": plain_fwd_ms,
+          "samples_per_s": 256 / (fwd_ms * 1e-3),
+          "peak_bytes": peak,
+          "embedding_bag": {f"B={B}": t for B, t in timing.items()}})
+    del plain, model
+    torch.cuda.empty_cache()
+    return launches, timing[256]
+
+
+def dlrm_reference(dev) -> dict:
+    """Table II widths with small tables and numpy weights, against the
+    JAX reference's logits on the same inputs, under the flags that
+    ``dlrm_forward`` runs with (PyTorch's default bf16 reduction flag,
+    which the forward overrides itself; TF32 off)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import dlrm_batch
+    from repro_torch.models import DLRM, param_shapes
+    cfg = dataclasses.replace(get_config("dlrm"),
+                              rows_per_table=DLRM_REF_ROWS)
+    shapes = param_shapes(cfg)
+    tree = dlrm_numpy_params(
+        {"tables": shapes["tables"][0],
+         **{part: {k: leaf[0] for k, leaf in shapes[part].items()}
+            for part in ("bot", "top")}}, DLRM_REF_SEED)
+    params = {"tables": torch.from_numpy(tree["tables"].view(np.int16))
+              .view(torch.bfloat16).to(dev)}
+    for part in ("bot", "top"):
+        params[part] = {k: torch.from_numpy(v).to(dev)
+                        for k, v in tree[part].items()}
+    matmul = torch.backends.cuda.matmul
+    if not matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("dlrm_reference: expected PyTorch's default "
+                             "allow_bf16_reduced_precision_reduction=True")
+    model = DLRM(cfg, device="cuda", params=params)
+    got = model(dlrm_batch(DLRM_REF_SEED, 0, DLRM_REF_BATCH, cfg))
+    got = got.float().cpu().numpy()
+    want = np.asarray(DLRM_REF_LOGITS, np.float32)
+    err = np.abs(got - want)
+    out = {"batch": len(want), "max_abs_err": float(err.max()),
+           "max_rel_err": float(np.max(err / np.abs(want))),
+           "elements_equal": int(np.sum(got == want)),
+           "tolerance": f"rtol {DLRM_REF_RTOL}, atol {DLRM_REF_ATOL}"}
+    if got.shape != want.shape or not np.all(
+            err <= DLRM_REF_ATOL + DLRM_REF_RTOL * np.abs(want)):
+        raise AssertionError(f"dlrm_reference: logits off the reference: "
+                             f"{out}")
+    return out
+
+
+def dlrm_iteration(cfg, gpu: str) -> dict:
+    """The DLRM training iteration on the paper's 128-GPU platform under
+    PFC and DCQCN (kernel step path), against the reference's constants.
+    Returns the engine kernels' launches over the two runs."""
+    import torch
+    from repro_torch.core import (DLRMCommSpec, FabricSpec, SweepRunner,
+                                  build_dlrm_iteration, get_policy,
+                                  simulate_dlrm_policies)
+    from repro_torch.kernels.engine_step import ops
+    fab = FabricSpec("clos", n_racks=8, nodes_per_rack=2, gpus_per_node=8,
+                     oversubscription=2.0)
+    topo, gpus = fab.build(), list(range(fab.n_gpus))
+    comm = DLRMCommSpec(allreduce_algo="2d")
+    runner = SweepRunner(cfg, device="cuda")
+    t0 = time.perf_counter()
+    sched = build_dlrm_iteration(topo, gpus, comm=comm)
+    for pol in DLRM_ITER_REFERENCE:      # plans on the card ahead of time
+        runner.simulator(topo, sched, get_policy(pol))
+    prep_s = time.perf_counter() - t0
+    if sched.n_flows != DLRM_ITER_FLOWS:
+        raise AssertionError(f"dlrm_iteration: {sched.n_flows} flows, the "
+                             f"reference has {DLRM_ITER_FLOWS}")
+    total = {k: 0 for k in ops.LAUNCHES}
+    rows = []
+    for pol, want in DLRM_ITER_REFERENCE.items():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (rep,) = simulate_dlrm_policies(topo, gpus, (pol,), comm=comm,
+                                        cfg=cfg, runner=runner)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        steps = launches["fused_signals_policy"]   # one per executed step
+        if steps == 0 or launches["segment_reduce"] == 0:
+            raise AssertionError(f"dlrm_iteration {pol}: a kernel of the "
+                                 f"step did not run: {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        row = {"policy": pol, "finished": rep.finished,
+               "iteration_time": rep.iteration_time,
+               "reference": want["iteration_time"],
+               "diff_steps": abs(rep.iteration_time
+                                 - want["iteration_time"]) / DT,
+               "exposed_comm": rep.exposed_comm,
+               "exposed_diff_steps": abs(rep.exposed_comm
+                                         - want["exposed_comm"]) / DT,
+               "pfc_pauses": rep.pfc_pauses,
+               "reference_pauses": want["pfc_pauses"],
+               "steps_executed": steps, "wall_s": wall,
+               "steps_per_s": steps / wall, "launches": launches}
+        rows.append(row)
+        if not (rep.finished and row["diff_steps"] <= 2
+                and row["exposed_diff_steps"] <= 2
+                and abs(rep.pfc_pauses - want["pfc_pauses"])
+                <= 1 + 1e-3 * want["pfc_pauses"]):
+            raise AssertionError(f"dlrm_iteration {pol}: off the reference: "
+                                 f"{row}")
+    emit({"phase": "dlrm_iteration", "gpu": gpu, "n_flows": sched.n_flows,
+          "prep_s": prep_s, "tolerance": "2 steps on the times; PAUSE "
+          "rtol 1e-3 + atol 1", "rows": rows})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -414,14 +744,17 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.engine_step import ops
 
-    # ---- 1. build --------------------------------------------------------
+    # ---- 1. build (one nvcc per source, all at once) ----------------------
     gpu = gpu_line()
     t0 = time.perf_counter()
-    build.load("engine_step")
-    info = build.BUILD_INFO.get("engine_step", {})
+    build.build_all()
+    for name in build.SOURCES:
+        build.load(name)
+    info = build.BUILD_INFO
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc": info.get("nvcc"), "gpu": gpu,
-          "ptxas": info.get("ptxas", "")[-1500:]})
+          "sources": {k: v.get("seconds") for k, v in info.items()},
+          "nvcc": next(iter(info.values()), {}).get("nvcc"), "gpu": gpu,
+          "ptxas": {k: v.get("ptxas", "")[-1500:] for k, v in info.items()}})
 
     cfg = EngineConfig(dt=DT, max_steps=6000, max_extends=6, queue_stride=0)
     runner = SweepRunner(cfg, device="cuda")
@@ -513,17 +846,36 @@ def main() -> int:
                                  f"{want} ({diff:.2f} steps)")
     emit({"phase": "reference", "tolerance_steps": 2, "rows": rows})
 
+    # ---- 6. DLRM: the embedding-bag kernel against its plain version -------
+    emb_check = dlrm_kernel_check(dev)
+    emit({"phase": "dlrm_kernel_check", "kernel": "embedding_bag_rows",
+          **emb_check})
+
+    # ---- 7. DLRM: Table II scoring through the kernel ----------------------
+    emb_launches, timing["embedding_bag_rows"] = dlrm_forward(gpu, dev)
+
+    # ---- 8. DLRM: against the JAX reference's logits ------------------------
+    emit({"phase": "dlrm_reference", **dlrm_reference(dev)})
+
+    # ---- 9. DLRM: the training iteration under each policy ------------------
+    iter_launches = dlrm_iteration(cfg, gpu)
+
     # ---- kernel table, device line ----------------------------------------
-    errs = {"fused_signals_policy": fused["max_abs_err"], **seg_err}
+    # launches: the sum over the paths each kernel runs on, each path's
+    # counts set to 0 just before it and read just after
+    path_launches = {k: main_launches[k] + iter_launches[k]
+                     for k in main_launches}
+    path_launches.update(emb_launches)
+    errs = {"fused_signals_policy": fused["max_abs_err"], **seg_err,
+            "embedding_bag_rows": emb_check["max_abs_err"]}
     kernels = []
-    for name in ("fused_signals_policy", "segment_reduce",
-                 "segment_reduce_pfc"):
-        if main_launches[name] == 0:
+    for name in SOURCES:
+        if path_launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
         tm = timing[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-                        "launches": main_launches[name],
+                        "source": SOURCES[name], "replaces": REPLACES[name],
+                        "launches": path_launches[name],
                         "max_abs_err": errs[name], "ms": tm["ms"],
                         "plain_ms": tm["plain_ms"],
                         "bound_ms": tm["bound_ms"],

@@ -1,50 +1,156 @@
-"""Completion times of the JAX reference (jnp step, CPU) for the scenarios
-that ``chip_smoke.py`` drives through the PyTorch/CUDA port.
+"""Results of the JAX reference (CPU) for the scenarios that
+``chip_smoke.py`` drives through the PyTorch/CUDA port.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py [name ...]
 
-prints one JSON line per (scenario, policy) with ``completion_time``,
-``steps_run``, ``finished`` and the total PAUSE count; ``chip_smoke.py``
-holds the port's card runs to these values (``REFERENCE`` there).  The
-128-GPU runs take a few minutes each on a CPU.
+with names from ``clos128_1d``, ``clos32_2d`` (collective completion
+times, jnp step), ``dlrm_reference`` (Table II DLRM logits on a seeded
+batch) and ``dlrm_iteration`` (the DLRM training iteration on the
+128-GPU platform); all of them by default.  Prints one JSON line per
+result; ``chip_smoke.py`` holds the port's card runs to these values
+(``REFERENCE`` and ``DLRM_REFERENCE`` there).  The 128-GPU runs take a
+few minutes each on a CPU, the DLRM logits about four.
+
+The reference's DLRM iteration salts its All-To-All's ECMP keys with
+Python's ``hash(tag)``, which changes from process to process; this script
+shadows ``hash`` in ``repro.core.workload`` with ``zlib.crc32``, the
+port's salt, so that both build the same schedule (the reference's files
+are not edited).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
+import zlib
+from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+import repro.core.workload as rworkload
+from repro.configs import get_config
+from repro.core.cc import get_policy
 from repro.core.engine import EngineConfig
 from repro.core.scenario import CollectiveSpec, FabricSpec, ScenarioSpec
 from repro.core.sweep import SweepRunner
+from repro.data.pipeline import dlrm_batch
+from repro.kernels.embedding_bag.ops import embedding_bag_stacked
+from repro.models.dlrm import DLRM
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (numpy only at import: the shared inputs)
 
 CFG = EngineConfig(dt=4e-6, max_steps=6000, max_extends=6, queue_stride=0,
                    step_impl="jnp")
+PAPER_FABRIC = FabricSpec("clos", n_racks=8, nodes_per_rack=2,
+                          gpus_per_node=8, oversubscription=2.0)
 SCENARIOS = {
-    "clos128_1d": (FabricSpec("clos", n_racks=8, nodes_per_rack=2,
-                              gpus_per_node=8, oversubscription=2.0),
-                   CollectiveSpec("1d", 128e6), ("pfc", "dcqcn", "hpcc")),
+    "clos128_1d": (PAPER_FABRIC, CollectiveSpec("1d", 128e6),
+                   ("pfc", "dcqcn", "hpcc")),
     "clos32_2d": (FabricSpec("clos", n_racks=2, nodes_per_rack=2,
                              gpus_per_node=8, oversubscription=2.0),
                   CollectiveSpec("2d", 128e6), ("dcqcn",)),
 }
 
 
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def collective_times(name: str, runner) -> None:
+    fabric, workload, policies = SCENARIOS[name]
+    for pol in policies:
+        t0 = time.perf_counter()
+        r = runner.run_spec(ScenarioSpec(fabric=fabric, workload=workload,
+                                         policy=pol))
+        emit({"scenario": name, "policy": pol,
+              "completion_time": r.completion_time,
+              "steps_run": r.meta["steps_run"], "finished": r.finished,
+              "pause_frames": float(r.pause_count.sum()),
+              "n_flows": r.meta["n_flows"],
+              "cpu_seconds": time.perf_counter() - t0})
+
+
+def dlrm_iteration(runner) -> None:
+    """pfc and dcqcn on the 128-GPU platform, 2D all-reduce."""
+    rworkload.hash = lambda s: zlib.crc32(s.encode())
+    topo = PAPER_FABRIC.build()
+    gpus = list(range(PAPER_FABRIC.n_gpus))
+    comm = rworkload.DLRMCommSpec(allreduce_algo="2d")
+    n_flows = rworkload.build_dlrm_iteration(topo, gpus, comm=comm).n_flows
+    for pol in ("pfc", "dcqcn"):
+        t0 = time.perf_counter()
+        rep = rworkload.simulate_dlrm_iteration(topo, gpus, get_policy(pol),
+                                                comm=comm, cfg=CFG,
+                                                runner=runner)
+        emit({"scenario": "dlrm_iteration", "policy": pol,
+              "iteration_time": rep.iteration_time,
+              "exposed_comm": rep.exposed_comm,
+              "pfc_pauses": rep.pfc_pauses, "finished": rep.finished,
+              "n_flows": n_flows, "cpu_seconds": time.perf_counter() - t0})
+
+
+class _PallasPerTable(DLRM):
+    """The reference's DLRM with its Pallas embedding path (interpret
+    mode), called one table at a time: interpret mode copies the whole
+    padded table on every grid step, so 64 calls on one table each are 64
+    times cheaper than one on the stack, and sum the same rows in the same
+    order."""
+
+    def _embed_bags(self, tables, idx):
+        return jnp.concatenate(
+            [embedding_bag_stacked(tables[t:t + 1], idx[:, t:t + 1])
+             for t in range(tables.shape[0])], axis=1)
+
+
+def dlrm_reference() -> None:
+    """Table II widths with small tables, weights from
+    ``chip_smoke.dlrm_numpy_params``, a batch from ``dlrm_batch``; the jnp
+    embedding path and the Pallas one must give the same logits."""
+    cfg = dataclasses.replace(get_config("dlrm"),
+                              rows_per_table=chip_smoke.DLRM_REF_ROWS)
+    defs = DLRM(cfg).param_defs()
+    tree = chip_smoke.dlrm_numpy_params(
+        {"tables": defs["tables"].shape,
+         **{part: {k: d.shape for k, d in defs[part].items()}
+            for part in ("bot", "top")}}, chip_smoke.DLRM_REF_SEED)
+    params = {"tables": jnp.asarray(tree["tables"].view(jnp.bfloat16)),
+              "bot": {k: jnp.asarray(v) for k, v in tree["bot"].items()},
+              "top": {k: jnp.asarray(v) for k, v in tree["top"].items()}}
+    batch = {k: jnp.asarray(v) for k, v in
+             dlrm_batch(chip_smoke.DLRM_REF_SEED, 0,
+                        chip_smoke.DLRM_REF_BATCH, cfg).items()}
+    logits = {}
+    for path, model in (("jnp", DLRM(cfg)),
+                        ("pallas_interpret", _PallasPerTable(cfg))):
+        t0 = time.perf_counter()
+        out = jax.jit(model.forward)(params, batch)
+        logits[path] = np.asarray(out.astype(jnp.float32))
+        emit({"scenario": "dlrm_reference", "path": path,
+              "cpu_seconds": time.perf_counter() - t0})
+    if not np.array_equal(logits["jnp"], logits["pallas_interpret"]):
+        raise AssertionError("the reference's jnp and Pallas embedding paths "
+                             "disagree")
+    emit({"scenario": "dlrm_reference", "rows_per_table": cfg.rows_per_table,
+          "seed": chip_smoke.DLRM_REF_SEED, "batch": len(logits["jnp"]),
+          "logits": [float(x) for x in logits["jnp"]]})
+
+
 def main(names):
+    emit({"jax": jax.__version__, "numpy": np.__version__})
     runner = SweepRunner(CFG)
-    for name in names or SCENARIOS:
-        fabric, workload, policies = SCENARIOS[name]
-        for pol in policies:
-            t0 = time.perf_counter()
-            r = runner.run_spec(ScenarioSpec(fabric=fabric, workload=workload,
-                                             policy=pol))
-            print(json.dumps({
-                "scenario": name, "policy": pol,
-                "completion_time": r.completion_time,
-                "steps_run": r.meta["steps_run"], "finished": r.finished,
-                "pause_frames": float(r.pause_count.sum()),
-                "n_flows": r.meta["n_flows"],
-                "cpu_seconds": time.perf_counter() - t0}), flush=True)
+    for name in names or [*SCENARIOS, "dlrm_reference", "dlrm_iteration"]:
+        if name in SCENARIOS:
+            collective_times(name, runner)
+        elif name == "dlrm_iteration":
+            dlrm_iteration(runner)
+        elif name == "dlrm_reference":
+            dlrm_reference()
+        else:
+            raise SystemExit(f"unknown scenario {name!r}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where one engine step's time goes on the card, for the scenarios that
-``chip_smoke.py`` drives (128-GPU 1D all-reduce and 32-GPU 2D all-reduce,
-DCQCN), on both step paths.
+``chip_smoke.py`` drives (128-GPU 1D all-reduce, 32-GPU 2D all-reduce and
+the 128-GPU DLRM training iteration with the 2D all-reduce, DCQCN), on
+both step paths; and where one forward of the Table II DLRM (batch 256)
+goes.
 
     python3 scripts/profile_step.py [--out profile.json]
 
@@ -14,8 +16,9 @@ traced, later launches in the process are slower, so no untraced time is
 taken after a trace.  One JSON line per run: host ms per step, device
 kernels launched per step, device-busy µs per step (union of kernel and
 copy intervals), the device's idle share (1 - busy / untraced host time
-per step), and the kernels that take most device time.  Needs one CUDA
-card.
+per step), and the kernels that take most device time.  The DLRM forward
+gets the same line per forward (``FORWARDS`` timed, then
+``TRACE_FORWARDS`` traced).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+# DLRM forwards timed, then traced, after five warm-up forwards
+FORWARDS, TRACE_FORWARDS = 100, 20
 
 
 def busy_us(intervals) -> float:
@@ -76,29 +81,60 @@ class Run:
         return (time.perf_counter() - t0) / n * 1e3
 
     def trace(self, n: int, top: int) -> dict:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            self.advance(n)
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not dev:
-            raise RuntimeError("the profiler recorded no device activity")
-        by_name = collections.defaultdict(lambda: [0, 0.0])
-        for e in dev:
-            rec = by_name[e.name[:90]]
-            rec[0] += 1
-            rec[1] += e.time_range.end - e.time_range.start
-        copies = sum(k for name, (k, _) in by_name.items()
-                     if name.startswith(("Memcpy", "Memset")))
-        busy = busy_us((e.time_range.start, e.time_range.end) for e in dev)
-        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-        return {"kernels_per_step": (len(dev) - copies) / n,
-                "copies_per_step": copies / n,
-                "device_busy_us_per_step": busy / n,
-                "top_kernels": [{"name": name, "per_step": k / n,
-                                 "us_per_step": us / n}
-                                for name, (k, us) in ranked]}
+        return trace(lambda: self.advance(n), n, top)
+
+
+def trace(work, n: int, top: int) -> dict:
+    """Device kernels, copies and busy time per step of ``work()``, which
+    runs ``n`` steps and synchronises, under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        work()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        rec = by_name[e.name[:90]]
+        rec[0] += 1
+        rec[1] += e.time_range.end - e.time_range.start
+    copies = sum(k for name, (k, _) in by_name.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"kernels_per_step": (len(dev) - copies) / n,
+            "copies_per_step": copies / n,
+            "device_busy_us_per_step": busy / n,
+            "top_kernels": [{"name": name, "per_step": k / n,
+                             "us_per_step": us / n}
+                            for name, (k, us) in ranked]}
+
+
+class Forwards:
+    """The Table II DLRM (1,000,000 rows a table, seed 0) scoring one
+    batch of 256 from ``dlrm_batch``, already on the card; one "step" is
+    one forward."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.configs import get_model
+        from repro_torch.data import dlrm_batch
+        self.model = get_model("dlrm", device="cuda", seed=0)
+        self.batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                      dlrm_batch(0, 0, 256, self.model.cfg).items()}
+
+    def advance(self, n: int) -> None:
+        import torch
+        for _ in range(n):
+            self.model(self.batch)
+        torch.cuda.synchronize()
+
+    def host_ms(self, n: int) -> float:
+        t0 = time.perf_counter()
+        self.advance(n)
+        return (time.perf_counter() - t0) / n * 1e3
 
 
 def main(argv=None) -> int:
@@ -117,18 +153,23 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.core import (CollectiveSpec, EngineConfig, FabricSpec,
-                                  ScenarioSpec, SweepRunner)
+    from repro_torch.core import (CollectiveSpec, DLRMCommSpec,
+                                  DLRMIterationSpec, EngineConfig,
+                                  FabricSpec, ScenarioSpec, SweepRunner)
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     cfg = EngineConfig(dt=4e-6, max_steps=6000, max_extends=6, queue_stride=0)
     runner = SweepRunner(cfg, device="cuda")
+    fab128 = FabricSpec("clos", n_racks=8, nodes_per_rack=2, gpus_per_node=8,
+                        oversubscription=2.0)
     scen = {
-        "clos128_1d": ScenarioSpec(
-            FabricSpec("clos", n_racks=8, nodes_per_rack=2, gpus_per_node=8,
-                       oversubscription=2.0), CollectiveSpec("1d", 128e6),
+        "clos128_1d": ScenarioSpec(fab128, CollectiveSpec("1d", 128e6),
+                                   "dcqcn"),
+        # the iteration's all-reduce runs from about step 625 (2.5 ms)
+        "dlrm128_2d": ScenarioSpec(
+            fab128, DLRMIterationSpec(comm=DLRMCommSpec(allreduce_algo="2d")),
             "dcqcn"),
         "clos32_2d": ScenarioSpec(
             FabricSpec("clos", n_racks=2, nodes_per_rack=2, gpus_per_node=8,
@@ -137,8 +178,10 @@ def main(argv=None) -> int:
     }
     runs, lines = {}, {}
     for label, spec in scen.items():
-        # the 32-GPU run finishes in ~740 steps: keep its windows inside it
-        warm = min(args.warm, 300) if label == "clos32_2d" else args.warm
+        # the 32-GPU run finishes in ~740 steps: keep its windows inside
+        # it; start the DLRM iteration's inside its all-reduce
+        warm = {"clos32_2d": min(args.warm, 300),
+                "dlrm128_2d": max(args.warm, 700)}.get(label, args.warm)
         for impl in ("cuda", "torch"):
             run = runs[label, impl] = Run(runner, spec, impl)
             run.advance(warm)
@@ -149,10 +192,22 @@ def main(argv=None) -> int:
                 "step_impl": run.sim.step_impl,
                 "first_timed_step": run.it - args.steps,
                 "host_ms_per_step": ms, "steps_per_s": 1e3 / ms}
+    fwd = Forwards()
+    fwd.advance(5)
+    ms = fwd.host_ms(FORWARDS)
+    lines["dlrm_forward"] = {
+        "scenario": "dlrm_forward", "gpu": gpu, "batch": 256,
+        "rows_per_table": fwd.model.cfg.rows_per_table,
+        "embedding_impl": fwd.model.embedding_impl,
+        "host_ms_per_step": ms, "forwards_per_s": 1e3 / ms}
     for key, run in runs.items():
         line = lines[key]
         line["first_traced_step"] = run.it
         line.update(run.trace(args.trace_steps, args.top))
+    lines["dlrm_forward"].update(trace(
+        lambda: fwd.advance(TRACE_FORWARDS), TRACE_FORWARDS,
+        args.top))
+    for line in lines.values():
         line["device_idle_share"] = 1.0 - (line["device_busy_us_per_step"]
                                            / (line["host_ms_per_step"] * 1e3))
         print(json.dumps(line), flush=True)

@@ -5,6 +5,7 @@ imports nothing of the JAX package, so a caller holding a
 ``repro.core.topology.Topology``, ``Schedule``, ``FabricParams`` or an
 engine carry dict gets the port's equivalent, and the port and the
 reference can be fed exactly the same scenario and the same mid-run state.
+``dlrm_params_from_numpy`` does the same for a DLRM parameter tree.
 """
 from __future__ import annotations
 
@@ -81,3 +82,27 @@ def carry_to_numpy(carry: dict) -> dict:
             return {k: conv(v) for k, v in x.items()}
         return x.detach().cpu().numpy()
     return {k: conv(v) for k, v in carry.items()}
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    """A numpy leaf -> tensor with the same bits.  bf16 leaves come out of
+    JAX as the ``bfloat16`` extension dtype, which ``torch.from_numpy``
+    rejects: they cross as their 16-bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    if a.dtype != np.float32:
+        raise TypeError(f"DLRM parameter of dtype {a.dtype}: expected "
+                        "bfloat16 or float32")
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def dlrm_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The reference's DLRM parameter tree (``{"tables", "bot": {...},
+    "top": {...}}``, leaves anything ``np.asarray`` takes) -> the same tree
+    of tensors on ``device``, bit for bit, for
+    ``repro_torch.models.DLRM(cfg, params=...)``."""
+    return {k: (dlrm_params_from_numpy(v, device) if isinstance(v, dict)
+                else _leaf_to_torch(v, device))
+            for k, v in tree.items()}

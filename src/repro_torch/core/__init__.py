@@ -1,5 +1,6 @@
 """The port's core: fabric and schedule builders, CC policies, the fluid
-engine, scenario specs and the serial sweep runner."""
+engine, scenario specs, the serial sweep runner and the DLRM iteration
+workload."""
 from repro_torch.core.cc import (ALL_POLICIES, REGISTRY, FlowCtx,  # noqa: F401
                                  ParamSpec, Policy, Signals, get_policy,
                                  kernel_param_keys, kernel_state_keys,
@@ -25,3 +26,9 @@ from repro_torch.core.scenario import (CollectiveSpec,  # noqa: F401
 from repro_torch.core.sweep import SweepRunner  # noqa: F401
 from repro_torch.core.topology import (LINK_CLASSES, MAXHOP,  # noqa: F401
                                        Topology, clos, route, single_switch)
+from repro_torch.core.workload import (DLRMCommSpec,  # noqa: F401
+                                       DLRMComputeProfile,
+                                       DLRMIterationSpec, IterationReport,
+                                       build_dlrm_iteration,
+                                       simulate_dlrm_iteration,
+                                       simulate_dlrm_policies)

@@ -1,7 +1,9 @@
 # Hand-written CUDA kernels of the port (built by kernels/build.py):
-#   engine_step — fused signals + policy update, and the padded-gather
-#                 segment reduction (+ fused PFC hysteresis): the
-#                 simulator's per-step hot loop (see repro_torch.core.engine
-#                 step_impl="cuda").
+#   engine_step   — fused signals + policy update, and the padded-gather
+#                   segment reduction (+ fused PFC hysteresis): the
+#                   simulator's per-step hot loop (see repro_torch.core.engine
+#                   step_impl="cuda").
+#   embedding_bag — multi-hot sum pooling of the DLRM forward (see
+#                   repro_torch.models.dlrm embedding_impl="cuda").
 # Each has ops.py (wrapper: kernel on CUDA tensors, plain version on CPU
 # tensors), ref.py (the plain PyTorch versions) and csrc/ (CUDA C++).

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -27,7 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-SOURCES = {"engine_step": _PKG / "engine_step" / "csrc" / "engine_step.cu"}
+SOURCES = {
+    "engine_step": _PKG / "engine_step" / "csrc" / "engine_step.cu",
+    "embedding_bag": _PKG / "embedding_bag" / "csrc" / "embedding_bag.cu",
+}
 
 # name -> loaded library; BUILD_INFO[name] -> seconds, nvcc version, ptxas log
 _LIBS: dict = {}
@@ -77,6 +81,13 @@ def build(name: str) -> Path:
                         "nvcc": nvcc_version(nvcc),
                         "ptxas": proc.stderr.strip()}
     return lib
+
+
+def build_all() -> dict:
+    """Build every source of ``SOURCES`` at once, one ``nvcc`` process
+    each; returns name -> library path."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,6 +16,8 @@ import torch
 from repro_torch.core import cc as cc_mod
 from repro_torch.core.topology import MAXHOP
 from repro_torch.kernels import build
+from repro_torch.kernels.checks import check as _check
+from repro_torch.kernels.checks import on_cuda as _on_cuda
 from repro_torch.kernels.engine_step import ref
 
 # kernel launches since the last reset_launches(); only the CUDA branch of
@@ -68,30 +70,6 @@ def kernel_function(name: str):
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _on_cuda(tensors) -> bool:
-    """True if every tensor is on one CUDA device, False if all are on the
-    CPU; raises on a mix."""
-    devs = {x.device for x in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"inputs span devices {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return True
-
-
-def _check(x: torch.Tensor, name: str, shape: tuple, dtype) -> None:
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def _launch(name: str, args) -> None:

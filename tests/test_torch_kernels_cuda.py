@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (``repro_torch.kernels.engine_step``).
+card (``repro_torch.kernels.engine_step`` and
+``repro_torch.kernels.embedding_bag``).
 
 Needs an NVIDIA Hopper card with ``nvcc``; everywhere else every test
 skips (the kernels have no CPU mode).  On the card, run without the
@@ -16,7 +17,13 @@ import torch
 from repro_torch.core import (EngineConfig, Simulator, get_policy, incast,
                               single_switch)
 from repro_torch.core import cc
+from repro_torch.common import init as init_mod
+from repro_torch.configs import smoke_config
+from repro_torch.data import dlrm_batch
+from repro_torch.kernels.embedding_bag import ops as emb_ops
+from repro_torch.kernels.embedding_bag import ref as emb_ref
 from repro_torch.kernels.engine_step import ops, ref
+from repro_torch.models import DLRM
 
 pytestmark = pytest.mark.cuda
 
@@ -137,3 +144,84 @@ def test_engine_cuda_matches_op_path(dev, pol):
                                rtol=1e-4)
     np.testing.assert_allclose(a.pause_count, b.pause_count, rtol=1e-3,
                                atol=1.0)
+
+
+def _bf16_table(shape, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_mod.make(shape, "normal", torch.bfloat16, gen, dev)
+
+
+def _bits_equal(a, b) -> bool:
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+# (T, R, D): the smoke width, Table II's width at both table sizes (8 GB
+# at 64 x 1,000,000: byte offsets past 2^31), a wide row, an odd width
+@pytest.mark.parametrize("T,R,D", [(3, 1000, 8), (3, 1000, 64),
+                                   (64, 1_000_000, 64), (64, 1000, 128),
+                                   (3, 1000, 33)])
+def test_embedding_bag_kernel_bit_equal(dev, T, R, D):
+    """Same float32 sums in the same order, one rounding: equal to the
+    bit, for every pooling factor and batch of chip_smoke.py."""
+    tab = _bf16_table((T, R, D), T + D, dev)
+    rng = np.random.default_rng(R + D)
+    for P in (1, 5, 60):
+        for B in (1, 7, 256):
+            idx = torch.as_tensor(rng.integers(0, R, (B, T, P),
+                                               dtype=np.int32), device=dev)
+            before = emb_ops.LAUNCHES["embedding_bag_rows"]
+            got = emb_ops.embedding_bag_stacked(tab, idx)
+            assert emb_ops.LAUNCHES["embedding_bag_rows"] == before + 1
+            want = emb_ref.embedding_bag_stacked_ref(tab, idx)
+            assert got.dtype == torch.bfloat16 and got.shape == (B, T, D)
+            assert _bits_equal(got, want), (P, B)
+            rows = idx.view(B * T, P) + 0          # rows of table 0 only
+            got = emb_ops.embedding_bag_rows(tab[0], rows)
+            want = emb_ref.embedding_bag_rows_ref(tab[0], rows)
+            assert got.dtype == torch.float32 and torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+def test_embedding_bag_unaligned_table_takes_the_scalar_path(dev):
+    base = _bf16_table((1 + 500 * 64,), 1, dev)
+    tab = base[1:].view(500, 64)           # 2 bytes off a 4-byte boundary
+    rows = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 500, (300, 60), dtype=np.int32), device=dev)
+    assert torch.equal(emb_ops.embedding_bag_rows(tab, rows),
+                       emb_ref.embedding_bag_rows_ref(tab, rows))
+
+
+def test_embedding_bag_wrapper_rejects(dev):
+    tab = _bf16_table((2, 10, 8), 0, dev)
+    idx = torch.zeros((1, 2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        emb_ops.embedding_bag_stacked(tab, idx.long())
+    with pytest.raises(TypeError):
+        emb_ops.embedding_bag_stacked(tab.float(), idx)
+    with pytest.raises(ValueError):
+        emb_ops.embedding_bag_stacked(tab, idx.cpu())
+    grad_tab = tab.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        emb_ops.embedding_bag_stacked(grad_tab, idx)
+    with torch.no_grad():
+        emb_ops.embedding_bag_stacked(grad_tab, idx)
+
+
+def test_dlrm_kernel_path_matches_plain_path(dev):
+    cfg = smoke_config("dlrm")
+    model = DLRM(cfg, device="cuda", seed=0)
+    assert model.embedding_impl == "cuda"
+    plain = DLRM(dataclasses.replace(cfg, embedding_impl="torch"),
+                 device="cuda", params={
+                     "tables": model.tables.data,
+                     "bot": {k: v.data for k, v in model.bot.items()},
+                     "top": {k: v.data for k, v in model.top.items()}})
+    batch = dlrm_batch(0, 0, 64, cfg)
+    emb_ops.reset_launches()
+    got = model(batch)
+    assert emb_ops.LAUNCHES["embedding_bag_rows"] == 1
+    want = plain(batch)
+    assert emb_ops.LAUNCHES["embedding_bag_rows"] == 1
+    assert _bits_equal(got, want)
