@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card: builds the engine-step and embedding-bag kernels, holds each against
-its plain PyTorch version, drives the simulator's main path through the
-kernels at the paper's 128-GPU scale and at 32 GPUs, scores a batch on the
-paper's Table II DLRM through the embedding-bag kernel, simulates that
-DLRM's training iteration on the 128-GPU platform under PFC and DCQCN, and
-checks the results against the plain paths and against constants from the
-JAX reference.
+card: builds the engine-step, embedding-bag and flash-decode kernels,
+holds each against its plain PyTorch version, drives the simulator's main
+path through the kernels at the paper's 128-GPU scale and at 32 GPUs,
+scores a batch on the paper's Table II DLRM through the embedding-bag
+kernel, simulates that DLRM's training iteration on the 128-GPU platform
+under PFC and DCQCN, serves TinyLlama-1.1B (full width and depth) through
+``python -m repro_torch.launch.serve``'s entry point and on a 32,768-token
+cache with decode attention in the flash-decode kernel, and checks the
+results against the plain paths and against constants from the JAX
+reference.
 
     python3 chip_smoke.py
 
@@ -31,16 +34,19 @@ REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 KERNEL_SOURCE = "src/repro_torch/kernels/engine_step/csrc/engine_step.cu"
 EMB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+FD_SOURCE = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 SOURCES = {"fused_signals_policy": KERNEL_SOURCE,
            "segment_reduce": KERNEL_SOURCE,
            "segment_reduce_pfc": KERNEL_SOURCE,
-           "embedding_bag_rows": EMB_SOURCE}
+           "embedding_bag_rows": EMB_SOURCE,
+           "flash_decode": FD_SOURCE}
 REPLACES = {
     "fused_signals_policy": "src/repro/kernels/engine_step/engine_step.py:96",
     "segment_reduce": "src/repro/kernels/engine_step/engine_step.py:171",
     "segment_reduce_pfc": "src/repro/kernels/engine_step/engine_step.py:195",
     "embedding_bag_rows":
         "src/repro/kernels/embedding_bag/embedding_bag.py:31",
+    "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:60",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -89,6 +95,129 @@ DLRM_REF_LOGITS = [
     -2.171875, -1.8671875, -1.8125, -1.96875, -1.8125, -2.046875,
 ]
 
+# serve_long: the flash-decode kernel on a realistic cache
+SERVE_SEED = 0
+SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 2048, 64
+SERVE_MAX_LEN = 32768          # decode_32k's cache (src/repro/configs/shapes.py)
+SERVE_REL_L2 = 2e-2            # kernel path vs torch path, per step
+
+# serve_reference: TinyLlama's widths, depth cut to 4 layers so that the JAX
+# reference runs on a CPU; numpy weights at the true fan-in
+SERVE_REF_SEED = 1
+SERVE_REF_LAYERS = 4
+SERVE_REF_ROWS, SERVE_REF_PROMPT, SERVE_REF_STEPS = 4, 32, 8
+SERVE_REF_IDS = [int(i) for i in np.linspace(0, 31999, 16)]
+SERVE_REF_ATOL, SERVE_REF_REL_L2, SERVE_REF_LSE_ATOL = 0.15, 3e-2, 1e-2
+# the reference's logits (prefill's last position, then each decode step;
+# rows of 4) at SERVE_REF_IDS, log-sum-exp, top-1 id and top-2 margin, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py serve_reference
+# (jax 0.9.0, numpy 2.0.2), rounded to 5 decimals
+SERVE_REF = {
+    "logits":
+    [[[-1.05716, 0.01842, -1.33402, 0.2048, 0.13431, -1.71034, -0.38183,
+     0.62529, -1.37133, 0.79467, 1.12023, -0.11884, -0.91325, -1.16844,
+     -0.2915, -1.74228], [-1.09405, 0.02597, -0.06192, -1.61375, -0.97028,
+     0.1416, -1.15539, 1.2254, 0.29827, 1.01407, 0.2878, 0.97062, 0.73753,
+     0.07736, 1.44894, -1.03541], [-1.32633, 0.15206, -0.94769, -0.41453,
+     0.25911, -0.46166, 0.36549, -1.60381, -0.35059, -0.75017, 1.7059,
+     0.56563, 0.58923, 2.00892, 0.3694, 0.31325], [-0.40828, 0.57739,
+     -0.23296, -1.21405, -0.47172, 1.51549, 1.05029, 0.90737, 1.36547,
+     -0.68216, 1.73708, -1.81365, 1.06872, 1.94586, 0.66904, -0.63547]],
+     [[-0.86214, 0.16006, -1.19997, -0.60456, 1.09288, 1.1544, -0.05583,
+     -0.4158, -2.0107, 0.93204, 0.82675, -0.46706, -2.41779, 0.6542,
+     -0.59912, -1.73205], [-0.01451, 0.36967, -1.7772, -1.95928, 0.12855,
+     -0.93692, -0.10777, 0.44186, 1.03645, 0.36441, 0.3269, 1.81695,
+     0.07621, 0.30646, 1.46144, -1.59604], [-0.84789, 0.03684, -0.38028,
+     -0.0902, 0.44184, -0.43877, -1.3401, -0.87353, -0.45304, -0.16018,
+     2.30153, 0.33581, 1.40424, 1.28834, 1.85779, -1.05745], [0.4497,
+     -1.41677, 0.33739, -0.6741, -1.12458, 0.46215, 0.30505, -0.02629,
+     0.97017, 0.16591, 1.04602, -1.65465, 2.27909, 2.09003, 0.6034,
+     -0.36874]], [[-1.31144, -1.07558, 1.18316, -0.97101, -0.86015,
+     -0.37257, 0.59686, -0.61253, -2.02561, -0.01001, 0.55408, -0.15168,
+     -0.67455, 0.06749, -0.86363, -1.61864], [-0.64018, 0.27967, 0.23532,
+     -1.00214, -0.10336, 0.08154, -1.16525, 0.84875, -1.14946, 0.27009,
+     -0.16886, 2.64437, 1.13691, 0.16142, 1.48742, -0.05645], [-0.59038,
+     0.4897, -0.07706, -0.58021, 0.20513, -0.56154, 0.65117, -1.9023,
+     -0.62139, -0.31739, 1.85102, -0.74371, 0.88061, 2.59134, 0.5919,
+     0.14888], [0.15059, -0.01099, 0.72497, -0.17376, -1.16664, 1.08678,
+     0.36968, -0.68237, 0.22259, -1.09817, 1.43136, -1.62936, 2.41214,
+     0.9376, -0.17406, -1.38086]], [[-1.62389, -0.52557, -0.33608,
+     -1.09883, 0.16888, -0.30787, 1.21833, -0.41121, -1.87936, -0.46609,
+     0.80178, 1.18767, -1.36909, 0.15475, -0.02514, -1.0947], [0.88844,
+     1.61847, -0.45977, 0.20742, -0.85325, 0.82392, 0.01805, 1.12399,
+     0.93206, 0.8654, 1.028, 2.02694, 1.1415, 0.40842, 0.38285, 0.3538],
+     [0.43617, 0.54713, -0.81762, 0.06825, -0.77474, -1.27701, 0.07802,
+     -0.6213, 0.43047, -1.48574, 0.81239, -0.41203, -1.25795, 1.63826,
+     0.67879, -0.54382], [0.59905, -1.06551, 0.44068, -0.53741, 0.20343,
+     0.42598, 0.5902, 1.52752, 0.06194, -0.40697, -0.43958, -0.73167,
+     0.44729, 0.79471, -0.2868, -0.86802]], [[-1.94264, 0.48123, 0.24224,
+     -0.24445, -0.50182, -0.27295, -0.03093, -1.22602, -1.67337, 0.53097,
+     1.53258, 0.79726, -1.01627, 0.24965, -0.38099, -0.58698], [-0.59414,
+     1.23378, -0.1011, 0.03664, -0.6469, -1.11289, -1.38769, 2.56481,
+     0.46088, 0.08501, 0.60698, 2.37206, 0.09142, -0.04869, 2.3281,
+     0.85891], [-0.99659, 1.30059, -0.67808, 0.50066, 0.47824, -0.0271,
+     0.43408, -0.0449, 0.35767, -0.4879, 0.66323, 0.11818, 0.73395,
+     1.45182, -1.30375, -1.09392], [0.09766, -0.0149, -0.04884, -1.38753,
+     -0.25123, 0.1446, 0.4881, 1.4022, 0.19729, -1.14827, 0.27352,
+     -0.58861, 1.15213, -0.31504, -0.24939, -1.01618]], [[-0.62838,
+     0.26494, -0.23566, -0.11612, 0.95955, -1.20277, 0.90565, -0.52645,
+     -1.50824, 0.52218, 0.73705, 1.08049, -0.98573, 0.67129, -0.89978,
+     -0.72596], [-0.28158, 1.377, 1.33602, -1.00945, -1.99206, -0.65035,
+     -0.89156, 1.14494, 1.27717, 0.86785, 0.40917, 1.20795, 0.43188,
+     -0.88293, 0.53458, 0.38156], [0.47075, 0.16124, -1.38247, -0.85851,
+     1.0553, -1.11237, -0.64013, -1.37656, 0.62203, -0.65859, 1.56977,
+     -0.4066, 0.37308, 1.8688, 0.95562, -0.0689], [1.18251, -1.03854,
+     -0.16593, -0.65863, -0.52369, 0.8383, 1.39151, 0.2126, 0.03455,
+     -0.38859, 1.14168, 0.48954, 1.35373, 0.08233, -0.17911, -0.2243]],
+     [[-0.57648, -0.59017, -0.66877, 1.32931, 0.5859, 0.08993, -0.47549,
+     0.3098, -2.43229, 1.19083, 2.05203, 0.87844, -1.60846, -0.91685,
+     -0.60022, -0.41987], [-0.82606, 0.01117, -0.35085, -0.08858,
+     -1.49839, 0.00358, -0.84387, 1.21168, 0.97615, 0.60732, 0.80235,
+     0.58405, 2.01509, 0.60154, 1.35607, 0.63941], [-0.75013, -0.01201,
+     -2.44022, 0.30619, -1.03582, 0.003, -1.56053, -1.74333, -0.60895,
+     -0.9981, 0.65294, -0.30255, -0.2115, 2.08056, 1.19386, -2.25866],
+     [1.13733, -0.02763, -0.99264, -1.13755, -1.38754, 0.24834, -0.42198,
+     0.93869, 0.42111, -1.09755, 0.57569, -1.49349, 1.73977, 1.97928,
+     -1.59185, -0.84282]], [[-1.0192, 0.08443, 0.81661, -0.18836,
+     -0.43008, -0.93809, 0.25058, 0.20849, -1.94648, 1.99216, 1.0137,
+     1.15658, -1.17948, 0.34436, 0.33019, -0.73392], [0.27057, -0.42885,
+     0.04045, 0.17149, -0.78018, -1.21155, 0.80082, 2.54399, 0.71511,
+     0.92256, -0.03841, 0.06643, 1.09176, -0.31725, 1.79455, 0.72613],
+     [-0.62559, 0.06383, -0.97622, 0.16955, 1.68536, -2.02095, 0.4126,
+     0.04298, 0.84308, -0.33526, 0.46139, 0.58809, 1.00908, 0.78056,
+     0.90037, -0.29419], [1.40597, -0.25182, 0.58927, -1.97787, -1.25349,
+     0.78367, 0.61662, -0.17057, 0.80918, -0.85201, 2.21574, -1.28207,
+     1.63599, 1.72257, -0.83887, -0.09732]], [[-1.33878, -0.1028,
+     -0.80917, -0.1309, -0.24251, -2.87359, 1.40857, 0.95682, -2.05041,
+     -0.2577, 2.24055, -0.05796, -1.90105, -0.87053, -0.14115, -1.23183],
+     [-0.23038, -0.01485, 0.6031, 0.02999, -0.16517, -0.57164, -0.09929,
+     0.78014, -1.32259, -0.418, 0.73893, 1.07307, 0.54439, 0.36939,
+     0.61705, 0.14007], [0.07114, 1.04989, -0.30185, 1.13551, 1.55466,
+     -1.24893, -0.80581, -0.77187, 1.2004, -0.34326, 1.03751, 1.28374,
+     -0.01877, 1.26389, 1.09699, -0.85444], [0.4254, -0.1792, -0.39858,
+     0.08765, -0.71892, -0.13087, 0.80908, 0.19388, -0.73566, -2.00779,
+     0.07442, -0.29046, 2.10816, 0.99275, 0.27064, -1.37786]]],
+    "lse":
+    [[10.88015, 10.87922, 10.88729, 10.88469], [10.8786, 10.8791,
+     10.87927, 10.88097], [10.882, 10.88493, 10.88091, 10.88271],
+     [10.88016, 10.87677, 10.8833, 10.87906], [10.87164, 10.8838,
+     10.89502, 10.88124], [10.88724, 10.88482, 10.88285, 10.89642],
+     [10.89467, 10.87503, 10.87701, 10.87966], [10.87229, 10.8825,
+     10.87594, 10.86608], [10.8783, 10.88778, 10.88047, 10.8798]],
+    "top1":
+    [[6992, 4791, 31665, 38], [26913, 21702, 18918, 17661], [7596, 1001,
+     14675, 973], [13893, 20124, 25879, 14119], [15209, 13194, 30207,
+     17220], [30457, 1375, 25879, 7473], [29107, 18928, 19011, 18707],
+     [10718, 16175, 8941, 23232], [20128, 19411, 23340, 12431]],
+    "margin":
+    [[0.08116, 0.45732, 0.09521, 0.28271], [0.07464, 0.29757, 0.2469,
+     0.03263], [0.02961, 0.29736, 0.05377, 0.04858], [0.22755, 0.13772,
+     0.3935, 0.14268], [0.21591, 0.27738, 0.10384, 0.15474], [0.05081,
+     0.27055, 0.24194, 0.00178], [0.05257, 1.05739, 0.03454, 0.97852],
+     [0.2841, 0.95706, 0.40096, 0.19393], [0.00286, 0.54636, 0.68281,
+     0.12032]],
+}
+
 
 def bf16_bits(x: np.ndarray) -> np.ndarray:
     """float32 -> bfloat16 bit patterns (uint16), rounded to nearest even
@@ -121,6 +250,55 @@ def dlrm_numpy_params(shapes: dict, seed: int) -> dict:
             tree[part][name] = (rng.standard_normal(shape, np.float32)
                                 * np.float32(std))
     return tree
+
+
+def _fan_in(name: str, shape: tuple) -> int:
+    """The true fan-in of a transformer weight: the product of the dims a
+    forward contracts (the reference's init takes ``shape[-2]``, which for
+    ``wq``/``wk``/``wv`` (D, H, Dh) is the head count)."""
+    if name in ("wq", "wk", "wv"):
+        return shape[-3]
+    if name == "wo":
+        return shape[-3] * shape[-2]
+    return shape[-2]
+
+
+def transformer_numpy_params(tree, seed: int, bf16: bool):
+    """Transformer weights drawn by numpy from ``seed`` for a parameter tree
+    whose leaves are shapes (dicts walked in sorted key order, lists in
+    order, so either package's tree gives the same draws): ``embed``
+    0.02 * N(0, 1), norm scales and biases 0.1 * N(0, 1), every matrix
+    N(0, 1) / sqrt(true fan-in), stacked leaves drawn one layer at a time.
+    At the true fan-in the activations keep their scale through the
+    layers, so that rounding differences stay rounding differences (with
+    the reference's fan-in rule, decode at full depth is chaotic: an ulp
+    in layer 1 decides the top token at layer 22).  Leaves are bf16 bit
+    patterns (uint16) when ``bf16``, else float32; the JAX reference
+    (``scripts/port_reference_times.py``) and the port are fed the same
+    bits."""
+    rng = np.random.default_rng(seed)
+
+    def draw(name, shape):
+        if name == "embed":
+            std = 0.02
+        elif name in ("scale", "bias"):
+            std = 0.1
+        else:
+            std = 1.0 / np.sqrt(_fan_in(name, shape))
+        out = np.empty(shape, np.uint16 if bf16 else np.float32)
+        parts = out if len(shape) >= 3 else (out,)
+        for part in parts:
+            x = rng.standard_normal(part.shape, np.float32) * np.float32(std)
+            part[...] = bf16_bits(x) if bf16 else x
+        return out
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(node[k], k) for k in sorted(node)}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        return draw(name, tuple(node))
+    return walk(tree, "")
 
 
 def emit(obj) -> None:
@@ -724,6 +902,385 @@ def dlrm_iteration(cfg, gpu: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 10-13: the serving path
+# ---------------------------------------------------------------------------
+
+def bf16_ulps(a, b):
+    """Distance in bf16 ulps between two bf16 tensors (ordered bits)."""
+    import torch
+
+    def key(x):
+        x = x.view(torch.int16).int()
+        return torch.where(x < 0, -(x & 0x7FFF), x)
+    return (key(a) - key(b)).abs()
+
+
+def fd_compare(q, k, v, length) -> dict:
+    """The flash-decode kernel against its plain version on one input, and
+    the kernel with the default split (``max_length`` S) against the
+    kernel split to the lengths: equal.  Tolerance: float32 within 1e-5 of
+    the softmax-weighted sum of |v|; bf16 within 1 bf16 ulp plus that
+    (equal or 1 ulp apart unless the output cancels: counted)."""
+    import torch
+    from repro_torch.kernels.flash_decode import ops, ref
+    got = ops.flash_decode(q, k, v, length, max_length=int(length.max()))
+    again = ops.flash_decode(q, k, v, length)
+    want = ref.flash_decode_ref(q, k, v, length)
+    scale = ref.flash_decode_ref(q.float(), k.float(), v.float().abs(), length)
+    err = (got.float() - want.float()).abs()
+    tol = 1e-5 * scale
+    out = {"elements": got.numel(), "max_abs_err": float(err.max()),
+           "split_independent": bool(torch.equal(got, again))}
+    if got.dtype == torch.bfloat16:
+        w = want.float().abs()
+        tol = tol + torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w))
+                                                  - 7), 0)
+        ulps = bf16_ulps(got, want)
+        out.update(equal=int((ulps == 0).sum()), one_ulp=int((ulps == 1).sum()),
+                   beyond_one_ulp=int((ulps > 1).sum()))
+    out["ok"] = bool((err <= tol).all()) and out["split_independent"]
+    return out
+
+
+def decode_kernel_check(dev) -> dict:
+    """The flash-decode kernel against its plain version over batches 1/3/8,
+    cache lengths S of 1/100/2,048/32,768 with lengths 1, S - 17 and S
+    (each for every row, and mixed across rows), kv heads x group 4 x 8
+    (TinyLlama) and 2 x 4, head dims 64 and 128, bf16 and float32."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(13)
+    totals = {"cases": 0, "elements": 0, "equal": 0, "one_ulp": 0,
+              "beyond_one_ulp": 0, "max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 3, 8):
+            for S in (1, 100, 2048, 32768):
+                for Hkv, G in ((4, 8), (2, 4)):
+                    for D in (64, 128):
+                        q = torch.randn((B, Hkv, G, D), generator=gen,
+                                        device=dev).to(dtype)
+                        k = torch.randn((B, S, Hkv, D), generator=gen,
+                                        device=dev).to(dtype)
+                        v = torch.randn((B, S, Hkv, D), generator=gen,
+                                        device=dev).to(dtype)
+                        lens = sorted({1, max(S - 17, 1), S})
+                        vecs = [[n] * B for n in lens]
+                        if B > 1:
+                            vecs.append([lens[b % len(lens)] for b in range(B)])
+                        for vec in vecs:
+                            length = torch.tensor(vec, dtype=torch.int32,
+                                                  device=dev)
+                            r = fd_compare(q, k, v, length)
+                            if not r["ok"]:
+                                raise AssertionError(
+                                    f"flash_decode {dtype} B={B} S={S} "
+                                    f"Hkv={Hkv} G={G} D={D} lengths {vec}: {r}")
+                            totals["cases"] += 1
+                            for key in ("elements", "equal", "one_ulp",
+                                        "beyond_one_ulp"):
+                                totals[key] += r.get(key, 0)
+                            totals["max_abs_err"] = max(totals["max_abs_err"],
+                                                        r["max_abs_err"])
+                        del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    totals["tolerance"] = ("float32: 1e-5 x softmax-weighted sum of |v|; "
+                           "bf16: that + 1 bf16 ulp; split-independent")
+    return totals
+
+
+def draw_serving_weights(model, seed: int, dev) -> tuple:
+    """``transformer_numpy_params`` for ``model`` (bf16), on the card; and
+    the host seconds the draw took."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    t0 = time.perf_counter()
+    shapes = tree_map(lambda d: d.shape, model.param_defs())
+    bits = transformer_numpy_params(shapes, seed, bf16=True)
+    params = tree_map(lambda a: torch.from_numpy(a.view(np.int16)).view(
+        torch.bfloat16).to(dev), bits)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def serve_entry(gpu: str) -> int:
+    """``python -m repro_torch.launch.serve``'s defaults, through its entry
+    point: TinyLlama-1.1B at full width and depth, seed-0 weights from a
+    ``torch.Generator`` on the card, 8 requests of 32 tokens, 8 new tokens
+    each, 4 slots.  Decode attention must go through the kernel, once per
+    layer per decode step.  Returns the kernel's launches."""
+    import torch
+    from repro_torch.kernels.flash_decode import ops
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve.main([])
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_decode"]
+    eng, model, results = out["engine"], out["model"], out["results"]
+    cfg = model.cfg
+    steps = sum(t["decode_steps"] for t in eng.timings)
+    shape = (cfg.n_layers, cfg.d_model, cfg.vocab)
+    if shape != (22, 2048, 32000) or eng.decode_impl != "cuda":
+        raise AssertionError(f"serve_entry: {shape}, {eng.decode_impl}")
+    if steps == 0 or launches != cfg.n_layers * steps:
+        raise AssertionError(f"serve_entry: {launches} flash_decode launches "
+                             f"for {steps} decode steps of {cfg.n_layers} "
+                             "layers")
+    if len(results) != 8 or any(
+            r.tokens.shape != (8,) or r.tokens.min() < 0
+            or r.tokens.max() >= cfg.vocab for r in results):
+        raise AssertionError("serve_entry: wrong results "
+                             f"{[r.tokens for r in results]}")
+    emit({"phase": "serve_entry", "gpu": gpu, "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "requests": len(results),
+          "decode_steps": steps, "launches": launches,
+          "launches_per_decode_step": launches / steps,
+          "timings": eng.timings,
+          "tokens_per_s": sum(len(r.tokens) for r in results)
+          / sum(t["prefill_s"] + t["decode_s"] for t in eng.timings),
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "tokens_0": results[0].tokens.tolist()})
+    del out, eng, model, results
+    torch.cuda.empty_cache()
+    return launches
+
+
+class capture_decode_inputs:
+    """While active, keeps copies of the flash-decode wrapper's inputs at
+    the layers ``want`` (0-based, counted per call in layer order), then
+    calls it as before."""
+
+    def __init__(self, n_layers: int, want: tuple):
+        self.n_layers, self.want, self.calls, self.inputs = \
+            n_layers, want, 0, {}
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_decode import ops
+        self.ops, self.orig = ops, ops.gqa_decode_attention
+
+        def wrapped(q, k, v, length, max_length=None):
+            layer = self.calls % self.n_layers
+            self.calls += 1
+            if layer in self.want:
+                B, _, Hq, D = q.shape
+                Hkv = k.shape[2]
+                self.inputs[layer] = (q.reshape(B, Hkv, Hq // Hkv, D).clone(),
+                                      k.clone(), v.clone(), length.clone())
+            return self.orig(q, k, v, length, max_length)
+        ops.gqa_decode_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.gqa_decode_attention = self.orig
+
+
+def time_flash_decode(q, k, v, length) -> dict:
+    """The kernel (direct C calls), its plain version and
+    ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on the cache
+    sliced to the (common) length, on one layer's decode inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import ops, ref
+    B, Hkv, G, D = q.shape
+    lens = length.tolist()
+    L = max(lens)
+    splits = ops.n_splits(k.shape[1], L)
+    part_acc, part_ml = ops.scratch(q, splits)
+    out = torch.empty_like(q)
+    fn = ops.kernel_function()
+    args = ops.kernel_args(q, k, v, length, out, splits, part_acc, part_ml)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(*args, stream) != 0:
+            raise RuntimeError("flash_decode launch failed")
+    ms = cuda_ms(launch)
+    plain = cuda_ms(lambda: ref.flash_decode_ref(q, k, v, length), reps=10,
+                    inner=5)
+    qs = q.reshape(B, Hkv * G, 1, D)
+    ks, vs = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, enable_gqa=True))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+    launch()
+    torch.cuda.synchronize()
+    item = q.element_size()
+    n_bytes = sum(lens) * Hkv * D * item * 2 + 2 * q.numel() * item + 4 * B
+    flops = 4 * sum(lens) * Hkv * G * D
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return {"ms": ms, "plain_ms": plain, "library_ms": library,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": f"B={B} Hkv={Hkv} G={G} D={D} S={k.shape[1]} "
+                     f"length={L} splits={splits}", "bytes": n_bytes,
+            "library_max_abs_diff": float(
+                (sdpa.reshape(B, Hkv, G, D).float() - out.float()).abs().max())}
+
+
+def serve_long(gpu: str, dev) -> tuple:
+    """TinyLlama-1.1B at full width and depth with numpy weights at the
+    true fan-in: 8 requests of 2,048-token prompts (the blockwise prefill)
+    on 8 slots, a 32,768-token cache (``decode_32k``'s length), 64 new
+    tokens, decode attention in the kernel; then the kernel path against
+    the torch path, teacher-forced on the kernel path's tokens.  Returns
+    the kernel's launches, the check of the captured layer inputs against
+    the plain version, and the kernel's times on layer 21's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import ops
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("tinyllama-1.1b")
+    model = Model(cfg, device="cuda")
+    params, draw_s = draw_serving_weights(model, SERVE_SEED, dev)
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT),
+                           dtype=np.int32)
+    eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN, decode_impl="cuda")
+    reqs = [Request(i, prompts[i], SERVE_NEW) for i in range(SERVE_SLOTS)]
+    eng.run(reqs[:1])                           # warm-up: one short group
+    eng.timings.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_decode"]
+    peak = torch.cuda.max_memory_allocated()
+    (tm,) = eng.timings
+    if launches != cfg.n_layers * tm["decode_steps"] or \
+            tm["decode_steps"] != SERVE_NEW - 1:
+        raise AssertionError(f"serve_long: {launches} launches for "
+                             f"{tm['decode_steps']} decode steps")
+    toks = np.stack([r.tokens for r in results])          # (8, 64)
+
+    # teacher-forced: both decode paths on the kernel path's tokens
+    _, cache_c = model.prefill(params, {"tokens": prompts},
+                               max_len=SERVE_MAX_LEN)
+    cache_t = {"layers": [{k: {n: t.clone() for n, t in v.items()}
+                           for k, v in g.items()} for g in cache_c["layers"]],
+               "pos": cache_c["pos"]}
+    rel, agree, torch_s = [], 0, 0.0
+    cap = capture_decode_inputs(cfg.n_layers, (0, cfg.n_layers - 1))
+    for t in range(SERVE_NEW - 1):
+        cur = toks[:, t:t + 1]
+        if t == SERVE_NEW - 2:
+            with cap:
+                got, cache_c = model.decode_step(params, cache_c, cur, "cuda")
+        else:
+            got, cache_c = model.decode_step(params, cache_c, cur, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, cache_t = model.decode_step(params, cache_t, cur, "torch")
+        torch.cuda.synchronize()
+        torch_s += time.perf_counter() - t0
+        rel.append(float((got - want).norm() / want.norm()))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"serve_long: non-finite logits at {t}")
+    del cache_c, cache_t
+    n = SERVE_SLOTS * (SERVE_NEW - 1)
+    line = {"phase": "serve_long", "gpu": gpu, "slots": SERVE_SLOTS,
+            "prompt": SERVE_PROMPT, "max_len": SERVE_MAX_LEN,
+            "new_tokens": SERVE_NEW, "weights_draw_s": draw_s,
+            "prefill_ms": tm["prefill_s"] * 1e3,
+            "decode_ms_per_step": tm["decode_s"] / tm["decode_steps"] * 1e3,
+            "torch_path_decode_ms_per_step": torch_s / (SERVE_NEW - 1) * 1e3,
+            "tokens_per_s": SERVE_SLOTS * SERVE_NEW
+            / (tm["prefill_s"] + tm["decode_s"]),
+            "decode_tokens_per_s": SERVE_SLOTS * tm["decode_steps"]
+            / tm["decode_s"],
+            "peak_bytes": peak, "launches": launches,
+            "teacher_forced_rel_l2_max": max(rel),
+            "teacher_forced_rel_l2_mean": sum(rel) / len(rel),
+            "greedy_agreement": agree / n,
+            "tolerance": f"rel L2 <= {SERVE_REL_L2} per step"}
+    emit(line)
+    if max(rel) > SERVE_REL_L2:
+        raise AssertionError(f"serve_long: kernel path off the torch path: "
+                             f"{line}")
+    checks = {}
+    for layer, (q, k, v, length) in cap.inputs.items():
+        r = fd_compare(q, k, v, length)
+        if not r["ok"]:
+            raise AssertionError(f"flash_decode on layer {layer}'s decode "
+                                 f"inputs: {r}")
+        checks[f"layer{layer}"] = r
+    if len(checks) != 2:
+        raise AssertionError(f"captured layers {sorted(cap.inputs)}")
+    timing = time_flash_decode(*cap.inputs[cfg.n_layers - 1])
+    del model, params, eng, cap
+    torch.cuda.empty_cache()
+    return launches, checks, timing
+
+
+def serve_reference(dev) -> dict:
+    """TinyLlama at full width, depth cut to ``SERVE_REF_LAYERS`` (so that
+    the JAX reference runs on a CPU), numpy weights at the true fan-in:
+    4 rows of 32-token prompts, then 8 teacher-forced decode steps through
+    the kernel, against the reference's logits at fixed vocabulary ids, its
+    log-sum-exp and its top-1 ids."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              n_layers=SERVE_REF_LAYERS)
+    model = Model(cfg, device="cuda")
+    params, _ = draw_serving_weights(model, SERVE_REF_SEED, dev)
+    toks = serve_reference_tokens(cfg.vocab)
+    S = SERVE_REF_PROMPT
+    logits, cache = model.prefill(params, {"tokens": toks[:, :S]},
+                                  max_len=S + SERVE_REF_STEPS + 8)
+    rows = [logits]
+    for t in range(S, S + SERVE_REF_STEPS):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1],
+                                          "cuda")
+        rows.append(logits)
+    got = torch.stack(rows).float().cpu()               # (steps + 1, B, V)
+    ids = torch.as_tensor(SERVE_REF_IDS)
+    at_ids = got[:, :, ids].numpy()
+    want = np.asarray(SERVE_REF["logits"], np.float32)
+    lse = torch.logsumexp(got, -1).numpy()
+    top1 = got.argmax(-1).numpy()
+    want_top1 = np.asarray(SERVE_REF["top1"])
+    margin = np.asarray(SERVE_REF["margin"])
+    differ = top1 != want_top1
+    out = {"layers": SERVE_REF_LAYERS, "rows": toks.shape[0],
+           "steps": SERVE_REF_STEPS + 1,
+           "max_abs_err_at_ids": float(np.abs(at_ids - want).max()),
+           "rel_l2_at_ids_max": float(max(
+               np.linalg.norm(at_ids[s] - want[s]) / np.linalg.norm(want[s])
+               for s in range(len(want)))),
+           "lse_max_abs_err": float(np.abs(lse - np.asarray(
+               SERVE_REF["lse"])).max()),
+           "top1_equal": int((~differ).sum()), "top1_total": differ.size,
+           "top1_differ_at_near_ties": int(differ.sum()),
+           "tolerance": f"|logit diff| <= {SERVE_REF_ATOL} at the ids, "
+                        f"<= {SERVE_REF_LSE_ATOL} on the log-sum-exp; rel L2 "
+                        f"<= {SERVE_REF_REL_L2} per step; top-1 equal unless "
+                        f"the reference's top-2 margin <= {SERVE_REF_ATOL}"}
+    ok = (out["max_abs_err_at_ids"] <= SERVE_REF_ATOL
+          and out["lse_max_abs_err"] <= SERVE_REF_LSE_ATOL
+          and out["rel_l2_at_ids_max"] <= SERVE_REF_REL_L2
+          and bool(np.all(margin[differ] <= SERVE_REF_ATOL)))
+    if not ok:
+        raise AssertionError(f"serve_reference: off the reference: {out}")
+    del model, params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_reference_tokens(vocab: int) -> np.ndarray:
+    """The prompts and forced tokens of ``serve_reference`` (shared with
+    ``scripts/port_reference_times.py``)."""
+    return np.random.default_rng(SERVE_REF_SEED).integers(
+        0, vocab, (SERVE_REF_ROWS, SERVE_REF_PROMPT + SERVE_REF_STEPS),
+        dtype=np.int32)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -860,14 +1417,35 @@ def main() -> int:
     # ---- 9. DLRM: the training iteration under each policy ------------------
     iter_launches = dlrm_iteration(cfg, gpu)
 
+    # ---- 10. serving: the flash-decode kernel against its plain version -----
+    fd_check = decode_kernel_check(dev)
+    emit({"phase": "decode_kernel_check", "kernel": "flash_decode",
+          "inputs": "random", **fd_check})
+
+    # ---- 11. serving: the driver's defaults through its entry point --------
+    entry_launches = serve_entry(gpu)
+
+    # ---- 12. serving: TinyLlama on a 32,768-token cache ---------------------
+    long_launches, fd_layers, timing["flash_decode"] = serve_long(gpu, dev)
+    emit({"phase": "decode_kernel_check", "kernel": "flash_decode",
+          "inputs": "serve_long decode step", **fd_layers})
+    emit({"phase": "kernel_timing", "gpu": gpu,
+          "flash_decode": timing["flash_decode"]})
+
+    # ---- 13. serving: against the JAX reference's logits --------------------
+    emit({"phase": "serve_reference", **serve_reference(dev)})
+
     # ---- kernel table, device line ----------------------------------------
     # launches: the sum over the paths each kernel runs on, each path's
     # counts set to 0 just before it and read just after
     path_launches = {k: main_launches[k] + iter_launches[k]
                      for k in main_launches}
     path_launches.update(emb_launches)
+    path_launches["flash_decode"] = entry_launches + long_launches
     errs = {"fused_signals_policy": fused["max_abs_err"], **seg_err,
-            "embedding_bag_rows": emb_check["max_abs_err"]}
+            "embedding_bag_rows": emb_check["max_abs_err"],
+            "flash_decode": max(fd_check["max_abs_err"], *(
+                r["max_abs_err"] for r in fd_layers.values()))}
     kernels = []
     for name in SOURCES:
         if path_launches[name] == 0:

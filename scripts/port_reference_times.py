@@ -5,10 +5,12 @@
 
 with names from ``clos128_1d``, ``clos32_2d`` (collective completion
 times, jnp step), ``dlrm_reference`` (Table II DLRM logits on a seeded
-batch) and ``dlrm_iteration`` (the DLRM training iteration on the
-128-GPU platform); all of them by default.  Prints one JSON line per
-result; ``chip_smoke.py`` holds the port's card runs to these values
-(``REFERENCE`` and ``DLRM_REFERENCE`` there).  The 128-GPU runs take a
+batch), ``dlrm_iteration`` (the DLRM training iteration on the 128-GPU
+platform) and ``serve_reference`` (TinyLlama's logits, prefill and
+teacher-forced decode, at full width and 4 layers); all of them by
+default.  Prints one JSON line per result; ``chip_smoke.py`` holds the
+port's card runs to these values (``REFERENCE``, ``DLRM_ITER_REFERENCE``,
+``DLRM_REF_LOGITS`` and ``SERVE_REF`` there).  The 128-GPU runs take a
 few minutes each on a CPU, the DLRM logits about four.
 
 The reference's DLRM iteration salts its All-To-All's ECMP keys with
@@ -39,6 +41,7 @@ from repro.core.sweep import SweepRunner
 from repro.data.pipeline import dlrm_batch
 from repro.kernels.embedding_bag.ops import embedding_bag_stacked
 from repro.models.dlrm import DLRM
+from repro.models.model_api import Model
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (numpy only at import: the shared inputs)
@@ -139,16 +142,57 @@ def dlrm_reference() -> None:
           "logits": [float(x) for x in logits["jnp"]]})
 
 
+def serve_reference() -> None:
+    """TinyLlama at full width and ``chip_smoke.SERVE_REF_LAYERS`` layers,
+    weights from ``chip_smoke.transformer_numpy_params``, tokens from
+    ``chip_smoke.serve_reference_tokens``: the prefill's last logits and 8
+    teacher-forced decode steps' (``layers.decode_attention``, the serving
+    path's own), at ``SERVE_REF_IDS``, with log-sum-exp, top-1 ids and
+    top-2 margins."""
+    cs = chip_smoke
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              n_layers=cs.SERVE_REF_LAYERS)
+    model = Model(cfg)
+    shapes = jax.tree.map(lambda d: d.shape, model.param_defs(),
+                          is_leaf=lambda x: hasattr(x, "axes"))
+    t0 = time.perf_counter()
+    bits = cs.transformer_numpy_params(shapes, cs.SERVE_REF_SEED, bf16=True)
+    params = jax.tree.map(lambda a: jnp.asarray(a.view(jnp.bfloat16)), bits)
+    del bits
+    toks = cs.serve_reference_tokens(cfg.vocab)
+    S = cs.SERVE_REF_PROMPT
+    logits, cache = jax.jit(lambda p, b: model.prefill(
+        p, b, max_len=S + cs.SERVE_REF_STEPS + 8))(
+        params, {"tokens": jnp.asarray(toks[:, :S])})
+    rows = [np.asarray(logits)]
+    decode = jax.jit(model.decode_step)
+    for t in range(S, S + cs.SERVE_REF_STEPS):
+        logits, cache = decode(params, cache, jnp.asarray(toks[:, t:t + 1]))
+        rows.append(np.asarray(logits))
+    lg = np.stack(rows).astype(np.float64)             # (steps + 1, B, V)
+    top2 = np.sort(lg, -1)[..., -2:]
+    m = lg.max(-1, keepdims=True)
+    lse = (m[..., 0] + np.log(np.exp(lg - m).sum(-1)))
+    emit({"scenario": "serve_reference", "layers": cfg.n_layers,
+          "seed": cs.SERVE_REF_SEED, "cpu_seconds": time.perf_counter() - t0,
+          "logits": lg[:, :, cs.SERVE_REF_IDS].astype(np.float32).tolist(),
+          "lse": lse.tolist(), "top1": lg.argmax(-1).tolist(),
+          "margin": (top2[..., 1] - top2[..., 0]).tolist()})
+
+
 def main(names):
     emit({"jax": jax.__version__, "numpy": np.__version__})
     runner = SweepRunner(CFG)
-    for name in names or [*SCENARIOS, "dlrm_reference", "dlrm_iteration"]:
+    for name in names or [*SCENARIOS, "dlrm_reference", "dlrm_iteration",
+                          "serve_reference"]:
         if name in SCENARIOS:
             collective_times(name, runner)
         elif name == "dlrm_iteration":
             dlrm_iteration(runner)
         elif name == "dlrm_reference":
             dlrm_reference()
+        elif name == "serve_reference":
+            serve_reference()
         else:
             raise SystemExit(f"unknown scenario {name!r}")
 

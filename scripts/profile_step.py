@@ -2,8 +2,11 @@
 """Where one engine step's time goes on the card, for the scenarios that
 ``chip_smoke.py`` drives (128-GPU 1D all-reduce, 32-GPU 2D all-reduce and
 the 128-GPU DLRM training iteration with the 2D all-reduce, DCQCN), on
-both step paths; and where one forward of the Table II DLRM (batch 256)
-goes.
+both step paths; where one forward of the Table II DLRM (batch 256)
+goes; and where one decode step of TinyLlama-1.1B goes on
+``chip_smoke.py``'s long serving run (8 slots, 2,048-token prompts, a
+32,768-token cache), on both decode paths (``decode_impl`` cuda and
+torch).
 
     python3 scripts/profile_step.py [--out profile.json]
 
@@ -18,7 +21,9 @@ kernels launched per step, device-busy µs per step (union of kernel and
 copy intervals), the device's idle share (1 - busy / untraced host time
 per step), and the kernels that take most device time.  The DLRM forward
 gets the same line per forward (``FORWARDS`` timed, then
-``TRACE_FORWARDS`` traced).  Needs one CUDA card.
+``TRACE_FORWARDS`` traced), a decode step the same line per step
+(``DECODE_STEPS`` timed, then ``TRACE_DECODE`` traced, after
+``WARM_DECODE``).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parents[1] / "src"
 # DLRM forwards timed, then traced, after five warm-up forwards
 FORWARDS, TRACE_FORWARDS = 100, 20
+# TinyLlama decode steps: warm-up, timed, traced (each path has its cache)
+WARM_DECODE, DECODE_STEPS, TRACE_DECODE = 4, 24, 8
 
 
 def busy_us(intervals) -> float:
@@ -137,6 +144,35 @@ class Forwards:
         return (time.perf_counter() - t0) / n * 1e3
 
 
+class Decoding:
+    """TinyLlama-1.1B (seed-0 weights) after the prefill of 8 prompts of
+    2,048 tokens into a 32,768-token cache; one "step" is one greedy
+    decode step on ``impl``'s decode attention."""
+
+    def __init__(self, model, params, impl: str):
+        import numpy as np
+        import torch
+        self.model, self.params, self.impl = model, params, impl
+        prompts = np.random.default_rng(0).integers(
+            0, model.cfg.vocab, (8, 2048), dtype=np.int32)
+        logits, self.cache = model.prefill(params, {"tokens": prompts},
+                                           max_len=32768)
+        self.cur = torch.argmax(logits, -1)[:, None]
+
+    def advance(self, n: int) -> None:
+        import torch
+        for _ in range(n):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, self.cur, self.impl)
+            self.cur = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+
+    def host_ms(self, n: int) -> float:
+        t0 = time.perf_counter()
+        self.advance(n)
+        return (time.perf_counter() - t0) / n * 1e3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm", type=int, default=400)
@@ -200,6 +236,19 @@ def main(argv=None) -> int:
         "rows_per_table": fwd.model.cfg.rows_per_table,
         "embedding_impl": fwd.model.embedding_impl,
         "host_ms_per_step": ms, "forwards_per_s": 1e3 / ms}
+    from repro_torch.configs import get_model
+    model = get_model("tinyllama-1.1b", device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    decoding = {}
+    for impl in ("cuda", "torch"):
+        dec = decoding[impl] = Decoding(model, params, impl)
+        dec.advance(WARM_DECODE)
+        ms = dec.host_ms(DECODE_STEPS)
+        lines["serve_decode", impl] = {
+            "scenario": "serve_decode", "gpu": gpu, "slots": 8,
+            "prompt": 2048, "max_len": 32768, "decode_impl": impl,
+            "first_timed_position": dec.cache["pos"] - DECODE_STEPS,
+            "host_ms_per_step": ms, "tokens_per_s": 8e3 / ms}
     for key, run in runs.items():
         line = lines[key]
         line["first_traced_step"] = run.it
@@ -207,6 +256,10 @@ def main(argv=None) -> int:
     lines["dlrm_forward"].update(trace(
         lambda: fwd.advance(TRACE_FORWARDS), TRACE_FORWARDS,
         args.top))
+    for impl, dec in decoding.items():
+        lines["serve_decode", impl].update(trace(
+            lambda dec=dec: dec.advance(TRACE_DECODE), TRACE_DECODE,
+            args.top))
     for line in lines.values():
         line["device_idle_share"] = 1.0 - (line["device_busy_us_per_step"]
                                            / (line["host_ms_per_step"] * 1e3))

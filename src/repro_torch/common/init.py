@@ -2,6 +2,7 @@
 ``repro/common/pytree.py::_init_one`` that the port's models use).
 
     zeros   -- 0
+    ones    -- 1
     normal  -- 0.02 * N(0, 1)
     scaled  -- N(0, 1) / sqrt(fan_in) (lecun normal), fan_in = shape[-2]
                (shape[-1] for a vector)
@@ -17,13 +18,13 @@ import math
 
 import torch
 
-RULES = ("zeros", "normal", "scaled")
+RULES = ("zeros", "ones", "normal", "scaled")
 
 
 def init_scale(rule: str, shape: tuple) -> float:
     """The standard deviation ``rule`` draws with for a parameter of
-    ``shape`` (0 for ``zeros``)."""
-    if rule == "zeros":
+    ``shape`` (0 for the constants ``zeros`` and ``ones``)."""
+    if rule in ("zeros", "ones"):
         return 0.0
     if rule == "normal":
         return 0.02
@@ -42,6 +43,8 @@ def fill_(x: torch.Tensor, rule: str,
     std = init_scale(rule, tuple(x.shape))
     if rule == "zeros":
         return x.zero_()
+    if rule == "ones":
+        return x.fill_(1)
     slices = x if x.dim() >= 3 else (x,)
     for part in slices:
         draw = torch.randn(part.shape, generator=generator,

@@ -1,15 +1,21 @@
 """Architecture registry (port of ``repro.configs``): ``get_config(name)``,
 ``smoke_config(name)``, ``get_model(name)`` and ``smoke_model(name)``.
 
-Only ``"dlrm"`` is ported; the transformer architectures of the reference
-come with the serving slice (ROADMAP.md, queue item 9) and raise
-``KeyError`` here.  Models are built on the card unless ``device="cpu"``.
+Ported: ``"dlrm"`` (family ``recsys``, built as ``models.DLRM``) and
+``"tinyllama-1.1b"`` (family ``dense``, built as ``models.Model``, the
+transformer serving path).  The reference's other architectures raise
+``KeyError``: they come with ROADMAP.md queue item 9.  Models are built on
+the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
 from repro_torch.configs import dlrm as _dlrm
+from repro_torch.configs import tinyllama_1_1b as _tinyllama
+from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
 
-_MODULES = {"dlrm": _dlrm}
+_MODULES = {"tinyllama-1.1b": _tinyllama, "dlrm": _dlrm}
+
+ARCHS = tuple(k for k in _MODULES if k != "dlrm")
 
 
 def _module(name: str):
@@ -28,11 +34,20 @@ def smoke_config(name: str):
     return _module(name).smoke()
 
 
+def build_model(cfg, device="cuda", seed: int = 0):
+    """The model of ``cfg``'s family on ``device``.  A DLRM draws its
+    weights from ``seed`` at construction; a transformer ``Model`` holds
+    none (``Model.init(generator)`` makes them, as in the reference)."""
+    if cfg.family == "recsys":
+        from repro_torch.models.dlrm import DLRM
+        return DLRM(cfg, device=device, seed=seed)
+    from repro_torch.models.model_api import Model
+    return Model(cfg, device=device)
+
+
 def get_model(name: str, device="cuda", seed: int = 0):
-    from repro_torch.models.dlrm import DLRM
-    return DLRM(get_config(name), device=device, seed=seed)
+    return build_model(get_config(name), device=device, seed=seed)
 
 
 def smoke_model(name: str, device="cuda", seed: int = 0):
-    from repro_torch.models.dlrm import DLRM
-    return DLRM(smoke_config(name), device=device, seed=seed)
+    return build_model(smoke_config(name), device=device, seed=seed)

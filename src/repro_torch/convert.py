@@ -5,7 +5,8 @@ imports nothing of the JAX package, so a caller holding a
 ``repro.core.topology.Topology``, ``Schedule``, ``FabricParams`` or an
 engine carry dict gets the port's equivalent, and the port and the
 reference can be fed exactly the same scenario and the same mid-run state.
-``dlrm_params_from_numpy`` does the same for a DLRM parameter tree.
+``dlrm_params_from_numpy`` and ``transformer_params_from_numpy`` do the
+same for a DLRM's and a transformer's parameter trees.
 """
 from __future__ import annotations
 
@@ -93,7 +94,7 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
         bits = np.array(a).view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     if a.dtype != np.float32:
-        raise TypeError(f"DLRM parameter of dtype {a.dtype}: expected "
+        raise TypeError(f"parameter of dtype {a.dtype}: expected "
                         "bfloat16 or float32")
     return torch.from_numpy(np.array(a)).to(device)
 
@@ -106,3 +107,17 @@ def dlrm_params_from_numpy(tree: dict, device="cuda") -> dict:
     return {k: (dlrm_params_from_numpy(v, device) if isinstance(v, dict)
                 else _leaf_to_torch(v, device))
             for k, v in tree.items()}
+
+
+def transformer_params_from_numpy(tree, device="cuda"):
+    """The reference's transformer parameter tree (``embed``,
+    ``final_norm``, ``groups[i]["l{j}"]...``, ``lm_head``; dicts and lists,
+    bf16 or float32 leaves anything ``np.asarray`` takes) -> the same tree
+    of tensors on ``device``, bit for bit, for
+    ``repro_torch.models.Model.prefill``/``decode_step``."""
+    if isinstance(tree, dict):
+        return {k: transformer_params_from_numpy(v, device)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [transformer_params_from_numpy(v, device) for v in tree]
+    return _leaf_to_torch(tree, device)

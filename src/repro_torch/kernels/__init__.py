@@ -5,5 +5,8 @@
 #                   step_impl="cuda").
 #   embedding_bag — multi-hot sum pooling of the DLRM forward (see
 #                   repro_torch.models.dlrm embedding_impl="cuda").
+#   flash_decode  — one-token GQA attention over a KV cache, the serving
+#                   path's decode attention (see repro_torch.models.model_api
+#                   decode_impl="cuda").
 # Each has ops.py (wrapper: kernel on CUDA tensors, plain version on CPU
 # tensors), ref.py (the plain PyTorch versions) and csrc/ (CUDA C++).

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "engine_step": _PKG / "engine_step" / "csrc" / "engine_step.cu",
     "embedding_bag": _PKG / "embedding_bag" / "csrc" / "embedding_bag.cu",
+    "flash_decode": _PKG / "flash_decode" / "csrc" / "flash_decode.cu",
 }
 
 # name -> loaded library; BUILD_INFO[name] -> seconds, nvcc version, ptxas log

@@ -1,0 +1,147 @@
+"""Wrappers of the flash-decode CUDA kernel (``csrc/flash_decode.cu``), the
+counterparts of ``repro/kernels/flash_decode/flash_decode.py::flash_decode``
+and ``repro/kernels/flash_decode/ops.py::gqa_decode_attention``.
+
+For tensors on the CPU each wrapper checks that every length lies in
+``[1, S]`` and returns the plain version from ``ref.py``.  For CUDA tensors
+it checks device, dtype (q, k and v all bf16 or all float32, int32
+lengths), shapes, contiguity and the kernel's limits (G <= 16, D <= 256,
+G * D <= 2048), allocates the output and the split pass's scratch,
+launches on PyTorch's current stream, raises if the launch returns a CUDA
+error, and adds one to ``LAUNCHES["flash_decode"]``.  There is no
+fallback: a CUDA tensor either goes through the kernel or raises.  On the
+card the lengths are not range-checked (that would wait for the device):
+lengths above S read S positions, and lengths below 1 are not supported.
+
+Any S is taken (the Pallas kernel needs S % block_s == 0).  The kernel
+splits the first ``max_length`` cache positions into chunks of ``CHUNK``
+keys, one block per (chunk, kv head, batch row), and combines the chunks'
+partial softmax sums in a second pass; ``max_length`` (at least the
+largest length, S by default) only sizes that split, and the result does
+not depend on it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.checks import check, on_cuda
+from repro_torch.kernels.flash_decode import ref
+
+# kernel launches since the last reset_launches(); the plain version never
+# counts
+LAUNCHES = {"flash_decode": 0}
+
+CHUNK = 256          # cache positions per block of the split pass
+MAX_G, MAX_D, MAX_GD = 16, 256, 2048
+
+_SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p]
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def kernel_function():
+    """The C entry point of the built library (argtypes set).  Calling it
+    directly bypasses the wrapper's checks and launch count;
+    ``chip_smoke.py`` does so only to time back-to-back launches."""
+    fn = build.load("flash_decode").flash_decode
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURE
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def n_splits(S: int, max_length: int | None) -> int:
+    """Chunks of ``CHUNK`` positions covering ``min(max_length, S)``."""
+    span = S if max_length is None else max(1, min(int(max_length), S))
+    return -(-span // CHUNK)
+
+
+def scratch(q: torch.Tensor, splits: int) -> tuple:
+    """The split pass's float32 partial sums ``(acc, m_and_l)`` for
+    ``splits`` chunks, or ``(None, None)`` for one chunk (written
+    straight to the output)."""
+    if splits == 1:
+        return None, None
+    B, Hkv, G, D = q.shape
+    acc = torch.empty((B, Hkv, splits, G, D), dtype=torch.float32,
+                      device=q.device)
+    ml = torch.empty((B, Hkv, splits, 2, G), dtype=torch.float32,
+                     device=q.device)
+    return acc, ml
+
+
+def kernel_args(q, k, v, length, out, splits: int, part_acc, part_ml) -> list:
+    """The C arguments (stream excluded) for ``q (B, Hkv, G, D)`` over
+    ``k``/``v (B, S, Hkv, D)`` into ``out``."""
+    B, Hkv, G, D = q.shape
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    return [q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), B,
+            k.shape[1], Hkv, G, D, int(q.dtype == torch.float32), CHUNK,
+            splits, ptr(part_acc), ptr(part_ml), out.data_ptr()]
+
+
+def _check_lengths(length: torch.Tensor, S: int) -> None:
+    if length.numel() and (int(length.min()) < 1 or int(length.max()) > S):
+        raise ValueError(f"flash_decode: lengths must lie in [1, {S}], got "
+                         f"[{int(length.min())}, {int(length.max())}]")
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor,
+                 max_length: int | None = None) -> torch.Tensor:
+    """``q (B, Hkv, G, D)``; ``k``/``v (B, S, Hkv, D)``; ``length (B,)``
+    int32 -> ``(B, Hkv, G, D)`` attention output in ``q.dtype``."""
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    if not on_cuda((q, k, v, length)):
+        _check_lengths(length, S)
+        return ref.flash_decode_ref(q, k, v, length)
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_decode: q must be bf16 or float32, got "
+                        f"{q.dtype}")
+    if not (G <= MAX_G and D <= MAX_D and G * D <= MAX_GD):
+        raise ValueError(f"flash_decode: G={G}, D={D} outside the kernel's "
+                         f"limits (G <= {MAX_G}, D <= {MAX_D}, G * D <= "
+                         f"{MAX_GD})")
+    check(q, "q", (B, Hkv, G, D), q.dtype)
+    check(k, "k", (B, S, Hkv, D), q.dtype)
+    check(v, "v", (B, S, Hkv, D), q.dtype)
+    check(length, "length", (B,), torch.int32)
+    if max_length is not None and max_length < 1:
+        raise ValueError(f"flash_decode: max_length {max_length} < 1")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    splits = n_splits(S, max_length)
+    part_acc, part_ml = scratch(q, splits)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = kernel_function()(*kernel_args(q, k, v, length, out, splits,
+                                         part_acc, part_ml), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode: CUDA launch failed with "
+                           f"cudaError_t {err}")
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, length: torch.Tensor,
+                         max_length: int | None = None) -> torch.Tensor:
+    """q: (B, 1, Hq, D) over cache (B, S, Hkv, D); length (B,) int32.
+    Returns (B, 1, Hq, D).  Drop-in for ``models.layers.decode_attention``
+    with ``length`` on the device."""
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    out = flash_decode(q.reshape(B, Hkv, Hq // Hkv, D), k_cache, v_cache,
+                       length, max_length)
+    return out.reshape(B, 1, Hq, D)

@@ -24,13 +24,13 @@ comes later.  Mesh sharding (``param_specs``, ``input_specs``,
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
 from torch import nn
 
 from repro_torch.common import init as init_mod
+from repro_torch.common.precision import float32_reduction
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels.embedding_bag import ops as emb_ops
 from repro_torch.kernels.embedding_bag import ref as emb_ref
@@ -69,17 +69,6 @@ def resolve_embedding_impl(cfg: DLRMConfig, device) -> str:
         raise ValueError("embedding_impl='cuda' runs the CUDA kernel and "
                          f"needs a CUDA device, got {dev}")
     return impl
-
-
-@contextlib.contextmanager
-def _float32_reduction():
-    matmul = torch.backends.cuda.matmul
-    saved = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        matmul.allow_bf16_reduced_precision_reduction = saved
 
 
 def _mlp_shapes(sizes, d_in: int, d_out: int) -> dict:
@@ -171,7 +160,7 @@ class DLRM(nn.Module):
     def forward(self, batch: dict) -> torch.Tensor:
         """batch: dense (B, n_dense) f32, sparse_idx (B, T, pooling) int32
         (tensors or numpy) -> logits (B,) in bf16."""
-        with _float32_reduction():
+        with float32_reduction():
             return self._forward(batch)
 
     def _forward(self, batch: dict) -> torch.Tensor:

@@ -181,7 +181,7 @@ def test_registry_matches_reference():
                        (configs.smoke_config, r_smoke_config)):
         assert _port_cfg_fields(get("dlrm")) == _port_cfg_fields(r_get("dlrm"))
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get_config("tinyllama-1.1b")
+        configs.get_config("gemma3-27b")
     with pytest.raises(KeyError, match="ROADMAP"):
         configs.smoke_model("gemma2-9b", device="cpu")
     m = configs.smoke_model("dlrm", device="cpu", seed=1)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (``repro_torch.kernels.engine_step`` and
-``repro_torch.kernels.embedding_bag``).
+card (``repro_torch.kernels.engine_step``,
+``repro_torch.kernels.embedding_bag`` and
+``repro_torch.kernels.flash_decode``).
 
 Needs an NVIDIA Hopper card with ``nvcc``; everywhere else every test
 skips (the kernels have no CPU mode).  On the card, run without the
@@ -9,6 +10,8 @@ repository's conftest (which imports jax, absent there):
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,12 +21,19 @@ from repro_torch.core import (EngineConfig, Simulator, get_policy, incast,
                               single_switch)
 from repro_torch.core import cc
 from repro_torch.common import init as init_mod
+from repro_torch.common.pytree import tree_map
 from repro_torch.configs import smoke_config
 from repro_torch.data import dlrm_batch
 from repro_torch.kernels.embedding_bag import ops as emb_ops
 from repro_torch.kernels.embedding_bag import ref as emb_ref
 from repro_torch.kernels.engine_step import ops, ref
-from repro_torch.models import DLRM
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode import ref as fd_ref
+from repro_torch.models import DLRM, Model
+from repro_torch.serve import Request, ServeEngine
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (numpy only at import: the shared weights)
 
 pytestmark = pytest.mark.cuda
 
@@ -225,3 +235,94 @@ def test_dlrm_kernel_path_matches_plain_path(dev):
     want = plain(batch)
     assert emb_ops.LAUNCHES["embedding_bag_rows"] == 1
     assert _bits_equal(got, want)
+
+
+def _fd_inputs(B, S, Hkv, G, D, dtype, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Hkv, G, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def _fd_tolerance(q, k, v, length, want):
+    """1e-5 of the softmax-weighted sum of |v|, plus one bf16 ulp of the
+    output for bf16 (tests/test_torch_flash_decode_ref.py)."""
+    scale = fd_ref.flash_decode_ref(q.float(), k.float(), v.float().abs(),
+                                    length)
+    tol = 1e-5 * scale
+    if want.dtype == torch.bfloat16:
+        w = want.float().abs()
+        tol = tol + torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w))
+                                                  - 7), 0)
+    return tol
+
+
+# (B, S, Hkv, G, D): TinyLlama's heads at one and many chunks, D = 128,
+# an S and D that take the scalar loads, G = 16
+@pytest.mark.parametrize("B,S,Hkv,G,D", [
+    (8, 2080, 4, 8, 64), (3, 100, 4, 8, 64), (2, 1000, 2, 4, 128),
+    (1, 1, 4, 8, 64), (3, 517, 1, 3, 36), (2, 700, 2, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_decode_kernel_matches_plain(dev, B, S, Hkv, G, D, dtype):
+    q, k, v = _fd_inputs(B, S, Hkv, G, D, dtype, S + D, dev)
+    lens = [S, max(S - 17, 1), 1, max(S // 3, 1)]
+    length = torch.tensor([lens[b % 4] for b in range(B)], dtype=torch.int32,
+                          device=dev)
+    before = fd_ops.LAUNCHES["flash_decode"]
+    got = fd_ops.flash_decode(q, k, v, length, max_length=max(lens[:B]))
+    assert fd_ops.LAUNCHES["flash_decode"] == before + 1
+    want = fd_ref.flash_decode_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _fd_tolerance(q, k, v, length, want)).all()), \
+        float(err.max())
+    # the split's size does not change the result
+    again = fd_ops.flash_decode(q, k, v, length)
+    assert torch.equal(again, got)
+
+
+def test_flash_decode_wrapper_rejects(dev):
+    q, k, v = _fd_inputs(2, 64, 2, 4, 64, torch.bfloat16, 0, dev)
+    length = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        fd_ops.flash_decode(q, k.float(), v, length)
+    with pytest.raises(TypeError):
+        fd_ops.flash_decode(q, k, v, length.long())
+    with pytest.raises(ValueError):
+        fd_ops.flash_decode(q, k, v, length.cpu())
+    with pytest.raises(ValueError, match="limits"):
+        qq, kk, vv = _fd_inputs(1, 8, 1, 32, 64, torch.bfloat16, 0, dev)
+        fd_ops.flash_decode(qq, kk, vv, length[:1])
+
+
+def test_serving_kernel_path_matches_torch_path(dev):
+    """Smoke TinyLlama on the card: 22 -> 2 layers, so 2 launches per
+    decode step; the kernel path's logits against the torch path's, on
+    numpy weights at the true fan-in (tests/test_torch_serve.py)."""
+    cfg = smoke_config("tinyllama-1.1b")
+    model = Model(cfg, device="cuda")
+    assert model.decode_impl == "cuda"
+    shapes = tree_map(lambda d: d.shape, model.param_defs())
+    params = tree_map(lambda a: torch.from_numpy(a).to(dev),
+                      chip_smoke.transformer_numpy_params(shapes, 5, False))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 20),
+                                             dtype=np.int32)
+    _, cache_c = model.prefill(params, {"tokens": toks[:, :12]}, max_len=40)
+    _, cache_t = model.prefill(params, {"tokens": toks[:, :12]}, max_len=40)
+    for t in range(12, 20):
+        fd_ops.reset_launches()
+        got, cache_c = model.decode_step(params, cache_c, toks[:, t:t + 1])
+        assert fd_ops.LAUNCHES["flash_decode"] == cfg.n_layers
+        want, cache_t = model.decode_step(params, cache_t, toks[:, t:t + 1],
+                                          "torch")
+        assert fd_ops.LAUNCHES["flash_decode"] == cfg.n_layers
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 2e-2, (t, rel)
+    eng = ServeEngine(model, params, batch_slots=2, max_len=32)
+    fd_ops.reset_launches()
+    res = eng.run([Request(i, toks[i, :10], 5) for i in range(3)])
+    assert [r.tokens.shape for r in res] == [(5,)] * 3
+    assert fd_ops.LAUNCHES["flash_decode"] == cfg.n_layers * 4 * 2
