@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card: builds the engine-step, embedding-bag and flash-decode kernels,
-holds each against its plain PyTorch version, drives the simulator's main
-path through the kernels at the paper's 128-GPU scale and at 32 GPUs,
-scores a batch on the paper's Table II DLRM through the embedding-bag
-kernel, simulates that DLRM's training iteration on the 128-GPU platform
-under PFC and DCQCN, serves TinyLlama-1.1B (full width and depth) through
-``python -m repro_torch.launch.serve``'s entry point and on a 32,768-token
-cache with decode attention in the flash-decode kernel, and checks the
-results against the plain paths and against constants from the JAX
-reference.
+card: builds the engine-step, DCQCN-update, embedding-bag and
+flash-decode kernels, holds each against its plain PyTorch version (the
+engine kernels also inside one step of Fig 12's nine lanes, against the
+op path), drives the simulator's main path through the kernels at the paper's
+128-GPU scale and at 32 GPUs, drives the DCQCN update through its entry
+point, runs Fig 12's fabric sweep as one batch of 9 lanes and the
+128-GPU policy comparison as one policy-axis batch, scores a batch on the
+paper's Table II DLRM through the embedding-bag kernel, simulates that
+DLRM's training iteration on the 128-GPU platform under PFC and DCQCN,
+serves TinyLlama-1.1B (full width and depth) through ``python -m
+repro_torch.launch.serve``'s entry point and on a 32,768-token cache with
+decode attention in the flash-decode kernel, and checks the results
+against the plain paths, the port's serial runs and constants from the
+JAX reference.
 
     python3 chip_smoke.py
 
@@ -33,17 +37,20 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 KERNEL_SOURCE = "src/repro_torch/kernels/engine_step/csrc/engine_step.cu"
+CCU_SOURCE = "src/repro_torch/kernels/cc_update/csrc/cc_update.cu"
 EMB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 FD_SOURCE = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 SOURCES = {"fused_signals_policy": KERNEL_SOURCE,
            "segment_reduce": KERNEL_SOURCE,
            "segment_reduce_pfc": KERNEL_SOURCE,
+           "dcqcn_update": CCU_SOURCE,
            "embedding_bag_rows": EMB_SOURCE,
            "flash_decode": FD_SOURCE}
 REPLACES = {
     "fused_signals_policy": "src/repro/kernels/engine_step/engine_step.py:96",
     "segment_reduce": "src/repro/kernels/engine_step/engine_step.py:171",
     "segment_reduce_pfc": "src/repro/kernels/engine_step/engine_step.py:195",
+    "dcqcn_update": "src/repro/kernels/cc_update/cc_update.py:61",
     "embedding_bag_rows":
         "src/repro/kernels/embedding_bag/embedding_bag.py:31",
     "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:60",
@@ -73,7 +80,62 @@ DLRM_ITER_REFERENCE = {
 }
 DLRM_ITER_FLOWS = 152581
 
+# batch_fig12's lanes 0 and 8, each as a serial run of the JAX reference
+# (jnp step, CPU), from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py batch_fig12
+# (jax 0.9.0, numpy 2.0.2): 65,024 flows.  Completion within two steps,
+# PAUSE frames within rtol 1e-3 + 1.
+FIG12_REFERENCE = {
+    0: {"completion_time": 0.012055999599397182,
+        "pause_frames": 256878.015625},
+    8: {"completion_time": 0.013543999753892422,
+        "pause_frames": 101965.2734375},
+}
+FIG12_FLOWS = 65024
+
+# cc_update_check: the DCQCN update kernel against its plain version
+CCU_FLOWS = (7, 128, 300, 1000, 1500, 7936, 130048)
+CCU_TIMES = (3.3e-4, 2e-3)
+# cc_update_path: the entry point driven over a DCQCN trajectory of the
+# 128-GPU all-reduce's flow count
+CCU_PATH_FLOWS, CCU_PATH_STEPS = 130048, 400
+
 DT = 4e-6
+
+# batch_fig12: Fig 12's fabric sweep at paper scale
+# (benchmarks/figures.py:190-210): the 128-GPU 8-rack CLOS at
+# oversubscription 4, an All-To-All of 64 MB, DCQCN, 9 lanes of paired
+# (kmin, 4*kmin) ECN ramps crossed with xoff, in one run_batch
+FIG12_RACKS, FIG12_OVERSUB = 8, 4.0
+FIG12_BYTES = 64e6
+FIG12_POLICY = "dcqcn"
+FIG12_CHECK_LANES = (0, 8)
+# batched_step_check: the kernel-path step held against the op path
+FIG12_STEP_AT = 600
+# lane counts the engine kernels are held against their plain versions at:
+# one, a few, and Fig 12's nine
+CHECK_LANES = (1, 3, 9)
+
+
+def fig12_points() -> np.ndarray:
+    """The sweep's (kmin, kmax, xoff) rows, as the figure builds them."""
+    return np.array([(k, 4.0 * k, x) for k in (100e3, 400e3, 1000e3)
+                     for x in (0.25e6, 1e6, 4e6)], np.float32)
+
+
+def fig12_scenario() -> tuple:
+    """Fig 12's ``(topo, sched, policy)``: 65,024 flows over 576 links."""
+    from repro_torch.core import CollectiveSpec, FabricSpec, ScenarioSpec
+    fab = FabricSpec("clos", n_racks=FIG12_RACKS, nodes_per_rack=2,
+                     gpus_per_node=8, oversubscription=FIG12_OVERSUB)
+    topo, sched, pol = ScenarioSpec(fab, CollectiveSpec("a2a", FIG12_BYTES),
+                                    FIG12_POLICY).build()
+    if sched.n_flows != FIG12_FLOWS:
+        raise AssertionError(f"fig12: {sched.n_flows} flows, expected "
+                             f"{FIG12_FLOWS}")
+    return topo, sched, pol
+
+
 
 # dlrm_reference: Table II widths with small tables, weights from numpy
 DLRM_REF_ROWS = 8192
@@ -385,7 +447,9 @@ def fused_case(policy, F: int, B: int, lossy: bool, seed: int, dev):
     return case, state, params
 
 
-def check_fused(dev) -> dict:
+def check_fused(dev, flows) -> dict:
+    """The fused kernel against its plain version for every policy, lossy
+    and lossless, at each flow count of ``flows`` and ``CHECK_LANES``."""
     import torch
     from repro_torch.core import cc
     from repro_torch.kernels.engine_step import ops, ref
@@ -395,8 +459,8 @@ def check_fused(dev) -> dict:
     for pi, name in enumerate(cc.ALL_POLICIES):
         policy = cc.get_policy(name)
         for lossy in (False, True):
-            for F in (1500, 7936, 131072):
-                for B in (1, 3):
+            for F in flows:
+                for B in CHECK_LANES:
                     case, state, params = fused_case(
                         policy, F, B, lossy, 1000 * pi + F + B + lossy, dev)
                     args = (*case.values(), state, params)
@@ -419,7 +483,8 @@ def check_fused(dev) -> dict:
                         rel = err / w.abs().clamp_min(1e-30)
                         worst_rel = max(worst_rel, float(rel.max()))
                     n += 1
-    return {"cases": n, "max_abs_err": worst, "max_rel_err": worst_rel,
+    return {"cases": n, "flows": list(flows), "lanes": list(CHECK_LANES),
+            "max_abs_err": worst, "max_rel_err": worst_rel,
             "tolerance": "rtol 1e-5"}
 
 
@@ -452,7 +517,7 @@ def check_segments(plans, dev) -> tuple:
     worst = {"segment_reduce": 0.0, "segment_reduce_pfc": 0.0}
     rows = []
     for label, what, n_out, C, idx, n_in in plans:
-        for B in (1, 3):
+        for B in CHECK_LANES:
             vals = torch.as_tensor(rng.uniform(0, 2e6, (B, n_in)),
                                    dtype=torch.float32, device=dev)
             got = ops.segment_reduce(vals, idx, n_out, C)
@@ -490,6 +555,71 @@ def check_segments(plans, dev) -> tuple:
         rows.append(f"{label}/{what} ({n_out}x{C}, n_in={n_in})")
     torch.cuda.synchronize()
     return worst, rows
+
+
+def carry_leaves(carry, prefix=""):
+    for k, v in carry.items():
+        if isinstance(v, dict):
+            yield from carry_leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def check_batched_step(sim, cfg) -> dict:
+    """Fig 12's 9 lanes driven ``FIG12_STEP_AT`` steps on the kernel path,
+    then one more step from that state on each path: every float leaf of
+    the carry within rtol 1e-5 + atol 1e-3 (the kernels' check tolerance,
+    as ``tests/test_torch_kernels_cuda.py``), every flag equal.  Holds the
+    fused and segment kernels at the batch's own shapes (B=9, its padded
+    flows, its plans) against the op path on every lane."""
+    import torch
+    from repro_torch.core import engine, sweep
+    pts = fig12_points()
+    B = len(pts)
+    fab = sweep._stack_fabric(sim.fabric, {
+        "kmin": pts[:, 0], "kmax": pts[:, 1], "xoff": pts[:, 2]}, B)
+    steps = {impl: engine._make_step(sim.policy, cfg, sim.plan, sim.pp, None,
+                                     fab, impl == "cuda", lanes=B)
+             for impl in ("cuda", "torch")}
+    carry = engine._init_carry(sim.pp, sim.plan, sim.policy, cfg, None,
+                               lanes=B)
+    for it in range(FIG12_STEP_AT):
+        carry = steps["cuda"](carry, it)
+    if bool(engine._halted_lanes(carry).any()):
+        raise AssertionError("batched_step_check: a lane halted before "
+                             f"step {FIG12_STEP_AT}")
+    got = steps["cuda"](engine._tree_map(torch.clone, carry), FIG12_STEP_AT)
+    want = dict(carry_leaves(steps["torch"](
+        engine._tree_map(torch.clone, carry), FIG12_STEP_AT)))
+    torch.cuda.synchronize()
+    leaves = equal = 0
+    worst = 0.0
+    for k, a in carry_leaves(got):
+        w = want[k]
+        leaves += 1
+        same = bool(torch.equal(a, w))
+        equal += same
+        if same:
+            continue
+        if not a.is_floating_point():
+            raise AssertionError(f"batched_step_check: {k} differs on "
+                                 f"{int((a != w).sum())} elements")
+        close = torch.isclose(a, w, rtol=1e-5, atol=1e-3)
+        if not bool(close.all()):
+            raise AssertionError(f"batched_step_check: {k}: "
+                                 f"{int((~close).sum())} values beyond "
+                                 "rtol 1e-5 + atol 1e-3")
+        fin = torch.isfinite(w)
+        worst = max(worst, float((a - w)[fin].abs().max()))
+    pause = carry["pause_count"].sum(dim=-1)
+    if not bool((pause > 0).any()):
+        raise AssertionError("batched_step_check: no PAUSE in the state")
+    return {"lanes": B, "flows_padded": sim.plan.n_flows_pad,
+            "links": sim.plan.n_links, "step": FIG12_STEP_AT,
+            "leaves": leaves, "leaves_bit_equal": equal,
+            "max_abs_err": worst,
+            "pause_frames_per_lane": pause.tolist(),
+            "tolerance": "rtol 1e-5 + atol 1e-3; flags equal"}
 
 
 def time_fused(sim, dev) -> dict:
@@ -645,6 +775,294 @@ def run_main(runner, spec, label: str, impl: str) -> tuple:
             "launches": launches}
     emit(line)
     return r, launches
+
+
+# ---------------------------------------------------------------------------
+# the DCQCN update kernel, and the batched sweeps
+# ---------------------------------------------------------------------------
+
+def dcqcn_state(F: int, seed: int, varied: bool, dev) -> tuple:
+    """A DCQCN state as ``tests/test_kernels.py:82-85`` draws it (rc
+    scaled by U(0.05, 1), alpha U(0.1, 1), ECN U(0, 0.4)), with numpy;
+    ``varied`` also spreads the timers, counters and rt so that every
+    branch of the update runs.  Returns ``(state, ecn, line)``."""
+    import torch
+    from repro_torch.core.cc import dcqcn_jitter
+    rng = np.random.default_rng(seed)
+    line = np.full(F, 25e9, np.float32)
+    st = {"rc": line * rng.uniform(0.05, 1.0, F), "rt": line,
+          "alpha": rng.uniform(0.1, 1.0, F), "t_cut": np.full(F, -1.0),
+          "t_inc": np.zeros(F), "t_alpha": np.zeros(F),
+          "inc_count": np.zeros(F)}
+    if varied:
+        for k in ("t_cut", "t_inc", "t_alpha"):
+            st[k] = rng.uniform(0, 2e-3, F)
+        st["inc_count"] = rng.integers(0, 15, F)
+        st["rt"] = line * rng.uniform(0.05, 1.0, F)
+    ecn = rng.uniform(0, 0.4, F) * (rng.random(F) < (0.6 if varied else 1.0))
+
+    def dev_f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    st = {k: dev_f32(v) for k, v in st.items()}
+    st["jit"] = dcqcn_jitter(F, dev)
+    return st, dev_f32(ecn), dev_f32(line)
+
+
+def check_cc_update(dev) -> dict:
+    """The DCQCN update kernel against its plain version, bit for bit:
+    every F of ``CCU_FLOWS``, two state draws, two times, default and
+    non-default (x1.3) parameters."""
+    import torch
+    from repro_torch.core.cc import make_dcqcn
+    from repro_torch.kernels.cc_update import ops, ref
+    cases = elems = differ = 0
+    worst = 0.0
+    for F in CCU_FLOWS:
+        for seed, varied in ((F, False), (F + 1, True)):
+            st, ecn, line = dcqcn_state(F, seed, varied, dev)
+            for t in CCU_TIMES:
+                for scale in (1.0, 1.3):
+                    params = {k: v * scale
+                              for k, v in make_dcqcn().params.items()}
+                    got = ops.dcqcn_update(st, ecn, line, t, params)
+                    want = ref.dcqcn_update_ref(st, ecn, line, t, params)
+                    for k in ops.ORDER:
+                        differ += int((got[k] != want[k]).sum())
+                        worst = max(worst, float((got[k] - want[k]).abs()
+                                                 .max()))
+                        elems += F
+                    cases += 1
+    torch.cuda.synchronize()
+    line = {"cases": cases, "flows": list(CCU_FLOWS), "times": CCU_TIMES,
+            "params": "defaults and x1.3", "states": "reference draw and "
+            "varied timers", "elements": elems, "differ": differ,
+            "max_abs_err": worst, "tolerance": "bit for bit"}
+    if differ:
+        raise AssertionError(f"dcqcn_update differs from its plain version: "
+                             f"{line}")
+    return line
+
+
+def time_cc_update(dev) -> dict:
+    """Kernel (direct C calls, cycling over 8 input sets, 71 MB, so that
+    they do not stay in the 50 MB L2) and plain version at F=130,048."""
+    import torch
+    from repro_torch.kernels.cc_update import ops, ref
+    F = CCU_PATH_FLOWS
+    fn = ops.kernel_function()
+    p = ref.dcqcn_params(None)
+    stream = torch.cuda.current_stream().cuda_stream
+    sets = []
+    for i in range(8):
+        st, ecn, line = dcqcn_state(F, 40 + i, True, dev)
+        ins = [st[k] for k in ops.ORDER] + [ecn, line]
+        outs = [torch.empty_like(ecn) for _ in ops.ORDER[:7]]
+        sets.append((ins, outs, [*(x.data_ptr() for x in ins), 2e-3,
+                                 *(p[k] for k in ops.PARAM_ORDER), F,
+                                 *(o.data_ptr() for o in outs)]))
+    turn = [0]
+
+    def launch():
+        args = sets[turn[0] % len(sets)][2]
+        turn[0] += 1
+        if fn(*args, stream) != 0:
+            raise RuntimeError("dcqcn_update launch failed")
+    st = dict(zip(ops.ORDER, sets[0][0][:8]))
+    ecn, line = sets[0][0][8], sets[0][0][9]
+    n_bytes = 4 * F * (10 + 7)
+    flops = 60 * F
+    ms = cuda_ms(launch)
+    # the host's time per launch (ctypes call, 29 arguments), unsynchronised:
+    # where it is near ``ms``, the card waits on the launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        launch()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    return {"ms": ms, "host_us_per_launch": host_us, "plain_ms": cuda_ms(
+                lambda: ref.dcqcn_update_ref(st, ecn, line, 2e-3, None),
+                reps=20, inner=5),
+            "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                            flops / F32_FLOPS) * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "shape": f"F={F}", "bytes": n_bytes}
+
+
+def cc_update_path(dev) -> tuple:
+    """The entry point ``dcqcn_update`` driven over a DCQCN trajectory of
+    ``CCU_PATH_FLOWS`` flows (the 128-GPU all-reduce's count) for
+    ``CCU_PATH_STEPS`` steps of ``DT``: each step marks 30% of the flows
+    with an ECN fraction up to 0.4, drawn on the card from a seeded
+    generator.  The same trajectory through the plain version must end
+    bit for bit in the same state.  Returns ``(launches, line)``."""
+    import torch
+    from repro_torch.kernels.cc_update import ops, ref
+    F, n = CCU_PATH_FLOWS, CCU_PATH_STEPS
+    st0, _, line = dcqcn_state(F, 21, False, dev)
+
+    def trajectory(update):
+        gen = torch.Generator(device=dev).manual_seed(21)
+        st = {k: v.clone() for k, v in st0.items()}
+        for i in range(n):
+            u = torch.rand(F, generator=gen, device=dev)
+            ecn = torch.where(u < 0.3, u * (0.4 / 0.3), 0.0)
+            st = update(st, ecn, line, (i + 1) * DT, None)
+        return st
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = trajectory(ops.dcqcn_update)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES["dcqcn_update"]
+    want = trajectory(ref.dcqcn_update_ref)
+    differ = sum(int((got[k] != want[k]).sum()) for k in ops.ORDER)
+    out = {"flows": F, "steps": n, "launches": launches, "wall_s": wall,
+           "elements": F * len(ops.ORDER), "differ": differ,
+           "mean_rate_of_line": float((got["rc"] / line).mean()),
+           "cuts_seen": int((got["t_cut"] > 0).sum())}
+    if launches != n or differ:
+        raise AssertionError(f"cc_update_path: {out}")
+    return launches, out
+
+
+def batch_fig12(runner, gpu: str) -> dict:
+    """Fig 12's fabric sweep at paper scale as one ``run_batch`` of 9
+    lanes on the kernel path; lanes 0 and 8 against the port's serial
+    kernel-path runs and the JAX reference's.  Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.core import FabricParams
+    from repro_torch.kernels.engine_step import ops
+    topo, sched, pol = fig12_scenario()
+    cfg = dataclasses.replace(runner.cfg, step_impl="cuda")
+    pts = fig12_points()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = runner.run_batch(topo, sched, pol, cfg=cfg, stacked_fabric={
+        "kmin": pts[:, 0], "kmax": pts[:, 1], "xoff": pts[:, 2]})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    steps = batch.meta["steps_executed"]
+    if batch.meta["step_impl"] != "cuda" or \
+            launches["fused_signals_policy"] != steps:
+        raise AssertionError(f"fig12: {launches} launches for {steps} "
+                             f"steps on {batch.meta['step_impl']}")
+    if not batch.finished.all():
+        raise AssertionError(f"fig12: lanes {batch.lane_status()}")
+    lanes = [{"lane": i, "kmin": float(pts[i, 0]), "kmax": float(pts[i, 1]),
+              "xoff": float(pts[i, 2]),
+              "completion_time": float(batch.completion_time[i]),
+              "pause_frames": float(batch.pause_count[i].sum()),
+              "finished": bool(batch.finished[i]),
+              "steps": batch.meta["lane_steps"][i]} for i in range(batch.n)]
+    checks, serial_rate = [], []
+    for lane in FIG12_CHECK_LANES:
+        kmin, kmax, xoff = (float(v) for v in pts[lane])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = runner.run(topo, sched, pol, cfg=cfg, fabric_params=FabricParams(
+            kmin=kmin, kmax=kmax, xoff=xoff))
+        torch.cuda.synchronize()
+        sw = time.perf_counter() - t1
+        serial_rate.append(r.meta["steps_executed"] / sw)
+        want = FIG12_REFERENCE[lane]
+        ct, pf = lanes[lane]["completion_time"], lanes[lane]["pause_frames"]
+        row = {"lane": lane, "batch": ct, "serial": r.completion_time,
+               "reference": want["completion_time"],
+               "diff_steps_serial": float(steps_apart(ct, r.completion_time,
+                                                      DT)),
+               "diff_steps_reference": float(steps_apart(
+                   ct, want["completion_time"], DT)),
+               "pause_batch": pf, "pause_serial": float(r.pause_count.sum()),
+               "pause_reference": want["pause_frames"],
+               "bit_equal_serial": bool(
+                   np.array_equal(r.t_finish, batch.t_finish[lane])
+                   and np.array_equal(r.pause_count, batch.pause_count[lane])
+                   and np.array_equal(r.delivered, batch.delivered[lane])),
+               "serial_wall_s": sw,
+               "serial_steps_executed": r.meta["steps_executed"]}
+        checks.append(row)
+        for other in (row["pause_serial"], row["pause_reference"]):
+            if abs(pf - other) > 1.0 + 1e-3 * abs(other):
+                raise AssertionError(f"fig12 lane {lane}: PAUSE {row}")
+        if max(row["diff_steps_serial"], row["diff_steps_reference"]) > 2:
+            raise AssertionError(f"fig12 lane {lane}: completion {row}")
+    emit({"phase": "batch_fig12", "gpu": gpu, "n_flows": sched.n_flows,
+          "n_links": topo.n_links, "policy": pol.name,
+          "step_impl": batch.meta["step_impl"], "lanes": lanes,
+          "best": batch.best(), "steps_run": batch.meta["steps_run"],
+          "steps_executed": steps, "wall_s": wall,
+          # each lane's own steps (not the no-ops of a lane that halted)
+          "lane_steps_per_s": sum(batch.meta["lane_steps"]) / wall,
+          "serial_steps_per_s": serial_rate,
+          "serial_wall_s": sum(c["serial_wall_s"] for c in checks),
+          "launches": launches,
+          "checks": checks, "tolerance": "2 steps; PAUSE rtol 1e-3 + 1"})
+    return launches
+
+
+def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
+    """The 128-GPU 1D all-reduce under pfc, dcqcn and hpcc as one
+    policy-axis batch (op path, as the reference runs stacked policies);
+    each lane within two steps of ``REFERENCE`` and of this script's
+    serial kernel-path run.  The dcqcn lane is also the op-path side of
+    the 128-GPU kernel-vs-op-path check, at the port's whole-run
+    tolerances."""
+    from types import SimpleNamespace
+    import torch
+    from repro_torch.core import ScenarioSpec
+    from repro_torch.kernels.engine_step import ops
+    fab, wl = scen["clos128_1d"]
+    topo, sched, _ = ScenarioSpec(fab, wl, "pfc").build()
+    axis = ("pfc", "dcqcn", "hpcc")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = runner.run_policy_axis(topo, sched, axis)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(ops.LAUNCHES.values()) or batch.meta["step_impl"] != "torch":
+        raise AssertionError(f"policy_axis: {ops.LAUNCHES} on "
+                             f"{batch.meta['step_impl']}")
+    rows = []
+    for i, pol in enumerate(batch.policy_axis):
+        ct = float(batch.completion_time[i])
+        ser = results[("clos128_1d", pol)]
+        row = {"policy": pol, "finished": bool(batch.finished[i]),
+               "completion_time": ct,
+               "reference": REFERENCE[("clos128_1d", pol)],
+               "serial": ser.completion_time,
+               "diff_steps_reference": float(steps_apart(
+                   ct, REFERENCE[("clos128_1d", pol)], DT)),
+               "diff_steps_serial": float(steps_apart(
+                   ct, ser.completion_time, DT)),
+               "pause_frames": float(batch.pause_count[i].sum()),
+               "pause_serial": float(ser.pause_count.sum())}
+        rows.append(row)
+        if not row["finished"] or max(row["diff_steps_reference"],
+                                      row["diff_steps_serial"]) > 2:
+            raise AssertionError(f"policy_axis {pol}: {row}")
+    emit({"phase": "policy_axis", "gpu": gpu, "scenario": "clos128_1d",
+          "n_flows": sched.n_flows, "step_impl": batch.meta["step_impl"],
+          "steps_executed": batch.meta["steps_executed"],
+          "lane_steps": batch.meta["lane_steps"], "wall_s": wall,
+          "lane_steps_per_s": sum(batch.meta["lane_steps"]) / wall,
+          "rows": rows, "tolerance_steps": 2})
+    i = batch.policy_axis.index("dcqcn")
+    lane = SimpleNamespace(
+        finished=bool(batch.finished[i]),
+        completion_time=float(batch.completion_time[i]),
+        t_finish=batch.t_finish[i], delivered=batch.delivered[i],
+        pause_count=batch.pause_count[i])
+    emit({"phase": "kernel_vs_op_path", "scenario": "clos128_1d",
+          "policy": "dcqcn", "op_path": "policy_axis lane",
+          **compare_runs(results[("clos128_1d", "dcqcn")], lane, DT,
+                         "clos128_1d dcqcn")})
 
 
 # ---------------------------------------------------------------------------
@@ -1327,17 +1745,23 @@ def main() -> int:
     for label, (fab, wl) in scen.items():
         topo, sched, pol = ScenarioSpec(fab, wl, "dcqcn").build()
         sims[label] = runner.simulator(topo, sched, pol)
+    sims["fig12"] = runner.simulator(*fig12_scenario())
 
     # ---- 2. kernels against their plain versions -------------------------
-    fused = check_fused(dev)
+    # at every padded flow count and plan of the main paths, B in CHECK_LANES
+    flows = sorted({1500, 7936} | {s.plan.n_flows_pad for s in sims.values()})
+    fused = check_fused(dev, flows)
     emit({"phase": "kernel_check", "kernel": "fused_signals_policy",
           **fused})
     plans = gather_plans(sims)
     seg_err, seg_rows = check_segments(plans, dev)
     emit({"phase": "kernel_check", "kernel": "segment_reduce(+_pfc)",
-          "plans": seg_rows, "max_abs_err": seg_err,
+          "plans": seg_rows, "lanes": list(CHECK_LANES),
+          "max_abs_err": seg_err,
           "tolerance": "|err| <= 4e-6 * sum|members|; paused exact away "
                        "from the thresholds"})
+    emit({"phase": "batched_step_check",
+          **check_batched_step(sims["fig12"], cfg)})
     s128, s32 = sims["clos128_1d"], sims["clos32_2d"]
     timing = {
         "fused_signals_policy": time_fused(s128, dev),
@@ -1352,6 +1776,11 @@ def main() -> int:
                                            dev),
     }
     emit({"phase": "kernel_timing", "gpu": gpu, **timing})
+    ccu_check = check_cc_update(dev)
+    emit({"phase": "cc_update_check", "kernel": "dcqcn_update", **ccu_check})
+    timing["dcqcn_update"] = time_cc_update(dev)
+    emit({"phase": "kernel_timing", "gpu": gpu,
+          "dcqcn_update": timing["dcqcn_update"]})
 
     # ---- 3. main path at the paper's scale ---------------------------------
     ops.reset_launches()
@@ -1367,14 +1796,8 @@ def main() -> int:
             raise AssertionError(f"clos128_1d {pol}: {launches} launches "
                                  f"for {steps} executed steps")
         results[("clos128_1d", pol)] = r
-    fab, wl = scen["clos128_1d"]
-    r_t, l_t = run_main(runner, ScenarioSpec(fab, wl, "dcqcn"),
-                        "clos128_1d", "torch")
-    if any(l_t.values()):
-        raise AssertionError(f"op path launched kernels: {l_t}")
-    emit({"phase": "kernel_vs_op_path", "scenario": "clos128_1d",
-          "policy": "dcqcn", **compare_runs(results[("clos128_1d", "dcqcn")],
-                                            r_t, DT, "clos128_1d dcqcn")})
+    # the 128-GPU op-path side of the kernel-vs-op-path check is the dcqcn
+    # lane of phase 5d's policy-axis batch
 
     # ---- 4. main path where all three kernels run ---------------------------
     fab, wl = scen["clos32_2d"]
@@ -1402,6 +1825,16 @@ def main() -> int:
             raise AssertionError(f"{key}: completion {got} vs reference "
                                  f"{want} ({diff:.2f} steps)")
     emit({"phase": "reference", "tolerance_steps": 2, "rows": rows})
+
+    # ---- 5b. the DCQCN update through its entry point ----------------------
+    ccu_launches, ccu_path = cc_update_path(dev)
+    emit({"phase": "cc_update_path", "gpu": gpu, **ccu_path})
+
+    # ---- 5c. Fig 12's fabric sweep as one batch of 9 lanes ------------------
+    fig12_launches = batch_fig12(runner, gpu)
+
+    # ---- 5d. the policy comparison as one policy-axis batch (op path) ------
+    policy_axis(runner, scen, results, gpu)
 
     # ---- 6. DLRM: the embedding-bag kernel against its plain version -------
     emb_check = dlrm_kernel_check(dev)
@@ -1439,10 +1872,12 @@ def main() -> int:
     # launches: the sum over the paths each kernel runs on, each path's
     # counts set to 0 just before it and read just after
     path_launches = {k: main_launches[k] + iter_launches[k]
-                     for k in main_launches}
+                     + fig12_launches[k] for k in main_launches}
+    path_launches["dcqcn_update"] = ccu_launches
     path_launches.update(emb_launches)
     path_launches["flash_decode"] = entry_launches + long_launches
     errs = {"fused_signals_policy": fused["max_abs_err"], **seg_err,
+            "dcqcn_update": ccu_check["max_abs_err"],
             "embedding_bag_rows": emb_check["max_abs_err"],
             "flash_decode": max(fd_check["max_abs_err"], *(
                 r["max_abs_err"] for r in fd_layers.values()))}

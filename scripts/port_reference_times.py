@@ -4,14 +4,16 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py [name ...]
 
 with names from ``clos128_1d``, ``clos32_2d`` (collective completion
-times, jnp step), ``dlrm_reference`` (Table II DLRM logits on a seeded
-batch), ``dlrm_iteration`` (the DLRM training iteration on the 128-GPU
-platform) and ``serve_reference`` (TinyLlama's logits, prefill and
-teacher-forced decode, at full width and 4 layers); all of them by
+times, jnp step), ``batch_fig12`` (lanes 0 and 8 of Fig 12's fabric
+sweep, each as a serial run), ``dlrm_reference`` (Table II DLRM logits on
+a seeded batch), ``dlrm_iteration`` (the DLRM training iteration on the
+128-GPU platform) and ``serve_reference`` (TinyLlama's logits, prefill
+and teacher-forced decode, at full width and 4 layers); all of them by
 default.  Prints one JSON line per result; ``chip_smoke.py`` holds the
-port's card runs to these values (``REFERENCE``, ``DLRM_ITER_REFERENCE``,
-``DLRM_REF_LOGITS`` and ``SERVE_REF`` there).  The 128-GPU runs take a
-few minutes each on a CPU, the DLRM logits about four.
+port's card runs to these values (``REFERENCE``, ``FIG12_REFERENCE``,
+``DLRM_ITER_REFERENCE``, ``DLRM_REF_LOGITS`` and ``SERVE_REF`` there).
+The 128-GPU runs take a few minutes each on a CPU, the DLRM logits about
+four.
 
 The reference's DLRM iteration salts its All-To-All's ECMP keys with
 Python's ``hash(tag)``, which changes from process to process; this script
@@ -35,7 +37,7 @@ import numpy as np
 import repro.core.workload as rworkload
 from repro.configs import get_config
 from repro.core.cc import get_policy
-from repro.core.engine import EngineConfig
+from repro.core.engine import EngineConfig, FabricParams
 from repro.core.scenario import CollectiveSpec, FabricSpec, ScenarioSpec
 from repro.core.sweep import SweepRunner
 from repro.data.pipeline import dlrm_batch
@@ -73,6 +75,30 @@ def collective_times(name: str, runner) -> None:
               "completion_time": r.completion_time,
               "steps_run": r.meta["steps_run"], "finished": r.finished,
               "pause_frames": float(r.pause_count.sum()),
+              "n_flows": r.meta["n_flows"],
+              "cpu_seconds": time.perf_counter() - t0})
+
+
+def batch_fig12(runner) -> None:
+    """Fig 12's fabric sweep (``chip_smoke.FIG12_*``): lanes 0 and 8 as
+    serial runs of the reference's jnp step, DCQCN."""
+    cs = chip_smoke
+    fab = FabricSpec("clos", n_racks=cs.FIG12_RACKS, nodes_per_rack=2,
+                     gpus_per_node=8, oversubscription=cs.FIG12_OVERSUB)
+    spec = ScenarioSpec(fabric=fab, workload=CollectiveSpec(
+        "a2a", cs.FIG12_BYTES), policy=cs.FIG12_POLICY)
+    topo, sched, pol = spec.build()
+    pts = cs.fig12_points()
+    for lane in cs.FIG12_CHECK_LANES:
+        kmin, kmax, xoff = (float(v) for v in pts[lane])
+        t0 = time.perf_counter()
+        r = runner.run(topo, sched, pol, fabric_params=FabricParams(
+            kmin=kmin, kmax=kmax, xoff=xoff))
+        emit({"scenario": "batch_fig12", "lane": lane, "kmin": kmin,
+              "kmax": kmax, "xoff": xoff, "policy": pol.name,
+              "completion_time": r.completion_time,
+              "pause_frames": float(r.pause_count.sum()),
+              "finished": r.finished, "steps_run": r.meta["steps_run"],
               "n_flows": r.meta["n_flows"],
               "cpu_seconds": time.perf_counter() - t0})
 
@@ -183,10 +209,12 @@ def serve_reference() -> None:
 def main(names):
     emit({"jax": jax.__version__, "numpy": np.__version__})
     runner = SweepRunner(CFG)
-    for name in names or [*SCENARIOS, "dlrm_reference", "dlrm_iteration",
-                          "serve_reference"]:
+    for name in names or [*SCENARIOS, "batch_fig12", "dlrm_reference",
+                          "dlrm_iteration", "serve_reference"]:
         if name in SCENARIOS:
             collective_times(name, runner)
+        elif name == "batch_fig12":
+            batch_fig12(runner)
         elif name == "dlrm_iteration":
             dlrm_iteration(runner)
         elif name == "dlrm_reference":

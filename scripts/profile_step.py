@@ -2,13 +2,14 @@
 """Where one engine step's time goes on the card, for the scenarios that
 ``chip_smoke.py`` drives (128-GPU 1D all-reduce, 32-GPU 2D all-reduce and
 the 128-GPU DLRM training iteration with the 2D all-reduce, DCQCN), on
-both step paths; where one forward of the Table II DLRM (batch 256)
+both step paths; for Fig 12's fabric sweep (``batch_fig12``) on the
+kernel path at B=9 lanes and at B=1 (lane 0 alone); where one forward of the Table II DLRM (batch 256)
 goes; and where one decode step of TinyLlama-1.1B goes on
 ``chip_smoke.py``'s long serving run (8 slots, 2,048-token prompts, a
 32,768-token cache), on both decode paths (``decode_impl`` cuda and
 torch).
 
-    python3 scripts/profile_step.py [--out profile.json]
+    python3 scripts/profile_step.py [--out profile.json] [--only name ...]
 
 Each (scenario, step_impl) starts a fresh run and steps it ``--warm``
 steps.  Then every run is timed for ``--steps`` steps on the host clock,
@@ -41,6 +42,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 FORWARDS, TRACE_FORWARDS = 100, 20
 # TinyLlama decode steps: warm-up, timed, traced (each path has its cache)
 WARM_DECODE, DECODE_STEPS, TRACE_DECODE = 4, 24, 8
+SCENARIOS = ("clos128_1d", "dlrm128_2d", "clos32_2d", "batch_fig12",
+             "dlrm_forward", "serve_decode")
 
 
 def busy_us(intervals) -> float:
@@ -57,28 +60,36 @@ def busy_us(intervals) -> float:
 
 
 class Run:
-    """One fresh run of a scenario on one step path, stepped on demand."""
+    """One fresh run of a scenario on one step path, stepped on demand;
+    ``stacked_fabric`` (FabricParams field -> length-B array) makes it a
+    batch of B lanes, as ``SweepRunner.run_batch`` steps them."""
 
-    def __init__(self, runner, spec, impl: str):
-        from repro_torch.core import engine
+    def __init__(self, runner, spec, impl: str, stacked_fabric=None):
+        from repro_torch.core import engine, sweep
         cfg = dataclasses.replace(runner.cfg, step_impl=impl)
         topo, sched, self.policy = spec.build()
         self.sim = runner.simulator(topo, sched, self.policy, cfg)
+        lanes, fab = 1, self.sim.fabric
+        if stacked_fabric is not None:
+            lanes = len(next(iter(stacked_fabric.values())))
+            fab = sweep._stack_fabric(fab, stacked_fabric, lanes)
+        self.lanes = lanes
         self.step = engine._make_step(self.policy, cfg, self.sim.plan,
-                                      self.sim.pp, None, self.sim.fabric,
-                                      self.sim.step_impl == "cuda")
+                                      self.sim.pp, None, fab,
+                                      self.sim.step_impl == "cuda", lanes)
         self.carry = engine._init_carry(self.sim.pp, self.sim.plan,
-                                        self.policy, cfg)
+                                        self.policy, cfg, None, lanes)
         self.it = 0
 
     def advance(self, n: int) -> None:
         import torch
         from repro_torch.core import engine
         for _ in range(n):
-            if engine._halted(self.carry):
+            stop, live, _ = engine._gate(self.carry)
+            if stop:
                 raise RuntimeError(f"run halted at step {self.it}: lower "
                                    "--warm or --steps")
-            self.carry = self.step(self.carry, self.it)
+            self.carry = self.step(self.carry, self.it, live)
             self.it += 1
         torch.cuda.synchronize()
 
@@ -180,7 +191,10 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-steps", type=int, default=64)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", help="also write all lines to this JSON file")
+    ap.add_argument("--only", nargs="+", choices=SCENARIOS,
+                    help="profile only these scenarios (default: all)")
     args = ap.parse_args(argv)
+    only = set(args.only or SCENARIOS)
 
     import torch
     if not torch.cuda.is_available():
@@ -192,6 +206,8 @@ def main(argv=None) -> int:
     from repro_torch.core import (CollectiveSpec, DLRMCommSpec,
                                   DLRMIterationSpec, EngineConfig,
                                   FabricSpec, ScenarioSpec, SweepRunner)
+    sys.path.insert(0, str(SRC.parent))
+    import chip_smoke
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -211,51 +227,71 @@ def main(argv=None) -> int:
             FabricSpec("clos", n_racks=2, nodes_per_rack=2, gpus_per_node=8,
                        oversubscription=2.0), CollectiveSpec("2d", 128e6),
             "dcqcn"),
+        # Fig 12's fabric sweep (chip_smoke.batch_fig12), kernel path
+        "batch_fig12": ScenarioSpec(
+            FabricSpec("clos", n_racks=chip_smoke.FIG12_RACKS,
+                       nodes_per_rack=2, gpus_per_node=8,
+                       oversubscription=chip_smoke.FIG12_OVERSUB),
+            CollectiveSpec("a2a", chip_smoke.FIG12_BYTES),
+            chip_smoke.FIG12_POLICY),
     }
+    pts = chip_smoke.fig12_points()
+    # batch_fig12: the 9-lane batch, and lane 0 alone (B=1), both on the
+    # kernel path
+    variants = {"batch_fig12": [("cuda", 9), ("cuda", 1)]}
     runs, lines = {}, {}
     for label, spec in scen.items():
+        if label not in only:
+            continue
         # the 32-GPU run finishes in ~740 steps: keep its windows inside
         # it; start the DLRM iteration's inside its all-reduce
         warm = {"clos32_2d": min(args.warm, 300),
                 "dlrm128_2d": max(args.warm, 700)}.get(label, args.warm)
-        for impl in ("cuda", "torch"):
-            run = runs[label, impl] = Run(runner, spec, impl)
+        for impl, B in variants.get(label, [("cuda", None), ("torch", None)]):
+            stacked = (None if B is None else {"kmin": pts[:B, 0],
+                                               "kmax": pts[:B, 1],
+                                               "xoff": pts[:B, 2]})
+            run = runs[label, impl, B] = Run(runner, spec, impl, stacked)
             run.advance(warm)
             ms = run.host_ms(args.steps)
-            lines[label, impl] = {
+            lines[label, impl, B] = {
                 "scenario": label, "gpu": gpu,
                 "n_flows": run.sim.plan.n_flows, "policy": run.policy.name,
-                "step_impl": run.sim.step_impl,
+                "step_impl": run.sim.step_impl, "lanes": run.lanes,
                 "first_timed_step": run.it - args.steps,
-                "host_ms_per_step": ms, "steps_per_s": 1e3 / ms}
-    fwd = Forwards()
-    fwd.advance(5)
-    ms = fwd.host_ms(FORWARDS)
-    lines["dlrm_forward"] = {
-        "scenario": "dlrm_forward", "gpu": gpu, "batch": 256,
-        "rows_per_table": fwd.model.cfg.rows_per_table,
-        "embedding_impl": fwd.model.embedding_impl,
-        "host_ms_per_step": ms, "forwards_per_s": 1e3 / ms}
-    from repro_torch.configs import get_model
-    model = get_model("tinyllama-1.1b", device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+                "host_ms_per_step": ms, "steps_per_s": 1e3 / ms,
+                "lane_steps_per_s": run.lanes * 1e3 / ms}
+    if "dlrm_forward" in only:
+        fwd = Forwards()
+        fwd.advance(5)
+        ms = fwd.host_ms(FORWARDS)
+        lines["dlrm_forward"] = {
+            "scenario": "dlrm_forward", "gpu": gpu, "batch": 256,
+            "rows_per_table": fwd.model.cfg.rows_per_table,
+            "embedding_impl": fwd.model.embedding_impl,
+            "host_ms_per_step": ms, "forwards_per_s": 1e3 / ms}
     decoding = {}
-    for impl in ("cuda", "torch"):
-        dec = decoding[impl] = Decoding(model, params, impl)
-        dec.advance(WARM_DECODE)
-        ms = dec.host_ms(DECODE_STEPS)
-        lines["serve_decode", impl] = {
-            "scenario": "serve_decode", "gpu": gpu, "slots": 8,
-            "prompt": 2048, "max_len": 32768, "decode_impl": impl,
-            "first_timed_position": dec.cache["pos"] - DECODE_STEPS,
-            "host_ms_per_step": ms, "tokens_per_s": 8e3 / ms}
+    if "serve_decode" in only:
+        from repro_torch.configs import get_model
+        model = get_model("tinyllama-1.1b", device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        for impl in ("cuda", "torch"):
+            dec = decoding[impl] = Decoding(model, params, impl)
+            dec.advance(WARM_DECODE)
+            ms = dec.host_ms(DECODE_STEPS)
+            lines["serve_decode", impl] = {
+                "scenario": "serve_decode", "gpu": gpu, "slots": 8,
+                "prompt": 2048, "max_len": 32768, "decode_impl": impl,
+                "first_timed_position": dec.cache["pos"] - DECODE_STEPS,
+                "host_ms_per_step": ms, "tokens_per_s": 8e3 / ms}
     for key, run in runs.items():
         line = lines[key]
         line["first_traced_step"] = run.it
         line.update(run.trace(args.trace_steps, args.top))
-    lines["dlrm_forward"].update(trace(
-        lambda: fwd.advance(TRACE_FORWARDS), TRACE_FORWARDS,
-        args.top))
+    if "dlrm_forward" in only:
+        lines["dlrm_forward"].update(trace(
+            lambda: fwd.advance(TRACE_FORWARDS), TRACE_FORWARDS,
+            args.top))
     for impl, dec in decoding.items():
         lines["serve_decode", impl].update(trace(
             lambda dec=dec: dec.advance(TRACE_DECODE), TRACE_DECODE,

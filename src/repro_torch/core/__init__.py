@@ -1,13 +1,14 @@
 """The port's core: fabric and schedule builders, CC policies, the fluid
-engine, scenario specs, the serial sweep runner and the DLRM iteration
-workload."""
+engine, scenario specs, the sweep runner (single runs, batched lanes,
+grids, the policy axis) and the DLRM iteration workload."""
 from repro_torch.core.cc import (ALL_POLICIES, REGISTRY, FlowCtx,  # noqa: F401
                                  ParamSpec, Policy, Signals, get_policy,
                                  kernel_param_keys, kernel_state_keys,
                                  make_dcqcn, make_dctcp, make_hpcc,
                                  make_hpcc_pint, make_pfc_only,
                                  make_static_window, make_timely,
-                                 pack_params, pack_state, unpack_state)
+                                 pack_params, pack_state, stack_labels,
+                                 stack_policies, unpack_state)
 from repro_torch.core.collectives import (COLLECTIVES,  # noqa: F401
                                           Schedule, ScheduleBuilder,
                                           allreduce_1d, allreduce_2d,
@@ -23,7 +24,9 @@ from repro_torch.core.scenario import (CollectiveSpec,  # noqa: F401
                                        FabricSpec, IncastSpec, ScenarioSpec,
                                        TOPOLOGIES, register_topology,
                                        scenario_matrix)
-from repro_torch.core.sweep import SweepRunner  # noqa: F401
+from repro_torch.core.sweep import (BatchResults, SweepRunner,  # noqa: F401
+                                    grid_from_spec, reset_unhealthy_warnings,
+                                    stack_policy_axis)
 from repro_torch.core.topology import (LINK_CLASSES, MAXHOP,  # noqa: F401
                                        Topology, clos, route, single_switch)
 from repro_torch.core.workload import (DLRMCommSpec,  # noqa: F401

@@ -42,10 +42,23 @@ def ftz(x: torch.Tensor) -> torch.Tensor:
     return x * (x.abs() >= _FLT_MIN)
 
 
-def rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
-    """``s / x`` for a scalar ``s``, rounded once: PyTorch evaluates a
-    scalar numerator as ``x.reciprocal() * s``, which rounds twice."""
+def rdiv(s, x: torch.Tensor) -> torch.Tensor:
+    """``s / x`` for a scalar ``s`` (or a per-lane column), rounded once:
+    PyTorch evaluates a scalar numerator as ``x.reciprocal() * s``, which
+    rounds twice."""
+    if isinstance(s, torch.Tensor):
+        return s / x
     return torch.full_like(x, s) / x
+
+
+def sdiv(x: torch.Tensor, s) -> torch.Tensor:
+    """``x / s`` for a scalar ``s`` (or a per-lane column), rounded once:
+    on CUDA, PyTorch evaluates a Python-scalar divisor as ``x * (1/s)``,
+    which rounds twice (on the CPU it divides), so the divisor goes to
+    the device as a 0-dim tensor there."""
+    if isinstance(s, torch.Tensor) or x.device.type == "cpu":
+        return x / s
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 def _seq(cols):
@@ -99,7 +112,7 @@ def row_prod(x: torch.Tensor) -> torch.Tensor:
 # evaluates for exp (with its multiply-adds contracted and results below
 # the smallest normal float flushed to zero).  Written out so that DCQCN's
 # p_cnp = 1 - exp(-pkts * ecn) is the reference's to the bit, on the CPU
-# and in the CUDA kernel (engine_step.cu: cephes_expf) alike.
+# and in the CUDA kernels (kernels/csrc/cc_policy.cuh: cephes_expf) alike.
 _EXP_LO = float.fromhex("-0x1.5f33340000000p+6")     # -87.8
 _EXP_HI = float.fromhex("0x1.6333340000000p+6")      # 88.8
 _LOG2E = float.fromhex("0x1.7154760000000p+0")

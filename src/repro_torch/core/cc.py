@@ -7,17 +7,21 @@ Each policy is a pair of plain functions:
     init(ctx: FlowCtx)                       -> dict of (F,) tensors
     update(params, state, sig: Signals)      -> (state, rate, window)
 
-``params`` is a flat dict of Python floats.  Where the reference combines
-two parameters before touching a tensor (``1 - g``), the port rounds that
-scalar to float32 (``_f32``), as the reference does when its parameters
-arrive as traced float32 arrays; tensor-scalar arithmetic in PyTorch
-already rounds the scalar to float32 first.
+``params`` is a flat dict whose values are Python floats (one lane) or
+``(B, 1)`` float32 columns (one value per sweep lane, broadcast against
+the ``(B, F)`` state).  Where the reference combines two parameters
+before touching a tensor (``1 - g``), the port rounds that scalar to
+float32 (``_f32``), as the reference does when its parameters arrive as
+traced float32 arrays; tensor-scalar arithmetic in PyTorch already rounds
+the scalar to float32 first, and a float32 column computes ``1 - g`` in
+float32 itself, so a lane gives the same bits either way.
 
 Every policy also carries ``kernel_id``: the template argument that picks
 its device function in the fused CUDA step kernel
 (``repro_torch/kernels/engine_step/csrc/engine_step.cu``).  A policy
-without one runs on the op path only.  The learned ``mlp`` policy and
-``stack_policies`` are not ported yet.
+without one runs on the op path only.  ``stack_policies`` builds the
+product policy of a policy axis (op path only, as in the reference).  The
+learned ``mlp`` policy is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,14 +31,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.arith import expf, fma, rdiv
+from repro_torch.core.arith import expf, fma, rdiv, sdiv
 
 INF = 1e18
 
 
-def _f32(x: float) -> float:
-    """Round a Python scalar to the nearest float32 value."""
-    return float(np.float32(x))
+def _f32(x):
+    """Round a Python scalar to the nearest float32 value; a per-lane
+    parameter column is float32 already and passes through."""
+    return x if isinstance(x, torch.Tensor) else float(np.float32(x))
 
 
 def _lossy(sig) -> bool:
@@ -162,6 +167,7 @@ class Policy:
     kind: str = "rate"             # "rate" | "window"
     loss_aware: bool = False       # reacts to Signals.loss (lossy RoCE)
     kernel_id: int | None = None   # device function in the fused CUDA step
+    members: tuple = ()            # stacked product policy: member labels
 
     @property
     def params(self) -> dict:
@@ -198,8 +204,7 @@ class Policy:
 
 
 def _full(like: torch.Tensor, v) -> torch.Tensor:
-    return torch.full((like.shape[0],), v, dtype=torch.float32,
-                      device=like.device)
+    return torch.full(like.shape, v, dtype=torch.float32, device=like.device)
 
 
 # fixed policy ids of the fused step kernel's device functions
@@ -270,7 +275,7 @@ def make_dcqcn(g: float = 1 / 256, rai_frac: float = 0.03,
         t, line = sig.t, sig.line
         # P(>=1 CNP per window) = 1 - exp(-pkts_in_window * mark_prob)
         jit = st["jit"]
-        pkts = st["rc"] * p["cut_gap"] / p["mss"]
+        pkts = sdiv(st["rc"] * p["cut_gap"], p["mss"])
         # lossy RoCE: NACK-driven cuts — treat loss like extra marking
         ecn_eff = _loss_ecn(sig)
         p_cnp = 1.0 - expf(-pkts * ecn_eff)
@@ -547,6 +552,68 @@ def get_policy(name: str, **kw) -> Policy:
 
 
 # ---------------------------------------------------------------------------
+# the policy axis: one product policy over several members
+# ---------------------------------------------------------------------------
+
+def stack_labels(policies) -> list:
+    """Unique member labels for a policy stack (name, or name<i> on
+    duplicates): the namespace prefix of the stacked param table."""
+    names = [p if isinstance(p, str) else p.name for p in policies]
+    return [n if names.count(n) == 1 else f"{n}{i}"
+            for i, n in enumerate(names)]
+
+
+def stack_policies(policies) -> Policy:
+    """Product policy over ``policies`` (names or Policy objects).
+
+    State is the tuple of every member's state.  ``update`` evaluates every
+    member on every lane and selects per lane by the ``_which`` parameter,
+    as the reference's ``lax.switch`` does under ``vmap``: member ``i``'s
+    state changes only on the lanes that select it.  Member params are
+    namespaced ``"<label>.<param>"``; ``_wire`` carries the selected
+    member's wire factor (HPCC's INT overhead), which the engine reads per
+    lane.  The product has no device function: it runs on the op path.
+    """
+    members = [get_policy(p) if isinstance(p, str) else p for p in policies]
+    if len(members) < 2:
+        raise ValueError("stack_policies needs at least two policies")
+    labels = stack_labels(members)
+    n = len(members)
+
+    spec = {
+        "_which": ParamSpec(0, lo=0, hi=n - 1, integer=True),
+        "_wire": ParamSpec(float(members[0].wire_factor),
+                           lo=1.0, hi=1.1, scale="linear"),
+    }
+    for lab, m in zip(labels, members):
+        for k, s in m.spec.items():
+            spec[f"{lab}.{k}"] = s
+
+    def init(ctx):
+        return tuple(m.init(ctx) for m in members)
+
+    def update(p, st, sig):
+        # lax.switch takes the integer part of the selector, clamped
+        which = torch.clamp(torch.as_tensor(
+            p["_which"], device=sig.line.device).to(torch.int32), 0, n - 1)
+        new_st, rate, win = list(st), None, None
+        for i, (lab, m) in enumerate(zip(labels, members)):
+            sub, r, w = m.update({k: p[f"{lab}.{k}"] for k in m.spec},
+                                 st[i], sig)
+            sel = which == i
+            new_st[i] = {k: torch.where(sel, v, st[i][k])
+                         for k, v in sub.items()}
+            rate = r if rate is None else torch.where(sel, r, rate)
+            win = w if win is None else torch.where(sel, w, win)
+        return tuple(new_st), rate, win
+
+    return Policy(name="stack(" + "+".join(labels) + ")", spec=spec,
+                  init=init, update=update, kind="mixed",
+                  loss_aware=any(m.loss_aware for m in members),
+                  members=tuple(labels))
+
+
+# ---------------------------------------------------------------------------
 # the kernel ABI: state -> (K, F) and params -> (P,), both in sorted-key
 # order, as the reference's ``kernel_state_keys``/``kernel_param_keys``
 # ---------------------------------------------------------------------------
@@ -605,12 +672,21 @@ def unpack_state(policy: Policy, packed: torch.Tensor) -> dict:
 
 
 def pack_params(policy: Policy, params: dict | None = None,
-                device=None) -> torch.Tensor:
+                device=None, lanes: int | None = None) -> torch.Tensor:
     """Flat params dict -> (P,) float32 in ``kernel_param_keys`` order;
-    P >= 1 (param-free policies get one dummy zero)."""
+    P >= 1 (param-free policies get one dummy zero).  With ``lanes=B``
+    the values may be per-lane (``(B,)`` arrays or ``(B, 1)`` columns;
+    scalars broadcast) and the result is the ``(B, P)`` row per lane that
+    the fused kernel reads."""
     params = dict(policy.params, **(params or {}))
     keys = kernel_param_keys(policy)
+    if lanes is None:
+        if not keys:
+            return torch.zeros((1,), dtype=torch.float32, device=device)
+        return torch.tensor([float(params[k]) for k in keys],
+                            dtype=torch.float32, device=device)
     if not keys:
-        return torch.zeros((1,), dtype=torch.float32, device=device)
-    return torch.tensor([float(params[k]) for k in keys],
-                        dtype=torch.float32, device=device)
+        return torch.zeros((lanes, 1), dtype=torch.float32, device=device)
+    cols = [torch.as_tensor(params[k], dtype=torch.float32, device=device)
+            .reshape(-1).expand(lanes) for k in keys]
+    return torch.stack(cols, dim=1).contiguous()

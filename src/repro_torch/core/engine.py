@@ -30,15 +30,22 @@ Two step implementations, as in the reference (``step_impl``):
 ``"auto"`` resolves to ``"cuda"`` on a CUDA device and to ``"torch"`` on
 the CPU; ``"cuda"`` on the CPU raises.
 
-Early exit: ``Simulator.run`` integrates at most ``max_steps *
-(max_extends + 1)`` steps in chunks of ``chunk_steps``.  Each step is a
-no-op once every flow is done or the lane diverged (a per-step host read
-of that flag), and the run stops at the first chunk boundary after that,
-so results never depend on ``chunk_steps`` and ``meta["steps_run"]`` is
-the reference's chunk-rounded count.
+Lanes: every carry tensor has a leading lane axis ``B``, the explicit
+form of the reference's ``vmap``.  ``Simulator.run`` is one lane;
+``SweepRunner.run_batch`` steps B lanes of per-lane CC params and fabric
+knobs (and, on a policy axis, per-lane policies) in one loop, each kernel
+launch covering all B lanes.
+
+Early exit: a run integrates at most ``max_steps * (max_extends + 1)``
+steps in chunks of ``chunk_steps``.  A lane's step is a no-op once every
+flow is done or the lane diverged (a per-step host read of those flags;
+such a lane is frozen bit for bit while the others step), and the run
+stops at the first chunk boundary after every lane has halted, so results
+never depend on ``chunk_steps`` and ``meta["steps_run"]`` is the
+reference's chunk-rounded count.
 
 Not ported yet: the fault branches of the step (a faulty ``FaultSpec``
-raises), ``soft_cost_fn`` and autograd, batched lanes.
+raises), ``soft_cost_fn`` and autograd.
 """
 from __future__ import annotations
 
@@ -103,6 +110,14 @@ class FabricParams:
         return cls(kmin=cfg.kmin, kmax=cfg.kmax, pmax=cfg.pmax,
                    xoff=cfg.xoff, xon=cfg.xon)
 
+    @classmethod
+    def check_fields(cls, keys):
+        """Reject names that are not FabricParams fields."""
+        unknown = set(keys) - set(cls.FIELDS)
+        if unknown:
+            raise ValueError(f"unknown fabric params {sorted(unknown)}; "
+                             f"known: {list(cls.FIELDS)}")
+
     def replace(self, **kw) -> "FabricParams":
         return dataclasses.replace(self, **kw)
 
@@ -123,13 +138,6 @@ class FabricParams:
 def _as_fabric(fabric_params, cfg: EngineConfig) -> FabricParams:
     return (FabricParams.from_config(cfg) if fabric_params is None
             else fabric_params)
-
-
-def _per_class(v, device) -> torch.Tensor:
-    """Broadcast a FabricParams leaf to one float32 value per link class."""
-    return torch.as_tensor(np.broadcast_to(np.asarray(v, np.float32),
-                                           (N_LINK_CLASSES,)).copy(),
-                           device=device)
 
 
 def resolve_device(device) -> torch.device:
@@ -262,30 +270,36 @@ def _plan_tensors(arrs: dict, device) -> dict:
 
 
 def _zero_ext(vals: torch.Tensor) -> torch.Tensor:
-    """``vals`` with one appended zero: the OOB-fill slot of a plan."""
-    return torch.cat([vals, vals.new_zeros(1)])
+    """``vals`` with one appended zero on its last axis: the OOB-fill slot
+    of a plan."""
+    return torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (1,))], dim=-1)
 
 
 def _reduce(strategy, arrs, vals):
-    """Apply a ``_reduce_plan`` on the op path: (n_in,) -> (n_out,)."""
+    """Apply a ``_reduce_plan`` on the op path: (..., n_in) -> (...,
+    n_out), any leading (lane) axes."""
     kind = strategy[0]
+    lead = tuple(vals.shape[:-1])
     if kind == "empty":
-        return vals.new_zeros(strategy[1])
+        return vals.new_zeros(lead + (strategy[1],))
     if kind == "gather":
         _, n_out, C = strategy
-        return row_sum(_zero_ext(vals)[arrs["idx"]].reshape(n_out, C))
+        return row_sum(_zero_ext(vals)[..., arrs["idx"]]
+                       .reshape(lead + (n_out, C)))
     _, n_out, n_blocks, C2 = strategy
-    bsum = row_sum(_zero_ext(vals)[arrs["perm"]].reshape(n_blocks, _SPLIT_C))
-    return row_sum(_zero_ext(bsum)[arrs["bidx"]].reshape(n_out, C2),
-                   lanes=True)
+    bsum = row_sum(_zero_ext(vals)[..., arrs["perm"]]
+                   .reshape(lead + (n_blocks, _SPLIT_C)))
+    return row_sum(_zero_ext(bsum)[..., arrs["bidx"]]
+                   .reshape(lead + (n_out, C2)), lanes=True)
 
 
 def _reduce_kernel(strategy, arrs, vals):
-    """Kernel-path reduction: the ``"gather"`` plan through the segment
-    kernel, every other plan on the op path (as the reference)."""
+    """Kernel-path reduction of ``(B, n_in)`` lanes: the ``"gather"`` plan
+    through the segment kernel, every other plan on the op path (as the
+    reference)."""
     if strategy[0] == "gather":
-        return es_ops.segment_reduce(vals.contiguous()[None], arrs["idx32"],
-                                     strategy[1], strategy[2])[0]
+        return es_ops.segment_reduce(vals.contiguous(), arrs["idx32"],
+                                     strategy[1], strategy[2])
     return _reduce(strategy, arrs, vals)
 
 
@@ -454,72 +468,132 @@ def _n_qrows(cfg: EngineConfig) -> int:
     return -(-total // cfg.queue_stride) if cfg.queue_stride > 0 else 0
 
 
-def _init_carry(pp, plan: _Plan, policy: Policy, cfg: EngineConfig):
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of a carry (nested dicts and tuples)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple):
+        return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _lane_params(policy: Policy, cc_params: dict | None, lanes: int,
+                 device) -> dict:
+    """The cc params a step reads: ``(B, 1)`` float32 columns for ``B``
+    lanes (each value a scalar or a length-B array).  A serial run is one
+    lane of the same form, so every run computes with the same tensors."""
+    merged = dict(policy.params, **(cc_params or {}))
+    return {k: torch.as_tensor(np.broadcast_to(
+                np.asarray(v, np.float32).reshape(-1), (lanes,)).copy(),
+                device=device).reshape(lanes, 1)
+            for k, v in merged.items()}
+
+
+def _wire_of(policy: Policy, params: dict):
+    """Wire factor: the policy's own, or the per-lane ``_wire`` param of a
+    stacked policy (members differ: HPCC's INT carries +4.8%)."""
+    return params["_wire"] if "_wire" in params else _f32(policy.wire_factor)
+
+
+def _class_table(v, lanes: int, device) -> torch.Tensor:
+    """A FabricParams leaf as a ``(B, N_LINK_CLASSES)`` float32 table: a
+    scalar or per-class leaf for one lane, or a stacked ``(B,)`` or
+    ``(B, N_LINK_CLASSES)`` leaf for B lanes."""
+    a = np.asarray(v, np.float32).reshape(lanes, -1)
+    return torch.as_tensor(np.broadcast_to(
+        a, (a.shape[0], N_LINK_CLASSES)).copy(), device=device)
+
+
+def _init_carry(pp, plan: _Plan, policy: Policy, cfg: EngineConfig,
+                cc_params: dict | None = None, lanes: int = 1):
+    """The starting state of ``lanes`` lanes, every tensor with a leading
+    lane axis ``B``."""
+    B = lanes
     Fp, Lk, D = plan.n_flows_pad, plan.n_links, plan.n_dev
     dev = pp["line"].device
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
+    wire = _wire_of(policy, _lane_params(policy, cc_params, lanes, dev))
+
+    def rows(x):
+        return torch.broadcast_to(x, (B,) + tuple(x.shape[-1:])).clone()
+
     carry = dict(
-        backlog=torch.zeros((Fp, MAXHOP), **f32),
-        remaining=pp["size"] * _f32(policy.wire_factor),
-        injected=torch.zeros(Fp, **f32),
-        delivered=torch.zeros(Fp, **f32),
-        done=~pp["active"],           # padded flows are born finished
-        t_finish=torch.full((Fp,), float("inf"), **f32),
-        g_count=torch.zeros(plan.n_groups_pad, **f32),
+        backlog=torch.zeros((B, Fp, MAXHOP), **f32),
+        remaining=rows(pp["size"] * wire),
+        injected=torch.zeros((B, Fp), **f32),
+        delivered=torch.zeros((B, Fp), **f32),
+        done=rows(~pp["active"]),       # padded flows are born finished
+        t_finish=torch.full((B, Fp), float("inf"), **f32),
+        g_count=torch.zeros((B, plan.n_groups_pad), **f32),
         # empty groups complete at t=0
-        g_time=torch.where(pp["gsize"] < 0.5, 0.0, float("inf")),
-        paused=torch.zeros(Lk + 1, dtype=torch.bool, device=dev),
-        pause_count=torch.zeros(D, **f32),
-        hist_q=torch.zeros((plan.ring, Lk + 1), **f32),
-        hist_tx=torch.zeros((plan.ring, Lk + 1), **f32),
-        cc={k: v.clone() for k, v in
-            policy.init(_flow_ctx(pp, Fp)).items()},
-        soft=torch.zeros((), **f32),
-        diverged=torch.zeros((), dtype=torch.bool, device=dev),
-        deadlock_step=torch.full((), -1, **i32),
-        storm_run=torch.zeros((), **i32),
-        storm_step=torch.full((), -1, **i32),
+        g_time=rows(torch.where(pp["gsize"] < 0.5, 0.0, float("inf"))),
+        paused=torch.zeros((B, Lk + 1), dtype=torch.bool, device=dev),
+        pause_count=torch.zeros((B, D), **f32),
+        hist_q=torch.zeros((B, plan.ring, Lk + 1), **f32),
+        hist_tx=torch.zeros((B, plan.ring, Lk + 1), **f32),
+        cc=_tree_map(rows, policy.init(_flow_ctx(pp, Fp))),
+        soft=torch.zeros(B, **f32),
+        diverged=torch.zeros(B, dtype=torch.bool, device=dev),
+        deadlock_step=torch.full((B,), -1, **i32),
+        storm_run=torch.zeros(B, **i32),
+        storm_step=torch.full((B,), -1, **i32),
     )
     if cfg.queue_stride > 0:
-        carry["qbuf"] = torch.zeros((_n_qrows(cfg), D), **f32)
+        carry["qbuf"] = torch.zeros((B, _n_qrows(cfg), D), **f32)
     return carry
 
 
-def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
-               cc_params: dict, fab: FabricParams, use_kernels: bool):
-    """The lossless step ``step(carry, it) -> carry`` for one run.
+# carry entries the step updates in place, row by row
+_IN_PLACE = ("hist_q", "hist_tx", "qbuf")
 
-    Per-run constants (per-class fabric knobs gathered per hop, wire
-    sizes, thresholds) are computed once here; they are the values the
-    reference recomputes every step.  ``use_kernels`` routes stages 1+2,
-    the ``"gather"`` reductions and the PFC hysteresis through the CUDA
-    kernel wrappers (which run their plain versions on CPU tensors).
-    The history ring and the queue timeline are updated in place.
+
+def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
+               cc_params: dict, fab: FabricParams, use_kernels: bool,
+               lanes: int = 1):
+    """The lossless step ``step(carry, it, live=None) -> carry`` for one
+    run of ``lanes`` lanes.
+
+    ``cc_params`` values and ``fab``'s leaves are scalars (or per-class
+    arrays) shared by every lane, or stacked on a leading lane axis
+    (``(B,)`` params, ``(B,)`` or ``(B, C)`` fabric leaves).  Per-run constants
+    (per-class fabric knobs gathered per hop, wire sizes, thresholds) are
+    computed once here; they are the values the reference recomputes
+    every step.  ``use_kernels`` routes stages 1+2, the ``"gather"``
+    reductions and the PFC hysteresis through the CUDA kernel wrappers
+    (which run their plain versions on CPU tensors), all B lanes in one
+    launch.  The history ring and the queue timeline are updated in place.
+    ``live`` ((B,) bool) freezes the lanes that are False bit for bit, as
+    the reference's per-lane step gate does under ``vmap``.
     """
+    B = lanes
     dt = cfg.dt
     dt32 = _f32(dt)
     Lk = plan.n_links
     D = plan.n_dev
+    Fp = plan.n_flows_pad
     stride = cfg.queue_stride
     dl_rounds = max(1, (max(D, 2) - 1).bit_length())
     dev = pp["line"].device
-    params = {k: _f32(v) for k, v in dict(policy.params,
-                                          **(cc_params or {})).items()}
+    params = _lane_params(policy, cc_params, lanes, dev)
     reduce_ = _reduce_kernel if use_kernels else _reduce
 
     path, hopmask = pp["path"], pp["hopmask"]
     cls_path = pp["cls_path"]
-    kmin_h = _per_class(fab.kmin, dev)[cls_path]          # (F, MAXHOP)
-    kmax_h = _per_class(fab.kmax, dev)[cls_path]
-    pmax_h = _per_class(fab.pmax, dev)[cls_path]
-    xoff_l = _per_class(fab.xoff, dev)[pp["link_class"]]  # (Lk+1,)
-    xon_l = _per_class(fab.xon, dev)[pp["link_class"]]
+    kmin_h = _class_table(fab.kmin, lanes, dev)[:, cls_path]  # (B, F, MAXHOP)
+    kmax_h = _class_table(fab.kmax, lanes, dev)[:, cls_path]
+    pmax_h = _class_table(fab.pmax, lanes, dev)[:, cls_path]
+    link_class = pp["link_class"]
+    xoff_l = _class_table(fab.xoff, lanes, dev)[:, link_class].contiguous()
+    xon_l = _class_table(fab.xon, lanes, dev)[:, link_class].contiguous()
     caps = pp["caps_path"]
     can = pp["can_pause"]
-    wire_size = pp["size"] * _f32(policy.wire_factor)
+    wire_size = pp["size"] * _wire_of(policy, params)    # (F,) or (B, F)
     done_thresh = wire_size - cfg.eps_done
-    wire_total = torch.clamp_min(wire_size.sum(), 1.0)
+    # one total per lane, each summed as a one-lane run sums it
+    wire_total = torch.stack([torch.clamp_min(w.sum(), 1.0) for w in
+                              torch.broadcast_to(wire_size, (B, Fp))])
     gthresh = pp["gsize"] - 0.5
     dep_valid = pp["dep"] >= 0
     dep_c = torch.clamp_min(pp["dep"], 0)
@@ -531,34 +605,39 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
     n_pausable = torch.clamp_min(can[:Lk].to(torch.float32).sum(), 1.0)
     frame_refresh = dt / cfg.pause_resend
     inv_dt = _f32(1.0 / np.float32(dt))
+    # adjacency slot (src, dst) of each link in the pause-cycle check
+    pair = pp["src_dev"] * D + pp["dst_dev"][:Lk]
 
     if use_kernels:
-        # hop-major (1, MAXHOP, F) inputs of the fused kernel
+        # hop-major (B, MAXHOP, F) inputs of the fused kernel
         def hm(x):
-            return x.to(torch.float32).T.contiguous()[None]
+            x = x.to(torch.float32).transpose(-1, -2)
+            return torch.broadcast_to(x, (B,) + tuple(x.shape[-2:])) \
+                .contiguous()
         k_caps, k_emask, k_hmask = hm(caps), hm(pp["ecn_mask"]), hm(hopmask)
         k_kmin, k_kmax, k_pmax = hm(kmin_h), hm(kmax_h), hm(pmax_h)
         path_t = path.T.contiguous()
-        k_brtt, k_line = pp["base_rtt"][None], pp["line"][None]
+        k_brtt = pp["base_rtt"].expand(B, Fp).contiguous()
+        k_line = pp["line"].expand(B, Fp).contiguous()
         k_loss = torch.zeros_like(k_line)       # lossless: no loss signal
-        k_params = pack_params(policy, params, device=dev)[None]
+        k_params = pack_params(policy, params, device=dev, lanes=B)
+        k_can = can.expand(B, Lk + 1).contiguous()
         state_keys = kernel_state_keys(policy)
-        k_dummy = torch.zeros((1, 1, plan.n_flows_pad), dtype=torch.float32,
-                              device=dev)
+        k_dummy = torch.zeros((B, 1, Fp), dtype=torch.float32, device=dev)
 
     def pause_cycle(paused):
-        """Any cycle in the switch->switch PFC wait-for graph?  Link l
-        paused means src_dev(l) waits on dst_dev(l) to resume."""
-        e = (paused[:Lk] & pp["sw_sw"]).to(torch.float32)
-        adj = torch.zeros((D, D), dtype=torch.float32, device=dev)
-        adj.index_put_((pp["src_dev"], pp["dst_dev"][:Lk]), e,
-                       accumulate=True)
-        S = torch.clamp_max(adj, 1.0)
+        """Per lane: any cycle in the switch->switch PFC wait-for graph?
+        Link l paused means src_dev(l) waits on dst_dev(l) to resume.  The
+        0/1 reachability is exact in float64 (no TF32 path)."""
+        e = (paused[:, :Lk] & pp["sw_sw"]).to(torch.float64)
+        adj = torch.zeros((B, D * D), dtype=torch.float64, device=dev)
+        adj.index_add_(1, pair, e)
+        S = torch.clamp_max(adj.view(B, D, D), 1.0)
         for _ in range(dl_rounds):
             S = torch.clamp_max(S + S @ S, 1.0)
-        return torch.any(torch.diagonal(S) > 0.5)
+        return torch.any(torch.diagonal(S, dim1=-2, dim2=-1) > 0.5, dim=-1)
 
-    def step(c, it: int):
+    def step(c, it: int, live=None):
         t = _f32(np.float32(it) * np.float32(dt))
         t_end = _f32(np.float32(t) + np.float32(dt))
         # the reference's compiler contracts the group stamp t + dt =
@@ -566,23 +645,24 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         t_end_g = _f32(float(np.float32(it)) * dt32 + dt32)
         # ---- 1. delayed signals ------------------------------------------
         slot = torch.clamp_min(it - pp["delay_steps"], 0) % plan.ring
+        hq = c["hist_q"].reshape(B, -1)
+        htx = c["hist_tx"].reshape(B, -1)
         if use_kernels:
             # ---- 1+2 fused: signals + CC update in one kernel --------------
             flat_t = slot[None, :] * (Lk + 1) + path_t          # (MAXHOP, F)
-            q_d = c["hist_q"].reshape(-1)[flat_t][None]
-            tx_d = c["hist_tx"].reshape(-1)[flat_t][None]
-            state = (torch.stack([c["cc"][k] for k in state_keys])[None]
+            q_d = hq[:, flat_t].contiguous()                 # (B, MAXHOP, F)
+            tx_d = htx[:, flat_t].contiguous()
+            state = (torch.stack([c["cc"][k] for k in state_keys], dim=1)
                      if state_keys else k_dummy)
             st_out, rate, win = es_ops.fused_signals_policy(
                 policy, q_d, tx_d, k_caps, k_emask, k_hmask, k_kmin, k_kmax,
                 k_pmax, k_brtt, k_line, k_loss, state, k_params, t,
                 cfg.t_base_util)
-            cc = {k: st_out[0, j] for j, k in enumerate(state_keys)}
-            rate, win = rate[0], win[0]
+            cc = {k: st_out[:, j] for j, k in enumerate(state_keys)}
         else:
             flat = slot[:, None] * (Lk + 1) + path               # (F, MAXHOP)
-            q_d = c["hist_q"].reshape(-1)[flat]
-            tx_d = c["hist_tx"].reshape(-1)[flat]
+            q_d = hq[:, flat]                                 # (B, F, MAXHOP)
+            tx_d = htx[:, flat]
             rtt = pp["base_rtt"] + row_sum(q_d / caps * hopmask)
             mark = torch.clamp((q_d - kmin_h)
                                / torch.clamp_min(kmax_h - kmin_h, 1.0),
@@ -590,7 +670,7 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             mark = mark * pp["ecn_mask"]
             ecn = 1.0 - row_prod(1.0 - mark)
             util_l = tx_d / caps + q_d / (caps * cfg.t_base_util)
-            util = torch.amax(torch.where(hopmask, util_l, 0.0), dim=1)
+            util = torch.amax(torch.where(hopmask, util_l, 0.0), dim=-1)
             sig = Signals(ecn=ecn, rtt=rtt, util=util, t=t, dt=dt32,
                           line=pp["line"], base_rtt=pp["base_rtt"])
             # ---- 2. CC update ---------------------------------------------
@@ -598,21 +678,21 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
 
         # ---- 3. injection --------------------------------------------------
         g_done = c["g_count"] >= gthresh
-        dep_ok = torch.where(dep_valid, g_done[dep_c], True)
-        dep_t = torch.where(dep_valid, c["g_time"][dep_c], 0.0)
+        dep_ok = torch.where(dep_valid, g_done[:, dep_c], True)
+        dep_t = torch.where(dep_valid, c["g_time"][:, dep_c], 0.0)
         started = dep_ok & (t >= dep_t + pp["sdelay"])
         inflight = c["injected"] - c["delivered"]
         room = torch.clamp_min(win - inflight, 0.0)
         inj = torch.minimum(torch.minimum(rate * dt, room), c["remaining"])
         inj = torch.where(started & has_hops, torch.clamp_min(inj, 0.0), 0.0)
         backlog = c["backlog"].clone()
-        backlog[:, 0] += inj
+        backlog[..., 0] += inj
         remaining = c["remaining"] - inj
         injected = c["injected"] + inj
 
         # ---- 4. PFC gates (per-port) ---------------------------------------
         rem_cap = cap_dt * ~c["paused"]
-        rem_cap[Lk] = 1e18
+        rem_cap[:, Lk] = 1e18
 
         # ---- 5. hop-ordered forwarding -------------------------------------
         delivered = c["delivered"]
@@ -620,19 +700,19 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         for h in range(MAXHOP):
             if plan.hop[h][0] == "empty":   # no flow ever uses this hop slot
                 continue
-            dem = reduce_(plan.hop[h], pp["r_hop"][h], backlog[:, h])
+            dem = reduce_(plan.hop[h], pp["r_hop"][h], backlog[..., h])
             frac = torch.where(dem > 0,
                                torch.clamp_max(
                                    rem_cap / torch.clamp_min(dem, 1e-9), 1.0),
                                0.0)
-            frac_f = frac[path_h[h]]
-            moved = backlog[:, h] * frac_f
+            frac_f = frac[:, path_h[h]]
+            moved = backlog[..., h] * frac_f
             # backlog - backlog*frac and the capacity/tx updates are
             # multiply-adds the reference contracts (see cc.fma)
-            backlog[:, h] = fma(-backlog[:, h], frac_f, backlog[:, h])
+            backlog[..., h] = fma(-backlog[..., h], frac_f, backlog[..., h])
             delivered = delivered + torch.where(last_h[h], moved, 0.0)
             if h + 1 < MAXHOP:
-                backlog[:, h + 1] += torch.where(last_h[h], 0.0, moved)
+                backlog[..., h + 1] += torch.where(last_h[h], 0.0, moved)
             # frac * dem == per-link sum of `moved`
             rem_cap = torch.clamp_min(fma(-frac, dem, rem_cap), 0.0)
             # the reference's tx = 0 + m0 + m1 + ... folds to m0 + m1 + ...,
@@ -647,24 +727,23 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             tx_bytes = tx_bytes[0] * tx_bytes[1]
 
         # ---- 6. queues ------------------------------------------------------
-        q_link = reduce_(plan.qlink, pp["r_qlink"], backlog.reshape(-1))
+        flat_backlog = backlog.reshape(B, -1)
+        q_link = reduce_(plan.qlink, pp["r_qlink"], flat_backlog)
         if use_kernels and plan.qport[0] == "gather":
             # ---- 6b+7 fused: per-port occupancy + hysteresis -------------
             _, paused = es_ops.segment_reduce_pfc(
-                backlog.reshape(-1)[None], pp["r_qport"]["idx32"],
-                plan.qport[1], plan.qport[2], xoff_l[None], xon_l[None],
-                can[None], c["paused"][None])
-            paused = paused[0]
+                flat_backlog, pp["r_qport"]["idx32"], plan.qport[1],
+                plan.qport[2], xoff_l, xon_l, k_can, c["paused"])
         else:
-            q_port = reduce_(plan.qport, pp["r_qport"], backlog.reshape(-1))
+            q_port = reduce_(plan.qport, pp["r_qport"], flat_backlog)
             # ---- 7. PFC per-port hysteresis ---------------------------------
             over = (q_port > xoff_l) & can
             under = q_port < xon_l
             paused = torch.where(over, True,
                                  torch.where(under, False, c["paused"]))
         # PAUSE frames: one per off-transition + refreshes while paused
-        frames = ((paused & ~c["paused"])[:Lk].to(torch.float32)
-                  + paused[:Lk].to(torch.float32) * frame_refresh)
+        frames = ((paused & ~c["paused"])[:, :Lk].to(torch.float32)
+                  + paused[:, :Lk].to(torch.float32) * frame_refresh)
         pause_count = c["pause_count"] + reduce_(plan.pause, pp["r_pause"],
                                                  frames)
 
@@ -682,15 +761,23 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
 
         # ---- 9. history + soft cost ----------------------------------------
         hist_q, hist_tx = c["hist_q"], c["hist_tx"]
-        hist_q[it % plan.ring] = q_link
+        row = it % plan.ring
         # the reference's compiler turns x / dt into x * (1/dt)
-        hist_tx[it % plan.ring] = tx_bytes * inv_dt
+        tx_rate = tx_bytes * inv_dt
+        if live is not None:        # frozen lanes keep their ring rows
+            q_link_w = torch.where(live[:, None], q_link, hist_q[:, row])
+            tx_rate = torch.where(live[:, None], tx_rate, hist_tx[:, row])
+        else:
+            q_link_w = q_link
+        hist_q[:, row] = q_link_w
+        hist_tx[:, row] = tx_rate
         goodput = torch.minimum(delivered, wire_size)
-        undeliv = torch.sum(wire_size - goodput)
+        undeliv = torch.sum(wire_size - goodput, dim=-1)
         soft = c["soft"] + dt * undeliv / wire_total
 
         # ---- 10. run health (observers) ------------------------------------
-        pfrac = torch.sum(paused[:Lk].to(torch.float32)) / n_pausable
+        pfrac = torch.sum(paused[:, :Lk].to(torch.float32), dim=-1) \
+            / n_pausable
         storm_run = torch.where(pfrac >= cfg.storm_frac,
                                 c["storm_run"] + 1, 0).to(torch.int32)
         storm_step = torch.where((c["storm_step"] < 0)
@@ -700,13 +787,13 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         if it % cfg.deadlock_check_every == 0:
             # checked while switch->switch pauses exist and no cycle was
             # seen yet
-            do_check = (torch.any(paused[:Lk] & pp["sw_sw"])
+            do_check = (torch.any(paused[:, :Lk] & pp["sw_sw"], dim=-1)
                         & (deadlock_step < 0))
             cycle = do_check & pause_cycle(paused)
             deadlock_step = torch.where(cycle, it,
                                         deadlock_step).to(torch.int32)
-        probe = (torch.sum(backlog) + torch.sum(remaining) + torch.sum(rate)
-                 + torch.sum(q_link) + soft)
+        probe = (torch.sum(backlog, dim=(-2, -1)) + torch.sum(remaining, -1)
+                 + torch.sum(rate, -1) + torch.sum(q_link, -1) + soft)
         diverged = c["diverged"] | ~torch.isfinite(probe)
 
         new = dict(
@@ -720,48 +807,87 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         if stride > 0:
             qbuf = c["qbuf"]
             if it % stride == 0:
-                qbuf[it // stride] = reduce_(plan.qdev, pp["r_qdev"],
-                                             q_link[:Lk])
+                q_dev = reduce_(plan.qdev, pp["r_qdev"], q_link[:, :Lk])
+                if live is not None:
+                    q_dev = torch.where(live[:, None], q_dev,
+                                        qbuf[:, it // stride])
+                qbuf[:, it // stride] = q_dev
             new["qbuf"] = qbuf
+        if live is not None:
+            def keep(n, o):
+                return torch.where(live.view((B,) + (1,) * (n.dim() - 1)),
+                                   n, o)
+            new = {k: v if k in _IN_PLACE else _tree_map(keep, v, c[k])
+                   for k, v in new.items()}
         return new
 
     return step
 
 
-def _halted(c) -> bool:
-    """The step no-op gate (one host read): every flow done or diverged."""
-    return bool((c["done"].all() | c["diverged"]).item())
+def _halted_lanes(c) -> torch.Tensor:
+    """(B,) bool on the device: the step no-op gate of each lane (every
+    flow done, or the lane diverged)."""
+    return c["done"].all(dim=-1) | c["diverged"]
+
+
+def _gate(c):
+    """One host read per step: ``(every lane halted, live, stepping)``.
+    ``live`` is the (B,) mask of lanes still stepping on the device, or
+    None while no lane has halted (the step then skips the per-lane
+    freeze); ``stepping`` is the same mask on the host."""
+    halted = _halted_lanes(c)
+    h = halted.cpu().numpy()
+    if h.all():
+        return True, None, ~h
+    return False, (~halted if h.any() else None), ~h
 
 
 def _run_loop(step, carry, cfg: EngineConfig, early_exit: bool):
-    """Chunked stepping: returns ``(carry, steps_run, steps_executed)``
-    with the reference's chunk-rounded ``steps_run`` and the number of
-    steps that were not no-ops."""
+    """Chunked stepping: returns ``(carry, steps_run, steps_executed,
+    lane_steps)`` with the reference's chunk-rounded ``steps_run``, the
+    number of steps that were not no-ops and, per lane, the number of
+    steps in which that lane stepped (its own work, where
+    ``steps_executed`` also counts the steps it sat frozen).  A halted
+    lane is frozen while the others step; the loop stops at the first
+    chunk boundary where every lane has halted, or inside a chunk once
+    they all have (the rest of it would be no-ops), so results never
+    depend on ``chunk_steps``."""
     total = cfg.max_steps * (cfg.max_extends + 1)
     executed = 0
+    lane_steps = np.zeros(carry["soft"].shape[0], np.int64)
     if not early_exit:
         for it in range(total):
-            if _halted(carry):      # every later step is a no-op
+            stop, live, stepping = _gate(carry)
+            if stop:                # every later step is a no-op
                 break
-            carry = step(carry, it)
+            carry = step(carry, it, live)
             executed += 1
-        return carry, total, executed
+            lane_steps += stepping
+        return carry, total, executed, lane_steps
     chunk = max(1, min(cfg.chunk_steps, total))
     it0 = 0
-    while it0 < total and not _halted(carry):
+    while it0 < total:
+        stop, live, stepping = _gate(carry)
+        if stop:
+            break
         for it in range(it0, min(it0 + chunk, total)):
-            if it > it0 and _halted(carry):
-                break
-            carry = step(carry, it)
+            if it > it0:
+                stop, live, stepping = _gate(carry)
+                if stop:
+                    break
+            carry = step(carry, it, live)
             executed += 1
+            lane_steps += stepping
         it0 += chunk
-    return carry, min(it0, total), executed
+    return carry, min(it0, total), executed, lane_steps
 
 
 class Simulator:
     """Fluid simulation of one (topology, schedule, policy) on ``device``
     (the card by default).  ``pad_flows``/``pad_groups`` pad the flow and
-    group axes with inert entries (see ``_prep``)."""
+    group axes with inert entries (see ``_prep``).  A stacked policy
+    (``cc.stack_policies``) has no device function and runs on the op
+    path, as in the reference."""
 
     def __init__(self, topo: Topology, sched: Schedule, policy: Policy,
                  cfg: EngineConfig = EngineConfig(),
@@ -770,6 +896,8 @@ class Simulator:
                  fault_spec: FaultSpec | None = None, device="cuda"):
         self.device = resolve_device(device)
         self.step_impl = resolve_step_impl(cfg, self.device)
+        if policy.members:
+            self.step_impl = "torch"
         if self.step_impl == "cuda" and policy.kernel_id is None:
             raise NotImplementedError(
                 f"policy {policy.name!r} has no device function in the "
@@ -786,11 +914,23 @@ class Simulator:
         fab = fabric_params if fabric_params is not None else self.fabric
         if fault_spec is not None:
             _check_lossless(fault_spec)
+        carry, steps, executed, _ = self.run_carry(cc_params, fab, 1,
+                                                   early_exit)
+        return self._results(_tree_map(lambda x: x[0], carry), steps,
+                             executed)
+
+    def run_carry(self, cc_params: dict | None, fab: FabricParams,
+                  lanes: int, early_exit: bool = True):
+        """Step ``lanes`` lanes in one loop and return ``_run_loop``'s
+        ``(carry, steps_run, steps_executed, lane_steps)``, the carry with
+        its leading lane axis.  ``cc_params`` values and ``fab``'s leaves
+        are shared by every lane or stacked on a leading axis of length
+        ``lanes``."""
         step = _make_step(self.policy, self.cfg, self.plan, self.pp,
-                          cc_params, fab, self.step_impl == "cuda")
-        carry = _init_carry(self.pp, self.plan, self.policy, self.cfg)
-        carry, steps, executed = _run_loop(step, carry, self.cfg, early_exit)
-        return self._results(carry, steps, executed)
+                          cc_params, fab, self.step_impl == "cuda", lanes)
+        carry = _init_carry(self.pp, self.plan, self.policy, self.cfg,
+                            cc_params, lanes)
+        return _run_loop(step, carry, self.cfg, early_exit)
 
     def _results(self, carry, steps_run: int,
                  steps_executed: int) -> Results:

@@ -5,7 +5,8 @@ The reference engine compiles a separate faulty step (per-hop loss with
 IRN/GBN recovery, degradation windows, link flaps, ECN/PFC
 misconfiguration).  The port's engine runs the lossless step only so far:
 it accepts the all-defaults spec, which is statically inert, and raises
-``NotImplementedError`` for any spec where ``is_faulty`` is True.
+``NotImplementedError`` for any spec where ``is_faulty`` is True, serial
+or stacked on sweep lanes (``sweep._stack_fault``).
 """
 from __future__ import annotations
 
@@ -74,6 +75,14 @@ class FaultSpec:
     FIELDS = ("loss_rate", "gbn", "mtu", "degrade", "degrade_t0",
               "degrade_t1", "flap_period", "flap_down", "flap_t0",
               "ecn_scale", "pfc_on")
+
+    @classmethod
+    def check_fields(cls, keys):
+        """Reject names that are not FaultSpec fields."""
+        unknown = set(keys) - set(cls.FIELDS)
+        if unknown:
+            raise ValueError(f"unknown fault params {sorted(unknown)}; "
+                             f"known: {list(cls.FIELDS)}")
 
     @classmethod
     def lossy_roce(cls, loss_rate: float, recovery: str = "irn",

@@ -9,9 +9,9 @@
                         policy="dcqcn")
     res = spec.run()                   # on the card; device="cpu" for the CPU
 
-A tuple policy (a whole policy axis, stacked into one product policy in
-the reference) belongs to the batched-sweep slice, which is not ported
-yet: it raises here.
+A tuple policy declares a whole policy axis: ``build`` stacks it into one
+product policy (``cc.stack_policies``) and ``run`` / ``SweepRunner``
+simulate it as one batch (``grid_spec``), returning ``BatchResults``.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.core import topology as topo_mod
-from repro_torch.core.cc import get_policy
+from repro_torch.core.cc import get_policy, stack_policies
 from repro_torch.core.collectives import Schedule, get_collective, incast
 from repro_torch.core.engine import EngineConfig, FabricParams
 from repro_torch.core.topology import (NIC_BW, NIC_LAT, NVLINK_BW,
@@ -137,22 +137,15 @@ class IncastSpec:
                       self.size_each)
 
 
-def _no_policy_axis(policy):
-    if isinstance(policy, (tuple, list)):
-        raise NotImplementedError(
-            "a tuple policy declares a policy axis, which runs batched; "
-            "batched sweeps (run_batch, grid, grid_spec, the policy axis) "
-            "are the next slice of the port — pick one member")
-
-
 @dataclasses.dataclass(frozen=True)
 class ScenarioSpec:
-    """One fully-specified simulation point.  ``policy`` is a registry name
-    or a ``Policy``; ``cc_params``, ``fabric_params`` and ``fault_spec``
-    are per-run overrides (a faulty spec raises in this slice)."""
+    """One fully-specified simulation point.  ``policy`` is a registry name,
+    a ``Policy``, or a tuple of either (a policy axis, run as one batch);
+    ``cc_params``, ``fabric_params`` and ``fault_spec`` are per-run
+    overrides (a faulty spec raises until the fault branches land)."""
     fabric: object                 # FabricSpec | Topology
     workload: object               # has build_schedule(topo) -> Schedule
-    policy: object = "pfc"         # str | Policy
+    policy: object = "pfc"         # str | Policy | tuple (policy axis)
     cc_params: dict | None = None
     fabric_params: FabricParams | None = None
     fault_spec: object | None = None
@@ -160,8 +153,7 @@ class ScenarioSpec:
 
     def build(self):
         """-> (topo, sched, policy), with topology and schedule cached by
-        value."""
-        _no_policy_axis(self.policy)
+        value; a tuple policy builds the stacked product policy."""
         topo = (self.fabric if isinstance(self.fabric, Topology)
                 else self.fabric.build())
         key = None
@@ -178,15 +170,23 @@ class ScenarioSpec:
                 while len(_SCHED_CACHE) >= _SCHED_CACHE_MAX:
                     _SCHED_CACHE.pop(next(iter(_SCHED_CACHE)))
                 _SCHED_CACHE[key] = sched
-        pol = (get_policy(self.policy) if isinstance(self.policy, str)
-               else self.policy)
+        if isinstance(self.policy, (tuple, list)):
+            pol = stack_policies(self.policy)
+        elif isinstance(self.policy, str):
+            pol = get_policy(self.policy)
+        else:
+            pol = self.policy
         return topo, sched, pol
 
     def run(self, runner=None, cfg: EngineConfig | None = None,
             device="cuda"):
-        """Simulate this spec (convenience; prefer a shared SweepRunner)."""
+        """Simulate this spec (convenience; prefer a shared SweepRunner).
+        A tuple-policy spec runs its policy axis as one batch and returns
+        ``BatchResults``."""
         from repro_torch.core.sweep import SweepRunner
         runner = runner or SweepRunner(cfg, device=device)
+        if isinstance(self.policy, (tuple, list)):
+            return runner.grid_spec(self, cfg=cfg)
         return runner.run_spec(self, cfg=cfg)
 
 
@@ -194,10 +194,8 @@ def scenario_matrix(fabrics, workloads, policies,
                     fabric_params=None, stacked=False,
                     fault_spec=None) -> list[ScenarioSpec]:
     """Cross-product helper: one spec per (fabric, workload, policy).
-    ``stacked=True`` (one policy-axis spec per fabric x workload) belongs
-    to the batched-sweep slice and raises."""
-    if stacked:
-        _no_policy_axis(tuple(policies))
+    ``stacked=True`` folds the policies into one policy-axis spec per
+    (fabric, workload), which ``SweepRunner`` runs as one batch."""
     fabrics = [fabrics] if isinstance(fabrics, (FabricSpec, Topology)) \
         else list(fabrics)
     out = []
@@ -206,6 +204,12 @@ def scenario_matrix(fabrics, workloads, policies,
                  else fab.name)
         for wl in workloads:
             wname = getattr(wl, "kind", type(wl).__name__)
+            if stacked:
+                out.append(ScenarioSpec(
+                    fabric=fab, workload=wl, policy=tuple(policies),
+                    fabric_params=fabric_params, fault_spec=fault_spec,
+                    name=f"{fname}_{wname}_stack"))
+                continue
             for pol in policies:
                 pname = pol if isinstance(pol, str) else pol.name
                 out.append(ScenarioSpec(

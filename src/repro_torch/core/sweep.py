@@ -1,33 +1,64 @@
-"""Serial sweep driving of the port's engine (port of the serial part of
-``repro.core.sweep.SweepRunner``).
+"""Sweep driving of the port's engine (port of ``repro.core.sweep`` minus
+the device mesh and the backend calibration).
 
 ``SweepRunner`` caches prepared scenarios (``engine._prep`` output on the
 device) by content fingerprint, and pads flow and group counts up to the
 next power of two (inert padding, see ``engine._prep``) so that schedules
 of similar size share one set of shapes, as the reference does for its
-compile cache.  ``run``, ``run_spec``, ``run_specs`` and ``run_policies``
-run one scenario per call.  Batched lanes (``run_batch``, ``grid``,
-``grid_spec``, the policy axis), the device mesh and calibration belong
-to later slices.
+compile cache.
+
+* **single runs** — ``run``, ``run_spec``, ``run_specs`` and
+  ``run_policies`` run one scenario per call (``Results``);
+* **batched lanes** — ``run_batch`` stacks CC parameters and
+  ``FabricParams`` leaves of one policy on a leading lane axis and steps
+  all B lanes in one loop: every kernel launch and every op of the step
+  covers the B lanes (the reference's ``vmap``, written out);
+* **grids** — ``grid`` / ``grid_spec`` enumerate a full-factorial CC x
+  fabric grid into one batch; ``grid_from_spec`` draws grid axes from a
+  policy's declared ``ParamSpec`` ranges;
+* **a batched policy axis** — ``run_policy_axis`` stacks several policies
+  into one product policy (``cc.stack_policies``, a per-lane select) and
+  runs the comparison as one batch; ``grid(..., policy_axis=[...])``
+  crosses it with CC and fabric grids.  Stacked policies run on the op
+  path, as in the reference;
+* **streaming** — ``chunk_lanes`` splits a large batch into fixed-size
+  chunks of lanes, the last one padded by repeating its final lane (the
+  padding's results are dropped), and ``dispatch_hook(lo, hi, B)`` is
+  called before each chunk.
+
+Lane isolation: a diverged lane freezes, a deadlocked or budget-exhausted
+lane is flagged, and the healthy lanes complete normally
+(``BatchResults.lane_status``).  Batched runs never record the queue
+timeline.  Not ported: ``mesh=`` (multi-GPU lanes), ``calibrate_backend``
+and the ``*_pays_off`` advice, ``compile_stats`` (the port compiles
+nothing); a faulty ``FaultSpec`` raises until the fault branches land.
 
     runner = SweepRunner(EngineConfig(dt=2e-6, max_steps=4000,
                                       queue_stride=0))   # device="cuda"
     results = runner.run_policies(topo, sched, ["pfc", "dcqcn", "hpcc"])
+    batch = runner.grid(topo, sched, "dcqcn", {"rai_frac": [0.01, 0.1]},
+                        fabric_grid={"kmin": [100e3, 400e3]})
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import warnings
 
 import numpy as np
 
 from repro_torch.core import cc as cc_mod
-from repro_torch.core.cc import Policy
+from repro_torch.core.cc import Policy, stack_policies
 from repro_torch.core.engine import (EngineConfig, FabricParams, Results,
                                      Simulator, _as_fabric, _FABRIC_DEFAULTS,
-                                     _next_pow2, resolve_device)
-from repro_torch.core.faults import FaultSpec
-from repro_torch.core.scenario import _no_policy_axis
+                                     _init_carry, _next_pow2, _tree_map,
+                                     resolve_device)
+from repro_torch.core.faults import (FaultSpec, LaneStatus, _as_fault,
+                                     classify_lane, is_faulty)
+
+_FAULTS_LATER = ("the port's engine runs the lossless step only; the fault "
+                 "branches (loss, flaps, degradation, ECN/PFC "
+                 "misconfiguration) are ROADMAP queue item 2")
 
 
 def _resolve(policy) -> Policy:
@@ -43,7 +74,217 @@ def _policy_key(policy: Policy):
     return (policy.name, float(policy.wire_factor),
             getattr(policy.init, "__code__", policy.init),
             getattr(policy.update, "__code__", policy.update),
-            tuple(sorted((k, float(v)) for k, v in policy.params.items())))
+            tuple(sorted((k, float(v)) for k, v in policy.params.items())),
+            policy.members)
+
+
+@dataclasses.dataclass
+class BatchResults:
+    """One batched sweep over B stacked (CC params, FabricParams) sets,
+    with per-lane run-health status.  ``meta`` holds the run's step
+    counts (``steps_executed`` summed over chunks; ``lane_steps``, the
+    steps each lane stepped before it halted), step path and device."""
+    policy: str
+    params: dict                  # stacked CC leaves, shape (B,)
+    fabric: dict                  # stacked FabricParams leaves, (B,) or (B,C)
+    completion_time: np.ndarray   # (B,)
+    t_finish: np.ndarray          # (B, F)
+    pause_count: np.ndarray       # (B, D)
+    delivered: np.ndarray         # (B, F)
+    soft_cost: np.ndarray         # (B,)
+    finished: np.ndarray          # (B,) bool
+    policy_axis: tuple = ()       # per-member policy label (policy sweeps)
+    fault: dict = dataclasses.field(default_factory=dict)  # FaultSpec leaves
+    diverged: np.ndarray | None = None        # (B,) non-finite lane, frozen
+    deadlock_step: np.ndarray | None = None   # (B,) first pause-cycle step
+    storm_step: np.ndarray | None = None      # (B,) first pause-storm step
+    extend_exhausted: np.ndarray | None = None  # (B,) budget ran out
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def n(self) -> int:
+        return len(self.completion_time)
+
+    @property
+    def deadlocked(self) -> np.ndarray:
+        """(B,) bool: a PFC pause-graph cycle was detected in that lane."""
+        if self.deadlock_step is None:
+            return np.zeros(self.n, bool)
+        return self.deadlock_step >= 0
+
+    def lane_status(self) -> list[LaneStatus]:
+        """Per-lane health as ``faults.LaneStatus`` (a ``str`` subclass).
+        A deadlocked-but-finished lane still reads ``DEADLOCKED``."""
+        dead = self.deadlocked
+        div = (np.zeros(self.n, bool) if self.diverged is None
+               else self.diverged)
+        return [classify_lane(bool(div[i]), bool(dead[i]),
+                              bool(self.finished[i]))
+                for i in range(self.n)]
+
+    def best(self) -> int:
+        """Index of the fastest *finished* member (lowest completion)."""
+        if not self.finished.any():
+            raise ValueError("no sweep member finished within the step "
+                             "budget; raise max_steps/max_extends")
+        ct = np.where(self.finished, self.completion_time, np.inf)
+        return int(np.argmin(ct))
+
+    def policy_of(self, i: int) -> str:
+        """Policy label of member ``i`` (== ``policy`` without an axis)."""
+        if self.policy_axis:
+            return self.policy_axis[int(np.asarray(
+                self.params["_which"])[i])]
+        return self.policy
+
+    def param_set(self, i: int) -> dict:
+        return {k: float(np.asarray(v)[i]) for k, v in self.params.items()}
+
+    def fabric_set(self, i: int) -> FabricParams:
+        return FabricParams(**{k: np.asarray(v)[i]
+                               for k, v in self.fabric.items()})
+
+    def fault_set(self, i: int) -> FaultSpec:
+        """The FaultSpec lane ``i`` ran under (inert spec if no faults)."""
+        if not self.fault:
+            return FaultSpec()
+        return FaultSpec(**{k: np.asarray(v)[i]
+                            for k, v in self.fault.items()})
+
+
+# unhealthy-lane warning dedupe: one warning per (policy, status-kind set)
+# per process; reset_unhealthy_warnings re-arms it
+_UNHEALTHY_WARNED: set = set()
+
+
+def reset_unhealthy_warnings() -> None:
+    """Re-arm the deduplicated unhealthy-lane ``RuntimeWarning``."""
+    _UNHEALTHY_WARNED.clear()
+
+
+def _fmt_lane_indices(idx: list, cap: int = 8) -> str:
+    head = ", ".join(str(i) for i in idx[:cap])
+    return f"[{head}{', ...' if len(idx) > cap else ''}]"
+
+
+def _warn_unhealthy_lanes(batch: BatchResults, B: int) -> None:
+    unhealthy = [(i, s) for i, s in enumerate(batch.lane_status())
+                 if s is not LaneStatus.OK]
+    if not unhealthy:
+        return
+    key = (batch.policy, frozenset(s for _, s in unhealthy))
+    if key in _UNHEALTHY_WARNED:
+        return
+    _UNHEALTHY_WARNED.add(key)
+    by_status: dict = {}
+    for i, s in unhealthy:
+        by_status.setdefault(s, []).append(i)
+    detail = "; ".join(f"{s}: lanes {_fmt_lane_indices(idx)}"
+                       for s, idx in by_status.items())
+    warnings.warn(
+        f"{len(unhealthy)}/{B} sweep lanes unhealthy ({detail}); healthy "
+        "lanes completed normally — inspect BatchResults.lane_status(). "
+        "Further identical warnings for this (policy, status) combination "
+        "are suppressed (sweep.reset_unhealthy_warnings() re-arms).",
+        RuntimeWarning, stacklevel=3)
+
+
+def grid_from_spec(policy: Policy | str, n_points: int = 3,
+                   keys: list | None = None) -> dict:
+    """Grid axes from a policy's declared ``ParamSpec`` ranges: each
+    selected tunable, bounded param gets ``n_points`` values over [lo, hi],
+    geometric where the spec says ``scale="log"``, linear otherwise,
+    rounded and deduplicated for integer params."""
+    policy = _resolve(policy)
+    if keys is None:
+        keys = [k for k, s in policy.spec.items()
+                if not s.init_baked and s.bounded and not k.startswith("_")]
+    else:
+        policy.check_tunable(keys)
+    axes = {}
+    for k in keys:
+        s = policy.param_spec(k)
+        if not s.bounded:
+            raise ValueError(f"{policy.name} param {k!r} declares no "
+                             "lo/hi bounds; pass explicit grid values")
+        if s.scale == "log":
+            vals = np.geomspace(s.lo, s.hi, n_points)
+        else:
+            vals = np.linspace(s.lo, s.hi, n_points)
+        if s.integer:
+            vals = np.unique(np.round(vals))
+        axes[k] = [float(v) for v in vals]
+    if not axes:
+        raise ValueError(f"{policy.name} has no bounded tunable params")
+    return axes
+
+
+def _stack_leaves(cls, base, stacked: dict | None, B: int, what: str):
+    """Stack a FabricParams/FaultSpec's leaves on a leading B axis; leaves
+    absent from ``stacked`` broadcast the base value.  Stacked leaves are
+    (B,) scalars-per-lane or (B, N_LINK_CLASSES) per-class arrays."""
+    stacked = stacked or {}
+    cls.check_fields(stacked)
+    leaves = {}
+    for f in cls.FIELDS:
+        if f in stacked:
+            v = np.asarray(stacked[f], np.float32)
+            if v.shape[0] != B:
+                raise ValueError(f"{what} param {f!r} has leading dim "
+                                 f"{v.shape[0]}, expected batch {B}")
+        else:
+            b = np.asarray(getattr(base, f), np.float32)
+            v = np.broadcast_to(b, (B,) + b.shape)
+        leaves[f] = v
+    return cls(**leaves)
+
+
+def _stack_fabric(base: FabricParams, stacked: dict | None,
+                  B: int) -> FabricParams:
+    return _stack_leaves(FabricParams, base, stacked, B, "fabric")
+
+
+def _stack_fault(base: FaultSpec, stacked: dict | None, B: int) -> FaultSpec:
+    """As ``_stack_fabric``; a stack that injects any fault raises until
+    the fault branches of the step are ported."""
+    flt = _stack_leaves(FaultSpec, base, stacked, B, "fault")
+    if is_faulty(flt):
+        raise NotImplementedError(_FAULTS_LATER)
+    return flt
+
+
+def stack_policy_axis(policies=None, cc_overrides: list | None = None):
+    """The policy-axis inputs without dispatching: the product policy
+    (``cc.stack_policies``), its per-lane params (the ``_which`` selector,
+    the paired ``_wire`` factors, and ``"<policy>.<param>"`` columns for
+    any ``cc_overrides``, aligned with ``policies``; only lane i reads
+    member i's params) and the labels.  Returns ``(stacked_policy, params,
+    labels)``, ready for ``run_batch(..., policy_axis=labels)``."""
+    members = [_resolve(p) for p in (policies or cc_mod.ALL_POLICIES)]
+    stacked_pol = stack_policies(members)
+    labels = stacked_pol.members
+    B = len(members)
+    params = {
+        "_which": np.arange(B, dtype=np.float32),
+        "_wire": np.asarray([m.wire_factor for m in members], np.float32),
+    }
+    if cc_overrides:
+        if len(cc_overrides) != B:
+            raise ValueError(f"cc_overrides has {len(cc_overrides)} "
+                             f"entries for {B} policies")
+        for i, (lab, m, over) in enumerate(
+                zip(labels, members, cc_overrides)):
+            if not over:
+                continue
+            m.check_tunable(over)
+            for k, v in over.items():
+                key = f"{lab}.{k}"
+                col = params.get(key)
+                if col is None:
+                    col = np.full(B, float(m.params[k]), np.float32)
+                col[i] = float(v)
+                params[key] = col
+    return stacked_pol, params, tuple(labels)
 
 
 class SweepRunner:
@@ -51,13 +292,35 @@ class SweepRunner:
     ``device`` (the card by default)."""
 
     MAX_SIMS = 64
+    # chunk_lanes="auto": stream batches of more lanes than this in chunks
+    AUTO_CHUNK_PER_DEVICE = 256
 
     def __init__(self, cfg: EngineConfig | None = None, bucket: bool = True,
-                 device="cuda"):
+                 mesh=None, chunk_lanes: int | str | None = "auto",
+                 dispatch_hook=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "laying sweep lanes over several GPUs (mesh=) is ROADMAP "
+                "queue item 7; the port runs every lane on one device")
         self.cfg = cfg or EngineConfig()
         self.bucket = bucket
+        self.chunk_lanes = chunk_lanes
+        # called as dispatch_hook(lo, hi, B) just before each lane chunk
+        self.dispatch_hook = dispatch_hook
         self.device = resolve_device(device)
         self._sims: dict = {}
+
+    def _pre_dispatch(self, lo: int, hi: int, B: int) -> None:
+        if self.dispatch_hook is not None:
+            self.dispatch_hook(lo, hi, B)
+
+    def _chunk_size(self, B: int) -> int:
+        """Lanes per chunk: ``B`` itself when no chunking applies."""
+        if self.chunk_lanes in (None, 0):
+            return B
+        if self.chunk_lanes == "auto":
+            return min(B, self.AUTO_CHUNK_PER_DEVICE)
+        return min(B, max(int(self.chunk_lanes), 1))
 
     @staticmethod
     def _scenario_key(topo, sched):
@@ -89,6 +352,7 @@ class SweepRunner:
             self._sims[key] = sim
         return sim
 
+    # -- single runs ---------------------------------------------------------
     def run(self, topo, sched, policy: Policy | str,
             cc_params: dict | None = None,
             cfg: EngineConfig | None = None,
@@ -103,13 +367,56 @@ class SweepRunner:
     def run_policies(self, topo, sched, policies=None,
                      cfg: EngineConfig | None = None,
                      fabric_params: FabricParams | None = None) -> list:
-        """One scenario under each CC policy, serially."""
+        """One scenario under each CC policy, serially (``Results`` with
+        queue timelines); ``run_policy_axis`` runs them as one batch."""
         return [self.run(topo, sched, p, cfg=cfg, fabric_params=fabric_params)
                 for p in (policies or cc_mod.ALL_POLICIES)]
 
+    def lane_state_bytes(self, topo, sched, policy: Policy | str,
+                         cfg: EngineConfig | None = None,
+                         faulty: bool = False) -> int:
+        """Device bytes one sweep lane's stepping carry occupies, counted
+        from the port's carry.  A chunk of n lanes holds n times this,
+        plus the shared prepared scenario."""
+        if faulty:
+            raise NotImplementedError(_FAULTS_LATER)
+        policy = _resolve(policy)
+        cfg = dataclasses.replace(cfg or self.cfg, queue_stride=0)
+        sim = self.simulator(topo, sched, policy, cfg)
+        total = []
+        _tree_map(lambda x: total.append(x.numel() * x.element_size()),
+                  _init_carry(sim.pp, sim.plan, policy, cfg))
+        return int(sum(total))
+
+    # -- the batched policy axis --------------------------------------------
+    def run_policy_axis(self, topo, sched, policies=None,
+                        cc_overrides: list | None = None,
+                        cfg: EngineConfig | None = None,
+                        fabric_params: FabricParams | None = None,
+                        stacked_fabric: dict | None = None,
+                        fault_spec: FaultSpec | None = None,
+                        stacked_fault: dict | None = None) -> BatchResults:
+        """The per-figure policy comparison as one batch: B =
+        len(policies) lanes of one product policy, lane i simulating
+        member i.  ``cc_overrides`` optionally gives a per-member cc_params
+        dict (aligned with ``policies``); ``stacked_fabric`` may stack
+        per-lane FabricParams leaves (length B)."""
+        stacked_pol, params, labels = stack_policy_axis(policies,
+                                                        cc_overrides)
+        return self.run_batch(topo, sched, stacked_pol, params,
+                              stacked_fabric=stacked_fabric,
+                              fabric_params=fabric_params, cfg=cfg,
+                              policy_axis=tuple(labels),
+                              stacked_fault=stacked_fault,
+                              fault_spec=fault_spec)
+
+    # -- declarative scenarios ----------------------------------------------
     def run_spec(self, spec, cfg: EngineConfig | None = None) -> Results:
         """Simulate one ``ScenarioSpec``."""
-        _no_policy_axis(spec.policy)
+        if isinstance(spec.policy, (tuple, list)):
+            raise ValueError(
+                "spec declares a policy axis (tuple policy); run it batched "
+                "via grid_spec/run_policy_axis, or pick one member")
         topo, sched, policy = spec.build()
         cc = None
         if spec.cc_params:
@@ -120,4 +427,199 @@ class SweepRunner:
                         fault_spec=spec.fault_spec)
 
     def run_specs(self, specs, cfg: EngineConfig | None = None) -> list:
-        return [self.run_spec(s, cfg=cfg) for s in specs]
+        """Simulate a list of ``ScenarioSpec``s; a tuple-policy spec
+        (``scenario_matrix(stacked=True)``) runs its policy axis as one
+        batch and contributes a ``BatchResults`` entry."""
+        return [self.grid_spec(s, cfg=cfg)
+                if isinstance(s.policy, (tuple, list))
+                else self.run_spec(s, cfg=cfg) for s in specs]
+
+    def grid_spec(self, spec, param_grid: dict | None = None,
+                  fabric_grid: dict | None = None,
+                  cfg: EngineConfig | None = None,
+                  fault_grid: dict | None = None) -> BatchResults:
+        """Full-factorial CC x fabric (x fault) grid on one
+        ``ScenarioSpec``; a tuple ``policy`` sweeps the policy axis too."""
+        topo, sched, policy = spec.build()
+        if isinstance(spec.policy, (tuple, list)):
+            return self.grid(topo, sched, None, param_grid, fabric_grid,
+                             fabric_params=spec.fabric_params,
+                             cc_params=spec.cc_params, cfg=cfg,
+                             policy_axis=list(spec.policy),
+                             fault_grid=fault_grid,
+                             fault_spec=spec.fault_spec)
+        return self.grid(topo, sched, policy, param_grid, fabric_grid,
+                         fabric_params=spec.fabric_params,
+                         cc_params=spec.cc_params, cfg=cfg,
+                         fault_grid=fault_grid,
+                         fault_spec=spec.fault_spec)
+
+    # -- batched parameter sweeps -------------------------------------------
+    def _dispatch_lanes(self, sim: Simulator, full: dict, fab: FabricParams,
+                        B: int) -> tuple:
+        """Run B stacked lanes in chunks of ``_chunk_size(B)``; the last
+        chunk is padded by repeating its final lane and the padding is
+        dropped, so callers see exactly B lanes in input order.  Returns
+        ``(host numpy finals, meta)``."""
+        chunk = self._chunk_size(B)
+        parts = []
+        meta = {"steps_run": 0, "steps_executed": 0, "lane_steps": [],
+                "chunks": 0, "chunk_lanes": chunk,
+                "step_impl": sim.step_impl, "device": str(sim.device)}
+        for lo in range(0, B, chunk):
+            hi = min(lo + chunk, B)
+            take = np.arange(lo, hi)
+            if hi - lo < chunk:
+                take = np.concatenate([take,
+                                       np.full(chunk - (hi - lo), hi - 1)])
+            self._pre_dispatch(lo, hi, B)
+            params = {k: v[take] for k, v in full.items()}
+            lane_fab = FabricParams(**{f: np.asarray(getattr(fab, f))[take]
+                                       for f in FabricParams.FIELDS})
+            carry, steps, executed, lane_steps = sim.run_carry(
+                params, lane_fab, len(take))
+            parts.append({k: carry[k].detach().cpu().numpy()[:hi - lo]
+                          for k in ("t_finish", "done", "pause_count",
+                                    "delivered", "soft", "diverged",
+                                    "deadlock_step", "storm_step")})
+            meta["steps_run"] = max(meta["steps_run"], steps)
+            meta["steps_executed"] += executed
+            meta["lane_steps"] += lane_steps[:hi - lo].tolist()
+            meta["chunks"] += 1
+        out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        return out, meta
+
+    def run_batch(self, topo, sched, policy: Policy | str,
+                  stacked_params: dict | None = None,
+                  stacked_fabric: dict | None = None,
+                  fabric_params: FabricParams | None = None,
+                  cc_params: dict | None = None,
+                  cfg: EngineConfig | None = None,
+                  policy_axis: tuple = (),
+                  stacked_fault: dict | None = None,
+                  fault_spec: FaultSpec | None = None) -> BatchResults:
+        """Simulate B (CC params, FabricParams) sets in one stepping loop.
+
+        ``stacked_params`` maps CC param name -> length-B array;
+        ``stacked_fabric`` maps FabricParams field -> (B,) or (B, C) array;
+        ``stacked_fault`` maps FaultSpec field -> (B,) or (B, C) array
+        (any fault raises until the fault branches are ported).  Missing
+        CC params broadcast from the policy defaults (overridden by
+        ``cc_params``); missing fabric fields from ``fabric_params``
+        (default: the runner config's scalars).  ``policy_axis`` carries
+        the per-lane labels when ``policy`` is a stacked product policy
+        (see ``run_policy_axis``)."""
+        policy = _resolve(policy)
+        stacked_params = stacked_params or {}
+        policy.check_tunable(stacked_params)
+        if cc_params:
+            policy.check_tunable(cc_params)
+        sizes = [len(np.asarray(v)) for v in stacked_params.values()]
+        sizes += [np.asarray(v).shape[0]
+                  for v in (stacked_fabric or {}).values()]
+        sizes += [np.asarray(v).shape[0]
+                  for v in (stacked_fault or {}).values()]
+        if not sizes:
+            raise ValueError("empty batch: provide stacked_params, "
+                             "stacked_fabric and/or stacked_fault")
+        if len(set(sizes)) > 1:
+            raise ValueError(f"inconsistent batch sizes {sorted(set(sizes))}")
+        B = sizes[0]
+        base_cc = dict(policy.params, **(cc_params or {}))
+        full = {k: np.asarray(stacked_params.get(k, np.full(B, float(v))),
+                              np.float32)
+                for k, v in base_cc.items()}
+        cfg = dataclasses.replace(cfg or self.cfg, queue_stride=0)
+        fab = _stack_fabric(_as_fabric(fabric_params, cfg), stacked_fabric, B)
+        _stack_fault(_as_fault(fault_spec), stacked_fault, B)
+        sim = self.simulator(topo, sched, policy, cfg)
+        out, meta = self._dispatch_lanes(sim, full, fab, B)
+        F = sim.plan.n_flows
+        t_fin = out["t_finish"][:, :F]
+        finished = out["done"][:, :F].all(axis=1)
+        diverged = out["diverged"]
+        batch = BatchResults(
+            policy=policy.name, params=full,
+            fabric={k: np.asarray(getattr(fab, k))
+                    for k in FabricParams.FIELDS},
+            completion_time=np.max(np.where(np.isfinite(t_fin), t_fin, 0.0),
+                                   axis=1),
+            t_finish=t_fin, pause_count=out["pause_count"],
+            delivered=out["delivered"][:, :F], soft_cost=out["soft"],
+            finished=finished, policy_axis=tuple(policy_axis),
+            diverged=diverged, deadlock_step=out["deadlock_step"],
+            storm_step=out["storm_step"],
+            extend_exhausted=~finished & ~diverged, meta=meta,
+        )
+        _warn_unhealthy_lanes(batch, B)
+        return batch
+
+    def grid(self, topo, sched, policy: Policy | str | None = None,
+             param_grid: dict | None = None,
+             fabric_grid: dict | None = None,
+             fabric_params: FabricParams | None = None,
+             cc_params: dict | None = None,
+             cfg: EngineConfig | None = None,
+             policy_axis: list | None = None,
+             fault_grid: dict | None = None,
+             fault_spec: FaultSpec | None = None) -> BatchResults:
+        """Full-factorial joint sweep: CC ``{param: [values...]}`` x fabric
+        ``{field: [values...]}`` x fault ``{field: [values...]}`` -> one
+        batch.  Fabric/fault axes may list scalars or per-class arrays.
+        ``policy_axis`` adds the policy as a grid dimension (``policy``
+        must then be None and ``param_grid`` keys member-namespaced,
+        ``"dcqcn.rai_frac"``)."""
+        param_grid = param_grid or {}
+        fabric_grid = fabric_grid or {}
+        fault_grid = fault_grid or {}
+        FaultSpec.check_fields(fault_grid)
+        for a, b, what in ((param_grid, fabric_grid, "CC and fabric"),
+                           (param_grid, fault_grid, "CC and fault"),
+                           (fabric_grid, fault_grid, "fabric and fault")):
+            overlap = set(a) & set(b)
+            if overlap:
+                raise ValueError(f"params {sorted(overlap)} appear in both "
+                                 f"the {what} grids")
+        labels, wires = (), None
+        if policy_axis is not None:
+            if policy is not None:
+                raise ValueError("pass either policy or policy_axis, "
+                                 "not both")
+            members = [_resolve(p) for p in policy_axis]
+            wires = np.asarray([m.wire_factor for m in members], np.float32)
+            policy = stack_policies(members)
+            labels = policy.members
+            bad = {k for k in param_grid if "." not in k}
+            if bad:
+                raise ValueError(
+                    f"param_grid keys {sorted(bad)} are not member-"
+                    "namespaced; with a policy_axis use '<policy>.<param>' "
+                    f"(members: {list(labels)})")
+        elif policy is None:
+            raise ValueError("policy is required without a policy_axis")
+        axes = [np.asarray(v, np.float32)
+                for v in list(param_grid.values()) + list(fabric_grid.values())
+                + list(fault_grid.values())]
+        names = list(param_grid) + list(fabric_grid) + list(fault_grid)
+        if policy_axis is not None:
+            names.append("_which")
+            axes.append(np.arange(len(labels), dtype=np.float32))
+        if not axes:
+            raise ValueError("empty grid")
+        # index-space meshgrid so per-class (point, C)-shaped axes
+        # enumerate points along axis 0
+        idx = np.meshgrid(*[np.arange(len(a)) for a in axes], indexing="ij")
+        flat = [i.reshape(-1) for i in idx]
+        stacked = {k: axes[j][flat[j]] for j, k in enumerate(names)}
+        stacked_cc = {k: stacked[k] for k in names
+                      if k not in fabric_grid and k not in fault_grid}
+        if wires is not None:
+            # the wire factor is paired with the selected member
+            stacked_cc["_wire"] = wires[stacked["_which"].astype(np.int64)]
+        return self.run_batch(
+            topo, sched, policy, stacked_cc,
+            stacked_fabric={k: stacked[k] for k in fabric_grid},
+            fabric_params=fabric_params, cc_params=cc_params, cfg=cfg,
+            policy_axis=labels,
+            stacked_fault={k: stacked[k] for k in fault_grid},
+            fault_spec=fault_spec)

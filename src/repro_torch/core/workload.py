@@ -19,8 +19,8 @@ the flows' paths and the simulated results.  The port's schedule is the
 same in every process.  Feeding the reference ``hash = crc32`` gives the
 two packages the same schedule.
 
-``simulate_dlrm_policies`` runs the policies one after another; the
-batched policy axis is not ported yet.
+``simulate_dlrm_policies`` runs the policies one after another, or with
+``batched=True`` as one batch over a policy axis.
 """
 from __future__ import annotations
 
@@ -192,22 +192,35 @@ def simulate_dlrm_policies(topo: Topology, gpus: list, policies=None,
                            runner=None, batched: bool | None = None,
                            device="cuda") -> list[IterationReport]:
     """The Fig-10 per-policy loop: the same DLRM iteration under each CC
-    policy, one after another.  ``batched=None`` runs serially;
-    ``batched=True`` (one dispatch over a policy axis) raises until the
-    batched sweeps are ported."""
+    policy.  ``batched=True`` runs the policies as one batch over a policy
+    axis (``SweepRunner.run_policy_axis``, on the op path as in the
+    reference).  The reference decides ``batched=None`` from its measured
+    backend calibration, which the port does not have: here ``None`` (and
+    ``False``) runs the policies one after another."""
     from repro_torch.core import cc as cc_mod
     from repro_torch.core.sweep import SweepRunner
-    if batched:
-        raise NotImplementedError(
-            "simulate_dlrm_policies(batched=True) needs the policy axis, "
-            "which is not ported yet (ROADMAP.md queue item 1); pass "
-            "batched=None or False to run the policies serially")
     runner = runner or SweepRunner(cfg, device=device)
     policies = tuple(policies or cc_mod.ALL_POLICIES)
-    return [simulate_dlrm_iteration(
-                topo, gpus, cc_mod.get_policy(p) if isinstance(p, str) else p,
-                prof, comm, cfg=cfg, runner=runner)
-            for p in policies]
+    if not batched:
+        return [simulate_dlrm_iteration(
+                    topo, gpus,
+                    cc_mod.get_policy(p) if isinstance(p, str) else p,
+                    prof, comm, cfg=cfg, runner=runner)
+                for p in policies]
+    sched = build_dlrm_iteration(topo, gpus, prof, comm)
+    batch = runner.run_policy_axis(topo, sched, policies, cfg=cfg)
+    out = []
+    for i in range(batch.n):
+        iter_time = float(batch.completion_time[i]) + prof.opt_update
+        out.append(IterationReport(
+            iteration_time=iter_time,
+            total_compute=prof.total,
+            exposed_comm=max(iter_time - prof.total, 0.0),
+            pfc_pauses=int(batch.pause_count[i].sum()),
+            policy=batch.policy_of(i),
+            finished=bool(batch.finished[i]),
+        ))
+    return out
 
 
 def simulate_dlrm_iteration(topo: Topology, gpus: list, policy,

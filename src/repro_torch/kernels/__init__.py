@@ -3,6 +3,9 @@
 #                   segment reduction (+ fused PFC hysteresis): the
 #                   simulator's per-step hot loop (see repro_torch.core.engine
 #                   step_impl="cuda").
+#   cc_update     — the DCQCN per-flow update behind the reference's entry
+#                   point dcqcn_update; shares the policy device functions
+#                   (csrc/cc_policy.cuh) with the fused step kernel.
 #   embedding_bag — multi-hot sum pooling of the DLRM forward (see
 #                   repro_torch.models.dlrm embedding_impl="cuda").
 #   flash_decode  — one-token GQA attention over a KV cache, the serving

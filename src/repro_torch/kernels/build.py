@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each source under ``kernels/*/csrc/`` compiles into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), placed
+plain C interface (the shared headers under ``kernels/csrc/`` included) (no PyTorch headers, so a build takes seconds), placed
 under ``build/kernels/`` at the repository root, a directory that
 ``.gitignore`` lists.  The library name carries a hash of the source and
 the flags, so an edited source is rebuilt and a stale library is never
@@ -30,9 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 SOURCES = {
     "engine_step": _PKG / "engine_step" / "csrc" / "engine_step.cu",
+    "cc_update": _PKG / "cc_update" / "csrc" / "cc_update.cu",
     "embedding_bag": _PKG / "embedding_bag" / "csrc" / "embedding_bag.cu",
     "flash_decode": _PKG / "flash_decode" / "csrc" / "flash_decode.cu",
 }
+
+# headers the sources include (the policies' device functions); part of
+# every library's hash
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 
 # name -> loaded library; BUILD_INFO[name] -> seconds, nvcc version, ptxas log
 _LIBS: dict = {}
@@ -60,11 +65,14 @@ def nvcc_version(nvcc: str) -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``SOURCES[name]`` unless a library of the same source and
-    flags exists; returns the library's path."""
+    """Compile ``SOURCES[name]`` unless a library of the same source,
+    headers and flags exists; returns the library's path."""
     src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in HEADERS:
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib

@@ -12,10 +12,11 @@
 //     neighbouring flows; state is (B, K, F) in cc.kernel_state_keys order,
 //     params a (B, P) row per lane in cc.kernel_param_keys order.  The
 //     policy's update is a device function picked by a template on its id
-//     (cc.KERNEL_POLICY_ID).  Bound: device-memory bytes, about
-//     (8*H + 3 + K) * 4 read and (K + 2) * 4 written per flow; the design
-//     reads each input once, keeps the signals in registers, and writes
-//     only state', rate and win (the engine discards ecn, rtt and util).
+//     (cc.KERNEL_POLICY_ID), defined in ../../csrc/cc_policy.cuh.  Bound:
+//     device-memory bytes, about (8*H + 3 + K) * 4 read and (K + 2) * 4
+//     written per flow; the design reads each input once, keeps the
+//     signals in registers, and writes only state', rate and win (the
+//     engine discards ecn, rtt and util).
 //     The last block is masked, so every F is right (the Pallas grid of
 //     N8 // 8 tiles dropped the tail tiles).
 //
@@ -44,235 +45,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/cc_policy.cuh"
+
 namespace {
 
 constexpr int MAXHOP = 4;
 constexpr int MAXK = 8;          // largest policy state (DCQCN)
-constexpr float INF_WIN = 1e18f;
-
-// NaN-propagating min/max, as jnp.minimum/maximum and torch.clamp
-__device__ __forceinline__ float vmax(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-__device__ __forceinline__ float vmin(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
-__device__ __forceinline__ float vclip(float x, float lo, float hi) {
-  return vmin(vmax(x, lo), hi);
-}
-
-__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
-  const float r = fmaf(a, b, c);
-  return fabsf(r) < 1.17549435e-38f ? r * 0.0f : r;
-}
-
-// Cephes expf: range reduction by ln2 in two parts, degree-7 polynomial,
-// results below the smallest normal float flushed to zero
-__device__ __forceinline__ float cephes_expf(float x) {
-  x = (x < -0x1.5f3334p+6f) ? -0x1.5f3334p+6f : x;
-  x = (x > 0x1.633334p+6f) ? 0x1.633334p+6f : x;
-  float n = floorf(fma_ftz(x, 0x1.715476p+0f, 0.5f));
-  n = (n < -127.0f) ? -127.0f : n;
-  n = (n > 127.0f) ? 127.0f : n;
-  float r = fma_ftz(-0x1.63p-1f, n, x);
-  r = fma_ftz(0x1.bd0106p-13f, n, r);
-  float p = fma_ftz(r, 0x1.a0d2cep-13f, 0x1.6e879cp-10f);
-  p = fma_ftz(p, r, 0x1.111210p-7f);
-  p = fma_ftz(p, r, 0x1.555382p-5f);
-  p = fma_ftz(p, r, 0x1.555554p-3f);
-  p = fma_ftz(p, r, 0.5f);
-  const float y = 1.0f + fma_ftz(p, r * r, r);
-  const float scale = __int_as_float(((n == n ? (int)n : 0) + 127) << 23);
-  const float out = y * scale;
-  return out < 1.17549435e-38f ? 0.0f : out;
-}
-
-struct Sig {
-  float ecn, rtt, util, t, line, base_rtt, loss;
-};
-
-// Policy ids: cc.KERNEL_POLICY_ID.  State and param slots are the sorted
-// key orders of cc.kernel_state_keys / cc.kernel_param_keys; ops.py checks
-// them against the Python tables before the first launch.
-enum { PFC = 0, DCQCN = 1, DCTCP = 2, TIMELY = 3, HPCC = 4, HPCC_PINT = 5,
-       STATIC_WINDOW = 6 };
-
-template <int POL>
-__device__ __forceinline__ void policy_update(const float* __restrict__ p,
-                                              float* s, const Sig& sig,
-                                              float& rate, float& win);
-
-// pfc: no state (one dummy zero row), no params
-template <>
-__device__ __forceinline__ void policy_update<PFC>(const float*, float* s,
-                                                   const Sig& sig,
-                                                   float& rate, float& win) {
-  s[0] = 0.f;
-  rate = sig.line;
-  win = INF_WIN;
-}
-
-// dcqcn  state: alpha inc_count jit rc rt t_alpha t_cut t_inc
-//        params: cut_gap ecn_thresh fast_rounds g hai_after mss rai_frac
-//                rhai_frac timer
-template <>
-__device__ __forceinline__ void policy_update<DCQCN>(
-    const float* __restrict__ p, float* s, const Sig& sig, float& rate,
-    float& win) {
-  const float cut_gap = p[0], ecn_thresh = p[1], fast_rounds = p[2],
-              g = p[3], hai_after = p[4], mss = p[5], rai_frac = p[6],
-              rhai_frac = p[7], timer = p[8];
-  const float alpha0 = s[0], inc0 = s[1], jit = s[2], rc0 = s[3],
-              rt0 = s[4], t_alpha0 = s[5], t_cut0 = s[6], t_inc0 = s[7];
-  const float t = sig.t, line = sig.line;
-  const float pkts = rc0 * cut_gap / mss;
-  const float ecn_eff =
-      (sig.loss > 0.f) ? vmin(sig.ecn + 2.0f * sig.loss, 1.0f) : sig.ecn;
-  const float p_cnp = 1.0f - cephes_expf(-pkts * ecn_eff);
-  const bool cong = p_cnp > ecn_thresh;
-  const bool docut = cong && ((t - t_cut0) >= cut_gap * jit);
-  float rt = docut ? rc0 : rt0;
-  float rc = docut ? rc0 * fma_ftz(-(alpha0 / 2.0f), p_cnp, 1.0f) : rc0;
-  float alpha =
-      docut ? fma_ftz(fma_ftz(-g, p_cnp, 1.0f), alpha0, g * p_cnp) : alpha0;
-  const float t_cut = docut ? t : t_cut0;
-  float inc_count = docut ? 0.0f : inc0;
-  float t_inc = docut ? t : t_inc0;
-
-  const bool dodec = (!cong) && ((t - t_alpha0) >= timer * jit);
-  alpha = dodec ? (1.0f - g) * alpha : alpha;
-  const float t_alpha = (dodec || docut) ? t : t_alpha0;
-
-  const bool doinc = (t - t_inc) >= timer * jit;
-  inc_count = doinc ? inc_count + 1.0f : inc_count;
-  const bool additive = inc_count > fast_rounds;
-  const bool hyper = inc_count > fast_rounds + hai_after;
-  rt = (doinc && additive) ? fma_ftz(hyper ? rhai_frac : rai_frac, line, rt)
-                           : rt;
-  rc = doinc ? 0.5f * (rt + rc) : rc;
-  t_inc = doinc ? t : t_inc;
-
-  rc = vclip(rc, 0.001f * line, line);
-  rt = vclip(rt, 0.001f * line, line);
-  s[0] = alpha; s[1] = inc_count; s[2] = jit; s[3] = rc; s[4] = rt;
-  s[5] = t_alpha; s[6] = t_cut; s[7] = t_inc;
-  rate = rc;
-  win = INF_WIN;
-}
-
-// dctcp  state: alpha bdp t_rtt w       params: ecn_thresh g mss wmax_bdp
-template <>
-__device__ __forceinline__ void policy_update<DCTCP>(
-    const float* __restrict__ p, float* s, const Sig& sig, float& rate,
-    float& win) {
-  const float ecn_thresh = p[0], g = p[1], mss = p[2], wmax_bdp = p[3];
-  const float alpha0 = s[0], bdp = s[1], t_rtt0 = s[2], w0 = s[3];
-  const float t = sig.t;
-  const float rtt = vmax(sig.rtt, 1e-6f);
-  const bool d = (t - t_rtt0) >= rtt;
-  const float ecn_eff =
-      (sig.loss > 0.f) ? vmin(sig.ecn + 2.0f * sig.loss, 1.0f) : sig.ecn;
-  const float alpha = d ? fma_ftz(1.0f - g, alpha0, g * ecn_eff) : alpha0;
-  const bool marked = ecn_eff > ecn_thresh;
-  float w = (d && marked) ? w0 * (1.0f - alpha / 2.0f) : w0;
-  w = (d && !marked) ? w + mss : w;
-  const float t_rtt = d ? t : t_rtt0;
-  w = vclip(w, mss, wmax_bdp * bdp);
-  s[0] = alpha; s[1] = bdp; s[2] = t_rtt; s[3] = w;
-  rate = sig.line;
-  win = w;
-}
-
-// timely state: grad neg_count rate rtt_prev t_upd
-//        params: add_frac beta ewma hai_thresh thigh tlow
-template <>
-__device__ __forceinline__ void policy_update<TIMELY>(
-    const float* __restrict__ p, float* s, const Sig& sig, float& rate,
-    float& win) {
-  const float add_frac = p[0], beta = p[1], ewma = p[2], hai_thresh = p[3],
-              thigh = p[4], tlow = p[5];
-  const float grad0 = s[0], neg0 = s[1], r = s[2], rtt_prev0 = s[3],
-              t_upd0 = s[4];
-  const float t = sig.t, line = sig.line, rtt = sig.rtt;
-  const float minrtt = vmax(sig.base_rtt, 1e-6f);
-  const float period = vmax(minrtt, 20e-6f);
-  const bool d = (t - t_upd0) >= period;
-  const float grad_new = (rtt - rtt_prev0) / minrtt;
-  const float grad = d ? fma_ftz(1.0f - ewma, grad0, ewma * grad_new) : grad0;
-  const float delta = add_frac * line;
-  const float neg = (d && (grad <= 0.0f)) ? neg0 + 1.0f : 0.0f;
-  const bool hai = neg >= hai_thresh;
-  const float r_low = r + (hai ? 5.0f * delta : delta);
-  const float r_high =
-      r * fma_ftz(-beta, 1.0f - thigh / vmax(rtt, thigh), 1.0f);
-  const float gnorm = vclip(grad, 0.0f, 1.0f);
-  const float r_grad = (grad <= 0.0f) ? fma_ftz(hai ? 5.0f : 1.0f, delta, r)
-                                      : r * fma_ftz(-beta, gnorm, 1.0f);
-  const float r_new = (rtt < tlow) ? r_low : ((rtt > thigh) ? r_high : r_grad);
-  float new_rate = d ? vclip(r_new, 0.001f * line, line) : r;
-  if ((sig.loss > 0.f) && d)
-    new_rate = vclip(
-        new_rate * fma_ftz(-beta, vmin(2.0f * sig.loss, 1.0f), 1.0f),
-        0.001f * line, line);
-  s[0] = grad; s[1] = neg; s[2] = new_rate;
-  s[3] = d ? rtt : rtt_prev0;
-  s[4] = d ? t : t_upd0;
-  rate = new_rate;
-  win = INF_WIN;
-}
-
-// hpcc / hpcc_pint  state: bdp stage t_rtt w wc
-//                   params: eta max_stage wai_frac
-template <bool PINT>
-__device__ __forceinline__ void hpcc_update(const float* __restrict__ p,
-                                            float* s, const Sig& sig,
-                                            float& rate, float& win) {
-  const float eta = p[0], max_stage = p[1], wai_frac = p[2];
-  const float bdp = s[0], stage0 = s[1], t_rtt0 = s[2], wc0 = s[4];
-  const float t = sig.t;
-  float u = vmax(sig.util, 1e-3f);
-  if (sig.loss > 0.f) u = vmax(u, 1.0f + 2.0f * sig.loss);
-  const float wai = wai_frac * bdp;
-  const float mult = wc0 * (eta / u) + wai;     // not contracted (see cc.py)
-  const float addv = fma_ftz(wai_frac, bdp, wc0);
-  const bool use_mult = (u >= eta) || (stage0 >= max_stage);
-  float w = use_mult ? mult : addv;
-  w = vclip(w, wai, 16.0f * bdp);
-  // hpcc_pint: probabilistic INT refreshes the reference window half as
-  // often (base_rtt * 2 in the update only)
-  const float base_rtt = PINT ? sig.base_rtt * 2.0f : sig.base_rtt;
-  const float rtt = vmax(base_rtt, 1e-6f);
-  const bool d = (t - t_rtt0) >= rtt;
-  s[0] = bdp;
-  s[1] = d ? (use_mult ? 0.0f : stage0 + 1.0f) : stage0;
-  s[2] = d ? t : t_rtt0;
-  s[3] = w;
-  s[4] = d ? w : wc0;
-  rate = vmin(w / rtt, sig.line);
-  win = w;
-}
-
-template <>
-__device__ __forceinline__ void policy_update<HPCC>(
-    const float* __restrict__ p, float* s, const Sig& sig, float& rate,
-    float& win) {
-  hpcc_update<false>(p, s, sig, rate, win);
-}
-
-template <>
-__device__ __forceinline__ void policy_update<HPCC_PINT>(
-    const float* __restrict__ p, float* s, const Sig& sig, float& rate,
-    float& win) {
-  hpcc_update<true>(p, s, sig, rate, win);
-}
-
-// static_window  state: w (baked by init)   params: none tunable
-template <>
-__device__ __forceinline__ void policy_update<STATIC_WINDOW>(
-    const float*, float* s, const Sig& sig, float& rate, float& win) {
-  rate = sig.line;
-  win = s[0];
-}
 
 template <int POL>
 __global__ void __launch_bounds__(256) fused_signals_policy_kernel(

@@ -112,9 +112,12 @@ def test_one_step_from_the_same_state(case, n_steps):
     for use_kernels in (False, True):
         pstep = peng._make_step(sim.policy, sim.cfg, sim.plan, sim.pp, None,
                                 sim.fabric, use_kernels)
-        got = convert.carry_to_numpy(
-            pstep(convert.carry_from_numpy(_flat_to_carry(carry)), n_steps))
-        got = {k: v for k, v in _flat(got).items()}
+        # the port's carry has a leading lane axis: one lane here
+        lane = convert.carry_from_numpy(
+            _flat_to_carry(jax.tree_util.tree_map(lambda x: x[None],
+                                                  carry)))
+        got = convert.carry_to_numpy(pstep(lane, n_steps))
+        got = {k: v[0] for k, v in _flat(got).items()}
         assert set(got) == set(want)
         for k in want:
             np.testing.assert_allclose(got[k].astype(np.float64),

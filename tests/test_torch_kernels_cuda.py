@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (``repro_torch.kernels.engine_step``,
+card (``repro_torch.kernels.engine_step``, ``repro_torch.kernels.cc_update``,
 ``repro_torch.kernels.embedding_bag`` and
 ``repro_torch.kernels.flash_decode``).
 
@@ -20,10 +20,14 @@ import torch
 from repro_torch.core import (EngineConfig, Simulator, get_policy, incast,
                               single_switch)
 from repro_torch.core import cc
+from repro_torch.core import engine as peng
+from repro_torch.core import sweep as psweep
 from repro_torch.common import init as init_mod
 from repro_torch.common.pytree import tree_map
 from repro_torch.configs import smoke_config
 from repro_torch.data import dlrm_batch
+from repro_torch.kernels.cc_update import ops as ccu_ops
+from repro_torch.kernels.cc_update import ref as ccu_ref
 from repro_torch.kernels.embedding_bag import ops as emb_ops
 from repro_torch.kernels.embedding_bag import ref as emb_ref
 from repro_torch.kernels.engine_step import ops, ref
@@ -154,6 +158,82 @@ def test_engine_cuda_matches_op_path(dev, pol):
                                rtol=1e-4)
     np.testing.assert_allclose(a.pause_count, b.pause_count, rtol=1e-3,
                                atol=1.0)
+
+
+def test_batched_kernel_step_matches_op_path(dev):
+    """One kernel-path step of B=3 lanes (different fabric and CC params)
+    from a mid-run state against one op-path step from the same state:
+    float leaves within rtol 1e-5 (the kernels' check tolerance), flags
+    equal."""
+    topo = single_switch(8)
+    sched = incast(topo, list(range(1, 8)), 0, 5e6)
+    cfg = EngineConfig(dt=1e-6, max_steps=1500, max_extends=2,
+                       queue_stride=0)
+    pol = get_policy("dcqcn")
+    sim = Simulator(topo, sched, pol, cfg, device="cuda")
+    B = 3
+    params = {"rai_frac": np.asarray([0.01, 0.03, 0.2], np.float32),
+              "g": np.asarray([1 / 256, 1 / 64, 1 / 16], np.float32)}
+    fab = psweep._stack_fabric(sim.fabric, {
+        "xoff": np.asarray([0.3e6, 1e6, 2e6], np.float32),
+        "kmin": np.asarray([100e3, 400e3, 800e3], np.float32)}, B)
+    steps = {k: peng._make_step(pol, cfg, sim.plan, sim.pp, params, fab,
+                                k == "cuda", lanes=B)
+             for k in ("cuda", "torch")}
+    carry = peng._init_carry(sim.pp, sim.plan, pol, cfg, params, lanes=B)
+    for it in range(300):
+        carry = steps["torch"](carry, it)
+    ops.reset_launches()
+    got = steps["cuda"](peng._tree_map(torch.clone, carry), 300)
+    assert ops.LAUNCHES["fused_signals_policy"] == 1
+    want = steps["torch"](peng._tree_map(torch.clone, carry), 300)
+    assert float(want["pause_count"].sum()) > 0
+    want = dict(_leaves(want))
+    for k, a in _leaves(got):
+        if a.is_floating_point():
+            torch.testing.assert_close(a, want[k], rtol=1e-5, atol=1e-3,
+                                       msg=k)
+        else:
+            assert torch.equal(a, want[k]), k
+
+
+def _leaves(carry, prefix=""):
+    for k, v in carry.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+@pytest.mark.parametrize("F", [7, 1500, 7936, 130048])
+def test_dcqcn_update_kernel_bit_equal(dev, F):
+    """The DCQCN update kernel against its plain version, bit for bit,
+    with default and non-default parameters and two state draws."""
+    for seed, varied in ((F, False), (F + 1, True)):
+        st, ecn, line = chip_smoke.dcqcn_state(F, seed, varied, dev)
+        for scale in (1.0, 1.3):
+            params = {k: v * scale
+                      for k, v in cc.make_dcqcn().params.items()}
+            before = ccu_ops.LAUNCHES["dcqcn_update"]
+            got = ccu_ops.dcqcn_update(st, ecn, line, 2e-3, params)
+            assert ccu_ops.LAUNCHES["dcqcn_update"] == before + 1
+            want = ccu_ref.dcqcn_update_ref(st, ecn, line, 2e-3, params)
+            for k in ccu_ops.ORDER:
+                assert torch.equal(got[k], want[k]), (k, seed, scale)
+
+
+def test_dcqcn_update_wrapper_rejects(dev):
+    st, ecn, line = chip_smoke.dcqcn_state(64, 0, False, dev)
+    with pytest.raises(TypeError):
+        ccu_ops.dcqcn_update(st, ecn.double(), line, 2e-3)
+    with pytest.raises(ValueError):
+        ccu_ops.dcqcn_update(st, ecn[:32], line, 2e-3)
+    with pytest.raises(ValueError):
+        ccu_ops.dcqcn_update(st, ecn.cpu(), line, 2e-3)
+    with pytest.raises(ValueError):
+        ccu_ops.dcqcn_update(
+            dict(st, rc=torch.stack([st["rc"], st["rc"]], 1)[:, 0]),
+            ecn, line, 2e-3)
 
 
 def _bf16_table(shape, seed, dev):

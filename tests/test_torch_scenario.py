@@ -51,13 +51,17 @@ def test_bucketing_and_simulator_cache():
 
 
 def test_policy_axis_belongs_to_the_batched_slice():
+    """A tuple policy runs batched (``grid_spec``, ``test_torch_sweep*``);
+    ``run_spec`` refuses it, as the reference's does."""
     spec = _specs(pscen, ("dcqcn", "hpcc"))
-    with pytest.raises(NotImplementedError, match="policy axis"):
+    with pytest.raises(ValueError, match="policy axis"):
         SweepRunner(peng.EngineConfig(**CFG), device="cpu").run_spec(spec)
-    with pytest.raises(NotImplementedError, match="policy axis"):
-        pscen.scenario_matrix([pscen.FabricSpec()],
-                              [pscen.CollectiveSpec("1d", 1e6)],
-                              ["pfc", "dcqcn"], stacked=True)
+    assert spec.build()[2].members == ("dcqcn", "hpcc")
+    (stacked,) = pscen.scenario_matrix([pscen.FabricSpec()],
+                                       [pscen.CollectiveSpec("1d", 1e6)],
+                                       ["pfc", "dcqcn"], stacked=True)
+    assert stacked.policy == ("pfc", "dcqcn")
+    assert stacked.name == "clos32_1d_stack"
 
 
 def test_scenario_matrix_and_specs_match_reference():

@@ -127,8 +127,10 @@ def test_policy_loop_matches_reference(crc32_hash):
 
 
 def test_batched_policy_axis_raises():
+    """``batched=True`` stacks the policies into one policy axis, which
+    needs at least two of them (the reference's ``stack_policies``)."""
     _, topo = _fabric("clos16")
-    with pytest.raises(NotImplementedError, match="policy axis"):
+    with pytest.raises(ValueError, match="at least two"):
         pw.simulate_dlrm_policies(topo, list(range(16)), ("pfc",),
                                   batched=True, device="cpu")
 
