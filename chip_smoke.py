@@ -20,6 +20,11 @@ JAX reference.
 Every phase prints one JSON line; a failed phase raises, so the script
 exits non-zero.  The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line ``{"ok": true, "device": ...}``.
+Each kernel row has the event time of back-to-back direct launches
+(``ms``; flash_decode's cycles over input sets larger than the L2, its
+L2-resident time is ``ms_hot``), the host's µs per launch, and the mean
+device µs per call from a ``torch.profiler`` trace taken at the end of
+the run (``device_us``), for the kernel and its library call.
 Without CUDA, or outside a checkout holding ``src/repro_torch``, it exits
 non-zero and prints no result.
 """
@@ -115,6 +120,9 @@ FIG12_STEP_AT = 600
 # lane counts the engine kernels are held against their plain versions at:
 # one, a few, and Fig 12's nine
 CHECK_LANES = (1, 3, 9)
+# time_flash_decode: input sets cycled for the cold time, and the live K/V
+# bytes they must exceed together (the H100's L2 is 50 MB)
+FD_COLD_SETS, FD_COLD_BYTES = 4, 64e6
 
 
 def fig12_points() -> np.ndarray:
@@ -367,6 +375,50 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_summary(log: str) -> dict:
+    """Kernel -> "N registers, S bytes spilled" from an ``nvcc -Xptxas -v``
+    log (names shortened from the mangled ones)."""
+    import re
+    out = {}
+    for mangled, body in re.findall(
+            r"Compiling entry function '(\S+)' for 'sm_90a'(.*?)"
+            r"(?=Compiling entry function|\Z)", log, re.S):
+        m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+        name = mangled if m is None else mangled[
+            m.end():m.end() + int(m.group(1))]
+        targs = re.match(r"I(.*?)EE?v", mangled[m.end() + int(m.group(1)):]
+                         if m else "")
+        if targs:
+            name += "<" + ",".join(re.findall(r"L[ib](\d+)E", targs.group(1))
+                                   or [targs.group(1)]) + ">"
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        out[name] = (f"{regs.group(1) if regs else '?'} registers, "
+                     f"{spill.group(1) if spill else '?'} bytes spilled")
+    return out
+
+
+def sass_counts(lib) -> dict:
+    """Per kernel of a built library, how many tensor-core products (HMMA),
+    asynchronous global-to-shared copies (LDGSTS) and ldmatrix loads (LDSM)
+    its SASS holds (``cuobjdump -sass``); {} where cuobjdump is missing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    out = {}
+    for part in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = next(iter(ptxas_summary(
+            f"Compiling entry function '{part.split()[0]}' for 'sm_90a'")))
+        out[name] = {op: len(re.findall(r"\b" + op + r"\.", part))
+                     for op in ("HMMA", "LDGSTS", "LDSM")}
+    return out
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -392,6 +444,57 @@ def cuda_ms(fn, reps: int = 25, inner: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def host_us(fn, n: int = 200) -> float:
+    """The host's µs per call of ``fn``, unsynchronised: where it is near
+    the event time of ``cuda_ms``, that time is the host's enqueue rate and
+    the card waits on the launches."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a >= end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def device_us(fn, n: int = 50) -> float:
+    """Mean device µs per call of ``fn``: the union of the device intervals
+    (kernels, copies) of ``n`` back-to-back calls in a ``torch.profiler``
+    trace, over n; a merge kernel that waits inside its split kernel is
+    counted once."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device activity")
+    return busy_us(dev) / n
+
 
 
 # ---------------------------------------------------------------------------
@@ -622,9 +725,13 @@ def check_batched_step(sim, cfg) -> dict:
             "tolerance": "rtol 1e-5 + atol 1e-3; flags equal"}
 
 
-def time_fused(sim, dev) -> dict:
+def time_fused(sim, dev, traced: dict) -> dict:
     """Kernel vs plain time at the main path's shape (the 128-GPU plan's
-    padded flow count, DCQCN state)."""
+    padded flow count, DCQCN state).  ``traced`` (row -> (its kernel's
+    direct launch, its library call or None, the tensors they touch), or a
+    function that makes them anew) gets this row for ``device_us`` at the
+    end of the run; the launches pass raw pointers, so the tensors are
+    held there."""
     import torch
     from repro_torch.core import cc
     from repro_torch.kernels.engine_step import ops, ref
@@ -646,18 +753,22 @@ def time_fused(sim, dev) -> dict:
         if fn(*args, stream) != 0:
             raise RuntimeError("fused_signals_policy launch failed")
     ms = cuda_ms(launch)
+    traced["fused_signals_policy"] = (launch, None, (
+        case, state, params, st_out, rate, win))
     plain = cuda_ms(lambda: ref.fused_signals_policy_ref(
         policy, *case.values(), state, params, 3.3e-4, 1e-5), reps=20,
         inner=2)
     n_bytes = 4 * F * (8 * 4 + 3 + K) + 4 * P + 4 * F * (K + 2)
     flops = 60 * F                     # signals + DCQCN update, per flow
     bound = max(n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+    return {"ms": ms, "host_us_per_launch": host_us(launch),
+            "plain_ms": plain, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None, "shape": f"B=1 F={F} "
             f"K={K} (dcqcn)", "bytes": n_bytes}
 
 
-def time_segment(sim, strat, arrs, n_in, pfc: bool, dev) -> dict:
+def time_segment(name: str, sim, strat, arrs, n_in, pfc: bool, dev,
+                 traced: dict) -> dict:
     import torch
     from repro_torch.kernels.engine_step import ops, ref
     _, n_out, C = strat
@@ -683,7 +794,7 @@ def time_segment(sim, strat, arrs, n_in, pfc: bool, dev) -> dict:
         def plain():
             ref.segment_reduce_pfc_ref(vals, idx, n_out, C, xoff, xon, can,
                                        prev)
-        library = None
+        lib_fn, held = None, (xoff, xon, can, prev, paused)
     else:
         fn = ops.kernel_function("segment_reduce")
         args = [vals.data_ptr(), idx.data_ptr(), 1, n_in, n_out, C,
@@ -700,16 +811,20 @@ def time_segment(sim, strat, arrs, n_in, pfc: bool, dev) -> dict:
             seg_of[members] = s
         seg_of = torch.as_tensor(seg_of, device=dev)
         acc = torch.zeros(n_out + 1, device=dev)
-        library = cuda_ms(lambda: acc.index_add_(0, seg_of, vals[0]))
+
+        def lib_fn():
+            acc.index_add_(0, seg_of, vals[0])
+        held = ()
 
     def launch():
         if fn(*args, stream) != 0:
             raise RuntimeError("segment kernel launch failed")
-    return {"ms": cuda_ms(launch), "plain_ms": cuda_ms(plain, reps=20,
-                                                       inner=5),
+    traced[name] = (launch, lib_fn, (vals, idx, out, *held))
+    return {"ms": cuda_ms(launch), "host_us_per_launch": host_us(launch),
+            "plain_ms": cuda_ms(plain, reps=20, inner=5),
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library, "shape": f"n_out={n_out} C={C} "
-            f"n_in={n_in}", "bytes": n_bytes}
+            "library_ms": None if lib_fn is None else cuda_ms(lib_fn),
+            "shape": f"n_out={n_out} C={C} n_in={n_in}", "bytes": n_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -843,7 +958,7 @@ def check_cc_update(dev) -> dict:
     return line
 
 
-def time_cc_update(dev) -> dict:
+def time_cc_update(dev, traced: dict) -> dict:
     """Kernel (direct C calls, cycling over 8 input sets, 71 MB, so that
     they do not stay in the 50 MB L2) and plain version at F=130,048."""
     import torch
@@ -872,15 +987,9 @@ def time_cc_update(dev) -> dict:
     n_bytes = 4 * F * (10 + 7)
     flops = 60 * F
     ms = cuda_ms(launch)
-    # the host's time per launch (ctypes call, 29 arguments), unsynchronised:
-    # where it is near ``ms``, the card waits on the launches
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        launch()
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    return {"ms": ms, "host_us_per_launch": host_us, "plain_ms": cuda_ms(
+    traced["dcqcn_update"] = (launch, None, sets)
+    return {"ms": ms, "host_us_per_launch": host_us(launch),
+            "plain_ms": cuda_ms(
                 lambda: ref.dcqcn_update_ref(st, ecn, line, 2e-3, None),
                 reps=20, inner=5),
             "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
@@ -1119,13 +1228,14 @@ def dlrm_kernel_check(dev) -> dict:
     return out
 
 
-def time_embedding(model, B: int, dev) -> dict:
-    """Kernel, plain version and ``F.embedding_bag`` on the model's Table
-    II tables, for a batch of B samples from ``dlrm_batch``."""
+def embedding_calls(model, B: int, dev) -> tuple:
+    """The embedding-bag kernel's direct launch and ``F.embedding_bag`` on
+    the model's Table II tables, for a batch of B samples from
+    ``dlrm_batch``: ``(launch, library, tensors they touch, shape)``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.data import dlrm_batch
-    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.kernels.embedding_bag import ops
     tables = model.tables.data
     T, R, D = tables.shape
     idx = torch.as_tensor(dlrm_batch(0, 1, B, model.cfg)["sparse_idx"],
@@ -1143,21 +1253,35 @@ def time_embedding(model, B: int, dev) -> dict:
             raise RuntimeError("embedding_bag launch failed")
     rows64 = (idx.long() + torch.arange(T, device=dev)[None, :, None] * R
               ).view(NB, P)
-    library = cuda_ms(lambda: F.embedding_bag(rows64, table2d, mode="sum"),
-                      reps=10, inner=5)
+
+    def library():
+        F.embedding_bag(rows64, table2d, mode="sum")
+    return launch, library, (table2d, idx, out, rows64), (T, R, D, P)
+
+
+def time_embedding(model, B: int, dev) -> dict:
+    """Kernel, plain version and ``F.embedding_bag`` on the model's Table
+    II tables, for a batch of B samples from ``dlrm_batch``."""
+    from repro_torch.kernels.embedding_bag import ref
+    launch, lib_fn, (_, idx, _, _), (T, R, D, P) = embedding_calls(
+        model, B, dev)
+    NB = B * T
+    library = cuda_ms(lib_fn, reps=10, inner=5)
     ms = cuda_ms(launch, reps=10, inner=5)
-    plain = cuda_ms(lambda: ref.embedding_bag_stacked_ref(tables, idx),
+    plain = cuda_ms(lambda: ref.embedding_bag_stacked_ref(model.tables.data,
+                                                          idx),
                     reps=5, inner=2)
     # each gathered row, each id and each output element once
     n_bytes = NB * P * D * 2 + NB * P * 4 + NB * D * 2
     flops = NB * P * D                     # the float32 adds
     bound = max(n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+    return {"ms": ms, "host_us_per_launch": host_us(launch),
+            "plain_ms": plain, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": library,
             "shape": f"B={B} T={T} P={P} D={D} R={R}", "bytes": n_bytes}
 
 
-def dlrm_forward(gpu: str, dev) -> tuple:
+def dlrm_forward(gpu: str, dev, traced: dict) -> tuple:
     """The paper's Table II DLRM (1,000,000 rows a table) built on the card
     and scoring one batch of 256 through the entry points; the kernel path
     against the plain one, and the kernel's times."""
@@ -1199,6 +1323,14 @@ def dlrm_forward(gpu: str, dev) -> tuple:
     fwd_ms = cuda_ms(lambda: model(dev_batch), reps=10, inner=5)
     plain_fwd_ms = cuda_ms(lambda: plain(dev_batch), reps=10, inner=5)
     timing = {B: time_embedding(model, B, dev) for B in (256, 2048)}
+
+    # the device-time trace at the end of the run rebuilds the tables (the
+    # same seed) rather than hold their 8.19 GB through the serving phases
+    def calls():
+        from repro_torch.configs import get_model
+        return embedding_calls(get_model("dlrm", device="cuda", seed=0), 256,
+                               dev)[:3]
+    traced["embedding_bag_rows"] = calls
     emit({"phase": "dlrm_forward", "gpu": gpu, "batch": 256,
           "rows_per_table": cfg.rows_per_table,
           "tables_bytes": model.tables.numel() * 2,
@@ -1334,6 +1466,21 @@ def bf16_ulps(a, b):
     return (key(a) - key(b)).abs()
 
 
+def fd_tolerance(q, k, v, length, want):
+    """Flash decode's tolerance, per output element: 1e-5 of the
+    softmax-weighted sum of |v| (the scale of the terms the output sums),
+    plus one bf16 ulp of the plain version's output ``want`` for bf16."""
+    import torch
+    from repro_torch.kernels.flash_decode import ref
+    tol = 1e-5 * ref.flash_decode_ref(q.float(), k.float(), v.float().abs(),
+                                      length)
+    if want.dtype == torch.bfloat16:
+        w = want.float().abs()
+        tol = tol + torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w))
+                                                  - 7), 0)
+    return tol
+
+
 def fd_compare(q, k, v, length) -> dict:
     """The flash-decode kernel against its plain version on one input, and
     the kernel with the default split (``max_length`` S) against the
@@ -1345,15 +1492,11 @@ def fd_compare(q, k, v, length) -> dict:
     got = ops.flash_decode(q, k, v, length, max_length=int(length.max()))
     again = ops.flash_decode(q, k, v, length)
     want = ref.flash_decode_ref(q, k, v, length)
-    scale = ref.flash_decode_ref(q.float(), k.float(), v.float().abs(), length)
     err = (got.float() - want.float()).abs()
-    tol = 1e-5 * scale
+    tol = fd_tolerance(q, k, v, length, want)
     out = {"elements": got.numel(), "max_abs_err": float(err.max()),
            "split_independent": bool(torch.equal(got, again))}
     if got.dtype == torch.bfloat16:
-        w = want.float().abs()
-        tol = tol + torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w))
-                                                  - 7), 0)
         ulps = bf16_ulps(got, want)
         out.update(equal=int((ulps == 0).sum()), one_ulp=int((ulps == 1).sum()),
                    beyond_one_ulp=int((ulps > 1).sum()))
@@ -1363,45 +1506,65 @@ def fd_compare(q, k, v, length) -> dict:
 
 def decode_kernel_check(dev) -> dict:
     """The flash-decode kernel against its plain version over batches 1/3/8,
-    cache lengths S of 1/100/2,048/32,768 with lengths 1, S - 17 and S
-    (each for every row, and mixed across rows), kv heads x group 4 x 8
-    (TinyLlama) and 2 x 4, head dims 64 and 128, bf16 and float32."""
+    cache lengths S of 1/100/2,048/32,768 with lengths 1, CHUNK - 1, CHUNK,
+    CHUNK + 1, S - 17 and S (each for every row, and mixed across rows), kv
+    heads x group 4 x 8 (TinyLlama) and 2 x 4, head dims 64 and 128 (and
+    256 up to S = 2,048), bf16 and float32; and K/V as views one element
+    into a buffer (not 16-byte aligned: the scalar loads)."""
     import torch
+    from repro_torch.kernels.flash_decode import ops
     gen = torch.Generator(device=dev).manual_seed(13)
+    C = ops.CHUNK
     totals = {"cases": 0, "elements": 0, "equal": 0, "one_ulp": 0,
-              "beyond_one_ulp": 0, "max_abs_err": 0.0}
+              "beyond_one_ulp": 0, "max_abs_err": 0.0, "scalar_loads": 0}
+    t0 = time.perf_counter()
+
+    def check(q, k, v, what):
+        B, S = k.shape[:2]
+        lens = sorted({n for n in (1, C - 1, C, C + 1, S - 17, S)
+                       if 1 <= n <= S})
+        vecs = [[n] * B for n in lens]
+        if B > 1:
+            vecs.append([lens[b % len(lens)] for b in range(B)])
+        for vec in vecs:
+            length = torch.tensor(vec, dtype=torch.int32, device=dev)
+            r = fd_compare(q, k, v, length)
+            if not r["ok"]:
+                raise AssertionError(f"flash_decode {what} lengths {vec}: {r}")
+            totals["cases"] += 1
+            totals["scalar_loads"] += not ops.vector_loads(k, v)
+            for key in ("elements", "equal", "one_ulp", "beyond_one_ulp"):
+                totals[key] += r.get(key, 0)
+            totals["max_abs_err"] = max(totals["max_abs_err"],
+                                        r["max_abs_err"])
+
     for dtype in (torch.bfloat16, torch.float32):
         for B in (1, 3, 8):
             for S in (1, 100, 2048, 32768):
                 for Hkv, G in ((4, 8), (2, 4)):
-                    for D in (64, 128):
+                    for D in (64, 128, 256):
+                        if D == 256 and S > 2048:
+                            continue
                         q = torch.randn((B, Hkv, G, D), generator=gen,
                                         device=dev).to(dtype)
                         k = torch.randn((B, S, Hkv, D), generator=gen,
                                         device=dev).to(dtype)
                         v = torch.randn((B, S, Hkv, D), generator=gen,
                                         device=dev).to(dtype)
-                        lens = sorted({1, max(S - 17, 1), S})
-                        vecs = [[n] * B for n in lens]
-                        if B > 1:
-                            vecs.append([lens[b % len(lens)] for b in range(B)])
-                        for vec in vecs:
-                            length = torch.tensor(vec, dtype=torch.int32,
-                                                  device=dev)
-                            r = fd_compare(q, k, v, length)
-                            if not r["ok"]:
-                                raise AssertionError(
-                                    f"flash_decode {dtype} B={B} S={S} "
-                                    f"Hkv={Hkv} G={G} D={D} lengths {vec}: {r}")
-                            totals["cases"] += 1
-                            for key in ("elements", "equal", "one_ulp",
-                                        "beyond_one_ulp"):
-                                totals[key] += r.get(key, 0)
-                            totals["max_abs_err"] = max(totals["max_abs_err"],
-                                                        r["max_abs_err"])
+                        check(q, k, v, f"{dtype} B={B} S={S} Hkv={Hkv} "
+                              f"G={G} D={D}")
                         del q, k, v
+        # a sliced cache: K and V one element into a larger buffer
+        B, S, Hkv, G, D = 3, 2048, 4, 8, 64
+        n = B * S * Hkv * D
+        buf = torch.randn((2 * n + 2,), generator=gen, device=dev).to(dtype)
+        q = torch.randn((B, Hkv, G, D), generator=gen, device=dev).to(dtype)
+        check(q, buf[1:1 + n].view(B, S, Hkv, D), buf[n + 2:].view(
+            B, S, Hkv, D), f"{dtype} unaligned B={B} S={S}")
+        del buf, q
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    totals["seconds"] = time.perf_counter() - t0
     totals["tolerance"] = ("float32: 1e-5 x softmax-weighted sum of |v|; "
                            "bf16: that + 1 bf16 ulp; split-independent")
     return totals
@@ -1494,57 +1657,86 @@ class capture_decode_inputs:
         self.ops.gqa_decode_attention = self.orig
 
 
-def time_flash_decode(q, k, v, length) -> dict:
+def time_flash_decode(inputs, traced: dict) -> dict:
     """The kernel (direct C calls), its plain version and
     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on the cache
-    sliced to the (common) length, on one layer's decode inputs."""
+    sliced to the (common) length, on captured decode inputs ``[(q, k, v,
+    length), ...]``.  Cold (``ms``, ``library_ms``): each call takes the
+    next of ``FD_COLD_SETS`` input sets, the captured layers and copies of
+    them, whose live K/V together exceed ``FD_COLD_BYTES``, as the decode
+    step meets a layer's cache after 21 other layers' and the weights; hot
+    (``ms_hot``, ``library_ms_hot``): one set over and over, L2-resident."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import ops, ref
+    sets = list(inputs)
+    while len(sets) < FD_COLD_SETS:
+        sets.append(tuple(x.clone() for x in inputs[len(sets) % len(inputs)]))
+    q, k, v, length = sets[0]
     B, Hkv, G, D = q.shape
     lens = length.tolist()
     L = max(lens)
-    splits = ops.n_splits(k.shape[1], L)
-    part_acc, part_ml = ops.scratch(q, splits)
-    out = torch.empty_like(q)
-    fn = ops.kernel_function()
-    args = ops.kernel_args(q, k, v, length, out, splits, part_acc, part_ml)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        if fn(*args, stream) != 0:
-            raise RuntimeError("flash_decode launch failed")
-    ms = cuda_ms(launch)
-    plain = cuda_ms(lambda: ref.flash_decode_ref(q, k, v, length), reps=10,
-                    inner=5)
-    qs = q.reshape(B, Hkv * G, 1, D)
-    ks, vs = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
-    library = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, enable_gqa=True))
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
-    launch()
-    torch.cuda.synchronize()
     item = q.element_size()
     n_bytes = sum(lens) * Hkv * D * item * 2 + 2 * q.numel() * item + 4 * B
+    if n_bytes * len(sets) <= FD_COLD_BYTES:
+        raise AssertionError(f"time_flash_decode: {len(sets)} sets of "
+                             f"{n_bytes} live bytes stay in L2")
+    splits = ops.n_splits(k.shape[1], L)
+    fn = ops.kernel_function()
+    stream = torch.cuda.current_stream().cuda_stream
+    args, sdpa_in, outs = [], [], []
+    for (qi, ki, vi, li) in sets:
+        part_acc, part_ml = ops.scratch(qi, splits)
+        out = torch.empty_like(qi)
+        outs.append((out, part_acc, part_ml))
+        args.append(ops.kernel_args(qi, ki, vi, li, out, splits, part_acc,
+                                    part_ml))
+        sdpa_in.append((qi.reshape(B, Hkv * G, 1, D),
+                        ki[:, :L].transpose(1, 2), vi[:, :L].transpose(1, 2)))
+    turn = [0, 0]
+
+    def launch(i=None):
+        if i is None:
+            i = turn[0] % len(sets)
+            turn[0] += 1
+        if fn(*args[i], stream) != 0:
+            raise RuntimeError("flash_decode launch failed")
+
+    def sdpa(i=None):
+        if i is None:
+            i = turn[1] % len(sets)
+            turn[1] += 1
+        return F.scaled_dot_product_attention(*sdpa_in[i], enable_gqa=True)
+    ms, ms_hot = cuda_ms(launch), cuda_ms(lambda: launch(0))
+    library, library_hot = cuda_ms(sdpa), cuda_ms(lambda: sdpa(0))
+    traced["flash_decode"] = (launch, sdpa, (sets, outs))
+    plain = cuda_ms(lambda: ref.flash_decode_ref(q, k, v, length), reps=10,
+                    inner=5)
+    launch(0)
+    diff = (sdpa(0).reshape(B, Hkv, G, D).float() - outs[0][0].float())
     flops = 4 * sum(lens) * Hkv * G * D
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return {"ms": ms, "plain_ms": plain, "library_ms": library,
+    return {"ms": ms, "ms_hot": ms_hot,
+            "host_us_per_launch": host_us(launch), "plain_ms": plain,
+            "library_ms": library, "library_ms_hot": library_hot,
+            "library_host_us_per_call": host_us(sdpa),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "shape": f"B={B} Hkv={Hkv} G={G} D={D} S={k.shape[1]} "
                      f"length={L} splits={splits}", "bytes": n_bytes,
-            "library_max_abs_diff": float(
-                (sdpa.reshape(B, Hkv, G, D).float() - out.float()).abs().max())}
+            "cold_sets": len(sets), "cold_live_bytes": n_bytes * len(sets),
+            "library_max_abs_diff": float(diff.abs().max())}
 
 
-def serve_long(gpu: str, dev) -> tuple:
+def serve_long(gpu: str, dev, traced: dict) -> tuple:
     """TinyLlama-1.1B at full width and depth with numpy weights at the
     true fan-in: 8 requests of 2,048-token prompts (the blockwise prefill)
     on 8 slots, a 32,768-token cache (``decode_32k``'s length), 64 new
     tokens, decode attention in the kernel; then the kernel path against
     the torch path, teacher-forced on the kernel path's tokens.  Returns
     the kernel's launches, the check of the captured layer inputs against
-    the plain version, and the kernel's times on layer 21's."""
+    the plain version, and the kernel's times on layers 21's and 0's
+    (``time_flash_decode``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops
@@ -1628,7 +1820,8 @@ def serve_long(gpu: str, dev) -> tuple:
         checks[f"layer{layer}"] = r
     if len(checks) != 2:
         raise AssertionError(f"captured layers {sorted(cap.inputs)}")
-    timing = time_flash_decode(*cap.inputs[cfg.n_layers - 1])
+    timing = time_flash_decode([cap.inputs[cfg.n_layers - 1], cap.inputs[0]],
+                               traced)
     del model, params, eng, cap
     torch.cuda.empty_cache()
     return launches, checks, timing
@@ -1729,7 +1922,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {k: v.get("seconds") for k, v in info.items()},
           "nvcc": next(iter(info.values()), {}).get("nvcc"), "gpu": gpu,
-          "ptxas": {k: v.get("ptxas", "")[-1500:] for k, v in info.items()}})
+          "ptxas": {k: ptxas_summary(v.get("ptxas", "")) for k, v in
+                    info.items()},
+          "flash_decode_sass": sass_counts(build.build("flash_decode"))})
 
     cfg = EngineConfig(dt=DT, max_steps=6000, max_extends=6, queue_stride=0)
     runner = SweepRunner(cfg, device="cuda")
@@ -1763,22 +1958,26 @@ def main() -> int:
     emit({"phase": "batched_step_check",
           **check_batched_step(sims["fig12"], cfg)})
     s128, s32 = sims["clos128_1d"], sims["clos32_2d"]
+    traced = {}          # kernel row -> its timed calls, for phase 14
     timing = {
-        "fused_signals_policy": time_fused(s128, dev),
+        "fused_signals_policy": time_fused(s128, dev, traced),
         # the PAUSE tally, the gather plan the 128-GPU step runs every step
-        "segment_reduce": time_segment(s128, s128.plan.pause,
+        "segment_reduce": time_segment("segment_reduce", s128,
+                                       s128.plan.pause,
                                        s128.pp["r_pause"],
-                                       s128.plan.n_links, False, dev),
+                                       s128.plan.n_links, False, dev,
+                                       traced),
         # the per-port reduction + hysteresis of the 32-GPU step
-        "segment_reduce_pfc": time_segment(s32, s32.plan.qport,
+        "segment_reduce_pfc": time_segment("segment_reduce_pfc", s32,
+                                           s32.plan.qport,
                                            s32.pp["r_qport"],
                                            4 * s32.plan.n_flows_pad, True,
-                                           dev),
+                                           dev, traced),
     }
     emit({"phase": "kernel_timing", "gpu": gpu, **timing})
     ccu_check = check_cc_update(dev)
     emit({"phase": "cc_update_check", "kernel": "dcqcn_update", **ccu_check})
-    timing["dcqcn_update"] = time_cc_update(dev)
+    timing["dcqcn_update"] = time_cc_update(dev, traced)
     emit({"phase": "kernel_timing", "gpu": gpu,
           "dcqcn_update": timing["dcqcn_update"]})
 
@@ -1842,7 +2041,8 @@ def main() -> int:
           **emb_check})
 
     # ---- 7. DLRM: Table II scoring through the kernel ----------------------
-    emb_launches, timing["embedding_bag_rows"] = dlrm_forward(gpu, dev)
+    emb_launches, timing["embedding_bag_rows"] = dlrm_forward(gpu, dev,
+                                                              traced)
 
     # ---- 8. DLRM: against the JAX reference's logits ------------------------
     emit({"phase": "dlrm_reference", **dlrm_reference(dev)})
@@ -1859,7 +2059,8 @@ def main() -> int:
     entry_launches = serve_entry(gpu)
 
     # ---- 12. serving: TinyLlama on a 32,768-token cache ---------------------
-    long_launches, fd_layers, timing["flash_decode"] = serve_long(gpu, dev)
+    long_launches, fd_layers, timing["flash_decode"] = serve_long(gpu, dev,
+                                                                  traced)
     emit({"phase": "decode_kernel_check", "kernel": "flash_decode",
           "inputs": "serve_long decode step", **fd_layers})
     emit({"phase": "kernel_timing", "gpu": gpu,
@@ -1867,6 +2068,19 @@ def main() -> int:
 
     # ---- 13. serving: against the JAX reference's logits --------------------
     emit({"phase": "serve_reference", **serve_reference(dev)})
+
+    # ---- 14. device time of every kernel row and its library call ---------
+    # traced last: once the profiler has traced, later launches are slower
+    for name in SOURCES:
+        entry = traced.pop(name)
+        kernel, library, _ = entry() if callable(entry) else entry
+        timing[name]["device_us"] = device_us(kernel)
+        timing[name]["library_device_us"] = (
+            None if library is None else device_us(library))
+    emit({"phase": "device_time", "gpu": gpu, **{
+        name: {key: timing[name][key] for key in (
+            "ms", "host_us_per_launch", "device_us", "library_ms",
+            "library_device_us", "bound_ms")} for name in SOURCES}})
 
     # ---- kernel table, device line ----------------------------------------
     # launches: the sum over the paths each kernel runs on, each path's
@@ -1886,14 +2100,16 @@ def main() -> int:
         if path_launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
         tm = timing[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": path_launches[name],
-                        "max_abs_err": errs[name], "ms": tm["ms"],
-                        "plain_ms": tm["plain_ms"],
-                        "bound_ms": tm["bound_ms"],
-                        "bound_by": tm["bound_by"],
-                        "library_ms": tm["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": path_launches[name],
+               "max_abs_err": errs[name]}
+        row.update({key: tm[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_us", "library_device_us", "host_us_per_launch")})
+        # flash_decode's ms and library_ms are cold; its hot times beside
+        row.update({key: tm[key] for key in ("ms_hot", "library_ms_hot")
+                    if key in tm})
+        kernels.append(row)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -38,25 +38,14 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+sys.path.insert(0, str(SRC.parent))
+from chip_smoke import busy_us  # noqa: E402  (numpy only at import)
 # DLRM forwards timed, then traced, after five warm-up forwards
 FORWARDS, TRACE_FORWARDS = 100, 20
 # TinyLlama decode steps: warm-up, timed, traced (each path has its cache)
 WARM_DECODE, DECODE_STEPS, TRACE_DECODE = 4, 24, 8
 SCENARIOS = ("clos128_1d", "dlrm128_2d", "clos32_2d", "batch_fig12",
              "dlrm_forward", "serve_decode")
-
-
-def busy_us(intervals) -> float:
-    """Length of the union of ``(start, end)`` intervals."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if a >= end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
 
 
 class Run:
@@ -206,7 +195,6 @@ def main(argv=None) -> int:
     from repro_torch.core import (CollectiveSpec, DLRMCommSpec,
                                   DLRMIterationSpec, EngineConfig,
                                   FabricSpec, ScenarioSpec, SweepRunner)
-    sys.path.insert(0, str(SRC.parent))
     import chip_smoke
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -64,10 +64,11 @@ def nvcc_version(nvcc: str) -> str:
     return lines[-1].strip() if lines else out.strip().splitlines()[-1]
 
 
-def build(name: str) -> Path:
-    """Compile ``SOURCES[name]`` unless a library of the same source,
-    headers and flags exists; returns the library's path."""
-    src = SOURCES[name]
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile ``SOURCES[name]`` (or ``src`` in its place) unless a
+    library of the same source, headers and flags exists; returns the
+    library's path."""
+    src = SOURCES[name] if src is None else Path(src)
     h = hashlib.sha1(src.read_bytes())
     for hdr in HEADERS:
         h.update(hdr.read_bytes())

@@ -14,11 +14,13 @@ card the lengths are not range-checked (that would wait for the device):
 lengths above S read S positions, and lengths below 1 are not supported.
 
 Any S is taken (the Pallas kernel needs S % block_s == 0).  The kernel
-splits the first ``max_length`` cache positions into chunks of ``CHUNK``
-keys, one block per (chunk, kv head, batch row), and combines the chunks'
-partial softmax sums in a second pass; ``max_length`` (at least the
+splits the first ``max_length`` cache positions into fixed chunks of
+``CHUNK`` keys, computes each chunk's partial softmax sums (one warp per
+chunk), and merges them in a second pass; ``max_length`` (at least the
 largest length, S by default) only sizes that split, and the result does
-not depend on it.
+not depend on it: a chunk that starts at or past its row's length writes
+nothing, and the merge reads only the row's first ``ceil(length /
+CHUNK)`` partials (``split_plan``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.kernels.flash_decode import ref
 # counts
 LAUNCHES = {"flash_decode": 0}
 
-CHUNK = 256          # cache positions per block of the split pass
+CHUNK = 64           # cache positions per partial of the split pass
 MAX_G, MAX_D, MAX_GD = 16, 256, 2048
 
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -66,18 +68,48 @@ def n_splits(S: int, max_length: int | None) -> int:
     return -(-span // CHUNK)
 
 
-def scratch(q: torch.Tensor, splits: int) -> tuple:
-    """The split pass's float32 partial sums ``(acc, m_and_l)`` for
-    ``splits`` chunks, or ``(None, None)`` for one chunk (written
-    straight to the output)."""
+def scratch_shapes(shape: tuple, splits: int) -> tuple:
+    """The float32 scratch shapes ``(acc, m_and_l)`` of the split pass
+    for ``q`` of ``shape (B, Hkv, G, D)`` over ``splits`` chunks, or
+    ``(None, None)`` for one chunk (its block writes the output)."""
     if splits == 1:
         return None, None
-    B, Hkv, G, D = q.shape
-    acc = torch.empty((B, Hkv, splits, G, D), dtype=torch.float32,
-                      device=q.device)
-    ml = torch.empty((B, Hkv, splits, 2, G), dtype=torch.float32,
-                     device=q.device)
-    return acc, ml
+    B, Hkv, G, D = shape
+    return (B, Hkv, splits, G, D), (B, Hkv, splits, 2, G)
+
+
+def split_plan(lengths, S: int, max_length: int | None = None,
+               shape: tuple | None = None) -> dict:
+    """The kernel's split, in plain Python, for rows of ``lengths`` over a
+    cache of ``S`` positions: ``n_splits`` chunk blocks per (kv head, row)
+    in the grid; ``chunks_read[b]``, the chunks of row b that hold keys
+    (``ceil(length / CHUNK)``, at most ``n_splits``): only their blocks
+    write a partial and the merge reads only those; ``merge``, whether the
+    merge pass runs; and, for ``shape = (B, Hkv, G, D)``, the scratch
+    shapes ``acc`` and ``ml`` (``scratch_shapes``)."""
+    splits = n_splits(S, max_length)
+    reads = [min(splits, -(-min(max(int(n), 0), S) // CHUNK))
+             for n in lengths]
+    acc, ml = (None, None) if shape is None else scratch_shapes(shape, splits)
+    return {"n_splits": splits, "chunks_read": reads, "merge": splits > 1,
+            "acc": acc, "ml": ml}
+
+
+def scratch(q: torch.Tensor, splits: int) -> tuple:
+    """The split pass's float32 partial sums ``(acc, m_and_l)`` for
+    ``splits`` chunks, or ``(None, None)`` for one chunk."""
+    return tuple(None if shp is None else torch.empty(
+        shp, dtype=torch.float32, device=q.device)
+        for shp in scratch_shapes(tuple(q.shape), splits))
+
+
+def vector_loads(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernel fills its shared-memory tiles with 16-byte
+    copies (D a multiple of 16 bytes and K, V 16-byte aligned) or, where
+    not, with scalar loads (the kernel decides the same way)."""
+    per16 = 16 // k.element_size()
+    return (k.shape[-1] % per16 == 0 and k.data_ptr() % 16 == 0
+            and v.data_ptr() % 16 == 0)
 
 
 def kernel_args(q, k, v, length, out, splits: int, part_acc, part_ml) -> list:

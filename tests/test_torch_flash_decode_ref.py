@@ -19,6 +19,7 @@ import torch
 from repro.kernels.flash_decode.ops import gqa_decode_attention as r_gqa_decode
 from repro.kernels.flash_decode.ref import flash_decode_ref as r_flash_decode_ref
 from repro_torch.kernels.flash_decode import LAUNCHES, flash_decode, gqa_decode_attention
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode import ref as fd_ref
 
 F32_TOL = 1e-5
@@ -102,3 +103,90 @@ def test_cpu_wrapper_checks_lengths():
     with pytest.raises(ValueError, match="span devices"):
         flash_decode(q, k, v, torch.ones(2, dtype=torch.int32,
                                          device="meta"))
+
+
+# lengths across the kernel's chunk boundaries (CHUNK and its multiples)
+C = fd_ops.CHUNK
+PLAN_LENGTHS = [1, C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1, 5 * C + 3]
+
+
+@pytest.mark.parametrize("use_max_length", [False, True],
+                         ids=["max_length_none", "max_length_max"])
+def test_split_plan(use_max_length):
+    """How many chunks each row reads (ceil(length / CHUNK)), the grid's
+    split count and the scratch shapes, from ``ops.split_plan``."""
+    S = 8 * C + 5
+    shape = (len(PLAN_LENGTHS), 4, 8, 64)
+    max_length = max(PLAN_LENGTHS) if use_max_length else None
+    plan = fd_ops.split_plan(PLAN_LENGTHS, S, max_length, shape)
+    splits = -(-(max_length or S) // C)
+    assert plan["n_splits"] == splits == fd_ops.n_splits(S, max_length)
+    assert plan["chunks_read"] == [1, 1, 1, 2, 2, 2, 3, 6]
+    assert plan["merge"] is True
+    assert plan["acc"] == (len(PLAN_LENGTHS), 4, splits, 8, 64)
+    assert plan["ml"] == (len(PLAN_LENGTHS), 4, splits, 2, 8)
+    # what each row reads does not depend on max_length
+    other = fd_ops.split_plan(PLAN_LENGTHS, S, None if use_max_length
+                              else max(PLAN_LENGTHS))
+    assert other["chunks_read"] == plan["chunks_read"]
+
+
+def test_split_plan_one_chunk_and_clamps():
+    """One chunk writes the output (no scratch, no merge); lengths above S
+    read S positions; length 0 reads no chunk."""
+    plan = fd_ops.split_plan([C, 1], 3 * C, C, (2, 1, 4, 16))
+    assert plan == {"n_splits": 1, "chunks_read": [1, 1], "merge": False,
+                    "acc": None, "ml": None}
+    plan = fd_ops.split_plan([10 * C, 0], 3 * C + 1)
+    assert plan["n_splits"] == 4 and plan["chunks_read"] == [4, 0]
+    q = torch.zeros((2, 1, 4, 16))
+    assert fd_ops.scratch(q, 1) == (None, None)
+    acc, ml = fd_ops.scratch(q, 3)
+    assert acc.shape == (2, 1, 3, 4, 16) and ml.shape == (2, 1, 3, 2, 4)
+    assert acc.dtype == ml.dtype == torch.float32
+
+
+# (B, S, Hkv, G, D, lengths): rows on both sides of one, two and several
+# chunk boundaries; S a multiple of 256 so that the Pallas kernel's grid
+# keeps block_s = 256
+MERGE_CASES = [(4, 768, 2, 4, 64, [C - 1, C, C + 1, 700]),
+               (2, 512, 1, 8, 32, [1, 2 * C + 1]),
+               (3, 256, 2, 3, 36, [2 * C, 2 * C - 1, 256])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hkv,G,D,lengths", MERGE_CASES,
+                         ids=[f"B{c[0]}S{c[1]}G{c[3]}D{c[4]}" for c in MERGE_CASES])
+def test_chunked_merge_model_matches_ref_and_pallas(B, S, Hkv, G, D, lengths,
+                                                    dtype):
+    """The plain model of the kernel's split and merge (fixed-CHUNK
+    partials merged in split order, ``ref.flash_decode_chunked_ref``), on
+    the plan's chunks, against ``flash_decode_ref`` and the Pallas kernel
+    in interpret mode, at the tolerance the card holds the kernel to."""
+    q, k, v, _ = _inputs(B, S, Hkv, G, D, S + D + 7)
+    length = np.asarray(lengths, np.int32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tq, tk, tv = (_torch(x, tdt) for x in (q, k, v))
+    tl = torch.from_numpy(length)
+    plan = fd_ops.split_plan(lengths, S)
+    got = fd_ref.flash_decode_chunked_ref(tq, tk, tv, tl, C,
+                                          plan["chunks_read"])
+    # the same model split to the lengths: the same result, bit for bit
+    again = fd_ref.flash_decode_chunked_ref(
+        tq, tk, tv, tl, C, fd_ops.split_plan(lengths, S, max(lengths))[
+            "chunks_read"])
+    assert torch.equal(got, again)
+    assert got.dtype == tdt and got.shape == (B, Hkv, G, D)
+    jq, jk, jv = (_jnp(x, jdt) for x in (q, k, v))
+    pallas = r_gqa_decode(jq.reshape(B, 1, Hkv * G, D), jk, jv,
+                          jnp.asarray(length), block_s=256
+                          ).reshape(B, Hkv, G, D)
+    scale = fd_ref.flash_decode_ref(tq.float(), tk.float(), tv.float().abs(),
+                                    tl).numpy()
+    for want in (fd_ref.flash_decode_ref(tq, tk, tv, tl).float().numpy(),
+                 np.asarray(pallas.astype(jnp.float32))):
+        tol = F32_TOL * scale
+        if dtype == "bfloat16":
+            tol = tol + _bf16_ulp(want)
+        err = np.abs(got.float().numpy() - want)
+        assert np.all(err <= tol), float((err / tol).max())

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py`` or ``scripts/profile_step.py``) imports jax or the JAX package, it imports and runs
-with jax unavailable, and it never runs on the CPU unless asked to."""
+``chip_smoke.py``, ``scripts/profile_step.py`` or
+``scripts/time_flash_decode.py``) imports jax or the JAX package, it
+imports and runs with jax unavailable, and it never runs on the CPU unless
+asked to."""
 import ast
 import os
 import subprocess
@@ -15,7 +17,8 @@ from repro_torch.core import (EngineConfig, Simulator, SweepRunner,
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_step.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_step.py",
+    ROOT / "scripts" / "time_flash_decode.py"]
 
 
 def _imported_roots(path: Path) -> set:

@@ -325,24 +325,32 @@ def _fd_inputs(B, S, Hkv, G, D, dtype, seed, dev):
     return q, k, v
 
 
-def _fd_tolerance(q, k, v, length, want):
-    """1e-5 of the softmax-weighted sum of |v|, plus one bf16 ulp of the
-    output for bf16 (tests/test_torch_flash_decode_ref.py)."""
-    scale = fd_ref.flash_decode_ref(q.float(), k.float(), v.float().abs(),
-                                    length)
-    tol = 1e-5 * scale
-    if want.dtype == torch.bfloat16:
-        w = want.float().abs()
-        tol = tol + torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w))
-                                                  - 7), 0)
-    return tol
+def _fd_assert(q, k, v, length, max_length):
+    """One launch against the plain version at the tolerance, and the
+    launch with ``max_length`` omitted (the cache's whole split) equal to it
+    bit for bit."""
+    before = fd_ops.LAUNCHES["flash_decode"]
+    got = fd_ops.flash_decode(q, k, v, length, max_length=max_length)
+    assert fd_ops.LAUNCHES["flash_decode"] == before + 1
+    want = fd_ref.flash_decode_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= chip_smoke.fd_tolerance(q, k, v, length,
+                                                want)).all()), \
+        float(err.max())
+    # the split's size does not change the result
+    again = fd_ops.flash_decode(q, k, v, length)
+    assert torch.equal(again, got)
 
 
 # (B, S, Hkv, G, D): TinyLlama's heads at one and many chunks, D = 128,
-# an S and D that take the scalar loads, G = 16
+# an S and D that take the scalar loads, G = 16, D = 128 and 256 at G = 8
+# and 4
 @pytest.mark.parametrize("B,S,Hkv,G,D", [
     (8, 2080, 4, 8, 64), (3, 100, 4, 8, 64), (2, 1000, 2, 4, 128),
-    (1, 1, 4, 8, 64), (3, 517, 1, 3, 36), (2, 700, 2, 16, 64)])
+    (1, 1, 4, 8, 64), (3, 517, 1, 3, 36), (2, 700, 2, 16, 64),
+    (2, 1000, 2, 8, 128), (2, 600, 2, 8, 256), (1, 300, 1, 4, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_flash_decode_kernel_matches_plain(dev, B, S, Hkv, G, D, dtype):
@@ -350,18 +358,45 @@ def test_flash_decode_kernel_matches_plain(dev, B, S, Hkv, G, D, dtype):
     lens = [S, max(S - 17, 1), 1, max(S // 3, 1)]
     length = torch.tensor([lens[b % 4] for b in range(B)], dtype=torch.int32,
                           device=dev)
-    before = fd_ops.LAUNCHES["flash_decode"]
-    got = fd_ops.flash_decode(q, k, v, length, max_length=max(lens[:B]))
-    assert fd_ops.LAUNCHES["flash_decode"] == before + 1
-    want = fd_ref.flash_decode_ref(q, k, v, length)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs()
-    assert bool((err <= _fd_tolerance(q, k, v, length, want)).all()), \
-        float(err.max())
-    # the split's size does not change the result
-    again = fd_ops.flash_decode(q, k, v, length)
-    assert torch.equal(again, got)
+    _fd_assert(q, k, v, length, max(lens[:B]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_decode_lengths_at_chunk_edges(dev, dtype):
+    """Rows of CHUNK - 1, CHUNK and CHUNK + 1 keys (and the same around two
+    chunks): the last chunk partly, exactly or barely filled."""
+    C = fd_ops.CHUNK
+    lens = [C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1]
+    q, k, v = _fd_inputs(len(lens), 4 * C + 5, 4, 8, 64, dtype, 31, dev)
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _fd_assert(q, k, v, length, max(lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_decode_unaligned_cache_takes_the_scalar_loads(dev, dtype):
+    """K and V as views one element into a larger buffer (a sliced cache):
+    not 16-byte aligned, so the kernel fills its tiles by scalar loads."""
+    B, S, Hkv, G, D = 2, 500, 2, 8, 64
+    n = B * S * Hkv * D
+    gen = torch.Generator(device=dev).manual_seed(17)
+    buf = torch.randn((2 * n + 2,), generator=gen, device=dev).to(dtype)
+    k = buf[1:1 + n].view(B, S, Hkv, D)
+    v = buf[n + 2:].view(B, S, Hkv, D)
+    q = torch.randn((B, Hkv, G, D), generator=gen, device=dev).to(dtype)
+    assert k.is_contiguous() and not fd_ops.vector_loads(k, v)
+    length = torch.tensor([300, 500], dtype=torch.int32, device=dev)
+    _fd_assert(q, k, v, length, 500)
+
+
+def test_flash_decode_max_length_omitted_is_bit_equal(dev):
+    """At S = 32,768 (decode_32k's cache) with ``max_length`` omitted the
+    grid covers 512 chunks a row, of which these rows use 33 and 5: the
+    output equals the call split to the lengths, bit for bit."""
+    q, k, v = _fd_inputs(2, 32768, 4, 8, 64, torch.bfloat16, 5, dev)
+    length = torch.tensor([2111, 300], dtype=torch.int32, device=dev)
+    _fd_assert(q, k, v, length, 2111)
 
 
 def test_flash_decode_wrapper_rejects(dev):
