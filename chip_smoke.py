@@ -2,11 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 card: builds the engine-step, DCQCN-update, embedding-bag and
 flash-decode kernels, holds each against its plain PyTorch version (the
-engine kernels also inside one step of Fig 12's nine lanes, against the
-op path), drives the simulator's main path through the kernels at the paper's
-128-GPU scale and at 32 GPUs, drives the DCQCN update through its entry
-point, runs Fig 12's fabric sweep as one batch of 9 lanes and the
-128-GPU policy comparison as one policy-axis batch, scores a batch on the
+engine kernels also inside one step of Fig 12's nine lanes and of Fig
+13's eight lossy lanes, against the op path), drives the simulator's main
+path through the kernels at the paper's 128-GPU scale and at 32 GPUs,
+drives the DCQCN update through its entry point, runs Fig 12's fabric
+sweep as one batch of 9 lanes and the 128-GPU policy comparison as one
+policy-axis batch, runs Fig 13's loss, recovery and flap lanes as one
+batch on the lossy fabric, the 32-GPU all-reduce under loss, a weakened
+ECN and a degradation window, the learned ``mlp`` policy at 128 GPUs
+lossless and lossy and all eight policies on the held-out incast of
+``examples/learn_cc.py``, scores a batch on the
 paper's Table II DLRM through the embedding-bag kernel, simulates that
 DLRM's training iteration on the 128-GPU platform under PFC and DCQCN,
 serves TinyLlama-1.1B (full width and depth) through ``python -m
@@ -24,7 +29,9 @@ Each kernel row has the event time of back-to-back direct launches
 (``ms``; flash_decode's cycles over input sets larger than the L2, its
 L2-resident time is ``ms_hot``), the host's µs per launch, and the mean
 device µs per call from a ``torch.profiler`` trace taken at the end of
-the run (``device_us``), for the kernel and its library call.
+the run (``device_us``), for the kernel and its library call; the fused
+kernel's row is timed cold (inputs cycled past the L2) under DCQCN, with
+its ``mlp`` body's times (``mlp_*``) beside.
 Without CUDA, or outside a checkout holding ``src/repro_torch``, it exits
 non-zero and prints no result.
 """
@@ -142,6 +149,105 @@ def fig12_scenario() -> tuple:
         raise AssertionError(f"fig12: {sched.n_flows} flows, expected "
                              f"{FIG12_FLOWS}")
     return topo, sched, pol
+
+
+# fault_grid_dcqcn: Fig 13's scenario at paper scale
+# (benchmarks/figures.py:239-301 at REPRO_BENCH_SCALE=paper): the 128-GPU
+# 8-rack CLOS at oversubscription 2, a 1D all-reduce of 64 MB, PFC off;
+# Fig 13(a)'s loss x recovery lanes, then Fig 13(b)'s flap lanes, as one
+# run_batch of 8 lanes under DCQCN on the kernel path
+FIG13_BYTES = 64e6
+FIG13_FLOWS = 130048
+FIG13_LOSS = (0.0, 1e-5, 1e-3)
+FIG13_FLAP_PERIODS = (400e-6, 1600e-6)
+FIG13_FLAP_DOWN = 100e-6
+FIG13_CHECK_LANE = 3           # loss 1e-5, go-back-N
+
+
+def fig13_lanes() -> dict:
+    """The 8 lanes' stacked FaultSpec leaves (on top of ``pfc_on=0``):
+    loss x gbn in the figure's grid order, then the two flap periods."""
+    rows = [(loss, gbn, 0.0, 0.0) for loss in FIG13_LOSS
+            for gbn in (0.0, 1.0)]
+    rows += [(0.0, 0.0, p, FIG13_FLAP_DOWN) for p in FIG13_FLAP_PERIODS]
+    cols = np.asarray(rows, np.float32).T
+    return dict(zip(("loss_rate", "gbn", "flap_period", "flap_down"), cols))
+
+
+def fig13_lane_fault(lane: int) -> dict:
+    """Lane ``lane``'s FaultSpec fields as float32 values."""
+    return {"pfc_on": 0.0, **{k: float(v[lane])
+                              for k, v in fig13_lanes().items()}}
+
+
+# faults_clos32: the 32-GPU 2D all-reduce under DCQCN with PFC on, IRN
+# loss, half-strength ECN marking and every fabric link at half capacity
+# over the middle third of the lossless run
+FAULTS32_LOSSLESS = 0.002959999954327941     # REFERENCE clos32_2d dcqcn
+FAULTS32_FAULT = {"loss_rate": 1e-4, "gbn": 0.0, "pfc_on": 1.0,
+                  "ecn_scale": 0.5, "degrade": 0.5,
+                  "degrade_t0": FAULTS32_LOSSLESS / 3,
+                  "degrade_t1": 2 * FAULTS32_LOSSLESS / 3}
+
+# mlp_heldout16: examples/learn_cc.py's held-out incast, every policy in
+# one policy-axis batch (repro.learn.train.heldout_eval's engine config)
+HELDOUT_GPUS, HELDOUT_SENDERS, HELDOUT_BYTES = 16, 15, 2e6
+HELDOUT_CFG = dict(dt=2e-6, max_steps=4000, max_extends=4, queue_stride=0)
+# lossy_step_check: the kernel-path step under faults held against the op
+# path after this many steps of Fig 13's lanes
+FIG13_STEP_AT = 300
+
+# The JAX reference (jnp step, CPU), each as a serial run, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py \
+#       fault_grid_dcqcn faults_clos32 mlp_clos128 mlp_heldout16
+# (jax 0.9.0, numpy 2.0.2).  Completion within two steps, the same status,
+# PAUSE frames rtol 1e-3 + 1, lost bytes rtol 1e-4.
+FIG13_REFERENCE = {
+    0: {"completion_time": 0.013303999789059162, "status": "ok",
+        "lost": 0.0},
+    1: {"completion_time": 0.013303999789059162, "status": "ok",
+        "lost": 0.0},
+    2: {"completion_time": 0.013088000006973743, "status": "ok",
+        "lost": 593933.5625},
+    3: {"completion_time": 0.013043999671936035, "status": "ok",
+        "lost": 594094.8125},
+    4: {"completion_time": 0.013307999819517136, "status": "ok",
+        "lost": 59538728.0},
+    5: {"completion_time": 0.013683999888598919, "status": "ok",
+        "lost": 60669908.0},
+    6: {"completion_time": 0.018751999363303185, "status": "ok",
+        "lost": 0.0},
+    7: {"completion_time": 0.013939999975264072, "status": "ok",
+        "lost": 0.0},
+}
+FAULTS32_REFERENCE = {"completion_time": 0.005495999939739704,
+                      "status": "ok", "pause_frames": 253.60000610351562,
+                      "lost": 256058.875}
+MLP_REFERENCE = {
+    "clos128_1d": {"completion_time": 0.020243998616933823, "status": "ok",
+                   "pause_frames": 266590.3125},
+    "fig13_gbn": {"completion_time": 0.010103999637067318, "status": "ok",
+                  "lost": 594031.25},
+}
+# examples/learn_cc.py's held-out incast, the reference's policy-axis batch
+HELDOUT_REFERENCE = {
+    "pfc": {"completion_time": 0.0012000000569969416, "status": "ok",
+            "pause_frames": 1734.0},
+    "dcqcn": {"completion_time": 0.0016240000259131193, "status": "ok",
+              "pause_frames": 0.0},
+    "dctcp": {"completion_time": 0.0012000000569969416, "status": "ok",
+              "pause_frames": 0.0},
+    "timely": {"completion_time": 0.0012000000569969416, "status": "ok",
+               "pause_frames": 0.0},
+    "hpcc": {"completion_time": 0.0013160000089555979, "status": "ok",
+             "pause_frames": 0.0},
+    "hpcc_pint": {"completion_time": 0.0012580000329762697, "status": "ok",
+                  "pause_frames": 0.0},
+    "static_window": {"completion_time": 0.0012000000569969416,
+                      "status": "ok", "pause_frames": 0.0},
+    "mlp": {"completion_time": 0.0012000000569969416, "status": "ok",
+            "pause_frames": 0.0},
+}
 
 
 
@@ -568,9 +674,9 @@ def check_fused(dev, flows) -> dict:
                         policy, F, B, lossy, 1000 * pi + F + B + lossy, dev)
                     args = (*case.values(), state, params)
                     got = ops.fused_signals_policy(policy, *args, 3.3e-4,
-                                                   1e-5)
+                                                   1e-5, DT)
                     want = ref.fused_signals_policy_ref(policy, *args,
-                                                        3.3e-4, 1e-5)
+                                                        3.3e-4, 1e-5, DT)
                     torch.cuda.synchronize()
                     for g, w in zip(got, want):
                         w = w.expand_as(g)
@@ -725,46 +831,81 @@ def check_batched_step(sim, cfg) -> dict:
             "tolerance": "rtol 1e-5 + atol 1e-3; flags equal"}
 
 
+def fused_bytes(F: int, K: int, P: int) -> int:
+    """Device bytes one fused launch must move for ``F`` flows: the 8 hop
+    inputs over 4 hops, 3 flat inputs and the state read once, the
+    params, the state, rate and win written once."""
+    return 4 * F * (8 * 4 + 3 + K) + 4 * P + 4 * F * (K + 2)
+
+
+# float32 operations per flow of stages 1+2: the hop loop (about 60) and
+# the policy's update (DCQCN about 60; mlp's four tanh units, two heads,
+# sigmoid and exp about 200)
+FUSED_FLOPS = {"dcqcn": 120, "mlp": 260}
+# input sets the cold times cycle over: 4 x 27.8 MB, past the 50 MB L2
+FUSED_COLD_SETS = 4
+
+
 def time_fused(sim, dev, traced: dict) -> dict:
     """Kernel vs plain time at the main path's shape (the 128-GPU plan's
-    padded flow count, DCQCN state).  ``traced`` (row -> (its kernel's
-    direct launch, its library call or None, the tensors they touch), or a
-    function that makes them anew) gets this row for ``device_us`` at the
-    end of the run; the launches pass raw pointers, so the tensors are
-    held there."""
+    padded flow count), under DCQCN (the row's numbers) and under mlp
+    (``mlp_*``).  ``ms`` is cold: direct launches cycling over
+    ``FUSED_COLD_SETS`` input sets, so that no launch finds its inputs in
+    the L2, as the engine step does; ``ms_hot`` repeats one set.
+    ``traced`` (row -> (its kernel's direct launch, its library call or
+    None, the tensors they touch), or a function that makes them anew)
+    gets the cold DCQCN launch for ``device_us`` at the end of the run;
+    the launches pass raw pointers, so the tensors are held there."""
     import torch
     from repro_torch.core import cc
     from repro_torch.kernels.engine_step import ops, ref
-    policy = cc.get_policy("dcqcn")
     F = sim.plan.n_flows_pad
-    case, state, params = fused_case(policy, F, 1, False, 5, dev)
-    K, P = state.shape[1], params.shape[1]
-    st_out = torch.empty_like(state)
-    rate = torch.empty_like(case["line"])
-    win = torch.empty_like(rate)
     fn = ops.kernel_function("fused_signals_policy")
-    ptrs = [x.data_ptr() for x in case.values()]
-    args = [policy.kernel_id, *ptrs, state.data_ptr(), params.data_ptr(),
-            3.3e-4, 1e-5, 1, F, K, P, st_out.data_ptr(), rate.data_ptr(),
-            win.data_ptr()]
     stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name in ("dcqcn", "mlp"):
+        policy = cc.get_policy(name)
+        sets = []
+        for i in range(FUSED_COLD_SETS):
+            case, state, params = fused_case(policy, F, 1, name == "mlp",
+                                             5 + i, dev)
+            K, P = state.shape[1], params.shape[1]
+            outs = (torch.empty_like(state), torch.empty_like(case["line"]),
+                    torch.empty_like(case["line"]))
+            sets.append(((case, state, params, outs), [
+                policy.kernel_id, *(x.data_ptr() for x in case.values()),
+                state.data_ptr(), params.data_ptr(), 3.3e-4, 1e-5, DT, 1, F,
+                K, P, *(o.data_ptr() for o in outs)]))
+        turn = [0]
 
-    def launch():
-        if fn(*args, stream) != 0:
-            raise RuntimeError("fused_signals_policy launch failed")
-    ms = cuda_ms(launch)
-    traced["fused_signals_policy"] = (launch, None, (
-        case, state, params, st_out, rate, win))
-    plain = cuda_ms(lambda: ref.fused_signals_policy_ref(
-        policy, *case.values(), state, params, 3.3e-4, 1e-5), reps=20,
-        inner=2)
-    n_bytes = 4 * F * (8 * 4 + 3 + K) + 4 * P + 4 * F * (K + 2)
-    flops = 60 * F                     # signals + DCQCN update, per flow
-    bound = max(n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    return {"ms": ms, "host_us_per_launch": host_us(launch),
-            "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": None, "shape": f"B=1 F={F} "
-            f"K={K} (dcqcn)", "bytes": n_bytes}
+        def launch(sets=sets, turn=turn):
+            args = sets[turn[0] % len(sets)][1]
+            turn[0] += 1
+            if fn(*args, stream) != 0:
+                raise RuntimeError("fused_signals_policy launch failed")
+
+        def launch_hot(sets=sets):
+            if fn(*sets[0][1], stream) != 0:
+                raise RuntimeError("fused_signals_policy launch failed")
+        case, state, params, _ = sets[0][0]
+        n_bytes = fused_bytes(F, K, P)
+        row = {"ms": cuda_ms(launch), "ms_hot": cuda_ms(launch_hot),
+               "host_us_per_launch": host_us(launch),
+               "plain_ms": cuda_ms(lambda: ref.fused_signals_policy_ref(
+                   policy, *case.values(), state, params, 3.3e-4, 1e-5, DT),
+                   reps=10 if name == "mlp" else 20, inner=2),
+               "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                               FUSED_FLOPS[name] * F / F32_FLOPS) * 1e3,
+               "bound_by": "bytes", "library_ms": None,
+               "shape": f"B=1 F={F} K={K} P={P} ({name})", "bytes": n_bytes}
+        if name == "dcqcn":
+            out.update(row)
+            traced["fused_signals_policy"] = (launch, None, sets)
+        else:
+            out.update({f"mlp_{k}": v for k, v in row.items()
+                        if k not in ("bound_by", "library_ms")})
+            traced["fused_signals_policy/mlp"] = (launch, None, sets)
+    return out
 
 
 def time_segment(name: str, sim, strat, arrs, n_in, pfc: bool, dev,
@@ -1118,8 +1259,8 @@ def batch_fig12(runner, gpu: str) -> dict:
 def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
     """The 128-GPU 1D all-reduce under pfc, dcqcn and hpcc as one
     policy-axis batch (op path, as the reference runs stacked policies);
-    each lane within two steps of ``REFERENCE`` and of this script's
-    serial kernel-path run.  The dcqcn lane is also the op-path side of
+    each lane within two steps of ``REFERENCE``, and the dcqcn lane of
+    this script's serial kernel-path run.  The dcqcn lane is also the op-path side of
     the 128-GPU kernel-vs-op-path check, at the port's whole-run
     tolerances."""
     from types import SimpleNamespace
@@ -1141,20 +1282,21 @@ def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
     rows = []
     for i, pol in enumerate(batch.policy_axis):
         ct = float(batch.completion_time[i])
-        ser = results[("clos128_1d", pol)]
         row = {"policy": pol, "finished": bool(batch.finished[i]),
                "completion_time": ct,
                "reference": REFERENCE[("clos128_1d", pol)],
-               "serial": ser.completion_time,
                "diff_steps_reference": float(steps_apart(
                    ct, REFERENCE[("clos128_1d", pol)], DT)),
-               "diff_steps_serial": float(steps_apart(
-                   ct, ser.completion_time, DT)),
-               "pause_frames": float(batch.pause_count[i].sum()),
-               "pause_serial": float(ser.pause_count.sum())}
+               "pause_frames": float(batch.pause_count[i].sum())}
+        ser = results.get(("clos128_1d", pol))   # phase 3 runs dcqcn only
+        if ser is not None:
+            row.update(serial=ser.completion_time,
+                       diff_steps_serial=float(steps_apart(
+                           ct, ser.completion_time, DT)),
+                       pause_serial=float(ser.pause_count.sum()))
         rows.append(row)
         if not row["finished"] or max(row["diff_steps_reference"],
-                                      row["diff_steps_serial"]) > 2:
+                                      row.get("diff_steps_serial", 0)) > 2:
             raise AssertionError(f"policy_axis {pol}: {row}")
     emit({"phase": "policy_axis", "gpu": gpu, "scenario": "clos128_1d",
           "n_flows": sched.n_flows, "step_impl": batch.meta["step_impl"],
@@ -1172,6 +1314,354 @@ def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
           "policy": "dcqcn", "op_path": "policy_axis lane",
           **compare_runs(results[("clos128_1d", "dcqcn")], lane, DT,
                          "clos128_1d dcqcn")})
+
+
+# ---------------------------------------------------------------------------
+# phases 5e-5i: the lossy fabric and the learned policy
+# ---------------------------------------------------------------------------
+
+def fig13_scenario(policy: str) -> tuple:
+    """Fig 13's ``(topo, sched, policy)``: 130,048 flows."""
+    from repro_torch.core import CollectiveSpec, FabricSpec, ScenarioSpec
+    fab = FabricSpec("clos", n_racks=8, nodes_per_rack=2, gpus_per_node=8,
+                     oversubscription=2.0)
+    topo, sched, pol = ScenarioSpec(fab, CollectiveSpec("1d", FIG13_BYTES),
+                                    policy).build()
+    if sched.n_flows != FIG13_FLOWS:
+        raise AssertionError(f"fig13: {sched.n_flows} flows, expected "
+                             f"{FIG13_FLOWS}")
+    return topo, sched, pol
+
+
+def compare_fault_runs(a, b, dt: float, what: str, steps_tol: int = 2) -> dict:
+    """Whole-run agreement under faults: completion within ``steps_tol``
+    steps, delivered and lost bytes rtol 1e-4, PAUSE frames rtol 1e-3 +
+    1, the same status; ``bit_equal`` says whether they agree exactly."""
+    lost_a = 0.0 if a.lost is None else float(np.sum(a.lost))
+    lost_b = 0.0 if b.lost is None else float(np.sum(b.lost))
+    out = {
+        "status": [str(a.status), str(b.status)],
+        "completion_diff_steps": float(steps_apart(a.completion_time,
+                                                   b.completion_time, dt)),
+        "delivered_rel_diff": abs(float(a.delivered.sum())
+                                  / float(b.delivered.sum()) - 1.0),
+        "lost": [lost_a, lost_b],
+        "pause_max_abs_diff": float(np.max(np.abs(a.pause_count
+                                                  - b.pause_count))),
+        "bit_equal": bool(np.array_equal(a.t_finish, b.t_finish)
+                          and np.array_equal(a.delivered, b.delivered)
+                          and np.array_equal(a.pause_count, b.pause_count)),
+    }
+    ok = (out["status"][0] == out["status"][1]
+          and out["completion_diff_steps"] <= steps_tol
+          and out["delivered_rel_diff"] <= 1e-4
+          and abs(lost_a - lost_b) <= 1e-4 * abs(lost_b) + 1e-3
+          and bool(np.all(np.abs(a.pause_count - b.pause_count)
+                          <= 1.0 + 1e-3 * np.abs(b.pause_count))))
+    if not ok:
+        raise AssertionError(f"{what}: runs disagree: {out}")
+    return out
+
+
+def against_reference(got: dict, want: dict, dt: float, what: str) -> dict:
+    """A run's completion, status, PAUSE total and lost bytes against a
+    constant of the JAX reference: 2 steps, the same status, PAUSE rtol
+    1e-3 + 1, lost rtol 1e-4."""
+    row = {"port": got, "reference": want,
+           "diff_steps": float(steps_apart(got["completion_time"],
+                                           want["completion_time"], dt))}
+    bad = row["diff_steps"] > 2 or got["status"] != want["status"]
+    if "pause_frames" in want:
+        bad |= abs(got["pause_frames"] - want["pause_frames"]) > \
+            1.0 + 1e-3 * abs(want["pause_frames"])
+    if "lost" in want:
+        bad |= abs(got["lost"] - want["lost"]) > 1e-4 * abs(want["lost"])
+    if bad:
+        raise AssertionError(f"{what}: against the reference: {row}")
+    return row
+
+
+def run_summary(r) -> dict:
+    return {"completion_time": r.completion_time, "status": str(r.status),
+            "pause_frames": float(r.pause_count.sum()),
+            "lost": 0.0 if r.lost is None else float(np.sum(r.lost))}
+
+
+def timed_run(runner, *args, **kw) -> tuple:
+    """``runner.run(*args, **kw)`` -> (Results, wall seconds, launches)."""
+    import torch
+    from repro_torch.kernels.engine_step import ops
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = runner.run(*args, **kw)
+    torch.cuda.synchronize()
+    return (r, time.perf_counter() - t0,
+            {k: ops.LAUNCHES[k] - before[k] for k in before})
+
+
+def lossy_step_check(runner) -> dict:
+    """Fig 13's 8 lanes under ``mlp``, stacked on the loss lanes, driven
+    ``FIG13_STEP_AT`` steps on the kernel path; then one step from that
+    state on each path: every leaf within rtol 1e-5 + atol 1e-3 and every
+    flag equal (as ``check_batched_step``).  The state carries a nonzero
+    loss signal, so the fused kernel's ``mlp`` body runs on a live
+    ``loss`` input with the faulty step around it."""
+    import torch
+    from repro_torch.core import FaultSpec, engine, sweep
+    topo, sched, pol = fig13_scenario("mlp")
+    sim = runner.simulator(topo, sched, pol)
+    lanes = fig13_lanes()
+    B = len(lanes["loss_rate"])
+    flt = sweep._stack_fault(FaultSpec(pfc_on=0.0), lanes, B)
+    fab = sweep._stack_fabric(sim.fabric, None, B)
+    cfg = runner.cfg
+    steps = {impl: engine._make_step(pol, cfg, sim.plan, sim.pp, None, fab,
+                                     impl == "cuda", B, flt)
+             for impl in ("cuda", "torch")}
+    carry = engine._init_carry(sim.pp, sim.plan, pol, cfg, None, B, True)
+    for it in range(FIG13_STEP_AT):
+        carry = steps["cuda"](carry, it)
+    loss_sig = carry["loss_sig"]
+    if not bool((loss_sig > 0).any()):
+        raise AssertionError("lossy_step_check: no loss signal after "
+                             f"{FIG13_STEP_AT} steps")
+    got = dict(carry_leaves(steps["cuda"](
+        engine._tree_map(torch.clone, carry), FIG13_STEP_AT)))
+    want = dict(carry_leaves(steps["torch"](
+        engine._tree_map(torch.clone, carry), FIG13_STEP_AT)))
+    torch.cuda.synchronize()
+    equal, worst = 0, 0.0
+    for k, a in got.items():
+        w = want[k]
+        if bool(torch.equal(a, w)):
+            equal += 1
+            continue
+        if not a.is_floating_point():
+            raise AssertionError(f"lossy_step_check: {k} differs on "
+                                 f"{int((a != w).sum())} elements")
+        close = torch.isclose(a, w, rtol=1e-5, atol=1e-3)
+        if not bool(close.all()):
+            raise AssertionError(f"lossy_step_check: {k}: "
+                                 f"{int((~close).sum())} values beyond "
+                                 "rtol 1e-5 + atol 1e-3")
+        fin = torch.isfinite(w)
+        worst = max(worst, float((a - w)[fin].abs().max()))
+    return {"policy": "mlp", "lanes": B, "flows_padded": sim.plan.n_flows_pad,
+            "step": FIG13_STEP_AT, "leaves": len(got),
+            "leaves_bit_equal": equal, "max_abs_err": worst,
+            "flows_with_loss_signal": int((loss_sig > 0).sum()),
+            "max_loss_signal": float(loss_sig.max()),
+            "lost_per_lane": carry["lost"].sum(dim=-1).tolist(),
+            "tolerance": "rtol 1e-5 + atol 1e-3; flags equal"}
+
+
+def fault_grid_dcqcn(runner, gpu: str) -> dict:
+    """Fig 13's 8 lanes at paper scale as one ``run_batch`` on the kernel
+    path: each lane's status, completion (2 steps) and lost bytes (rtol
+    1e-4) against the JAX reference's serial run, lane
+    ``FIG13_CHECK_LANE`` bit-equal to its
+    serial kernel-path run, which is held against its op-path run on the
+    card.  Returns the batch's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.core import FaultSpec
+    from repro_torch.kernels.engine_step import ops
+    topo, sched, pol = fig13_scenario("dcqcn")
+    cfg = dataclasses.replace(runner.cfg, step_impl="cuda")
+    lanes = fig13_lanes()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = runner.run_batch(topo, sched, pol, cfg=cfg,
+                             fault_spec=FaultSpec(pfc_on=0.0),
+                             stacked_fault=lanes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    steps = batch.meta["steps_executed"]
+    if batch.meta["step_impl"] != "cuda" or \
+            launches["fused_signals_policy"] != steps:
+        raise AssertionError(f"fault_grid_dcqcn: {launches} launches for "
+                             f"{steps} steps on {batch.meta['step_impl']}")
+    status = batch.lane_status()
+    rows, bad = [], []
+    for i in range(batch.n):
+        got = {"completion_time": float(batch.completion_time[i]),
+               "status": str(status[i]),
+               "lost": float(batch.lost[i].sum())}
+        want = FIG13_REFERENCE[i]
+        row = {"lane": i, **{k: float(v[i]) for k, v in lanes.items()},
+               **got, "steps": batch.meta["lane_steps"][i],
+               "reference": want,
+               "diff_steps_reference": float(steps_apart(
+                   got["completion_time"], want["completion_time"], DT))}
+        rows.append(row)
+        if row["diff_steps_reference"] > 2 or got["status"] != \
+                want["status"] or abs(got["lost"] - want["lost"]) > \
+                1e-4 * want["lost"]:
+            bad.append(i)
+    lane = FIG13_CHECK_LANE
+    fault = FaultSpec(**fig13_lane_fault(lane))
+    ser, ser_wall, _ = timed_run(runner, topo, sched, pol, cfg=cfg,
+                                 fault_spec=fault)
+    ser_bit = bool(np.array_equal(ser.t_finish, batch.t_finish[lane])
+                   and np.array_equal(ser.delivered, batch.delivered[lane])
+                   and np.array_equal(ser.pause_count,
+                                      batch.pause_count[lane])
+                   and np.array_equal(ser.lost, batch.lost[lane]))
+    op, op_wall, op_launches = timed_run(
+        runner, topo, sched, pol, fault_spec=fault,
+        cfg=dataclasses.replace(runner.cfg, step_impl="torch"))
+    if any(op_launches.values()):
+        raise AssertionError(f"fault_grid_dcqcn: op path launched "
+                             f"{op_launches}")
+    emit({"phase": "fault_grid_dcqcn", "gpu": gpu, "n_flows": sched.n_flows,
+          "policy": pol.name, "base_fault": {"pfc_on": 0.0},
+          "step_impl": batch.meta["step_impl"], "lanes": rows,
+          "steps_run": batch.meta["steps_run"], "steps_executed": steps,
+          "wall_s": wall,
+          "lane_steps_per_s": sum(batch.meta["lane_steps"]) / wall,
+          "launches": launches,
+          "check_lane": lane, "serial_bit_equal": ser_bit,
+          "serial_wall_s": ser_wall,
+          "serial_steps_per_s": ser.meta["steps_executed"] / ser_wall,
+          "kernel_vs_op_path": compare_fault_runs(
+              ser, op, DT, "fault_grid_dcqcn lane kernel vs op path"),
+          "op_path_wall_s": op_wall,
+          "tolerance": "2 steps, the status and lost rtol 1e-4 against "
+                       "the reference; batch lane bit-equal to its serial "
+                       "run"})
+    if bad or not ser_bit:
+        raise AssertionError(f"fault_grid_dcqcn: lanes {bad} off the "
+                             f"reference, serial bit-equal {ser_bit}")
+    return launches
+
+
+def faults_clos32(runner, scen: dict, gpu: str) -> dict:
+    """The 32-GPU 2D all-reduce under DCQCN with PFC on, IRN loss 1e-4,
+    ECN at half strength and a degradation window: kernel path (all three
+    kernels) against the op path and the reference.  Returns the kernel
+    run's launches."""
+    import dataclasses
+    from repro_torch.core import FaultSpec, ScenarioSpec
+    fab, wl = scen["clos32_2d"]
+    topo, sched, pol = ScenarioSpec(fab, wl, "dcqcn").build()
+    fault = FaultSpec(**FAULTS32_FAULT)
+    out = {}
+    for impl in ("cuda", "torch"):
+        out[impl] = timed_run(runner, topo, sched, pol, fault_spec=fault,
+                              cfg=dataclasses.replace(runner.cfg,
+                                                      step_impl=impl))
+    (r_k, wall_k, l_k), (r_t, wall_t, l_t) = out["cuda"], out["torch"]
+    if not all(v > 0 for v in l_k.values()) or any(l_t.values()):
+        raise AssertionError(f"faults_clos32: launches {l_k} / {l_t}")
+    emit({"phase": "faults_clos32", "gpu": gpu, "n_flows": sched.n_flows,
+          "policy": "dcqcn", "fault": FAULTS32_FAULT,
+          "kernel": {**run_summary(r_k), "wall_s": wall_k,
+                     "steps_executed": r_k.meta["steps_executed"],
+                     "launches": l_k},
+          "op_path_wall_s": wall_t,
+          "kernel_vs_op_path": compare_fault_runs(
+              r_k, r_t, DT, "faults_clos32 kernel vs op path"),
+          "reference": against_reference(run_summary(r_k), FAULTS32_REFERENCE,
+                                         DT, "faults_clos32")})
+    return l_k
+
+
+def mlp_clos128(runner, scen: dict, gpu: str) -> dict:
+    """``mlp`` on the kernel path: clos128_1d lossless, then Fig 13's
+    scenario with ``FaultSpec.lossy_roce(1e-5, "gbn")`` (against the op
+    path on the card too), each against the reference.  Returns the
+    kernel runs' launches."""
+    import dataclasses
+    from repro_torch.core import FaultSpec, ScenarioSpec
+    kern = dataclasses.replace(runner.cfg, step_impl="cuda")
+    fab, wl = scen["clos128_1d"]
+    total = {}
+    rows = {}
+    for name in ("clos128_1d", "fig13_gbn"):
+        if name == "clos128_1d":
+            topo, sched, pol = ScenarioSpec(fab, wl, "mlp").build()
+            fault = None
+        else:
+            topo, sched, pol = fig13_scenario("mlp")
+            fault = FaultSpec.lossy_roce(1e-5, "gbn")
+        r, wall, launches = timed_run(runner, topo, sched, pol, cfg=kern,
+                                      fault_spec=fault)
+        if launches["fused_signals_policy"] != r.meta["steps_executed"]:
+            raise AssertionError(f"mlp {name}: {launches} launches for "
+                                 f"{r.meta['steps_executed']} steps")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        row = {"n_flows": sched.n_flows, **run_summary(r), "wall_s": wall,
+               "steps_executed": r.meta["steps_executed"],
+               "steps_per_s": r.meta["steps_executed"] / wall,
+               "launches": launches,
+               "reference": against_reference(
+                   run_summary(r), MLP_REFERENCE[name], DT, f"mlp {name}")}
+        if fault is not None:
+            op, op_wall, _ = timed_run(
+                runner, topo, sched, pol, fault_spec=fault,
+                cfg=dataclasses.replace(runner.cfg, step_impl="torch"))
+            row["op_path_wall_s"] = op_wall
+            row["kernel_vs_op_path"] = compare_fault_runs(
+                r, op, DT, f"mlp {name} kernel vs op path")
+        rows[name] = row
+    emit({"phase": "mlp_clos128", "gpu": gpu, "policy": "mlp", **rows})
+    return total
+
+
+def mlp_heldout16(gpu: str) -> None:
+    """examples/learn_cc.py's held-out 16-way incast: all eight policies
+    in one ``run_policy_axis`` (op path), every lane against the
+    reference; the ``mlp`` lane against its serial kernel-path run."""
+    import dataclasses
+    from repro_torch.core import (EngineConfig, FabricSpec, IncastSpec,
+                                  ScenarioSpec, SweepRunner, cc)
+    from repro_torch.kernels.engine_step import ops
+    runner = SweepRunner(EngineConfig(**HELDOUT_CFG), device="cuda")
+    topo, sched, _ = ScenarioSpec(
+        FabricSpec(family="single", n_racks=1, nodes_per_rack=1,
+                   gpus_per_node=HELDOUT_GPUS),
+        IncastSpec(HELDOUT_SENDERS, HELDOUT_BYTES), "mlp").build()
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    batch = runner.run_policy_axis(topo, sched, cc.ALL_POLICIES)
+    wall = time.perf_counter() - t0
+    if ops.LAUNCHES != before or batch.meta["step_impl"] != "torch":
+        raise AssertionError("mlp_heldout16: the policy axis launched "
+                             "kernels")
+    dt = HELDOUT_CFG["dt"]
+    status = batch.lane_status()
+    rows = []
+    for i, pol in enumerate(batch.policy_axis):
+        got = {"completion_time": float(batch.completion_time[i]),
+               "status": str(status[i]),
+               "pause_frames": float(batch.pause_count[i].sum())}
+        rows.append({"policy": pol, **against_reference(
+            got, HELDOUT_REFERENCE[pol], dt, f"mlp_heldout16 {pol}")})
+    i = batch.policy_axis.index("mlp")
+    ser, ser_wall, ser_launches = timed_run(
+        runner, topo, sched, "mlp",
+        cfg=dataclasses.replace(runner.cfg, step_impl="cuda"))
+    if ser_launches["fused_signals_policy"] != ser.meta["steps_executed"]:
+        raise AssertionError(f"mlp_heldout16: {ser_launches}")
+    lane = run_summary(ser)
+    lane_bit = bool(np.array_equal(ser.t_finish, batch.t_finish[i])
+                    and np.array_equal(ser.delivered, batch.delivered[i]))
+    diff = float(steps_apart(ser.completion_time, batch.completion_time[i],
+                             dt))
+    emit({"phase": "mlp_heldout16", "gpu": gpu, "n_flows": sched.n_flows,
+          "policies": list(batch.policy_axis), "wall_s": wall,
+          "lane_steps": batch.meta["lane_steps"], "rows": rows,
+          "mlp_serial_kernel": {**lane, "wall_s": ser_wall,
+                                "diff_steps_lane": diff,
+                                "bit_equal_lane": lane_bit},
+          "tolerance": "2 steps and the status"})
+    if diff > 2:
+        raise AssertionError(f"mlp_heldout16: serial mlp {lane} vs lane "
+                             f"{batch.completion_time[i]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1982,9 +2472,11 @@ def main() -> int:
           "dcqcn_update": timing["dcqcn_update"]})
 
     # ---- 3. main path at the paper's scale ---------------------------------
+    # (pfc and hpcc run at this scale in phase 5d's policy-axis batch and
+    # mlp in phase 5h, each against the reference)
     ops.reset_launches()
     results = {}
-    for pol in ("pfc", "dcqcn", "hpcc"):
+    for pol in ("dcqcn",):
         fab, wl = scen["clos128_1d"]
         r, launches = run_main(runner, ScenarioSpec(fab, wl, pol),
                                "clos128_1d", "cuda")
@@ -2016,6 +2508,8 @@ def main() -> int:
     # ---- 5. against the JAX reference ---------------------------------------
     rows = []
     for key, want in REFERENCE.items():
+        if key not in results:           # held in phase 5d instead
+            continue
         got = results[key].completion_time
         diff = float(steps_apart(got, want, DT))
         rows.append({"scenario": key[0], "policy": key[1], "port": got,
@@ -2034,6 +2528,21 @@ def main() -> int:
 
     # ---- 5d. the policy comparison as one policy-axis batch (op path) ------
     policy_axis(runner, scen, results, gpu)
+
+    # ---- 5e. the faulty step under mlp, kernel vs op path, paper scale -----
+    emit({"phase": "lossy_step_check", **lossy_step_check(runner)})
+
+    # ---- 5f. Fig 13's fault lanes as one batch (kernel path) ---------------
+    fault_launches = fault_grid_dcqcn(runner, gpu)
+
+    # ---- 5g. every engine kernel under loss, ECN scale and degradation -----
+    f32_launches = faults_clos32(runner, scen, gpu)
+
+    # ---- 5h. the learned policy on the kernel path, lossless and lossy -----
+    mlp_launches = mlp_clos128(runner, scen, gpu)
+
+    # ---- 5i. the held-out incast, all eight policies (op path) ------------
+    mlp_heldout16(gpu)
 
     # ---- 6. DLRM: the embedding-bag kernel against its plain version -------
     emb_check = dlrm_kernel_check(dev)
@@ -2077,16 +2586,23 @@ def main() -> int:
         timing[name]["device_us"] = device_us(kernel)
         timing[name]["library_device_us"] = (
             None if library is None else device_us(library))
+    timing["fused_signals_policy"]["mlp_device_us"] = device_us(
+        traced.pop("fused_signals_policy/mlp")[0])
     emit({"phase": "device_time", "gpu": gpu, **{
         name: {key: timing[name][key] for key in (
             "ms", "host_us_per_launch", "device_us", "library_ms",
-            "library_device_us", "bound_ms")} for name in SOURCES}})
+            "library_device_us", "bound_ms")} for name in SOURCES},
+        "fused_signals_policy/mlp": {
+            key: timing["fused_signals_policy"][f"mlp_{key}"] for key in (
+                "ms", "host_us_per_launch", "device_us", "bound_ms")}})
 
     # ---- kernel table, device line ----------------------------------------
     # launches: the sum over the paths each kernel runs on, each path's
     # counts set to 0 just before it and read just after
     path_launches = {k: main_launches[k] + iter_launches[k]
-                     + fig12_launches[k] for k in main_launches}
+                     + fig12_launches[k] + fault_launches[k]
+                     + f32_launches[k] + mlp_launches[k]
+                     for k in main_launches}
     path_launches["dcqcn_update"] = ccu_launches
     path_launches.update(emb_launches)
     path_launches["flash_decode"] = entry_launches + long_launches
@@ -2109,6 +2625,11 @@ def main() -> int:
         # flash_decode's ms and library_ms are cold; its hot times beside
         row.update({key: tm[key] for key in ("ms_hot", "library_ms_hot")
                     if key in tm})
+        # the fused kernel's mlp body, timed beside its DCQCN row, and its
+        # launches on the mlp paths (counted in launches too)
+        row.update({k: v for k, v in tm.items() if k.startswith("mlp_")})
+        if name == "fused_signals_policy":
+            row["mlp_launches"] = mlp_launches[name]
         kernels.append(row)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)

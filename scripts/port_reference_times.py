@@ -27,6 +27,7 @@ import dataclasses
 import json
 import sys
 import time
+import warnings
 import zlib
 from pathlib import Path
 
@@ -36,9 +37,11 @@ import numpy as np
 
 import repro.core.workload as rworkload
 from repro.configs import get_config
-from repro.core.cc import get_policy
+from repro.core.cc import ALL_POLICIES, get_policy
 from repro.core.engine import EngineConfig, FabricParams
-from repro.core.scenario import CollectiveSpec, FabricSpec, ScenarioSpec
+from repro.core.faults import FaultSpec
+from repro.core.scenario import (CollectiveSpec, FabricSpec, IncastSpec,
+                                 ScenarioSpec)
 from repro.core.sweep import SweepRunner
 from repro.data.pipeline import dlrm_batch
 from repro.kernels.embedding_bag.ops import embedding_bag_stacked
@@ -206,13 +209,111 @@ def serve_reference() -> None:
           "margin": (top2[..., 1] - top2[..., 0]).tolist()})
 
 
+def _emit_run(r, **tags) -> None:
+    emit({**tags, "completion_time": r.completion_time,
+          "status": str(r.status), "finished": r.finished,
+          "steps_run": r.meta["steps_run"],
+          "pause_frames": float(r.pause_count.sum()),
+          "lost": None if r.lost is None else float(r.lost.sum()),
+          "delivered": float(r.delivered.sum()),
+          "n_flows": r.meta["n_flows"]})
+
+
+def _fig13_spec(policy: str) -> ScenarioSpec:
+    return ScenarioSpec(PAPER_FABRIC, CollectiveSpec(
+        "1d", chip_smoke.FIG13_BYTES), policy)
+
+
+def fault_grid_dcqcn(runner, lanes=None) -> None:
+    """Fig 13's 8 lanes (``chip_smoke.fig13_lanes``) under DCQCN, each as
+    a serial run of the reference's jnp step."""
+    topo, sched, pol = _fig13_spec("dcqcn").build()
+    for lane in lanes if lanes is not None else range(8):
+        fault = chip_smoke.fig13_lane_fault(lane)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            r = runner.run(topo, sched, pol, fault_spec=FaultSpec(**fault))
+        _emit_run(r, scenario="fault_grid_dcqcn", lane=lane, fault=fault,
+                  cpu_seconds=time.perf_counter() - t0)
+
+
+def faults_clos32(runner) -> None:
+    """The 32-GPU 2D all-reduce under DCQCN with
+    ``chip_smoke.FAULTS32_FAULT``."""
+    fabric, workload, _ = SCENARIOS["clos32_2d"]
+    t0 = time.perf_counter()
+    r = runner.run_spec(ScenarioSpec(
+        fabric, workload, "dcqcn",
+        fault_spec=FaultSpec(**chip_smoke.FAULTS32_FAULT)))
+    _emit_run(r, scenario="faults_clos32", policy="dcqcn",
+              cpu_seconds=time.perf_counter() - t0)
+
+
+def mlp_clos128(runner, which=("lossless", "fig13_gbn")) -> None:
+    """``mlp`` on clos128_1d (lossless), and on Fig 13's scenario with
+    ``FaultSpec.lossy_roce(1e-5, "gbn")``."""
+    for w in which:
+        t0 = time.perf_counter()
+        if w == "lossless":
+            fabric, workload, _ = SCENARIOS["clos128_1d"]
+            spec = ScenarioSpec(fabric, workload, "mlp")
+        else:
+            spec = dataclasses.replace(
+                _fig13_spec("mlp"),
+                fault_spec=FaultSpec.lossy_roce(1e-5, "gbn"))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            r = runner.run_spec(spec)
+        _emit_run(r, scenario="mlp_clos128", run=w,
+                  cpu_seconds=time.perf_counter() - t0)
+
+
+def mlp_heldout16() -> None:
+    """examples/learn_cc.py's held-out 16-way incast: every registered
+    policy in one ``run_policy_axis`` (the reference's vmapped batch)."""
+    cs = chip_smoke
+    cfg = EngineConfig(**cs.HELDOUT_CFG, step_impl="jnp")
+    spec = ScenarioSpec(FabricSpec(family="single", n_racks=1,
+                                   nodes_per_rack=1,
+                                   gpus_per_node=cs.HELDOUT_GPUS),
+                        IncastSpec(cs.HELDOUT_SENDERS, cs.HELDOUT_BYTES),
+                        "mlp")
+    topo, sched, _ = spec.build()
+    t0 = time.perf_counter()
+    batch = SweepRunner(cfg).run_policy_axis(topo, sched, list(ALL_POLICIES))
+    status = batch.lane_status()
+    for i, pol in enumerate(batch.policy_axis):
+        emit({"scenario": "mlp_heldout16", "policy": pol,
+              "completion_time": float(batch.completion_time[i]),
+              "status": str(status[i]),
+              "pause_frames": float(batch.pause_count[i].sum()),
+              "n_flows": sched.n_flows,
+              "cpu_seconds": time.perf_counter() - t0})
+
+
 def main(names):
     emit({"jax": jax.__version__, "numpy": np.__version__})
     runner = SweepRunner(CFG)
     for name in names or [*SCENARIOS, "batch_fig12", "dlrm_reference",
-                          "dlrm_iteration", "serve_reference"]:
+                          "dlrm_iteration", "serve_reference",
+                          "fault_grid_dcqcn", "faults_clos32",
+                          "mlp_clos128", "mlp_heldout16"]:
+        # fault_grid_dcqcn:3,5 runs those lanes only; mlp_clos128:lossless
+        # (or :fig13_gbn) one of its two runs
+        name, _, arg = name.partition(":")
         if name in SCENARIOS:
             collective_times(name, runner)
+        elif name == "fault_grid_dcqcn":
+            fault_grid_dcqcn(runner, [int(i) for i in arg.split(",")]
+                             if arg else None)
+        elif name == "faults_clos32":
+            faults_clos32(runner)
+        elif name == "mlp_clos128":
+            mlp_clos128(runner, (arg,) if arg else ("lossless",
+                                                    "fig13_gbn"))
+        elif name == "mlp_heldout16":
+            mlp_heldout16()
         elif name == "batch_fig12":
             batch_fig12(runner)
         elif name == "dlrm_iteration":

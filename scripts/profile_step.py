@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where one engine step's time goes on the card, for the scenarios that
-``chip_smoke.py`` drives (128-GPU 1D all-reduce, 32-GPU 2D all-reduce and
-the 128-GPU DLRM training iteration with the 2D all-reduce, DCQCN), on
-both step paths; for Fig 12's fabric sweep (``batch_fig12``) on the
+``chip_smoke.py`` drives (128-GPU 1D all-reduce, lossless and lossy,
+32-GPU 2D all-reduce and the 128-GPU DLRM training iteration with the 2D
+all-reduce, DCQCN), on both step paths; for Fig 12's fabric sweep (``batch_fig12``) on the
 kernel path at B=9 lanes and at B=1 (lane 0 alone); where one forward of the Table II DLRM (batch 256)
 goes; and where one decode step of TinyLlama-1.1B goes on
 ``chip_smoke.py``'s long serving run (8 slots, 2,048-token prompts, a
@@ -44,17 +44,18 @@ from chip_smoke import busy_us  # noqa: E402  (numpy only at import)
 FORWARDS, TRACE_FORWARDS = 100, 20
 # TinyLlama decode steps: warm-up, timed, traced (each path has its cache)
 WARM_DECODE, DECODE_STEPS, TRACE_DECODE = 4, 24, 8
-SCENARIOS = ("clos128_1d", "dlrm128_2d", "clos32_2d", "batch_fig12",
-             "dlrm_forward", "serve_decode")
+SCENARIOS = ("clos128_1d", "clos128_1d_lossy", "dlrm128_2d", "clos32_2d",
+             "batch_fig12", "dlrm_forward", "serve_decode")
 
 
 class Run:
     """One fresh run of a scenario on one step path, stepped on demand;
     ``stacked_fabric`` (FabricParams field -> length-B array) makes it a
-    batch of B lanes, as ``SweepRunner.run_batch`` steps them."""
+    batch of B lanes, as ``SweepRunner.run_batch`` steps them; the spec's
+    ``fault_spec`` runs the faulty step."""
 
     def __init__(self, runner, spec, impl: str, stacked_fabric=None):
-        from repro_torch.core import engine, sweep
+        from repro_torch.core import engine, faults, sweep
         cfg = dataclasses.replace(runner.cfg, step_impl=impl)
         topo, sched, self.policy = spec.build()
         self.sim = runner.simulator(topo, sched, self.policy, cfg)
@@ -63,11 +64,14 @@ class Run:
             lanes = len(next(iter(stacked_fabric.values())))
             fab = sweep._stack_fabric(fab, stacked_fabric, lanes)
         self.lanes = lanes
+        fault = faults._as_fault(spec.fault_spec)
         self.step = engine._make_step(self.policy, cfg, self.sim.plan,
                                       self.sim.pp, None, fab,
-                                      self.sim.step_impl == "cuda", lanes)
+                                      self.sim.step_impl == "cuda", lanes,
+                                      fault)
         self.carry = engine._init_carry(self.sim.pp, self.sim.plan,
-                                        self.policy, cfg, None, lanes)
+                                        self.policy, cfg, None, lanes,
+                                        faults.is_faulty(fault))
         self.it = 0
 
     def advance(self, n: int) -> None:
@@ -194,7 +198,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core import (CollectiveSpec, DLRMCommSpec,
                                   DLRMIterationSpec, EngineConfig,
-                                  FabricSpec, ScenarioSpec, SweepRunner)
+                                  FabricSpec, FaultSpec, ScenarioSpec,
+                                  SweepRunner)
     import chip_smoke
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -207,6 +212,11 @@ def main(argv=None) -> int:
     scen = {
         "clos128_1d": ScenarioSpec(fab128, CollectiveSpec("1d", 128e6),
                                    "dcqcn"),
+        # the same run on the lossy-RoCE operating point: the fault
+        # branches of the step (loss, IRN recovery, the loss signal)
+        "clos128_1d_lossy": ScenarioSpec(
+            fab128, CollectiveSpec("1d", 128e6), "dcqcn",
+            fault_spec=FaultSpec.lossy_roce(1e-5, "irn")),
         # the iteration's all-reduce runs from about step 625 (2.5 ms)
         "dlrm128_2d": ScenarioSpec(
             fab128, DLRMIterationSpec(comm=DLRMCommSpec(allreduce_algo="2d")),

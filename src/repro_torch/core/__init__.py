@@ -1,6 +1,7 @@
-"""The port's core: fabric and schedule builders, CC policies, the fluid
-engine, scenario specs, the sweep runner (single runs, batched lanes,
-grids, the policy axis) and the DLRM iteration workload."""
+"""The port's core: fabric and schedule builders, CC policies (the
+learned ``mlp`` among them), the fluid engine with its fault layer,
+scenario specs, the sweep runner (single runs, batched lanes, grids, the
+policy axis) and the DLRM iteration workload."""
 from repro_torch.core.cc import (ALL_POLICIES, REGISTRY, FlowCtx,  # noqa: F401
                                  ParamSpec, Policy, Signals, get_policy,
                                  kernel_param_keys, kernel_state_keys,
@@ -18,7 +19,8 @@ from repro_torch.core.engine import (EngineConfig,  # noqa: F401
                                      FabricParams,
                                      Results, Simulator, resolve_step_impl,
                                      simulate)
-from repro_torch.core.faults import (FaultSpec, LaneStatus,  # noqa: F401
+from repro_torch.core.faults import (FAULT_PARAM_SPECS,  # noqa: F401
+                                     RECOVERY_MODES, FaultSpec, LaneStatus,
                                      classify_lane, is_faulty)
 from repro_torch.core.scenario import (CollectiveSpec,  # noqa: F401
                                        FabricSpec, IncastSpec, ScenarioSpec,

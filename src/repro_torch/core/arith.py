@@ -141,3 +141,40 @@ def expf(x: torch.Tensor) -> torch.Tensor:
         torch.float32)
     out = y * scale
     return torch.where(out < _FLT_MIN, 0.0, out)
+
+
+# tanh as the reference's CPU backend expands it (XLA's elemental tanh): a
+# rational approximation x * P(x^2) / Q(x^2) on x clamped to +-_TANH_MAX,
+# every Horner step one multiply-add, and x itself where |x| < 0.0004.
+# The learned policy's hidden layer and window head go through it;
+# kernels/csrc/cc_policy.cuh (xla_tanhf) computes the same bits.
+_TANH_MAX = 7.99881172180175781
+_TANH_SMALL = 0.0004
+_TANH_P = tuple(float(v) for v in __import__("numpy").float32([
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03]))
+_TANH_Q = tuple(float(v) for v in __import__("numpy").float32([
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03]))
+
+
+def tanhf(x: torch.Tensor) -> torch.Tensor:
+    """``tanh`` of a float32 tensor, bit for bit the reference's (NaN
+    propagates)."""
+    y = torch.clamp(x, -_TANH_MAX, _TANH_MAX)
+    y2 = y * y
+    p = fma(y2, _TANH_P[0], _TANH_P[1])
+    for c in _TANH_P[2:]:
+        p = fma(y2, p, c)
+    q = fma(y2, _TANH_Q[0], _TANH_Q[1])
+    for c in _TANH_Q[2:]:
+        q = fma(y2, q, c)
+    return torch.where(x.abs() < _TANH_SMALL, x, y * p / q)
+
+
+def sigmoidf(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function as the reference evaluates it:
+    ``1 / (1 + exp(-x))`` with ``expf`` above, subnormal results flushed
+    to zero."""
+    return ftz(1.0 / (1.0 + expf(-x)))

@@ -21,7 +21,8 @@ its device function in the fused CUDA step kernel
 (``repro_torch/kernels/engine_step/csrc/engine_step.cu``).  A policy
 without one runs on the op path only.  ``stack_policies`` builds the
 product policy of a policy axis (op path only, as in the reference).  The
-learned ``mlp`` policy is not ported yet.
+registry holds the reference's eight policies in its order, the learned
+``mlp`` last (``repro_torch.learn.net``, imported on first use).
 """
 from __future__ import annotations
 
@@ -209,7 +210,7 @@ def _full(like: torch.Tensor, v) -> torch.Tensor:
 
 # fixed policy ids of the fused step kernel's device functions
 KERNEL_POLICY_ID = {"pfc": 0, "dcqcn": 1, "dctcp": 2, "timely": 3,
-                    "hpcc": 4, "hpcc_pint": 5, "static_window": 6}
+                    "hpcc": 4, "hpcc_pint": 5, "static_window": 6, "mlp": 7}
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +530,13 @@ def make_static_window(margin: float = 2.0, headroom: float = 0.5e6,
                   kernel_id=KERNEL_POLICY_ID["static_window"])
 
 
+def make_mlp(**kw) -> Policy:
+    """The learned policy (``repro_torch.learn.net``), imported here on
+    first use: that module imports this one's types."""
+    from repro_torch.learn.net import make_mlp as _mk
+    return _mk(**kw)
+
+
 REGISTRY = {
     "pfc": make_pfc_only,
     "dcqcn": make_dcqcn,
@@ -537,6 +545,7 @@ REGISTRY = {
     "hpcc": make_hpcc,
     "hpcc_pint": make_hpcc_pint,
     "static_window": make_static_window,
+    "mlp": make_mlp,
 }
 
 ALL_POLICIES = tuple(REGISTRY)

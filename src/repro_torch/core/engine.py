@@ -1,5 +1,5 @@
 """Network layer: fixed-timestep, vectorized fluid-flow simulator in
-PyTorch (port of ``repro.core.engine``, lossless path).
+PyTorch (port of ``repro.core.engine``).
 
 Per step Δt:
   1. delayed signals (ECN fraction, RTT, HPCC INT utilisation) read from a
@@ -44,8 +44,16 @@ stops at the first chunk boundary after every lane has halted, so results
 never depend on ``chunk_steps`` and ``meta["steps_run"]`` is the
 reference's chunk-rounded count.
 
-Not ported yet: the fault branches of the step (a faulty ``FaultSpec``
-raises), ``soft_cost_fn`` and autograd.
+Faults (``core.faults.FaultSpec``): a spec that injects any fault
+(``is_faulty``) runs the reference's faulty step — per-hop loss on fabric
+links with IRN or go-back-N recovery and a per-flow loss signal (carry
+``lost``, ``dup``, ``loss_sig``), degradation windows and link flaps on
+fabric links, scaled ECN marking and ``pfc_on``-gated pausing — on both
+step paths; the default spec runs the lossless step unchanged, so every
+lossless result is bit for bit what it was.  Fault leaves are scalars or
+per-link-class arrays for one lane, stacked on a leading lane axis for B.
+
+Not ported yet: ``soft_cost_fn`` and autograd.
 """
 from __future__ import annotations
 
@@ -55,7 +63,7 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch.core.arith import fma, row_prod, row_sum
+from repro_torch.core.arith import fma, rdiv, row_prod, row_sum
 from repro_torch.core.cc import (FlowCtx, Policy, Signals,
                                  kernel_state_keys, pack_params)
 from repro_torch.core.collectives import Schedule
@@ -187,7 +195,7 @@ class Results:
     storm_step: int = -1          # first step a pause storm was sustained
     diverged: bool = False        # non-finite state; lane frozen at detection
     extend_exhausted: bool = False  # step budget ran out before completion
-    lost: np.ndarray | None = None  # (F,) bytes dropped (lossy mode; not ported)
+    lost: np.ndarray | None = None  # (F,) bytes dropped in-network (faulty)
 
     @property
     def status(self) -> LaneStatus:
@@ -437,6 +445,8 @@ def _prep(topo: Topology, sched: Schedule, cfg: EngineConfig,
         link_class=T(link_class, torch.int64),
         src_dev=T(topo.src_dev, torch.int64),
         sw_sw=T(sw_sw),
+        fabric_link=T(fabric_ext.astype(np.float32)),
+        fabric_path=T((fabric_ext[path] & hopmask).astype(np.float32)),
         cls_path=T(link_class[path], torch.int64),
         n_hops=T(n_hops, torch.int64),
         base_rtt=T(base_rtt), delay_steps=T(delay_steps, torch.int64),
@@ -497,18 +507,26 @@ def _wire_of(policy: Policy, params: dict):
 
 
 def _class_table(v, lanes: int, device) -> torch.Tensor:
-    """A FabricParams leaf as a ``(B, N_LINK_CLASSES)`` float32 table: a
-    scalar or per-class leaf for one lane, or a stacked ``(B,)`` or
-    ``(B, N_LINK_CLASSES)`` leaf for B lanes."""
+    """A FabricParams or FaultSpec leaf as a ``(B, N_LINK_CLASSES)``
+    float32 table: a scalar or per-class leaf for one lane, or a stacked
+    ``(B,)`` or ``(B, N_LINK_CLASSES)`` leaf for B lanes."""
     a = np.asarray(v, np.float32).reshape(lanes, -1)
     return torch.as_tensor(np.broadcast_to(
         a, (a.shape[0], N_LINK_CLASSES)).copy(), device=device)
 
 
+def _lane_col(v, lanes: int, device) -> torch.Tensor:
+    """A scalar FaultSpec leaf (a time, ``gbn``, ``mtu``) as a ``(B, 1)``
+    float32 column: a scalar for one lane, or a stacked ``(B,)`` leaf."""
+    return torch.as_tensor(np.array(v, np.float32).reshape(lanes, 1),
+                           device=device)
+
+
 def _init_carry(pp, plan: _Plan, policy: Policy, cfg: EngineConfig,
-                cc_params: dict | None = None, lanes: int = 1):
+                cc_params: dict | None = None, lanes: int = 1,
+                faulty: bool = False):
     """The starting state of ``lanes`` lanes, every tensor with a leading
-    lane axis ``B``."""
+    lane axis ``B``; ``faulty`` adds the fault step's carry."""
     B = lanes
     Fp, Lk, D = plan.n_flows_pad, plan.n_links, plan.n_dev
     dev = pp["line"].device
@@ -540,6 +558,10 @@ def _init_carry(pp, plan: _Plan, policy: Policy, cfg: EngineConfig,
         storm_run=torch.zeros(B, **i32),
         storm_step=torch.full((B,), -1, **i32),
     )
+    if faulty:
+        carry["lost"] = torch.zeros((B, Fp), **f32)      # dropped in-network
+        carry["dup"] = torch.zeros((B, Fp), **f32)       # GBN resend overhead
+        carry["loss_sig"] = torch.zeros((B, Fp), **f32)  # EWMA loss fraction
     if cfg.queue_stride > 0:
         carry["qbuf"] = torch.zeros((B, _n_qrows(cfg), D), **f32)
     return carry
@@ -551,16 +573,18 @@ _IN_PLACE = ("hist_q", "hist_tx", "qbuf")
 
 def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
                cc_params: dict, fab: FabricParams, use_kernels: bool,
-               lanes: int = 1):
-    """The lossless step ``step(carry, it, live=None) -> carry`` for one
-    run of ``lanes`` lanes.
+               lanes: int = 1, fault: FaultSpec | None = None):
+    """The step ``step(carry, it, live=None) -> carry`` for one run of
+    ``lanes`` lanes: the lossless step, or the faulty one where ``fault``
+    injects any fault (``is_faulty``; its carry comes from
+    ``_init_carry(faulty=True)``).
 
-    ``cc_params`` values and ``fab``'s leaves are scalars (or per-class
-    arrays) shared by every lane, or stacked on a leading lane axis
-    (``(B,)`` params, ``(B,)`` or ``(B, C)`` fabric leaves).  Per-run constants
-    (per-class fabric knobs gathered per hop, wire sizes, thresholds) are
-    computed once here; they are the values the reference recomputes
-    every step.  ``use_kernels`` routes stages 1+2, the ``"gather"``
+    ``cc_params`` values and the leaves of ``fab`` and ``fault`` are
+    scalars (or per-class arrays) shared by every lane, or stacked on a
+    leading lane axis (``(B,)`` params, ``(B,)`` or ``(B, C)`` leaves).
+    Per-run constants (per-class fabric and fault knobs gathered per hop
+    or link, wire sizes, thresholds) are computed once here; they are the
+    values the reference recomputes every step.  ``use_kernels`` routes stages 1+2, the ``"gather"``
     reductions and the PFC hysteresis through the CUDA kernel wrappers
     (which run their plain versions on CPU tensors), all B lanes in one
     launch.  The history ring and the queue timeline are updated in place.
@@ -608,6 +632,35 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
     # adjacency slot (src, dst) of each link in the pause-cycle check
     pair = pp["src_dev"] * D + pp["dst_dev"][:Lk]
 
+    faulty = fault is not None and is_faulty(fault)
+    if faulty:
+        # ECN misconfiguration scales the marking probability (0 = broken)
+        ecn_h = _class_table(fault.ecn_scale, lanes, dev)[:, cls_path]
+        # per-hop drop probability: fabric links only (NVLink is lossless)
+        loss_p = (_class_table(fault.loss_rate, lanes, dev)[:, cls_path]
+                  * pp["fabric_path"])
+        loss_h = [loss_p[..., h] for h in range(MAXHOP)]
+        # degradation windows and flaps act on fabric links only
+        is_fab = pp["fabric_link"] > 0
+        deg_l = _class_table(fault.degrade, lanes, dev)[:, link_class]
+        deg_t0 = _lane_col(fault.degrade_t0, lanes, dev)
+        deg_t1 = _lane_col(fault.degrade_t1, lanes, dev)
+        period = _lane_col(fault.flap_period, lanes, dev)
+        period_safe = torch.clamp_min(period, _f32(1e-9))
+        flap_t0 = _lane_col(fault.flap_t0, lanes, dev)
+        flap_dn = _lane_col(fault.flap_down, lanes, dev)
+        gbn = _lane_col(fault.gbn, lanes, dev)
+        two_mtu = 2.0 * torch.clamp_min(_lane_col(fault.mtu, lanes, dev),
+                                        1.0)
+        # GBN's outstanding window is capped at the path BDP
+        bdp_cap = pp["line"] * pp["base_rtt"]
+        # loss EWMA weight per flow, dt / base RTT
+        ewma_a = torch.clamp_max(rdiv(dt32, pp["base_rtt"]), 1.0)
+        ewma_keep = 1.0 - ewma_a
+        # pfc_on = 0 disables pausing on that link class
+        can = can & (_class_table(fault.pfc_on, lanes, dev)[:, link_class]
+                     > 0.5)
+
     if use_kernels:
         # hop-major (B, MAXHOP, F) inputs of the fused kernel
         def hm(x):
@@ -615,11 +668,14 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             return torch.broadcast_to(x, (B,) + tuple(x.shape[-2:])) \
                 .contiguous()
         k_caps, k_emask, k_hmask = hm(caps), hm(pp["ecn_mask"]), hm(hopmask)
-        k_kmin, k_kmax, k_pmax = hm(kmin_h), hm(kmax_h), hm(pmax_h)
+        # the ECN scale folds into the marking ceiling, as the
+        # reference's kernel path does
+        k_kmin, k_kmax = hm(kmin_h), hm(kmax_h)
+        k_pmax = hm(pmax_h * ecn_h if faulty else pmax_h)
         path_t = path.T.contiguous()
         k_brtt = pp["base_rtt"].expand(B, Fp).contiguous()
         k_line = pp["line"].expand(B, Fp).contiguous()
-        k_loss = torch.zeros_like(k_line)       # lossless: no loss signal
+        k_zero_loss = torch.zeros_like(k_line)    # lossless: no loss signal
         k_params = pack_params(policy, params, device=dev, lanes=B)
         k_can = can.expand(B, Lk + 1).contiguous()
         state_keys = kernel_state_keys(policy)
@@ -654,10 +710,12 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             tx_d = htx[:, flat_t].contiguous()
             state = (torch.stack([c["cc"][k] for k in state_keys], dim=1)
                      if state_keys else k_dummy)
+            k_loss = (c["loss_sig"].contiguous() if faulty
+                      else k_zero_loss)
             st_out, rate, win = es_ops.fused_signals_policy(
                 policy, q_d, tx_d, k_caps, k_emask, k_hmask, k_kmin, k_kmax,
                 k_pmax, k_brtt, k_line, k_loss, state, k_params, t,
-                cfg.t_base_util)
+                cfg.t_base_util, dt32)
             cc = {k: st_out[:, j] for j, k in enumerate(state_keys)}
         else:
             flat = slot[:, None] * (Lk + 1) + path               # (F, MAXHOP)
@@ -667,12 +725,15 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             mark = torch.clamp((q_d - kmin_h)
                                / torch.clamp_min(kmax_h - kmin_h, 1.0),
                                0.0, 1.0) * pmax_h
+            if faulty:
+                mark = mark * ecn_h
             mark = mark * pp["ecn_mask"]
             ecn = 1.0 - row_prod(1.0 - mark)
             util_l = tx_d / caps + q_d / (caps * cfg.t_base_util)
             util = torch.amax(torch.where(hopmask, util_l, 0.0), dim=-1)
             sig = Signals(ecn=ecn, rtt=rtt, util=util, t=t, dt=dt32,
-                          line=pp["line"], base_rtt=pp["base_rtt"])
+                          line=pp["line"], base_rtt=pp["base_rtt"],
+                          loss=c["loss_sig"] if faulty else 0.0)
             # ---- 2. CC update ---------------------------------------------
             cc, rate, win = policy.update(params, c["cc"], sig)
 
@@ -682,6 +743,9 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         dep_t = torch.where(dep_valid, c["g_time"][:, dep_c], 0.0)
         started = dep_ok & (t >= dep_t + pp["sdelay"])
         inflight = c["injected"] - c["delivered"]
+        if faulty:
+            # lost bytes are not in flight (the NIC saw the NACK/timeout)
+            inflight = inflight - c["lost"]
         room = torch.clamp_min(win - inflight, 0.0)
         inj = torch.minimum(torch.minimum(rate * dt, room), c["remaining"])
         inj = torch.where(started & has_hops, torch.clamp_min(inj, 0.0), 0.0)
@@ -692,11 +756,21 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
 
         # ---- 4. PFC gates (per-port) ---------------------------------------
         rem_cap = cap_dt * ~c["paused"]
+        if faulty:
+            # degradation windows and periodic flaps (down for flap_down
+            # out of every flap_period seconds) on fabric links
+            in_deg = (t >= deg_t0) & (t < deg_t1)
+            capmul = torch.where(in_deg & is_fab, deg_l, 1.0)
+            phase = torch.remainder(t - flap_t0, period_safe)
+            down = (period > 0) & (t >= flap_t0) & (phase < flap_dn)
+            capmul = torch.where(down & is_fab, 0.0, capmul)
+            rem_cap = rem_cap * capmul
         rem_cap[:, Lk] = 1e18
 
         # ---- 5. hop-ordered forwarding -------------------------------------
         delivered = c["delivered"]
         tx_bytes = None
+        lost_step = None
         for h in range(MAXHOP):
             if plan.hop[h][0] == "empty":   # no flow ever uses this hop slot
                 continue
@@ -710,6 +784,15 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             # backlog - backlog*frac and the capacity/tx updates are
             # multiply-adds the reference contracts (see cc.fma)
             backlog[..., h] = fma(-backlog[..., h], frac_f, backlog[..., h])
+            if faulty:
+                # bytes dropped on this hop consumed upstream capacity but
+                # leave the network; they re-enter `remaining` below
+                # the reference's compiler fuses each later hop's drop
+                # product into the running sum: m0*l0, fma(m1, l1, .), ...
+                drop = moved * loss_h[h]
+                lost_step = (drop if lost_step is None
+                             else fma(moved, loss_h[h], lost_step))
+                moved = moved - drop
             delivered = delivered + torch.where(last_h[h], moved, 0.0)
             if h + 1 < MAXHOP:
                 backlog[..., h + 1] += torch.where(last_h[h], 0.0, moved)
@@ -725,6 +808,29 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
                 tx_bytes = fma(frac, dem, tx_bytes)
         if isinstance(tx_bytes, tuple):
             tx_bytes = tx_bytes[0] * tx_bytes[1]
+
+        if faulty:
+            # ---- 5b. loss recovery (IRN vs go-back-N) ----------------------
+            if lost_step is None:           # no flow uses any hop slot
+                lost_step = torch.zeros_like(delivered)
+            lost = c["lost"] + lost_step
+            live_b = torch.clamp_min(injected - delivered - lost, 0.0)
+            # IRN resends the lost bytes only; go-back-N also resends, per
+            # lost packet, half the outstanding window (in-network bytes
+            # capped at the path BDP, else incast GBN never drains)
+            w_out = torch.minimum(live_b, bdp_cap)
+            dup_step = gbn * torch.minimum(lost_step * w_out / two_mtu,
+                                           live_b)
+            remaining = remaining + lost_step + dup_step
+            dup = c["dup"] + dup_step
+            # per-flow EWMA loss fraction: the next step's loss signal
+            traf = lost_step + (delivered - c["delivered"])
+            frac_l = lost_step / torch.clamp_min(traf, 1.0)
+            # (1 - a) * sig + a * frac: the first product is fused
+            loss_sig = torch.where(traf > 0,
+                                   fma(ewma_keep, c["loss_sig"],
+                                       ewma_a * frac_l),
+                                   c["loss_sig"])
 
         # ---- 6. queues ------------------------------------------------------
         flat_backlog = backlog.reshape(B, -1)
@@ -748,7 +854,11 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
                                                  frames)
 
         # ---- 8. completion --------------------------------------------------
-        data_done = delivered >= done_thresh
+        if faulty:
+            # duplicates arrive and are discarded: goodput = delivered - dup
+            data_done = delivered >= wire_size + dup - cfg.eps_done
+        else:
+            data_done = delivered >= done_thresh
         marker_done = ~has_hops & started
         newly = ~c["done"] & torch.where(has_hops, data_done, marker_done)
         done = c["done"] | newly
@@ -771,7 +881,11 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             q_link_w = q_link
         hist_q[:, row] = q_link_w
         hist_tx[:, row] = tx_rate
-        goodput = torch.minimum(delivered, wire_size)
+        if faulty:
+            goodput = torch.minimum(torch.clamp_min(delivered - dup, 0.0),
+                                    wire_size)
+        else:
+            goodput = torch.minimum(delivered, wire_size)
         undeliv = torch.sum(wire_size - goodput, dim=-1)
         soft = c["soft"] + dt * undeliv / wire_total
 
@@ -804,6 +918,8 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             cc=cc, soft=soft, diverged=diverged,
             deadlock_step=deadlock_step, storm_run=storm_run,
             storm_step=storm_step)
+        if faulty:
+            new.update(lost=lost, dup=dup, loss_sig=loss_sig)
         if stride > 0:
             qbuf = c["qbuf"]
             if it % stride == 0:
@@ -904,7 +1020,7 @@ class Simulator:
                 "fused CUDA step kernel; use step_impl='torch'")
         self.topo, self.sched, self.policy, self.cfg = topo, sched, policy, cfg
         self.fabric = _as_fabric(fabric_params, cfg)
-        self.fault = _check_lossless(fault_spec)
+        self.fault = _as_fault(fault_spec)
         self.pp, self.plan = _prep(topo, sched, cfg, pad_flows, pad_groups,
                                    self.device)
 
@@ -912,24 +1028,26 @@ class Simulator:
             fabric_params: FabricParams | None = None,
             fault_spec: FaultSpec | None = None) -> Results:
         fab = fabric_params if fabric_params is not None else self.fabric
-        if fault_spec is not None:
-            _check_lossless(fault_spec)
+        flt = fault_spec if fault_spec is not None else self.fault
         carry, steps, executed, _ = self.run_carry(cc_params, fab, 1,
-                                                   early_exit)
+                                                   early_exit, flt)
         return self._results(_tree_map(lambda x: x[0], carry), steps,
                              executed)
 
     def run_carry(self, cc_params: dict | None, fab: FabricParams,
-                  lanes: int, early_exit: bool = True):
+                  lanes: int, early_exit: bool = True,
+                  fault: FaultSpec | None = None):
         """Step ``lanes`` lanes in one loop and return ``_run_loop``'s
         ``(carry, steps_run, steps_executed, lane_steps)``, the carry with
-        its leading lane axis.  ``cc_params`` values and ``fab``'s leaves
-        are shared by every lane or stacked on a leading axis of length
-        ``lanes``."""
+        its leading lane axis.  ``cc_params`` values and the leaves of
+        ``fab`` and ``fault`` (default: the inert spec) are shared by
+        every lane or stacked on a leading axis of length ``lanes``."""
+        fault = _as_fault(fault)
         step = _make_step(self.policy, self.cfg, self.plan, self.pp,
-                          cc_params, fab, self.step_impl == "cuda", lanes)
+                          cc_params, fab, self.step_impl == "cuda", lanes,
+                          fault)
         carry = _init_carry(self.pp, self.plan, self.policy, self.cfg,
-                            cc_params, lanes)
+                            cc_params, lanes, is_faulty(fault))
         return _run_loop(step, carry, self.cfg, early_exit)
 
     def _results(self, carry, steps_run: int,
@@ -982,17 +1100,8 @@ class Simulator:
             storm_step=int(carry["storm_step"]),
             diverged=diverged,
             extend_exhausted=extend_exhausted,
+            lost=host(carry["lost"])[:F] if "lost" in carry else None,
         )
-
-
-def _check_lossless(fault_spec) -> FaultSpec:
-    flt = _as_fault(fault_spec)
-    if is_faulty(flt):
-        raise NotImplementedError(
-            "the port's engine runs the lossless step only; the fault "
-            "branches (loss, flaps, degradation, ECN/PFC misconfiguration) "
-            "are not ported yet")
-    return flt
 
 
 def simulate(topo, sched, policy, cfg: EngineConfig = EngineConfig(),

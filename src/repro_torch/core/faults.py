@@ -1,12 +1,21 @@
-"""Fault-injection layer, as data: ``FaultSpec``, ``LaneStatus``,
-``classify_lane`` and ``is_faulty`` (port of ``repro.core.faults``).
+"""Fault-injection layer (port of ``repro.core.faults``): ``FaultSpec``,
+its sweepable ``FAULT_PARAM_SPECS``, ``LaneStatus``, ``classify_lane``
+and ``is_faulty``.
 
-The reference engine compiles a separate faulty step (per-hop loss with
-IRN/GBN recovery, degradation windows, link flaps, ECN/PFC
-misconfiguration).  The port's engine runs the lossless step only so far:
-it accepts the all-defaults spec, which is statically inert, and raises
-``NotImplementedError`` for any spec where ``is_faulty`` is True, serial
-or stacked on sweep lanes (``sweep._stack_fault``).
+A ``FaultSpec`` injects time-scheduled fabric faults into the engine
+(``repro_torch.core.engine``): random per-packet loss on fabric links with
+IRN selective retransmit (``gbn=0``) or go-back-N (``gbn=1``) recovery,
+link degradation over a window, periodic link flaps, ECN misconfiguration
+(``ecn_scale``) and disabled PFC (``pfc_on=0``, the lossy-RoCE operating
+point).  Leaves are scalars or per-link-class arrays indexed by
+``topology.LINK_CLASSES`` (``loss_rate``, ``degrade``, ``ecn_scale``,
+``pfc_on``; the engine expands each per class and gathers it per hop or
+link once per run, as it does the fabric knobs), and stack on a leading
+lane axis for ``SweepRunner.run_batch``/``grid(fault_grid=...)``.
+
+The all-defaults spec is inert: ``is_faulty`` is False for it and the
+engine then runs the lossless step, so lossless results are bit for bit
+those without the fault layer.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ import enum
 
 import numpy as np
 
+from repro_torch.core.cc import ParamSpec
 from repro_torch.core.topology import LINK_CLASS_ID, N_LINK_CLASSES
 
 
@@ -52,6 +62,19 @@ _FAULT_DEFAULTS = dict(
     flap_period=0.0, flap_down=0.0, flap_t0=0.0,
     ecn_scale=1.0, pfc_on=1.0,
 )
+
+# search spaces of the sweepable fault knobs, in the ParamSpec currency of
+# the CC policies (consumed by grid drivers)
+FAULT_PARAM_SPECS = {
+    "loss_rate": ParamSpec(0.0, lo=0.0, hi=0.1, scale="linear"),
+    "gbn": ParamSpec(0.0, lo=0.0, hi=1.0, integer=True),
+    "mtu": ParamSpec(4096.0, lo=256.0, hi=9000.0, scale="log"),
+    "degrade": ParamSpec(1.0, lo=0.01, hi=1.0, scale="linear"),
+    "flap_period": ParamSpec(0.0, lo=0.0, hi=1.0, scale="linear"),
+    "flap_down": ParamSpec(0.0, lo=0.0, hi=1.0, scale="linear"),
+    "ecn_scale": ParamSpec(1.0, lo=0.0, hi=2.0, scale="linear"),
+    "pfc_on": ParamSpec(1.0, lo=0.0, hi=1.0, integer=True),
+}
 
 RECOVERY_MODES = ("irn", "gbn")
 

@@ -142,7 +142,7 @@ class ScenarioSpec:
     """One fully-specified simulation point.  ``policy`` is a registry name,
     a ``Policy``, or a tuple of either (a policy axis, run as one batch);
     ``cc_params``, ``fabric_params`` and ``fault_spec`` are per-run
-    overrides (a faulty spec raises until the fault branches land)."""
+    overrides; a faulty ``fault_spec`` runs the engine's faulty step."""
     fabric: object                 # FabricSpec | Topology
     workload: object               # has build_schedule(topo) -> Schedule
     policy: object = "pfc"         # str | Policy | tuple (policy axis)

@@ -9,13 +9,16 @@ compile cache.
 
 * **single runs** — ``run``, ``run_spec``, ``run_specs`` and
   ``run_policies`` run one scenario per call (``Results``);
-* **batched lanes** — ``run_batch`` stacks CC parameters and
-  ``FabricParams`` leaves of one policy on a leading lane axis and steps
-  all B lanes in one loop: every kernel launch and every op of the step
-  covers the B lanes (the reference's ``vmap``, written out);
+* **batched lanes** — ``run_batch`` stacks CC parameters,
+  ``FabricParams`` leaves and ``FaultSpec`` leaves of one policy on a
+  leading lane axis and steps all B lanes in one loop: every kernel launch
+  and every op of the step covers the B lanes (the reference's ``vmap``,
+  written out).  A stack that injects any fault runs the faulty step on
+  every lane (an inert lane stays lossless in value, as in the
+  reference);
 * **grids** — ``grid`` / ``grid_spec`` enumerate a full-factorial CC x
-  fabric grid into one batch; ``grid_from_spec`` draws grid axes from a
-  policy's declared ``ParamSpec`` ranges;
+  fabric x fault grid into one batch; ``grid_from_spec`` draws grid axes
+  from a policy's declared ``ParamSpec`` ranges;
 * **a batched policy axis** — ``run_policy_axis`` stacks several policies
   into one product policy (``cc.stack_policies``, a per-lane select) and
   runs the comparison as one batch; ``grid(..., policy_axis=[...])``
@@ -31,7 +34,7 @@ lane is flagged, and the healthy lanes complete normally
 (``BatchResults.lane_status``).  Batched runs never record the queue
 timeline.  Not ported: ``mesh=`` (multi-GPU lanes), ``calibrate_backend``
 and the ``*_pays_off`` advice, ``compile_stats`` (the port compiles
-nothing); a faulty ``FaultSpec`` raises until the fault branches land.
+nothing).
 
     runner = SweepRunner(EngineConfig(dt=2e-6, max_steps=4000,
                                       queue_stride=0))   # device="cuda"
@@ -56,11 +59,6 @@ from repro_torch.core.engine import (EngineConfig, FabricParams, Results,
 from repro_torch.core.faults import (FaultSpec, LaneStatus, _as_fault,
                                      classify_lane, is_faulty)
 
-_FAULTS_LATER = ("the port's engine runs the lossless step only; the fault "
-                 "branches (loss, flaps, degradation, ECN/PFC "
-                 "misconfiguration) are ROADMAP queue item 2")
-
-
 def _resolve(policy) -> Policy:
     return cc_mod.get_policy(policy) if isinstance(policy, str) else policy
 
@@ -80,10 +78,13 @@ def _policy_key(policy: Policy):
 
 @dataclasses.dataclass
 class BatchResults:
-    """One batched sweep over B stacked (CC params, FabricParams) sets,
-    with per-lane run-health status.  ``meta`` holds the run's step
-    counts (``steps_executed`` summed over chunks; ``lane_steps``, the
-    steps each lane stepped before it halted), step path and device."""
+    """One batched sweep over B stacked (CC params, FabricParams,
+    FaultSpec) sets, with per-lane run-health status.  ``fault`` holds the
+    stacked FaultSpec leaves and ``lost`` each lane's dropped bytes per
+    flow when the batch injected faults (both empty/None otherwise).
+    ``meta`` holds the run's step counts (``steps_executed`` summed over
+    chunks; ``lane_steps``, the steps each lane stepped before it halted),
+    step path and device."""
     policy: str
     params: dict                  # stacked CC leaves, shape (B,)
     fabric: dict                  # stacked FabricParams leaves, (B,) or (B,C)
@@ -99,6 +100,7 @@ class BatchResults:
     deadlock_step: np.ndarray | None = None   # (B,) first pause-cycle step
     storm_step: np.ndarray | None = None      # (B,) first pause-storm step
     extend_exhausted: np.ndarray | None = None  # (B,) budget ran out
+    lost: np.ndarray | None = None            # (B, F) dropped (faulty)
     meta: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -245,12 +247,7 @@ def _stack_fabric(base: FabricParams, stacked: dict | None,
 
 
 def _stack_fault(base: FaultSpec, stacked: dict | None, B: int) -> FaultSpec:
-    """As ``_stack_fabric``; a stack that injects any fault raises until
-    the fault branches of the step are ported."""
-    flt = _stack_leaves(FaultSpec, base, stacked, B, "fault")
-    if is_faulty(flt):
-        raise NotImplementedError(_FAULTS_LATER)
-    return flt
+    return _stack_leaves(FaultSpec, base, stacked, B, "fault")
 
 
 def stack_policy_axis(policies=None, cc_overrides: list | None = None):
@@ -376,16 +373,16 @@ class SweepRunner:
                          cfg: EngineConfig | None = None,
                          faulty: bool = False) -> int:
         """Device bytes one sweep lane's stepping carry occupies, counted
-        from the port's carry.  A chunk of n lanes holds n times this,
-        plus the shared prepared scenario."""
-        if faulty:
-            raise NotImplementedError(_FAULTS_LATER)
+        from the port's carry (``faulty``: with the fault step's three
+        per-flow rows).  A chunk of n lanes holds n times this, plus the
+        shared prepared scenario."""
         policy = _resolve(policy)
         cfg = dataclasses.replace(cfg or self.cfg, queue_stride=0)
         sim = self.simulator(topo, sched, policy, cfg)
         total = []
         _tree_map(lambda x: total.append(x.numel() * x.element_size()),
-                  _init_carry(sim.pp, sim.plan, policy, cfg))
+                  _init_carry(sim.pp, sim.plan, policy, cfg,
+                              faulty=faulty))
         return int(sum(total))
 
     # -- the batched policy axis --------------------------------------------
@@ -399,8 +396,9 @@ class SweepRunner:
         """The per-figure policy comparison as one batch: B =
         len(policies) lanes of one product policy, lane i simulating
         member i.  ``cc_overrides`` optionally gives a per-member cc_params
-        dict (aligned with ``policies``); ``stacked_fabric`` may stack
-        per-lane FabricParams leaves (length B)."""
+        dict (aligned with ``policies``); ``stacked_fabric`` and
+        ``stacked_fault`` may stack per-lane FabricParams and FaultSpec
+        leaves (length B) over ``fabric_params`` and ``fault_spec``."""
         stacked_pol, params, labels = stack_policy_axis(policies,
                                                         cc_overrides)
         return self.run_batch(topo, sched, stacked_pol, params,
@@ -456,7 +454,7 @@ class SweepRunner:
 
     # -- batched parameter sweeps -------------------------------------------
     def _dispatch_lanes(self, sim: Simulator, full: dict, fab: FabricParams,
-                        B: int) -> tuple:
+                        flt: FaultSpec, B: int) -> tuple:
         """Run B stacked lanes in chunks of ``_chunk_size(B)``; the last
         chunk is padded by repeating its final lane and the padding is
         dropped, so callers see exactly B lanes in input order.  Returns
@@ -476,12 +474,15 @@ class SweepRunner:
             params = {k: v[take] for k, v in full.items()}
             lane_fab = FabricParams(**{f: np.asarray(getattr(fab, f))[take]
                                        for f in FabricParams.FIELDS})
+            lane_flt = FaultSpec(**{f: np.asarray(getattr(flt, f))[take]
+                                    for f in FaultSpec.FIELDS})
             carry, steps, executed, lane_steps = sim.run_carry(
-                params, lane_fab, len(take))
+                params, lane_fab, len(take), fault=lane_flt)
             parts.append({k: carry[k].detach().cpu().numpy()[:hi - lo]
                           for k in ("t_finish", "done", "pause_count",
                                     "delivered", "soft", "diverged",
-                                    "deadlock_step", "storm_step")})
+                                    "deadlock_step", "storm_step", "lost")
+                          if k in carry})
             meta["steps_run"] = max(meta["steps_run"], steps)
             meta["steps_executed"] += executed
             meta["lane_steps"] += lane_steps[:hi - lo].tolist()
@@ -502,11 +503,11 @@ class SweepRunner:
 
         ``stacked_params`` maps CC param name -> length-B array;
         ``stacked_fabric`` maps FabricParams field -> (B,) or (B, C) array;
-        ``stacked_fault`` maps FaultSpec field -> (B,) or (B, C) array
-        (any fault raises until the fault branches are ported).  Missing
-        CC params broadcast from the policy defaults (overridden by
+        ``stacked_fault`` maps FaultSpec field -> (B,) or (B, C) array.
+        Missing CC params broadcast from the policy defaults (overridden by
         ``cc_params``); missing fabric fields from ``fabric_params``
-        (default: the runner config's scalars).  ``policy_axis`` carries
+        (default: the runner config's scalars); missing fault fields from
+        ``fault_spec`` (default: inert).  ``policy_axis`` carries
         the per-lane labels when ``policy`` is a stacked product policy
         (see ``run_policy_axis``)."""
         policy = _resolve(policy)
@@ -531,9 +532,10 @@ class SweepRunner:
                 for k, v in base_cc.items()}
         cfg = dataclasses.replace(cfg or self.cfg, queue_stride=0)
         fab = _stack_fabric(_as_fabric(fabric_params, cfg), stacked_fabric, B)
-        _stack_fault(_as_fault(fault_spec), stacked_fault, B)
+        flt = _stack_fault(_as_fault(fault_spec), stacked_fault, B)
+        faulty = is_faulty(flt)
         sim = self.simulator(topo, sched, policy, cfg)
-        out, meta = self._dispatch_lanes(sim, full, fab, B)
+        out, meta = self._dispatch_lanes(sim, full, fab, flt, B)
         F = sim.plan.n_flows
         t_fin = out["t_finish"][:, :F]
         finished = out["done"][:, :F].all(axis=1)
@@ -547,9 +549,12 @@ class SweepRunner:
             t_finish=t_fin, pause_count=out["pause_count"],
             delivered=out["delivered"][:, :F], soft_cost=out["soft"],
             finished=finished, policy_axis=tuple(policy_axis),
+            fault=({k: np.asarray(getattr(flt, k))
+                    for k in FaultSpec.FIELDS} if faulty else {}),
             diverged=diverged, deadlock_step=out["deadlock_step"],
             storm_step=out["storm_step"],
-            extend_exhausted=~finished & ~diverged, meta=meta,
+            extend_exhausted=~finished & ~diverged,
+            lost=out["lost"][:, :F] if faulty else None, meta=meta,
         )
         _warn_unhealthy_lanes(batch, B)
         return batch

@@ -61,6 +61,7 @@ __global__ void __launch_bounds__(256) dcqcn_update_kernel(
   sig.ecn = ecn[f];
   sig.line = line[f];
   sig.t = t;
+  sig.dt = 0.0f;
   sig.loss = 0.0f;
   sig.rtt = 0.0f;
   sig.util = 0.0f;

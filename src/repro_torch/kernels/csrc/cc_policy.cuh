@@ -6,7 +6,9 @@
 // reference's CPU backend contracts are explicit fmaf calls with subnormal
 // results flushed (fma_ftz), exp is Cephes' expf (cephes_expf), and the
 // including source is built with --fmad=false so that nothing else is
-// contracted.
+// contracted.  The learned policy's tanh and logistic are the reference's
+// expansions (xla_tanhf, xla_sigmoidf), as repro_torch/core/arith.py
+// computes them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,15 +54,40 @@ __device__ __forceinline__ float cephes_expf(float x) {
   return out < 1.17549435e-38f ? 0.0f : out;
 }
 
+// tanh as the reference's CPU backend expands it: x * P(x^2) / Q(x^2) on x
+// clamped to +-7.99881172, every Horner step one multiply-add, and x
+// itself where |x| < 0.0004 (arith.tanhf)
+__device__ __forceinline__ float xla_tanhf(float x) {
+  const float y = vclip(x, -7.99881172180175781f, 7.99881172180175781f);
+  const float y2 = y * y;
+  float p = fma_ftz(y2, -2.76076847742355e-16f, 2.00018790482477e-13f);
+  p = fma_ftz(y2, p, -8.60467152213735e-11f);
+  p = fma_ftz(y2, p, 5.12229709037114e-08f);
+  p = fma_ftz(y2, p, 1.48572235717979e-05f);
+  p = fma_ftz(y2, p, 6.37261928875436e-04f);
+  p = fma_ftz(y2, p, 4.89352455891786e-03f);
+  float q = fma_ftz(y2, 1.19825839466702e-06f, 1.18534705686654e-04f);
+  q = fma_ftz(y2, q, 2.26843463243900e-03f);
+  q = fma_ftz(y2, q, 4.89352518554385e-03f);
+  return fabsf(x) < 0.0004f ? x : y * p / q;
+}
+
+// the logistic as 1 / (1 + exp(-x)), subnormal results flushed
+// (arith.sigmoidf)
+__device__ __forceinline__ float xla_sigmoidf(float x) {
+  const float r = 1.0f / (1.0f + cephes_expf(-x));
+  return fabsf(r) < 1.17549435e-38f ? r * 0.0f : r;
+}
+
 struct Sig {
-  float ecn, rtt, util, t, line, base_rtt, loss;
+  float ecn, rtt, util, t, dt, line, base_rtt, loss;
 };
 
 // Policy ids: cc.KERNEL_POLICY_ID.  State and param slots are the sorted
 // key orders of cc.kernel_state_keys / cc.kernel_param_keys; ops.py checks
 // them against the Python tables before the first launch.
 enum { PFC = 0, DCQCN = 1, DCTCP = 2, TIMELY = 3, HPCC = 4, HPCC_PINT = 5,
-       STATIC_WINDOW = 6 };
+       STATIC_WINDOW = 6, MLP = 7 };
 
 template <int POL>
 __device__ __forceinline__ void policy_update(const float* __restrict__ p,
@@ -237,6 +264,71 @@ __device__ __forceinline__ void policy_update<STATIC_WINDOW>(
     const float*, float* s, const Sig& sig, float& rate, float& win) {
   rate = sig.line;
   win = s[0];
+}
+
+// mlp (repro_torch/learn/net.py)  state: bdp fanin rate win
+//   params (40): b1_0..b1_3 b2_0 b2_1 loss_cut out_gain w1_00..w1_35
+//   w2_00..w2_13.  Six features -> 4 tanh units -> rate and window
+//   targets, tracked at dt / RTT; a loss-scaled cut where loss > 0.
+template <>
+__device__ __forceinline__ void policy_update<MLP>(
+    const float* __restrict__ p, float* s, const Sig& sig, float& rate,
+    float& win) {
+  const float* b1 = p;
+  const float b2_0 = p[4], b2_1 = p[5], loss_cut = p[6], out_gain = p[7];
+  const float* w1 = p + 8;       // w1_{j}{i} at w1[6 * j + i]
+  const float* w2 = p + 32;      // w2_{o}{j} at w2[4 * o + j]
+  const float bdp0 = s[0], fanin0 = s[1], rate0 = s[2], win0 = s[3];
+  const float line = vmax(sig.line, 1.0f);
+  const float base = vmax(sig.base_rtt, 1e-7f);
+  const float bdp = vmax(bdp0, 1.0f);
+  const float qdel = vmax(sig.rtt - sig.base_rtt, 0.0f);
+  const float qd = qdel / base;
+  const float u = vmax(sig.util, 0.0f);
+  const float fan = vmax(fanin0, 1.0f);
+  const float x[6] = {sig.ecn,
+                      qdel / (base * (1.0f + qd)),
+                      u / (1.0f + u),
+                      rate0 / line,
+                      win0 / fma_ftz(4.0f, bdp, win0),
+                      1.0f / fan};
+  // dot products: the first product fused into the second, every later
+  // one into the running sum
+  float h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float* w = w1 + 6 * j;
+    float acc = fma_ftz(w[0], x[0], w[1] * x[1]);
+#pragma unroll
+    for (int i = 2; i < 6; ++i) acc = fma_ftz(w[i], x[i], acc);
+    h[j] = xla_tanhf(acc + b1[j]);
+  }
+  float sr = fma_ftz(w2[0], h[0], w2[1] * h[1]);
+  float sw = fma_ftz(w2[4], h[0], w2[5] * h[1]);
+#pragma unroll
+  for (int j = 2; j < 4; ++j) {
+    sr = fma_ftz(w2[j], h[j], sr);
+    sw = fma_ftz(w2[4 + j], h[j], sw);
+  }
+  sr = sr + b2_0;
+  sw = sw + b2_1;
+  const float win_prior = vmax(2.0f * bdp / fan + 0.5e6f / fan, 4000.0f);
+  const float a = vclip((out_gain * sig.dt) / vmax(base, sig.dt), 0.0f,
+                        1.0f);
+  float r = fma_ftz(a, fma_ftz(line, xla_sigmoidf(sr + 4.0f), -rate0), rate0);
+  r = vmin(vmax(r, 1e-3f * line), line);
+  float w = fma_ftz(
+      a, fma_ftz(win_prior, cephes_expf(2.5f * xla_tanhf(sw)), -win0), win0);
+  w = vmin(vmax(w, 1000.0f), 32.0f * bdp);
+  if (sig.loss > 0.f) {
+    const float cut =
+        fma_ftz(-0.5f, vmin((2.0f * loss_cut) * sig.loss, 1.0f), 1.0f);
+    r = vmax(r * cut, 1e-3f * line);
+    w = vmax(w * cut, 1000.0f);
+  }
+  s[0] = bdp0; s[1] = fanin0; s[2] = r; s[3] = w;
+  rate = r;
+  win = w;
 }
 
 }  // namespace

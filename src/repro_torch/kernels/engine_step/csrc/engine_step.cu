@@ -60,8 +60,8 @@ __global__ void __launch_bounds__(256) fused_signals_policy_kernel(
     const float* __restrict__ kmax, const float* __restrict__ pmax,
     const float* __restrict__ base_rtt, const float* __restrict__ line,
     const float* __restrict__ loss, const float* __restrict__ state,
-    const float* __restrict__ params, float t, float t_base_util, int F,
-    int K, int P, float* __restrict__ state_out,
+    const float* __restrict__ params, float t, float t_base_util, float dt,
+    int F, int K, int P, float* __restrict__ state_out,
     float* __restrict__ rate_out, float* __restrict__ win_out) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
@@ -90,6 +90,7 @@ __global__ void __launch_bounds__(256) fused_signals_policy_kernel(
   sig.ecn = 1.0f - unmarked;
   sig.util = util;
   sig.t = t;
+  sig.dt = dt;
   sig.line = line[flat];
   sig.loss = loss[flat];
 
@@ -176,15 +177,15 @@ __global__ void __launch_bounds__(256) segment_reduce_kernel(
 template <int POL>
 cudaError_t launch_fused(const float* const* in, const float* state,
                          const float* params, float t, float t_base_util,
-                         int B, int F, int K, int P, float* state_out,
-                         float* rate_out, float* win_out,
+                         float dt, int B, int F, int K, int P,
+                         float* state_out, float* rate_out, float* win_out,
                          cudaStream_t stream) {
   const dim3 block(256);
   const dim3 grid((F + 255) / 256, B);
   fused_signals_policy_kernel<POL><<<grid, block, 0, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      in[10], state, params, t, t_base_util, F, K, P, state_out, rate_out,
-      win_out);
+      in[10], state, params, t, t_base_util, dt, F, K, P, state_out,
+      rate_out, win_out);
   return cudaGetLastError();
 }
 
@@ -192,9 +193,10 @@ cudaError_t launch_fused(const float* const* in, const float* state,
 
 extern "C" {
 
-// Returns a cudaError_t: 0 when the launch was accepted.  `hop` points to
-// the 8 hop-major (B, 4, F) inputs q_d, tx_d, caps, ecn_mask, hopmask,
-// kmin, kmax, pmax; `flat` to the 3 (B, F) inputs base_rtt, line, loss.
+// Returns a cudaError_t: 0 when the launch was accepted.  The 8 hop-major
+// (B, 4, F) inputs q_d, tx_d, caps, ecn_mask, hopmask, kmin, kmax, pmax
+// (pmax with any ECN scale folded in) and the 3 (B, F) inputs base_rtt,
+// line, loss; t is the step's time and dt its size.
 int fused_signals_policy(int policy_id, const float* q_d, const float* tx_d,
                          const float* caps, const float* ecn_mask,
                          const float* hopmask, const float* kmin,
@@ -202,8 +204,9 @@ int fused_signals_policy(int policy_id, const float* q_d, const float* tx_d,
                          const float* base_rtt, const float* line,
                          const float* loss, const float* state,
                          const float* params, float t, float t_base_util,
-                         int B, int F, int K, int P, float* state_out,
-                         float* rate_out, float* win_out, void* stream) {
+                         float dt, int B, int F, int K, int P,
+                         float* state_out, float* rate_out, float* win_out,
+                         void* stream) {
   const float* in[11] = {q_d, tx_d, caps, ecn_mask, hopmask, kmin, kmax,
                          pmax, base_rtt, line, loss};
   if (K < 1 || K > MAXK || F < 1 || B < 1 || B > 65535)
@@ -211,8 +214,8 @@ int fused_signals_policy(int policy_id, const float* q_d, const float* tx_d,
   cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(ID)                                                         \
   case ID:                                                                 \
-    return (int)launch_fused<ID>(in, state, params, t, t_base_util, B, F, \
-                                 K, P, state_out, rate_out, win_out, s);
+    return (int)launch_fused<ID>(in, state, params, t, t_base_util, dt, B, \
+                                 F, K, P, state_out, rate_out, win_out, s);
   switch (policy_id) {
     LAUNCH(PFC)
     LAUNCH(DCQCN)
@@ -221,6 +224,7 @@ int fused_signals_policy(int policy_id, const float* q_d, const float* tx_d,
     LAUNCH(HPCC)
     LAUNCH(HPCC_PINT)
     LAUNCH(STATIC_WINDOW)
+    LAUNCH(MLP)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -42,13 +42,18 @@ KERNEL_ABI = {
     "hpcc_pint": (("bdp", "stage", "t_rtt", "w", "wc"),
                   ("eta", "max_stage", "wai_frac")),
     "static_window": (("w",), ("headroom", "margin", "min_w")),
+    "mlp": (("bdp", "fanin", "rate", "win"),
+            ("b1_0", "b1_1", "b1_2", "b1_3", "b2_0", "b2_1", "loss_cut",
+             "out_gain")
+            + tuple(f"w1_{j}{i}" for j in range(4) for i in range(6))
+            + tuple(f"w2_{o}{j}" for o in range(2) for j in range(4))),
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "fused_signals_policy": [_I] + [_P] * 13 + [_F, _F] + [_I] * 4
+    "fused_signals_policy": [_I] + [_P] * 13 + [_F, _F, _F] + [_I] * 4
                             + [_P] * 4,
     "segment_reduce": [_P, _P, _I, _I, _I, _I, _P, _P],
     "segment_reduce_pfc": [_P, _P, _I, _I, _I, _I] + [_P] * 7,
@@ -96,16 +101,19 @@ def _kernel_id(policy) -> int:
 
 def fused_signals_policy(policy, q_d, tx_d, caps, ecn_mask, hopmask,
                          kmin_h, kmax_h, pmax_h, base_rtt, line, loss,
-                         state, params, t: float, t_base_util: float):
+                         state, params, t: float, t_base_util: float,
+                         dt: float):
     """Engine stages 1+2 (delayed signals + the policy's update) for B
     lanes: hop inputs ``(B, MAXHOP, F)``, flat inputs ``(B, F)``, ``state
-    (B, K, F)``, ``params (B, P)``, all float32.  Returns ``(state', rate,
-    win)`` with shapes ``(B, K, F)``, ``(B, F)``, ``(B, F)``."""
+    (B, K, F)``, ``params (B, P)``, all float32; ``t`` the step's time
+    and ``dt`` the step size (the learned policy tracks its targets at
+    dt / RTT).  Returns ``(state', rate, win)`` with shapes ``(B, K,
+    F)``, ``(B, F)``, ``(B, F)``."""
     hop = (q_d, tx_d, caps, ecn_mask, hopmask, kmin_h, kmax_h, pmax_h)
     flat = (base_rtt, line, loss)
     if not _on_cuda(hop + flat + (state, params)):
         return ref.fused_signals_policy_ref(policy, *hop, *flat, state,
-                                            params, t, t_base_util)
+                                            params, t, t_base_util, dt)
     pid = _kernel_id(policy)
     B, H, F = q_d.shape
     K, P = state.shape[1], params.shape[1]
@@ -128,7 +136,8 @@ def fused_signals_policy(policy, q_d, tx_d, caps, ecn_mask, hopmask,
     win = torch.empty_like(line)
     _launch("fused_signals_policy",
             [pid, *(x.data_ptr() for x in hop + flat), state.data_ptr(),
-             params.data_ptr(), float(t), float(t_base_util), B, F, K, P,
+             params.data_ptr(), float(t), float(t_base_util), float(dt), B,
+             F, K, P,
              st_out.data_ptr(), rate.data_ptr(), win.data_ptr()])
     return st_out, rate, win
 

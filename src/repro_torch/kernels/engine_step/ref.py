@@ -42,7 +42,8 @@ def fused_step_ref(policy, *, q_d, tx_d, caps, ecn_mask, hopmask,
 
 def fused_signals_policy_ref(policy, q_d, tx_d, caps, ecn_mask, hopmask,
                              kmin_h, kmax_h, pmax_h, base_rtt, line, loss,
-                             state, params, t: float, t_base_util: float):
+                             state, params, t: float, t_base_util: float,
+                             dt: float):
     """The fused kernel's function in its layout: hop inputs ``(B, H, F)``,
     flat inputs ``(B, F)``, ``state (B, K, F)`` in ``kernel_state_keys``
     order, ``params (B, P)`` in ``kernel_param_keys`` order.  Returns
@@ -60,7 +61,7 @@ def fused_signals_policy_ref(policy, q_d, tx_d, caps, ecn_mask, hopmask,
             policy, q_d=hop[0], tx_d=hop[1], caps=hop[2], ecn_mask=hop[3],
             hopmask=hop[4], kmin_h=hop[5], kmax_h=hop[6], pmax_h=hop[7],
             base_rtt=base_rtt[b], line=line[b], loss=loss[b], state=st,
-            params=par, t=t, dt=0.0, t_base_util=t_base_util)
+            params=par, t=t, dt=dt, t_base_util=t_base_util)
         st_out.append(cc_mod.pack_state(policy, st2, n_flows=F,
                                         device=line.device))
         rates.append(rate)

@@ -128,15 +128,31 @@ def _check_lengths(length: torch.Tensor, S: int) -> None:
                          f"[{int(length.min())}, {int(length.max())}]")
 
 
+def _check_max_length(length: torch.Tensor, max_length: int) -> None:
+    if length.numel() and max_length < int(length.max()):
+        raise ValueError(f"flash_decode: max_length {max_length} is below "
+                         f"the longest row's length {int(length.max())}; "
+                         "the kernel reads only the first max_length "
+                         "positions")
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  length: torch.Tensor,
                  max_length: int | None = None) -> torch.Tensor:
     """``q (B, Hkv, G, D)``; ``k``/``v (B, S, Hkv, D)``; ``length (B,)``
-    int32 -> ``(B, Hkv, G, D)`` attention output in ``q.dtype``."""
+    int32 -> ``(B, Hkv, G, D)`` attention output in ``q.dtype``.
+
+    ``max_length`` bounds the positions read: the kernel splits only the
+    first ``max_length`` positions into chunks, so it must be at least
+    ``max(length)`` (None reads up to S).  The card does not check it,
+    which would read ``length`` back to the host on every call; the CPU
+    path raises where it is below ``max(length)``."""
     B, Hkv, G, D = q.shape
     S = k.shape[1]
     if not on_cuda((q, k, v, length)):
         _check_lengths(length, S)
+        if max_length is not None:
+            _check_max_length(length, max_length)
         return ref.flash_decode_ref(q, k, v, length)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_decode: q must be bf16 or float32, got "

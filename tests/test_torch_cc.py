@@ -148,9 +148,11 @@ def test_kernel_abi_matches_reference(name):
 
 
 def test_registry_lists_what_the_port_runs():
-    assert set(pcc.REGISTRY) == set(rcc.REGISTRY) - {"mlp"}
+    assert tuple(pcc.REGISTRY) == tuple(rcc.REGISTRY)
+    assert pcc.ALL_POLICIES == rcc.ALL_POLICIES
+    assert pcc.get_policy("mlp").kernel_id == pcc.KERNEL_POLICY_ID["mlp"]
     with pytest.raises(KeyError, match="unknown policy"):
-        pcc.get_policy("mlp")
+        pcc.get_policy("nope")
 
 
 @pytest.mark.parametrize("name", POLICIES)

@@ -152,7 +152,7 @@ def test_plain_equals_fused_kernel_plain_version(F):
                                  for k, v in st.items()})[None]
     params = pcc.pack_params(pol, None)[None]
     st_out, _, _ = es_ref.fused_signals_policy_ref(
-        pol, *hop.values(), *flat.values(), state, params, T, 1e-5)
+        pol, *hop.values(), *flat.values(), state, params, T, 1e-5, 1e-6)
     fused = pcc.unpack_state(pol, st_out[0])
     # the ECN signal the fused plain version computed from the hop inputs
     mark = torch.clamp((hop["q_d"] - hop["kmin_h"])

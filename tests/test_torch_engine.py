@@ -192,10 +192,19 @@ def test_timeline_matches_reference():
 
 
 def test_faulty_spec_is_not_ported_yet():
+    """The fault branches are ported now: a faulty spec runs the faulty
+    step (Results.lost filled) instead of raising, serially and on a
+    Simulator's default spec alike (tests/test_torch_faults.py holds it
+    against the reference)."""
     topo, sched = _tiny()
-    with pytest.raises(NotImplementedError, match="lossless"):
-        peng.Simulator(topo, sched, pcc.get_policy("pfc"), device="cpu",
-                       fault_spec=FaultSpec.lossy_roce(1e-3))
+    sim = peng.Simulator(topo, sched, pcc.get_policy("pfc"), device="cpu",
+                         cfg=peng.EngineConfig(dt=1e-6, max_steps=700,
+                                               max_extends=1,
+                                               queue_stride=0),
+                         fault_spec=FaultSpec.lossy_roce(1e-3))
+    r = sim.run()
+    assert r.finished and r.lost is not None and r.lost.sum() > 0
+    assert sim.run(fault_spec=FaultSpec()).lost is None
 
 
 def test_fabric_params_per_class_match_reference():

@@ -110,7 +110,7 @@ def test_fused_step_ref_matches_pallas_interpret_at_200(name):
              _reference(name, case, st, 3.3e-4, pallas=True), rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["dcqcn", "timely", "pfc"])
+@pytest.mark.parametrize("name", ["dcqcn", "timely", "pfc", "mlp"])
 def test_wrapper_on_cpu_is_the_plain_version(name):
     """The wrapper in the kernel's layout (B lanes, hop-major, packed
     state and per-lane params) equals the flat plain version per lane."""
@@ -130,7 +130,7 @@ def test_wrapper_on_cpu_is_the_plain_version(name):
         for b in range(B)])
     before = dict(p_ops.LAUNCHES)
     st_out, rate, win = p_ops.fused_signals_policy(
-        pol, *hop, *flat, packed, params, 3.3e-4, 1e-5)
+        pol, *hop, *flat, packed, params, 3.3e-4, 1e-5, 1e-6)
     assert p_ops.LAUNCHES == before        # plain versions never count
     keys = pcc.kernel_state_keys(pol)
     for b in range(B):

@@ -105,6 +105,21 @@ def test_cpu_wrapper_checks_lengths():
                                          device="meta"))
 
 
+def test_cpu_wrapper_refuses_max_length_below_a_length():
+    """The card reads only the first ``max_length`` positions, so a
+    ``max_length`` below some row's length is refused on the CPU rather
+    than attended in full; at or above the longest row it is the plain
+    result."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(2, 16, 1, 2, 8, 0))
+    length = torch.tensor([5, 12], dtype=torch.int32)
+    with pytest.raises(ValueError, match="max_length 11 is below"):
+        flash_decode(q, k, v, length, max_length=11)
+    want = flash_decode(q, k, v, length)
+    for ok in (12, 16):
+        assert torch.equal(flash_decode(q, k, v, length, max_length=ok),
+                           want)
+
+
 # lengths across the kernel's chunk boundaries (CHUNK and its multiples)
 C = fd_ops.CHUNK
 PLAN_LENGTHS = [1, C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1, 5 * C + 3]

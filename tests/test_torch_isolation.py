@@ -44,6 +44,7 @@ def test_port_runs_with_jax_unavailable():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
+        "import repro_torch.learn\n"
         "from repro_torch.core import *\n"
         "topo = single_switch(4)\n"
         "sched = incast(topo, [1, 2, 3], 0, 2e5)\n"
@@ -51,6 +52,11 @@ def test_port_runs_with_jax_unavailable():
         "             EngineConfig(dt=1e-6, max_steps=400, max_extends=0,\n"
         "                          queue_stride=0), device='cpu')\n"
         "assert r.finished, r\n"
+        "r = simulate(topo, sched, get_policy('mlp'),\n"
+        "             EngineConfig(dt=1e-6, max_steps=400, max_extends=0,\n"
+        "                          queue_stride=0), device='cpu',\n"
+        "             fault_spec=FaultSpec.lossy_roce(1e-3, 'gbn'))\n"
+        "assert r.finished and r.lost.sum() > 0, r\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
         "print('ok')\n")
@@ -59,6 +65,28 @@ def test_port_runs_with_jax_unavailable():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+PACKAGE_FILES = sorted(p for p in (ROOT / "src" / "repro_torch").rglob("*")
+                       if p.is_file() and p.suffix in (".py", ".cu", ".cuh",
+                                                       ".json"))
+
+
+@pytest.mark.parametrize("path", PACKAGE_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PACKAGE_FILES])
+def test_port_names_no_path_of_the_reference(path):
+    """The package reads nothing under ``src/repro/``: no file of it
+    names such a path (the learned policy's weights are its own copy)."""
+    text = path.read_text()
+    for bad in ("src/repro/", '"repro"', "'repro'"):
+        assert bad not in text, (path, bad)
+
+
+def test_learned_weights_are_the_port_s_own_copy():
+    from repro_torch.learn import net
+    weights = Path(net._WEIGHTS_PATH).resolve()
+    assert weights.parent == ROOT / "src" / "repro_torch" / "learn"
+    assert weights.is_file()
 
 
 def _tiny():

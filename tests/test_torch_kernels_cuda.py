@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (EngineConfig, Simulator, get_policy, incast,
-                              single_switch)
+from repro_torch.core import (EngineConfig, FaultSpec, Simulator,
+                              get_policy, incast, single_switch)
 from repro_torch.core import cc
 from repro_torch.core import engine as peng
 from repro_torch.core import sweep as psweep
@@ -87,14 +87,64 @@ def test_fused_kernel_matches_plain(dev, name, lossy):
     case, state, params = _case(policy, 1500, 3, lossy, 3, dev)
     before = ops.LAUNCHES["fused_signals_policy"]
     got = ops.fused_signals_policy(policy, *case, state, params, 3.3e-4,
-                                   1e-5)
+                                   1e-5, 2e-6)
     want = ref.fused_signals_policy_ref(policy, *case, state, params,
-                                        3.3e-4, 1e-5)
+                                        3.3e-4, 1e-5, 2e-6)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fused_signals_policy"] == before + 1
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(),
                                    w.expand_as(g).cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("F", [1500, 7936, 131072])
+def test_mlp_kernel_matches_plain_lossy(dev, F, B):
+    """The ``mlp`` body at the main path's padded flow counts (130,048
+    flows pad to 131,072) and 1, 3 and 9 lanes, with a live loss input
+    on half the flows: rtol 1e-5, as every policy's body."""
+    policy = cc.get_policy("mlp")
+    case, state, params = _case(policy, F, B, True, F + B, dev)
+    assert params.shape == (B, 40) and state.shape[1] == 4
+    got = ops.fused_signals_policy(policy, *case, state, params, 3.3e-4,
+                                   1e-5, 4e-6)
+    want = ref.fused_signals_policy_ref(policy, *case, state, params,
+                                        3.3e-4, 1e-5, 4e-6)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(),
+                                   w.expand_as(g).cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("pol,fault", [
+    ("dcqcn", dict(loss_rate=1e-4, gbn=0.0, pfc_on=1.0, ecn_scale=0.5)),
+    ("mlp", dict(loss_rate=1e-3, gbn=1.0, pfc_on=0.0)),
+    ("pfc", dict(degrade=0.5, degrade_t1=5e-4, flap_period=300e-6,
+                 flap_down=50e-6))], ids=["dcqcn_irn_ecn", "mlp_gbn",
+                                          "pfc_degrade_flap"])
+def test_engine_cuda_matches_op_path_lossy(dev, pol, fault):
+    """A small lossy scenario on the card, kernel path against op path:
+    completion within 2 steps, delivered and lost rtol 1e-4, PAUSE rtol
+    1e-3 + 1 (under an ECN scale the kernel folds it into pmax, the op
+    path multiplies after the clip)."""
+    topo = single_switch(8)
+    sched = incast(topo, list(range(1, 8)), 0, 2e6)
+    cfg = EngineConfig(dt=1e-6, max_steps=1500, max_extends=2,
+                       queue_stride=0)
+    runs = {}
+    for impl in ("cuda", "torch"):
+        ops.reset_launches()
+        runs[impl] = Simulator(topo, sched, get_policy(pol),
+                               dataclasses.replace(cfg, step_impl=impl),
+                               fault_spec=FaultSpec(**fault),
+                               device="cuda").run()
+        runs[impl + "_launches"] = dict(ops.LAUNCHES)
+    a, b = runs["cuda"], runs["torch"]
+    assert runs["cuda_launches"]["fused_signals_policy"] == \
+        a.meta["steps_executed"]
+    assert not any(runs["torch_launches"].values())
+    assert a.finished
+    chip_smoke.compare_fault_runs(a, b, cfg.dt, f"{pol} lossy")
 
 
 @pytest.mark.parametrize("C", [4, 16, 32, 64])

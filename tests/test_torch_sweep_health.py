@@ -169,12 +169,16 @@ def test_input_validation():
         pcc.stack_policies(["dcqcn"])
     with pytest.raises(ValueError, match="unknown fault params"):
         r.grid(pt, ps, "dcqcn", fault_grid={"lossy": [0.0, 1e-3]})
-    with pytest.raises(NotImplementedError, match="queue item 2"):
-        r.grid(pt, ps, "dcqcn", fault_grid={"loss_rate": [0.0, 1e-3]})
-    with pytest.raises(NotImplementedError, match="queue item 2"):
+    with pytest.raises(ValueError, match="inconsistent batch sizes"):
         r.run_batch(pt, ps, "pfc",
                     stacked_fabric={"xoff": np.array([1e6, 2e6])},
-                    fault_spec=FaultSpec.lossy_roce(1e-3))
+                    stacked_fault={"loss_rate": np.array([0.0, 1e-3,
+                                                          1e-3])})
+    # faults run now (tests/test_torch_faults.py): the stack is reported
+    faulty = r.run_batch(pt, ps, "pfc",
+                         stacked_fabric={"xoff": np.array([1e6, 2e6])},
+                         fault_spec=FaultSpec.lossy_roce(1e-3))
+    assert faulty.fault_set(1).pfc_on == 0.0 and faulty.lost is not None
     with pytest.raises(NotImplementedError, match="queue item 7"):
         psweep.SweepRunner(mesh="auto", device="cpu")
 

@@ -57,7 +57,7 @@ def test_policy_axis_lanes_equal_serial():
     _, pr = _runners(**CFG)
     batch = pr.run_policy_axis(pt, ps, pcc.ALL_POLICIES,
                                cc_overrides=[None, {"rai_frac": 0.2}]
-                               + [None] * 5)
+                               + [None] * 6)
     assert batch.params["dcqcn.rai_frac"][1] == np.float32(0.2)
     assert_lanes_equal_serial(pr, pt, ps, batch, policy_of=batch.policy_of)
 
