@@ -30,8 +30,11 @@ Each kernel row has the event time of back-to-back direct launches
 L2-resident time is ``ms_hot``), the host's µs per launch, and the mean
 device µs per call from a ``torch.profiler`` trace taken at the end of
 the run (``device_us``), for the kernel and its library call; the fused
-kernel's row is timed cold (inputs cycled past the L2) under DCQCN, with
-its ``mlp`` body's times (``mlp_*``) beside.
+kernel's row is timed cold (inputs cycled past the L2) under DCQCN at the
+128-GPU shape, with its ``mlp`` body's times (``mlp_*``) and both
+policies' times at Fig 12's nine lanes (``b9_*``, ``mlp_b9_*``) beside.
+The policies' scalar device functions are held against their plain
+versions over every float32 input (``scalar_exhaustive``).
 Without CUDA, or outside a checkout holding ``src/repro_torch``, it exits
 non-zero and prints no result.
 """
@@ -127,6 +130,11 @@ FIG12_STEP_AT = 600
 # lane counts the engine kernels are held against their plain versions at:
 # one, a few, and Fig 12's nine
 CHECK_LANES = (1, 3, 9)
+# flow counts the fused kernel is held at besides the main paths' padded
+# counts: one flow, the edges of its 128-flow tile, and the unpadded and
+# padded 128-GPU counts' neighbours (odd counts take the 4-byte cp.async
+# route)
+FUSED_EDGE_FLOWS = (1, 255, 256, 257, 1500, 7936, 130049, 131072)
 # time_flash_decode: input sets cycled for the cold time, and the live K/V
 # bytes they must exceed together (the H100's L2 is 50 MB)
 FD_COLD_SETS, FD_COLD_BYTES = 4, 64e6
@@ -505,9 +513,11 @@ def ptxas_summary(log: str) -> dict:
 
 
 def sass_counts(lib) -> dict:
-    """Per kernel of a built library, how many tensor-core products (HMMA),
-    asynchronous global-to-shared copies (LDGSTS) and ldmatrix loads (LDSM)
-    its SASS holds (``cuobjdump -sass``); {} where cuobjdump is missing."""
+    """Per kernel of a built library, its SASS instruction count and how
+    many tensor-core products (HMMA), asynchronous global-to-shared copies
+    (LDGSTS; UBLKCP, the 1D bulk copy; UTMALDG, the tensor-map copy) and
+    ldmatrix loads (LDSM) it holds (``cuobjdump -sass``); {} where
+    cuobjdump is missing."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -520,8 +530,11 @@ def sass_counts(lib) -> dict:
     for part in re.split(r"\n\s+Function : ", sass)[1:]:
         name = next(iter(ptxas_summary(
             f"Compiling entry function '{part.split()[0]}' for 'sm_90a'")))
-        out[name] = {op: len(re.findall(r"\b" + op + r"\.", part))
-                     for op in ("HMMA", "LDGSTS", "LDSM")}
+        out[name] = {"instructions": len(re.findall(r"/\*[0-9a-f]{4,}\*/",
+                                                    part))}
+        out[name].update({op: len(re.findall(r"\b" + op + r"\b", part))
+                          for op in ("HMMA", "LDGSTS", "UBLKCP", "UTMALDG",
+                                     "LDSM")})
     return out
 
 
@@ -590,16 +603,66 @@ def device_us(fn, n: int = 50) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    # after many profiler sessions in one process a trace now and then
+    # comes back with device events missing (a busy time of a tenth of the
+    # kernel's): trace again unless every call left at least one
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if len(dev) >= n:
+            return busy_us(dev) / n
+    raise RuntimeError(f"the profiler recorded {len(dev)} device intervals "
+                       f"for {n} calls")
+
+
+def scalar_exhaustive(fn, which=None, chunk: int = 1 << 27) -> dict:
+    """Every float32 bit pattern through each device scalar function
+    (``fn(which, x_ptr, y_ptr, n, stream)``, the engine-step library's
+    ``scalar_fn``) and through its plain version
+    (``repro_torch.core.arith``), both on the card, ``chunk`` inputs at a
+    time.  A mismatch is any difference in bits, except that any NaN
+    equals any NaN.  ``which`` pairs the plain version's name with the
+    device function's index (default ``ops.SCALAR_FNS``).  Returns name ->
+    mismatches, the first few mismatching inputs (hex bits, device and
+    plain outputs), seconds."""
+    import torch
+    from repro_torch.core import arith
+    from repro_torch.kernels.engine_step import ops
+    which = ops.SCALAR_FNS.items() if which is None else which
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    base = torch.arange(chunk, dtype=torch.int32, device=dev)
+    y = torch.empty(chunk, dtype=torch.float32, device=dev)
+    out = {}
+    for name, idx in which:
+        plain = getattr(arith, name)
         torch.cuda.synchronize()
-    dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
-           if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("the profiler recorded no device activity")
-    return busy_us(dev) / n
+        t0 = time.perf_counter()
+        bad, first = 0, []
+        for lo in range(-(1 << 31), 1 << 31, chunk):
+            x = (base + lo).view(torch.float32)
+            if fn(idx, x.data_ptr(), y.data_ptr(), chunk, stream) != 0:
+                raise RuntimeError(f"scalar_fn {idx}: launch failed")
+            want = plain(x)
+            same = (y.view(torch.int32) == want.view(torch.int32)) | (
+                torch.isnan(y) & torch.isnan(want))
+            n_bad = int((~same).sum())
+            if n_bad:
+                bad += n_bad
+                for i in (~same).nonzero()[:8 - len(first), 0].tolist():
+                    bits = int(x.view(torch.int32)[i]) & 0xffffffff
+                    first.append([f"{bits:08x}", float(y[i]),
+                                  float(want[i])])
+        torch.cuda.synchronize()
+        out[name] = {
+            "inputs": 1 << 32, "mismatches": bad, "first": first,
+            "seconds": time.perf_counter() - t0}
+    return out
 
 
 
@@ -658,43 +721,54 @@ def fused_case(policy, F: int, B: int, lossy: bool, seed: int, dev):
 
 def check_fused(dev, flows) -> dict:
     """The fused kernel against its plain version for every policy, lossy
-    and lossless, at each flow count of ``flows`` and ``CHECK_LANES``."""
+    and lossless, at each flow count of ``flows`` and ``CHECK_LANES``, bit
+    for bit; then once more at 1,500 flows with every input one float past
+    a 16-byte boundary, so that the tile rows take the 4-byte cp.async
+    route (as does every flow count that is not a multiple of 4)."""
     import torch
     from repro_torch.core import cc
     from repro_torch.kernels.engine_step import ops, ref
-    worst = 0.0
-    worst_rel = 0.0
-    n = 0
+    n, vec = 0, 0
     for pi, name in enumerate(cc.ALL_POLICIES):
         policy = cc.get_policy(name)
         for lossy in (False, True):
-            for F in flows:
+            for F, shift in [(F, False) for F in flows] + [(1500, True)]:
                 for B in CHECK_LANES:
                     case, state, params = fused_case(
                         policy, F, B, lossy, 1000 * pi + F + B + lossy, dev)
-                    args = (*case.values(), state, params)
+                    args = [*case.values(), state, params]
+                    if shift:
+                        args = [shifted_copy(x) for x in args]
+                    vec += ops.vector_copies(
+                        F, [x.data_ptr() for x in args[:12]])
                     got = ops.fused_signals_policy(policy, *args, 3.3e-4,
                                                    1e-5, DT)
                     want = ref.fused_signals_policy_ref(policy, *args,
                                                         3.3e-4, 1e-5, DT)
                     torch.cuda.synchronize()
                     for g, w in zip(got, want):
-                        w = w.expand_as(g)
-                        err = (g - w).abs()
-                        tol = 1e-5 * w.abs()
-                        if not bool((err <= tol).all()):
-                            bad = int((err > tol).sum())
+                        if not torch.equal(g, w.expand_as(g)):
+                            bad = int((g != w.expand_as(g)).sum())
                             raise AssertionError(
                                 f"fused_signals_policy {name} lossy={lossy}"
-                                f" F={F} B={B}: {bad} values beyond rtol "
-                                f"1e-5 (max abs err {float(err.max())})")
-                        worst = max(worst, float(err.max()))
-                        rel = err / w.abs().clamp_min(1e-30)
-                        worst_rel = max(worst_rel, float(rel.max()))
+                                f" F={F} B={B} shifted={shift}: {bad} "
+                                "values differ from "
+                                "the plain version")
                     n += 1
-    return {"cases": n, "flows": list(flows), "lanes": list(CHECK_LANES),
-            "max_abs_err": worst, "max_rel_err": worst_rel,
-            "tolerance": "rtol 1e-5"}
+    return {"cases": n, "flows": list(flows), "unaligned_flows": 1500,
+            "lanes": list(CHECK_LANES), "cp_async16_cases": vec,
+            "cp_async4_cases": n - vec, "max_abs_err": 0.0,
+            "tolerance": "bit-equal"}
+
+
+def shifted_copy(x):
+    """A copy of ``x`` whose storage starts one float past a 16-byte
+    boundary."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def gather_plans(sims: dict) -> list:
@@ -831,51 +905,61 @@ def check_batched_step(sim, cfg) -> dict:
             "tolerance": "rtol 1e-5 + atol 1e-3; flags equal"}
 
 
-def fused_bytes(F: int, K: int, P: int) -> int:
-    """Device bytes one fused launch must move for ``F`` flows: the 8 hop
-    inputs over 4 hops, 3 flat inputs and the state read once, the
-    params, the state, rate and win written once."""
-    return 4 * F * (8 * 4 + 3 + K) + 4 * P + 4 * F * (K + 2)
+def fused_bytes(F: int, K: int, P: int, rows: int | None = None) -> int:
+    """Device bytes one fused launch must move for ``F`` flows: the input
+    rows the policy's update reads (``rows``, ``ops.rows_read``; by
+    default all of them, the 8 hop inputs over 4 hops, the 3 flat inputs
+    and the K state rows) read once, the params, the state, rate and win
+    written once."""
+    rows = 8 * 4 + 3 + K if rows is None else rows
+    return 4 * F * rows + 4 * P + 4 * F * (K + 2)
 
 
 # float32 operations per flow of stages 1+2: the hop loop (about 60) and
 # the policy's update (DCQCN about 60; mlp's four tanh units, two heads,
 # sigmoid and exp about 200)
 FUSED_FLOPS = {"dcqcn": 120, "mlp": 260}
-# input sets the cold times cycle over: 4 x 27.8 MB, past the 50 MB L2
-FUSED_COLD_SETS = 4
+# the cold times cycle over input sets that together exceed the 50 MB L2
+FUSED_COLD_BYTES = 100e6
+# the fused kernel's timed shapes: the serial path (the 128-GPU plan, one
+# lane) and the lanes path (Fig 12's 9 lanes), under DCQCN and mlp; the
+# row's own numbers are DCQCN's at B=1, the others carry a prefix
+FUSED_TIMED = (("", "dcqcn", 1), ("mlp_", "mlp", 1), ("b9_", "dcqcn", 9),
+               ("mlp_b9_", "mlp", 9))
 
 
-def time_fused(sim, dev, traced: dict) -> dict:
-    """Kernel vs plain time at the main path's shape (the 128-GPU plan's
-    padded flow count), under DCQCN (the row's numbers) and under mlp
-    (``mlp_*``).  ``ms`` is cold: direct launches cycling over
-    ``FUSED_COLD_SETS`` input sets, so that no launch finds its inputs in
-    the L2, as the engine step does; ``ms_hot`` repeats one set.
-    ``traced`` (row -> (its kernel's direct launch, its library call or
-    None, the tensors they touch), or a function that makes them anew)
-    gets the cold DCQCN launch for ``device_us`` at the end of the run;
-    the launches pass raw pointers, so the tensors are held there."""
+def time_fused(s128, fig12, dev, traced: dict) -> dict:
+    """Kernel vs plain time under DCQCN (the row's numbers) and ``mlp``
+    (``mlp_*``) at the 128-GPU plan's padded flow count and B=1, and under
+    both at Fig 12's padded flow count and B=9 (``b9_*``, ``mlp_b9_*``).
+    ``ms`` is cold: direct launches cycling over input sets larger than
+    the L2 together, so that no launch finds its inputs in the L2, as the
+    engine step does; ``ms_hot`` repeats one set.  ``traced`` (row ->
+    (its kernel's direct launch, its library call or None, the tensors
+    they touch)) gets each cold launch for ``device_us`` at the end of the
+    run; the launches pass raw pointers, so the tensors are held there."""
     import torch
     from repro_torch.core import cc
     from repro_torch.kernels.engine_step import ops, ref
-    F = sim.plan.n_flows_pad
     fn = ops.kernel_function("fused_signals_policy")
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
-    for name in ("dcqcn", "mlp"):
+    for prefix, name, B in FUSED_TIMED:
         policy = cc.get_policy(name)
-        sets = []
-        for i in range(FUSED_COLD_SETS):
-            case, state, params = fused_case(policy, F, 1, name == "mlp",
-                                             5 + i, dev)
+        F = (s128 if B == 1 else fig12).plan.n_flows_pad
+        sets, n_sets = [], 2
+        while len(sets) < n_sets:
+            case, state, params = fused_case(policy, F, B, name == "mlp",
+                                             5 + len(sets), dev)
             K, P = state.shape[1], params.shape[1]
+            n_bytes = B * fused_bytes(F, K, P, ops.rows_read(
+                policy.kernel_id, K))
+            n_sets = max(2, -(-int(FUSED_COLD_BYTES) // n_bytes))
+            ins = (*case.values(), state, params)
             outs = (torch.empty_like(state), torch.empty_like(case["line"]),
                     torch.empty_like(case["line"]))
-            sets.append(((case, state, params, outs), [
-                policy.kernel_id, *(x.data_ptr() for x in case.values()),
-                state.data_ptr(), params.data_ptr(), 3.3e-4, 1e-5, DT, 1, F,
-                K, P, *(o.data_ptr() for o in outs)]))
+            sets.append(((ins, outs), ops.launch_args(
+                policy.kernel_id, ins, outs, 3.3e-4, 1e-5, DT)))
         turn = [0]
 
         def launch(sets=sets, turn=turn):
@@ -887,24 +971,23 @@ def time_fused(sim, dev, traced: dict) -> dict:
         def launch_hot(sets=sets):
             if fn(*sets[0][1], stream) != 0:
                 raise RuntimeError("fused_signals_policy launch failed")
-        case, state, params, _ = sets[0][0]
-        n_bytes = fused_bytes(F, K, P)
         row = {"ms": cuda_ms(launch), "ms_hot": cuda_ms(launch_hot),
                "host_us_per_launch": host_us(launch),
-               "plain_ms": cuda_ms(lambda: ref.fused_signals_policy_ref(
-                   policy, *case.values(), state, params, 3.3e-4, 1e-5, DT),
-                   reps=10 if name == "mlp" else 20, inner=2),
                "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
-                               FUSED_FLOPS[name] * F / F32_FLOPS) * 1e3,
-               "bound_by": "bytes", "library_ms": None,
-               "shape": f"B=1 F={F} K={K} P={P} ({name})", "bytes": n_bytes}
-        if name == "dcqcn":
-            out.update(row)
-            traced["fused_signals_policy"] = (launch, None, sets)
-        else:
-            out.update({f"mlp_{k}": v for k, v in row.items()
-                        if k not in ("bound_by", "library_ms")})
-            traced["fused_signals_policy/mlp"] = (launch, None, sets)
+                               B * FUSED_FLOPS[name] * F / F32_FLOPS) * 1e3,
+               "shape": f"B={B} F={F} K={K} P={P} ({name})",
+               "bytes": n_bytes, "cold_sets": len(sets)}
+        if B == 1:
+            ins = sets[0][0][0]
+            row["plain_ms"] = cuda_ms(
+                lambda: ref.fused_signals_policy_ref(policy, *ins, 3.3e-4,
+                                                     1e-5, DT),
+                reps=10 if name == "mlp" else 20, inner=2)
+        if not prefix:
+            row.update(bound_by="bytes", library_ms=None)
+        out.update({prefix + k: v for k, v in row.items()})
+        traced["fused_signals_policy" + (f"/{prefix[:-1]}" if prefix
+                                         else "")] = (launch, None, sets)
     return out
 
 
@@ -2409,12 +2492,20 @@ def main() -> int:
     for name in build.SOURCES:
         build.load(name)
     info = build.BUILD_INFO
+    # every fused_signals_policy_kernel<N>: registers, spills, SASS
+    # instructions and asynchronous copies; each must copy asynchronously
+    ptxas = {k: ptxas_summary(v.get("ptxas", "")) for k, v in info.items()}
+    fused_sass = {k: dict(v, ptxas=ptxas.get("engine_step", {}).get(k))
+                  for k, v in sass_counts(build.build("engine_step")).items()
+                  if k.startswith("fused_signals_policy_kernel")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {k: v.get("seconds") for k, v in info.items()},
           "nvcc": next(iter(info.values()), {}).get("nvcc"), "gpu": gpu,
-          "ptxas": {k: ptxas_summary(v.get("ptxas", "")) for k, v in
-                    info.items()},
+          "ptxas": ptxas, "fused_sass": fused_sass,
           "flash_decode_sass": sass_counts(build.build("flash_decode"))})
+    for k, v in fused_sass.items():
+        if not v["LDGSTS"] + v["UBLKCP"] + v["UTMALDG"]:
+            raise AssertionError(f"{k}: no asynchronous copy in its SASS")
 
     cfg = EngineConfig(dt=DT, max_steps=6000, max_extends=6, queue_stride=0)
     runner = SweepRunner(cfg, device="cuda")
@@ -2434,10 +2525,19 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions -------------------------
     # at every padded flow count and plan of the main paths, B in CHECK_LANES
-    flows = sorted({1500, 7936} | {s.plan.n_flows_pad for s in sims.values()})
+    flows = sorted(set(FUSED_EDGE_FLOWS)
+                   | {s.plan.n_flows_pad for s in sims.values()})
     fused = check_fused(dev, flows)
     emit({"phase": "kernel_check", "kernel": "fused_signals_policy",
           **fused})
+    # the policies' scalar device functions over every float32 input
+    scalar = scalar_exhaustive(ops.kernel_function("scalar_fn"))
+    emit({"phase": "scalar_exhaustive", "gpu": gpu, **scalar})
+    for name, r in scalar.items():
+        if r["mismatches"]:
+            raise AssertionError(f"scalar_fn {name}: {r['mismatches']} "
+                                 f"inputs differ from arith.{name}: "
+                                 f"{r['first']}")
     plans = gather_plans(sims)
     seg_err, seg_rows = check_segments(plans, dev)
     emit({"phase": "kernel_check", "kernel": "segment_reduce(+_pfc)",
@@ -2450,7 +2550,8 @@ def main() -> int:
     s128, s32 = sims["clos128_1d"], sims["clos32_2d"]
     traced = {}          # kernel row -> its timed calls, for phase 14
     timing = {
-        "fused_signals_policy": time_fused(s128, dev, traced),
+        "fused_signals_policy": time_fused(s128, sims["fig12"], dev,
+                                           traced),
         # the PAUSE tally, the gather plan the 128-GPU step runs every step
         "segment_reduce": time_segment("segment_reduce", s128,
                                        s128.plan.pause,
@@ -2586,15 +2687,18 @@ def main() -> int:
         timing[name]["device_us"] = device_us(kernel)
         timing[name]["library_device_us"] = (
             None if library is None else device_us(library))
-    timing["fused_signals_policy"]["mlp_device_us"] = device_us(
-        traced.pop("fused_signals_policy/mlp")[0])
+    fused_t = timing["fused_signals_policy"]
+    for prefix, _, _ in FUSED_TIMED[1:]:
+        fused_t[prefix + "device_us"] = device_us(
+            traced.pop(f"fused_signals_policy/{prefix[:-1]}")[0])
     emit({"phase": "device_time", "gpu": gpu, **{
         name: {key: timing[name][key] for key in (
             "ms", "host_us_per_launch", "device_us", "library_ms",
-            "library_device_us", "bound_ms")} for name in SOURCES},
-        "fused_signals_policy/mlp": {
-            key: timing["fused_signals_policy"][f"mlp_{key}"] for key in (
-                "ms", "host_us_per_launch", "device_us", "bound_ms")}})
+            "library_device_us", "bound_ms")} for name in SOURCES}, **{
+        f"fused_signals_policy/{prefix[:-1]}": {
+            key: fused_t[prefix + key] for key in (
+                "ms", "ms_hot", "host_us_per_launch", "device_us",
+                "bound_ms")} for prefix, _, _ in FUSED_TIMED[1:]}})
 
     # ---- kernel table, device line ----------------------------------------
     # launches: the sum over the paths each kernel runs on, each path's
@@ -2625,9 +2729,11 @@ def main() -> int:
         # flash_decode's ms and library_ms are cold; its hot times beside
         row.update({key: tm[key] for key in ("ms_hot", "library_ms_hot")
                     if key in tm})
-        # the fused kernel's mlp body, timed beside its DCQCN row, and its
-        # launches on the mlp paths (counted in launches too)
-        row.update({k: v for k, v in tm.items() if k.startswith("mlp_")})
+        # the fused kernel's mlp body and its B=9 times, timed beside its
+        # DCQCN row, and its launches on the mlp paths (counted in
+        # launches too)
+        row.update({k: v for k, v in tm.items()
+                    if k.startswith(("mlp_", "b9_"))})
         if name == "fused_signals_policy":
             row["mlp_launches"] = mlp_launches[name]
         kernels.append(row)

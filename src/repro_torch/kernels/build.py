@@ -35,9 +35,14 @@ SOURCES = {
     "flash_decode": _PKG / "flash_decode" / "csrc" / "flash_decode.cu",
 }
 
-# headers the sources include (the policies' device functions); part of
-# every library's hash
-HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
+
+def headers(src: Path) -> list:
+    """The shared headers a source under ``kernels/*/csrc/`` includes (the
+    policies' device functions), from the ``kernels/csrc/`` beside it: part
+    of its library's hash, so that a copy with other headers (a scratch
+    tree of an earlier commit) builds a library of its own."""
+    return sorted((Path(src).resolve().parents[2] / "csrc").glob("*.cuh"))
+
 
 # name -> loaded library; BUILD_INFO[name] -> seconds, nvcc version, ptxas log
 _LIBS: dict = {}
@@ -70,7 +75,7 @@ def build(name: str, src: Path | None = None) -> Path:
     library's path."""
     src = SOURCES[name] if src is None else Path(src)
     h = hashlib.sha1(src.read_bytes())
-    for hdr in HEADERS:
+    for hdr in headers(src):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:12]

@@ -1,14 +1,22 @@
 // The CC policies' per-flow updates as CUDA device functions, shared by
 // the kernels that run a policy's update: engine_step.cu's fused signals +
-// policy kernel (every registered policy) and cc_update.cu's DCQCN update.
+// policy kernel (every registered policy; a persistent kernel whose
+// threads each compute one flow of a tile staged in shared memory, the
+// params p a row in shared memory) and cc_update.cu's DCQCN update.
 // One definition, so the two kernels compute the same bits, and the same
-// bits as the op path (repro_torch/core/cc.py): the multiply-adds the
-// reference's CPU backend contracts are explicit fmaf calls with subnormal
-// results flushed (fma_ftz), exp is Cephes' expf (cephes_expf), and the
-// including source is built with --fmad=false so that nothing else is
-// contracted.  The learned policy's tanh and logistic are the reference's
-// expansions (xla_tanhf, xla_sigmoidf), as repro_torch/core/arith.py
-// computes them.
+// bits as the op path (repro_torch/core/cc.py): the two-input
+// multiply-adds the reference's CPU backend contracts are explicit fmaf
+// calls with subnormal results flushed (fma_ftz), exp is Cephes' expf
+// (cephes_expf), and the including source is built with --fmad=false so
+// that nothing else is contracted.  The learned policy's tanh and
+// logistic are the reference's expansions (xla_tanhf, xla_sigmoidf), as
+// repro_torch/core/arith.py computes them.  The scalar functions are
+// shortened where the bits allow (plain fmaf in exp and tanh, an integer n
+// in exp, one compare for tanh's small and NaN inputs, one flush-to-zero
+// multiply for the flush of fma_ftz) and proven equal to their plain
+// versions over every float32 input on the card (engine_step.cu:
+// scalar_fn; chip_smoke.py: scalar_exhaustive).  The fused kernel loads
+// only the inputs of the signals a policy reads (policy_signals).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,55 +36,71 @@ __device__ __forceinline__ float vclip(float x, float lo, float hi) {
   return vmin(vmax(x, lo), hi);
 }
 
-__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
-  const float r = fmaf(a, b, c);
-  return fabsf(r) < 1.17549435e-38f ? r * 0.0f : r;
+// a subnormal to the zero of its sign, as `fabsf(r) < FLT_MIN ? r * 0.0f
+// : r` (arith.ftz): one flush-to-zero multiply by 1, proven equal in bits
+// over every float32 input (any NaN equal to any NaN)
+__device__ __forceinline__ float ftz(float r) {
+  float out;
+  asm("mul.rn.ftz.f32 %0, %1, 0f3F800000;" : "=f"(out) : "f"(r));
+  return out;
 }
 
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  return ftz(fmaf(a, b, c));
+}
+
+// The three scalar functions below take one float32 and are proven equal
+// to their plain versions (arith.expf, tanhf, sigmoidf) in bits over all
+// 2^32 inputs on the card (chip_smoke.py: scalar_exhaustive).  Their
+// multiply-adds are plain fmaf: none of their results can be subnormal
+// where it matters (Cephes' reduced argument, the Horner sums near their
+// constants), so the flush of fma_ftz would never fire.
+
 // Cephes expf: range reduction by ln2 in two parts, degree-7 polynomial,
-// results below the smallest normal float flushed to zero
+// results below the smallest normal float flushed to zero.  n = floor(x *
+// log2e + 0.5) as an int (a NaN converts to 0, and x's clamp keeps n >=
+// -127, so only the top needs a clamp).
 __device__ __forceinline__ float cephes_expf(float x) {
   x = (x < -0x1.5f3334p+6f) ? -0x1.5f3334p+6f : x;
   x = (x > 0x1.633334p+6f) ? 0x1.633334p+6f : x;
-  float n = floorf(fma_ftz(x, 0x1.715476p+0f, 0.5f));
-  n = (n < -127.0f) ? -127.0f : n;
-  n = (n > 127.0f) ? 127.0f : n;
-  float r = fma_ftz(-0x1.63p-1f, n, x);
-  r = fma_ftz(0x1.bd0106p-13f, n, r);
-  float p = fma_ftz(r, 0x1.a0d2cep-13f, 0x1.6e879cp-10f);
-  p = fma_ftz(p, r, 0x1.111210p-7f);
-  p = fma_ftz(p, r, 0x1.555382p-5f);
-  p = fma_ftz(p, r, 0x1.555554p-3f);
-  p = fma_ftz(p, r, 0.5f);
-  const float y = 1.0f + fma_ftz(p, r * r, r);
-  const float scale = __int_as_float(((n == n ? (int)n : 0) + 127) << 23);
-  const float out = y * scale;
+  const int ni = min(__float2int_rd(fmaf(x, 0x1.715476p+0f, 0.5f)), 127);
+  const float n = (float)ni;
+  float r = fmaf(-0x1.63p-1f, n, x);
+  r = fmaf(0x1.bd0106p-13f, n, r);
+  float p = fmaf(r, 0x1.a0d2cep-13f, 0x1.6e879cp-10f);
+  p = fmaf(p, r, 0x1.111210p-7f);
+  p = fmaf(p, r, 0x1.555382p-5f);
+  p = fmaf(p, r, 0x1.555554p-3f);
+  p = fmaf(p, r, 0.5f);
+  const float y = 1.0f + fmaf(p, r * r, r);
+  const float out = y * __int_as_float((ni + 127) << 23);
   return out < 1.17549435e-38f ? 0.0f : out;
 }
 
 // tanh as the reference's CPU backend expands it: x * P(x^2) / Q(x^2) on x
 // clamped to +-7.99881172, every Horner step one multiply-add, and x
-// itself where |x| < 0.0004 (arith.tanhf)
+// itself where |x| < 0.0004 or x is NaN (arith.tanhf)
 __device__ __forceinline__ float xla_tanhf(float x) {
-  const float y = vclip(x, -7.99881172180175781f, 7.99881172180175781f);
+  const float y =
+      fminf(fmaxf(x, -7.99881172180175781f), 7.99881172180175781f);
   const float y2 = y * y;
-  float p = fma_ftz(y2, -2.76076847742355e-16f, 2.00018790482477e-13f);
-  p = fma_ftz(y2, p, -8.60467152213735e-11f);
-  p = fma_ftz(y2, p, 5.12229709037114e-08f);
-  p = fma_ftz(y2, p, 1.48572235717979e-05f);
-  p = fma_ftz(y2, p, 6.37261928875436e-04f);
-  p = fma_ftz(y2, p, 4.89352455891786e-03f);
-  float q = fma_ftz(y2, 1.19825839466702e-06f, 1.18534705686654e-04f);
-  q = fma_ftz(y2, q, 2.26843463243900e-03f);
-  q = fma_ftz(y2, q, 4.89352518554385e-03f);
-  return fabsf(x) < 0.0004f ? x : y * p / q;
+  float p = fmaf(y2, -2.76076847742355e-16f, 2.00018790482477e-13f);
+  p = fmaf(y2, p, -8.60467152213735e-11f);
+  p = fmaf(y2, p, 5.12229709037114e-08f);
+  p = fmaf(y2, p, 1.48572235717979e-05f);
+  p = fmaf(y2, p, 6.37261928875436e-04f);
+  p = fmaf(y2, p, 4.89352455891786e-03f);
+  float q = fmaf(y2, 1.19825839466702e-06f, 1.18534705686654e-04f);
+  q = fmaf(y2, q, 2.26843463243900e-03f);
+  q = fmaf(y2, q, 4.89352518554385e-03f);
+  return !(fabsf(x) >= 0.0004f) ? x : y * p / q;
 }
 
 // the logistic as 1 / (1 + exp(-x)), subnormal results flushed
-// (arith.sigmoidf)
+// (arith.sigmoidf); the quotient is never negative
 __device__ __forceinline__ float xla_sigmoidf(float x) {
   const float r = 1.0f / (1.0f + cephes_expf(-x));
-  return fabsf(r) < 1.17549435e-38f ? r * 0.0f : r;
+  return r < 1.17549435e-38f ? 0.0f : r;
 }
 
 struct Sig {
@@ -88,6 +112,29 @@ struct Sig {
 // them against the Python tables before the first launch.
 enum { PFC = 0, DCQCN = 1, DCTCP = 2, TIMELY = 3, HPCC = 4, HPCC_PINT = 5,
        STATIC_WINDOW = 6, MLP = 7 };
+
+// The signals each policy's update reads, so that the fused kernel loads
+// only the rows they need (as a compiler drops dead loads): USE_ECN the
+// marking product (q, ecn_mask, kmin, kmax, pmax), USE_RTT the queueing RTT
+// (q, caps, hopmask, base_rtt), USE_UTIL the INT utilisation (q, tx, caps,
+// hopmask), USE_BASE base_rtt alone, USE_LOSS the loss signal, USE_STATE
+// the state rows.  Every policy reads line.  Kept in step with the
+// policy_update bodies below: a signal left out reads as 0, which the
+// bit-equality checks of every policy would show.
+enum : unsigned { USE_ECN = 1, USE_RTT = 2, USE_UTIL = 4, USE_BASE = 8,
+                  USE_LOSS = 16, USE_STATE = 32 };
+
+__host__ __device__ constexpr unsigned policy_signals(int pol) {
+  return pol == PFC             ? 0u
+         : pol == DCQCN         ? USE_ECN | USE_LOSS | USE_STATE
+         : pol == DCTCP         ? USE_ECN | USE_RTT | USE_LOSS | USE_STATE
+         : pol == TIMELY        ? USE_RTT | USE_BASE | USE_LOSS | USE_STATE
+         : pol == HPCC || pol == HPCC_PINT
+             ? USE_UTIL | USE_BASE | USE_LOSS | USE_STATE
+         : pol == STATIC_WINDOW ? USE_STATE
+                                : USE_ECN | USE_RTT | USE_UTIL | USE_BASE |
+                                      USE_LOSS | USE_STATE;
+}
 
 template <int POL>
 __device__ __forceinline__ void policy_update(const float* __restrict__ p,

@@ -6,6 +6,16 @@ CUDA tensors it checks device, dtype, shape and contiguity, allocates the
 outputs, launches on PyTorch's current stream, raises if the launch
 returns a CUDA error, and adds one to ``LAUNCHES[name]``.  There is no
 fallback: a CUDA tensor either goes through the kernel or raises.
+
+The fused kernel is persistent: ``fused_plan`` gives it as many blocks as
+the card keeps resident (the occupancy query of the built library, per
+policy and state width) and the work items, tiles of ``TILE`` flows of
+one lane, that each block walks (``plan_items`` spells the walk out).  A
+tile's rows reach shared memory by 16-byte ``cp.async`` where every row
+is 16-byte aligned (``vector_copies``), else by 4-byte ``cp.async``.
+``scalar_fn`` runs the policies' scalar device functions (exp, tanh, the
+logistic, the flush of a multiply-add's result) elementwise, so that a check can hold each against its plain
+version in ``core/arith.py`` over every float32 input.
 """
 from __future__ import annotations
 
@@ -13,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import arith
 from repro_torch.core import cc as cc_mod
 from repro_torch.core.topology import MAXHOP
 from repro_torch.kernels import build
@@ -49,12 +60,23 @@ KERNEL_ABI = {
             + tuple(f"w2_{o}{j}" for o in range(2) for j in range(4))),
 }
 
+# flows per work item of the fused kernel, one thread each
+# (engine_step.cu: TILE)
+TILE = 128
+
+# the device scalar functions scalar_fn evaluates, by index
+# (engine_step.cu: scalar_fn_kernel), each named as its plain version
+SCALAR_FNS = {"expf": 0, "tanhf": 1, "sigmoidf": 2, "ftz": 3}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fused_signals_policy": [_I] + [_P] * 13 + [_F, _F, _F] + [_I] * 4
-                            + [_P] * 4,
+                            + [_P] * 3 + [_I] * 3 + [_P],
+    "fused_signals_policy_resident": [_I, _I, _P],
+    "fused_signals_policy_rows": [_I, _I],
+    "scalar_fn": [_I, _P, _P, ctypes.c_long, _P],
     "segment_reduce": [_P, _P, _I, _I, _I, _I, _P, _P],
     "segment_reduce_pfc": [_P, _P, _I, _I, _I, _I] + [_P] * 7,
 }
@@ -99,6 +121,84 @@ def _kernel_id(policy) -> int:
     return policy.kernel_id
 
 
+def vector_copies(F: int, ptrs) -> bool:
+    """Whether the tile rows can be copied 16 bytes at a time: each row of
+    the streamed inputs starts and ends on a 16-byte boundary (``F`` a
+    multiple of 4 and every base pointer 16-byte aligned)."""
+    return F % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def fused_plan(B: int, F: int, resident: int, tile: int = TILE) -> tuple:
+    """The fused kernel's launch: ``(blocks, tiles_per_lane)``.  Each lane's
+    ``F`` flows are cut into ``tiles_per_lane`` tiles of ``tile`` flows
+    (the last one short where ``tile`` does not divide ``F``); block ``i`` of
+    ``blocks``, at most ``resident`` (the blocks the card keeps resident)
+    and at most the number of tiles, walks the work items ``i, i + blocks,
+    i + 2*blocks, ...`` of the ``B * tiles_per_lane``, lane-major."""
+    if B < 1 or F < 1 or resident < 1:
+        raise ValueError(f"fused plan needs B, F, resident >= 1, got {B}, "
+                         f"{F}, {resident}")
+    tiles = -(-F // tile)
+    return min(resident, B * tiles), tiles
+
+
+def plan_items(B: int, F: int, blocks: int, tiles_per_lane: int,
+               tile: int = TILE) -> list:
+    """The kernel's walk: for each block, its ``(lane, first flow, flows)``
+    work items in order (``engine_step.cu``: ``item_tile``)."""
+    items = B * tiles_per_lane
+    walk = []
+    for blk in range(blocks):
+        mine = []
+        for item in range(blk, items, blocks):
+            b, t = divmod(item, tiles_per_lane)
+            mine.append((b, t * tile, min(tile, F - t * tile)))
+        walk.append(mine)
+    return walk
+
+
+_RESIDENT: dict = {}
+
+
+def resident_blocks(policy_id: int, K: int) -> int:
+    """How many blocks of the fused kernel for this policy and state
+    width the current card keeps resident (SMs x blocks per SM)."""
+    key = (torch.cuda.current_device(), policy_id, K)
+    if key not in _RESIDENT:
+        n = ctypes.c_int()
+        err = kernel_function("fused_signals_policy_resident")(
+            policy_id, K, ctypes.addressof(n))
+        if err != 0:
+            raise RuntimeError(f"fused_signals_policy: occupancy query "
+                               f"failed with cudaError_t {err}")
+        _RESIDENT[key] = n.value
+    return _RESIDENT[key]
+
+
+def rows_read(policy_id: int, K: int) -> int:
+    """The float32 rows per flow a launch for this policy reads: the
+    inputs its update reads and its K state rows (the kernel loads no
+    other)."""
+    rows = kernel_function("fused_signals_policy_rows")(policy_id, K)
+    if rows < 0:
+        raise ValueError(f"no fused kernel for policy id {policy_id}, K={K}")
+    return rows
+
+
+def launch_args(policy_id: int, ins, outs, t: float, t_base_util: float,
+                dt: float) -> list:
+    """The C entry point's arguments but the stream: ``ins`` the 8 hop,
+    3 flat, state and params tensors, ``outs`` (state', rate, win), the
+    launch plan (blocks, tiles per lane, 16-byte copies) at the end."""
+    B, _, F = ins[0].shape
+    K, P = ins[11].shape[1], ins[12].shape[1]
+    blocks, tiles = fused_plan(B, F, resident_blocks(policy_id, K))
+    vec = vector_copies(F, [x.data_ptr() for x in ins[:12]])
+    return [policy_id, *(x.data_ptr() for x in ins), float(t),
+            float(t_base_util), float(dt), B, F, K, P,
+            *(o.data_ptr() for o in outs), blocks, tiles, int(vec)]
+
+
 def fused_signals_policy(policy, q_d, tx_d, caps, ecn_mask, hopmask,
                          kmin_h, kmax_h, pmax_h, base_rtt, line, loss,
                          state, params, t: float, t_base_util: float,
@@ -131,15 +231,31 @@ def fused_signals_policy(policy, q_d, tx_d, caps, ecn_mask, hopmask,
         _check(x, n, (B, F), torch.float32)
     _check(state, "state", (B, K, F), torch.float32)
     _check(params, "params", (B, P), torch.float32)
-    st_out = torch.empty_like(state)
-    rate = torch.empty_like(line)
-    win = torch.empty_like(line)
+    outs = (torch.empty_like(state), torch.empty_like(line),
+            torch.empty_like(line))
     _launch("fused_signals_policy",
-            [pid, *(x.data_ptr() for x in hop + flat), state.data_ptr(),
-             params.data_ptr(), float(t), float(t_base_util), float(dt), B,
-             F, K, P,
-             st_out.data_ptr(), rate.data_ptr(), win.data_ptr()])
-    return st_out, rate, win
+            launch_args(pid, hop + flat + (state, params), outs, t,
+                        t_base_util, dt))
+    return outs
+
+
+def scalar_fn(name: str, x):
+    """The device scalar function ``name`` (a key of ``SCALAR_FNS``) of
+    ``kernels/csrc/cc_policy.cuh`` elementwise over a float32 tensor; for
+    a CPU tensor its plain version ``arith.<name>``.  A check entry point,
+    not a kernel of the simulator's path: it is not counted in
+    ``LAUNCHES``."""
+    if not _on_cuda((x,)):
+        return getattr(arith, name)(x)
+    _check(x, "x", tuple(x.shape), torch.float32)
+    y = torch.empty_like(x)
+    err = kernel_function("scalar_fn")(
+        SCALAR_FNS[name], x.data_ptr(), y.data_ptr(), x.numel(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scalar_fn: CUDA launch failed with "
+                           f"cudaError_t {err}")
+    return y
 
 
 def _check_seg(vals, idx, n_out: int, C: int):

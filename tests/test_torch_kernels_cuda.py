@@ -78,23 +78,34 @@ def _case(policy, F, B, lossy, seed, dev):
     return case, state.contiguous(), params.contiguous()
 
 
+EDGE_FLOWS = (1, 255, 256, 257, 1500, 7936, 130049, 131072)
+
+
 @pytest.mark.parametrize("lossy", [False, True], ids=["lossless", "lossy"])
 @pytest.mark.parametrize("name", cc.ALL_POLICIES)
 def test_fused_kernel_matches_plain(dev, name, lossy):
-    """rtol 1e-5: both evaluate the same float32 operations; the plain
-    version emulates fmaf in float64, which rounds twice in rare ties."""
+    """Every output bit-equal to the plain version at one flow, the edges
+    of the 128-flow tile, the 128-GPU counts and their neighbours, and 1,
+    3 and 9 lanes (one launch counted each); counts that are not a
+    multiple of 4 copy the tile rows 4 bytes at a time, the others 16
+    bytes at a time."""
     policy = cc.get_policy(name)
-    case, state, params = _case(policy, 1500, 3, lossy, 3, dev)
-    before = ops.LAUNCHES["fused_signals_policy"]
-    got = ops.fused_signals_policy(policy, *case, state, params, 3.3e-4,
-                                   1e-5, 2e-6)
-    want = ref.fused_signals_policy_ref(policy, *case, state, params,
-                                        3.3e-4, 1e-5, 2e-6)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["fused_signals_policy"] == before + 1
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(),
-                                   w.expand_as(g).cpu().numpy(), rtol=1e-5)
+    routes = set()
+    for F in EDGE_FLOWS:
+        for B in (1, 3, 9):
+            case, state, params = _case(policy, F, B, lossy, F + B, dev)
+            args = (*case, state, params)
+            routes.add(ops.vector_copies(F,
+                                         [x.data_ptr() for x in args[:12]]))
+            before = ops.LAUNCHES["fused_signals_policy"]
+            got = ops.fused_signals_policy(policy, *args, 3.3e-4, 1e-5, 4e-6)
+            want = ref.fused_signals_policy_ref(policy, *args, 3.3e-4, 1e-5,
+                                                4e-6)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["fused_signals_policy"] == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w.expand_as(g)), (F, B)
+    assert routes == {False, True}
 
 
 @pytest.mark.parametrize("B", [1, 3, 9])
@@ -102,7 +113,7 @@ def test_fused_kernel_matches_plain(dev, name, lossy):
 def test_mlp_kernel_matches_plain_lossy(dev, F, B):
     """The ``mlp`` body at the main path's padded flow counts (130,048
     flows pad to 131,072) and 1, 3 and 9 lanes, with a live loss input
-    on half the flows: rtol 1e-5, as every policy's body."""
+    on half the flows: bit-equal, as every policy's body."""
     policy = cc.get_policy("mlp")
     case, state, params = _case(policy, F, B, True, F + B, dev)
     assert params.shape == (B, 40) and state.shape[1] == 4
@@ -112,8 +123,99 @@ def test_mlp_kernel_matches_plain_lossy(dev, F, B):
                                         3.3e-4, 1e-5, 4e-6)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(),
-                                   w.expand_as(g).cpu().numpy(), rtol=1e-5)
+        assert torch.equal(g, w.expand_as(g))
+
+
+@pytest.mark.parametrize("name", ["dcqcn", "mlp"])
+def test_fused_kernel_unaligned_inputs_take_cp_async(dev, name):
+    """Inputs one float past a 16-byte boundary at F = 1,500 (a multiple
+    of 4) take the 4-byte cp.async route and stay bit-equal."""
+    policy = cc.get_policy(name)
+    case, state, params = _case(policy, 1500, 3, True, 11, dev)
+    args = [chip_smoke.shifted_copy(x) for x in (*case, state, params)]
+    assert not ops.vector_copies(1500, [x.data_ptr() for x in args[:12]])
+    assert ops.vector_copies(1500, [x.data_ptr() for x in (*case, state)])
+    got = ops.fused_signals_policy(policy, *args, 3.3e-4, 1e-5, 4e-6)
+    want = ref.fused_signals_policy_ref(policy, *args, 3.3e-4, 1e-5, 4e-6)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.expand_as(g))
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 133])
+def test_fused_kernel_any_block_count(dev, blocks):
+    """The persistent walk is right for any grid: one block taking every
+    tile (both ring stages reused many times), a few, and more blocks than
+    one per SM; direct calls of the entry point with the plan's tiles."""
+    policy = cc.get_policy("mlp")
+    B, F = 3, 7936
+    case, state, params = _case(policy, F, B, True, 5, dev)
+    ins = (*case, state, params)
+    outs = (torch.empty_like(state), torch.empty_like(case[9]),
+            torch.empty_like(case[9]))
+    args = ops.launch_args(policy.kernel_id, ins, outs, 3.3e-4, 1e-5, 4e-6)
+    args[-3] = blocks
+    stream = torch.cuda.current_stream().cuda_stream
+    assert ops.kernel_function("fused_signals_policy")(*args, stream) == 0
+    want = ref.fused_signals_policy_ref(policy, *ins, 3.3e-4, 1e-5, 4e-6)
+    torch.cuda.synchronize()
+    for g, w in zip(outs, want):
+        assert torch.equal(g, w.expand_as(g))
+
+
+def test_fused_plan_on_the_card(dev):
+    """The occupancy query gives whole waves of blocks, and the launch
+    refuses a plan that does not match F or misaligned 16-byte copies."""
+    policy = cc.get_policy("dcqcn")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = ops.resident_blocks(policy.kernel_id, 8)
+    assert n >= sms and n % sms == 0
+    case, state, params = _case(policy, 1500, 1, False, 2, dev)
+    ins = (*case, state, params)
+    outs = (torch.empty_like(state), torch.empty_like(case[9]),
+            torch.empty_like(case[9]))
+    fn = ops.kernel_function("fused_signals_policy")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = ops.launch_args(policy.kernel_id, ins, outs, 0.0, 1e-5, 4e-6)
+    assert args[-1] == 1
+    for i, bad in ((-2, 11), (-3, 0)):
+        wrong = list(args)
+        wrong[i] = bad
+        assert fn(*wrong, stream) != 0
+    shifted = [chip_smoke.shifted_copy(x) for x in ins]
+    wrong = ops.launch_args(policy.kernel_id, shifted, outs, 0.0, 1e-5, 4e-6)
+    assert wrong[-1] == 0
+    wrong[-1] = 1
+    assert fn(*wrong, stream) != 0
+
+
+SPECIAL = np.float32([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, 1.1754942e-38,
+                      -1.1754942e-38, 1.1754944e-38, 7.99881172, -7.99881172,
+                      7.9988122, -7.9988122, 0.0004, -0.0004, 0.00039999998,
+                      -0.00039999998, 0.00040000002, 88.7, -88.7, 87.8,
+                      -87.8, 88.8, -88.8, 89.0, -104.0, np.inf, -np.inf,
+                      np.nan])
+
+
+@pytest.mark.parametrize("name", list(ops.SCALAR_FNS))
+def test_scalar_functions_bit_equal(dev, name):
+    """The policies' scalar device functions against their plain versions
+    (``arith``) on the card: every 4,093rd float32 bit pattern and the
+    special values (+-0, subnormals, the smallest normal, tanh's clamp
+    edges +-7.99881172 and +-0.0004, exp's clamps near +-88.7, +-inf,
+    NaN); equal in bits, any NaN equal to any NaN.  chip_smoke.py's
+    scalar_exhaustive runs all 2^32 inputs."""
+    bits = torch.arange(-(1 << 31), 1 << 31, 4093, dtype=torch.int64)
+    x = torch.cat([bits.to(torch.int32).view(torch.float32),
+                   torch.from_numpy(SPECIAL)]).to(dev)
+    got = ops.scalar_fn(name, x)
+    want = ops.scalar_fn(name, x.cpu()).to(dev)
+    plain = getattr(ops.arith, name)(x)
+    torch.cuda.synchronize()
+    for w in (want, plain):
+        same = (got.view(torch.int32) == w.view(torch.int32)) | (
+            torch.isnan(got) & torch.isnan(w))
+        assert bool(same.all()), x[~same][:8].tolist()
 
 
 @pytest.mark.parametrize("pol,fault", [
