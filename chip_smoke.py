@@ -33,6 +33,13 @@ the run (``device_us``), for the kernel and its library call; the fused
 kernel's row is timed cold (inputs cycled past the L2) under DCQCN at the
 128-GPU shape, with its ``mlp`` body's times (``mlp_*``) and both
 policies' times at Fig 12's nine lanes (``b9_*``, ``mlp_b9_*``) beside.
+The segment kernels' rows are timed on the PAUSE tally of the 128-GPU
+step and the per-port plan of the 32-GPU step, with the 128-GPU step's
+split-row qlink and qport plans beside (``qlink_*``, ``qport128_*``) and
+``index_add_`` over the same values (``index_add_*``); they are held bit
+for bit against their plain versions on every plan of the simulated
+scenarios, and the main paths must launch them once per non-empty plan
+and step.
 The policies' scalar device functions are held against their plain
 versions over every float32 input (``scalar_exhaustive``).
 Without CUDA, or outside a checkout holding ``src/repro_torch``, it exits
@@ -771,71 +778,91 @@ def shifted_copy(x):
     return out
 
 
-def gather_plans(sims: dict) -> list:
-    """Every "gather" reduction plan of the prepared main-path scenarios,
-    with its input width."""
+def plan_inputs(sim) -> list:
+    """``(what, strategy, plan arrays, input width)`` of each reduction of
+    a prepared simulation's step."""
     from repro_torch.core.topology import MAXHOP
-    out = []
-    for label, sim in sims.items():
-        plan, pp = sim.plan, sim.pp
-        Fp, Lk = plan.n_flows_pad, plan.n_links
-        named = [(f"hop{h}", plan.hop[h], pp["r_hop"][h], Fp)
-                 for h in range(MAXHOP)]
-        named += [("qlink", plan.qlink, pp["r_qlink"], Fp * MAXHOP),
-                  ("qport", plan.qport, pp["r_qport"], Fp * MAXHOP),
-                  ("group", plan.group, pp["r_group"], Fp),
-                  ("pause", plan.pause, pp["r_pause"], Lk),
-                  ("qdev", plan.qdev, pp["r_qdev"], Lk)]
-        for what, strat, arrs, n_in in named:
-            if strat[0] == "gather":
-                out.append((label, what, strat[1], strat[2], arrs["idx32"],
-                            n_in))
-    return out
+    plan, pp = sim.plan, sim.pp
+    Fp, Lk = plan.n_flows_pad, plan.n_links
+    named = [(f"hop{h}", plan.hop[h], pp["r_hop"][h], Fp)
+             for h in range(MAXHOP)]
+    return named + [("qlink", plan.qlink, pp["r_qlink"], Fp * MAXHOP),
+                    ("qport", plan.qport, pp["r_qport"], Fp * MAXHOP),
+                    ("group", plan.group, pp["r_group"], Fp),
+                    ("pause", plan.pause, pp["r_pause"], Lk),
+                    ("qdev", plan.qdev, pp["r_qdev"], Lk)]
+
+
+def gather_plans(sims: dict) -> list:
+    """Every non-empty reduction plan of the prepared main-path
+    scenarios, "gather" and split-row "gather2" alike, as ``(scenario,
+    what, strategy, the segment kernels' plan arguments, input width)``."""
+    from repro_torch.core import engine
+    return [(label, what, strat, engine._kernel_plan(strat, arrs), n_in)
+            for label, sim in sims.items()
+            for what, strat, arrs, n_in in plan_inputs(sim)
+            if strat[0] != "empty"]
+
+
+def segment_launches(plan) -> tuple:
+    """The segment kernels' launches one kernel-path step makes without
+    the queue timeline: ``segment_reduce`` once for each non-empty plan
+    but qport, ``segment_reduce_pfc`` once for qport."""
+    plans = plan.hop + (plan.qlink, plan.group, plan.pause)
+    return (sum(s[0] != "empty" for s in plans),
+            int(plan.qport[0] != "empty"))
 
 
 def check_segments(plans, dev) -> tuple:
+    """Both segment kernels on every plan at ``CHECK_LANES`` lanes, and on
+    lanes read through strides (every other element, as the step reads a
+    hop's backlog), against their plain versions: the sums equal in bits,
+    ``paused`` equal everywhere."""
     import torch
     from repro_torch.kernels.engine_step import ops, ref
     rng = np.random.default_rng(7)
     worst = {"segment_reduce": 0.0, "segment_reduce_pfc": 0.0}
     rows = []
-    for label, what, n_out, C, idx, n_in in plans:
-        for B in CHECK_LANES:
-            vals = torch.as_tensor(rng.uniform(0, 2e6, (B, n_in)),
-                                   dtype=torch.float32, device=dev)
-            got = ops.segment_reduce(vals, idx, n_out, C)
-            want = ref.segment_reduce_ref(vals, idx, n_out, C)
-            mag = ref.segment_reduce_ref(vals.abs(), idx, n_out, C)
-            err = (got - want).abs()
-            if not bool((err <= 4e-6 * mag).all()):
-                raise AssertionError(f"segment_reduce {label}/{what}: "
-                                     f"max abs err {float(err.max())}")
-            worst["segment_reduce"] = max(worst["segment_reduce"],
-                                          float(err.max()))
+    for label, what, strat, kplan, n_in in plans:
+        idx, n_out, C, *split = kplan
+        for B, strided in [(B, False) for B in CHECK_LANES] + [(3, True)]:
+            x = (rng.uniform(0, 2e6, (B, n_in))
+                 * (rng.random((B, n_in)) < 0.7))
+            if strided:
+                wide = np.zeros((B, 2 * n_in))
+                wide[:, ::2] = x
+                vals = torch.as_tensor(wide, dtype=torch.float32,
+                                       device=dev)[:, ::2]
+            else:
+                vals = torch.as_tensor(x, dtype=torch.float32, device=dev)
+            got = ops.segment_reduce(vals, *kplan)
+            want = ref.segment_reduce_ref(vals, *kplan)
+            worst["segment_reduce"] = max(worst["segment_reduce"], float(
+                (got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"segment_reduce {label}/{what} {strat} B={B}: max abs "
+                    f"err {float((got - want).abs().max())}")
             # PFC hysteresis around the reduced occupancy
             xoff = (want * torch.as_tensor(rng.uniform(0.5, 1.5, (B, n_out)),
                                            dtype=torch.float32, device=dev)
                     ).contiguous()
+            xoff[:, ::3] = want[:, ::3]          # on the threshold
             xon = (xoff * 0.8).contiguous()
             can = torch.as_tensor(rng.random((B, n_out)) < 0.7, device=dev)
             prev = torch.as_tensor(rng.random((B, n_out)) < 0.5, device=dev)
             q, paused = ops.segment_reduce_pfc(vals, idx, n_out, C, xoff, xon,
-                                               can, prev)
-            q_r, paused_r = ref.segment_reduce_pfc_ref(vals, idx, n_out, C,
-                                                       xoff, xon, can, prev)
-            err = (q - q_r).abs()
-            if not bool((err <= 4e-6 * mag).all()):
-                raise AssertionError(f"segment_reduce_pfc {label}/{what}: "
-                                     f"max abs err {float(err.max())}")
-            # paused must agree exactly away from the thresholds
-            clear = (((q_r - xoff).abs() > 4e-6 * mag)
-                     & ((q_r - xon).abs() > 4e-6 * mag))
-            if bool((clear & (paused != paused_r)).any()):
-                raise AssertionError(f"segment_reduce_pfc {label}/{what}: "
-                                     "paused differs away from thresholds")
+                                               can, prev, *split)
+            q_r, paused_r = ref.segment_reduce_pfc_ref(
+                vals, idx, n_out, C, xoff, xon, can, prev, *split)
             worst["segment_reduce_pfc"] = max(worst["segment_reduce_pfc"],
-                                              float(err.max()))
-        rows.append(f"{label}/{what} ({n_out}x{C}, n_in={n_in})")
+                                              float((q - q_r).abs().max()))
+            if not (torch.equal(q, q_r) and torch.equal(paused, paused_r)):
+                raise AssertionError(
+                    f"segment_reduce_pfc {label}/{what} {strat} B={B}: max "
+                    f"abs err {float((q - q_r).abs().max())}, "
+                    f"{int((paused != paused_r).sum())} paused differ")
+        rows.append(f"{label}/{what} {strat} (n_in={n_in})")
     torch.cuda.synchronize()
     return worst, rows
 
@@ -991,64 +1018,90 @@ def time_fused(s128, fig12, dev, traced: dict) -> dict:
     return out
 
 
-def time_segment(name: str, sim, strat, arrs, n_in, pfc: bool, dev,
+# the segment kernels' timed plans: (kernel, key prefix, scenario, plan);
+# each kernel row's own numbers are those of its first plan (the PAUSE
+# tally of the 128-GPU step; the per-port reduction of the 32-GPU step),
+# the split-row plans of the 128-GPU step carry a prefix
+SEGMENT_TIMED = (("segment_reduce", "", "clos128_1d", "pause"),
+                 ("segment_reduce", "qlink_", "clos128_1d", "qlink"),
+                 ("segment_reduce_pfc", "", "clos32_2d", "qport"),
+                 ("segment_reduce_pfc", "qport128_", "clos128_1d", "qport"))
+
+
+def time_segment(key: str, name: str, sim, what: str, dev,
                  traced: dict) -> dict:
+    """Event, host and plain times of one segment kernel on one plan of
+    ``sim``, its byte bound and ``index_add_`` over the same values
+    (``library_ms`` where it computes the same function: not for the PFC
+    variant, whose hysteresis it lacks).  ``traced[key]`` gets the
+    launch and ``index_add_`` for ``device_us`` at the end of the run."""
     import torch
+    from repro_torch.core import engine
     from repro_torch.kernels.engine_step import ops, ref
-    _, n_out, C = strat
-    idx = arrs["idx32"]
+    (strat, arrs, n_in), = [(s, a, n) for w, s, a, n in plan_inputs(sim)
+                            if w == what]
+    pfc = name == "segment_reduce_pfc"
+    kplan = engine._kernel_plan(strat, arrs)
+    idx, n_out, C, boff, C2, ctas = kplan
     rng = np.random.default_rng(11)
     vals = torch.as_tensor(rng.uniform(0, 2e6, (1, n_in)),
                            dtype=torch.float32, device=dev)
     out = torch.empty((1, n_out), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    n_bytes = 4 * n_in + 4 * n_out * C + 4 * n_out
+    # the input of each member, the segment of each input (n_out: none)
+    members = idx.cpu().numpy().astype(np.int64)
+    blk_seg = (np.arange(n_out) if boff is None else np.repeat(
+        np.arange(n_out), np.diff(boff.cpu().numpy())))
+    seg_of_slot = np.repeat(blk_seg, C)
+    live = members < n_in
+    seg_of = np.full(n_in, n_out, np.int64)
+    seg_of[members[live]] = seg_of_slot[live]
+    # bytes: the plan (member indices, block offsets, CTA table) and each
+    # member's value read once, the sums written once
+    n_bytes = (4 * idx.numel() + 4 * int(live.sum()) + 4 * n_out
+               + sum(4 * x.numel() for x in (boff, ctas) if x is not None))
+    args = ops.segment_args(vals, idx, boff, n_out, C, C2, ctas)
     if pfc:
         xoff = torch.full((1, n_out), 1e6, device=dev)
         xon = torch.full((1, n_out), 0.8e6, device=dev)
         can = torch.ones((1, n_out), dtype=torch.bool, device=dev)
         prev = torch.zeros((1, n_out), dtype=torch.bool, device=dev)
         paused = torch.empty((1, n_out), dtype=torch.bool, device=dev)
-        fn = ops.kernel_function("segment_reduce_pfc")
-        args = [vals.data_ptr(), idx.data_ptr(), 1, n_in, n_out, C,
-                xoff.data_ptr(), xon.data_ptr(), can.data_ptr(),
-                prev.data_ptr(), out.data_ptr(), paused.data_ptr()]
+        args += [xoff.data_ptr(), xon.data_ptr(), can.data_ptr(),
+                 prev.data_ptr(), out.data_ptr(), paused.data_ptr()]
         n_bytes += n_out * (4 + 4 + 1 + 1 + 1)
 
         def plain():
             ref.segment_reduce_pfc_ref(vals, idx, n_out, C, xoff, xon, can,
-                                       prev)
-        lib_fn, held = None, (xoff, xon, can, prev, paused)
+                                       prev, boff, C2)
+        held = (xoff, xon, can, prev, paused)
     else:
-        fn = ops.kernel_function("segment_reduce")
-        args = [vals.data_ptr(), idx.data_ptr(), 1, n_in, n_out, C,
-                out.data_ptr()]
+        args += [out.data_ptr()]
 
         def plain():
-            ref.segment_reduce_ref(vals, idx, n_out, C)
-        # the same sums by one PyTorch call: index_add_ of every input into
-        # its segment (inputs in no segment go to a spare row)
-        seg_of = np.full(n_in, n_out, np.int64)
-        rows = idx.view(n_out, C).cpu().numpy()
-        for s in range(n_out):
-            members = rows[s][rows[s] < n_in]
-            seg_of[members] = s
-        seg_of = torch.as_tensor(seg_of, device=dev)
-        acc = torch.zeros(n_out + 1, device=dev)
-
-        def lib_fn():
-            acc.index_add_(0, seg_of, vals[0])
+            ref.segment_reduce_ref(vals, *kplan)
         held = ()
+    fn = ops.kernel_function(name)
+    # the same sums by one PyTorch call: index_add_ of every input into
+    # its segment (inputs in no segment go to a spare row)
+    seg_of = torch.as_tensor(seg_of, device=dev)
+    acc = torch.zeros(n_out + 1, device=dev)
+
+    def index_add():
+        acc.index_add_(0, seg_of, vals[0])
 
     def launch():
         if fn(*args, stream) != 0:
-            raise RuntimeError("segment kernel launch failed")
-    traced[name] = (launch, lib_fn, (vals, idx, out, *held))
+            raise RuntimeError(f"{name} launch failed")
+    traced[key] = (launch, index_add,
+                   (vals, idx, boff, out, seg_of, acc, *held))
+    index_add_ms = cuda_ms(index_add)
     return {"ms": cuda_ms(launch), "host_us_per_launch": host_us(launch),
             "plain_ms": cuda_ms(plain, reps=20, inner=5),
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None if lib_fn is None else cuda_ms(lib_fn),
-            "shape": f"n_out={n_out} C={C} n_in={n_in}", "bytes": n_bytes}
+            "library_ms": None if pfc else index_add_ms,
+            "index_add_ms": index_add_ms,
+            "shape": f"{strat} n_in={n_in}", "bytes": n_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -2543,28 +2596,18 @@ def main() -> int:
     emit({"phase": "kernel_check", "kernel": "segment_reduce(+_pfc)",
           "plans": seg_rows, "lanes": list(CHECK_LANES),
           "max_abs_err": seg_err,
-          "tolerance": "|err| <= 4e-6 * sum|members|; paused exact away "
-                       "from the thresholds"})
+          "tolerance": "bit-equal sums; paused equal everywhere"})
     emit({"phase": "batched_step_check",
           **check_batched_step(sims["fig12"], cfg)})
     s128, s32 = sims["clos128_1d"], sims["clos32_2d"]
     traced = {}          # kernel row -> its timed calls, for phase 14
-    timing = {
-        "fused_signals_policy": time_fused(s128, sims["fig12"], dev,
-                                           traced),
-        # the PAUSE tally, the gather plan the 128-GPU step runs every step
-        "segment_reduce": time_segment("segment_reduce", s128,
-                                       s128.plan.pause,
-                                       s128.pp["r_pause"],
-                                       s128.plan.n_links, False, dev,
-                                       traced),
-        # the per-port reduction + hysteresis of the 32-GPU step
-        "segment_reduce_pfc": time_segment("segment_reduce_pfc", s32,
-                                           s32.plan.qport,
-                                           s32.pp["r_qport"],
-                                           4 * s32.plan.n_flows_pad, True,
-                                           dev, traced),
-    }
+    timing = {"fused_signals_policy": time_fused(s128, sims["fig12"], dev,
+                                                 traced)}
+    for name, prefix, label, what in SEGMENT_TIMED:
+        key = name + (f"/{prefix[:-1]}" if prefix else "")
+        row = time_segment(key, name, sims[label], what, dev, traced)
+        timing.setdefault(name, {}).update(
+            {prefix + k: v for k, v in row.items()})
     emit({"phase": "kernel_timing", "gpu": gpu, **timing})
     ccu_check = check_cc_update(dev)
     emit({"phase": "cc_update_check", "kernel": "dcqcn_update", **ccu_check})
@@ -2581,12 +2624,18 @@ def main() -> int:
         fab, wl = scen["clos128_1d"]
         r, launches = run_main(runner, ScenarioSpec(fab, wl, pol),
                                "clos128_1d", "cuda")
-        # one fused launch and one PAUSE-tally reduction per executed step
+        # per executed step: one fused launch, one segment_reduce for
+        # each non-empty plan but qport (gather and split-row alike), one
+        # segment_reduce_pfc for qport
         steps = r.meta["steps_executed"]
-        if launches["fused_signals_policy"] != steps or \
-                launches["segment_reduce"] < steps:
+        seg, pfc = segment_launches(s128.plan)
+        if (launches["fused_signals_policy"], launches["segment_reduce"],
+                launches["segment_reduce_pfc"]) != (steps, seg * steps,
+                                                    pfc * steps):
             raise AssertionError(f"clos128_1d {pol}: {launches} launches "
-                                 f"for {steps} executed steps")
+                                 f"for {steps} executed steps ({seg} "
+                                 f"segment_reduce, {pfc} segment_reduce_pfc "
+                                 "a step)")
         results[("clos128_1d", pol)] = r
     # the 128-GPU op-path side of the kernel-vs-op-path check is the dcqcn
     # lane of phase 5d's policy-axis batch
@@ -2595,8 +2644,13 @@ def main() -> int:
     fab, wl = scen["clos32_2d"]
     r_k, l_k = run_main(runner, ScenarioSpec(fab, wl, "dcqcn"), "clos32_2d",
                         "cuda")
-    if not all(v > 0 for v in l_k.values()):
-        raise AssertionError(f"clos32_2d: a kernel did not run: {l_k}")
+    steps = r_k.meta["steps_executed"]
+    seg, pfc = segment_launches(s32.plan)
+    if (l_k["fused_signals_policy"], l_k["segment_reduce"],
+            l_k["segment_reduce_pfc"]) != (steps, seg * steps, pfc * steps):
+        raise AssertionError(f"clos32_2d: {l_k} launches for {steps} "
+                             f"executed steps ({seg} segment_reduce, {pfc} "
+                             "segment_reduce_pfc a step)")
     r_t, l_t = run_main(runner, ScenarioSpec(fab, wl, "dcqcn"), "clos32_2d",
                         "torch")
     if any(l_t.values()):
@@ -2687,6 +2741,19 @@ def main() -> int:
         timing[name]["device_us"] = device_us(kernel)
         timing[name]["library_device_us"] = (
             None if library is None else device_us(library))
+    # the segment kernels' index_add_ (a PFC row's library_ms is None, but
+    # its sums have the same yardstick), and their split-row plans
+    for name, prefix, _, _ in SEGMENT_TIMED:
+        row = timing[name]
+        if prefix:
+            kernel, library, _ = traced.pop(f"{name}/{prefix[:-1]}")
+            row[prefix + "device_us"] = device_us(kernel)
+            row[prefix + "index_add_device_us"] = device_us(library)
+        else:
+            row["index_add_device_us"] = row["library_device_us"]
+        row[prefix + "library_device_us"] = (
+            None if row[prefix + "library_ms"] is None
+            else row[prefix + "index_add_device_us"])
     fused_t = timing["fused_signals_policy"]
     for prefix, _, _ in FUSED_TIMED[1:]:
         fused_t[prefix + "device_us"] = device_us(
@@ -2698,7 +2765,12 @@ def main() -> int:
         f"fused_signals_policy/{prefix[:-1]}": {
             key: fused_t[prefix + key] for key in (
                 "ms", "ms_hot", "host_us_per_launch", "device_us",
-                "bound_ms")} for prefix, _, _ in FUSED_TIMED[1:]}})
+                "bound_ms")} for prefix, _, _ in FUSED_TIMED[1:]}, **{
+        f"{name}/{prefix[:-1]}": {
+            key: timing[name][prefix + key] for key in (
+                "ms", "host_us_per_launch", "device_us", "index_add_ms",
+                "index_add_device_us", "bound_ms")}
+        for name, prefix, _, _ in SEGMENT_TIMED if prefix}})
 
     # ---- kernel table, device line ----------------------------------------
     # launches: the sum over the paths each kernel runs on, each path's
@@ -2733,7 +2805,8 @@ def main() -> int:
         # DCQCN row, and its launches on the mlp paths (counted in
         # launches too)
         row.update({k: v for k, v in tm.items()
-                    if k.startswith(("mlp_", "b9_"))})
+                    if k.startswith(("mlp_", "b9_", "qlink_", "qport128_",
+                                     "index_add_"))})
         if name == "fused_signals_policy":
             row["mlp_launches"] = mlp_launches[name]
         kernels.append(row)

@@ -235,7 +235,9 @@ def _reduce_plan(ids: np.ndarray, n_in: int, n_out: int,
       gather   (n_out, C) padded gather + row sum, C = max segment size
       gather2  split-row: segments padded to multiples of _SPLIT_C, one
                flat gather + block sum, then a second padded gather over
-               the per-block partial sums
+               the per-block partial sums; ``boff`` (the first block of
+               each segment, and the block count at the end) is the
+               segment kernels' form of ``bidx``
     """
     ids = np.asarray(ids, np.int64).reshape(-1)
     keep = (np.ones(ids.shape, bool) if drop is None
@@ -262,18 +264,24 @@ def _reduce_plan(ids: np.ndarray, n_in: int, n_out: int,
     bidx = np.full((n_out, C2), n_blocks, np.int64)
     for s in np.nonzero(nblk)[0]:
         bidx[s, :nblk[s]] = np.arange(blk_start[s], blk_start[s + 1])
-    return {"perm": perm, "bidx": bidx.reshape(-1)}, \
+    return {"perm": perm, "bidx": bidx.reshape(-1), "boff": blk_start}, \
         ("gather2", n_out, n_blocks, C2)
 
 
 def _plan_tensors(arrs: dict, device) -> dict:
     """Plan index arrays on the device: int64 for the op path's indexing,
-    plus the int32 ``idx32`` the segment kernels take."""
+    plus the int32 copies the segment kernels take (``idx32``; ``perm32``
+    and ``boff32``, and the split-row CTA table ``ctas32``)."""
     out = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
            for k, v in arrs.items()}
-    if "idx" in arrs:
-        out["idx32"] = torch.as_tensor(arrs["idx"], dtype=torch.int32,
-                                       device=device)
+    for k in ("idx", "perm", "boff"):
+        if k in arrs:
+            out[k + "32"] = torch.as_tensor(arrs[k], dtype=torch.int32,
+                                            device=device)
+    if "boff" in arrs:
+        C2 = len(arrs["bidx"]) // (len(arrs["boff"]) - 1)
+        out["ctas32"] = torch.as_tensor(es_ops.split_ctas(arrs["boff"], C2),
+                                        device=device)
     return out
 
 
@@ -301,14 +309,23 @@ def _reduce(strategy, arrs, vals):
                    .reshape(lead + (n_out, C2)), lanes=True)
 
 
-def _reduce_kernel(strategy, arrs, vals):
-    """Kernel-path reduction of ``(B, n_in)`` lanes: the ``"gather"`` plan
-    through the segment kernel, every other plan on the op path (as the
-    reference)."""
+def _kernel_plan(strategy, arrs) -> tuple:
+    """A non-empty plan as the segment kernels' arguments ``(idx, n_out,
+    C, boff, C2, ctas)`` (``kernels.engine_step.ops.segment_reduce``)."""
     if strategy[0] == "gather":
-        return es_ops.segment_reduce(vals.contiguous(), arrs["idx32"],
-                                     strategy[1], strategy[2])
-    return _reduce(strategy, arrs, vals)
+        return arrs["idx32"], strategy[1], strategy[2], None, 1, None
+    _, n_out, _, C2 = strategy
+    return (arrs["perm32"], n_out, _SPLIT_C, arrs["boff32"], C2,
+            arrs["ctas32"])
+
+
+def _reduce_kernel(strategy, arrs, vals):
+    """Kernel-path reduction of ``(B, n_in)`` lanes: every non-empty plan,
+    "gather" and split-row "gather2" alike, is one segment-kernel launch;
+    an empty plan is zeros."""
+    if strategy[0] == "empty":
+        return _reduce(strategy, arrs, vals)
+    return es_ops.segment_reduce(vals, *_kernel_plan(strategy, arrs))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -584,12 +601,13 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
     leading lane axis (``(B,)`` params, ``(B,)`` or ``(B, C)`` leaves).
     Per-run constants (per-class fabric and fault knobs gathered per hop
     or link, wire sizes, thresholds) are computed once here; they are the
-    values the reference recomputes every step.  ``use_kernels`` routes stages 1+2, the ``"gather"``
-    reductions and the PFC hysteresis through the CUDA kernel wrappers
-    (which run their plain versions on CPU tensors), all B lanes in one
-    launch.  The history ring and the queue timeline are updated in place.
-    ``live`` ((B,) bool) freezes the lanes that are False bit for bit, as
-    the reference's per-lane step gate does under ``vmap``.
+    values the reference recomputes every step.  ``use_kernels`` routes
+    stages 1+2, every non-empty reduction plan and the PFC hysteresis
+    through the CUDA kernel wrappers (which run their plain versions on
+    CPU tensors), all B lanes in one launch.  The history ring and the
+    queue timeline are updated in place.  ``live`` ((B,) bool) freezes
+    the lanes that are False bit for bit, as the reference's per-lane
+    step gate does under ``vmap``.
     """
     B = lanes
     dt = cfg.dt
@@ -835,11 +853,12 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         # ---- 6. queues ------------------------------------------------------
         flat_backlog = backlog.reshape(B, -1)
         q_link = reduce_(plan.qlink, pp["r_qlink"], flat_backlog)
-        if use_kernels and plan.qport[0] == "gather":
+        if use_kernels and plan.qport[0] != "empty":
             # ---- 6b+7 fused: per-port occupancy + hysteresis -------------
+            idx, n_out, C, *split = _kernel_plan(plan.qport, pp["r_qport"])
             _, paused = es_ops.segment_reduce_pfc(
-                flat_backlog, pp["r_qport"]["idx32"], plan.qport[1],
-                plan.qport[2], xoff_l, xon_l, k_can, c["paused"])
+                flat_backlog, idx, n_out, C, xoff_l, xon_l, k_can,
+                c["paused"], *split)
         else:
             q_port = reduce_(plan.qport, pp["r_qport"], flat_backlog)
             # ---- 7. PFC per-port hysteresis ---------------------------------

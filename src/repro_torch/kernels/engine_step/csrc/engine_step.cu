@@ -43,12 +43,31 @@
 //       state', rate and win (the engine discards ecn, rtt and util).
 //
 // segment_reduce         replaces engine_step.py::segment_reduce_tiled
-//     (_seg_kernel): out[b, s] = sum_c vals[b, idx[s, c]], where an index
-//     outside [0, n_in) reads 0 (the plan's "+0" slot is n_in).  One warp
-//     per segment row: the C <= 64 members are gathered as <= 2 per lane
-//     into shared memory, then added in the reference's order by one lane.
-//     Bound: bytes (idx and the gathered values); at the main path's
-//     widths (n_out <= 641) the launch itself dominates.
+//     (_seg_kernel): out[b, s] = the sum of segment s's members of lane b,
+//     where a member index outside [0, n_in) reads 0 (the plan's "+0"
+//     slot is n_in).  It takes both plan kinds of engine._reduce_plan in
+//     one launch: "gather" (a padded row of C <= 64 members a segment, the
+//     only kind the Pallas kernel took) and the split row "gather2" (a
+//     segment of any length as 64-wide blocks of perm, whose block sums
+//     are then added over a second level C2 wide), which the TPU's
+//     128-lane rows forced into two gathers and two sums.  A gather plan
+//     runs one warp a segment (segment_gather_kernel); a split row runs
+//     CTAs of consecutive segments packed to about 2,048 members each on
+//     the host (ops.split_ctas), which gather their members into shared
+//     memory with coalesced index loads, add each block in one thread,
+//     then each segment's block partials (segment_split_kernel).  No
+//     atomics: every sum adds in the reference's order (arith.row_sum),
+//     so it is the reference's to the bit.
+//     Bound: bytes (the member indices and the gathered values, 3.9 MB at
+//     the 128-GPU step's qlink plan, 1.2 us at 3.35 TB/s); the launch
+//     itself (about 1.4 us) dominates the gather plans.  The split rows'
+//     values are scattered (a link's members are flows far apart), so
+//     about one 32-byte sector moves through the L2 per 4-byte member:
+//     that, not the byte bound, sets their time (PERF.md).  Measured and
+//     dropped (scripts/time_segment.py): one thread a block gathering its
+//     own 64 members (1.8x slower on the gather plans, each load a cache
+//     line of its own), one CTA of 256 threads a segment (1.5-3x slower
+//     at 9 lanes: mostly idle threads in 5,000 CTAs).
 //
 // segment_reduce_pfc     replaces engine_step.py::segment_reduce_pfc_tiled
 //     (_seg_pfc_kernel): the same per-ingress-port sum, then the PFC
@@ -66,9 +85,9 @@
 // that the reference's CPU backend contracts are explicit fmaf calls with
 // the result's subnormals flushed (fma_ftz); exp is Cephes' expf
 // (cephes_expf); the segment sums add in the reference's order
-// (ordered_row_sum).  DCQCN's p_cnp > ecn_thresh and TIMELY's rtt bands
-// are thresholds that results hinge on, and the simulator amplifies an ulp
-// into a different cut or pause step.
+// (first_level_sum, lanes_sum).  DCQCN's p_cnp > ecn_thresh and TIMELY's
+// rtt bands are thresholds that results hinge on, and the simulator
+// amplifies an ulp into a different cut or pause step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -405,70 +424,276 @@ __global__ void __launch_bounds__(TILE, 4) fused_signals_policy_kernel(
   }
 }
 
-// The reference's order for a power-of-two row of C <= 64 values
-// (repro_torch.core.arith.row_sum): C <= 16 left to right; C == 32 eight
-// strided partial sums, then a halving tree; C == 64 two blocks of 32,
-// each left to right, then their totals.
-__device__ __forceinline__ float ordered_row_sum(const float* v, int C) {
-  if (C <= 16) {
-    float s = v[0];
-    for (int k = 1; k < C; ++k) s = s + v[k];
-    return s;
-  }
-  if (C == 32) {
-    float acc[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      acc[k] = ((v[k] + v[k + 8]) + v[k + 16]) + v[k + 24];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[k] = acc[k] + acc[k + 4];
-    acc[0] = acc[0] + acc[2];
-    acc[1] = acc[1] + acc[3];
-    return acc[0] + acc[1];
-  }
-  float lo = v[0], hi = v[32];
-  for (int k = 1; k < 32; ++k) {
-    lo = lo + v[k];
-    hi = hi + v[32 + k];
-  }
-  return lo + hi;
+// ---- the segment sums -----------------------------------------------------
+
+constexpr int MAX_C2 = 4096;     // widest second level (ops.MAX_C2)
+constexpr int SPLIT_W = 64;      // members a split-row block (engine._SPLIT_C)
+constexpr int SEG_BATCH = 8;     // member loads a thread keeps in flight
+// threads of a split-row CTA, for second levels up to 32 blocks and wider;
+// a CTA gathers SEG_BATCH members a thread at once, split_chunk blocks
+constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_THREADS_WIDE = 1024;
+
+__host__ __device__ constexpr int split_threads(int C2) {
+  return C2 <= 32 ? SPLIT_THREADS : SPLIT_THREADS_WIDE;
 }
 
-// One warp per segment row: the lanes gather the row's (up to 64) values
-// into shared memory in parallel, then lane 0 adds them in the order above.
-template <bool PFC_OUT>
-__global__ void __launch_bounds__(256) segment_reduce_kernel(
-    const float* __restrict__ vals, const int32_t* __restrict__ idx,
-    int n_in, int n_out, int C, float* __restrict__ out,
-    const float* __restrict__ xoff, const float* __restrict__ xon,
-    const uint8_t* __restrict__ can, const uint8_t* __restrict__ prev,
-    uint8_t* __restrict__ paused) {
-  __shared__ float row[8][64];
-  const int warp = threadIdx.x >> 5;
-  const int seg = blockIdx.x * 8 + warp;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  if (seg >= n_out) return;          // uniform across the warp
-  const float* v = vals + (int64_t)b * n_in;
-  const int32_t* ids = idx + (int64_t)seg * C;
+__host__ __device__ constexpr int split_chunk(int C2) {
+  return split_threads(C2) * SEG_BATCH / SPLIT_W;
+}
+
+// Row sums in the reference's order (repro_torch.core.arith.row_sum), over
+// a power-of-two row of C values v(0) .. v(C - 1).  The first level of a
+// plan (a gather row, or a 64-wide block of a split row) sums in the order
+// of row_sum(lanes=False): C <= 16 left to right, else as the second
+// level.  The second level of a split row, over its block partials padded
+// with +0.0 to C2, sums in the order of row_sum(lanes=True):
+//   C <= 32   min(C, 8) strided partial sums (partial k adds v(k),
+//             v(k + 8), ... left to right), then a halving tree over them,
+//             so C = 4 is (v0 + v2) + (v1 + v3);
+//   C >= 64   runs of 32 left to right, then the run totals left to right.
+template <class V>
+__device__ __forceinline__ float run32(const V& v, int r0) {
+  float s = v(r0);
 #pragma unroll
-  for (int c = lane; c < 64; c += 32) {
-    if (c < C) {
-      const int j = ids[c];
-      row[warp][c] = (j >= 0 && j < n_in) ? v[j] : 0.0f;
-    }
+  for (int k = 1; k < 32; ++k) s = s + v(r0 + k);
+  return s;
+}
+
+template <class V>
+__device__ __forceinline__ float lanes_sum(const V& v, int C) {
+  if (C >= 64) {
+    float s = run32(v, 0);
+    for (int r = 32; r < C; r += 32) s = s + run32(v, r);
+    return s;
+  }
+  const int P = C < 8 ? C : 8;
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = k < P ? v(k) : 0.0f;
+  for (int j = P; j < C; j += P) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < P) acc[k] = acc[k] + v(j + k);
+  }
+#pragma unroll
+  for (int h = 4; h >= 1; h >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < h && 2 * h <= P) acc[k] = acc[k] + acc[k + h];
+  }
+  return acc[0];
+}
+
+// row_sum(lanes=False) of a first-level row of C values in shared memory
+template <int C>
+__device__ __forceinline__ float first_level_sum(const float* row) {
+  const auto v = [row](int j) { return row[j]; };
+  if constexpr (C <= 16) {
+    float s = row[0];
+#pragma unroll
+    for (int k = 1; k < C; ++k) s = s + row[k];
+    return s;
+  } else {
+    return lanes_sum(v, C);
+  }
+}
+
+struct SegArgs {
+  const float* vals;          // vals[b * lane_stride + j * stride]
+  int64_t lane_stride, stride;
+  const int32_t* idx;         // a block's members, n_in (or any index
+                              // outside [0, n_in)) = "+0"
+  const int32_t* boff;        // split row: segment s = blocks boff[s] ..
+                              // boff[s + 1] - 1; null: a gather plan
+  const int32_t* ctas;        // split row: CTA i takes segments ctas[i] ..
+                              // ctas[i + 1] - 1
+  int n_in, n_out, C2;
+  float* out;
+  const float* xoff;          // the PFC variant's per-segment inputs
+  const float* xon;
+  const uint8_t* can;
+  const uint8_t* prev;
+  uint8_t* paused;
+};
+
+template <bool PFC_OUT>
+__device__ __forceinline__ void write_sum(const SegArgs& a, int seg,
+                                          float q) {
+  const int64_t o = (int64_t)blockIdx.y * a.n_out + seg;
+  a.out[o] = q;
+  if (PFC_OUT) {
+    const bool over = (q > a.xoff[o]) && (a.can[o] != 0);
+    const bool under = q < a.xon[o];
+    a.paused[o] = over ? 1 : (under ? 0 : (a.prev[o] != 0 ? 1 : 0));
+  }
+}
+
+// A gather plan, lane blockIdx.y: one warp a segment, 8 a CTA.  The lanes
+// gather the segment's W <= 64 members into shared memory, then lane 0
+// adds them in the first level's order; the launch's fixed cost sets the
+// time on the plans the main path runs.
+template <int W, bool PFC_OUT>
+__global__ void __launch_bounds__(256) segment_gather_kernel(
+    const SegArgs a) {
+  __shared__ float row[8][W];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seg = blockIdx.x * 8 + warp;
+  if (seg >= a.n_out) return;             // uniform across the warp
+  const float* v = a.vals + (int64_t)blockIdx.y * a.lane_stride;
+  const int32_t* ids = a.idx + (int64_t)seg * W;
+#pragma unroll
+  for (int c = lane; c < W; c += 32) {
+    const int j = __ldg(ids + c);
+    row[warp][c] = (unsigned)j < (unsigned)a.n_in
+                       ? __ldg(v + (int64_t)j * a.stride)
+                       : 0.0f;
   }
   __syncwarp();
-  if (lane == 0) {
-    const float q = ordered_row_sum(row[warp], C);
-    const int64_t o = (int64_t)b * n_out + seg;
-    out[o] = q;
-    if (PFC_OUT) {
-      const bool over = (q > xoff[o]) && (can[o] != 0);
-      const bool under = q < xon[o];
-      paused[o] = over ? 1 : (under ? 0 : (prev[o] != 0 ? 1 : 0));
+  if (lane == 0) write_sum<PFC_OUT>(a, seg, first_level_sum<W>(row[warp]));
+}
+
+// Gather split-row members [e0, e0 + n) into rows of SPLIT_W + 1 floats
+// (odd, so that thread k reading row k hits bank k + j: no conflicts):
+// coalesced index loads by the whole CTA, SEG_BATCH in flight a thread,
+// then the values they name (+0.0 for a padding slot).
+template <int T>
+__device__ __forceinline__ void load_rows(const SegArgs& a, const float* v,
+                                          int64_t e0, int n, float* rows) {
+  for (int base = threadIdx.x; base < n; base += SEG_BATCH * T) {
+    int j[SEG_BATCH];
+    float x[SEG_BATCH];
+#pragma unroll
+    for (int u = 0; u < SEG_BATCH; ++u) {
+      const int e = base + u * T;
+      j[u] = e < n ? __ldg(a.idx + e0 + e) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < SEG_BATCH; ++u)
+      x[u] = (unsigned)j[u] < (unsigned)a.n_in
+                 ? __ldg(v + (int64_t)j[u] * a.stride)
+                 : 0.0f;
+#pragma unroll
+    for (int u = 0; u < SEG_BATCH; ++u) {
+      const int e = base + u * T;
+      if (e < n) rows[(e / SPLIT_W) * (SPLIT_W + 1) + e % SPLIT_W] = x[u];
     }
   }
+}
+
+// A split-row plan, lane blockIdx.y.  CTA i takes the consecutive
+// segments ctas[i] .. ctas[i + 1] - 1 (ops.split_ctas: together at most
+// split_chunk(C2) blocks, or one wider segment alone), whose blocks are
+// contiguous in perm.  It gathers their members into shared memory,
+// split_chunk blocks at a time (load_rows); thread k adds block k's row in
+// the first level's order into the block partials; then each segment's
+// partials, padded with +0.0 to C2, are added in the second level's
+// order: by one thread a segment, or for a CTA of one segment with C2 >=
+// 64 by thread r for run r of 32 and thread 0 for the run totals.  Every
+// member and padding zero is added in the plain version's order, so the
+// sum is its sum to the bit (backlogs, frames and finish flags are >= 0,
+// so no -0.0 arises anyway).  A segment of more than C2 blocks, or a CTA
+// of more blocks than it holds, is a fault of the plan: its sums are NaN.
+template <int T, bool PFC_OUT>
+__global__ void __launch_bounds__(T) segment_split_kernel(const SegArgs a) {
+  extern __shared__ float rows[];
+  constexpr int CH = T * SEG_BATCH / SPLIT_W;
+  const int t = threadIdx.x;
+  const float* v = a.vals + (int64_t)blockIdx.y * a.lane_stride;
+  const int s0 = a.ctas[blockIdx.x], s1 = a.ctas[blockIdx.x + 1];
+  const int b0 = a.boff[s0];
+  const int nblk = a.boff[s1] - b0;
+  const int held = CH > a.C2 ? CH : a.C2;       // partials' slots
+  float* part = rows + CH * (SPLIT_W + 1);
+  if (nblk < 0 || nblk > (s1 - s0 == 1 ? a.C2 : CH)) {
+    for (int s = s0 + t; s < s1; s += T)
+      write_sum<PFC_OUT>(a, s, __int_as_float(0x7fc00000));
+    return;
+  }
+  for (int c0 = 0; c0 < nblk; c0 += CH) {
+    const int nb = min(CH, nblk - c0);
+    load_rows<T>(a, v, (int64_t)(b0 + c0) * SPLIT_W, nb * SPLIT_W, rows);
+    __syncthreads();
+    for (int k = t; k < nb; k += T)
+      part[c0 + k] = first_level_sum<SPLIT_W>(rows + k * (SPLIT_W + 1));
+    __syncthreads();
+  }
+  if (s1 - s0 == 1 && a.C2 >= 64) {
+    float* runs = part + held;
+    for (int k = nblk + t; k < a.C2; k += T) part[k] = 0.0f;
+    __syncthreads();
+    for (int r = t; r < a.C2 / 32; r += T)
+      runs[r] = run32([part](int j) { return part[j]; }, 32 * r);
+    __syncthreads();
+    if (t == 0) {
+      float q = runs[0];
+      for (int r = 1; r < a.C2 / 32; ++r) q = q + runs[r];
+      write_sum<PFC_OUT>(a, s0, q);
+    }
+    return;
+  }
+  for (int s = s0 + t; s < s1; s += T) {
+    const int off = a.boff[s] - b0, nb = a.boff[s + 1] - a.boff[s];
+    const float* p = part + off;
+    const float q = lanes_sum(
+        [p, nb](int j) { return j < nb ? p[j] : 0.0f; }, a.C2);
+    write_sum<PFC_OUT>(a, s, nb > a.C2 ? __int_as_float(0x7fc00000) : q);
+  }
+}
+
+// shared memory of a split-row launch: CH rows, the partials, the runs
+__host__ __device__ constexpr size_t split_smem(int C2) {
+  return sizeof(float) *
+         ((size_t)split_chunk(C2) * (SPLIT_W + 1) +
+          (split_chunk(C2) > C2 ? split_chunk(C2) : C2) + C2 / 32);
+}
+
+template <int T, bool PFC_OUT>
+cudaError_t launch_split(const SegArgs& a, int B, int n_cta,
+                         cudaStream_t stream) {
+  // above 48 KB of shared memory needs the attribute, set once to the
+  // most a plan of this CTA size takes
+  static const cudaError_t prep = cudaFuncSetAttribute(
+      segment_split_kernel<T, PFC_OUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)split_smem(T == SPLIT_THREADS ? 32 : MAX_C2));
+  if (prep != cudaSuccess) return prep;
+  segment_split_kernel<T, PFC_OUT>
+      <<<dim3(n_cta, B), T, split_smem(a.C2), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool PFC_OUT>
+cudaError_t launch_segment(const SegArgs& a, int B, int C, int n_cta,
+                           cudaStream_t stream) {
+  if (a.boff != nullptr)
+    return split_threads(a.C2) == SPLIT_THREADS
+               ? launch_split<SPLIT_THREADS, PFC_OUT>(a, B, n_cta, stream)
+               : launch_split<SPLIT_THREADS_WIDE, PFC_OUT>(a, B, n_cta,
+                                                           stream);
+  const dim3 grid((a.n_out + 7) / 8, B);
+#define SEG_CASE(W)                                                    \
+  case W:                                                              \
+    segment_gather_kernel<W, PFC_OUT><<<grid, 256, 0, stream>>>(a);    \
+    break;
+  switch (C) {
+    SEG_CASE(1) SEG_CASE(2) SEG_CASE(4) SEG_CASE(8) SEG_CASE(16) SEG_CASE(32)
+    SEG_CASE(64)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SEG_CASE
+  return cudaGetLastError();
+}
+
+bool segment_args_ok(const SegArgs& a, int B, int C, int n_cta) {
+  const bool split = a.boff != nullptr;
+  const bool widths =
+      split ? C == SPLIT_W && a.C2 >= 1 && a.C2 <= MAX_C2 &&
+                  !(a.C2 & (a.C2 - 1)) && a.ctas != nullptr && n_cta >= 1
+            : C >= 1 && C <= 64 && !(C & (C - 1)) && a.C2 == 1;
+  return widths && a.n_out >= 1 && a.n_in >= 0 && B >= 1 && B <= 65535 &&
+         a.stride >= 1 && a.lane_stride >= 0;
 }
 
 // The shared memory above 48 KB needs the attribute, set once per
@@ -623,30 +848,48 @@ int scalar_fn(int which, const float* x, float* y, long n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int segment_reduce(const float* vals, const int32_t* idx, int B, int n_in,
-                   int n_out, int C, float* out, void* stream) {
-  if (C < 1 || C > 64 || (C & (C - 1)) || n_out < 1 || B < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 block(256);                       // 8 segments per block
-  const dim3 grid((n_out + 7) / 8, B);
-  segment_reduce_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-      vals, idx, n_in, n_out, C, out, nullptr, nullptr, nullptr, nullptr,
-      nullptr);
-  return (int)cudaGetLastError();
+// The segment sums of a reduction plan for B lanes: out[b, s] = the sum of
+// segment s's members of lane b (vals[b * lane_stride + j * stride] for
+// member j), in the reference's order.  boff null: a "gather" plan, idx
+// the (n_out, C) member matrix, C2 = 1.  Else a split-row plan: idx is
+// perm, blocks of C = 64 members, segment s is blocks boff[s] ..
+// boff[s + 1] - 1 (at most C2 of them, a power of two <= MAX_C2), and
+// CTA i of the n_cta takes segments ctas[i] .. ctas[i + 1] - 1
+// (ops.split_ctas).  Returns a cudaError_t: 0 when the launch was
+// accepted.
+int segment_reduce(const float* vals, int64_t lane_stride, int64_t stride,
+                   const int32_t* idx, const int32_t* boff,
+                   const int32_t* ctas, int n_cta, int B, int n_in,
+                   int n_out, int C, int C2, float* out, void* stream) {
+  const SegArgs a = {vals, lane_stride, stride,  idx,     boff,
+                     ctas, n_in,        n_out,   C2,      out,
+                     nullptr, nullptr,  nullptr, nullptr, nullptr};
+  if (!segment_args_ok(a, B, C, n_cta)) return (int)cudaErrorInvalidValue;
+  return (int)launch_segment<false>(a, B, C, n_cta, (cudaStream_t)stream);
 }
 
-int segment_reduce_pfc(const float* vals, const int32_t* idx, int B,
-                       int n_in, int n_out, int C, const float* xoff,
-                       const float* xon, const uint8_t* can,
-                       const uint8_t* prev, float* q_out, uint8_t* paused_out,
-                       void* stream) {
-  if (C < 1 || C > 64 || (C & (C - 1)) || n_out < 1 || B < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 block(256);
-  const dim3 grid((n_out + 7) / 8, B);
-  segment_reduce_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-      vals, idx, n_in, n_out, C, q_out, xoff, xon, can, prev, paused_out);
-  return (int)cudaGetLastError();
+// The same sums, then the PFC hysteresis per segment:
+// paused' = (q > xoff & can) ? 1 : (q < xon) ? 0 : prev, all (B, n_out).
+int segment_reduce_pfc(const float* vals, int64_t lane_stride,
+                       int64_t stride, const int32_t* idx,
+                       const int32_t* boff, const int32_t* ctas, int n_cta,
+                       int B, int n_in, int n_out, int C, int C2,
+                       const float* xoff, const float* xon,
+                       const uint8_t* can, const uint8_t* prev, float* q_out,
+                       uint8_t* paused_out, void* stream) {
+  const SegArgs a = {vals, lane_stride, stride, idx,  boff,
+                     ctas, n_in,        n_out,  C2,   q_out,
+                     xoff, xon,         can,    prev, paused_out};
+  if (!segment_args_ok(a, B, C, n_cta)) return (int)cudaErrorInvalidValue;
+  return (int)launch_segment<true>(a, B, C, n_cta, (cudaStream_t)stream);
+}
+
+// The blocks a split-row CTA gathers at once for second-level width C2
+// (ops.split_ctas packs segments into CTAs by it); -1 for a C2 the kernels
+// do not take.
+int segment_split_chunk(int C2) {
+  if (C2 < 1 || C2 > MAX_C2 || (C2 & (C2 - 1))) return -1;
+  return split_chunk(C2);
 }
 
 }  // extern "C"

@@ -13,14 +13,23 @@ policy and state width) and the work items, tiles of ``TILE`` flows of
 one lane, that each block walks (``plan_items`` spells the walk out).  A
 tile's rows reach shared memory by 16-byte ``cp.async`` where every row
 is 16-byte aligned (``vector_copies``), else by 4-byte ``cp.async``.
+The segment kernels take every non-empty reduction plan of the engine
+(``engine._reduce_plan``) in one launch: a "gather" plan as its padded
+``(n_out, C)`` member matrix, a split-row "gather2" plan as ``perm``
+(blocks of 64 members), ``boff`` (each segment's first block) and the
+CTA table ``split_ctas`` (consecutive segments packed into CTAs of about
+equal members), with a second level of at most ``MAX_C2`` blocks; lanes
+may be strided.
 ``scalar_fn`` runs the policies' scalar device functions (exp, tanh, the
-logistic, the flush of a multiply-add's result) elementwise, so that a check can hold each against its plain
-version in ``core/arith.py`` over every float32 input.
+logistic, the flush of a multiply-add's result) elementwise, so that a
+check can hold each against its plain version in ``core/arith.py`` over
+every float32 input.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core import arith
@@ -64,6 +73,12 @@ KERNEL_ABI = {
 # (engine_step.cu: TILE)
 TILE = 128
 
+# the segment kernels' widest second level, in blocks of a split-row
+# segment (engine_step.cu: MAX_C2): segments of up to 262,144 members
+MAX_C2 = 4096
+# members a split-row block (engine._SPLIT_C; engine_step.cu: SPLIT_W)
+SPLIT_W = 64
+
 # the device scalar functions scalar_fn evaluates, by index
 # (engine_step.cu: scalar_fn_kernel), each named as its plain version
 SCALAR_FNS = {"expf": 0, "tanhf": 1, "sigmoidf": 2, "ftz": 3}
@@ -71,14 +86,16 @@ SCALAR_FNS = {"expf": 0, "tanhf": 1, "sigmoidf": 2, "ftz": 3}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 _SIGNATURES = {
     "fused_signals_policy": [_I] + [_P] * 13 + [_F, _F, _F] + [_I] * 4
                             + [_P] * 3 + [_I] * 3 + [_P],
     "fused_signals_policy_resident": [_I, _I, _P],
     "fused_signals_policy_rows": [_I, _I],
     "scalar_fn": [_I, _P, _P, ctypes.c_long, _P],
-    "segment_reduce": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "segment_reduce_pfc": [_P, _P, _I, _I, _I, _I] + [_P] * 7,
+    "segment_reduce": [_P, _L, _L, _P, _P, _P] + [_I] * 6 + [_P, _P],
+    "segment_reduce_pfc": [_P, _L, _L, _P, _P, _P] + [_I] * 6 + [_P] * 7,
+    "segment_split_chunk": [_I],
 }
 
 
@@ -258,40 +275,122 @@ def scalar_fn(name: str, x):
     return y
 
 
-def _check_seg(vals, idx, n_out: int, C: int):
+def split_chunk(C2: int) -> int:
+    """The blocks a split-row CTA of the segment kernels gathers at once
+    for second-level width ``C2``: 256 threads (32 blocks) up to C2 = 32,
+    1,024 (128 blocks) above, 8 members a thread (engine_step.cu:
+    split_chunk)."""
+    return (256 if C2 <= 32 else 1024) * 8 // SPLIT_W
+
+
+def split_ctas(boff, C2: int, chunk: int | None = None) -> np.ndarray:
+    """The CTAs of a split-row plan (block offsets ``boff``, ``n_out + 1``):
+    CTA ``i`` takes segments ``ctas[i]`` to ``ctas[i+1] - 1``, consecutive
+    segments whose blocks together fit ``chunk`` (by default
+    ``split_chunk(C2)``), or one wider segment alone, so that CTAs gather
+    about as many members each."""
+    boff = np.asarray(boff, np.int64)
+    nblk = np.diff(boff)
+    cap = split_chunk(C2) if chunk is None else chunk
+    starts, held = [0], 0
+    for s, n in enumerate(nblk):
+        if s > starts[-1] and held + n > cap:
+            starts.append(s)
+            held = 0
+        held += n
+    return np.asarray(starts + [len(nblk)], np.int32)
+
+
+def _check_seg(vals, idx, n_out: int, C: int, boff, C2: int, ctas=None):
+    """The wrappers' checks of a plan; returns ``(B, n_in)``."""
     if vals.dim() != 2:
         raise ValueError(f"vals must be (B, n_in), got {tuple(vals.shape)}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"vals: expected torch.float32, got {vals.dtype}")
+    if vals.stride(1) < 1 or vals.stride(0) < 0:
+        raise ValueError(f"vals: strides {vals.stride()} are not a lane "
+                         "and an element stride")
     if not 1 <= C <= 64 or C & (C - 1):
-        raise ValueError(f"segment width C={C} is not a power of two in "
-                         "1..64 (wider segments use the gather2 plan)")
+        raise ValueError(f"block width C={C} is not a power of two in "
+                         "1..64")
+    if not 1 <= C2 <= MAX_C2 or C2 & (C2 - 1):
+        raise ValueError(f"second-level width C2={C2} is not a power of two "
+                         f"in 1..{MAX_C2} (the segment kernels' limit)")
     B, n_in = vals.shape
-    _check(vals, "vals", (B, n_in), torch.float32)
-    _check(idx, "idx", (n_out * C,), torch.int32)
+    if B > 65535:
+        raise ValueError(f"{B} lanes: the segment kernels take at most 65535")
+    if boff is None:
+        if C2 != 1:
+            raise ValueError("a gather plan (no boff) has C2 = 1")
+        _check(idx, "idx", (n_out * C,), torch.int32)
+        return B, n_in
+    if C != SPLIT_W:
+        raise ValueError(f"a split-row plan has blocks of {SPLIT_W}, got "
+                         f"C={C}")
+    _check(boff, "boff", (n_out + 1,), torch.int32)
+    if idx.dim() != 1 or idx.shape[0] % C:
+        raise ValueError(f"perm: expected whole blocks of {C}, got shape "
+                         f"{tuple(idx.shape)}")
+    _check(idx, "perm", tuple(idx.shape), torch.int32)
+    if ctas is None or ctas.dim() != 1 or not 2 <= ctas.shape[0] <= n_out + 1:
+        raise ValueError("a split-row plan needs its CTA table "
+                         "(split_ctas), 2 to n_out + 1 entries")
+    _check(ctas, "ctas", tuple(ctas.shape), torch.int32)
     return B, n_in
 
 
-def segment_reduce(vals, idx, n_out: int, C: int):
-    """The plan's "gather" reduction for B lanes: ``vals (B, n_in)``, the
-    flat ``(n_out*C,)`` int32 index matrix with ``n_in`` as the "+0"
-    slot; returns ``(B, n_out)``."""
-    if not _on_cuda((vals, idx)):
-        return ref.segment_reduce_ref(vals, idx, n_out, C)
-    B, n_in = _check_seg(vals, idx, n_out, C)
+def segment_args(vals, idx, boff, n_out: int, C: int, C2: int,
+                 ctas=None) -> list:
+    """The segment entry points' arguments up to the plan's widths: the
+    outputs (and the PFC variant's per-segment inputs) and the stream
+    follow."""
+    B, n_in = vals.shape
+    return [vals.data_ptr(), vals.stride(0), vals.stride(1), idx.data_ptr(),
+            None if boff is None else boff.data_ptr(),
+            None if ctas is None else ctas.data_ptr(),
+            0 if ctas is None else ctas.shape[0] - 1, B, n_in, n_out, C, C2]
+
+
+def segment_reduce(vals, idx, n_out: int, C: int, boff=None, C2: int = 1,
+                   ctas=None):
+    """The sums of a reduction plan (``engine._reduce_plan``) for B lanes:
+    ``out[b, s]`` the sum of segment ``s``'s members of ``vals[b]``, in
+    the reference's order; ``vals (B, n_in)`` float32, any lane and
+    element strides.  Two layouts, each one launch:
+
+      gather     ``idx`` the plan's flat ``(n_out*C,)`` int32 matrix,
+                 ``n_in`` as the "+0" slot; ``boff``, ``ctas`` None,
+                 ``C2`` 1;
+      gather2    ``idx`` the int32 ``perm``, blocks of ``C`` = 64
+                 members, ``boff`` the ``(n_out+1,)`` int32 first block
+                 of each segment, ``C2`` the plan's second-level width
+                 (at most ``MAX_C2``), ``ctas`` the int32 CTA table
+                 (``split_ctas``).
+
+    Returns ``(B, n_out)`` float32."""
+    plan = [x for x in (idx, boff, ctas) if x is not None]
+    if not _on_cuda([vals] + plan):
+        return ref.segment_reduce_ref(vals, idx, n_out, C, boff, C2)
+    B, _ = _check_seg(vals, idx, n_out, C, boff, C2, ctas)
     out = torch.empty((B, n_out), dtype=torch.float32, device=vals.device)
-    _launch("segment_reduce", [vals.data_ptr(), idx.data_ptr(), B, n_in,
-                               n_out, C, out.data_ptr()])
+    _launch("segment_reduce",
+            segment_args(vals, idx, boff, n_out, C, C2, ctas)
+            + [out.data_ptr()])
     return out
 
 
 def segment_reduce_pfc(vals, idx, n_out: int, C: int, xoff, xon, can_pause,
-                       prev_paused):
-    """Per-ingress-port occupancy + PFC hysteresis for B lanes: ``xoff``,
-    ``xon`` float32 and ``can_pause``, ``prev_paused`` bool, all ``(B,
-    n_out)``.  Returns ``(q (B, n_out) float32, paused (B, n_out) bool)``."""
+                       prev_paused, boff=None, C2: int = 1, ctas=None):
+    """Per-ingress-port occupancy (``segment_reduce``, either layout) + PFC
+    hysteresis for B lanes: ``xoff``, ``xon`` float32 and ``can_pause``,
+    ``prev_paused`` bool, all ``(B, n_out)``.  Returns ``(q (B, n_out)
+    float32, paused (B, n_out) bool)``."""
     per_seg = (xoff, xon, can_pause, prev_paused)
-    if not _on_cuda((vals, idx) + per_seg):
-        return ref.segment_reduce_pfc_ref(vals, idx, n_out, C, *per_seg)
-    B, n_in = _check_seg(vals, idx, n_out, C)
+    plan = [x for x in (idx, boff, ctas) if x is not None]
+    if not _on_cuda([vals] + plan + list(per_seg)):
+        return ref.segment_reduce_pfc_ref(vals, idx, n_out, C, *per_seg,
+                                          boff, C2)
+    B, _ = _check_seg(vals, idx, n_out, C, boff, C2, ctas)
     _check(xoff, "xoff", (B, n_out), torch.float32)
     _check(xon, "xon", (B, n_out), torch.float32)
     _check(can_pause, "can_pause", (B, n_out), torch.bool)
@@ -299,7 +398,7 @@ def segment_reduce_pfc(vals, idx, n_out: int, C: int, xoff, xon, can_pause,
     q = torch.empty((B, n_out), dtype=torch.float32, device=vals.device)
     paused = torch.empty((B, n_out), dtype=torch.bool, device=vals.device)
     _launch("segment_reduce_pfc",
-            [vals.data_ptr(), idx.data_ptr(), B, n_in, n_out, C,
-             xoff.data_ptr(), xon.data_ptr(), can_pause.data_ptr(),
-             prev_paused.data_ptr(), q.data_ptr(), paused.data_ptr()])
+            segment_args(vals, idx, boff, n_out, C, C2, ctas)
+            + [xoff.data_ptr(), xon.data_ptr(), can_pause.data_ptr(),
+               prev_paused.data_ptr(), q.data_ptr(), paused.data_ptr()])
     return q, paused

@@ -69,21 +69,50 @@ def fused_signals_policy_ref(policy, q_d, tx_d, caps, ecn_mask, hopmask,
     return torch.stack(st_out), torch.stack(rates), torch.stack(wins)
 
 
-def segment_reduce_ref(vals, idx, n_out: int, C: int):
-    """``engine._reduce``'s "gather" strategy: ``out[..., s] =
-    sum(vals[..., idx[s*C:(s+1)*C]])`` where an index ``>= n_in`` reads 0.
-    ``vals`` is ``(n_in,)`` or ``(B, n_in)``; ``idx`` the plan's flat
-    ``(n_out*C,)`` matrix."""
+def segment_reduce_ref(vals, idx, n_out: int, C: int, boff=None,
+                       C2: int = 1, ctas=None):
+    """``engine._reduce``'s sums of a reduction plan, ``vals`` ``(n_in,)``
+    or ``(B, n_in)``; an index ``>= n_in`` reads 0.  ``boff`` None: the
+    "gather" plan, ``idx`` its flat ``(n_out*C,)`` matrix, ``out[..., s] =
+    row_sum(vals[..., idx[s*C:(s+1)*C]])``.  Else the split-row
+    ("gather2") plan in the kernels' layout: ``idx`` is ``perm``, blocks of
+    ``C`` (64) members; segment ``s`` is blocks ``boff[s]`` to ``boff[s+1]
+    - 1``, whose block sums are added as a row of ``C2`` padded with zeros
+    (``row_sum(lanes=True)``), as ``_reduce`` adds them through ``bidx``.
+    ``ctas``, the kernels' CTA table, does not change the sums."""
+    lead = vals.shape[:-1]
     n_in = vals.shape[-1]
-    ext = torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (1,))], dim=-1)
-    rows = ext[..., torch.clamp_max(idx.long(), n_in)]
-    return row_sum(rows.reshape(vals.shape[:-1] + (n_out, C)))
+    rows = _zero_ext(vals)[..., torch.clamp_max(idx.long(), n_in)]
+    if boff is None:
+        return row_sum(rows.reshape(lead + (n_out, C)))
+    n_blocks = idx.shape[0] // C
+    bsum = row_sum(rows.reshape(lead + (n_blocks, C)))
+    return row_sum(_zero_ext(bsum)[..., block_rows(boff, C2, n_blocks)]
+                   .reshape(lead + (n_out, C2)), lanes=True)
+
+
+def block_rows(boff, C2: int, n_blocks: int):
+    """The split-row plan's padded second level from block offsets: the
+    flat ``(n_out*C2,)`` ``bidx`` of ``engine._reduce_plan``, segment
+    ``s``'s blocks ``boff[s] + k`` for ``k`` below its count, then
+    ``n_blocks`` (the "+0" slot)."""
+    boff = boff.long()
+    k = torch.arange(C2, device=boff.device)
+    start = boff[:-1, None]
+    return torch.where(k < boff[1:, None] - start, start + k,
+                       n_blocks).reshape(-1)
+
+
+def _zero_ext(vals):
+    return torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (1,))], dim=-1)
 
 
 def segment_reduce_pfc_ref(vals, idx, n_out: int, C: int, xoff, xon,
-                           can_pause, prev_paused):
-    """Gather reduction + the engine's PFC hysteresis (stages 6-7)."""
-    q = segment_reduce_ref(vals, idx, n_out, C)
+                           can_pause, prev_paused, boff=None, C2: int = 1,
+                           ctas=None):
+    """A plan's reduction (``segment_reduce_ref``) + the engine's PFC
+    hysteresis (stages 6-7)."""
+    q = segment_reduce_ref(vals, idx, n_out, C, boff, C2)
     over = (q > xoff) & can_pause.to(torch.bool)
     under = q < xon
     paused = torch.where(over, True,

@@ -274,6 +274,87 @@ def test_segment_kernels_match_plain(dev, C):
     assert torch.equal(paused, paused_r)
 
 
+def _split_plan(C2: int, dev, n_out: int = 300):
+    """A split-row plan of second-level width ``C2`` (segment 0 hot, a
+    tenth of the entries dropped) in the kernels' layout, and its input
+    width."""
+    n_in = max(4000, 64 * C2 + 2000)
+    rng = np.random.default_rng(C2)
+    ids = rng.integers(0, n_out, n_in)
+    ids[:64 * C2 * 3 // 4] = 0
+    arrs, strat = peng._reduce_plan(ids, n_in, n_out,
+                                    drop=rng.random(n_in) < 0.1)
+    assert strat[0] == "gather2" and strat[3] == C2
+    return peng._kernel_plan(strat, peng._plan_tensors(arrs, dev)), n_in
+
+
+@pytest.mark.parametrize("B", [1, 9])
+@pytest.mark.parametrize("C2", [2, 4, 16, 32, 64, 256, 1024, 4096])
+def test_segment_kernels_split_row_bit_equal(dev, C2, B):
+    """Split-row ("gather2") plans, up to the widest second level the
+    kernels take: sums equal to the plain version's to the bit (max abs
+    err 0.0), ``paused`` equal everywhere, also on strided lanes."""
+    kplan, n_in = _split_plan(C2, dev)
+    idx, n_out, C, *split = kplan
+    rng = np.random.default_rng(C2 + B)
+    x = rng.uniform(0, 2e6, (B, n_in)) * (rng.random((B, n_in)) < 0.7)
+    vals = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    wide = torch.zeros((B, n_in, 4), dtype=torch.float32, device=dev)
+    wide[..., 2] = vals
+    for v in (vals, wide[..., 2]):
+        got = ops.segment_reduce(v, *kplan)
+        want = ref.segment_reduce_ref(v, *kplan)
+        assert torch.equal(got, want)
+    assert float(want[:, 0].min()) > 0
+    xoff = (want * torch.as_tensor(rng.uniform(0.5, 1.5, (B, n_out)),
+                                   dtype=torch.float32, device=dev))
+    xoff[:, ::3] = want[:, ::3]
+    xon = (xoff * 0.8).contiguous()
+    can = torch.as_tensor(rng.random((B, n_out)) < 0.7, device=dev)
+    prev = torch.as_tensor(rng.random((B, n_out)) < 0.5, device=dev)
+    q, paused = ops.segment_reduce_pfc(wide[..., 2], idx, n_out, C,
+                                       xoff.contiguous(), xon, can, prev,
+                                       *split)
+    q_r, paused_r = ref.segment_reduce_pfc_ref(vals, idx, n_out, C, xoff,
+                                               xon, can, prev, *split)
+    assert torch.equal(q, q_r)
+    assert torch.equal(paused, paused_r)
+
+
+def test_segment_kernels_reject_plans_outside_their_limits(dev):
+    """A second level wider than ``MAX_C2``, plan arrays of the wrong type
+    or on another device, a gather plan with C2 > 1: the wrappers raise
+    and launch nothing."""
+    (idx, n_out, C, boff, C2, ctas), n_in = _split_plan(4, dev)
+    vals = torch.zeros((2, n_in), device=dev)
+    ops.reset_launches()
+    with pytest.raises(ValueError):
+        ops.segment_reduce(vals, idx, n_out, C, boff, 2 * ops.MAX_C2, ctas)
+    with pytest.raises(TypeError):
+        ops.segment_reduce(vals, idx.long(), n_out, C, boff, C2, ctas)
+    with pytest.raises(TypeError):
+        ops.segment_reduce(vals, idx, n_out, C, boff.long(), C2, ctas)
+    with pytest.raises(TypeError):
+        ops.segment_reduce(vals.double(), idx, n_out, C, boff, C2, ctas)
+    with pytest.raises(ValueError):
+        ops.segment_reduce(vals, idx, n_out, C, boff.cpu(), C2, ctas)
+    with pytest.raises(ValueError):
+        ops.segment_reduce(vals, idx, n_out, C, boff, C2, None)
+    with pytest.raises(ValueError):
+        ops.segment_reduce(vals, idx[:n_out * C], n_out, C, None, C2)
+    flags = torch.zeros((2, n_out), dtype=torch.bool, device=dev)
+    x = torch.zeros((2, n_out), device=dev)
+    with pytest.raises(ValueError):
+        ops.segment_reduce_pfc(vals, idx, n_out, C, x, x, flags, flags,
+                               boff, 2 * ops.MAX_C2, ctas)
+    assert not any(ops.LAUNCHES.values())
+    # the CTA table's chunk is the kernel's
+    for c2 in (1, 2, 32, 64, 256, ops.MAX_C2):
+        assert ops.kernel_function("segment_split_chunk")(c2) == \
+            ops.split_chunk(c2)
+    assert ops.kernel_function("segment_split_chunk")(3) == -1
+
+
 def test_wrappers_reject_bad_inputs(dev):
     vals = torch.zeros((1, 10), device=dev)
     idx = torch.zeros(3 * 8, dtype=torch.int64, device=dev)
