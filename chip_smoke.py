@@ -18,7 +18,13 @@ serves TinyLlama-1.1B (full width and depth) through ``python -m
 repro_torch.launch.serve``'s entry point and on a 32,768-token cache with
 decode attention in the flash-decode kernel, and checks the results
 against the plain paths, the port's serial runs and constants from the
-JAX reference.
+JAX reference.  Three gradient phases run through autograd on the op path
+(no kernel has a backward), each in a process of its own beside the main
+process's simulator phases: ``examples/cc_autotune.py``'s CC and fabric
+tunings (``autotune_incast8``), two Adam steps of the ``mlp`` trainer's
+curriculum (``learn_step``), and the soft cost's gradient at 32 GPUs
+against the reference and at the paper's 128 GPUs with remat
+(``soft_grad``).
 
     python3 chip_smoke.py
 
@@ -264,6 +270,128 @@ HELDOUT_REFERENCE = {
             "pause_frames": 0.0},
 }
 
+# autotune_incast8: examples/cc_autotune.py's scenario and settings (an
+# 8-GPU single switch, a 7 x 10 MB incast, DCQCN), its CC tuning and its
+# fabric tuning, each cut to its first 2 descent steps of 10 and 6 (one
+# takes about 26 s on the card, and the third follows a gradient that is
+# not reproducible: PERF.md)
+AUTOTUNE_GPUS, AUTOTUNE_BYTES = 8, 10e6
+AUTOTUNE_CFG = dict(dt=2e-6, max_steps=2200, max_extends=0)
+AUTOTUNE_RUNS = {
+    "cc": dict(tune_keys=["rai_frac", "rhai_frac", "g"], steps=2, lr=0.25,
+               population=4),
+    "fabric": dict(tune_keys=[], fabric_keys=["kmin", "kmax"], steps=2,
+                   lr=0.3, population=3),
+}
+# learn_step: Adam steps of the mlp trainer on curriculum_default()
+LEARN_STEPS = 2
+# soft_grad: the gradient's keys (fabric.<field> for a FabricParams leaf)
+SOFT_GRAD_KEYS = ("rai_frac", "g", "fabric.kmin")
+# remat segment length of the 128-GPU gradient (PERF.md: chosen by
+# measuring 100 and 300)
+SOFT_GRAD_CHUNK = 100
+
+# The JAX reference (CPU) for these three, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py \
+#       autotune_incast8 learn_step soft_grad:clos32_2d
+# (jax 0.9.0, numpy 2.0.2).  Losses rtol 1e-5, weights and gradients rtol
+# 1e-3, the soft cost bit for bit; the tunings as compare_tune says.
+AUTOTUNE_REFERENCE = {"cc": {"history": [{"step": 0,
+                     "cost": 0.0017386175459250808,
+                     "population_costs": [0.0018142336048185825,
+                                          0.0017433405155315995,
+                                          0.0017805378884077072,
+                                          0.0017386175459250808],
+                     "projected": [],
+                     "nonfinite_members": [],
+                     "rai_frac": 0.03267158940434456,
+                     "rhai_frac": 0.06007659435272217,
+                     "g": 0.004044985864311457},
+                    {"step": 1,
+                     "cost": 0.0016733489464968443,
+                     "population_costs": [0.0016733489464968443,
+                                          0.0024312317837029696,
+                                          0.0023023427929729223,
+                                          0.0016735399840399623],
+                     "projected": [],
+                     "nonfinite_members": [],
+                     "rai_frac": 0.3654748499393463,
+                     "rhai_frac": 0.6091246604919434,
+                     "g": 0.0003206445253454149}],
+        "baseline_cost": 0.0018142336048185825,
+        "tuned_cost": 0.0016733489464968443},
+ "fabric": {"history": [{"step": 0,
+                         "cost": 0.0017284487839788198,
+                         "population_costs": [0.0018142412882298231,
+                                              0.0017284487839788198,
+                                              0.0017672808608040214],
+                         "projected": [],
+                         "nonfinite_members": [],
+                         "fabric.kmin": 446318.9375,
+                         "fabric.kmax": 1330869.625},
+                        {"step": 1,
+                         "cost": 0.0014863661490380764,
+                         "population_costs": [0.0017705147620290518,
+                                              0.0018322623800486326,
+                                              0.0014863661490380764],
+                         "projected": [],
+                         "nonfinite_members": [],
+                         "fabric.kmin": 5564950.5,
+                         "fabric.kmax": 21828676.0}],
+            "baseline_cost": 0.0018142412882298231,
+            "tuned_cost": 0.0014863661490380764}}
+LEARN_REFERENCE = {"history": [{"loss": 2.5,
+              "per_task": {"incast8": 0.0005157451378181577,
+                           "ring16": 0.001940512447617948,
+                           "incast8_lossy_irn": 0.0005178329884074628},
+              "grad_norm": 1.49219732097982},
+             {"loss": 2.249004244625685,
+              "per_task": {"incast8": 0.000466607918497175,
+                           "ring16": 0.00173073704354465,
+                           "incast8_lossy_irn": 0.0004685161984525621},
+              "grad_norm": 1.3991786661934011}],
+ "weights": {"w1_00": 0.02514604421867866,
+             "w1_01": -0.026420972658260378,
+             "w1_02": 0.22800037592394692,
+             "w1_03": 0.12081677031439528,
+             "w1_04": -0.007260227113869082,
+             "w1_05": 0.1723329128411118,
+             "b1_0": 0.10001231191739615,
+             "w1_10": 0.26080000902602746,
+             "w1_11": 0.18941619262584844,
+             "w1_12": -0.10613439348482653,
+             "w1_13": -0.21928498064500807,
+             "w1_14": -0.09049292223100278,
+             "w1_15": 0.04423692508763531,
+             "b1_1": 0.035944344585991196,
+             "w1_20": -0.46500615492776687,
+             "w1_21": -0.043758332786509146,
+             "w1_22": -0.34902458627072186,
+             "w1_23": -0.24620649324182087,
+             "w1_24": -0.208646167788734,
+             "w1_25": -0.16322701498983244,
+             "b1_2": -0.09996443622055823,
+             "w1_30": 0.08232610727482657,
+             "w1_31": 0.20850267388853552,
+             "w1_32": -0.124841008226725,
+             "w1_33": 0.1739824054086092,
+             "w1_34": -0.23227221414530846,
+             "w1_35": -0.02851495298294693,
+             "b1_3": -0.09882287012582182,
+             "w2_00": 0.27737934072067805,
+             "w2_01": -0.06393975259244115,
+             "w2_02": -0.24768194711356592,
+             "w2_03": -0.16315545497461909,
+             "b2_0": -6.400042164433112,
+             "w2_10": -0.0002674441264243488,
+             "w2_11": -0.03646668933225707,
+             "w2_12": -0.29503770150605424,
+             "w2_13": -0.026223019691899038,
+             "b2_1": -0.9036360603609014}}
+SOFT_GRAD_REFERENCE = {"clos32_2d": {"soft_cost": 0.0013953729066997766,
+               "grad": {"rai_frac": -0.00022894320136401802,
+                        "g": -0.00012396377860568464,
+                        "fabric.kmin": -5.853551532375434e-10}}}
 
 
 # dlrm_reference: Table II widths with small tables, weights from numpy
@@ -1801,6 +1929,296 @@ def mlp_heldout16(gpu: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 5j-5l: gradients through the simulator (op path, autograd)
+# ---------------------------------------------------------------------------
+
+def rel_err(got, want) -> float:
+    """|got - want| / |want| (|got - want| where want is 0)."""
+    got, want = float(got), float(want)
+    return abs(got - want) / abs(want) if want else abs(got - want)
+
+
+def no_kernel_launches(before: dict, what: str) -> None:
+    from repro_torch.kernels.engine_step import ops
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                if ops.LAUNCHES[k] != before[k]}
+    if launched:
+        raise AssertionError(f"{what}: the gradient path launched kernels "
+                             f"{launched}")
+
+
+def compare_tune(res, want: dict, what: str) -> dict:
+    """An autotune result against the reference's history: the first
+    step's population costs within rtol 5e-3 and the descent lowering the
+    cost; every step's cost and parameter error is reported.  (The
+    reference's compiled, vmapped cost decodes some members' z-space
+    values an ulp away from its eager exp, the history's and the port's
+    value, and an ulp of a start value moves this incast's cost by up to
+    2.6e-3, after which the trajectories separate: PERF.md.  Where the
+    decoded values agree the histories agree within rtol 1e-5 and 1e-3,
+    ``tests/test_torch_autotune.py``.)"""
+    if len(res.history) != len(want["history"]):
+        raise AssertionError(f"{what}: {len(res.history)} steps, reference "
+                             f"{len(want['history'])}")
+    cost_err = param_err = 0.0
+    for h, w in zip(res.history, want["history"]):
+        for a, b in zip([h["cost"]] + h["population_costs"],
+                        [w["cost"]] + w["population_costs"]):
+            cost_err = max(cost_err, rel_err(a, b))
+        for k in w:
+            if k not in ("step", "cost", "population_costs", "projected",
+                         "nonfinite_members"):
+                param_err = max(param_err, rel_err(h[k], w[k]))
+    start_err = max(rel_err(a, b) for a, b in zip(
+        res.history[0]["population_costs"],
+        want["history"][0]["population_costs"]))
+    row = {"steps": len(res.history), "baseline_cost": res.baseline_cost,
+           "tuned_cost": res.tuned_cost,
+           "reference_baseline_cost": want["baseline_cost"],
+           "reference_tuned_cost": want["tuned_cost"],
+           "start_costs_max_rel_err": start_err,
+           "cost_max_rel_err": cost_err, "param_max_rel_err": param_err}
+    if start_err > 5e-3 or not res.tuned_cost < res.baseline_cost:
+        raise AssertionError(f"{what}: {row} (start costs rtol 5e-3, tuned "
+                             "below baseline)")
+    return row
+
+
+def autotune_incast8(gpu: str) -> None:
+    """``examples/cc_autotune.py``'s CC and fabric tunings through
+    ``autotune_spec`` on the card (one batched value-and-grad a descent
+    step, the population on the lane axis), each history against the
+    reference's."""
+    from repro_torch.core import (EngineConfig, FabricSpec, IncastSpec,
+                                  ScenarioSpec, autotune_spec, make_dcqcn)
+    from repro_torch.kernels.engine_step import ops
+    spec = ScenarioSpec(FabricSpec("single", 1, 1, AUTOTUNE_GPUS),
+                        IncastSpec(AUTOTUNE_GPUS - 1, AUTOTUNE_BYTES),
+                        make_dcqcn())
+    rows = {}
+    for run, kw in AUTOTUNE_RUNS.items():
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        res = autotune_spec(spec, cfg=EngineConfig(**AUTOTUNE_CFG), **kw)
+        wall = time.perf_counter() - t0
+        no_kernel_launches(before, f"autotune {run}")
+        rows[run] = {"population": kw["population"],
+                     "s_per_descent_step": wall / kw["steps"],
+                     **compare_tune(res, AUTOTUNE_REFERENCE[run],
+                                    f"autotune {run}")}
+    emit({"phase": "autotune_incast8", "gpu": gpu, "device": "cuda",
+          "kernel_launches": 0, **rows})
+
+
+def learn_step(gpu: str) -> None:
+    """``LEARN_STEPS`` Adam steps of the ``mlp`` trainer on
+    ``curriculum_default()`` (3 tasks, the 3 default fabric corners as
+    lanes, remat, seed 0) on the card: each task's cost, the loss and the
+    gradient norm of each step and the 40 weights against the
+    reference's."""
+    import repro_torch.learn.train  # noqa: F401  (the package exports train)
+    from repro_torch.kernels.engine_step import ops
+    tr = sys.modules["repro_torch.learn.train"]
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    res = tr.train(tr.TrainConfig(steps=LEARN_STEPS, seed=0),
+                   engine_cfg=tr.default_engine_cfg())
+    wall = time.perf_counter() - t0
+    no_kernel_launches(before, "learn_step")
+    want = LEARN_REFERENCE
+    cost_err = max(max(rel_err(h["loss"], w["loss"]), *(
+        rel_err(h["per_task"][k], v) for k, v in w["per_task"].items()))
+        for h, w in zip(res.history, want["history"]))
+    grad_err = max(rel_err(h["grad_norm"], w["grad_norm"])
+                   for h, w in zip(res.history, want["history"]))
+    weight_err = max(rel_err(res.weights[k], v)
+                     for k, v in want["weights"].items())
+    row = {"steps": len(res.history), "s_per_adam_step": wall / LEARN_STEPS,
+           "losses": [h["loss"] for h in res.history],
+           "per_task": [h["per_task"] for h in res.history],
+           "cost_max_rel_err": cost_err, "grad_norm_max_rel_err": grad_err,
+           "weight_max_rel_err": weight_err}
+    emit({"phase": "learn_step", "gpu": gpu, "device": "cuda",
+          "kernel_launches": 0, **row,
+          "tolerance": "costs rtol 1e-5, weights and grad norms rtol 1e-3"})
+    if (len(res.history) != len(want["history"]) or cost_err > 1e-5
+            or weight_err > 1e-3 or grad_err > 1e-3):
+        raise AssertionError(f"learn_step: {row}")
+
+
+def soft_grad_run(sim, remat: bool) -> tuple:
+    """The soft cost and its gradient w.r.t. ``SOFT_GRAD_KEYS`` on the
+    card: ``(value, grads, forward s, backward s, peak bytes above the
+    start)``."""
+    import torch
+    from repro_torch.core import FabricParams
+    cc_keys = [k for k in SOFT_GRAD_KEYS if not k.startswith("fabric.")]
+    fab_keys = [k.split(".")[1] for k in SOFT_GRAD_KEYS
+                if k.startswith("fabric.")]
+    leaves = {k: torch.tensor(np.float32(sim.policy.params[k]),
+                              device="cuda", requires_grad=True)
+              for k in cc_keys}
+    fleaves = {k: torch.tensor(np.float32(getattr(sim.fabric, k)),
+                               device="cuda", requires_grad=True)
+               for k in fab_keys}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v = sim.soft_cost_fn(remat=remat)(leaves, sim.fabric.replace(**fleaves))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g = torch.autograd.grad(v, [*leaves.values(), *fleaves.values()],
+                            allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = dict(zip(SOFT_GRAD_KEYS, (float(x) for x in g)))
+    return (float(v.detach()), grads, t1 - t0, t2 - t1,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
+    """The soft cost and its gradient through autograd on the op path:
+    at 32 GPUs against the reference's value (bit for bit) and gradient;
+    at the paper's 128 GPUs (``remat``, ``SOFT_GRAD_CHUNK`` steps a
+    segment) with a finite gradient; each value bit-equal to the forward
+    runs' ``Results.soft_cost`` of phases 3-4, which ``forward()``
+    returns (scenario -> soft cost and executed steps);
+    ``step_impl="cuda"`` refuses it."""
+    import dataclasses
+    from repro_torch.core import ScenarioSpec
+    from repro_torch.kernels.engine_step import ops
+    rows = {}
+    for label, remat, chunk in (("clos32_2d", False, None),
+                                ("clos128_1d", True, SOFT_GRAD_CHUNK)):
+        fab, wl = scen[label]
+        cfg = runner.cfg if chunk is None else dataclasses.replace(
+            runner.cfg, chunk_steps=chunk)
+        sim = runner.simulator(*ScenarioSpec(fab, wl, "dcqcn").build(), cfg)
+        before = dict(ops.LAUNCHES)
+        v, grads, fwd_s, bwd_s, peak = soft_grad_run(sim, remat)
+        no_kernel_launches(before, f"soft_grad {label}")
+        rows[label] = {"remat": remat, "chunk_steps": chunk,
+                       "soft_cost": v, "grad": grads,
+                       "seconds": fwd_s + bwd_s, "fwd_s": fwd_s,
+                       "bwd_s": bwd_s, "peak_bytes": peak}
+    fwd = forward()
+    for label, row in rows.items():
+        steps = fwd[label]["steps_executed"]
+        row.update(steps=steps,
+                   fwd_host_ms_per_step=1e3 * row.pop("fwd_s") / steps,
+                   bwd_host_ms_per_step=1e3 * row.pop("bwd_s") / steps,
+                   forward_run_soft_cost=fwd[label]["soft_cost"])
+        if row["soft_cost"] != row["forward_run_soft_cost"] or not all(
+                np.isfinite(x) for x in row["grad"].values()):
+            raise AssertionError(f"soft_grad {label}: {row}")
+        v, grads = row["soft_cost"], row["grad"]
+        want = SOFT_GRAD_REFERENCE.get(label)
+        if want is not None:
+            row["grad_max_rel_err"] = max(rel_err(grads[k], w)
+                                          for k, w in want["grad"].items())
+            row["reference_soft_cost"] = want["soft_cost"]
+            if v != want["soft_cost"] or row["grad_max_rel_err"] > 1e-3:
+                raise AssertionError(f"soft_grad {label} vs the reference: "
+                                     f"{row}")
+    kern = runner.simulator(*ScenarioSpec(*scen["clos32_2d"], "dcqcn").build(),
+                            dataclasses.replace(runner.cfg,
+                                                step_impl="cuda"))
+    try:
+        kern.soft_cost_fn()
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("soft_cost_fn ran with step_impl='cuda'")
+    emit({"phase": "soft_grad", "gpu": gpu, "keys": list(SOFT_GRAD_KEYS),
+          "kernel_launches": 0, **rows, "cuda_step_impl_refused": refused,
+          "tolerance": "soft cost bit-equal; gradient finite, rtol 1e-3 "
+                       "of the reference where it is known"})
+
+
+GRAD_PHASES = ("learn_step", "soft_grad", "autotune_incast8")
+
+
+def start_grad_phases(tmp: Path) -> dict:
+    """Each gradient phase in a process of its own (``--grad-phase``),
+    beside the main process's phases 3-5i: all of them are bound by one
+    host core each, not by the card.  Output goes to files in ``tmp``."""
+    procs = {}
+    for name in GRAD_PHASES:
+        out = open(tmp / f"{name}.out", "w")
+        err = open(tmp / f"{name}.err", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--grad-phase",
+             name], stdin=subprocess.PIPE, stdout=out, stderr=err,
+            text=True), out, err)
+    return procs
+
+
+def finish_grad_phases(procs: dict, tmp: Path, forward: dict) -> None:
+    """Hand ``soft_grad`` the forward runs' soft costs, wait for every
+    gradient phase, print its lines, and fail if one failed."""
+    stdin = procs["soft_grad"][0].stdin
+    stdin.write(json.dumps(forward) + "\n")
+    stdin.close()
+    failed = []
+    for name, (proc, out, err) in procs.items():
+        proc.wait()
+        out.close()
+        err.close()
+        sys.stdout.write((tmp / f"{name}.out").read_text())
+        sys.stdout.flush()
+        if proc.returncode:
+            failed.append(f"{name} (exit {proc.returncode}): "
+                          + (tmp / f"{name}.err").read_text()[-3000:])
+    if failed:
+        raise AssertionError("gradient phases failed: " + "; ".join(failed))
+
+
+def stop_processes(procs: dict) -> None:
+    for proc, out, err in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+
+
+def grad_phase_main(name: str) -> int:
+    """One gradient phase in this process (``main`` starts it)."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import EngineConfig, SweepRunner
+    gpu = gpu_line()
+    if name == "autotune_incast8":
+        autotune_incast8(gpu)
+    elif name == "learn_step":
+        learn_step(gpu)
+    else:
+        runner = SweepRunner(EngineConfig(dt=DT, max_steps=6000,
+                                          max_extends=6, queue_stride=0),
+                             device="cuda")
+
+        def forward():
+            return json.loads(sys.stdin.readline())
+        soft_grad(runner, main_scenarios(), forward, gpu)
+    return 0
+
+
+def main_scenarios() -> dict:
+    """The 128-GPU 1D and 32-GPU 2D all-reduces of phases 3-4."""
+    from repro_torch.core import CollectiveSpec, FabricSpec
+    return {
+        "clos128_1d": (FabricSpec("clos", n_racks=8, nodes_per_rack=2,
+                                  gpus_per_node=8, oversubscription=2.0),
+                       CollectiveSpec("1d", 128e6)),
+        "clos32_2d": (FabricSpec("clos", n_racks=2, nodes_per_rack=2,
+                                 gpus_per_node=8, oversubscription=2.0),
+                      CollectiveSpec("2d", 128e6)),
+    }
+
+
+# ---------------------------------------------------------------------------
 # phases 6-9: the DLRM path
 # ---------------------------------------------------------------------------
 
@@ -2533,8 +2951,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    from repro_torch.core import (CollectiveSpec, EngineConfig, FabricSpec,
-                                  ScenarioSpec, SweepRunner)
+    from repro_torch.core import EngineConfig, ScenarioSpec, SweepRunner
     from repro_torch.kernels import build
     from repro_torch.kernels.engine_step import ops
 
@@ -2562,14 +2979,7 @@ def main() -> int:
 
     cfg = EngineConfig(dt=DT, max_steps=6000, max_extends=6, queue_stride=0)
     runner = SweepRunner(cfg, device="cuda")
-    scen = {
-        "clos128_1d": (FabricSpec("clos", n_racks=8, nodes_per_rack=2,
-                                  gpus_per_node=8, oversubscription=2.0),
-                       CollectiveSpec("1d", 128e6)),
-        "clos32_2d": (FabricSpec("clos", n_racks=2, nodes_per_rack=2,
-                                 gpus_per_node=8, oversubscription=2.0),
-                      CollectiveSpec("2d", 128e6)),
-    }
+    scen = main_scenarios()
     sims = {}
     for label, (fab, wl) in scen.items():
         topo, sched, pol = ScenarioSpec(fab, wl, "dcqcn").build()
@@ -2599,7 +3009,7 @@ def main() -> int:
           "tolerance": "bit-equal sums; paused equal everywhere"})
     emit({"phase": "batched_step_check",
           **check_batched_step(sims["fig12"], cfg)})
-    s128, s32 = sims["clos128_1d"], sims["clos32_2d"]
+    s128 = sims["clos128_1d"]
     traced = {}          # kernel row -> its timed calls, for phase 14
     timing = {"fused_signals_policy": time_fused(s128, sims["fig12"], dev,
                                                  traced)}
@@ -2614,6 +3024,28 @@ def main() -> int:
     timing["dcqcn_update"] = time_cc_update(dev, traced)
     emit({"phase": "kernel_timing", "gpu": gpu,
           "dcqcn_update": timing["dcqcn_update"]})
+
+    # ---- 5j-5l start: gradients through the simulator, one process each --
+    # (no kernel is timed until they are done: phases 6-14 follow them)
+    import tempfile
+    tmp_dir = tempfile.TemporaryDirectory()
+    procs = start_grad_phases(Path(tmp_dir.name))
+    try:
+        return main_paths(dev, gpu, t_start, runner, cfg, scen, sims,
+                          timing, traced, fused, seg_err, ccu_check, procs,
+                          Path(tmp_dir.name))
+    finally:
+        stop_processes(procs)
+        tmp_dir.cleanup()
+
+
+def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
+               fused, seg_err, ccu_check, procs, tmp) -> int:
+    """Phases 3-14 and the result lines (``main``'s second half)."""
+    import torch
+    from repro_torch.core import ScenarioSpec
+    from repro_torch.kernels.engine_step import ops
+    s128, s32 = sims["clos128_1d"], sims["clos32_2d"]
 
     # ---- 3. main path at the paper's scale ---------------------------------
     # (pfc and hpcc run at this scale in phase 5d's policy-axis batch and
@@ -2698,6 +3130,13 @@ def main() -> int:
 
     # ---- 5i. the held-out incast, all eight policies (op path) ------------
     mlp_heldout16(gpu)
+
+    # ---- 5j-5l end: the gradient phases' lines --------------------------
+    finish_grad_phases(procs, tmp, {
+        label: {"soft_cost": results[label, "dcqcn"].soft_cost,
+                "steps_executed": results[label, "dcqcn"].meta[
+                    "steps_executed"]}
+        for label in ("clos128_1d", "clos32_2d")})
 
     # ---- 6. DLRM: the embedding-bag kernel against its plain version -------
     emb_check = dlrm_kernel_check(dev)
@@ -2820,4 +3259,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--grad-phase"]:
+        sys.exit(grad_phase_main(sys.argv[2]))
     sys.exit(main())

@@ -7,11 +7,16 @@ with names from ``clos128_1d``, ``clos32_2d`` (collective completion
 times, jnp step), ``batch_fig12`` (lanes 0 and 8 of Fig 12's fabric
 sweep, each as a serial run), ``dlrm_reference`` (Table II DLRM logits on
 a seeded batch), ``dlrm_iteration`` (the DLRM training iteration on the
-128-GPU platform) and ``serve_reference`` (TinyLlama's logits, prefill
-and teacher-forced decode, at full width and 4 layers); all of them by
-default.  Prints one JSON line per result; ``chip_smoke.py`` holds the
-port's card runs to these values (``REFERENCE``, ``FIG12_REFERENCE``,
-``DLRM_ITER_REFERENCE``, ``DLRM_REF_LOGITS`` and ``SERVE_REF`` there).
+128-GPU platform), ``serve_reference`` (TinyLlama's logits, prefill
+and teacher-forced decode, at full width and 4 layers),
+``autotune_incast8`` (``examples/cc_autotune.py``'s tunings),
+``learn_step`` (two Adam steps of the ``mlp`` trainer's curriculum) and
+``soft_grad`` (the soft cost and its gradient; ``soft_grad:clos32_2d``,
+the default); all of them by default.  Prints one JSON line per result;
+``chip_smoke.py`` holds the port's card runs to these values
+(``REFERENCE``, ``FIG12_REFERENCE``, ``DLRM_ITER_REFERENCE``,
+``DLRM_REF_LOGITS``, ``SERVE_REF``, ``AUTOTUNE_REFERENCE``,
+``LEARN_REFERENCE`` and ``SOFT_GRAD_REFERENCE`` there).
 The 128-GPU runs take a few minutes each on a CPU, the DLRM logits about
 four.
 
@@ -292,13 +297,76 @@ def mlp_heldout16() -> None:
               "cpu_seconds": time.perf_counter() - t0})
 
 
+def autotune_incast8() -> None:
+    """``examples/cc_autotune.py``'s two tunings (CC keys at population
+    4, fabric keys at population 3) for ``chip_smoke.AUTOTUNE_RUNS``'s
+    descent steps: every step's history record, baseline and tuned
+    cost."""
+    from repro.core.autotune import autotune_spec
+    from repro.core.cc import make_dcqcn
+    cs = chip_smoke
+    spec = ScenarioSpec(FabricSpec("single", 1, 1, cs.AUTOTUNE_GPUS),
+                        IncastSpec(cs.AUTOTUNE_GPUS - 1, cs.AUTOTUNE_BYTES),
+                        make_dcqcn())
+    for run, kw in cs.AUTOTUNE_RUNS.items():
+        t0 = time.perf_counter()
+        res = autotune_spec(spec, cfg=EngineConfig(**cs.AUTOTUNE_CFG), **kw)
+        emit({"scenario": "autotune_incast8", "run": run,
+              "history": res.history, "baseline_cost": res.baseline_cost,
+              "tuned_cost": res.tuned_cost,
+              "cpu_seconds": time.perf_counter() - t0})
+
+
+def learn_step() -> None:
+    """Two Adam steps of the trainer on ``curriculum_default()`` with
+    ``default_engine_cfg()``, the default corners, remat, seed 0: each
+    step's per-task costs, loss and gradient norm, and the 40 weights."""
+    import repro.learn.train  # noqa: F401  (the package exports train)
+    tr = sys.modules["repro.learn.train"]
+    cs = chip_smoke
+    t0 = time.perf_counter()
+    res = tr.train(tr.TrainConfig(steps=cs.LEARN_STEPS, seed=0),
+                   engine_cfg=tr.default_engine_cfg())
+    emit({"scenario": "learn_step",
+          "history": [{k: h[k] for k in ("loss", "per_task", "grad_norm")}
+                      for h in res.history],
+          "weights": res.weights, "cpu_seconds": time.perf_counter() - t0})
+
+
+def soft_grad(name: str) -> None:
+    """The soft cost of a collective scenario under DCQCN and its gradient
+    w.r.t. ``chip_smoke.SOFT_GRAD_KEYS`` (remat, the fixed-length scan of
+    ``CFG``)."""
+    from repro.core.engine import Simulator
+    cs = chip_smoke
+    fab, wl, _ = SCENARIOS[name]
+    topo, sched, pol = ScenarioSpec(fab, wl, "dcqcn").build()
+    sim = Simulator(topo, sched, pol, CFG)
+    cost = sim.soft_cost_fn(remat=True)
+    params = dict(pol.params)
+    cc_keys = [k for k in cs.SOFT_GRAD_KEYS if not k.startswith("fabric.")]
+
+    def f(p, fab_p):
+        return cost(dict(params, **p), fab_p)
+
+    t0 = time.perf_counter()
+    v, (g, gf) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(
+        {k: jnp.float32(params[k]) for k in cc_keys}, FabricParams())
+    grads = {k: float(g[k]) for k in cc_keys}
+    grads.update({k: float(getattr(gf, k.split(".")[1]))
+                  for k in cs.SOFT_GRAD_KEYS if k.startswith("fabric.")})
+    emit({"scenario": f"soft_grad_{name}", "soft_cost": float(v),
+          "grad": grads, "cpu_seconds": time.perf_counter() - t0})
+
+
 def main(names):
     emit({"jax": jax.__version__, "numpy": np.__version__})
     runner = SweepRunner(CFG)
     for name in names or [*SCENARIOS, "batch_fig12", "dlrm_reference",
                           "dlrm_iteration", "serve_reference",
                           "fault_grid_dcqcn", "faults_clos32",
-                          "mlp_clos128", "mlp_heldout16"]:
+                          "mlp_clos128", "mlp_heldout16",
+                          "autotune_incast8", "learn_step", "soft_grad"]:
         # fault_grid_dcqcn:3,5 runs those lanes only; mlp_clos128:lossless
         # (or :fig13_gbn) one of its two runs
         name, _, arg = name.partition(":")
@@ -314,6 +382,12 @@ def main(names):
                                                     "fig13_gbn"))
         elif name == "mlp_heldout16":
             mlp_heldout16()
+        elif name == "autotune_incast8":
+            autotune_incast8()
+        elif name == "learn_step":
+            learn_step()
+        elif name == "soft_grad":
+            soft_grad(arg or "clos32_2d")
         elif name == "batch_fig12":
             batch_fig12(runner)
         elif name == "dlrm_iteration":

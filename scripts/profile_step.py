@@ -7,7 +7,11 @@ kernel path at B=9 lanes and at B=1 (lane 0 alone); where one forward of the Tab
 goes; and where one decode step of TinyLlama-1.1B goes on
 ``chip_smoke.py``'s long serving run (8 slots, 2,048-token prompts, a
 32,768-token cache), on both decode paths (``decode_impl`` cuda and
-torch).
+torch); and where one step of the differentiable simulator goes, its
+forward under autograd and its backward, at 128 GPUs (DCQCN, w.r.t.
+``rai_frac`` and ``g``) and on the ``mlp`` trainer's ring all-reduce
+task (its three fabric corners as lanes, w.r.t. the 40 weights):
+``clos128_grad``, ``ring16_grad``.
 
     python3 scripts/profile_step.py [--out profile.json] [--only name ...]
 
@@ -45,7 +49,11 @@ FORWARDS, TRACE_FORWARDS = 100, 20
 # TinyLlama decode steps: warm-up, timed, traced (each path has its cache)
 WARM_DECODE, DECODE_STEPS, TRACE_DECODE = 4, 24, 8
 SCENARIOS = ("clos128_1d", "clos128_1d_lossy", "dlrm128_2d", "clos32_2d",
-             "batch_fig12", "dlrm_forward", "serve_decode")
+             "batch_fig12", "dlrm_forward", "serve_decode", "clos128_grad",
+             "ring16_grad")
+# the differentiable step: steps recorded under autograd per window (its
+# activations stay on the card until the backward)
+GRAD_STEPS, GRAD_TRACE_STEPS = 64, 16
 
 
 class Run:
@@ -121,6 +129,92 @@ def trace(work, n: int, top: int) -> dict:
             "top_kernels": [{"name": name, "per_step": k / n,
                              "us_per_step": us / n}
                             for name, (k, us) in ranked]}
+
+
+class GradRun:
+    """The differentiable step of a scenario (``Simulator.soft_cost_fn``'s
+    step: the op path under autograd) w.r.t. the CC params ``keys``, as
+    ``lanes`` lanes (fabric leaves stacked by ``stacked_fabric``).  It is
+    warmed without autograd; a window of steps is then recorded under
+    autograd from the current carry and differentiated (the soft cost's
+    sum w.r.t. the keys): the forward and the backward of that window."""
+
+    def __init__(self, runner, spec, keys, stacked_fabric=None):
+        import numpy as np
+        import torch
+        from repro_torch.core import engine, faults, sweep
+        cfg = dataclasses.replace(runner.cfg, step_impl="torch")
+        topo, sched, self.policy = spec.build()
+        self.sim = runner.simulator(topo, sched, self.policy, cfg)
+        lanes, fab = 1, self.sim.fabric
+        if stacked_fabric is not None:
+            lanes = len(next(iter(stacked_fabric.values())))
+            fab = sweep._stack_fabric(fab, stacked_fabric, lanes)
+        self.lanes, self.select = lanes, stacked_fabric is not None
+        self.leaves = {k: torch.tensor(np.float32(self.policy.params[k]),
+                                       device="cuda", requires_grad=True)
+                       for k in keys}
+        fault = faults._as_fault(spec.fault_spec)
+        self.step = engine._make_step(self.policy, cfg, self.sim.plan,
+                                      self.sim.pp, self.leaves, fab, False,
+                                      lanes, fault, grad=True)
+        self.carry = engine._init_carry(self.sim.pp, self.sim.plan,
+                                        self.policy, cfg, self.leaves, lanes,
+                                        faults.is_faulty(fault))
+        self.it = 0
+
+    def advance(self, n: int) -> None:
+        import torch
+        from repro_torch.core import engine
+        for _ in range(n):
+            stop, live, _ = engine._gate(self.carry, self.select)
+            if stop:
+                raise RuntimeError(
+                    f"run halted at step {self.it} (diverged "
+                    f"{self.carry['diverged'].tolist()}, flows done "
+                    f"{self.carry['done'].sum(-1).tolist()}): lower --warm "
+                    "or --steps")
+            self.carry = self.step(self.carry, self.it, live)
+            self.it += 1
+        torch.cuda.synchronize()
+
+    def warm(self, n: int) -> None:
+        import torch
+        with torch.no_grad():
+            self.advance(n)
+
+    def window(self, n: int, trace_top: int | None = None) -> dict:
+        """Forward and backward host ms per step over ``n`` steps (the
+        peak bytes their activations hold, per step), or with
+        ``trace_top`` their device kernels and busy time per step."""
+        import torch
+        from repro_torch.core import engine
+        self.carry = engine._tree_map(lambda t: t.detach(), self.carry)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        if trace_top is None:
+            t0 = time.perf_counter()
+            self.advance(n)
+            t1 = time.perf_counter()
+            torch.autograd.grad(self.carry["soft"].sum(),
+                                list(self.leaves.values()),
+                                allow_unused=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            return {"fwd_host_ms_per_step": (t1 - t0) / n * 1e3,
+                    "bwd_host_ms_per_step": (t2 - t1) / n * 1e3,
+                    "activation_bytes_per_step":
+                        (torch.cuda.max_memory_allocated() - base) / n}
+        out["fwd"] = trace(lambda: self.advance(n), n, trace_top)
+
+        def backward():
+            torch.autograd.grad(self.carry["soft"].sum(),
+                                list(self.leaves.values()),
+                                allow_unused=True)
+            torch.cuda.synchronize()
+        out["bwd"] = trace(backward, n, trace_top)
+        return out
 
 
 class Forwards:
@@ -282,10 +376,43 @@ def main(argv=None) -> int:
                 "prompt": 2048, "max_len": 32768, "decode_impl": impl,
                 "first_timed_position": dec.cache["pos"] - DECODE_STEPS,
                 "host_ms_per_step": ms, "tokens_per_s": 8e3 / ms}
+    grads = {}
+    if "clos128_grad" in only:
+        grads["clos128_grad"] = GradRun(runner, scen["clos128_1d"],
+                                        ("rai_frac", "g"))
+    if "ring16_grad" in only:
+        # the mlp trainer's costliest curriculum task, its 3 fabric corners
+        # as lanes (repro_torch.learn.train)
+        import repro_torch.learn.train  # noqa: F401
+        from repro_torch.learn.net import WEIGHT_KEYS, init_weights, make_mlp
+        tr = sys.modules["repro_torch.learn.train"]
+        spec = tr.curriculum_default()[1][0]
+        corners = [dict(c or {}) for c in tr.DEFAULT_CORNERS]
+        grads["ring16_grad"] = GradRun(
+            SweepRunner(tr.default_engine_cfg(), device="cuda"),
+            ScenarioSpec(spec.fabric, spec.workload,
+                         make_mlp(weights=init_weights(0))), WEIGHT_KEYS,
+            {f: [c.get(f, getattr(cfg, f)) for c in corners]
+             for f in ("kmin", "kmax", "xoff")})
+    for label, g in grads.items():
+        g.warm(min(args.warm, 300))
+        lines[label] = {"scenario": label, "gpu": gpu,
+                        "n_flows": g.sim.plan.n_flows,
+                        "policy": g.policy.name, "step_impl": "torch",
+                        "lanes": g.lanes, "first_timed_step": g.it,
+                        **g.window(GRAD_STEPS)}
     for key, run in runs.items():
         line = lines[key]
         line["first_traced_step"] = run.it
         line.update(run.trace(args.trace_steps, args.top))
+    for label, g in grads.items():
+        line = lines[label]
+        line["first_traced_step"] = g.it
+        for d, t in g.window(GRAD_TRACE_STEPS, args.top).items():
+            line.update({f"{d}_{k}": v for k, v in t.items()})
+            line[f"{d}_device_idle_share"] = 1.0 - (
+                t["device_busy_us_per_step"]
+                / (line[f"{d}_host_ms_per_step"] * 1e3))
     if "dlrm_forward" in only:
         lines["dlrm_forward"].update(trace(
             lambda: fwd.advance(TRACE_FORWARDS), TRACE_FORWARDS,
@@ -295,8 +422,10 @@ def main(argv=None) -> int:
             lambda dec=dec: dec.advance(TRACE_DECODE), TRACE_DECODE,
             args.top))
     for line in lines.values():
-        line["device_idle_share"] = 1.0 - (line["device_busy_us_per_step"]
-                                           / (line["host_ms_per_step"] * 1e3))
+        if "host_ms_per_step" in line:
+            line["device_idle_share"] = 1.0 - (
+                line["device_busy_us_per_step"]
+                / (line["host_ms_per_step"] * 1e3))
         print(json.dumps(line), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,10 @@
 """The port's core: fabric and schedule builders, CC policies (the
-learned ``mlp`` among them), the fluid engine with its fault layer,
-scenario specs, the sweep runner (single runs, batched lanes, grids, the
-policy axis) and the DLRM iteration workload."""
+learned ``mlp`` among them), the fluid engine with its fault layer and
+its differentiable soft cost, gradient autotuning, scenario specs, the
+sweep runner (single runs, batched lanes, grids, the policy axis) and the
+DLRM iteration workload."""
+from repro_torch.core.autotune import (TuneResult, autotune,  # noqa: F401
+                                       autotune_spec)
 from repro_torch.core.cc import (ALL_POLICIES, REGISTRY, FlowCtx,  # noqa: F401
                                  ParamSpec, Policy, Signals, get_policy,
                                  kernel_param_keys, kernel_state_keys,
@@ -15,8 +18,8 @@ from repro_torch.core.collectives import (COLLECTIVES,  # noqa: F401
                                           allreduce_1d, allreduce_2d,
                                           allreduce_hring, allreduce_ring,
                                           alltoall, get_collective, incast)
-from repro_torch.core.engine import (EngineConfig,  # noqa: F401
-                                     FabricParams,
+from repro_torch.core.engine import (FABRIC_PARAM_SPECS,  # noqa: F401
+                                     EngineConfig, FabricParams,
                                      Results, Simulator, resolve_step_impl,
                                      simulate)
 from repro_torch.core.faults import (FAULT_PARAM_SPECS,  # noqa: F401

@@ -7,12 +7,83 @@ multiply-adds contracted into one FMA, and row sums in a fixed
 association order.  The CUDA kernels do the same (``fmaf``, the same sum
 order), so the kernel path, the op path and the reference agree to the
 bit wherever the elementary functions agree.
+
+Gradients: ``expf``, ``tanhf``, ``sigmoidf`` and ``ftz`` emulate the
+reference's compiled values, but the reference differentiates the
+functions themselves (``jnp.exp``, ``jnp.tanh``, ``jax.nn.sigmoid``), not
+their expansions, and its subnormal flush is a property of the hardware,
+not an operation it differentiates.  So on a tensor that requires grad
+each of the four is an ``autograd.Function``: the forward is the
+emulation, bit for bit, and the backward is JAX's rule (``g*out``,
+``(g + g*out)*(1 - out)``, ``g*(out*(1 - out))``) or, for the flush,
+``g`` itself.  ``fma`` keeps the gradient of ``a*b + c``.
 """
 from __future__ import annotations
 
 import torch
 
 _FLT_MIN = float.fromhex("0x1p-126")     # smallest normal float32
+
+
+def _with_grad(fn, grad):
+    """``fn`` whose backward is ``grad(g, out)`` where its input requires
+    grad; elsewhere ``fn`` itself, so the forward-only path runs the same
+    operations as before."""
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            out = fn(x)
+            ctx.save_for_backward(out)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            out, = ctx.saved_tensors
+            return grad(g, out)
+
+    def call(x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad and torch.is_grad_enabled():
+            return Fn.apply(x)
+        return fn(x)
+
+    Fn.__name__ = Fn.__qualname__ = fn.__name__.strip("_") + "_backward"
+    call.__name__, call.__doc__ = fn.__name__.strip("_"), fn.__doc__
+    return call
+
+
+def _grad_wanted(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def _to_size(g: torch.Tensor, x) -> torch.Tensor:
+    """A broadcast gradient summed back to ``x``'s shape."""
+    return g.sum_to_size(x.shape) if g.shape != x.shape else g
+
+
+class _FmaBackward(torch.autograd.Function):
+    """``fma`` as one autograd node: the emulation forward, the gradient
+    of ``a*b + c`` backward (one node instead of the emulation's five)."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(*(x if isinstance(x, torch.Tensor) else None
+                                for x in (a, b, c)))
+        ctx.scalars = tuple(None if isinstance(x, torch.Tensor) else x
+                            for x in (a, b))
+        return _fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, c = ctx.saved_tensors
+        sa, sb = ctx.scalars
+        need = ctx.needs_input_grad
+        ga = _to_size(g * (b if b is not None else sb), a) if need[0] \
+            else None
+        gb = _to_size(g * (a if a is not None else sa), b) if need[1] \
+            else None
+        gc = _to_size(g, c) if need[2] else None
+        return ga, gb, gc
 
 
 def fma(a, b, c):
@@ -27,19 +98,29 @@ def fma(a, b, c):
     values is exact in float64, and the sum is rounded twice (to float64,
     then float32), which differs from one rounding only in rare
     half-way cases.  Scalars must already be float32 values."""
+    if _grad_wanted(a, b, c):
+        return _FmaBackward.apply(a, b, c)
+    return _fma(a, b, c)
+
+
+def _fma(a, b, c):
     # one operand in float64 promotes the others within the operation
     if isinstance(a, torch.Tensor):
         prod = a.double() * b
     else:
         prod = a * b.double()
-    return ftz((prod + c).float())
+    return _ftz((prod + c).float())
 
 
-def ftz(x: torch.Tensor) -> torch.Tensor:
+def _ftz(x: torch.Tensor) -> torch.Tensor:
     """Flush float32 subnormals to (signed) zero, as the reference's CPU
     backend does: the residue ``b - b*frac`` of a drained backlog decays
-    through the subnormal range there as exact zeros."""
+    through the subnormal range there as exact zeros.  Straight-through
+    under autograd."""
     return x * (x.abs() >= _FLT_MIN)
+
+
+ftz = _with_grad(_ftz, lambda g, out: g)
 
 
 def rdiv(s, x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +149,20 @@ def _seq(cols):
     return out
 
 
+class _RowSumBackward(torch.autograd.Function):
+    """``row_sum`` as one autograd node (its gradient is ``g`` broadcast
+    over the row, however the forward associates the additions)."""
+
+    @staticmethod
+    def forward(ctx, rows, lanes):
+        ctx.shape = rows.shape
+        return _row_sum(rows, lanes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(-1).expand(ctx.shape), None
+
+
 def row_sum(rows: torch.Tensor, lanes: bool = False) -> torch.Tensor:
     """Sum over the last axis (a power-of-two width C) in the order the
     reference's compiled gather-and-sum reductions use on the CPU:
@@ -85,6 +180,12 @@ def row_sum(rows: torch.Tensor, lanes: bool = False) -> torch.Tensor:
     sum is the reference's to the bit; PyTorch's own ``sum`` reorders, and
     the simulator amplifies an ulp of difference into a different pause
     or cut step."""
+    if _grad_wanted(rows):
+        return _RowSumBackward.apply(rows, lanes)
+    return _row_sum(rows, lanes)
+
+
+def _row_sum(rows: torch.Tensor, lanes: bool) -> torch.Tensor:
     C = rows.shape[-1]
     if C <= 16 and not lanes:
         return _seq([rows[..., k] for k in range(C)])
@@ -123,9 +224,9 @@ _EXP_P = tuple(float.fromhex(h) for h in (
     "0x1.5553820000000p-5", "0x1.5555540000000p-3"))
 
 
-def expf(x: torch.Tensor) -> torch.Tensor:
+def _expf(x: torch.Tensor) -> torch.Tensor:
     """``exp`` of a float32 tensor, Cephes' range reduction and degree-7
-    polynomial (NaN propagates)."""
+    polynomial (NaN propagates); gradient ``g*out``."""
     x = torch.where(x < _EXP_LO, _EXP_LO, x)
     x = torch.where(x > _EXP_HI, _EXP_HI, x)
     n = torch.floor(fma(x, _LOG2E, 0.5))
@@ -141,6 +242,9 @@ def expf(x: torch.Tensor) -> torch.Tensor:
         torch.float32)
     out = y * scale
     return torch.where(out < _FLT_MIN, 0.0, out)
+
+
+expf = _with_grad(_expf, lambda g, out: g * out)
 
 
 # tanh as the reference's CPU backend expands it (XLA's elemental tanh): a
@@ -159,9 +263,9 @@ _TANH_Q = tuple(float(v) for v in __import__("numpy").float32([
     4.89352518554385e-03]))
 
 
-def tanhf(x: torch.Tensor) -> torch.Tensor:
+def _tanhf(x: torch.Tensor) -> torch.Tensor:
     """``tanh`` of a float32 tensor, bit for bit the reference's (NaN
-    propagates)."""
+    propagates); gradient ``(g + g*out)*(1 - out)``."""
     y = torch.clamp(x, -_TANH_MAX, _TANH_MAX)
     y2 = y * y
     p = fma(y2, _TANH_P[0], _TANH_P[1])
@@ -173,8 +277,14 @@ def tanhf(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _TANH_SMALL, x, y * p / q)
 
 
-def sigmoidf(x: torch.Tensor) -> torch.Tensor:
+tanhf = _with_grad(_tanhf, lambda g, out: (g + g * out) * (1.0 - out))
+
+
+def _sigmoidf(x: torch.Tensor) -> torch.Tensor:
     """The logistic function as the reference evaluates it:
     ``1 / (1 + exp(-x))`` with ``expf`` above, subnormal results flushed
-    to zero."""
+    to zero; gradient ``g*(out*(1 - out))``."""
     return ftz(1.0 / (1.0 + expf(-x)))
+
+
+sigmoidf = _with_grad(_sigmoidf, lambda g, out: g * (out * (1.0 - out)))

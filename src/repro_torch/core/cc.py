@@ -56,23 +56,45 @@ def _loss_ecn(sig):
     congested-traffic EWMA)."""
     if not _lossy(sig):
         return sig.ecn
-    return torch.where(sig.loss > 0,
-                       torch.clamp_max(sig.ecn + 2.0 * sig.loss, 1.0),
+    return torch.where(sig.loss > 0, _min(sig.ecn + 2.0 * sig.loss, 1.0),
                        sig.ecn)
 
 
+_BOUNDS: dict = {}
+
+
+def bound(v):
+    """A Python scalar bound as a 0-dim float32 tensor on the CPU (cached
+    per value); a tensor passes through.  Against it ``torch.maximum`` and
+    ``torch.minimum`` give each side half the gradient of a tie, as
+    ``jnp.maximum``/``jnp.minimum`` do, where ``clamp_min``/``clamp_max``
+    give all of it to ``x``; the values are the same.  A 0-dim CPU
+    tensor rides an op on the card as a scalar, with no copy."""
+    if isinstance(v, torch.Tensor):
+        return v
+    t = _BOUNDS.get(v)
+    if t is None:
+        t = _BOUNDS[v] = torch.tensor(v, dtype=torch.float32)
+    return t
+
+
 def _max(x, v):
-    return torch.maximum(x, v) if isinstance(v, torch.Tensor) \
-        else torch.clamp_min(x, v)
+    """``jnp.maximum(x, v)``, its tie rule included."""
+    return torch.maximum(x, bound(v))
 
 
 def _min(x, v):
-    return torch.minimum(x, v) if isinstance(v, torch.Tensor) \
-        else torch.clamp_max(x, v)
+    """``jnp.minimum(x, v)``, its tie rule included."""
+    return torch.minimum(x, bound(v))
 
 
 def _clip(x, lo, hi):
-    """``jnp.clip``: ``min(max(x, lo), hi)`` with scalar or tensor bounds."""
+    """``jnp.clip``: ``min(max(x, lo), hi)`` with scalar or tensor bounds,
+    its tie rule included.  With scalar bounds and no gradient to carry it
+    is one ``torch.clamp``, the same values in one operation."""
+    if not (x.requires_grad or isinstance(lo, torch.Tensor)
+            or isinstance(hi, torch.Tensor)):
+        return torch.clamp(x, lo, hi)
     return _min(_max(x, lo), hi)
 
 
@@ -112,7 +134,7 @@ class FlowCtx:
     def make(cls, line, bdp, fanin=None) -> "FlowCtx":
         line = torch.as_tensor(line, dtype=torch.float32)
         fanin = (torch.ones_like(line) if fanin is None
-                 else torch.clamp_min(torch.as_tensor(
+                 else _max(torch.as_tensor(
                      fanin, dtype=torch.float32, device=line.device), 1.0))
         return cls(line=line,
                    bdp=torch.as_tensor(bdp, dtype=torch.float32,
@@ -521,7 +543,7 @@ def make_static_window(margin: float = 2.0, headroom: float = 0.5e6,
     def init(ctx):
         f = ctx.fanin
         w = margin * ctx.bdp / f + rdiv(headroom, f)
-        return {"w": torch.clamp_min(w, min_w)}
+        return {"w": _max(w, min_w)}
 
     def update(p, st, sig):
         return st, sig.line, st["w"]
@@ -686,12 +708,16 @@ def pack_params(policy: Policy, params: dict | None = None,
     P >= 1 (param-free policies get one dummy zero).  With ``lanes=B``
     the values may be per-lane (``(B,)`` arrays or ``(B, 1)`` columns;
     scalars broadcast) and the result is the ``(B, P)`` row per lane that
-    the fused kernel reads."""
+    the fused kernel reads.  Tensor values keep their autograd graph."""
     params = dict(policy.params, **(params or {}))
     keys = kernel_param_keys(policy)
     if lanes is None:
         if not keys:
             return torch.zeros((1,), dtype=torch.float32, device=device)
+        if any(isinstance(params[k], torch.Tensor) for k in keys):
+            return torch.stack([torch.as_tensor(
+                params[k], dtype=torch.float32, device=device).reshape(())
+                for k in keys])
         return torch.tensor([float(params[k]) for k in keys],
                             dtype=torch.float32, device=device)
     if not keys:

@@ -53,7 +53,16 @@ step paths; the default spec runs the lossless step unchanged, so every
 lossless result is bit for bit what it was.  Fault leaves are scalars or
 per-link-class arrays for one lane, stacked on a leading lane axis for B.
 
-Not ported yet: ``soft_cost_fn`` and autograd.
+Gradients (``Simulator.soft_cost_fn``): the soft cost, the integral of
+the undelivered fraction, is differentiable through autograd w.r.t. the
+CC params and the fabric knobs, on the op path only (the reference's
+kernels have no VJP either).  It runs the fixed-length loop: under
+autograd the step writes its carry out of place, and ``remat`` re-runs
+``chunk_steps``-step segments in the backward pass (``_RematSoft``)
+instead of keeping every step's activations.  Where the reference
+writes ``jnp.maximum``/``jnp.minimum``/``jnp.clip`` the port takes
+``torch.maximum``/``torch.minimum`` against a tensor bound
+(``cc.bound``), whose gradient at a tie is split evenly, as JAX's is.
 """
 from __future__ import annotations
 
@@ -63,9 +72,10 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch.core.arith import fma, rdiv, row_prod, row_sum
-from repro_torch.core.cc import (FlowCtx, Policy, Signals,
-                                 kernel_state_keys, pack_params)
+from repro_torch.core.arith import (_grad_wanted, fma, rdiv, row_prod,
+                                    row_sum)
+from repro_torch.core.cc import (FlowCtx, ParamSpec, Policy, Signals, _clip,
+                                 _max, _min, kernel_state_keys, pack_params)
 from repro_torch.core.collectives import Schedule
 from repro_torch.core.faults import (FaultSpec, LaneStatus, _as_fault,
                                      classify_lane, is_faulty)
@@ -99,6 +109,18 @@ class EngineConfig:
 
 
 _FABRIC_DEFAULTS = dict(kmin=400e3, kmax=1600e3, pmax=0.2, xoff=1e6, xon=0.8e6)
+
+# search spaces of the fabric knobs, in the CC policies' ParamSpec
+# currency: ``autotune`` reads their scales and bounds
+FABRIC_PARAM_SPECS = {
+    "kmin": ParamSpec(_FABRIC_DEFAULTS["kmin"], lo=1e3, hi=64e6, scale="log"),
+    "kmax": ParamSpec(_FABRIC_DEFAULTS["kmax"], lo=4e3, hi=256e6, scale="log"),
+    "pmax": ParamSpec(_FABRIC_DEFAULTS["pmax"], lo=0.01, hi=1.0,
+                      scale="linear"),
+    "xoff": ParamSpec(_FABRIC_DEFAULTS["xoff"], lo=10e3, hi=64e6,
+                      scale="log"),
+    "xon": ParamSpec(_FABRIC_DEFAULTS["xon"], lo=10e3, hi=64e6, scale="log"),
+}
 
 @dataclasses.dataclass(frozen=True)
 class FabricParams:
@@ -274,6 +296,7 @@ def _plan_tensors(arrs: dict, device) -> dict:
     and ``boff32``, and the split-row CTA table ``ctas32``)."""
     out = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
            for k, v in arrs.items()}
+
     for k in ("idx", "perm", "boff"):
         if k in arrs:
             out[k + "32"] = torch.as_tensor(arrs[k], dtype=torch.int32,
@@ -283,6 +306,77 @@ def _plan_tensors(arrs: dict, device) -> dict:
         out["ctas32"] = torch.as_tensor(es_ops.split_ctas(arrs["boff"], C2),
                                         device=device)
     return out
+
+
+def _inverse(arrs: dict, key: str, n_in: int) -> tuple:
+    """Where each of the ``n_in`` inputs sits in plan array ``key`` (a
+    plan holds an input at most once; slot ``n_in`` is the fill):
+    ``(position, present)`` tensors, made at first use and kept in
+    ``arrs``."""
+    name = f"{key}_inv{n_in}"
+    if name not in arrs:
+        idx = arrs[key].cpu().numpy()
+        pos = np.full(n_in, -1, np.int64)
+        live = idx < n_in
+        pos[idx[live]] = np.nonzero(live)[0]
+        dev = arrs[key].device
+        arrs[name] = (torch.as_tensor(np.maximum(pos, 0), device=dev),
+                      torch.as_tensor(pos >= 0, device=dev))
+    return arrs[name]
+
+
+class _PlanGather(torch.autograd.Function):
+    """``_zero_ext(vals)[..., idx]`` whose backward gathers through the
+    plan's inverse map (a plan holds each input at most once) instead of
+    scatter-adding into the fill slot's thousands of duplicates."""
+
+    @staticmethod
+    def forward(ctx, vals, idx, inv, has):
+        ctx.save_for_backward(inv, has)
+        return _zero_ext(vals)[..., idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, has = ctx.saved_tensors
+        return torch.where(has, g[..., inv], 0.0), None, None, None
+
+
+class _GatherCols(torch.autograd.Function):
+    """``x[:, idx]`` for a ``(B, n)`` ``x`` whose backward adds the
+    gradient back with ``index_add_``.  Autograd's own backward of an
+    index with repeats (every flow of a link reads that link) sorts the
+    indices and sums each run of repeats serially: at 128 GPUs, 88% of
+    the backward's device time (PERF.md §6).  ``index_add_`` is
+    deterministic on the CPU; on the card it adds with atomics, so the
+    last bits of a gradient may differ between runs."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[-1]
+        return x[:, idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        B = g.shape[0]
+        out = g.new_zeros((B, ctx.n))
+        return out.index_add_(1, idx.reshape(-1), g.reshape(B, -1)), None
+
+
+def _gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[:, idx]``; under autograd through ``_GatherCols``."""
+    if _grad_wanted(x):
+        return _GatherCols.apply(x, idx)
+    return x[:, idx]
+
+
+def _take(vals: torch.Tensor, arrs: dict, key: str) -> torch.Tensor:
+    """The gather of plan array ``key`` over ``vals`` and its fill slot."""
+    if _grad_wanted(vals):
+        return _PlanGather.apply(vals, arrs[key],
+                                 *_inverse(arrs, key, vals.shape[-1]))
+    return _zero_ext(vals)[..., arrs[key]]
 
 
 def _zero_ext(vals: torch.Tensor) -> torch.Tensor:
@@ -300,13 +394,12 @@ def _reduce(strategy, arrs, vals):
         return vals.new_zeros(lead + (strategy[1],))
     if kind == "gather":
         _, n_out, C = strategy
-        return row_sum(_zero_ext(vals)[..., arrs["idx"]]
-                       .reshape(lead + (n_out, C)))
+        return row_sum(_take(vals, arrs, "idx").reshape(lead + (n_out, C)))
     _, n_out, n_blocks, C2 = strategy
-    bsum = row_sum(_zero_ext(vals)[..., arrs["perm"]]
+    bsum = row_sum(_take(vals, arrs, "perm")
                    .reshape(lead + (n_blocks, _SPLIT_C)))
-    return row_sum(_zero_ext(bsum)[..., arrs["bidx"]]
-                   .reshape(lead + (n_out, C2)), lanes=True)
+    return row_sum(_take(bsum, arrs, "bidx").reshape(lead + (n_out, C2)),
+                   lanes=True)
 
 
 def _kernel_plan(strategy, arrs) -> tuple:
@@ -505,16 +598,25 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
+def _column(v, lanes: int, device) -> torch.Tensor:
+    """A scalar or length-B value as a ``(B, 1)`` float32 column; a tensor
+    keeps its autograd graph."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32) \
+            .reshape(-1, 1).expand(lanes, 1)
+    return torch.as_tensor(np.broadcast_to(
+        np.asarray(v, np.float32).reshape(-1), (lanes,)).copy(),
+        device=device).reshape(lanes, 1)
+
+
 def _lane_params(policy: Policy, cc_params: dict | None, lanes: int,
                  device) -> dict:
     """The cc params a step reads: ``(B, 1)`` float32 columns for ``B``
-    lanes (each value a scalar or a length-B array).  A serial run is one
-    lane of the same form, so every run computes with the same tensors."""
+    lanes (each value a scalar or a length-B array or tensor).  A serial
+    run is one lane of the same form, so every run computes with the same
+    tensors."""
     merged = dict(policy.params, **(cc_params or {}))
-    return {k: torch.as_tensor(np.broadcast_to(
-                np.asarray(v, np.float32).reshape(-1), (lanes,)).copy(),
-                device=device).reshape(lanes, 1)
-            for k, v in merged.items()}
+    return {k: _column(v, lanes, device) for k, v in merged.items()}
 
 
 def _wire_of(policy: Policy, params: dict):
@@ -526,7 +628,11 @@ def _wire_of(policy: Policy, params: dict):
 def _class_table(v, lanes: int, device) -> torch.Tensor:
     """A FabricParams or FaultSpec leaf as a ``(B, N_LINK_CLASSES)``
     float32 table: a scalar or per-class leaf for one lane, or a stacked
-    ``(B,)`` or ``(B, N_LINK_CLASSES)`` leaf for B lanes."""
+    ``(B,)`` or ``(B, N_LINK_CLASSES)`` leaf for B lanes.  A tensor leaf
+    keeps its autograd graph."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32) \
+            .reshape(lanes, -1).expand(lanes, N_LINK_CLASSES)
     a = np.asarray(v, np.float32).reshape(lanes, -1)
     return torch.as_tensor(np.broadcast_to(
         a, (a.shape[0], N_LINK_CLASSES)).copy(), device=device)
@@ -535,8 +641,19 @@ def _class_table(v, lanes: int, device) -> torch.Tensor:
 def _lane_col(v, lanes: int, device) -> torch.Tensor:
     """A scalar FaultSpec leaf (a time, ``gbn``, ``mtu``) as a ``(B, 1)``
     float32 column: a scalar for one lane, or a stacked ``(B,)`` leaf."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32).reshape(lanes, 1)
     return torch.as_tensor(np.array(v, np.float32).reshape(lanes, 1),
                            device=device)
+
+
+def _broadcast_leaves(obj, lanes: int):
+    """A one-lane FabricParams or FaultSpec with every leaf stacked on a
+    leading axis of ``lanes``."""
+    return dataclasses.replace(obj, **{
+        f: np.broadcast_to(np.asarray(getattr(obj, f), np.float32),
+                           (lanes,) + np.shape(getattr(obj, f)))
+        for f in obj.FIELDS})
 
 
 def _init_carry(pp, plan: _Plan, policy: Policy, cfg: EngineConfig,
@@ -590,7 +707,8 @@ _IN_PLACE = ("hist_q", "hist_tx", "qbuf")
 
 def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
                cc_params: dict, fab: FabricParams, use_kernels: bool,
-               lanes: int = 1, fault: FaultSpec | None = None):
+               lanes: int = 1, fault: FaultSpec | None = None,
+               grad: bool = False):
     """The step ``step(carry, it, live=None) -> carry`` for one run of
     ``lanes`` lanes: the lossless step, or the faulty one where ``fault``
     injects any fault (``is_faulty``; its carry comes from
@@ -608,6 +726,12 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
     queue timeline are updated in place.  ``live`` ((B,) bool) freezes
     the lanes that are False bit for bit, as the reference's per-lane
     step gate does under ``vmap``.
+
+    ``grad`` is the step autograd differentiates (``soft_cost_fn``): op
+    path only and no queue timeline; it writes the backlog's hop columns,
+    the null link's capacity and the ring rows out of place, with the
+    same values (autograd would mis-save an in-place write, and
+    ``_RematSoft`` re-runs steps from carries that must not change).
     """
     B = lanes
     dt = cfg.dt
@@ -620,6 +744,10 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
     dev = pp["line"].device
     params = _lane_params(policy, cc_params, lanes, dev)
     reduce_ = _reduce_kernel if use_kernels else _reduce
+    if grad and (use_kernels or stride):
+        raise ValueError("the differentiable step runs the op path "
+                         "without a queue timeline (queue_stride=0)")
+    null_link = torch.arange(Lk + 1, device=dev) == Lk
 
     path, hopmask = pp["path"], pp["hopmask"]
     cls_path = pp["cls_path"]
@@ -737,12 +865,11 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             cc = {k: st_out[:, j] for j, k in enumerate(state_keys)}
         else:
             flat = slot[:, None] * (Lk + 1) + path               # (F, MAXHOP)
-            q_d = hq[:, flat]                                 # (B, F, MAXHOP)
-            tx_d = htx[:, flat]
+            q_d = _gather_cols(hq, flat)                      # (B, F, MAXHOP)
+            tx_d = _gather_cols(htx, flat)
             rtt = pp["base_rtt"] + row_sum(q_d / caps * hopmask)
-            mark = torch.clamp((q_d - kmin_h)
-                               / torch.clamp_min(kmax_h - kmin_h, 1.0),
-                               0.0, 1.0) * pmax_h
+            mark = _clip((q_d - kmin_h) / _max(kmax_h - kmin_h, 1.0),
+                         0.0, 1.0) * pmax_h
             if faulty:
                 mark = mark * ecn_h
             mark = mark * pp["ecn_mask"]
@@ -764,11 +891,15 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         if faulty:
             # lost bytes are not in flight (the NIC saw the NACK/timeout)
             inflight = inflight - c["lost"]
-        room = torch.clamp_min(win - inflight, 0.0)
+        room = _max(win - inflight, 0.0)
         inj = torch.minimum(torch.minimum(rate * dt, room), c["remaining"])
-        inj = torch.where(started & has_hops, torch.clamp_min(inj, 0.0), 0.0)
-        backlog = c["backlog"].clone()
-        backlog[..., 0] += inj
+        inj = torch.where(started & has_hops, _max(inj, 0.0), 0.0)
+        if grad:        # the backlog as hop columns, stacked after stage 5
+            cols = list(c["backlog"].unbind(-1))
+            cols[0] = cols[0] + inj
+        else:
+            backlog = c["backlog"].clone()
+            backlog[..., 0] += inj
         remaining = c["remaining"] - inj
         injected = c["injected"] + inj
 
@@ -783,7 +914,10 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             down = (period > 0) & (t >= flap_t0) & (phase < flap_dn)
             capmul = torch.where(down & is_fab, 0.0, capmul)
             rem_cap = rem_cap * capmul
-        rem_cap[:, Lk] = 1e18
+        if grad:
+            rem_cap = torch.where(null_link, 1e18, rem_cap)
+        else:
+            rem_cap[:, Lk] = 1e18
 
         # ---- 5. hop-ordered forwarding -------------------------------------
         delivered = c["delivered"]
@@ -792,16 +926,18 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
         for h in range(MAXHOP):
             if plan.hop[h][0] == "empty":   # no flow ever uses this hop slot
                 continue
-            dem = reduce_(plan.hop[h], pp["r_hop"][h], backlog[..., h])
+            b_h = cols[h] if grad else backlog[..., h]
+            dem = reduce_(plan.hop[h], pp["r_hop"][h], b_h)
             frac = torch.where(dem > 0,
-                               torch.clamp_max(
-                                   rem_cap / torch.clamp_min(dem, 1e-9), 1.0),
-                               0.0)
-            frac_f = frac[:, path_h[h]]
-            moved = backlog[..., h] * frac_f
+                               _min(rem_cap / _max(dem, 1e-9), 1.0), 0.0)
+            frac_f = _gather_cols(frac, path_h[h])
+            moved = b_h * frac_f
             # backlog - backlog*frac and the capacity/tx updates are
             # multiply-adds the reference contracts (see cc.fma)
-            backlog[..., h] = fma(-backlog[..., h], frac_f, backlog[..., h])
+            if grad:
+                cols[h] = fma(-b_h, frac_f, b_h)
+            else:
+                backlog[..., h] = fma(-b_h, frac_f, b_h)
             if faulty:
                 # bytes dropped on this hop consumed upstream capacity but
                 # leave the network; they re-enter `remaining` below
@@ -813,9 +949,13 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
                 moved = moved - drop
             delivered = delivered + torch.where(last_h[h], moved, 0.0)
             if h + 1 < MAXHOP:
-                backlog[..., h + 1] += torch.where(last_h[h], 0.0, moved)
+                fwd = torch.where(last_h[h], 0.0, moved)
+                if grad:
+                    cols[h + 1] = cols[h + 1] + fwd
+                else:
+                    backlog[..., h + 1] += fwd
             # frac * dem == per-link sum of `moved`
-            rem_cap = torch.clamp_min(fma(-frac, dem, rem_cap), 0.0)
+            rem_cap = _max(fma(-frac, dem, rem_cap), 0.0)
             # the reference's tx = 0 + m0 + m1 + ... folds to m0 + m1 + ...,
             # whose first add contracts m0's multiply: fma(f0, d0, f1*d1)
             if tx_bytes is None:
@@ -826,13 +966,15 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
                 tx_bytes = fma(frac, dem, tx_bytes)
         if isinstance(tx_bytes, tuple):
             tx_bytes = tx_bytes[0] * tx_bytes[1]
+        if grad:
+            backlog = torch.stack(cols, dim=-1)
 
         if faulty:
             # ---- 5b. loss recovery (IRN vs go-back-N) ----------------------
             if lost_step is None:           # no flow uses any hop slot
                 lost_step = torch.zeros_like(delivered)
             lost = c["lost"] + lost_step
-            live_b = torch.clamp_min(injected - delivered - lost, 0.0)
+            live_b = _max(injected - delivered - lost, 0.0)
             # IRN resends the lost bytes only; go-back-N also resends, per
             # lost packet, half the outstanding window (in-network bytes
             # capped at the path BDP, else incast GBN never drains)
@@ -843,7 +985,7 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             dup = c["dup"] + dup_step
             # per-flow EWMA loss fraction: the next step's loss signal
             traf = lost_step + (delivered - c["delivered"])
-            frac_l = lost_step / torch.clamp_min(traf, 1.0)
+            frac_l = lost_step / _max(traf, 1.0)
             # (1 - a) * sig + a * frac: the first product is fused
             loss_sig = torch.where(traf > 0,
                                    fma(ewma_keep, c["loss_sig"],
@@ -898,11 +1040,16 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             tx_rate = torch.where(live[:, None], tx_rate, hist_tx[:, row])
         else:
             q_link_w = q_link
-        hist_q[:, row] = q_link_w
-        hist_tx[:, row] = tx_rate
+        if grad:
+            hist_q = torch.cat([hist_q[:, :row], q_link_w[:, None],
+                                hist_q[:, row + 1:]], dim=1)
+            hist_tx = torch.cat([hist_tx[:, :row], tx_rate[:, None],
+                                 hist_tx[:, row + 1:]], dim=1)
+        else:
+            hist_q[:, row] = q_link_w
+            hist_tx[:, row] = tx_rate
         if faulty:
-            goodput = torch.minimum(torch.clamp_min(delivered - dup, 0.0),
-                                    wire_size)
+            goodput = _min(_max(delivered - dup, 0.0), wire_size)
         else:
             goodput = torch.minimum(delivered, wire_size)
         undeliv = torch.sum(wire_size - goodput, dim=-1)
@@ -965,19 +1112,135 @@ def _halted_lanes(c) -> torch.Tensor:
     return c["done"].all(dim=-1) | c["diverged"]
 
 
-def _gate(c):
-    """One host read per step: ``(every lane halted, live, stepping)``.
-    ``live`` is the (B,) mask of lanes still stepping on the device, or
-    None while no lane has halted (the step then skips the per-lane
-    freeze); ``stepping`` is the same mask on the host."""
+def _gate(c, select: bool = False):
+    """One host read per step: ``(stop, live, stepping)``.  ``stop`` says
+    every later step is a no-op; ``live`` is the (B,) mask of lanes still
+    stepping on the device, or None while no lane has halted (the step
+    then skips the per-lane freeze); ``stepping`` is the same mask on the
+    host.
+
+    ``select`` gives the gradient of the reference's vmapped fixed-length
+    scan, whose per-lane gate is a select: a halted lane's step is still
+    computed and discarded, so its backward multiplies zeros into the
+    step's partial derivatives.  Those are finite at a finished lane's
+    finite state, so the run may stop once every lane has halted; but a
+    diverged lane's need not be (0 * inf is NaN, as in the reference),
+    so while any lane has diverged the run goes on to the full length
+    with every halted lane frozen."""
     halted = _halted_lanes(c)
-    h = halted.cpu().numpy()
-    if h.all():
+    if not select:
+        h = halted.cpu().numpy()
+        if h.all():
+            return True, None, ~h
+        return False, (~halted if h.any() else None), ~h
+    h, d = torch.stack([halted, c["diverged"]]).cpu().numpy()
+    if h.all() and not d.any():
         return True, None, ~h
     return False, (~halted if h.any() else None), ~h
 
 
-def _run_loop(step, carry, cfg: EngineConfig, early_exit: bool):
+def _steps(step, c, lo: int, hi: int, select: bool):
+    """Steps ``lo`` .. ``hi - 1``, each gated as ``_gate(select)`` says:
+    ``(carry, steps_executed, lane_steps, stopped)``."""
+    executed, lane_steps = 0, 0
+    for it in range(lo, hi):
+        stop, live, stepping = _gate(c, select)
+        if stop:                # every later step is a no-op
+            return c, executed, lane_steps, True
+        c = step(c, it, live)
+        executed += 1
+        lane_steps = lane_steps + stepping
+    return c, executed, lane_steps, False
+
+
+def _float_leaves(carry) -> list:
+    """The carry's float tensors (the ones a gradient flows through), in
+    a fixed order."""
+    out = []
+    _tree_map(lambda x: out.append(x) if x.is_floating_point() else None,
+              carry)
+    return out
+
+
+# steps the rematerialized backward runs from the start to find the carry
+# leaves that carry a gradient (they all do after the first step or two)
+_GRAD_PROBE_STEPS = 8
+
+
+class _RematSoft(torch.autograd.Function):
+    """The soft cost of the fixed-length loop, rematerialized: the forward
+    runs every step without autograd and keeps the carry at each segment
+    boundary; the backward re-runs the segments last to first under
+    autograd, one at a time, and carries the cotangent of the carry from
+    each segment's end to its start.  Memory: one carry per segment plus
+    one segment's activations.  ``build(xs) -> (step, carry0)`` makes the
+    step and the starting carry from the differentiable inputs ``xs``."""
+
+    @staticmethod
+    def forward(ctx, build, total, seg, select, *xs):
+        step, carry = build(xs)
+        bounds = []
+        for lo in range(0, total, seg):
+            hi = min(lo + seg, total)
+            bounds.append((lo, hi, carry))
+            carry, _, _, stop = _steps(step, carry, lo, hi, select)
+            if stop:
+                break
+        ctx.build, ctx.bounds, ctx.select = build, bounds, select
+        ctx.save_for_backward(*xs)
+        return carry["soft"]
+
+    @staticmethod
+    def backward(ctx, g_soft):
+        xs = [x.detach().requires_grad_(x.requires_grad)
+              for x in ctx.saved_tensors]
+        diff = [x for x in xs if x.requires_grad]
+        gx = {id(x): None for x in diff}
+        with torch.enable_grad():
+            step, carry0 = ctx.build(xs)
+            # the carry's leaves that depend on the inputs (state, not
+            # timestamps or counters), found by a few steps from the start
+            probe = _steps(step, carry0, 0, min(_GRAD_PROBE_STEPS,
+                                                ctx.bounds[-1][1]),
+                           ctx.select)[0]
+            tracked = [t.requires_grad for t in _float_leaves(probe)]
+            del probe
+            cot = None                  # cotangent of each float leaf
+            for i in reversed(range(len(ctx.bounds))):
+                lo, hi, saved = ctx.bounds[i]
+                if i == 0:
+                    c_in, ins = carry0, []
+                else:
+                    c_in = _tree_map(lambda t: t.detach(), saved)
+                    ins = [t.requires_grad_() for t, keep in
+                           zip(_float_leaves(c_in), tracked) if keep]
+                c_out = _steps(step, c_in, lo, hi, ctx.select)[0]
+                outs = _float_leaves(c_out)
+                if any(o.requires_grad and not keep
+                       for o, keep in zip(outs, tracked)):
+                    raise RuntimeError("a carry leaf came to depend on the "
+                                       "inputs after the probe's steps")
+                if cot is None:         # the last segment: d soft only
+                    cot = [g_soft if o is c_out["soft"] else None
+                           for o in outs]
+                pairs = [(o, g) for o, g in zip(outs, cot)
+                         if g is not None and o.requires_grad]
+                grads = torch.autograd.grad(
+                    [o for o, _ in pairs], ins + diff,
+                    [g for _, g in pairs], allow_unused=True,
+                    retain_graph=True) if pairs else [None] * len(ins + diff)
+                if ins:                 # the cotangent at the start
+                    it = iter(grads[:len(ins)])
+                    cot = [next(it) if keep else None for keep in tracked]
+                for x, g in zip(diff, grads[len(ins):]):
+                    if g is not None:
+                        gx[id(x)] = g if gx[id(x)] is None else gx[id(x)] + g
+        return (None, None, None, None,
+                *(gx[id(x)] if x.requires_grad else None for x in xs))
+
+
+def _run_loop(step, carry, cfg: EngineConfig, early_exit: bool,
+              select: bool = False):
     """Chunked stepping: returns ``(carry, steps_run, steps_executed,
     lane_steps)`` with the reference's chunk-rounded ``steps_run``, the
     number of steps that were not no-ops and, per lane, the number of
@@ -986,20 +1249,20 @@ def _run_loop(step, carry, cfg: EngineConfig, early_exit: bool):
     lane is frozen while the others step; the loop stops at the first
     chunk boundary where every lane has halted, or inside a chunk once
     they all have (the rest of it would be no-ops), so results never
-    depend on ``chunk_steps``."""
+    depend on ``chunk_steps``.
+
+    ``early_exit=False`` is the reference's fixed-length scan, the one
+    autograd differentiates, each step gated as ``_gate(select)`` says
+    (``_run_remat`` is its rematerialized form)."""
     total = cfg.max_steps * (cfg.max_extends + 1)
+    chunk = max(1, min(cfg.chunk_steps, total))
+    if not early_exit:
+        carry, executed, lane_steps, _ = _steps(step, carry, 0, total,
+                                                select)
+        return carry, total, executed, np.zeros(
+            carry["soft"].shape[0], np.int64) + lane_steps
     executed = 0
     lane_steps = np.zeros(carry["soft"].shape[0], np.int64)
-    if not early_exit:
-        for it in range(total):
-            stop, live, stepping = _gate(carry)
-            if stop:                # every later step is a no-op
-                break
-            carry = step(carry, it, live)
-            executed += 1
-            lane_steps += stepping
-        return carry, total, executed, lane_steps
-    chunk = max(1, min(cfg.chunk_steps, total))
     it0 = 0
     while it0 < total:
         stop, live, stepping = _gate(carry)
@@ -1015,6 +1278,19 @@ def _run_loop(step, carry, cfg: EngineConfig, early_exit: bool):
             lane_steps += stepping
         it0 += chunk
     return carry, min(it0, total), executed, lane_steps
+
+
+def _run_remat(build, xs, cfg: EngineConfig, early_exit: bool = False,
+               select: bool = False) -> torch.Tensor:
+    """The soft cost of the fixed-length loop in rematerialized segments
+    of ``cfg.chunk_steps`` steps (``_RematSoft``); the reference's
+    ``_make_run(remat=True)``, which refuses early exit as it does."""
+    if early_exit:
+        raise ValueError("remat applies to the fixed-length loop only "
+                         "(early_exit=False), as in the reference")
+    total = cfg.max_steps * (cfg.max_extends + 1)
+    chunk = max(1, min(cfg.chunk_steps, total))
+    return _RematSoft.apply(build, total, chunk, select, *xs)
 
 
 class Simulator:
@@ -1121,6 +1397,83 @@ class Simulator:
             extend_exhausted=extend_exhausted,
             lost=host(carry["lost"])[:F] if "lost" in carry else None,
         )
+
+    # -- differentiable objective -------------------------------------------
+    def soft_cost_fn(self, remat: bool = False, lanes: int | None = None):
+        """``cost(cc_params=None, fabric_params=None) -> soft cost``,
+        differentiable by autograd w.r.t. every tensor among the CC params
+        and the fabric leaves (a value or leaf that is not a tensor is a
+        constant).  ``cc_params`` overrides the policy's defaults.
+
+        It runs the fixed-length loop (``early_exit=False``) on the op
+        path on this simulator's device: the reference's kernels have no
+        VJP, and neither do the port's, so ``step_impl="auto"`` resolves to
+        the op path for this entry point only and an explicit
+        ``step_impl="cuda"`` raises.  The value is ``Results.soft_cost`` of
+        a forward run to the bit.  ``remat=True`` keeps one carry per
+        ``cfg.chunk_steps`` steps and re-runs each segment in the backward
+        pass (``_RematSoft``): the same value, O(total/chunk + chunk)
+        carries live instead of O(total).
+
+        ``lanes=None`` is one lane, the reference's ``soft_cost_fn``: the
+        loop stops once the lane has halted, as its ``lax.cond`` gate
+        does, and the cost is a 0-dim tensor.  ``lanes=B`` is the
+        reference's cost under ``vmap`` over B members, one (B,) tensor:
+        each ``cc_params`` value is a scalar or has B entries, each
+        fabric leaf is stacked on a leading axis of B (``(B,)`` or ``(B,
+        N_LINK_CLASSES)``), this simulator's fault spec is every lane's,
+        and halted lanes are gated as a select (``_gate``)."""
+        if self.cfg.step_impl == "cuda":
+            raise NotImplementedError(
+                "soft_cost_fn differentiates the op path: the fused "
+                "engine-step kernel (fused_signals_policy) and the segment "
+                "kernels (segment_reduce, segment_reduce_pfc) have no "
+                "backward kernels, as the reference's have no VJP; use "
+                "step_impl='auto' or 'torch'")
+        cfg = dataclasses.replace(self.cfg, queue_stride=0)
+        B = 1 if lanes is None else int(lanes)
+        fault = (self.fault if lanes is None
+                 else _broadcast_leaves(self.fault, B))
+        faulty = is_faulty(self.fault)
+
+        def cost(cc_params: dict | None = None,
+                 fabric_params: FabricParams | None = None):
+            fab = self.fabric if fabric_params is None else fabric_params
+            if lanes is not None and fabric_params is None:
+                fab = _broadcast_leaves(fab, B)
+            # the differentiable inputs: every tensor among the params
+            cc_params = dict(cc_params or {})
+            cc_keys = [k for k, v in cc_params.items()
+                       if isinstance(v, torch.Tensor)]
+            fab_keys = [f for f in FabricParams.FIELDS
+                        if isinstance(getattr(fab, f), torch.Tensor)]
+            xs = [cc_params[k] for k in cc_keys] + \
+                [getattr(fab, f) for f in fab_keys]
+
+            def build(ts):
+                p = dict(cc_params, **dict(zip(cc_keys, ts)))
+                f = dataclasses.replace(
+                    fab, **dict(zip(fab_keys, ts[len(cc_keys):])))
+                return (_make_step(self.policy, cfg, self.plan, self.pp, p,
+                                   f, False, B, fault, grad=True),
+                        _init_carry(self.pp, self.plan, self.policy, cfg, p,
+                                    B, faulty))
+
+            if remat:
+                soft = _run_remat(build, xs, cfg, select=lanes is not None)
+            else:
+                step, carry = build(xs)
+                soft = _run_loop(step, carry, cfg, early_exit=False,
+                                 select=lanes is not None)[0]["soft"]
+            return soft[0] if lanes is None else soft
+
+        return cost
+
+    def soft_cost(self, cc_params: dict | None = None,
+                  fabric_params: FabricParams | None = None) -> torch.Tensor:
+        """The differentiable objective, the integral of the undelivered
+        fraction: ``soft_cost_fn()(cc_params, fabric_params)``."""
+        return self.soft_cost_fn()(cc_params, fabric_params)
 
 
 def simulate(topo, sched, policy, cfg: EngineConfig = EngineConfig(),

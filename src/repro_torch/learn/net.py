@@ -20,8 +20,8 @@ target around the line rate, so zero weights recover the static window.
 
 ``default_weights()`` reads the trained weights from this package's
 ``mlp_weights.json`` (a copy of the reference's file); a seeded init is
-used only when the file is absent.  Training (``repro.learn.train``)
-needs autograd through the op path and is not ported yet.
+used only when the file is absent.  ``repro_torch.learn.train`` trains
+the weights through the simulator's op path.
 
 Arithmetic follows the reference's compiled step: ``tanh`` and the
 logistic are ``arith.tanhf``/``arith.sigmoidf``, and the multiply-adds
@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.core.arith import expf, fma, rdiv, sigmoidf, tanhf
 from repro_torch.core.cc import (KERNEL_POLICY_ID, FlowCtx, ParamSpec,
-                                 Policy, Signals, _f32, _lossy, _max)
+                                 Policy, Signals, _clip, _f32, _lossy, _max,
+                                 _min)
 
 N_FEATURES = 6
 HIDDEN = 4
@@ -126,19 +127,19 @@ def make_mlp(weights: dict | None = None, out_gain: float = 1.0,
                             scale="linear")
 
     def init(ctx: FlowCtx):
-        f = torch.clamp_min(ctx.fanin, 1.0)
-        win0 = torch.clamp_min(2.0 * ctx.bdp / f + rdiv(0.5e6, f), 4000.0)
+        f = _max(ctx.fanin, 1.0)
+        win0 = _max(2.0 * ctx.bdp / f + rdiv(0.5e6, f), 4000.0)
         return {"rate": ctx.line * 1.0, "win": win0,
                 "bdp": ctx.bdp * 1.0, "fanin": f}
 
     def update(p, st, sig: Signals):
-        line = torch.clamp_min(sig.line, 1.0)
-        base = torch.clamp_min(sig.base_rtt, 1e-7)
-        bdp = torch.clamp_min(st["bdp"], 1.0)
-        qdel = torch.clamp_min(sig.rtt - sig.base_rtt, 0.0)
+        line = _max(sig.line, 1.0)
+        base = _max(sig.base_rtt, 1e-7)
+        bdp = _max(st["bdp"], 1.0)
+        qdel = _max(sig.rtt - sig.base_rtt, 0.0)
         qd = qdel / base
-        u = torch.clamp_min(sig.util, 0.0)
-        fan = torch.clamp_min(st["fanin"], 1.0)
+        u = _max(sig.util, 0.0)
+        fan = _max(st["fanin"], 1.0)
         # the reference's compiler rewrites (q / b) / (1 + qd) as
         # q / (b * (1 + qd))
         x = (sig.ecn,
@@ -154,10 +155,9 @@ def make_mlp(weights: dict | None = None, out_gain: float = 1.0,
             + _f32(p["b2_0"])
         sw = _dot(p, [f"w2_1{j}" for j in range(HIDDEN)], h) \
             + _f32(p["b2_1"])
-        win_prior = torch.clamp_min(2.0 * bdp / fan + rdiv(0.5e6, fan),
-                                    4000.0)
+        win_prior = _max(2.0 * bdp / fan + rdiv(0.5e6, fan), 4000.0)
         gain_dt = _f32(_f32(p["out_gain"]) * sig.dt)
-        a = torch.clamp(rdiv(gain_dt, _max(base, sig.dt)), 0.0, 1.0)
+        a = _clip(rdiv(gain_dt, _max(base, sig.dt)), 0.0, 1.0)
         # exponential tracking of the bounded targets; the target's own
         # product fuses into the difference (line * sig - rate, one FMA)
         rate = fma(a, fma(line, sigmoidf(sr + _RATE_BIAS), -st["rate"]),
@@ -165,16 +165,16 @@ def make_mlp(weights: dict | None = None, out_gain: float = 1.0,
         rate = torch.minimum(torch.maximum(rate, 1e-3 * line), line)
         win = fma(a, fma(win_prior, expf(_WIN_SPAN * tanhf(sw)),
                          -st["win"]), st["win"])
-        win = torch.minimum(torch.clamp_min(win, 1000.0), 32.0 * bdp)
+        win = _min(_max(win, 1000.0), 32.0 * bdp)
         if _lossy(sig):
             # structural cut, monotone in loss for any weights; loss == 0
             # flows keep their values bit for bit
-            cut = fma(-0.5, torch.clamp_max(
-                _f32(2.0 * p["loss_cut"]) * sig.loss, 1.0), 1.0)
+            cut = fma(-0.5, _min(_f32(2.0 * p["loss_cut"]) * sig.loss, 1.0),
+                      1.0)
             rate = torch.where(sig.loss > 0,
                                torch.maximum(rate * cut, 1e-3 * line), rate)
             win = torch.where(sig.loss > 0,
-                              torch.clamp_min(win * cut, 1000.0), win)
+                              _max(win * cut, 1000.0), win)
         st2 = {"rate": rate, "win": win, "bdp": st["bdp"],
                "fanin": st["fanin"]}
         return st2, rate, win

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``, ``scripts/profile_step.py`` or
-``scripts/time_flash_decode.py``) imports jax or the JAX package, it
+"""The port stands alone: no module of ``src/repro_torch`` (its
+``core/autotune.py`` and ``learn/train.py`` included; nor
+``chip_smoke.py``, ``scripts/profile_step.py``,
+``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
+or the JAX package, it
 imports and runs with jax unavailable, and it never runs on the CPU unless
 asked to."""
 import ast
@@ -18,7 +20,8 @@ from repro_torch.core import (EngineConfig, Simulator, SweepRunner,
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_step.py",
-    ROOT / "scripts" / "time_flash_decode.py"]
+    ROOT / "scripts" / "time_flash_decode.py",
+    ROOT / "scripts" / "time_grad.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -45,6 +48,7 @@ def test_port_runs_with_jax_unavailable():
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
         "import repro_torch.learn\n"
+        "import repro_torch.learn.train, repro_torch.core.autotune\n"
         "from repro_torch.core import *\n"
         "topo = single_switch(4)\n"
         "sched = incast(topo, [1, 2, 3], 0, 2e5)\n"
