@@ -24,7 +24,17 @@ process's simulator phases: ``examples/cc_autotune.py``'s CC and fabric
 tunings (``autotune_incast8``), two Adam steps of the ``mlp`` trainer's
 curriculum (``learn_step``), and the soft cost's gradient at 32 GPUs
 against the reference and at the paper's 128 GPUs with remat
-(``soft_grad``).
+(``soft_grad``).  Before them it measures the backend calibration on the
+card (``calibrate``: serial against batched runs, persisted to a temporary
+``REPRO_CACHE_DIR``); beside them two more children run resilient
+campaigns: the committed 128-GPU atlas
+(``experiments/atlas/atlas_paper_ring128.csv``) through ``run_campaign``
+until the child SIGKILLs itself before its third chunk, which the main
+process then resumes from the journal and holds cell by cell against the
+CSV (``campaign_atlas128``), and, after a warm start of the persisted
+table, the retry ladder under injected out-of-memory errors on 32 GPUs
+(``campaign_ladder32``) and the HLO-replay prediction of every policy,
+batched and serial (``predict32``).
 
     python3 chip_smoke.py
 
@@ -54,6 +64,8 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -392,6 +404,75 @@ SOFT_GRAD_REFERENCE = {"clos32_2d": {"soft_cost": 0.0013953729066997766,
                "grad": {"rai_frac": -0.00022894320136401802,
                         "g": -0.00012396377860568464,
                         "fabric.kmin": -5.853551532375434e-10}}}
+
+# campaign_atlas128: experiments/atlas/atlas_paper_ring128.csv, written by
+# benchmarks/atlas.py at REPRO_BENCH_SCALE=paper through the reference's
+# run_campaign: the 128-GPU 8-rack CLOS (oversubscription 2), the
+# topology-aware ring all-reduce of 128 MB in one chunk (32,512 flows),
+# one task per policy of its key parameter at x0.5, x1, x2 of the default
+# (clipped to the ParamSpec) crossed with paired ECN ramps (kmin, 4*kmin)
+# x xoff, 12 lanes a task.  Completion within 2 steps, PAUSE frames within
+# rtol 1e-3 + 1, lane status equal.
+ATLAS_CSV = REPO / "experiments" / "atlas" / "atlas_paper_ring128.csv"
+ATLAS_KEY_PARAM = {"dcqcn": "rai_frac", "hpcc": "eta", "timely": "beta",
+                   "mlp": "out_gain"}
+ATLAS_SPAN = (0.5, 1.0, 2.0)
+ATLAS_FABRIC = [(k, 4.0 * k, x) for k in (100e3, 1000e3)
+                for x in (0.25e6, 4e6)]
+ATLAS_BYTES = 128e6
+ATLAS_CFG = dict(dt=4e-6, max_steps=6000, max_extends=6, queue_stride=0)
+# the child SIGKILLs itself before dispatching its third chunk (one chunk
+# a task), so the journal holds dcqcn's and hpcc's
+ATLAS_KILL_BEFORE = 3
+# campaign_ladder32: 4 DCQCN lanes of rai_frac on clos32_2d; the dispatch
+# hook raises torch.OutOfMemoryError on the first 1, 2 attempts (the
+# serial rung dispatches no chunk, so the hook never sees it)
+LADDER_RAI = (0.015, 0.03, 0.06, 0.12)
+LADDER_RUNGS = {1: ["half_chunk"], 2: ["half_chunk", "serial"]}
+# predict32: tests/test_system.py's collective mix replayed on the
+# reference's default 32-GPU CLOS (src/repro/core/predict.py's default)
+PREDICT_OPS = (("all-reduce", 64e6, 16, 16), ("all-to-all", 16e6, 16, 16))
+PREDICT_MESH, PREDICT_AXES = (16, 16), (0, 1)
+PREDICT_DT = 2e-6
+# The JAX reference (CPU, serial runs) from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py predict32
+# (jax 0.9.0, numpy 2.0.2): 15,488 flows.  Within 2 steps; PAUSE frames
+# rtol 1e-3 + 1.
+PREDICT_REFERENCE = {
+    "pfc": {"comm_time": 0.000800000037997961, "pauses": 0.0},
+    "dcqcn": {"comm_time": 0.0009060000302270055, "pauses": 0.0},
+    "dctcp": {"comm_time": 0.000800000037997961, "pauses": 0.0},
+    "timely": {"comm_time": 0.002114000031724572, "pauses": 0.0},
+    "hpcc": {"comm_time": 0.000994000001810491, "pauses": 0.0},
+    "hpcc_pint": {"comm_time": 0.0013640000252053142, "pauses": 0.0},
+    "static_window": {"comm_time": 0.0008960000122897327, "pauses": 0.0},
+    "mlp": {"comm_time": 0.000800000037997961, "pauses": 0.0},
+}
+
+
+def atlas_csv() -> list:
+    """The committed atlas's rows, numbers parsed."""
+    import csv
+    with open(ATLAS_CSV, newline="") as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        for k in ("param_value", "kmin", "kmax", "xoff", "completion_ms"):
+            r[k] = float(r[k])
+        r["pfc_frames"] = int(r["pfc_frames"])
+    return rows
+
+
+def atlas_lanes(policy) -> tuple:
+    """A policy's atlas lanes, as ``benchmarks/atlas.py`` builds them:
+    ``(key, (12,) float32 values, stacked fabric dict)``; ``policy`` is
+    either package's ``Policy``."""
+    key = ATLAS_KEY_PARAM[policy.name]
+    spec = policy.param_spec(key)
+    vals = [min(max(spec.default * s, spec.lo), spec.hi) for s in ATLAS_SPAN]
+    lanes = [(v, f) for v in vals for f in ATLAS_FABRIC]
+    pts = np.asarray([f for _, f in lanes], np.float32)
+    return (key, np.asarray([v for v, _ in lanes], np.float32),
+            {"kmin": pts[:, 0], "kmax": pts[:, 1], "xoff": pts[:, 2]})
 
 
 # dlrm_reference: Table II widths with small tables, weights from numpy
@@ -2136,42 +2217,60 @@ def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
                        "of the reference where it is known"})
 
 
-GRAD_PHASES = ("learn_step", "soft_grad", "autotune_incast8")
+# the phases run in processes of their own, beside phases 3-5i: the three
+# gradient phases, the atlas campaign until its SIGKILL, and the ladder
+# and prediction phases (after the warm start of phase 2b's table)
+CHILD_PHASES = ("learn_step", "soft_grad", "autotune_incast8",
+                "campaign_atlas128_kill", "campaigns")
+# what a child phase's wall seconds were taken beside
+CONTENDED = ("wall seconds under contention: in a child process beside the "
+             "other child phases and the main process's phases 3-5i")
 
 
-def start_grad_phases(tmp: Path) -> dict:
-    """Each gradient phase in a process of its own (``--grad-phase``),
-    beside the main process's phases 3-5i: all of them are bound by one
-    host core each, not by the card.  Output goes to files in ``tmp``."""
+def start_child_phases(tmp: Path) -> dict:
+    """Each child phase in a process of its own (``--child-phase NAME
+    TMP``), beside the main process's phases 3-5i: all of them are bound
+    by one host core each, not by the card.  Output goes to files in
+    ``tmp``; the children inherit phase 2b's ``REPRO_CACHE_DIR``."""
     procs = {}
-    for name in GRAD_PHASES:
+    for name in CHILD_PHASES:
         out = open(tmp / f"{name}.out", "w")
         err = open(tmp / f"{name}.err", "w")
         procs[name] = (subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--grad-phase",
-             name], stdin=subprocess.PIPE, stdout=out, stderr=err,
+            [sys.executable, str(Path(__file__).resolve()), "--child-phase",
+             name, str(tmp)], stdin=subprocess.PIPE, stdout=out, stderr=err,
             text=True), out, err)
     return procs
 
 
-def finish_grad_phases(procs: dict, tmp: Path, forward: dict) -> None:
+def finish_child_phases(procs: dict, tmp: Path, forward: dict) -> dict:
     """Hand ``soft_grad`` the forward runs' soft costs, wait for every
-    gradient phase, print its lines, and fail if one failed."""
+    child phase, print its lines, and fail if one failed (the atlas child
+    must have died by its own SIGKILL).  Returns each child's JSON lines
+    by phase."""
     stdin = procs["soft_grad"][0].stdin
     stdin.write(json.dumps(forward) + "\n")
     stdin.close()
-    failed = []
+    failed, lines = [], {}
     for name, (proc, out, err) in procs.items():
         proc.wait()
         out.close()
         err.close()
-        sys.stdout.write((tmp / f"{name}.out").read_text())
+        text = (tmp / f"{name}.out").read_text()
+        sys.stdout.write(text)
         sys.stdout.flush()
-        if proc.returncode:
-            failed.append(f"{name} (exit {proc.returncode}): "
+        for ln in text.splitlines():
+            if ln.startswith("{"):
+                obj = json.loads(ln)
+                lines[obj.get("phase")] = obj
+        want = -signal.SIGKILL if name == "campaign_atlas128_kill" else 0
+        if proc.returncode != want:
+            failed.append(f"{name} (exit {proc.returncode}, expected "
+                          f"{want}): "
                           + (tmp / f"{name}.err").read_text()[-3000:])
     if failed:
-        raise AssertionError("gradient phases failed: " + "; ".join(failed))
+        raise AssertionError("child phases failed: " + "; ".join(failed))
+    return lines
 
 
 def stop_processes(procs: dict) -> None:
@@ -2183,8 +2282,8 @@ def stop_processes(procs: dict) -> None:
         err.close()
 
 
-def grad_phase_main(name: str) -> int:
-    """One gradient phase in this process (``main`` starts it)."""
+def child_phase_main(name: str, tmp: Path) -> int:
+    """One child phase in this process (``main`` starts it)."""
     import torch
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2194,6 +2293,12 @@ def grad_phase_main(name: str) -> int:
         autotune_incast8(gpu)
     elif name == "learn_step":
         learn_step(gpu)
+    elif name == "campaign_atlas128_kill":
+        campaign_atlas128_kill(tmp / "atlas")
+    elif name == "campaigns":
+        calibrate_warm_start()
+        campaign_ladder32(gpu, tmp / "ladder")
+        predict32(gpu)
     else:
         runner = SweepRunner(EngineConfig(dt=DT, max_steps=6000,
                                           max_extends=6, queue_stride=0),
@@ -2203,6 +2308,304 @@ def grad_phase_main(name: str) -> int:
             return json.loads(sys.stdin.readline())
         soft_grad(runner, main_scenarios(), forward, gpu)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phases 2b, 5m-5p: backend calibration, campaigns, HLO-replay prediction
+# ---------------------------------------------------------------------------
+
+def calibrate(gpu: str) -> dict:
+    """``calibrate_backend(device="cuda")`` with the default probes (90
+    and 1,806 flows, B=6), persisted to this run's ``REPRO_CACHE_DIR``:
+    the table and every probe's serial and batched seconds."""
+    from repro_torch.core.sweep import (calibrate_backend,
+                                        calibration_cache_path)
+    t0 = time.perf_counter()
+    cal = calibrate_backend(device="cuda")
+    path = calibration_cache_path("cuda")
+    if not Path(path).is_file():
+        raise AssertionError(f"calibrate: no table persisted at {path}")
+    rec = cal.record()
+    emit({"phase": "calibrate", "gpu": gpu,
+          "seconds": time.perf_counter() - t0, **rec,
+          "batching_loses": [p for p in rec["probes"]
+                             if p["batched_s"] >= p["serial_s"]]})
+    return rec
+
+
+def calibrate_warm_start() -> None:
+    """A fresh process's ``get_calibration("cuda")``: phase 2b's measured
+    table from disk (``main`` holds it equal to its own)."""
+    from repro_torch.core.sweep import get_calibration
+    cal = get_calibration("cuda")
+    if cal.source != "measured":
+        raise AssertionError("calibrate_warm_start: the persisted table "
+                             f"was not loaded ({cal})")
+    emit({"phase": "calibrate_warm_start", "record": cal.record()})
+
+
+def atlas_tasks() -> tuple:
+    """``benchmarks/atlas.py``'s paper-scale campaign on the port: the
+    tasks and their config."""
+    from repro_torch.core import (CampaignTask, EngineConfig, FabricSpec,
+                                  allreduce_ring, get_policy)
+    fab = FabricSpec("clos", n_racks=8, nodes_per_rack=2, gpus_per_node=8,
+                     oversubscription=2.0)
+    topo = fab.build()
+    sched = allreduce_ring(topo, list(range(fab.n_gpus)), ATLAS_BYTES,
+                           n_chunks=1)
+    tasks = []
+    for pol in ATLAS_KEY_PARAM:
+        policy = get_policy(pol)
+        key, vals, fabric = atlas_lanes(policy)
+        tasks.append(CampaignTask(pol, topo, sched, policy,
+                                  stacked_params={key: vals},
+                                  stacked_fabric=fabric))
+    return tasks, EngineConfig(**ATLAS_CFG)
+
+
+def campaign_atlas128_kill(out: Path) -> None:
+    """The atlas campaign in a child that SIGKILLs itself from its
+    dispatch hook before its ``ATLAS_KILL_BEFORE``-th chunk, after
+    printing what it launched."""
+    from repro_torch.core import SweepRunner, run_campaign
+    from repro_torch.kernels.engine_step import ops
+    tasks, cfg = atlas_tasks()
+    calls = {"n": 0, "t0": time.perf_counter()}
+
+    def hook(lo, hi, B):
+        calls["n"] += 1
+        if calls["n"] == ATLAS_KILL_BEFORE:
+            emit({"phase": "campaign_atlas128_kill",
+                  "chunks_done": calls["n"] - 1,
+                  "seconds": time.perf_counter() - calls["t0"],
+                  "launches": dict(ops.LAUNCHES)})
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    ops.reset_launches()
+    run_campaign(tasks, "atlas_paper_ring128", out_dir=str(out),
+                 runner=SweepRunner(cfg, dispatch_hook=hook, device="cuda"),
+                 cfg=cfg)
+    raise AssertionError("campaign_atlas128_kill: the campaign ended "
+                         "without its SIGKILL")
+
+
+def campaign_atlas128(gpu: str, out: Path, killed: dict) -> dict:
+    """Resume the killed atlas campaign from its journal and hold all 48
+    cells against the committed CSV.  Returns the engine-kernel launches
+    of both processes."""
+    import torch
+    from repro_torch.core import SweepRunner, run_campaign
+    from repro_torch.kernels.engine_step import ops
+    tasks, cfg = atlas_tasks()
+    rows = atlas_csv()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run_campaign(tasks, "atlas_paper_ring128", out_dir=str(out),
+                       runner=SweepRunner(cfg, device="cuda"), cfg=cfg,
+                       resume=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    m = res.manifest
+    chunks = [c for t in m["tasks"].values() for c in t["chunks"]]
+    replayed = sum(c["status"] == "replayed" for c in chunks)
+    demotions = {k: t["demotions"] for k, t in m["tasks"].items()
+                 if t["demotions"]}
+    cells, bad = [], []
+    for task in tasks:
+        batch = res.results[task.name]
+        key = ATLAS_KEY_PARAM[task.name]
+        want = [r for r in rows if r["policy"] == task.name]
+        status = batch.lane_status()
+        if len(want) != batch.n:
+            raise AssertionError(f"campaign_atlas128 {task.name}: "
+                                 f"{batch.n} lanes, the CSV {len(want)}")
+        for i, w in enumerate(want):
+            got = {"param_value": float(batch.params[key][i]),
+                   **{k: float(batch.fabric[k][i])
+                      for k in ("kmin", "kmax", "xoff")},
+                   "completion_ms": float(batch.completion_time[i]) * 1e3,
+                   "pfc_frames": float(batch.pause_count[i].sum()),
+                   "lane_status": str(status[i])}
+            d_steps = float(steps_apart(got["completion_ms"] / 1e3,
+                                        w["completion_ms"] / 1e3, DT))
+            ok = (all(got[k] == w[k] for k in ("param_value", "kmin",
+                                               "kmax", "xoff"))
+                  and d_steps <= 2
+                  and abs(got["pfc_frames"] - w["pfc_frames"])
+                  <= 1e-3 * abs(w["pfc_frames"]) + 1
+                  and got["lane_status"] == w["lane_status"])
+            cell = {"policy": task.name, "lane": i, **got,
+                    "csv_completion_ms": w["completion_ms"],
+                    "csv_pfc_frames": w["pfc_frames"],
+                    "diff_steps": d_steps, "agrees": ok}
+            cells.append(cell)
+            if not ok:
+                bad.append(cell)
+    task_s = {k: sum(c.get("wall_s", 0.0) for c in t["chunks"])
+              for k, t in m["tasks"].items()}
+    total = {k: killed["launches"][k] + launches[k] for k in launches}
+    emit({"phase": "campaign_atlas128", "gpu": gpu,
+          "status": res.status, "coverage": m["coverage"],
+          "replayed": replayed, "demotions": demotions,
+          "task_wall_s": task_s, "resume_seconds": wall,
+          "killed_after_chunks": killed["chunks_done"],
+          "killed_seconds": killed["seconds"],
+          "launches_before_kill": killed["launches"],
+          "launches_after_resume": launches,
+          "cells_agree": len(cells) - len(bad), "cells": len(cells),
+          "max_diff_steps": max(c["diff_steps"] for c in cells),
+          "disagree": bad,
+          "timing": "dcqcn and hpcc " + CONTENDED + "; timely and mlp "
+                    "resumed in the main process with nothing beside it",
+          "tolerance": "completion within 2 steps, PAUSE rtol 1e-3 + 1, "
+                       "lane status equal, lane params equal"})
+    if (res.status != "complete" or m["coverage"] != 1.0 or replayed != 2
+            or killed["chunks_done"] != ATLAS_KILL_BEFORE - 1 or demotions):
+        raise AssertionError(f"campaign_atlas128: status {res.status}, "
+                             f"coverage {m['coverage']}, {replayed} chunks "
+                             f"replayed, demotions {demotions}")
+    if not (killed["launches"]["fused_signals_policy"]
+            and launches["fused_signals_policy"]
+            and launches["segment_reduce"]
+            and launches["segment_reduce_pfc"]):
+        raise AssertionError("campaign_atlas128: the chunks did not launch "
+                             f"the engine kernels ({killed['launches']}, "
+                             f"{launches})")
+    if bad:
+        raise AssertionError(f"campaign_atlas128: {len(bad)} of "
+                             f"{len(cells)} cells disagree with "
+                             f"{ATLAS_CSV.name}: {bad[:4]}")
+    return total
+
+
+def campaign_ladder32(gpu: str, out: Path) -> None:
+    """Two campaigns of 4 DCQCN lanes on clos32_2d whose dispatch hook
+    raises ``torch.OutOfMemoryError`` on the first 1 and 2 attempts: each
+    walks the ladder to the recorded rungs, each merged result is
+    bit-equal to one plain kernel-path ``run_batch``, and each launches
+    the engine kernels (no rung leaves them)."""
+    import torch
+    from repro_torch.core import (CampaignTask, EngineConfig, ScenarioSpec,
+                                  SweepRunner, run_campaign)
+    from repro_torch.kernels.engine_step import ops
+    cfg = EngineConfig(dt=DT, max_steps=6000, max_extends=6, queue_stride=0)
+    topo, sched, _ = ScenarioSpec(*main_scenarios()["clos32_2d"],
+                                  "dcqcn").build()
+    rai = np.asarray(LADDER_RAI, np.float32)
+    runner = SweepRunner(cfg, device="cuda")
+    ops.reset_launches()
+    plain = runner.run_batch(topo, sched, "dcqcn", {"rai_frac": rai})
+    plain_launches = dict(ops.LAUNCHES)
+    rows = {}
+    for fails, rungs in LADDER_RUNGS.items():
+        calls = {"n": 0}
+
+        def hook(lo, hi, B, fails=fails):
+            calls["n"] += 1
+            if calls["n"] <= fails:
+                raise torch.OutOfMemoryError(
+                    f"injected OOM {calls['n']} of {fails}")
+
+        task = CampaignTask("dcqcn_rai", topo, sched, "dcqcn",
+                            stacked_params={"rai_frac": rai})
+        sub = runner.share_prep(dispatch_hook=hook)  # the plan above
+        messages = []
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_campaign([task], f"ladder{fails}", out_dir=str(out),
+                           runner=sub, cfg=cfg, backoff_s=0.0,
+                           progress=messages.append)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        ts = res.manifest["tasks"]["dcqcn_rai"]
+        got = [d["rung"] for d in ts["demotions"]]
+        batch = res.results["dcqcn_rai"]
+        equal = {k: bool(np.array_equal(
+            np.asarray(getattr(batch, k)),
+            np.asarray(getattr(plain, k)).astype(
+                np.asarray(getattr(batch, k)).dtype)))
+            for k in ("completion_time", "t_finish", "pause_count",
+                      "delivered", "soft_cost", "finished", "diverged",
+                      "deadlock_step", "storm_step", "extend_exhausted")}
+        rows[rungs[-1]] = {"fails": fails, "demotions": got,
+                           "ladder": ts["ladder"],
+                           "attempts": ts["chunks"][0]["attempts"],
+                           "seconds": time.perf_counter() - t0,
+                           "launches": launches, "bit_equal": equal,
+                           "progress_demotions": sum(
+                               "demoting to" in m for m in messages)}
+        if (not res.ok or got != rungs or not all(equal.values())
+                or rows[rungs[-1]]["progress_demotions"] != fails):
+            raise AssertionError(f"campaign_ladder32 ({fails} failures): "
+                                 f"{rows[rungs[-1]]}")
+        if not launches["fused_signals_policy"]:
+            raise AssertionError(f"campaign_ladder32: the {rungs[-1]} "
+                                 f"campaign launched no kernel {launches}")
+    total = {k: sum(r["launches"][k] for r in rows.values())
+             for k in plain_launches}
+    emit({"phase": "campaign_ladder32", "gpu": gpu, "lanes": list(LADDER_RAI),
+          "plain_run_batch_launches": plain_launches, "rungs": rows,
+          "launches": total, "timing": CONTENDED,
+          "tolerance": "every rung's merged arrays bit-equal to the plain "
+                       "kernel-path run_batch"})
+
+
+def predict32(gpu: str) -> None:
+    """``predict_policies`` on ``PREDICT_OPS`` over the default 32-GPU
+    CLOS, all 8 policies: once as the card's table advises
+    (``batched=None``) and once the other way; the reports equal each
+    other and each comm_time is within 2 steps of the reference's."""
+    import torch
+    from repro_torch.core import SweepRunner
+    from repro_torch.core.hlo_comm import CollectiveOp
+    from repro_torch.core.predict import predict_policies
+    from repro_torch.kernels.engine_step import ops
+    ops_ = [CollectiveOp(*op) for op in PREDICT_OPS]
+    runner = SweepRunner(device="cuda")
+    advice = runner.policy_axis_pays_off()
+    runs, launches = {}, {k: 0 for k in ops.LAUNCHES}
+    # first as the table advises (batched=None), then the other way
+    for batched in (None, not advice):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = predict_policies(ops_, PREDICT_MESH, PREDICT_AXES,
+                                runner=runner, batched=batched)
+        torch.cuda.synchronize()
+        ran_batched = advice if batched is None else batched
+        runs["batched" if ran_batched else "serial"] = {"seconds": time.perf_counter() - t0,
+                      "launches": dict(ops.LAUNCHES),
+                      "reports": [vars(r) for r in reps]}
+        for k in launches:
+            launches[k] += ops.LAUNCHES[k]
+    a, b = runs["batched"]["reports"], runs["serial"]["reports"]
+    rows, worst = [], 0.0
+    for r in a:
+        want = PREDICT_REFERENCE[r["policy"]]
+        d = float(steps_apart(r["comm_time"], want["comm_time"], PREDICT_DT))
+        worst = max(worst, d)
+        rows.append({"policy": r["policy"], "comm_time": r["comm_time"],
+                     "reference": want["comm_time"], "diff_steps": d,
+                     "pauses": r["pauses"], "finished": r["finished"]})
+        if d > 2 or abs(r["pauses"] - want["pauses"]) > \
+                1e-3 * want["pauses"] + 1 or not r["finished"]:
+            raise AssertionError(f"predict32 {r['policy']}: {r} vs the "
+                                 f"reference {want}")
+    emit({"phase": "predict32", "gpu": gpu, "advice_batched": advice,
+          "reports_equal": a == b, "max_diff_steps": worst, "rows": rows,
+          **{f"{m}_seconds": v["seconds"] for m, v in runs.items()},
+          **{f"{m}_launches": v["launches"] for m, v in runs.items()},
+          "launches": launches, "timing": CONTENDED,
+          "tolerance": "batched and serial reports equal; comm_time "
+                       "within 2 steps, PAUSE rtol 1e-3 + 1 of the "
+                       "reference"})
+    if a != b:
+        raise AssertionError(f"predict32: batched {a} != serial {b}")
+    if not runs["serial"]["launches"]["fused_signals_policy"]:
+        raise AssertionError("predict32: the serial runs launched no kernel")
 
 
 def main_scenarios() -> dict:
@@ -2461,7 +2864,8 @@ def dlrm_iteration(cfg, gpu: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (rep,) = simulate_dlrm_policies(topo, gpus, (pol,), comm=comm,
-                                        cfg=cfg, runner=runner)
+                                        cfg=cfg, runner=runner,
+                                        batched=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -3025,22 +3429,31 @@ def main() -> int:
     emit({"phase": "kernel_timing", "gpu": gpu,
           "dcqcn_update": timing["dcqcn_update"]})
 
-    # ---- 5j-5l start: gradients through the simulator, one process each --
-    # (no kernel is timed until they are done: phases 6-14 follow them)
+    # ---- 2b. the backend calibration, persisted for the child phases -----
+    # (before any child starts: its probes are wall-clock times)
     import tempfile
     tmp_dir = tempfile.TemporaryDirectory()
-    procs = start_grad_phases(Path(tmp_dir.name))
+    tmp = Path(tmp_dir.name)
+    os.environ["REPRO_CACHE_DIR"] = str(tmp / "cache")
     try:
-        return main_paths(dev, gpu, t_start, runner, cfg, scen, sims,
-                          timing, traced, fused, seg_err, ccu_check, procs,
-                          Path(tmp_dir.name))
+        calibration = calibrate(gpu)
+        # ---- 5j-5p start: gradients through the simulator, the atlas
+        # campaign until its SIGKILL, the ladder and the prediction, one
+        # process each (no kernel is timed until they are done: phases
+        # 6-14 follow them)
+        procs = start_child_phases(tmp)
+        try:
+            return main_paths(dev, gpu, t_start, runner, cfg, scen, sims,
+                              timing, traced, fused, seg_err, ccu_check,
+                              procs, tmp, calibration)
+        finally:
+            stop_processes(procs)
     finally:
-        stop_processes(procs)
         tmp_dir.cleanup()
 
 
 def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
-               fused, seg_err, ccu_check, procs, tmp) -> int:
+               fused, seg_err, ccu_check, procs, tmp, calibration) -> int:
     """Phases 3-14 and the result lines (``main``'s second half)."""
     import torch
     from repro_torch.core import ScenarioSpec
@@ -3131,12 +3544,20 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
     # ---- 5i. the held-out incast, all eight policies (op path) ------------
     mlp_heldout16(gpu)
 
-    # ---- 5j-5l end: the gradient phases' lines --------------------------
-    finish_grad_phases(procs, tmp, {
+    # ---- 5j-5p end: the child phases' lines ------------------------------
+    child = finish_child_phases(procs, tmp, {
         label: {"soft_cost": results[label, "dcqcn"].soft_cost,
                 "steps_executed": results[label, "dcqcn"].meta[
                     "steps_executed"]}
         for label in ("clos128_1d", "clos32_2d")})
+    if child["calibrate_warm_start"]["record"] != calibration:
+        raise AssertionError("calibrate_warm_start: the child's table "
+                             f"{child['calibrate_warm_start']} differs from "
+                             f"phase 2b's {calibration}")
+
+    # ---- 5m. the atlas campaign, resumed from the killed child's journal --
+    atlas_launches = campaign_atlas128(gpu, tmp / "atlas",
+                                       child["campaign_atlas128_kill"])
 
     # ---- 6. DLRM: the embedding-bag kernel against its plain version -------
     emb_check = dlrm_kernel_check(dev)
@@ -3217,6 +3638,9 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
     path_launches = {k: main_launches[k] + iter_launches[k]
                      + fig12_launches[k] + fault_launches[k]
                      + f32_launches[k] + mlp_launches[k]
+                     + atlas_launches[k]
+                     + child["campaign_ladder32"]["launches"][k]
+                     + child["predict32"]["launches"][k]
                      for k in main_launches}
     path_launches["dcqcn_update"] = ccu_launches
     path_launches.update(emb_launches)
@@ -3259,6 +3683,6 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--grad-phase"]:
-        sys.exit(grad_phase_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--child-phase"]:
+        sys.exit(child_phase_main(sys.argv[2], Path(sys.argv[3])))
     sys.exit(main())

@@ -12,11 +12,15 @@ and teacher-forced decode, at full width and 4 layers),
 ``autotune_incast8`` (``examples/cc_autotune.py``'s tunings),
 ``learn_step`` (two Adam steps of the ``mlp`` trainer's curriculum) and
 ``soft_grad`` (the soft cost and its gradient; ``soft_grad:clos32_2d``,
-the default); all of them by default.  Prints one JSON line per result;
+the default), ``predict32`` (the HLO-replay prediction on the 32-GPU
+CLOS) and ``atlas_ring128`` (the committed atlas's lanes re-run, one
+batch a policy; ``atlas_ring128:hpcc`` one policy, minutes each); all of
+them by default.  Prints one JSON line per result;
 ``chip_smoke.py`` holds the port's card runs to these values
 (``REFERENCE``, ``FIG12_REFERENCE``, ``DLRM_ITER_REFERENCE``,
 ``DLRM_REF_LOGITS``, ``SERVE_REF``, ``AUTOTUNE_REFERENCE``,
-``LEARN_REFERENCE`` and ``SOFT_GRAD_REFERENCE`` there).
+``LEARN_REFERENCE``, ``SOFT_GRAD_REFERENCE`` and ``PREDICT_REFERENCE``
+there; the atlas's cells are held to the committed CSV).
 The 128-GPU runs take a few minutes each on a CPU, the DLRM logits about
 four.
 
@@ -359,6 +363,58 @@ def soft_grad(name: str) -> None:
           "grad": grads, "cpu_seconds": time.perf_counter() - t0})
 
 
+def atlas_ring128(policies=None) -> None:
+    """``experiments/atlas/atlas_paper_ring128.csv``'s lanes, re-run by
+    the reference as one ``run_batch`` per policy (its key parameter x
+    the fabric points, ``chip_smoke.atlas_lanes``): each lane's
+    completion, PAUSE frames and status, beside the committed CSV's."""
+    from repro.core.collectives import allreduce_ring
+    cs = chip_smoke
+    topo = PAPER_FABRIC.build()
+    sched = allreduce_ring(topo, list(range(PAPER_FABRIC.n_gpus)),
+                           cs.ATLAS_BYTES, n_chunks=1)
+    runner = SweepRunner(EngineConfig(**cs.ATLAS_CFG, step_impl="jnp"))
+    csv_rows = cs.atlas_csv()
+    for pol in policies or cs.ATLAS_KEY_PARAM:
+        key, vals, fab = cs.atlas_lanes(get_policy(pol))
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            batch = runner.run_batch(topo, sched, pol, {key: vals},
+                                     stacked_fabric=fab)
+        status = batch.lane_status()
+        want = [r for r in csv_rows if r["policy"] == pol]
+        for i in range(batch.n):
+            emit({"scenario": "atlas_ring128", "policy": pol, "lane": i,
+                  "completion_ms": float(batch.completion_time[i]) * 1e3,
+                  "pfc_frames": float(batch.pause_count[i].sum()),
+                  "lane_status": str(status[i]),
+                  "csv": {k: want[i][k] for k in ("completion_ms",
+                                                  "pfc_frames",
+                                                  "lane_status")},
+                  "n_flows": sched.n_flows,
+                  "cpu_seconds": time.perf_counter() - t0})
+
+
+def predict32() -> None:
+    """``predict_policies`` on ``chip_smoke.PREDICT_OPS`` over the
+    reference's default 32-GPU CLOS, every policy, serial runs."""
+    from repro.core.hlo_comm import CollectiveOp
+    from repro.core.predict import predict_policies
+    cs = chip_smoke
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        reps = predict_policies([CollectiveOp(*op) for op in cs.PREDICT_OPS],
+                                cs.PREDICT_MESH, list(cs.PREDICT_AXES),
+                                batched=False)
+    emit({"scenario": "predict32",
+          "reports": {r.policy: {"comm_time": r.comm_time,
+                                 "pauses": r.pauses, "finished": r.finished}
+                      for r in reps},
+          "cpu_seconds": time.perf_counter() - t0})
+
+
 def main(names):
     emit({"jax": jax.__version__, "numpy": np.__version__})
     runner = SweepRunner(CFG)
@@ -366,7 +422,8 @@ def main(names):
                           "dlrm_iteration", "serve_reference",
                           "fault_grid_dcqcn", "faults_clos32",
                           "mlp_clos128", "mlp_heldout16",
-                          "autotune_incast8", "learn_step", "soft_grad"]:
+                          "autotune_incast8", "learn_step", "soft_grad",
+                          "predict32", "atlas_ring128"]:
         # fault_grid_dcqcn:3,5 runs those lanes only; mlp_clos128:lossless
         # (or :fig13_gbn) one of its two runs
         name, _, arg = name.partition(":")
@@ -388,6 +445,10 @@ def main(names):
             learn_step()
         elif name == "soft_grad":
             soft_grad(arg or "clos32_2d")
+        elif name == "predict32":
+            predict32()
+        elif name == "atlas_ring128":
+            atlas_ring128(arg.split(",") if arg else None)
         elif name == "batch_fig12":
             batch_fig12(runner)
         elif name == "dlrm_iteration":

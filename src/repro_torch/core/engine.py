@@ -199,6 +199,14 @@ def resolve_step_impl(cfg: EngineConfig, device) -> str:
     return impl
 
 
+def _cfg_static(cfg: EngineConfig, device) -> EngineConfig:
+    """The identity of a config's step on ``device``: fabric scalars arrive
+    per run (``FabricParams``), so they are normalized out; ``step_impl``
+    is resolved, so "auto" names the step path it runs on."""
+    return dataclasses.replace(cfg, step_impl=resolve_step_impl(cfg, device),
+                               **_FABRIC_DEFAULTS)
+
+
 @dataclasses.dataclass
 class Results:
     finished: bool

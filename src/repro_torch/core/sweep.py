@@ -1,5 +1,5 @@
 """Sweep driving of the port's engine (port of ``repro.core.sweep`` minus
-the device mesh and the backend calibration).
+the device mesh).
 
 ``SweepRunner`` caches prepared scenarios (``engine._prep`` output on the
 device) by content fingerprint, and pads flow and group counts up to the
@@ -27,14 +27,17 @@ compile cache.
 * **streaming** — ``chunk_lanes`` splits a large batch into fixed-size
   chunks of lanes, the last one padded by repeating its final lane (the
   padding's results are dropped), and ``dispatch_hook(lo, hi, B)`` is
-  called before each chunk.
+  called before each chunk;
+* **backend calibration** — ``calibrate_backend`` times batched against
+  serial runs on a device and caches the crossover table per device type
+  (persisted under ``$REPRO_CACHE_DIR``); ``batch_pays_off`` and
+  ``policy_axis_pays_off`` advise drivers from it.
 
 Lane isolation: a diverged lane freezes, a deadlocked or budget-exhausted
 lane is flagged, and the healthy lanes complete normally
 (``BatchResults.lane_status``).  Batched runs never record the queue
-timeline.  Not ported: ``mesh=`` (multi-GPU lanes), ``calibrate_backend``
-and the ``*_pays_off`` advice, ``compile_stats`` (the port compiles
-nothing).
+timeline.  Not ported: ``mesh=`` (multi-GPU lanes, so ``sharded_pays_off``
+is always False), ``compile_stats`` (the port compiles nothing).
 
     runner = SweepRunner(EngineConfig(dt=2e-6, max_steps=4000,
                                       queue_stride=0))   # device="cuda"
@@ -45,10 +48,15 @@ nothing).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import json
+import os
+import time
 import warnings
 
 import numpy as np
+import torch
 
 from repro_torch.core import cc as cc_mod
 from repro_torch.core.cc import Policy, stack_policies
@@ -284,6 +292,323 @@ def stack_policy_axis(policies=None, cc_overrides: list | None = None):
     return stacked_pol, params, tuple(labels)
 
 
+# -- backend calibration ----------------------------------------------------
+
+_INF = float("inf")
+
+# Fallback crossover tables (largest n_flows at which the batched path
+# still wins wall-clock) used before any measurement has run on a device
+# type.  "sweep" = same-policy parameter sweep as one batch vs a serial
+# loop; "policy_axis" = the stacked product policy (op path) vs per-policy
+# runs (on the card: the kernel path); "sharded" = lanes over a device
+# mesh vs one device (unported: never consulted).  The "cpu" row is the
+# port's own measurement on an 8-core x86 CPU container (torch 2.13.0+cpu,
+# 8 intra-op threads; two more quiet runs at 8 and 1 threads gave the
+# same table, and of two beside other load one lost the policy axis at
+# 96 flows):
+#   calibrate_backend(device="cpu", persist=False)   # default probes
+#   sweep        96 flows: serial 1.645 s, batched 0.416 s
+#              1920 flows: serial 15.618 s, batched 4.005 s
+#   policy_axis  96 flows: serial 1.639 s, batched 0.922 s
+#              1920 flows: serial 12.643 s, batched 8.831 s
+# Batching won at every probe, so the row is inf, unlike the JAX
+# package's CPU row.  "cuda" stays unlisted (inf): chip_smoke.py's
+# calibrate phase on an NVIDIA H100 80GB HBM3 at 700.00 W (torch
+# 2.11.0+cu128), three runs, serial against batched seconds:
+#   sweep        96 flows: 2.213 / 1.50 / 2.36 against 0.401 / 0.29 / 0.34
+#              1920 flows: 10.755 / 10.64 / 11.04 against 1.964 / 1.63 / 1.83
+#   policy_axis  96 flows: 2.793 / 2.54 / 2.94 against 2.842 / 2.43 / 3.08
+#              1920 flows: 12.632 / 8.39 / 15.50 against 7.243 / 7.14 / 10.22
+# The stacked policy (op path) against six kernel-path runs ties at 96
+# flows (lost by 2%, won by 4%, lost by 5%) and wins clearly at 1,920, so
+# no probe shows batching losing beyond run-to-run spread.  Device types
+# not listed batch everywhere (inf).
+DEFAULT_CROSSOVERS: dict = {
+    "cpu": {"sweep": _INF, "policy_axis": _INF},
+}
+
+
+def _torch_record() -> dict:
+    """What a persisted table was measured under: a table measured under
+    another torch version or CUDA device count is not reused."""
+    return {"version": torch.__version__,
+            "cuda_devices": torch.cuda.device_count()}
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendCalibration:
+    """Serial-vs-batched crossover table for one device type ("cpu",
+    "cuda"), either measured (``calibrate_backend``) or the
+    ``DEFAULT_CROSSOVERS`` fallback.  ``crossover[kind]`` is the largest
+    flow count at which the batched path still wins: ``inf`` = batching
+    always pays off, ``0.0`` = never."""
+    backend: str
+    source: str = "default"            # "default" | "measured"
+    crossover: dict = dataclasses.field(default_factory=dict)
+    probes: tuple = ()                 # (kind, n_flows, serial_s, batched_s)
+
+    def pays_off(self, kind: str, n_flows: int | None = None) -> bool:
+        """Should the batched path run for ``kind`` at ``n_flows``?  With
+        ``n_flows=None`` (scenario-independent callers) batching is
+        recommended only when it wins at *every* scale."""
+        thr = float(self.crossover.get(kind, _INF))
+        if n_flows is None:
+            return thr == _INF
+        return n_flows <= thr
+
+    def record(self) -> dict:
+        """JSON-safe dict (inf encoded as "inf")."""
+        enc = {k: ("inf" if float(v) == _INF else float(v))
+               for k, v in self.crossover.items()}
+        return {"backend": self.backend, "source": self.source,
+                "crossover": enc,
+                "probes": [{"kind": k, "n_flows": n, "serial_s": s,
+                            "batched_s": b}
+                           for k, n, s, b in self.probes]}
+
+
+_CALIBRATION: dict = {}
+# device types for which the on-disk table must NOT be consulted: either
+# the load was already attempted once, or reset_calibration() pinned the
+# process back to the defaults ("*" = every device type)
+_NO_DISK: set = set()
+
+
+def _backend(backend) -> str:
+    """A device type; None is the port's default device, the card."""
+    return "cuda" if backend is None else torch.device(backend).type
+
+
+def calibration_cache_path(backend: str | None = None,
+                           cache_dir: str | None = None) -> str:
+    """Where ``calibrate_backend`` persists its measured table
+    (``$REPRO_CACHE_DIR/repro_torch_calibration_<device type>.json``,
+    default ``.cache/``) so fresh processes warm-start instead of
+    re-measuring."""
+    cache_dir = cache_dir or os.environ.get("REPRO_CACHE_DIR", ".cache")
+    return os.path.join(cache_dir,
+                        f"repro_torch_calibration_{_backend(backend)}.json")
+
+
+def save_calibration(cal: BackendCalibration,
+                     path: str | None = None) -> str | None:
+    """Persist a measured calibration to disk (JSON; inf encoded).  Best
+    effort: an unwritable cache dir is silently skipped (returns None).
+    Written tmp-file + atomic rename, so a run killed mid-write leaves
+    the previous table intact instead of a truncated JSON."""
+    path = path or calibration_cache_path(cal.backend)
+    rec = cal.record()
+    rec["saved_at"] = time.time()
+    rec["torch"] = _torch_record()
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(rec, f, indent=1)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        return None
+    return path
+
+
+def load_calibration(backend: str | None = None, path: str | None = None,
+                     max_age_days: float | None = None
+                     ) -> BackendCalibration | None:
+    """Load a persisted calibration, or None when absent/stale/invalid.
+
+    A table is rejected when it was measured under a different torch
+    version or CUDA device count (both change the crossover), or — with
+    ``max_age_days`` — when older than that.  A corrupt or truncated
+    file is logged and ignored, never raised — a stale warm-start cache
+    must not take down the first sweep of a fresh process."""
+    backend = _backend(backend)
+    path = path or calibration_cache_path(backend)
+    try:
+        with open(path) as f:
+            rec = json.load(f)
+    except OSError:
+        return None                     # absent cache: the normal cold start
+    except ValueError:
+        warnings.warn(f"ignoring corrupt calibration cache {path} "
+                      "(unparseable JSON; re-measure or delete it)",
+                      RuntimeWarning, stacklevel=2)
+        return None
+    try:
+        if rec.get("backend") != backend:
+            return None
+        if rec.get("torch") != _torch_record():
+            return None
+        if max_age_days is not None:
+            age = time.time() - float(rec.get("saved_at", 0.0))
+            if age > max_age_days * 86400.0:
+                return None
+        crossover = {k: (_INF if v == "inf" else float(v))
+                     for k, v in rec.get("crossover", {}).items()}
+        probes = tuple((p["kind"], int(p["n_flows"]), float(p["serial_s"]),
+                        float(p["batched_s"])) for p in rec.get("probes", ()))
+    except Exception:                   # valid JSON, wrong shape/types
+        warnings.warn(f"ignoring malformed calibration cache {path} "
+                      "(unexpected record shape; re-measure or delete it)",
+                      RuntimeWarning, stacklevel=2)
+        return None
+    return BackendCalibration(backend=backend,
+                              source=rec.get("source", "measured"),
+                              crossover=crossover, probes=probes)
+
+
+def get_calibration(backend: str | None = None) -> BackendCalibration:
+    """The active crossover table for a device type (default: "cuda"):
+    the cached ``calibrate_backend`` measurement if one exists, else a
+    table persisted to disk by a previous process
+    (``calibration_cache_path``; disable with REPRO_CALIBRATION_CACHE=0),
+    else the ``DEFAULT_CROSSOVERS`` entry (unlisted device types get inf
+    thresholds: batching always on)."""
+    backend = _backend(backend)
+    cal = _CALIBRATION.get(backend)
+    if (cal is None and "*" not in _NO_DISK and backend not in _NO_DISK
+            and os.environ.get("REPRO_CALIBRATION_CACHE", "1") != "0"):
+        _NO_DISK.add(backend)          # one load attempt per process
+        cal = load_calibration(backend)
+        if cal is not None:
+            _CALIBRATION[backend] = cal
+    if cal is None:
+        table = dict(DEFAULT_CROSSOVERS.get(
+            backend, {"sweep": _INF, "policy_axis": _INF}))
+        cal = BackendCalibration(backend=backend, crossover=table)
+    return cal
+
+
+def set_calibration(cal: BackendCalibration) -> None:
+    """Install a crossover table for ``cal.backend``."""
+    _CALIBRATION[cal.backend] = cal
+
+
+def reset_calibration(backend: str | None = None) -> None:
+    """Drop cached calibrations (all device types when ``backend`` is
+    None), reverting ``get_calibration`` to the defaults — the on-disk
+    table is not reconsulted until the process restarts (tests rely on
+    reset meaning *defaults*, not *whatever a previous run persisted*)."""
+    if backend is None:
+        _CALIBRATION.clear()
+        _NO_DISK.add("*")
+    else:
+        backend = _backend(backend)
+        _CALIBRATION.pop(backend, None)
+        _NO_DISK.add(backend)
+
+
+def _measure_crossover(kind: str, n_flows: int, B: int, cfg: EngineConfig,
+                       device="cuda") -> tuple:
+    """Default calibration probe: time a serial loop against one batch
+    for a ``kind`` sweep on a 1D All-Reduce of ~``n_flows`` flows on
+    ``device`` (bytes scale with ranks so the step budget stays occupied).
+    On the card the serial side of "policy_axis" runs each policy on the
+    kernel path and the batched side the stacked policy on the op path:
+    exactly the choice the advice makes.  Returns ``(actual_n_flows,
+    serial_s, batched_s)``, each side timed after one untimed call (the
+    scenarios' ``_prep`` and the kernels' first load excluded)."""
+    from repro_torch.core.collectives import allreduce_1d
+    from repro_torch.core.topology import single_switch
+
+    # allreduce_1d over R ranks with 4 chunks ~= 8*R*(R-1) flows
+    R = max(2, int(round(0.5 + (0.25 + n_flows / 8.0) ** 0.5)))
+    topo = single_switch(R)
+    sched = allreduce_1d(topo, list(range(R)), 1e6 * R)
+    runner = SweepRunner(cfg, device=device)
+    if kind == "sweep":
+        policy = cc_mod.get_policy("dcqcn")
+        scale = np.linspace(0.5, 2.0, B).astype(np.float32)
+
+        def serial():
+            for s in scale:
+                runner.run(topo, sched, policy,
+                           dict(policy.params, rai_frac=float(0.03 * s)))
+
+        def batched():
+            runner.run_batch(topo, sched, policy,
+                             {"rai_frac": 0.03 * scale})
+    elif kind == "policy_axis":
+        pols = list(cc_mod.ALL_POLICIES)[:max(2, B)]
+
+        def serial():
+            runner.run_policies(topo, sched, pols)
+
+        def batched():
+            runner.run_policy_axis(topo, sched, pols)
+    elif kind == "sharded":
+        raise RuntimeError("sharded calibration needs a device mesh of more "
+                           "than one device; the port lays every lane on "
+                           "one device (SweepRunner(mesh=) is unported)")
+    else:
+        raise ValueError(f"unknown calibration kind: {kind!r}")
+
+    out = []
+    for fn in (serial, batched):
+        fn()                                    # warmup: prep, kernel load
+        _sync(runner.device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(runner.device)
+        out.append(time.perf_counter() - t0)
+    return sched.n_flows, out[0], out[1]
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def calibrate_backend(probe_flows=(90, 1806), B: int = 6,
+                      cfg: EngineConfig | None = None,
+                      kinds=None, device="cuda",
+                      persist: bool = True,
+                      _measure=None) -> BackendCalibration:
+    """Measure the serial-vs-batched wall-clock crossover on ``device``
+    and cache it for its device type; ``SweepRunner.batch_pays_off`` /
+    ``policy_axis_pays_off`` consult the cached table from then on.
+
+    For each ``kind`` the batched path is timed against the serial loop at
+    each probe size; the crossover is the geometric mean of the largest
+    winning and smallest losing probe (all probes win -> inf, all lose ->
+    0.0).  ``kinds=None`` probes "sweep" and "policy_axis" ("sharded"
+    needs a device mesh, which the port does not have: asking for it
+    raises).  The measured table is persisted to
+    ``calibration_cache_path()`` (``persist=False`` to skip) so later
+    processes warm-start via ``get_calibration`` instead of re-measuring.
+    ``_measure(kind, n_flows, B, cfg)`` is injectable for tests and
+    deterministic benchmarks."""
+    device = resolve_device(device)
+    cfg = cfg or EngineConfig(dt=2e-6, max_steps=600, max_extends=1,
+                              queue_stride=0)
+    if kinds is None:
+        kinds = ("sweep", "policy_axis")
+    measure = _measure or functools.partial(_measure_crossover,
+                                            device=device)
+    probes, table = [], {}
+    for kind in kinds:
+        wins, losses = [], []
+        for n in probe_flows:
+            nf, serial_s, batched_s = measure(kind, n, B, cfg)
+            probes.append((kind, int(nf), float(serial_s), float(batched_s)))
+            (wins if batched_s < serial_s else losses).append(float(nf))
+        if not losses:
+            table[kind] = _INF
+        elif not wins:
+            table[kind] = 0.0
+        else:
+            table[kind] = float((max(wins) * min(losses)) ** 0.5)
+    cal = BackendCalibration(backend=device.type, source="measured",
+                             crossover=table, probes=tuple(probes))
+    set_calibration(cal)
+    if persist and _measure is None:    # injected probes are synthetic —
+        save_calibration(cal)           # never persist them to disk
+    return cal
+
+
 class SweepRunner:
     """Prepare-once, run-many driver for ``repro_torch.core.engine`` on
     ``device`` (the card by default)."""
@@ -298,7 +623,8 @@ class SweepRunner:
         if mesh is not None:
             raise NotImplementedError(
                 "laying sweep lanes over several GPUs (mesh=) is ROADMAP "
-                "queue item 7; the port runs every lane on one device")
+                "queue item 8; the port runs every lane on one device")
+        self.mesh = None
         self.cfg = cfg or EngineConfig()
         self.bucket = bucket
         self.chunk_lanes = chunk_lanes
@@ -307,9 +633,26 @@ class SweepRunner:
         self.device = resolve_device(device)
         self._sims: dict = {}
 
+    def share_prep(self, **changes) -> "SweepRunner":
+        """A runner like this one (config, bucketing, chunking, hook,
+        device) with ``changes`` applied, sharing this one's prepared
+        scenarios: no second ``_prep`` and no second copy of a plan on
+        the device."""
+        kw = dict(cfg=self.cfg, bucket=self.bucket,
+                  chunk_lanes=self.chunk_lanes,
+                  dispatch_hook=self.dispatch_hook, device=self.device)
+        sub = SweepRunner(**dict(kw, **changes))
+        sub._sims = self._sims
+        return sub
+
     def _pre_dispatch(self, lo: int, hi: int, B: int) -> None:
         if self.dispatch_hook is not None:
             self.dispatch_hook(lo, hi, B)
+
+    @property
+    def n_mesh_devices(self) -> int:
+        """Devices the lane axis is laid over: always 1 (no mesh)."""
+        return 1
 
     def _chunk_size(self, B: int) -> int:
         """Lanes per chunk: ``B`` itself when no chunking applies."""
@@ -368,6 +711,27 @@ class SweepRunner:
         queue timelines); ``run_policy_axis`` runs them as one batch."""
         return [self.run(topo, sched, p, cfg=cfg, fabric_params=fabric_params)
                 for p in (policies or cc_mod.ALL_POLICIES)]
+
+    def batch_pays_off(self, sched) -> bool:
+        """Should a *same-policy* parameter sweep over this scenario run
+        as one batch or serially?  Decided from the crossover table of
+        this runner's device type — the cached ``calibrate_backend``
+        measurement, or ``DEFAULT_CROSSOVERS`` when uncalibrated."""
+        return get_calibration(self.device.type).pays_off("sweep",
+                                                          sched.n_flows)
+
+    def policy_axis_pays_off(self, sched=None) -> bool:
+        """Like ``batch_pays_off`` but for the stacked policy axis, which
+        runs on the op path and evaluates *every* member's update per
+        lane.  Called without ``sched`` the axis is recommended only where
+        it wins at every measured scale."""
+        return get_calibration(self.device.type).pays_off(
+            "policy_axis", None if sched is None else sched.n_flows)
+
+    def sharded_pays_off(self, sched=None) -> bool:
+        """Would laying the lanes over a device mesh beat one device?
+        Always False: the port has no mesh."""
+        return False
 
     def lane_state_bytes(self, topo, sched, policy: Policy | str,
                          cfg: EngineConfig | None = None,

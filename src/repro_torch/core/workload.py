@@ -194,13 +194,16 @@ def simulate_dlrm_policies(topo: Topology, gpus: list, policies=None,
     """The Fig-10 per-policy loop: the same DLRM iteration under each CC
     policy.  ``batched=True`` runs the policies as one batch over a policy
     axis (``SweepRunner.run_policy_axis``, on the op path as in the
-    reference).  The reference decides ``batched=None`` from its measured
-    backend calibration, which the port does not have: here ``None`` (and
-    ``False``) runs the policies one after another."""
+    reference); ``batched=False`` runs them one after another (on the
+    card, each on the kernel path).  ``batched=None`` defers to
+    ``SweepRunner.policy_axis_pays_off``, the crossover table of the
+    runner's device type (same reports either way)."""
     from repro_torch.core import cc as cc_mod
     from repro_torch.core.sweep import SweepRunner
     runner = runner or SweepRunner(cfg, device=device)
     policies = tuple(policies or cc_mod.ALL_POLICIES)
+    if batched is None:
+        batched = runner.policy_axis_pays_off()
     if not batched:
         return [simulate_dlrm_iteration(
                     topo, gpus,

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (its
-``core/autotune.py`` and ``learn/train.py`` included; nor
+``core/autotune.py``, ``learn/train.py``, ``core/campaign.py``,
+``core/predict.py`` and ``launch/run_campaign.py`` included; nor
 ``chip_smoke.py``, ``scripts/profile_step.py``,
 ``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
 or the JAX package, it
@@ -49,6 +50,8 @@ def test_port_runs_with_jax_unavailable():
         "import repro_torch\n"
         "import repro_torch.learn\n"
         "import repro_torch.learn.train, repro_torch.core.autotune\n"
+        "import repro_torch.core.campaign, repro_torch.core.predict\n"
+        "import repro_torch.launch.run_campaign\n"
         "from repro_torch.core import *\n"
         "topo = single_switch(4)\n"
         "sched = incast(topo, [1, 2, 3], 0, 2e5)\n"

@@ -179,7 +179,7 @@ def test_input_validation():
                          stacked_fabric={"xoff": np.array([1e6, 2e6])},
                          fault_spec=FaultSpec.lossy_roce(1e-3))
     assert faulty.fault_set(1).pfc_on == 0.0 and faulty.lost is not None
-    with pytest.raises(NotImplementedError, match="queue item 7"):
+    with pytest.raises(NotImplementedError, match="queue item 8"):
         psweep.SweepRunner(mesh="auto", device="cpu")
 
 
