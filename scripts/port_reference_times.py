@@ -9,6 +9,8 @@ sweep, each as a serial run), ``dlrm_reference`` (Table II DLRM logits on
 a seeded batch), ``dlrm_iteration`` (the DLRM training iteration on the
 128-GPU platform), ``serve_reference`` (TinyLlama's logits, prefill
 and teacher-forced decode, at full width and 4 layers),
+``sliding_reference`` (Gemma-2's and Gemma-3's, at full width and one
+attention period, the window cut; ``sliding_reference:gemma3-27b`` one),
 ``autotune_incast8`` (``examples/cc_autotune.py``'s tunings),
 ``learn_step`` (two Adam steps of the ``mlp`` trainer's curriculum) and
 ``soft_grad`` (the soft cost and its gradient; ``soft_grad:clos32_2d``,
@@ -18,7 +20,7 @@ batch a policy; ``atlas_ring128:hpcc`` one policy, minutes each); all of
 them by default.  Prints one JSON line per result;
 ``chip_smoke.py`` holds the port's card runs to these values
 (``REFERENCE``, ``FIG12_REFERENCE``, ``DLRM_ITER_REFERENCE``,
-``DLRM_REF_LOGITS``, ``SERVE_REF``, ``AUTOTUNE_REFERENCE``,
+``DLRM_REF_LOGITS``, ``SERVE_REF``, ``SLIDING_REF``, ``AUTOTUNE_REFERENCE``,
 ``LEARN_REFERENCE``, ``SOFT_GRAD_REFERENCE`` and ``PREDICT_REFERENCE``
 there; the atlas's cells are held to the committed CSV).
 The 128-GPU runs take a few minutes each on a CPU, the DLRM logits about
@@ -216,6 +218,56 @@ def serve_reference() -> None:
           "logits": lg[:, :, cs.SERVE_REF_IDS].astype(np.float32).tolist(),
           "lse": lse.tolist(), "top1": lg.argmax(-1).tolist(),
           "margin": (top2[..., 1] - top2[..., 0]).tolist()})
+
+
+def sliding_reference(archs=None) -> None:
+    """Gemma-2 and Gemma-3 at full width, depth one attention period, the
+    window cut to ``chip_smoke.SLIDING_REF_WINDOW``, weights from
+    ``chip_smoke.hashed_params`` (drawn with torch on the CPU: the same
+    bits the card draws), tokens from
+    ``chip_smoke.serve_reference_tokens``: the prefill's last
+    logits and 8 teacher-forced decode steps' (``_ring_decode`` on the
+    local layers, ``layers.decode_attention`` with the softcap on the
+    global ones), at ``SERVE_REF_IDS``, with log-sum-exp, top-1 ids and
+    top-2 margins."""
+    import torch
+    cs = chip_smoke
+    for arch in archs or ("gemma2-9b", "gemma3-27b"):
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=len(base.attn_pattern),
+                                  window=cs.SLIDING_REF_WINDOW)
+        model = Model(cfg)
+        shapes = jax.tree.map(lambda d: d.shape, model.param_defs(),
+                              is_leaf=lambda x: hasattr(x, "axes"))
+        t0 = time.perf_counter()
+        leaves = cs.hashed_params(shapes, cs.SERVE_REF_SEED, "cpu")
+        params = jax.tree.map(lambda t: jnp.asarray(
+            t.view(torch.int16).numpy().view(jnp.bfloat16)), leaves)
+        del leaves
+        toks = cs.serve_reference_tokens(cfg.vocab)
+        S = cs.SERVE_REF_PROMPT
+        logits, cache = jax.jit(lambda p, b: model.prefill(
+            p, b, max_len=S + cs.SERVE_REF_STEPS + 8))(
+            params, {"tokens": jnp.asarray(toks[:, :S])})
+        rows = [np.asarray(logits)]
+        decode = jax.jit(model.decode_step)
+        for t in range(S, S + cs.SERVE_REF_STEPS):
+            logits, cache = decode(params, cache,
+                                   jnp.asarray(toks[:, t:t + 1]))
+            rows.append(np.asarray(logits))
+        del params, cache
+        lg = np.stack(rows).astype(np.float64)         # (steps + 1, B, V)
+        top2 = np.sort(lg, -1)[..., -2:]
+        m = lg.max(-1, keepdims=True)
+        lse = (m[..., 0] + np.log(np.exp(lg - m).sum(-1)))
+        emit({"scenario": "sliding_reference", "arch": arch,
+              "layers": cfg.n_layers, "window": cfg.window,
+              "vocab": cfg.vocab, "seed": cs.SERVE_REF_SEED,
+              "cpu_seconds": time.perf_counter() - t0,
+              "logits": lg[:, :, cs.SERVE_REF_IDS].astype(
+                  np.float32).round(5).tolist(),
+              "lse": lse.round(5).tolist(), "top1": lg.argmax(-1).tolist(),
+              "margin": (top2[..., 1] - top2[..., 0]).round(5).tolist()})
 
 
 def _emit_run(r, **tags) -> None:
@@ -420,6 +472,7 @@ def main(names):
     runner = SweepRunner(CFG)
     for name in names or [*SCENARIOS, "batch_fig12", "dlrm_reference",
                           "dlrm_iteration", "serve_reference",
+                          "sliding_reference",
                           "fault_grid_dcqcn", "faults_clos32",
                           "mlp_clos128", "mlp_heldout16",
                           "autotune_incast8", "learn_step", "soft_grad",
@@ -457,6 +510,8 @@ def main(names):
             dlrm_reference()
         elif name == "serve_reference":
             serve_reference()
+        elif name == "sliding_reference":
+            sliding_reference(arg.split(",") if arg else None)
         else:
             raise SystemExit(f"unknown scenario {name!r}")
 

@@ -3,7 +3,8 @@
 ``chip_smoke.py`` drives (128-GPU 1D all-reduce, lossless and lossy,
 32-GPU 2D all-reduce and the 128-GPU DLRM training iteration with the 2D
 all-reduce, DCQCN), on both step paths; for Fig 12's fabric sweep (``batch_fig12``) on the
-kernel path at B=9 lanes and at B=1 (lane 0 alone); where one forward of the Table II DLRM (batch 256)
+kernel path at B=9 lanes, at B=1 (lane 0 alone) and at B=256 (a full
+chunk, the 9 points repeated); where one forward of the Table II DLRM (batch 256)
 goes; and where one decode step of TinyLlama-1.1B goes on
 ``chip_smoke.py``'s long serving run (8 slots, 2,048-token prompts, a
 32,768-token cache), on both decode paths (``decode_impl`` cuda and
@@ -283,6 +284,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = set(args.only or SCENARIOS)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("profile_step: CUDA is not available", file=sys.stderr)
@@ -328,9 +330,10 @@ def main(argv=None) -> int:
             chip_smoke.FIG12_POLICY),
     }
     pts = chip_smoke.fig12_points()
-    # batch_fig12: the 9-lane batch, and lane 0 alone (B=1), both on the
-    # kernel path
-    variants = {"batch_fig12": [("cuda", 9), ("cuda", 1)]}
+    # batch_fig12: the 9-lane batch, lane 0 alone (B=1), and a full chunk
+    # of AUTO_CHUNK_PER_DEVICE = 256 lanes (the 9 points repeated), all on
+    # the kernel path
+    variants = {"batch_fig12": [("cuda", 9), ("cuda", 1), ("cuda", 256)]}
     runs, lines = {}, {}
     for label, spec in scen.items():
         if label not in only:
@@ -340,9 +343,9 @@ def main(argv=None) -> int:
         warm = {"clos32_2d": min(args.warm, 300),
                 "dlrm128_2d": max(args.warm, 700)}.get(label, args.warm)
         for impl, B in variants.get(label, [("cuda", None), ("torch", None)]):
-            stacked = (None if B is None else {"kmin": pts[:B, 0],
-                                               "kmax": pts[:B, 1],
-                                               "xoff": pts[:B, 2]})
+            stacked = (None if B is None else {
+                f: np.resize(pts[:, j], B)
+                for j, f in enumerate(("kmin", "kmax", "xoff"))})
             run = runs[label, impl, B] = Run(runner, spec, impl, stacked)
             run.advance(warm)
             ms = run.host_ms(args.steps)

@@ -10,6 +10,10 @@ default, or others with the same C entry point (an earlier commit's, from
     python3 scripts/time_flash_decode.py [--source FILE.cu:CHUNK ...]
         [--out time_flash_decode.json]
 
+Each source is called with softcap 0, the code without the softcap; its
+line also holds its kernels' SASS instruction counts
+(``chip_smoke.sass_counts``).
+
 Per source and for SDPA, cold (each call on the next of 4 input sets, 69 MB
 of live K/V, beyond the 50 MB L2) and hot (one set, L2-resident):
 
@@ -97,8 +101,8 @@ def main(argv=None) -> int:
     lines = []
     for spec in sources:
         path, chunk = spec.rsplit(":", 1)
-        lib = ctypes.CDLL(str(build.build("flash_decode", Path(path))))
-        fn = lib.flash_decode
+        lib_path = build.build("flash_decode", Path(path))
+        fn = ctypes.CDLL(str(lib_path)).flash_decode
         fn.argtypes, fn.restype = ops._SIGNATURE, ctypes.c_int
         splits = -(-LENGTH // int(chunk))
         calls = []
@@ -126,7 +130,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: off the plain version by "
                                  f"{float(err.max())}")
         lines.append({"source": path, "chunk": int(chunk), "gpu": gpu,
-                      "max_abs_err": float(err.max()), **measure(cold, hot)})
+                      "max_abs_err": float(err.max()), **measure(cold, hot),
+                      "sass": cs.sass_counts(lib_path)})
         print(json.dumps(lines[-1]), flush=True)
     sdpa_in = [(q.reshape(B, HKV * G, 1, D), k[:, :LENGTH].transpose(1, 2),
                 v[:, :LENGTH].transpose(1, 2)) for q, k, v, _ in sets]

@@ -1,19 +1,25 @@
 """Architecture registry (port of ``repro.configs``): ``get_config(name)``,
 ``smoke_config(name)``, ``get_model(name)`` and ``smoke_model(name)``.
 
-Ported: ``"dlrm"`` (family ``recsys``, built as ``models.DLRM``) and
-``"tinyllama-1.1b"`` (family ``dense``, built as ``models.Model``, the
-transformer serving path).  The reference's other architectures raise
-``KeyError``: they come with ROADMAP.md queue item 9.  Models are built on
-the card unless ``device="cpu"``.
+Ported: ``"dlrm"`` (family ``recsys``, built as ``models.DLRM``) and the
+``dense`` family's ``"tinyllama-1.1b"``, ``"phi4-mini-3.8b"`` (global
+GQA), ``"gemma2-9b"`` and ``"gemma3-27b"`` (sliding-window and global
+layers), built as ``models.Model``, the transformer serving path.  The
+reference's other architectures raise ``KeyError``: they come with
+ROADMAP.md queue item 9.  Models are built on the card unless
+``device="cpu"``.
 """
 from __future__ import annotations
 
 from repro_torch.configs import dlrm as _dlrm
+from repro_torch.configs import gemma2_9b as _gemma2
+from repro_torch.configs import gemma3_27b as _gemma3
+from repro_torch.configs import phi4_mini_3_8b as _phi4
 from repro_torch.configs import tinyllama_1_1b as _tinyllama
 from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
 
-_MODULES = {"tinyllama-1.1b": _tinyllama, "dlrm": _dlrm}
+_MODULES = {"tinyllama-1.1b": _tinyllama, "phi4-mini-3.8b": _phi4,
+            "gemma2-9b": _gemma2, "gemma3-27b": _gemma3, "dlrm": _dlrm}
 
 ARCHS = tuple(k for k in _MODULES if k != "dlrm")
 

@@ -114,7 +114,10 @@ def transformer_params_from_numpy(tree, device="cuda"):
     ``final_norm``, ``groups[i]["l{j}"]...``, ``lm_head``; dicts and lists,
     bf16 or float32 leaves anything ``np.asarray`` takes) -> the same tree
     of tensors on ``device``, bit for bit, for
-    ``repro_torch.models.Model.prefill``/``decode_step``."""
+    ``repro_torch.models.Model.prefill``/``decode_step``.  Every leaf
+    crosses by its key, so the Gemma and Phi-4-mini trees come across
+    whole: post-norms (``ln1_post``, ``ln2_post``), qk-norm (``q_norm``,
+    ``k_norm``), GeGLU's ``w3`` and tied embeddings (no ``lm_head``)."""
     if isinstance(tree, dict):
         return {k: transformer_params_from_numpy(v, device)
                 for k, v in tree.items()}

@@ -23,8 +23,10 @@ one OOM, preemption or diverged lane must not throw it away.
   of the reference's "force the jnp step" rung, which exists there for
   Pallas lowering failures that prebuilt CUDA kernels cannot have, so a
   fault of the kernel path fails the chunk instead of finishing it on
-  the op path.  The reference's "abandon the mesh" rung never applies
-  (the port has no mesh).  Each demotion is recorded in the manifest and
+  the op path.  On a runner with a device mesh, the reference's "abandon
+  the mesh" rung (``no_mesh``) sits between the two: the chunk runs on
+  the runner's own device alone, everything else kept.  Each demotion is
+  recorded in the manifest and
   passed to ``progress``, never silent, and sticks for the task's
   remaining chunks.  After an out-of-memory error the caching
   allocator's free blocks are returned to the card before the next rung.
@@ -337,9 +339,12 @@ def _dispatch_chunk(runner: SweepRunner, task: CampaignTask,
     set and return the journal arrays."""
     if "serial" in demotions:
         return _serial_lanes(runner, task, cfg, idx)
-    sub = runner
+    changes = {}
     if "half_chunk" in demotions:
-        sub = runner.share_prep(chunk_lanes=max(1, (len(idx) + 1) // 2))
+        changes["chunk_lanes"] = max(1, (len(idx) + 1) // 2)
+    if "no_mesh" in demotions and runner.mesh is not None:
+        changes["mesh"] = None
+    sub = runner.share_prep(**changes) if changes else runner
     sp, sf, sq = task._sliced(idx)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)

@@ -66,6 +66,7 @@ writes ``jnp.maximum``/``jnp.minimum``/``jnp.clip`` the port takes
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import warnings
 
@@ -181,6 +182,14 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _canonical(device: torch.device) -> torch.device:
+    """``device`` with the index a bare ``"cuda"`` stands for (the current
+    device), so that two names of one card compare equal."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device.type) if device.type == "cpu" else device
 
 
 def resolve_step_impl(cfg: EngineConfig, device) -> str:
@@ -418,6 +427,29 @@ def _kernel_plan(strategy, arrs) -> tuple:
     _, n_out, _, C2 = strategy
     return (arrs["perm32"], n_out, _SPLIT_C, arrs["boff32"], C2,
             arrs["ctas32"])
+
+
+def _lane_sum_plan(plan: "_Plan", device) -> tuple:
+    """``(strategy, plan tensors)`` of a lane's sum over its real flows in
+    an order fixed by the row: consecutive flows in segments of at most
+    ``MAX_C2`` blocks (one segment up to 262,144 flows), whose sums
+    ``_lane_sum`` adds left to right."""
+    Fp = plan.n_flows_pad
+    per = es_ops.MAX_C2 * _SPLIT_C
+    arrs, strategy = _reduce_plan(np.arange(Fp) // per, Fp,
+                                  max(1, -(-plan.n_flows // per)),
+                                  drop=np.arange(Fp) >= plan.n_flows)
+    return strategy, _plan_tensors(arrs, device)
+
+
+def _lane_sum(reduce_, lane_plan: tuple, vals):
+    """(B,) sums of ``vals`` (B, Fp) over the real flows, through
+    ``_lane_sum_plan``'s plan."""
+    parts = reduce_(*lane_plan, vals)
+    out = parts[:, 0]
+    for j in range(1, parts.shape[1]):
+        out = out + parts[:, j]
+    return out
 
 
 def _reduce_kernel(strategy, arrs, vals):
@@ -752,6 +784,12 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
     dev = pp["line"].device
     params = _lane_params(policy, cc_params, lanes, dev)
     reduce_ = _reduce_kernel if use_kernels else _reduce
+    # the soft cost's sum over flows.  PyTorch's CUDA reduction spreads a
+    # row over more blocks the fewer rows there are, so its order would
+    # follow the lane count: on the card a lane adds through
+    # ``_lane_sum_plan`` (one launch on the kernel path), as its serial run
+    # adds.  A CPU sum adds each row in one order whatever the lane count.
+    lane_plan = _lane_sum_plan(plan, dev) if dev.type == "cuda" else None
     if grad and (use_kernels or stride):
         raise ValueError("the differentiable step runs the op path "
                          "without a queue timeline (queue_stride=0)")
@@ -1060,7 +1098,9 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             goodput = _min(_max(delivered - dup, 0.0), wire_size)
         else:
             goodput = torch.minimum(delivered, wire_size)
-        undeliv = torch.sum(wire_size - goodput, dim=-1)
+        short = wire_size - goodput
+        undeliv = (torch.sum(short, dim=-1) if lane_plan is None
+                   else _lane_sum(reduce_, lane_plan, short))
         soft = c["soft"] + dt * undeliv / wire_total
 
         # ---- 10. run health (observers) ------------------------------------
@@ -1326,6 +1366,27 @@ class Simulator:
         self.fault = _as_fault(fault_spec)
         self.pp, self.plan = _prep(topo, sched, cfg, pad_flows, pad_groups,
                                    self.device)
+        self._replicas: dict = {}
+
+    def on(self, device) -> "Simulator":
+        """This simulation prepared on ``device``, a device of this one's
+        type: itself on its own device, else a copy whose prepared tensors
+        were moved there at the first call (kept with this simulator)."""
+        device = resolve_device(device)
+        if device.type != self.device.type:
+            raise ValueError(f"a simulator on {self.device} has no replica "
+                             f"on {device}: the step path follows the "
+                             "device type")
+        if _canonical(device) == _canonical(self.device):
+            return self
+        key = _canonical(device)
+        rep = self._replicas.get(key)
+        if rep is None:
+            rep = copy.copy(self)
+            rep.device, rep._replicas = key, {}
+            rep.pp = _tree_map(lambda x: x.to(key), self.pp)
+            self._replicas[key] = rep
+        return rep
 
     def run(self, cc_params: dict | None = None, early_exit: bool = True,
             fabric_params: FabricParams | None = None,

@@ -1,5 +1,4 @@
-"""Sweep driving of the port's engine (port of ``repro.core.sweep`` minus
-the device mesh).
+"""Sweep driving of the port's engine (port of ``repro.core.sweep``).
 
 ``SweepRunner`` caches prepared scenarios (``engine._prep`` output on the
 device) by content fingerprint, and pads flow and group counts up to the
@@ -33,11 +32,26 @@ compile cache.
   (persisted under ``$REPRO_CACHE_DIR``); ``batch_pays_off`` and
   ``policy_axis_pays_off`` advise drivers from it.
 
+* **lanes over a device mesh** — ``SweepRunner(mesh="auto" | n |
+  GridMesh)`` (``repro_torch.common.sharding``) lays each chunk's lanes
+  over a 1-D mesh of devices of the runner's type, round-robin (lane i to
+  mesh position i % n, since grid lanes arrive sorted along the sweep
+  axes and blocks of neighbours would pile one regime onto one device),
+  the chunk padded to a multiple of the mesh by repeating its final lane.
+  Each position's block of lanes runs the batched loop above on its
+  device (the kernel path on the card, the op path on the CPU), with its
+  own early exit; the scenario's prepared tensors are moved to each
+  device once (``Simulator.on``), and the results come back in lane
+  order, bit-equal to ``mesh=None`` (each lane equals its serial run bit
+  for bit).  Distinct devices overlap through one host thread each (the
+  step loop reads the halt flags every step, so no device's chunk can be
+  issued ahead of the others' syncs); the blocks of a repeated device run
+  one after another in its thread;
+
 Lane isolation: a diverged lane freezes, a deadlocked or budget-exhausted
 lane is flagged, and the healthy lanes complete normally
 (``BatchResults.lane_status``).  Batched runs never record the queue
-timeline.  Not ported: ``mesh=`` (multi-GPU lanes, so ``sharded_pays_off``
-is always False), ``compile_stats`` (the port compiles nothing).
+timeline.  Not ported: ``compile_stats`` (the port compiles nothing).
 
     runner = SweepRunner(EngineConfig(dt=2e-6, max_steps=4000,
                                       queue_stride=0))   # device="cuda"
@@ -54,16 +68,19 @@ import json
 import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
+from repro_torch.common.sharding import resolve_grid_mesh
 from repro_torch.core import cc as cc_mod
 from repro_torch.core.cc import Policy, stack_policies
 from repro_torch.core.engine import (EngineConfig, FabricParams, Results,
-                                     Simulator, _as_fabric, _FABRIC_DEFAULTS,
-                                     _init_carry, _next_pow2, _tree_map,
-                                     resolve_device)
+                                     Simulator, _as_fabric, _canonical,
+                                     _FABRIC_DEFAULTS, _init_carry,
+                                     _next_pow2, _tree_map, resolve_device)
 from repro_torch.core.faults import (FaultSpec, LaneStatus, _as_fault,
                                      classify_lane, is_faulty)
 
@@ -301,7 +318,9 @@ _INF = float("inf")
 # type.  "sweep" = same-policy parameter sweep as one batch vs a serial
 # loop; "policy_axis" = the stacked product policy (op path) vs per-policy
 # runs (on the card: the kernel path); "sharded" = lanes over a device
-# mesh vs one device (unported: never consulted).  The "cpu" row is the
+# mesh vs one device (only measurable with more than one CUDA device;
+# unlisted -> inf, i.e. lay lanes over a mesh whenever one was
+# configured).  The "cpu" row is the
 # port's own measurement on an 8-core x86 CPU container (torch 2.13.0+cpu,
 # 8 intra-op threads; two more quiet runs at 8 and 1 threads gave the
 # same table, and of two beside other load one lost the policy axis at
@@ -540,9 +559,25 @@ def _measure_crossover(kind: str, n_flows: int, B: int, cfg: EngineConfig,
         def batched():
             runner.run_policy_axis(topo, sched, pols)
     elif kind == "sharded":
-        raise RuntimeError("sharded calibration needs a device mesh of more "
-                           "than one device; the port lays every lane on "
-                           "one device (SweepRunner(mesh=) is unported)")
+        # lanes over the mesh of every visible CUDA device vs one device,
+        # the same B-lane sweep on both sides ("serial" is the one-device
+        # batch)
+        sharded = SweepRunner(cfg, mesh="auto", device=device)
+        if sharded.mesh is None:
+            raise RuntimeError("sharded calibration needs more than one "
+                               "CUDA device for mesh='auto' (lay lanes over "
+                               "repeated devices with grid_mesh(n, "
+                               "devices=[...]) to test the layout)")
+        policy = cc_mod.get_policy("dcqcn")
+        Bs = max(B, sharded.n_mesh_devices)
+        scale = np.linspace(0.5, 2.0, Bs).astype(np.float32)
+        stacked = {"rai_frac": 0.03 * scale}
+
+        def serial():
+            runner.run_batch(topo, sched, policy, stacked)
+
+        def batched():
+            sharded.run_batch(topo, sched, policy, stacked)
     else:
         raise ValueError(f"unknown calibration kind: {kind!r}")
 
@@ -574,9 +609,9 @@ def calibrate_backend(probe_flows=(90, 1806), B: int = 6,
     For each ``kind`` the batched path is timed against the serial loop at
     each probe size; the crossover is the geometric mean of the largest
     winning and smallest losing probe (all probes win -> inf, all lose ->
-    0.0).  ``kinds=None`` probes "sweep" and "policy_axis" ("sharded"
-    needs a device mesh, which the port does not have: asking for it
-    raises).  The measured table is persisted to
+    0.0).  ``kinds=None`` probes "sweep" and "policy_axis", plus
+    "sharded" (lanes over every visible CUDA device vs one) when ``device``
+    is a CUDA device and more than one is visible.  The measured table is persisted to
     ``calibration_cache_path()`` (``persist=False`` to skip) so later
     processes warm-start via ``get_calibration`` instead of re-measuring.
     ``_measure(kind, n_flows, B, cfg)`` is injectable for tests and
@@ -586,6 +621,8 @@ def calibrate_backend(probe_flows=(90, 1806), B: int = 6,
                               queue_stride=0)
     if kinds is None:
         kinds = ("sweep", "policy_axis")
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            kinds += ("sharded",)
     measure = _measure or functools.partial(_measure_crossover,
                                             device=device)
     probes, table = [], {}
@@ -609,9 +646,67 @@ def calibrate_backend(probe_flows=(90, 1806), B: int = 6,
     return cal
 
 
+# the per-lane finals a batch brings back to the host
+_FINAL_KEYS = ("t_finish", "done", "pause_count", "delivered", "soft",
+               "diverged", "deadlock_step", "storm_step", "lost")
+
+
+def _run_block(sim: Simulator, idx: np.ndarray, full: dict,
+               fab: FabricParams, flt: FaultSpec) -> tuple:
+    """Lanes ``idx`` of the stacked inputs as one batched loop on
+    ``sim``'s device: ``(host finals, steps_run, steps_executed,
+    lane_steps)``."""
+    params = {k: v[idx] for k, v in full.items()}
+    lane_fab = FabricParams(**{f: np.asarray(getattr(fab, f))[idx]
+                               for f in FabricParams.FIELDS})
+    lane_flt = FaultSpec(**{f: np.asarray(getattr(flt, f))[idx]
+                            for f in FaultSpec.FIELDS})
+    carry, steps, executed, lane_steps = sim.run_carry(
+        params, lane_fab, len(idx), fault=lane_flt)
+    host = {k: carry[k].detach().cpu().numpy() for k in _FINAL_KEYS
+            if k in carry}
+    return host, steps, executed, np.asarray(lane_steps)
+
+
+def _device_context(device: torch.device):
+    """Make ``device`` the current CUDA device of the calling thread (its
+    kernels launch on that device's current stream)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else nullcontext()
+
+
+def _run_blocks(sim: Simulator, devices: tuple, blocks: list, full: dict,
+                fab: FabricParams, flt: FaultSpec) -> list:
+    """Block d of lanes on ``devices[d]``, each on ``sim``'s replica there
+    (``Simulator.on``); returns their ``_run_block`` results in block
+    order.  The blocks of one device run one after another; distinct
+    devices run in one host thread each, and every thread's result is
+    read, so an error on any device raises here."""
+    by_device: dict = {}
+    for d, dev in enumerate(devices):
+        by_device.setdefault(_canonical(dev), []).append(d)
+
+    def work(dev, ds):
+        with _device_context(dev):
+            rep = sim.on(dev)
+            return [(d, _run_block(rep, blocks[d], full, fab, flt))
+                    for d in ds]
+    if len(by_device) == 1:
+        done = work(*next(iter(by_device.items())))
+    else:
+        with ThreadPoolExecutor(len(by_device),
+                                thread_name_prefix="sweep-mesh") as pool:
+            futures = [pool.submit(work, dev, ds)
+                       for dev, ds in by_device.items()]
+            done = [r for f in futures for r in f.result()]
+    return [out for _, out in sorted(done, key=lambda r: r[0])]
+
+
 class SweepRunner:
     """Prepare-once, run-many driver for ``repro_torch.core.engine`` on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default); batches lay their lanes over
+    ``mesh`` (``resolve_grid_mesh``: None, "auto", a device count or a
+    ``GridMesh`` of devices of ``device``'s type) where one is given."""
 
     MAX_SIMS = 64
     # chunk_lanes="auto": stream batches of more lanes than this in chunks
@@ -620,25 +715,33 @@ class SweepRunner:
     def __init__(self, cfg: EngineConfig | None = None, bucket: bool = True,
                  mesh=None, chunk_lanes: int | str | None = "auto",
                  dispatch_hook=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "laying sweep lanes over several GPUs (mesh=) is ROADMAP "
-                "queue item 8; the port runs every lane on one device")
-        self.mesh = None
+        self.device = resolve_device(device)
+        self.mesh = resolve_grid_mesh(mesh)
+        if self.mesh is not None:
+            for d in self.mesh.devices:
+                if d.type != self.device.type:
+                    raise ValueError(f"mesh device {d} is not a "
+                                     f"{self.device.type} device like the "
+                                     "runner's")
+                resolve_device(d)
+                if d.type == "cuda" and d.index is not None and \
+                        d.index >= torch.cuda.device_count():
+                    raise ValueError(f"mesh device {d}: only "
+                                     f"{torch.cuda.device_count()} CUDA "
+                                     "devices are visible")
         self.cfg = cfg or EngineConfig()
         self.bucket = bucket
         self.chunk_lanes = chunk_lanes
         # called as dispatch_hook(lo, hi, B) just before each lane chunk
         self.dispatch_hook = dispatch_hook
-        self.device = resolve_device(device)
         self._sims: dict = {}
 
     def share_prep(self, **changes) -> "SweepRunner":
-        """A runner like this one (config, bucketing, chunking, hook,
+        """A runner like this one (config, bucketing, mesh, chunking, hook,
         device) with ``changes`` applied, sharing this one's prepared
         scenarios: no second ``_prep`` and no second copy of a plan on
         the device."""
-        kw = dict(cfg=self.cfg, bucket=self.bucket,
+        kw = dict(cfg=self.cfg, bucket=self.bucket, mesh=self.mesh,
                   chunk_lanes=self.chunk_lanes,
                   dispatch_hook=self.dispatch_hook, device=self.device)
         sub = SweepRunner(**dict(kw, **changes))
@@ -651,16 +754,22 @@ class SweepRunner:
 
     @property
     def n_mesh_devices(self) -> int:
-        """Devices the lane axis is laid over: always 1 (no mesh)."""
-        return 1
+        """Mesh positions the lane axis is laid over (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.size
 
     def _chunk_size(self, B: int) -> int:
-        """Lanes per chunk: ``B`` itself when no chunking applies."""
+        """Lanes per dispatched chunk: a multiple of the mesh size, ``B``
+        itself (padded up) when no chunking applies."""
+        n_dev = self.n_mesh_devices
+        pad_to = -(-B // n_dev) * n_dev                   # ceil to mesh
         if self.chunk_lanes in (None, 0):
-            return B
+            return pad_to
         if self.chunk_lanes == "auto":
-            return min(B, self.AUTO_CHUNK_PER_DEVICE)
-        return min(B, max(int(self.chunk_lanes), 1))
+            limit = self.AUTO_CHUNK_PER_DEVICE * n_dev
+        else:
+            limit = max(int(self.chunk_lanes), 1)
+            limit = -(-limit // n_dev) * n_dev            # ceil to mesh
+        return min(pad_to, limit)
 
     @staticmethod
     def _scenario_key(topo, sched):
@@ -729,9 +838,17 @@ class SweepRunner:
             "policy_axis", None if sched is None else sched.n_flows)
 
     def sharded_pays_off(self, sched=None) -> bool:
-        """Would laying the lanes over a device mesh beat one device?
-        Always False: the port has no mesh."""
-        return False
+        """Would laying the lanes over the device mesh beat one device?
+        False without a mesh; otherwise decided from the crossover table
+        of this runner's device type (kind ``"sharded"``, unlisted: inf,
+        always).  Advice for drivers deciding whether to build a runner
+        with a mesh: ``run_batch`` itself never second-guesses a
+        configured mesh (the repeated-device testing layout depends on
+        that).  Both layouts give the same lanes bit for bit."""
+        if self.mesh is None:
+            return False
+        return get_calibration(self.device.type).pays_off(
+            "sharded", None if sched is None else sched.n_flows)
 
     def lane_state_bytes(self, topo, sched, policy: Policy | str,
                          cfg: EngineConfig | None = None,
@@ -821,34 +938,35 @@ class SweepRunner:
                         flt: FaultSpec, B: int) -> tuple:
         """Run B stacked lanes in chunks of ``_chunk_size(B)``; the last
         chunk is padded by repeating its final lane and the padding is
-        dropped, so callers see exactly B lanes in input order.  Returns
-        ``(host numpy finals, meta)``."""
+        dropped, so callers see exactly B lanes in input order.  With a
+        mesh, each chunk is permuted so that block d of it holds the
+        round-robin lanes {d, d + n, ...} and block d runs on mesh position
+        d (``_run_blocks``); the inverse permutation restores lane order.
+        Returns ``(host numpy finals, meta)``."""
         chunk = self._chunk_size(B)
+        n_dev = self.n_mesh_devices
+        order = np.arange(chunk).reshape(-1, n_dev).T.reshape(-1)
+        inv = np.argsort(order)
+        devices = (sim.device,) if self.mesh is None else self.mesh.devices
         parts = []
         meta = {"steps_run": 0, "steps_executed": 0, "lane_steps": [],
-                "chunks": 0, "chunk_lanes": chunk,
+                "chunks": 0, "chunk_lanes": chunk, "mesh_devices": n_dev,
                 "step_impl": sim.step_impl, "device": str(sim.device)}
         for lo in range(0, B, chunk):
             hi = min(lo + chunk, B)
             take = np.arange(lo, hi)
-            if hi - lo < chunk:
+            if hi - lo < chunk:                   # edge-repeat trailing pad
                 take = np.concatenate([take,
                                        np.full(chunk - (hi - lo), hi - 1)])
             self._pre_dispatch(lo, hi, B)
-            params = {k: v[take] for k, v in full.items()}
-            lane_fab = FabricParams(**{f: np.asarray(getattr(fab, f))[take]
-                                       for f in FabricParams.FIELDS})
-            lane_flt = FaultSpec(**{f: np.asarray(getattr(flt, f))[take]
-                                    for f in FaultSpec.FIELDS})
-            carry, steps, executed, lane_steps = sim.run_carry(
-                params, lane_fab, len(take), fault=lane_flt)
-            parts.append({k: carry[k].detach().cpu().numpy()[:hi - lo]
-                          for k in ("t_finish", "done", "pause_count",
-                                    "delivered", "soft", "diverged",
-                                    "deadlock_step", "storm_step", "lost")
-                          if k in carry})
-            meta["steps_run"] = max(meta["steps_run"], steps)
-            meta["steps_executed"] += executed
+            blocks = np.split(take[order], n_dev)
+            outs = _run_blocks(sim, devices, blocks, full, fab, flt)
+            parts.append({k: np.concatenate([o[0][k] for o in outs])[inv][
+                :hi - lo] for k in outs[0][0]})
+            lane_steps = np.concatenate([o[3] for o in outs])[inv]
+            meta["steps_run"] = max([meta["steps_run"]]
+                                    + [o[1] for o in outs])
+            meta["steps_executed"] += sum(o[2] for o in outs)
             meta["lane_steps"] += lane_steps[:hi - lo].tolist()
             meta["chunks"] += 1
         out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}

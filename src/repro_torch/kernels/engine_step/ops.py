@@ -28,6 +28,7 @@ every float32 input.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ from repro_torch.kernels.engine_step import ref
 # each wrapper counts, the plain versions never do
 LAUNCHES = {"fused_signals_policy": 0, "segment_reduce": 0,
             "segment_reduce_pfc": 0}
+_COUNT_LOCK = threading.Lock()
 
 # the state/param slot orders the device functions read (engine_step.cu);
 # checked against the Python tables before a launch
@@ -122,7 +124,8 @@ def _launch(name: str, args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:           # a mesh runs distinct devices in threads
+        LAUNCHES[name] += 1
 
 
 def _kernel_id(policy) -> int:

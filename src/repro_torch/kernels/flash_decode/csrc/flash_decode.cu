@@ -8,9 +8,14 @@
 //     repro/kernels/flash_decode/flash_decode.py::flash_decode (body
 //     _kernel): for each batch row b, kv head h and query g of the group,
 //         s_t   = (q[b,h,g,:] . k[b,t,h,:]) * (1 / sqrt(D)),   t < length[b]
+//         s_t   = cap * tanh(s_t / cap)       with a logit softcap cap > 0
 //         out   = sum_t exp(s_t - m) v[b,t,h,:] / max(sum_t exp(s_t - m), 1e-30)
-//     with float32 scores, expf (no fast math), float32 p.v, an online
-//     softmax (m, l, acc), and one cast to q's dtype (bf16 or float32).
+//     with float32 scores, expf and tanhf (no fast math), float32 p.v, an
+//     online softmax (m, l, acc), and one cast to q's dtype (bf16 or
+//     float32).  The softcap (Gemma-2's attention logits; the reference
+//     applies it in layers.decode_attention and transformer._ring_decode,
+//     the Pallas kernel takes none) is a template flag of both bodies, so
+//     that the code without it is the code PR 15 measured.
 //     q (B, Hkv, G, D); k, v (B, S, Hkv, D) row-major; any S; G <= 16,
 //     D <= 256, G * D <= 2048.  Positions at or past length[b] are never
 //     read (in the Pallas kernel their tiles add exactly 0 when length >= 1).
@@ -84,6 +89,12 @@ constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
+// a scaled score through the logit softcap, where CAP
+template <bool CAP>
+__device__ __forceinline__ float capped(float x, float cap) {
+  return CAP ? cap * tanhf(x / cap) : x;
+}
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
@@ -174,12 +185,13 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
 // K and V 16-byte aligned), else scalar loads.  n_splits == 1: writes out;
 // otherwise each chunk's acc (G * D floats) to part_acc and its m, l (G
 // floats each) to part_ml, at slot (b * Hkv + h) * n_splits + split.
-template <int DB, bool VEC>
+// CAP: the scaled scores go through the softcap `cap`.
+template <int DB, bool VEC, bool CAP>
 __global__ void __launch_bounds__(32)
 flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int32_t* __restrict__ length,
                 int S, int Hkv, int G, int D, int chunk, int n_splits,
-                float scale, float* __restrict__ part_acc,
+                float scale, float cap, float* __restrict__ part_acc,
                 float* __restrict__ part_ml, bf16* __restrict__ out) {
   constexpr int NST = ring_depth(DB);   // tiles in flight
   constexpr int NT = DB / 8;            // d n-tiles at most
@@ -307,7 +319,7 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const bool ok = t0 + n * 8 + tg * 2 + (j & 1) < s_end;
-          s[n][j] = ok ? s[n][j] * scale : NEG_INF;
+          s[n][j] = ok ? capped<CAP>(s[n][j] * scale, cap) : NEG_INF;
           mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
         }
       float corr[2];
@@ -395,10 +407,10 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DB, bool VEC>
+template <int DB, bool VEC, bool CAP>
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
                       const int32_t* length, int B, int S, int Hkv, int G,
-                      int D, int chunk, int n_splits, float scale,
+                      int D, int chunk, int n_splits, float scale, float cap,
                       float* part_acc, float* part_ml, bf16* out,
                       cudaStream_t stream) {
   constexpr int NST = ring_depth(DB);
@@ -406,10 +418,11 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
   // needs 57 KB) and prefer shared memory over L1
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_tc<DB, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_decode_tc<DB, VEC, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)tc_smem(DB + ROW_PAD, NST));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_decode_tc<DB, VEC>,
+    return cudaFuncSetAttribute(flash_decode_tc<DB, VEC, CAP>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
   }();
@@ -421,7 +434,8 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_decode_tc<DB, VEC>, 32, tc_smem(DB + ROW_PAD, NST));
+        &per_sm, flash_decode_tc<DB, VEC, CAP>, 32,
+        tc_smem(DB + ROW_PAD, NST));
     return sms * (per_sm > 0 ? per_sm : 1);
   }();
   const int64_t rows = (int64_t)B * Hkv;
@@ -429,28 +443,45 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
       n_splits, std::max<int64_t>(1, (resident + rows - 1) / rows));
   const int LD = ((D + 15) & ~15) + ROW_PAD;
   const dim3 grid((unsigned)n_blocks, (unsigned)Hkv, (unsigned)B);
-  flash_decode_tc<DB, VEC><<<grid, 32, tc_smem(LD, NST), stream>>>(
-      q, k, v, length, S, Hkv, G, D, chunk, n_splits, scale, part_acc,
+  flash_decode_tc<DB, VEC, CAP><<<grid, 32, tc_smem(LD, NST), stream>>>(
+      q, k, v, length, S, Hkv, G, D, chunk, n_splits, scale, cap, part_acc,
       part_ml, out);
   return cudaGetLastError();
 }
 
-template <bool VEC>
+template <bool VEC, bool CAP>
 cudaError_t launch_tc_d(const bf16* q, const bf16* k, const bf16* v,
                         const int32_t* length, int B, int S, int Hkv, int G,
                         int D, int chunk, int n_splits, float scale,
-                        float* part_acc, float* part_ml, bf16* out,
+                        float cap, float* part_acc, float* part_ml, bf16* out,
                         cudaStream_t stream) {
   const int DP = (D + 15) & ~15;
   if (DP <= 64)
-    return launch_tc<64, VEC>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                              n_splits, scale, part_acc, part_ml, out, stream);
+    return launch_tc<64, VEC, CAP>(q, k, v, length, B, S, Hkv, G, D, chunk,
+                                   n_splits, scale, cap, part_acc, part_ml,
+                                   out, stream);
   if (DP <= 128)
-    return launch_tc<128, VEC>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                               n_splits, scale, part_acc, part_ml, out,
-                               stream);
-  return launch_tc<256, VEC>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                             n_splits, scale, part_acc, part_ml, out, stream);
+    return launch_tc<128, VEC, CAP>(q, k, v, length, B, S, Hkv, G, D, chunk,
+                                    n_splits, scale, cap, part_acc, part_ml,
+                                    out, stream);
+  return launch_tc<256, VEC, CAP>(q, k, v, length, B, S, Hkv, G, D, chunk,
+                                  n_splits, scale, cap, part_acc, part_ml,
+                                  out, stream);
+}
+
+template <bool VEC>
+cudaError_t launch_tc_cap(const bf16* q, const bf16* k, const bf16* v,
+                          const int32_t* length, int B, int S, int Hkv, int G,
+                          int D, int chunk, int n_splits, float scale,
+                          float cap, float* part_acc, float* part_ml,
+                          bf16* out, cudaStream_t stream) {
+  return cap > 0.0f
+             ? launch_tc_d<VEC, true>(q, k, v, length, B, S, Hkv, G, D, chunk,
+                                      n_splits, scale, cap, part_acc, part_ml,
+                                      out, stream)
+             : launch_tc_d<VEC, false>(q, k, v, length, B, S, Hkv, G, D,
+                                       chunk, n_splits, scale, cap, part_acc,
+                                       part_ml, out, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -494,13 +525,15 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src,
 // and V rows, compute the G x TS scores from shared memory (K rows padded
 // by one float: no bank conflicts), one warp per query updates m and l and
 // turns the scores into p, then each thread updates its (g, d) accumulators.
-template <bool VEC>
+// CAP: the scaled scores go through the softcap `cap`.
+template <bool VEC, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const int32_t* __restrict__ length, int S, int Hkv, int G,
                  int D, int TS, int chunk, int n_splits, float scale,
-                 float* __restrict__ part_acc, float* __restrict__ part_ml,
+                 float cap, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml,
                  float* __restrict__ out) {
   extern __shared__ float smem[];
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -550,7 +583,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float* kr = ks + r * (D + 1);
         float dot = 0.0f;
         for (int d = 0; d < D; ++d) dot += qg[d] * kr[d];
-        s = dot * scale;
+        s = capped<CAP>(dot * scale, cap);
       }
       ps[e] = s;
     }
@@ -618,9 +651,10 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool CAP>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const int32_t* length, int B, int S, int Hkv, int G,
-                       int D, int chunk, int n_splits, float scale,
+                       int D, int chunk, int n_splits, float scale, float cap,
                        float* part_acc, float* part_ml, float* out,
                        cudaStream_t stream) {
   const int TS = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
@@ -631,13 +665,13 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
                    ((uintptr_t)v & 15) == 0;
   const dim3 grid((unsigned)n_splits, (unsigned)Hkv, (unsigned)B);
   if (vec)
-    flash_decode_f32<true><<<grid, THREADS, smem, stream>>>(
-        q, k, v, length, S, Hkv, G, D, TS, chunk, n_splits, scale, part_acc,
-        part_ml, out);
+    flash_decode_f32<true, CAP><<<grid, THREADS, smem, stream>>>(
+        q, k, v, length, S, Hkv, G, D, TS, chunk, n_splits, scale, cap,
+        part_acc, part_ml, out);
   else
-    flash_decode_f32<false><<<grid, THREADS, smem, stream>>>(
-        q, k, v, length, S, Hkv, G, D, TS, chunk, n_splits, scale, part_acc,
-        part_ml, out);
+    flash_decode_f32<false, CAP><<<grid, THREADS, smem, stream>>>(
+        q, k, v, length, S, Hkv, G, D, TS, chunk, n_splits, scale, cap,
+        part_acc, part_ml, out);
   return cudaGetLastError();
 }
 
@@ -720,40 +754,48 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when the launches were accepted.  q (B, Hkv, G,
 // D), k and v (B, S, Hkv, D), out (B, Hkv, G, D): float32 when is_f32 is
-// nonzero, else bf16; length (B,) int32.  With n_splits > 1, part_acc
+// nonzero, else bf16; length (B,) int32; softcap > 0 caps the scaled
+// scores (cap * tanh(s / cap)), 0 means none.  With n_splits > 1, part_acc
 // holds B * Hkv * n_splits * G * D floats and part_ml B * Hkv * n_splits *
 // 2 * G; chunk * n_splits positions are covered.  The bf16 route needs
 // chunk % 16 == 0 (whole tiles of keys).
 int flash_decode(const void* q, const void* k, const void* v,
                  const int32_t* length, int B, int S, int Hkv, int G, int D,
-                 int is_f32, int chunk, int n_splits, float* part_acc,
-                 float* part_ml, void* out, void* stream) {
+                 int is_f32, int chunk, int n_splits, float softcap,
+                 float* part_acc, float* part_ml, void* out, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || Hkv < 1 || Hkv > 65535 || G < 1 ||
       G > MAX_G || D < 1 || D > MAX_D || G * D > MAX_GD || chunk < 1 ||
       n_splits < 1 || (!is_f32 && chunk % TK != 0) ||
+      !(softcap >= 0.0f && softcap <= 3.0e38f) ||   // NaN, < 0 or inf
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float scale = (float)(1.0 / sqrt((double)D));
   cudaError_t err;
   if (is_f32) {
-    err = launch_f32(static_cast<const float*>(q),
-                     static_cast<const float*>(k),
-                     static_cast<const float*>(v), length, B, S, Hkv, G, D,
-                     chunk, n_splits, scale, part_acc, part_ml,
-                     static_cast<float*>(out), s);
+    const float *qf = static_cast<const float*>(q),
+                *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v);
+    err = softcap > 0.0f
+              ? launch_f32<true>(qf, kf, vf, length, B, S, Hkv, G, D, chunk,
+                                 n_splits, scale, softcap, part_acc, part_ml,
+                                 static_cast<float*>(out), s)
+              : launch_f32<false>(qf, kf, vf, length, B, S, Hkv, G, D, chunk,
+                                  n_splits, scale, softcap, part_acc, part_ml,
+                                  static_cast<float*>(out), s);
   } else {
     const bf16 *qb = static_cast<const bf16*>(q),
                *kb = static_cast<const bf16*>(k),
                *vb = static_cast<const bf16*>(v);
     const bool vec = D % 8 == 0 && ((uintptr_t)q & 15) == 0 &&
                      ((uintptr_t)k & 15) == 0 && ((uintptr_t)v & 15) == 0;
-    err = vec ? launch_tc_d<true>(qb, kb, vb, length, B, S, Hkv, G, D, chunk,
-                                  n_splits, scale, part_acc, part_ml,
-                                  static_cast<bf16*>(out), s)
-              : launch_tc_d<false>(qb, kb, vb, length, B, S, Hkv, G, D,
-                                   chunk, n_splits, scale, part_acc, part_ml,
-                                   static_cast<bf16*>(out), s);
+    err = vec ? launch_tc_cap<true>(qb, kb, vb, length, B, S, Hkv, G, D,
+                                    chunk, n_splits, scale, softcap, part_acc,
+                                    part_ml, static_cast<bf16*>(out), s)
+              : launch_tc_cap<false>(qb, kb, vb, length, B, S, Hkv, G, D,
+                                     chunk, n_splits, scale, softcap,
+                                     part_acc, part_ml,
+                                     static_cast<bf16*>(out), s);
   }
   if (err != cudaSuccess || n_splits == 1) return (int)err;
   const unsigned blocks = (unsigned)((G * D * MERGE_LANES + THREADS - 1) /

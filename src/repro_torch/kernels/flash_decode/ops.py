@@ -21,6 +21,11 @@ largest length, S by default) only sizes that split, and the result does
 not depend on it: a chunk that starts at or past its row's length writes
 nothing, and the merge reads only the row's first ``ceil(length /
 CHUNK)`` partials (``split_plan``).
+
+``softcap`` (a positive float, or None for none) passes the scaled scores
+through ``softcap * tanh(s / softcap)`` before the softmax, as the
+reference's ``layers.decode_attention`` does for Gemma-2: a template flag
+of the kernel, so that the code without it is unchanged.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ MAX_G, MAX_D, MAX_GD = 16, 256, 2048
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p]
 
 
@@ -112,14 +117,23 @@ def vector_loads(k: torch.Tensor, v: torch.Tensor) -> bool:
             and v.data_ptr() % 16 == 0)
 
 
-def kernel_args(q, k, v, length, out, splits: int, part_acc, part_ml) -> list:
+def kernel_args(q, k, v, length, out, splits: int, part_acc, part_ml,
+                softcap: float | None = None) -> list:
     """The C arguments (stream excluded) for ``q (B, Hkv, G, D)`` over
-    ``k``/``v (B, S, Hkv, D)`` into ``out``."""
+    ``k``/``v (B, S, Hkv, D)`` into ``out``; the softcap goes as 0 for
+    none."""
     B, Hkv, G, D = q.shape
     ptr = (lambda t: 0 if t is None else t.data_ptr())
     return [q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), B,
             k.shape[1], Hkv, G, D, int(q.dtype == torch.float32), CHUNK,
-            splits, ptr(part_acc), ptr(part_ml), out.data_ptr()]
+            splits, float(softcap or 0.0), ptr(part_acc), ptr(part_ml),
+            out.data_ptr()]
+
+
+def _check_softcap(softcap) -> None:
+    if softcap is not None and not (0.0 < float(softcap) < float("inf")):
+        raise ValueError(f"flash_decode: softcap must be a positive finite "
+                         f"float or None, got {softcap}")
 
 
 def _check_lengths(length: torch.Tensor, S: int) -> None:
@@ -137,8 +151,8 @@ def _check_max_length(length: torch.Tensor, max_length: int) -> None:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 length: torch.Tensor,
-                 max_length: int | None = None) -> torch.Tensor:
+                 length: torch.Tensor, max_length: int | None = None,
+                 softcap: float | None = None) -> torch.Tensor:
     """``q (B, Hkv, G, D)``; ``k``/``v (B, S, Hkv, D)``; ``length (B,)``
     int32 -> ``(B, Hkv, G, D)`` attention output in ``q.dtype``.
 
@@ -146,14 +160,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     first ``max_length`` positions into chunks, so it must be at least
     ``max(length)`` (None reads up to S).  The card does not check it,
     which would read ``length`` back to the host on every call; the CPU
-    path raises where it is below ``max(length)``."""
+    path raises where it is below ``max(length)``.  ``softcap``: see the
+    module docstring."""
     B, Hkv, G, D = q.shape
     S = k.shape[1]
+    _check_softcap(softcap)
     if not on_cuda((q, k, v, length)):
         _check_lengths(length, S)
         if max_length is not None:
             _check_max_length(length, max_length)
-        return ref.flash_decode_ref(q, k, v, length)
+        return ref.flash_decode_ref(q, k, v, length, softcap)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_decode: q must be bf16 or float32, got "
                         f"{q.dtype}")
@@ -174,7 +190,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_acc, part_ml = scratch(q, splits)
     stream = torch.cuda.current_stream().cuda_stream
     err = kernel_function()(*kernel_args(q, k, v, length, out, splits,
-                                         part_acc, part_ml), stream)
+                                         part_acc, part_ml, softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode: CUDA launch failed with "
                            f"cudaError_t {err}")
@@ -184,12 +200,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, length: torch.Tensor,
-                         max_length: int | None = None) -> torch.Tensor:
+                         max_length: int | None = None,
+                         softcap: float | None = None) -> torch.Tensor:
     """q: (B, 1, Hq, D) over cache (B, S, Hkv, D); length (B,) int32.
     Returns (B, 1, Hq, D).  Drop-in for ``models.layers.decode_attention``
     with ``length`` on the device."""
     B, _, Hq, D = q.shape
     Hkv = k_cache.shape[2]
     out = flash_decode(q.reshape(B, Hkv, Hq // Hkv, D), k_cache, v_cache,
-                       length, max_length)
+                       length, max_length, softcap)
     return out.reshape(B, 1, Hq, D)

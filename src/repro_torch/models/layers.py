@@ -1,12 +1,16 @@
 """Building blocks of the transformer serving path (port of the parts of
-``repro/models/layers.py`` that global-attention GQA models reach).
+``repro/models/layers.py`` that GQA models with global and sliding-window
+layers reach).
 
 Each block is a pair: ``*_defs(cfg) -> tree of ParamDef`` and a function
-that applies it.  Attention comes in three flavours, as in the reference:
+that applies it.  Attention comes in four flavours, as in the reference:
 
-* ``dense_attention``     -- one einsum, the prefill for S <= 1024
+* ``dense_attention``     -- one einsum, the prefill for S <= 1024 (with
+                             a sliding window on local layers)
 * ``blockwise_attention`` -- online softmax over (block_q, block_k) tiles,
                              with the causal wedge split, for longer prompts
+* ``local_attention``     -- exact sliding-window attention by the
+                             two-chunk method, for prompts past the window
 * ``decode_attention``    -- one query token over a KV cache
 
 Layouts are the reference's: activations (B, S, H, D), caches
@@ -99,21 +103,26 @@ def _scores(q: torch.Tensor, k: torch.Tensor, spec: str) -> torch.Tensor:
     return torch.einsum(spec, q.float(), k.float())
 
 
-def dense_attention(q, k, v, *, causal: bool,
+def dense_attention(q, k, v, *, causal: bool, window: int | None = None,
                     softcap: float | None = None) -> torch.Tensor:
-    """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D).  Exact reference path.  (The
-    reference's sliding window and prefix-LM mask come with the layers
-    that use them.)"""
+    """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D).  Exact reference path; query i
+    sees key j where j <= i (``causal``) and j > i - ``window``.  (The
+    reference's prefix-LM mask comes with the VLM config that uses it.)"""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qr = q.reshape(B, Sq, Hkv, G, D)
     scores = _scores(qr, k, "bqhgd,bkhd->bhgqk")
     scores = _softcap(scores / math.sqrt(D), softcap)
-    if causal:
+    if causal or window is not None:
         qi = torch.arange(Sq, device=q.device)[:, None]
         ki = torch.arange(Sk, device=q.device)[None, :]
-        scores = torch.where(ki <= qi, scores, NEG_INF)
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = ki <= qi
+        if window is not None:
+            mask = mask & (ki > qi - window)
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(B, Sq, Hq, D)
@@ -257,20 +266,72 @@ def _merge_two(q, k1, v1, k2, v2, *, softcap, block_k):
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def local_attention(q, k, v, *, window: int,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Exact sliding-window causal attention by the reference's two-chunk
+    method: the sequence is padded to chunks of ``window`` positions, and
+    each query chunk attends (previous chunk ++ own chunk) under the exact
+    (kpos <= qpos) & (kpos > qpos - window) mask; FLOPs 2 * S * window a
+    head pair, no quadratic term.
+
+    The reference computes every chunk of every row in one einsum, whose
+    (B, C, Hkv, G, W, 2W) float32 scores take 128 MiB a row, chunk and
+    query head at W = 4,096; the port loops over rows and chunks, which
+    are independent, so that one (Hkv, G, W, 2W) block is live at a
+    time.  The result is the same."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    W = window
+    if S <= W:
+        return dense_attention(q, k, v, causal=True, window=W,
+                               softcap=softcap)
+    pad = (-S) % W
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+    C = q.shape[1] // W
+    G = Hq // Hkv
+    qpos = torch.arange(W, device=q.device)[:, None] + W   # in the 2W frame
+    kpos = torch.arange(2 * W, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - W)
+    first = mask & (kpos >= W)               # the first chunk has no past
+    out = torch.empty_like(q)
+    for b in range(B):
+        for c in range(C):
+            own = slice(c * W, (c + 1) * W)
+            if c:
+                prev = slice((c - 1) * W, c * W)
+                kk = torch.cat([k[b, prev], k[b, own]])       # (2W, Hkv, D)
+                vv = torch.cat([v[b, prev], v[b, own]])
+            else:
+                kk = torch.cat([torch.zeros_like(k[b, own]), k[b, own]])
+                vv = torch.cat([torch.zeros_like(v[b, own]), v[b, own]])
+            qr = q[b, own].reshape(W, Hkv, G, D)
+            s = _scores(qr, kk, "qhgd,khd->hgqk") / math.sqrt(D)
+            s = _softcap(s, softcap)
+            s = torch.where(mask if c else first, s, NEG_INF)
+            p = torch.softmax(s, dim=-1).to(vv.dtype)
+            o = torch.einsum("hgqk,khd->qhgd", p, vv)
+            out[b, own] = o.reshape(W, Hq, D)
+    return out[:, :S]
+
+
 def decode_attention(q, k_cache, v_cache, *, length: int,
+                     window: int | None = None,
                      softcap: float | None = None) -> torch.Tensor:
     """q: (B,1,Hq,D) against cache (B,Smax,Hkv,D); ``length`` = #valid
-    tokens (every row).
+    tokens (every row); with ``window``, only the last ``window`` of them.
 
-    The reference masks the cache positions at or past ``length`` and sums
-    over all of ``Smax``; they add exact zeros, so the port reads only the
-    first ``length`` positions (the same softmax, summed over fewer
-    terms)."""
+    The reference masks the cache positions outside
+    [length - window, length) and sums over all of ``Smax``; they add
+    exact zeros, so the port reads only the positions inside (the same
+    softmax, summed over fewer terms)."""
     B, _, Hq, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     if not 1 <= length <= Smax:
         raise ValueError(f"length {length} outside [1, {Smax}]")
-    k_cache, v_cache = k_cache[:, :length], v_cache[:, :length]
+    lo = 0 if window is None else max(0, length - window)
+    k_cache, v_cache = k_cache[:, lo:length], v_cache[:, lo:length]
     G = Hq // Hkv
     qr = q.reshape(B, Hkv, G, D)
     s = _scores(qr, k_cache, "bhgd,bkhd->bhgk") / math.sqrt(D)

@@ -1,7 +1,8 @@
 """Public Model API for the serving path (port of
 ``repro/models/model_api.py``): ``param_defs``, ``init``, ``cache_defs``,
-``init_cache``, ``prefill`` and ``decode_step``, for the global-attention
-GQA configs of ``models/transformer.py``.
+``init_cache``, ``prefill`` and ``decode_step``, for the GQA configs of
+``models/transformer.py`` (global and sliding-window layers; a local
+layer's cache is a ring of ``min(window, max_len)`` slots).
 
 As in the reference, a ``Model`` holds no weights: ``init(generator)``
 makes the parameter tree (the reference's tree, key for key:
@@ -58,8 +59,8 @@ def _group_defs(cfg, g: Group) -> dict:
 
 
 class Model:
-    """A global-attention GQA transformer on ``device`` (the card by
-    default)."""
+    """A GQA transformer (global and sliding-window layers) on ``device``
+    (the card by default)."""
 
     def __init__(self, cfg, device="cuda", decode_impl: str = "auto"):
         T.check_supported(cfg)
@@ -140,7 +141,9 @@ class Model:
                 "pos": ParamDef((), (), init="zeros", dtype=torch.int32)}
 
     def init_cache(self, batch: int, max_len: int):
-        """Zeroed K/V caches on the model's device, at position 0."""
+        """Zeroed K/V caches on the model's device, at position 0: a
+        global layer's of ``max_len`` positions, a local layer's a ring of
+        ``min(window, max_len)``."""
         defs = self.cache_defs(batch, max_len)
         return {"layers": materialize(defs["layers"], None, self.device),
                 "pos": 0}
@@ -174,11 +177,10 @@ class Model:
             pos = cache["pos"]
             x = self._embed(params, tokens)
             positions = torch.full((B, 1), pos, device=self.device)
-            length = (torch.full((B,), pos + 1, dtype=torch.int32,
-                                 device=self.device) if impl == "cuda" else None)
             x = self._run_groups(params["groups"], x, mode="decode",
                                  caches=cache["layers"], positions=positions,
-                                 decode=T.DecodeStep(pos, impl, length))
+                                 decode=T.DecodeStep(pos, impl, B,
+                                                     self.device))
             x = _norm_apply(self.cfg, params["final_norm"], x)
             logits = self._logits(params, x)[:, 0]
             return logits, {"layers": cache["layers"], "pos": pos + 1}

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` (its
 ``core/autotune.py``, ``learn/train.py``, ``core/campaign.py``,
-``core/predict.py`` and ``launch/run_campaign.py`` included; nor
+``core/predict.py``, ``launch/run_campaign.py``, ``common/sharding.py``
+and the Gemma-2, Gemma-3 and Phi-4-mini configs included, each run
+below: a batch over a mesh, each config's prefill and decode; nor
 ``chip_smoke.py``, ``scripts/profile_step.py``,
 ``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
 or the JAX package, it
@@ -64,6 +66,22 @@ def test_port_runs_with_jax_unavailable():
         "                          queue_stride=0), device='cpu',\n"
         "             fault_spec=FaultSpec.lossy_roce(1e-3, 'gbn'))\n"
         "assert r.finished and r.lost.sum() > 0, r\n"
+        "from repro_torch.common.sharding import grid_mesh\n"
+        "runner = SweepRunner(EngineConfig(dt=1e-6, max_steps=400,\n"
+        "                     max_extends=0, queue_stride=0), device='cpu',\n"
+        "                     mesh=grid_mesh(2, devices=['cpu', 'cpu']))\n"
+        "b = runner.run_batch(topo, sched, 'dcqcn',\n"
+        "                     {'rai_frac': [0.01, 0.05, 0.2]})\n"
+        "assert b.finished.all() and b.meta['mesh_devices'] == 2, b\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import smoke_model\n"
+        "for arch in ('gemma2-9b', 'gemma3-27b', 'phi4-mini-3.8b'):\n"
+        "    m = smoke_model(arch, device='cpu')\n"
+        "    p = m.init(torch.Generator().manual_seed(0))\n"
+        "    toks = np.arange(80, dtype=np.int32).reshape(2, 40) % 256\n"
+        "    lg, c = m.prefill(p, {'tokens': toks}, max_len=44)\n"
+        "    lg, c = m.decode_step(p, c, toks[:, :1])\n"
+        "    assert bool(torch.isfinite(lg).all()), arch\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
         "print('ok')\n")

@@ -430,6 +430,37 @@ def test_batched_kernel_step_matches_op_path(dev):
             assert torch.equal(a, want[k]), k
 
 
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_lanes_equal_serial_runs_and_mesh_on_the_card(dev, impl):
+    """On the card, on both step paths: 5 lanes of a 16-GPU all-to-all
+    as one batch, over a mesh of the card twice (blocks of 3, one pad
+    lane) and as 5 serial runs, every array bit for bit, the soft cost
+    included (a CUDA sum over the flows of several lanes at once would
+    add in an order that follows the lane count)."""
+    from repro_torch.common.sharding import grid_mesh
+    from repro_torch.core import SweepRunner, alltoall
+    topo = single_switch(16)
+    sched = alltoall(topo, list(range(16)), 16e6)
+    cfg = EngineConfig(dt=1e-6, max_steps=800, max_extends=1,
+                       queue_stride=0, step_impl=impl)
+    rai = np.geomspace(0.01, 0.3, 5).astype(np.float32)
+    plain = SweepRunner(cfg, device="cuda")
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = plain.share_prep(mesh=grid_mesh(2, devices=[card, card]))
+    a = plain.run_batch(topo, sched, "dcqcn", {"rai_frac": rai})
+    b = mesh.run_batch(topo, sched, "dcqcn", {"rai_frac": rai})
+    assert b.meta["mesh_devices"] == 2 and b.meta["chunk_lanes"] == 6
+    for k in ("completion_time", "t_finish", "pause_count", "delivered",
+              "soft_cost", "finished"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    pol = get_policy("dcqcn")
+    for i, r in enumerate(rai):
+        s = plain.run(topo, sched, pol, dict(pol.params, rai_frac=float(r)))
+        assert np.array_equal(s.t_finish, a.t_finish[i]), i
+        assert np.array_equal(s.delivered, a.delivered[i]), i
+        assert s.soft_cost == a.soft_cost[i], i
+
+
 def _leaves(carry, prefix=""):
     for k, v in carry.items():
         if isinstance(v, dict):
@@ -558,23 +589,25 @@ def _fd_inputs(B, S, Hkv, G, D, dtype, seed, dev):
     return q, k, v
 
 
-def _fd_assert(q, k, v, length, max_length):
+def _fd_assert(q, k, v, length, max_length, softcap=None):
     """One launch against the plain version at the tolerance, and the
     launch with ``max_length`` omitted (the cache's whole split) equal to it
     bit for bit."""
     before = fd_ops.LAUNCHES["flash_decode"]
-    got = fd_ops.flash_decode(q, k, v, length, max_length=max_length)
+    got = fd_ops.flash_decode(q, k, v, length, max_length=max_length,
+                              softcap=softcap)
     assert fd_ops.LAUNCHES["flash_decode"] == before + 1
-    want = fd_ref.flash_decode_ref(q, k, v, length)
+    want = fd_ref.flash_decode_ref(q, k, v, length, softcap)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs()
-    assert bool((err <= chip_smoke.fd_tolerance(q, k, v, length,
-                                                want)).all()), \
+    assert bool((err <= chip_smoke.fd_tolerance(q, k, v, length, want,
+                                                softcap)).all()), \
         float(err.max())
     # the split's size does not change the result
-    again = fd_ops.flash_decode(q, k, v, length)
+    again = fd_ops.flash_decode(q, k, v, length, softcap=softcap)
     assert torch.equal(again, got)
+    return got
 
 
 # (B, S, Hkv, G, D): TinyLlama's heads at one and many chunks, D = 128,
@@ -632,6 +665,41 @@ def test_flash_decode_max_length_omitted_is_bit_equal(dev):
     _fd_assert(q, k, v, length, 2111)
 
 
+# (B, S, Hkv, G, D) of Gemma-2 (softcap 50), Gemma-3 and Phi-4-mini's
+# decode, at a cut length
+@pytest.mark.parametrize("B,S,Hkv,G,D", [(2, 4096, 8, 2, 256),
+                                         (2, 1024, 16, 2, 128),
+                                         (2, 700, 8, 3, 128)])
+@pytest.mark.parametrize("softcap", [None, 50.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_decode_softcap_matches_plain(dev, B, S, Hkv, G, D, softcap,
+                                            dtype):
+    """The softcap's instantiations (cap 50: Gemma-2's; cap 1 bends most
+    scores) against the plain version; without it, the kernel as before.
+    Scores are scaled up 4x so that the cap bites."""
+    q, k, v = _fd_inputs(B, S, Hkv, G, D, dtype, S + G, dev)
+    q = (q.float() * 4).to(dtype)
+    length = torch.tensor([S, max(S // 3, 1)][:B], dtype=torch.int32,
+                          device=dev)
+    got = _fd_assert(q, k, v, length, S, softcap)
+    if softcap is not None:
+        plain = fd_ops.flash_decode(q, k, v, length)
+        assert not torch.equal(plain, got)
+
+
+def test_flash_decode_over_a_ring(dev):
+    """A ring decode is the kernel at length = max_length = min(pos + 1,
+    Wr) over the ring's first slots: against the plain version, softcap
+    50, before and after the ring wraps."""
+    B, Wr, Hkv, G, D = 2, 1024, 8, 2, 256
+    q, k, v = _fd_inputs(B, Wr, Hkv, G, D, torch.bfloat16, 3, dev)
+    for pos in (5, 1023, 1024, 5000):
+        n = min(pos + 1, Wr)
+        length = torch.full((B,), n, dtype=torch.int32, device=dev)
+        _fd_assert(q, k, v, length, n, 50.0)
+
+
 def test_flash_decode_wrapper_rejects(dev):
     q, k, v = _fd_inputs(2, 64, 2, 4, 64, torch.bfloat16, 0, dev)
     length = torch.full((2,), 64, dtype=torch.int32, device=dev)
@@ -644,6 +712,40 @@ def test_flash_decode_wrapper_rejects(dev):
     with pytest.raises(ValueError, match="limits"):
         qq, kk, vv = _fd_inputs(1, 8, 1, 32, 64, torch.bfloat16, 0, dev)
         fd_ops.flash_decode(qq, kk, vv, length[:1])
+    for bad in (0.0, -50.0, float("nan")):
+        with pytest.raises(ValueError, match="softcap"):
+            fd_ops.flash_decode(q, k, v, length, softcap=bad)
+    # the C entry point refuses a negative cap itself
+    args = fd_ops.kernel_args(q, k, v, length, torch.empty_like(q), 1, None,
+                              None, -1.0)
+    assert fd_ops.kernel_function()(
+        *args, torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b",
+                                  "phi4-mini-3.8b"])
+def test_sliding_window_serving_kernel_path_matches_torch_path(dev, arch):
+    """The smoke configs on the card, prompt 40 past the 32-slot window
+    (local_attention, the ring filled wrapped), then 12 decode steps: one
+    launch per layer and step, global and ring layers alike, softcap
+    included; the kernel path's logits against the torch path's."""
+    cfg = smoke_config(arch)
+    model = Model(cfg, device="cuda")
+    shapes = tree_map(lambda d: d.shape, model.param_defs())
+    params = tree_map(lambda a: torch.from_numpy(a).to(dev),
+                      chip_smoke.transformer_numpy_params(shapes, 5, False))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 52),
+                                             dtype=np.int32)
+    _, cache_c = model.prefill(params, {"tokens": toks[:, :40]}, max_len=60)
+    _, cache_t = model.prefill(params, {"tokens": toks[:, :40]}, max_len=60)
+    for t in range(40, 52):
+        fd_ops.reset_launches()
+        got, cache_c = model.decode_step(params, cache_c, toks[:, t:t + 1])
+        assert fd_ops.LAUNCHES["flash_decode"] == cfg.n_layers
+        want, cache_t = model.decode_step(params, cache_t, toks[:, t:t + 1],
+                                          "torch")
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 2e-2, (t, rel)
 
 
 def test_serving_kernel_path_matches_torch_path(dev):

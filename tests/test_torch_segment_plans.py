@@ -403,3 +403,39 @@ def test_kernel_order_is_row_sum(lanes):
         want = row_sum(torch.from_numpy(rows), lanes=lanes).numpy()
         got = np.array([_kernel_row_sum(r, lanes) for r in rows])
         np.testing.assert_array_equal(got, want, err_msg=f"C={C}")
+
+
+@pytest.mark.parametrize("per", [None, 512], ids=["one", "split"])
+def test_lane_sum_plan_adds_each_lane_as_its_serial_run(per, monkeypatch):
+    """The soft cost's per-lane sum on the card (``_lane_sum_plan``, one
+    segment of every real flow, or consecutive segments of ``MAX_C2``
+    blocks added left to right, here forced small): each lane of a 5-lane
+    call equal to its call alone bit for bit on both step paths (the
+    kernel's plain version here), close to the float64 sum of its real
+    flows (rtol 1e-6), padded flows left out; under autograd a gradient
+    of one on every real flow and zero on the pads; the kernel plan within
+    the wrappers' limits."""
+    if per is not None:
+        monkeypatch.setattr(es_ops, "MAX_C2", per // peng._SPLIT_C)
+    topo, sched, pol = _small_a2a()
+    sim = peng.Simulator(topo, sched, pol, peng.EngineConfig(dt=1e-6),
+                         pad_flows=3000, device="cpu")
+    plan = sim.plan
+    F, Fp = plan.n_flows, plan.n_flows_pad
+    assert Fp == 3000 > F > (per or 0)
+    lane_plan = peng._lane_sum_plan(plan, "cpu")
+    strat, arrs = lane_plan
+    assert strat[0] == "gather2" and strat[1] == (1 if per is None else 2)
+    vals = torch.from_numpy(_vals(Fp, 5, 11))
+    want = vals[:, :F].double().sum(-1)
+    for reduce_ in (peng._reduce, peng._reduce_kernel):
+        got = peng._lane_sum(reduce_, lane_plan, vals)
+        torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=0)
+        for b in range(5):
+            alone = peng._lane_sum(reduce_, lane_plan, vals[b:b + 1])
+            assert torch.equal(alone, got[b:b + 1])
+    x = vals.clone().requires_grad_(True)
+    peng._lane_sum(peng._reduce, lane_plan, x).sum().backward()
+    assert torch.equal(x.grad[:, :F], torch.ones(5, F))
+    assert torch.equal(x.grad[:, F:], torch.zeros(5, Fp - F))
+    es_ops._check_seg(vals, *peng._kernel_plan(strat, arrs))

@@ -339,17 +339,19 @@ def test_serve_driver_runs_on_cpu():
 def test_registry_matches_reference():
     for get, r_get in ((configs.get_config, r_get_config),
                        (configs.smoke_config, r_smoke_config)):
-        got, want = get("tinyllama-1.1b"), r_get("tinyllama-1.1b")
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert configs.ARCHS == ("tinyllama-1.1b",)
+        for arch in configs.ARCHS:
+            got, want = get(arch), r_get(arch)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert configs.ARCHS == ("tinyllama-1.1b", "phi4-mini-3.8b",
+                             "gemma2-9b", "gemma3-27b")
     m = configs.smoke_model("tinyllama-1.1b", device="cpu")
     assert isinstance(m, Model) and m.decode_impl == "torch"
     assert configs.smoke_model("dlrm", device="cpu").cfg.name == "dlrm"
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get_model("gemma2-9b", device="cpu")
+        configs.get_model("deepseek-v2-236b", device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "deepseek-v2-236b",
+@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v2-236b",
                                   "rwkv6-3b", "whisper-base"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -179,8 +179,10 @@ def test_input_validation():
                          stacked_fabric={"xoff": np.array([1e6, 2e6])},
                          fault_spec=FaultSpec.lossy_roce(1e-3))
     assert faulty.fault_set(1).pfc_on == 0.0 and faulty.lost is not None
-    with pytest.raises(NotImplementedError, match="queue item 8"):
-        psweep.SweepRunner(mesh="auto", device="cpu")
+    # mesh="auto" takes every visible CUDA device: none here, so the
+    # runner lays its lanes on its one device
+    auto = psweep.SweepRunner(mesh="auto", device="cpu")
+    assert auto.mesh is None and auto.n_mesh_devices == 1
 
 
 def test_stack_policies_and_spec_grids_match_reference():
