@@ -44,7 +44,14 @@ table, the retry ladder under injected out-of-memory errors on 32 GPUs, on one
 device and over a mesh of the card twice (``campaign_ladder32``, its
 ``no_mesh`` rung), and the HLO-replay prediction of every policy,
 batched and serial (``predict32``).  ``soft_grad`` runs the 32-GPU
-gradient twice and records whether it repeats bit for bit.
+gradient twice and the 128-GPU backward twice over a 64-step window: each
+must repeat bit for bit, its backward's sums in a fixed order through
+``segment_reduce``.  It also checks
+the int8 instantiation of the flash-decode kernel and serves TinyLlama
+with the int8 KV cache (``serve_int8``), Zamba2 (``serve_zamba2``),
+RWKV-6 (``serve_rwkv6``) and DeepSeek-V2/V3 (``serve_deepseek``), each
+new family held against the JAX reference's logits
+(``serve_families_reference``).
 
     python3 chip_smoke.py
 
@@ -73,6 +80,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -664,8 +672,42 @@ SERVE_ARCHS = {
     "phi4-mini-3.8b": {"phase": "serve_phi4", "layers": None,
                        "prompt": 2048, "new": 32, "max_len": 4096,
                        "block": None},
+    # Zamba2 at full depth: 38 Mamba-2 layers, the shared GQA block after
+    # every 6 (6 applications, the kernel's launches); a 2,048-token prompt
+    # takes the shared block's blockwise prefill.  ``resync``: each step's
+    # plain and torch paths start from the kernel path's cache, as the
+    # recurrent states carry a step's rounding into every later one
+    "zamba2-1.2b": {"phase": "serve_zamba2", "layers": None, "prompt": 2048,
+                    "new": 64, "max_len": 2176, "block": None,
+                    "resync": True},
 }
 SERVE_ARCH_SLOTS = 2
+# serve_int8: TinyLlama at full width and depth with the int8 KV cache
+# (the reference's kvquant knob, src/repro/launch/dryrun.py:78-79) on
+# serve_long's shape; the kernel's int8 instantiation timed on the last
+# step's captured inputs of layers 21 and 0
+SERVE_INT8 = {"phase": "serve_int8", "arch": "tinyllama-1.1b",
+              "layers": None, "prompt": SERVE_PROMPT, "new": SERVE_NEW,
+              "max_len": SERVE_MAX_LEN, "block": None, "slots": SERVE_SLOTS,
+              "over": {"kv_quant_int8": True}, "capture": (0, 21)}
+# the mixers whose decode attention is the flash-decode kernel
+KERNEL_MIXERS = ("gqa_g", "gqa_l", "shared_gqa")
+# serve_rwkv6, serve_deepseek: no kernel on their decode path (the
+# reference has none for RWKV-6, MLA or MoE); RWKV-6 at full depth on a
+# 512-token prompt (the token scan), then its prefill in chunks of 64;
+# DeepSeek-V2 and -V3 at full width, depth cut to 4 (V2: 1 dense + 3 MoE
+# layers, about 26.6 GB of bf16 weights; V3: 3 dense + 1 MoE, about 30 GB),
+# loaded one after the other
+SERVE_FAMILIES = {
+    "rwkv6-3b": {"phase": "serve_rwkv6", "layers": None, "prompt": 512,
+                 "new": 64, "max_len": 640, "chunk": 64},
+    "deepseek-v2-236b": {"phase": "serve_deepseek", "layers": 4,
+                         "prompt": 512, "new": 32, "max_len": 1024},
+    "deepseek-v3-671b": {"phase": "serve_deepseek", "layers": 4,
+                         "prompt": 512, "new": 32, "max_len": 1024},
+}
+SERVE_FAMILY_REL_L2 = 3e-2     # each decode step vs a teacher-forced prefill
+RWKV_CHUNK_TOL = 2e-3          # chunked vs scan time mix (tests/test_blocks.py)
 
 # serve_sliding_reference: Gemma-2 and Gemma-3 at full width, depth one
 # attention period (Gemma-2's local + global, Gemma-3's 5 local + 1
@@ -895,6 +937,880 @@ SLIDING_REF = {
     },
 }
 
+# serve_families_reference: each new family at full width, depth cut so
+# that the JAX reference runs on a CPU (name -> arch, layers, config
+# overrides): Zamba2 at one period (6 Mamba-2 layers and the shared
+# block), RWKV-6 at 2 layers, DeepSeek-V2 at 2 (1 dense + 1 MoE),
+# TinyLlama with the int8 KV cache at 4; hashed_params from SERVE_REF_SEED,
+# serve_reference's tokens and tolerances.  The reference's logits from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py families_reference
+# (jax 0.9.0, numpy 2.0.2), rounded to 5 decimals
+FAMILIES_REF_CUTS = {
+    "zamba2-1.2b": ("zamba2-1.2b", 6, {}),
+    "rwkv6-3b": ("rwkv6-3b", 2, {}),
+    "deepseek-v2-236b": ("deepseek-v2-236b", 2, {}),
+    "tinyllama-1.1b/int8": ("tinyllama-1.1b", 4, {"kv_quant_int8": True}),
+}
+FAMILIES_REF = {
+    'zamba2-1.2b': {
+        'logits':
+        [[[-1.0525399446487427, -0.3499000072479248, 0.6647199988365173,
+        -0.2762399911880493, 2.904279947280884, -1.3558100461959839,
+        -0.11061999946832657, 0.6677899956703186, -0.504040002822876,
+        0.4353500008583069, 0.7392899990081787, 0.13872000575065613,
+        0.2773999869823456, -1.9415199756622314, -0.948930025100708,
+        -0.9361400008201599], [-0.4326399862766266, -0.6809300184249878,
+        -0.8562999963760376, 0.6122000217437744, -0.41231000423431396,
+        0.2495100051164627, 1.209130048751831, -1.026859998703003,
+        1.3058700561523438, -1.1285200119018555, 0.2380100041627884,
+        0.8258799910545349, 0.9433199763298035, 0.7221599817276001,
+        0.005369999911636114, -0.9990699887275696], [0.3690199851989746,
+        1.267699956893921, 1.1006300449371338, -0.9899100065231323,
+        -0.6951799988746643, 0.31626999378204346, 0.030460000038146973,
+        -0.04050999879837036, -0.29111000895500183, -1.1177799701690674,
+        1.0672999620437622, -1.225849986076355, 0.5222100019454956,
+        0.5580999851226807, 0.20527000725269318, 1.4510600566864014],
+        [-1.3883700370788574, -1.0516200065612793, -0.43560999631881714,
+        -0.6456800103187561, 0.2505199909210205, 0.6154199838638306,
+        -0.3426800072193146, 0.9445599913597107, 1.105780005455017,
+        0.11940000206232071, 0.3265700042247772, 0.6315900087356567,
+        1.4835000038146973, 0.9933300018310547, 0.8278999924659729,
+        -1.5453100204467773]], [[0.5092700123786926, -0.2954599857330322,
+        0.11381000280380249, -2.761229991912842, 1.3615599870681763,
+        -0.8233500123023987, -1.1386499404907227, -0.6492099761962891,
+        -0.4630100131034851, -0.6165400147438049, -0.02954000048339367,
+        -1.308940052986145, 0.42006000876426697, -0.14733000099658966,
+        -0.25839999318122864, -0.3372200131416321], [1.9202500581741333,
+        -0.9621700048446655, 1.4426300525665283, -0.1748500019311905,
+        -1.6081500053405762, -0.30292001366615295, 1.5055700540542603,
+        1.188480019569397, 0.8799300193786621, 0.9496899843215942,
+        0.0853400006890297, 1.1876100301742554, 1.40093994140625,
+        -1.6794400215148926, -0.6852499842643738, 0.8708000183105469],
+        [-1.3509000539779663, 0.5873399972915649, 0.35172000527381897,
+        -0.5392699837684631, -0.4662800133228302, -0.36208999156951904,
+        -0.46612998843193054, 0.06293000280857086, 0.2145099937915802,
+        -2.8620800971984863, 2.879539966583252, 1.6204700469970703,
+        0.4064599871635437, 1.4095499515533447, -0.4168800115585327,
+        -0.45563000440597534], [-2.1114399433135986, -0.4807800054550171,
+        -3.2595999240875244, -1.9055700302124023, 0.19679999351501465,
+        0.15410999953746796, 1.6184500455856323, -1.184190034866333,
+        -1.6601099967956543, -0.47012999653816223, -0.6332200169563293,
+        0.5906599760055542, 0.5473399758338928, -0.8120499849319458,
+        0.12852999567985535, -1.3163199424743652]], [[0.5174800157546997,
+        0.07882999628782272, 0.557420015335083, -0.8301399946212769,
+        1.0654499530792236, 1.731600046157837, 1.3257299661636353,
+        0.5194399952888489, -0.0868000015616417, -0.506060004234314,
+        0.008840000256896019, 1.0530600547790527, 0.7285299897193909,
+        -1.4901299476623535, 0.8834099769592285, -0.6735399961471558],
+        [0.3569599986076355, 0.18453000485897064, -0.1534000039100647,
+        -0.06576000154018402, -2.7267699241638184, -0.5918700098991394,
+        1.7263799905776978, 1.2000999450683594, 0.1296900063753128,
+        0.7732599973678589, -0.165460005402565, 1.8275200128555298,
+        0.9909700155258179, -0.26568999886512756, 1.3004000186920166,
+        -0.8690000176429749], [-0.29745998978614807, 1.139430046081543,
+        1.9732400178909302, -0.9578999876976013, 0.7301999926567078,
+        -0.6753900051116943, 0.1692200005054474, 1.822029948234558,
+        -0.37613001465797424, -0.16200000047683716, 0.6363400220870972,
+        -1.26528000831604, 0.4332500100135803, -0.3394100069999695,
+        -0.04667000100016594, 0.029670000076293945], [-0.9505900144577026,
+        0.1842000037431717, -0.8677499890327454, -1.2340099811553955,
+        0.5562099814414978, 1.4755899906158447, 0.4867599904537201,
+        0.22342999279499054, -0.06908000260591507, -0.47332999110221863,
+        0.6086599826812744, 0.40615999698638916, 0.5049800276756287,
+        -0.2985599935054779, -0.4398300051689148, 0.32954999804496765]],
+        [[-0.8688799738883972, -0.20261000096797943, 1.587049961090088,
+        -1.5727200508117676, 1.6008100509643555, 1.107159972190857,
+        1.8503899574279785, 0.8643100261688232, -0.6703600287437439,
+        0.7503700256347656, -0.15233999490737915, -0.9682700037956238,
+        1.684749960899353, 0.006120000034570694, 0.08466999977827072,
+        0.1936199963092804], [0.7314800024032593, 0.4409399926662445,
+        0.09835000336170197, 0.7408999800682068, -0.4925900101661682,
+        -0.3640199899673462, -0.6965600252151489, -1.0996899604797363,
+        -0.43619999289512634, 0.9309999942779541, 0.653469979763031,
+        -0.04673999920487404, 0.04182000085711479, -0.3352999985218048,
+        1.009220004081726, -0.21071000397205353], [-1.001710057258606,
+        0.1677200049161911, 0.7226999998092651, 0.20388999581336975,
+        -0.8674399852752686, -1.3551000356674194, 0.5624300241470337,
+        0.5435199737548828, -1.2645200490951538, -0.24145999550819397,
+        -0.4508199989795685, -0.4567599892616272, 1.22871994972229,
+        0.45322999358177185, 1.0702799558639526, 0.5412600040435791],
+        [-1.0432100296020508, 0.11296000331640244, 0.23280000686645508,
+        -1.2459399700164795, 0.7082399725914001, 1.262179970741272,
+        -1.8928899765014648, -0.402539998292923, -0.27619999647140503,
+        0.5986199975013733, -0.010850000195205212, 0.24726000428199768,
+        -0.3223400115966797, -0.3993000090122223, 0.8862699866294861,
+        0.5021399855613708]], [[0.34303000569343567, 0.2995400130748749,
+        1.5762100219726562, -0.14781999588012695, -0.9569799900054932,
+        -0.6740000247955322, -0.1930299997329712, 0.20446999371051788,
+        0.9072399735450745, 0.33744001388549805, 1.193429946899414,
+        0.052069999277591705, 0.2722199857234955, 0.855459988117218,
+        0.21174000203609467, 1.5676300525665283], [-1.0069199800491333,
+        1.050819993019104, -0.8044599890708923, -0.07515999674797058,
+        0.12525999546051025, 0.4327000081539154, -1.0629299879074097,
+        -1.1803300380706787, 0.8811399936676025, -0.02046000026166439,
+        0.45013999938964844, -0.45482999086380005, -0.026149999350309372,
+        -0.9656299948692322, 0.0025100000202655792, -0.7950199842453003],
+        [-1.111199975013733, 0.6968100070953369, 0.3521699905395508,
+        -1.8437700271606445, 0.7257500290870667, 0.35475999116897583,
+        -1.134119987487793, -0.8492500185966492, -0.44095999002456665,
+        0.09662000089883804, 0.41418999433517456, -0.7484400272369385,
+        -2.063999891281128, -0.19158999621868134, 1.4016799926757812,
+        0.8550999760627747], [-1.0325900316238403, -0.43334001302719116,
+        -0.25519001483917236, -0.7143700122833252, 0.3552899956703186,
+        0.8075000047683716, -0.14585000276565552, -0.6623499989509583,
+        1.0648000240325928, 1.0127899646759033, 0.7663400173187256,
+        0.2197200059890747, -0.3517700135707855, -0.5032299757003784,
+        1.8188600540161133, -0.8969799876213074]], [[0.6312199831008911,
+        1.0227299928665161, 1.1103299856185913, -1.3507699966430664,
+        0.17497999966144562, -1.0593700408935547, 0.006479999981820583,
+        0.4280399978160858, -1.6202900409698486, 0.2596000134944916,
+        -0.8261299729347229, -1.279960036277771, 0.4409799873828888,
+        0.45399001240730286, 1.0517499446868896, 0.02370000071823597],
+        [-0.8835899829864502, 0.445389986038208, -0.785290002822876,
+        -1.7592600584030151, 0.4980500042438507, -0.2156900018453598,
+        -0.008740000426769257, 0.4902600049972534, -0.6512399911880493,
+        0.12691999971866608, 2.5129599571228027, 1.2516800165176392,
+        0.5002300143241882, -0.5691099762916565, -0.44933000206947327,
+        0.28439000248908997], [0.0658000037074089, 0.8968999981880188,
+        0.49153000116348267, 0.09711000323295593, -0.7480199933052063,
+        0.5288000106811523, 0.25450000166893005, 0.8595399856567383,
+        1.6586400270462036, -0.5532799959182739, -0.9251700043678284,
+        -0.16808000206947327, -0.3223699927330017, -0.30566999316215515,
+        0.9670100212097168, 0.516260027885437], [0.6169800162315369,
+        0.0850600004196167, 0.07264000177383423, -1.0830199718475342,
+        0.03822999820113182, 2.783829927444458, -0.7399799823760986,
+        -0.8648200035095215, 0.9927700161933899, 1.720020055770874,
+        0.5115699768066406, -1.4132599830627441, -0.7431600093841553,
+        -0.5013899803161621, -0.47067001461982727, -0.35931000113487244]],
+        [[0.3666200041770935, -0.6057999730110168, 0.05621999874711037,
+        -1.243399977684021, 0.11321999877691269, -0.11298999935388565,
+        0.8063700199127197, 0.754830002784729, -0.7268199920654297,
+        0.6860700249671936, 0.7971400022506714, -1.3918499946594238,
+        -1.37431001663208, -2.3819499015808105, 0.08833999931812286,
+        -0.22033999860286713], [-0.9339500069618225, 0.21705999970436096,
+        0.562030017375946, -0.7990099787712097, 0.21994000673294067,
+        0.19110000133514404, -0.14122000336647034, -1.5339499711990356,
+        0.4464299976825714, 0.06640999764204025, 0.10147999972105026,
+        -0.5054799914360046, 1.9276100397109985, -1.4880199432373047,
+        0.16227999329566956, -0.5304399728775024], [-0.7280099987983704,
+        0.3033199906349182, 0.21150000393390656, -0.34213998913764954,
+        0.24271999299526215, -1.6425000429153442, -2.2797698974609375,
+        0.2917500138282776, 0.15339000523090363, -1.0492299795150757,
+        -0.6119099855422974, -1.2906800508499146, -0.44231998920440674,
+        0.17861999571323395, 0.3230699896812439, 0.5316600203514099],
+        [-0.13544000685214996, 0.5801100134849548, 0.2611599862575531,
+        -1.0903600454330444, 0.8994500041007996, 0.15771999955177307,
+        -1.1448099613189697, -1.5424000024795532, -0.013609999790787697,
+        -1.1005300283432007, 0.3612099885940552, -0.6413300037384033,
+        0.7308200001716614, -0.32003000378608704, 0.34630998969078064,
+        0.4454199969768524]], [[-0.31808000802993774, 0.2318599969148636,
+        0.06029000133275986, 0.29659000039100647, -0.06350000202655792,
+        1.0065799951553345, 0.3789600133895874, -0.0776899978518486,
+        -0.934149980545044, -0.781440019607544, -0.5623499751091003,
+        0.8685299754142761, -1.1421400308609009, 0.9332699775695801,
+        0.9144600033760071, -0.9487400054931641], [0.11751999706029892,
+        1.176900029182434, 0.7919700145721436, -1.3935500383377075,
+        -0.7264999747276306, 1.986840009689331, 1.2442899942398071,
+        -0.5654199719429016, 0.35040000081062317, -0.16087999939918518,
+        1.6016700267791748, -0.7120599746704102, 2.2001800537109375,
+        -0.9365299940109253, -0.6263300180435181, -0.814079999923706],
+        [-1.381790041923523, 0.6023799777030945, 1.58187997341156,
+        1.6348899602890015, 0.7791699767112732, -0.4537000060081482,
+        0.07797999680042267, 0.5284799933433533, 1.344920039176941,
+        -0.0014199999859556556, -1.3189899921417236, 0.24291999638080597,
+        0.5287700295448303, 1.0092400312423706, 0.8203999996185303,
+        -0.37268000841140747], [-0.5958600044250488, -0.7834200263023376,
+        0.5906800031661987, 1.7240300178527832, -1.1492899656295776,
+        0.14143000543117523, 1.6568299531936646, -0.8954600095748901,
+        1.7635200023651123, -0.5047900080680847, 1.04489004611969,
+        1.1656099557876587, 2.0297698974609375, -0.9094399809837341,
+        0.7649499773979187, -0.9704800248146057]], [[0.2905699908733368,
+        -1.7065199613571167, -0.3942599892616272, -0.8359599709510803,
+        -0.0088900001719594, -0.04465999826788902, -0.9959700107574463,
+        0.05796999856829643, 0.5555999875068665, -0.5952200293540955,
+        -1.6219899654388428, -1.3810900449752808, -0.5854799747467041,
+        1.197849988937378, 1.2369099855422974, -0.4309700131416321],
+        [-0.13217000663280487, 0.2270199954509735, -0.3757599890232086,
+        -0.9715700149536133, -1.7598700523376465, -0.8945800065994263,
+        1.1247899532318115, 0.08437000215053558, 0.6687899827957153,
+        0.03759000077843666, 0.07582999765872955, 1.8532500267028809,
+        0.9196900129318237, 0.3276199996471405, 1.0116100311279297,
+        0.7381799817085266], [-1.0433399677276611, 1.639009952545166,
+        1.0745099782943726, -0.8119000196456909, -0.34797999262809753,
+        -1.1805000305175781, -1.1866600513458252, 0.30546998977661133,
+        0.21509000658988953, 0.5291299819946289, 0.5810800194740295,
+        0.661270022392273, -0.10696999728679657, 1.9673099517822266,
+        -0.022789999842643738, -0.22532999515533447], [0.5903900265693665,
+        0.399399995803833, 0.5669400095939636, -0.038509998470544815,
+        -0.915149986743927, 1.039080023765564, -0.7000899910926819,
+        0.6421200037002563, -0.312389999628067, -0.15851999819278717,
+        0.7705600261688232, -0.5159199833869934, 0.2624399960041046,
+        0.8504899740219116, 1.4601000547409058, 2.008270025253296]]],
+        'lse':
+        [[10.78113, 10.79196, 10.78546, 10.77616], [10.77312, 10.78811,
+        10.78513, 10.78732], [10.79004, 10.78631, 10.79107, 10.77806],
+        [10.78309, 10.79865, 10.78503, 10.78957], [10.77828, 10.7948,
+        10.79228, 10.79156], [10.79124, 10.79845, 10.78461, 10.78315],
+        [10.78009, 10.79128, 10.7808, 10.78281], [10.79472, 10.78617,
+        10.78643, 10.77432], [10.79156, 10.77864, 10.77368, 10.79066]],
+        'top1':
+        [[23365, 12324, 29620, 25117], [12229, 8078, 24684, 19078], [19461,
+        608, 29028, 19781], [14486, 24332, 27336, 26875], [12411, 10182,
+        15459, 331], [28981, 17852, 9614, 16340], [6099, 23192, 21057, 29115],
+        [8422, 14724, 11157, 10467], [29868, 23069, 20211, 7350]],
+        'margin':
+        [[0.096, 0.15073, 0.6974, 0.38399], [0.08438, 0.26927, 0.08756,
+        0.21302], [0.33312, 0.33711, 0.16612, 0.4273], [0.10109, 0.33893,
+        0.614, 0.47655], [0.05305, 0.21541, 0.26047, 0.00525], [0.5646,
+        0.05448, 0.09321, 0.00636], [0.09831, 0.03691, 0.21887, 0.15957],
+        [0.43211, 0.56014, 0.27945, 0.16468], [0.45005, 0.02783, 0.0621,
+        0.1146]],
+    },
+    'rwkv6-3b': {
+        'logits':
+        [[[-2.58351993560791, -0.2697699964046478, 0.8372799754142761,
+        0.27360999584198, 1.3703299760818481, -0.4918400049209595,
+        0.13300000131130219, 2.0053999423980713, 0.6164500117301941,
+        0.49011000990867615, -0.7581599950790405, 0.0700099989771843,
+        -1.183590054512024, 0.3664500117301941, 0.3037799894809723,
+        -0.017030000686645508], [0.21121999621391296, -0.5378999710083008,
+        0.7249900102615356, 1.3630499839782715, 0.5893300175666809,
+        -0.18556000292301178, 1.5708099603652954, -0.43334999680519104,
+        0.4854300022125244, 0.11110000312328339, 0.23917999863624573,
+        -0.07021000236272812, -1.034850001335144, -0.02841999940574169,
+        -1.1985000371932983, 1.0253499746322632], [0.7031199932098389,
+        -0.07513000071048737, 1.0067399740219116, 0.0640299990773201,
+        0.5703999996185303, -0.742579996585846, 0.8605499863624573,
+        -0.46303999423980713, 0.283160001039505, 0.33522000908851624,
+        -2.2180800437927246, 0.5855500102043152, 0.46851998567581177,
+        0.7432299852371216, -0.27046000957489014, 0.130280002951622],
+        [0.030880000442266464, 0.31782999634742737, 1.5438200235366821,
+        0.27601000666618347, 0.3507699966430664, -0.1688700020313263,
+        -0.07591000199317932, 1.0973700284957886, 0.19157999753952026,
+        0.5511000156402588, -1.6231800317764282, -0.7573099732398987,
+        -1.137179970741272, 0.6216599941253662, 0.38905999064445496,
+        -2.2154200077056885]], [[-2.286370038986206, 1.5791399478912354,
+        0.4877200126647949, -0.9352800250053406, 0.7864300012588501,
+        -1.617709994316101, 0.4274199903011322, -0.3676300048828125,
+        0.5824999809265137, 1.1790200471878052, 0.8931300044059753,
+        1.9665100574493408, 0.12224999815225601, 0.05724000185728073,
+        0.012310000136494637, -0.574940025806427], [-1.7202099561691284,
+        -0.8484100103378296, 0.7121700048446655, -0.42607998847961426,
+        1.7266900539398193, -2.434540033340454, -0.5164899826049805,
+        -1.3247699737548828, -1.0285199880599976, 0.2894099950790405,
+        1.4200999736785889, 0.4778499901294708, 0.7876600027084351,
+        0.13478000462055206, -0.18528999388217926, -1.154270052909851],
+        [-1.276129961013794, 0.3743799924850464, -1.7874300479888916,
+        1.2127200365066528, 0.3479900062084198, 0.4186500012874603,
+        -0.6320300102233887, 2.483750104904175, -0.4694400131702423,
+        -1.8618299961090088, -0.4585300087928772, -0.16549000144004822,
+        -0.025289999321103096, -0.6707800030708313, -0.5203800201416016,
+        -1.4640400409698486], [-0.8461700081825256, 0.34483999013900757,
+        0.6518499851226807, 0.6292600035667419, 0.48899000883102417,
+        -0.3344700038433075, 0.11692000180482864, -0.04513999819755554,
+        -0.9484599828720093, 1.3575600385665894, 1.0370800495147705,
+        0.5604599714279175, -0.737030029296875, 0.5179600119590759,
+        0.09446000307798386, -0.3660300076007843]], [[-2.6856000423431396,
+        -1.478410005569458, 1.4796700477600098, 0.39765000343322754,
+        0.38530001044273376, 0.17778000235557556, -0.8812599778175354,
+        -0.48420000076293945, -0.1884399950504303, 0.1433500051498413,
+        -1.0950100421905518, -0.2829500138759613, 0.42294999957084656,
+        -0.7559900283813477, 1.6309700012207031, 0.5245699882507324],
+        [-1.2820899486541748, -0.3840799927711487, 0.8403400182723999,
+        1.150730013847351, 1.2746299505233765, -1.7336499691009521,
+        -1.2603399753570557, 1.2982900142669678, 1.3219300508499146,
+        -0.8667799830436707, -0.2329999953508377, -0.9845499992370605,
+        1.086150050163269, 0.32721999287605286, -0.3519099950790405,
+        -0.9065799713134766], [0.30338001251220703, 0.3957900106906891,
+        0.9500399827957153, -0.45311999320983887, 1.3945399522781372,
+        -0.8364499807357788, -0.3469899892807007, 0.9537799954414368,
+        0.69718998670578, -0.5223699808120728, 1.0989099740982056,
+        0.25817999243736267, 0.8596500158309937, -0.411080002784729,
+        -0.6134300231933594, -0.2904599905014038], [-1.2099699974060059,
+        -1.2872799634933472, -0.6661499738693237, 0.5506600141525269,
+        1.8006800413131714, -0.05758000165224075, 0.29335999488830566,
+        0.6022800207138062, 0.6255599856376648, 1.0684599876403809,
+        0.29291000962257385, -0.039820000529289246, 0.3540000021457672,
+        0.19469000399112701, -3.0774500370025635, -2.4945099353790283]],
+        [[-1.0963000059127808, -2.2317800521850586, 2.1294500827789307,
+        1.334879994392395, 1.543370008468628, 0.7574499845504761,
+        -0.29805999994277954, 0.6968899965286255, -0.18735000491142273,
+        -1.2559700012207031, 0.667900025844574, -1.3973900079727173,
+        0.9010499715805054, 1.4449100494384766, -0.5267400145530701,
+        0.09275999665260315], [-0.6473900079727173, -0.01899000070989132,
+        -0.4666599929332733, -0.5959799885749817, 0.6360200047492981,
+        -1.3020399808883667, 0.050700001418590546, -0.08229000121355057,
+        0.1314300000667572, -2.474289894104004, 0.504580020904541,
+        -0.31633999943733215, 1.3043299913406372, -0.23465000092983246,
+        -0.5678799748420715, -0.17079000174999237], [-2.2751801013946533,
+        0.8521999716758728, 1.3562099933624268, -0.38969001173973083,
+        0.6688699722290039, 0.37512001395225525, -0.29857999086380005,
+        2.0305099487304688, -1.1943999528884888, 1.8244400024414062,
+        -1.2534699440002441, 0.6920199990272522, 0.18182000517845154,
+        0.640529990196228, 1.9750200510025024, 0.2415499985218048],
+        [-0.4160600006580353, -1.44336998462677, -0.6785299777984619,
+        -0.12391000241041183, 1.394610047340393, -0.6560500264167786,
+        -0.3512899875640869, -0.17794999480247498, 1.0675899982452393,
+        0.6270300149917603, 0.07246000319719315, 0.7059800028800964,
+        0.5021200180053711, 0.5788800120353699, 0.5508000254631042,
+        -1.7190300226211548]], [[-1.0305099487304688, -0.8791599869728088,
+        -0.33893999457359314, -0.5309799909591675, 0.8454300165176392,
+        0.8451700210571289, -0.4114600121974945, 0.3605000078678131,
+        -0.463019996881485, -0.04831999912858009, -1.4799799919128418,
+        -0.8001199960708618, 0.07569000124931335, -0.23892000317573547,
+        -0.6324999928474426, -0.5630199909210205], [-2.4030098915100098,
+        -1.447890043258667, 0.6297299861907959, 0.00977999996393919,
+        0.7617800235748291, 0.40573999285697937, -1.9155700206756592,
+        0.9466300010681152, -0.3818199932575226, 0.7019299864768982,
+        -1.3538299798965454, 0.23916999995708466, 0.1712300032377243,
+        0.7976999878883362, -0.8163700103759766, -0.3056800067424774],
+        [-0.5424200296401978, 0.7781999707221985, 0.3689799904823303,
+        -0.27368998527526855, -0.5851600170135498, -0.7334200143814087,
+        0.20426000654697418, 0.620639979839325, 0.23939000070095062,
+        0.050280001014471054, 0.6341500282287598, 1.2487900257110596,
+        -1.1845899820327759, 0.8705000281333923, 1.5072300434112549,
+        -0.22236000001430511], [-1.5466899871826172, -0.5301200151443481,
+        -0.17326000332832336, -0.42489001154899597, 1.5184799432754517,
+        -0.2608200013637543, -0.28624001145362854, 1.610450029373169,
+        1.2339600324630737, 0.41640999913215637, -0.6476600170135498,
+        -0.8156200051307678, 1.308150053024292, -2.7723801136016846,
+        -0.7558500170707703, 0.5028799772262573]], [[-0.5868099927902222,
+        1.5570299625396729, 1.5013099908828735, -0.12932999432086945,
+        -0.19425000250339508, -1.5275599956512451, -1.2581499814987183,
+        1.2918599843978882, 0.48256999254226685, -0.7368199825286865,
+        1.434059977531433, 0.2861799895763397, -0.24007999897003174,
+        1.9586199522018433, -0.4184499979019165, 0.0020200000144541264],
+        [-1.3420100212097168, 0.6758999824523926, 0.1246500015258789,
+        -1.0898699760437012, 0.9258700013160706, -1.4056600332260132,
+        0.6352300047874451, -0.5420799851417542, -0.2249699980020523,
+        0.22642000019550323, -0.3749699890613556, -0.28621000051498413,
+        0.9502800107002258, 0.5251299738883972, 0.9111499786376953,
+        -0.6294999718666077], [0.929610013961792, -1.897070050239563,
+        -0.23277999460697174, 0.17881999909877777, -0.4499100148677826,
+        -0.7481899857521057, 0.046799998730421066, 1.1251499652862549,
+        0.3404200077056885, -1.11381995677948, 0.02449999935925007,
+        -0.861549973487854, 0.8992800116539001, 0.21786999702453613,
+        1.3876899480819702, -0.7693300247192383], [-2.284600019454956,
+        -0.3958899974822998, -0.3152500092983246, -0.6631799936294556,
+        0.9533200263977051, -0.3144499957561493, -0.383109986782074,
+        0.18799999356269836, -0.49467000365257263, 0.6498200297355652,
+        -0.5613999962806702, 0.20051999390125275, -0.3022400140762329,
+        0.8901100158691406, 0.1629599928855896, -2.135499954223633]],
+        [[-1.6250100135803223, -1.003100037574768, -0.8448200225830078,
+        0.7110599875450134, 1.2272299528121948, -1.8849400281906128,
+        -0.3224799931049347, 0.10232000052928925, -0.16378000378608704,
+        0.5581499934196472, 2.313199996948242, 0.5683299899101257,
+        -0.46401000022888184, -0.40922001004219055, -1.4256000518798828,
+        -1.5565799474716187], [-1.2051299810409546, 0.9808599948883057,
+        -1.6288399696350098, 0.17517000436782837, 0.7176799774169922,
+        0.9811199903488159, -0.152879998087883, -1.7285100221633911,
+        -0.870140016078949, -0.0019600000232458115, 0.48454999923706055,
+        -0.5753200054168701, 0.4395900070667267, -0.07096000015735626,
+        -1.03125, 0.08816000074148178], [-0.6797000169754028,
+        -0.3583199977874756, 0.5093600153923035, -0.5856500267982483,
+        0.8355799913406372, -0.7315199971199036, -1.0709999799728394,
+        1.006909966468811, -0.5748599767684937, 1.5187900066375732,
+        -0.07071000337600708, -0.6650199890136719, 0.9347599744796753,
+        0.6242899894714355, -0.2542699873447418, 0.677370011806488],
+        [-1.5717699527740479, 1.0986100435256958, -0.05545999854803085,
+        -0.3650299906730652, 1.303570032119751, 1.5216399431228638,
+        0.2158699929714203, 1.4086300134658813, 0.06519000232219696,
+        -0.20263999700546265, -1.4265199899673462, -0.8369399905204773,
+        -1.5467599630355835, -0.7178800106048584, 1.186650037765503,
+        -0.4805000126361847]], [[-1.6388299465179443, 1.2687499523162842,
+        -0.18379999697208405, -1.0471199750900269, 0.6469200253486633,
+        -1.9903099536895752, -0.11071000248193741, 0.5160499811172485,
+        -0.2421099990606308, 0.06819000095129013, -1.211650013923645,
+        -1.9752600193023682, 0.046939998865127563, 1.2680599689483643,
+        -0.010379999876022339, -0.5620999932289124], [-0.17608000338077545,
+        0.42054998874664307, 0.2485000044107437, 0.33333998918533325,
+        -0.26361000537872314, -0.5515999794006348, 0.6785299777984619,
+        0.38468998670578003, 0.08613000065088272, 0.1668200045824051,
+        0.4870299994945526, -1.174430012702942, 0.0023499999660998583,
+        -0.3439500033855438, 0.8287000060081482, -0.9936100244522095],
+        [-0.4848099946975708, -1.1612999439239502, 1.1134400367736816,
+        0.5950800180435181, 2.2902801036834717, -1.0797699689865112,
+        -0.324180006980896, 0.3925899863243103, 0.05496999993920326,
+        0.07744999974966049, 0.3103800117969513, -0.1475600004196167,
+        0.6811100244522095, -0.47064000368118286, -0.23475000262260437,
+        -0.5173199772834778], [-0.8242200016975403, -0.1481499969959259,
+        1.1839499473571777, -0.8524600267410278, 0.618149995803833,
+        -1.429110050201416, 0.34097999334335327, 0.5013800263404846,
+        1.4490100145339966, 0.15298999845981598, 1.1947200298309326,
+        -0.1151600033044815, -0.14926999807357788, 1.1179399490356445,
+        -0.9335200190544128, -1.3295899629592896]], [[0.5351799726486206,
+        -0.8350899815559387, 0.2083600014448166, -1.6145999431610107,
+        2.7353200912475586, -0.1723400056362152, 0.9285699725151062,
+        0.5654299855232239, 1.4996399879455566, -1.1397500038146973,
+        0.7768300175666809, -1.1665500402450562, 1.6139299869537354,
+        -0.20494000613689423, -0.026890000328421593, 0.750980019569397],
+        [-0.18705999851226807, -1.1245100498199463, 1.0485399961471558,
+        0.8416200280189514, 0.8565499782562256, -0.8881700038909912,
+        -0.30663999915122986, 1.0842399597167969, 0.7439500093460083,
+        -1.0696799755096436, -1.7601300477981567, -1.7258000373840332,
+        0.2909800112247467, 0.630079984664917, -0.12110000103712082,
+        -1.6450799703598022], [-1.1421300172805786, -1.3494399785995483,
+        0.7025700211524963, 0.5037099719047546, 1.9206199645996094,
+        -1.5682599544525146, -0.4232200086116791, 0.4641999900341034,
+        1.1159499883651733, -0.9197999835014343, -1.1769800186157227,
+        0.4039199948310852, 0.32659998536109924, 1.0937000513076782,
+        0.014050000347197056, 0.07947000116109848], [0.559939980506897,
+        0.36713001132011414, 0.60698002576828, 1.3564300537109375,
+        -0.12205000221729279, 0.11631999909877777, 1.1333099603652954,
+        -0.29559001326560974, 0.18874000012874603, -0.06624999642372131,
+        0.9549000263214111, -0.9704800248146057, -0.055720001459121704,
+        0.48598000407218933, 0.11699999868869781, -0.7973499894142151]]],
+        'lse':
+        [[11.58845, 11.58916, 11.58949, 11.59227], [11.59275, 11.58927,
+        11.59784, 11.58001], [11.58511, 11.58527, 11.58873, 11.59606],
+        [11.58819, 11.58878, 11.59957, 11.59343], [11.60213, 11.59815,
+        11.5929, 11.58767], [11.59672, 11.58982, 11.59153, 11.59243],
+        [11.59872, 11.59273, 11.60591, 11.59092], [11.59437, 11.58225,
+        11.59837, 11.60368], [11.58804, 11.5949, 11.5949, 11.5867]],
+        'top1':
+        [[57899, 11286, 45845, 54866], [16760, 6535, 43012, 50557], [10361,
+        6240, 14990, 47242], [392, 45257, 34957, 27237], [11286, 17455, 51992,
+        18169], [41145, 64481, 17273, 10943], [6411, 7240, 61241, 21087],
+        [58143, 53153, 62892, 62428], [60479, 50641, 15076, 22808]],
+        'margin':
+        [[0.98951, 0.16182, 0.40884, 0.06956], [0.26097, 0.46731, 0.06816,
+        0.03451], [0.07464, 0.10975, 0.51938, 0.62356], [0.10911, 0.0545,
+        0.03354, 0.84935], [0.90578, 0.07006, 0.08554, 0.16433], [0.52451,
+        0.08282, 0.03427, 0.06014], [0.13598, 0.05342, 0.02037, 0.38934],
+        [0.75013, 0.04285, 0.15151, 0.0938], [0.0196, 0.2626, 0.04127,
+        0.25642]],
+    },
+    'tinyllama-1.1b/int8': {
+        'logits':
+        [[[-1.0214699506759644, -2.0589499473571777, 0.24397000670433044,
+        -0.16726000607013702, -1.9931000471115112, -0.4408699870109558,
+        1.0226999521255493, -0.38464000821113586, 1.2352399826049805,
+        -0.2720299959182739, 1.3593599796295166, -0.2332099974155426,
+        0.9956700205802917, -2.256469964981079, 0.3215399980545044,
+        -0.2921200096607208], [-0.09470000118017197, -0.05854000151157379,
+        0.5296199917793274, 0.8910099864006042, 0.5604699850082397,
+        -1.662619948387146, -0.43202999234199524, 0.9211400151252747,
+        -1.593500018119812, 1.4216200113296509, -1.9921300411224365,
+        -1.0391099452972412, 0.43999001383781433, 0.27978000044822693,
+        0.6431000232696533, 0.8213899731636047], [-1.4402400255203247,
+        0.01720000058412552, 0.7592399716377258, 0.6949099898338318,
+        -0.6931399703025818, -0.7961599826812744, 0.1897599995136261,
+        -0.8807299733161926, -0.2394700050354004, 0.21061000227928162,
+        0.7608500123023987, -1.5503300428390503, 1.8705400228500366,
+        0.21156999468803406, -1.2370100021362305, -0.7538099884986877],
+        [0.9122700095176697, 0.8688099980354309, 1.4751900434494019,
+        1.6810599565505981, 0.21038000285625458, 0.2552199959754944,
+        1.992840051651001, 1.3516299724578857, -0.689050018787384,
+        1.1809600591659546, -0.43762001395225525, -2.3530900478363037,
+        -0.07720000296831131, 0.45702001452445984, 0.49340999126434326,
+        -1.2730300426483154]], [[-0.16103999316692352, -2.873460054397583,
+        -0.4264400005340576, 0.4410099983215332, -0.6635000109672546,
+        0.47126999497413635, 0.40895000100135803, -0.3657900094985962,
+        0.8957800269126892, -0.09702000021934509, 0.9105299711227417,
+        -0.9212999939918518, -0.15177999436855316, -0.6062399744987488,
+        0.008709999732673168, 1.4417799711227417], [0.6189500093460083,
+        0.4934900104999542, -0.26061001420021057, -1.305799961090088,
+        0.08794999867677689, -0.625760018825531, -0.7452700138092041,
+        0.47317999601364136, -1.6336499452590942, -0.07643000036478043,
+        -1.3746000528335571, -0.7805100083351135, 0.0764399990439415,
+        -1.041890025138855, 1.2359000444412231, 1.6307599544525146],
+        [-1.9540499448776245, 0.7807999849319458, 0.262580007314682,
+        -0.7322099804878235, -0.24149000644683838, -1.2330000400543213,
+        0.338809996843338, -1.3819999694824219, -2.3364899158477783,
+        -0.00892999954521656, 0.8441799879074097, -1.5519200563430786,
+        -0.05285999923944473, -0.09914000332355499, -1.318060040473938,
+        -1.514780044555664], [-1.1728299856185913, 0.48750999569892883,
+        0.17082999646663666, 2.315119981765747, -0.336760014295578,
+        0.4646399915218353, -0.15022000670433044, 1.8247499465942383,
+        -0.005940000060945749, 0.6305000185966492, -1.1649999618530273,
+        -2.0939199924468994, -0.7984499931335449, 0.7175400257110596,
+        0.06759999692440033, -0.5596299767494202]], [[0.822920024394989,
+        -1.491819977760315, 0.653659999370575, 1.2870399951934814,
+        -0.373089998960495, 0.11881999671459198, 1.5491600036621094,
+        0.5169500112533569, -1.2916200160980225, -1.2213200330734253,
+        0.8040000200271606, -0.39812999963760376, -0.8341299891471863,
+        -1.1140600442886353, -0.014619999565184116, -0.22405000030994415],
+        [-0.2932400107383728, -0.6775199770927429, 0.12836000323295593,
+        0.4699299931526184, 1.2096799612045288, -0.901170015335083,
+        0.11375000327825546, 1.2422900199890137, -1.7814300060272217,
+        -0.1459999978542328, -0.8330600261688232, -0.9878699779510498,
+        -0.1741500049829483, 1.1509300470352173, 1.1593400239944458,
+        0.2646400034427643], [-0.6577399969100952, 0.29451000690460205,
+        -0.7283999919891357, -0.9239699840545654, -0.6660199761390686,
+        0.10723000019788742, 0.35554999113082886, -0.7681900262832642,
+        -2.3387200832366943, 0.09329000115394592, 0.4755200147628784,
+        0.15488000214099884, 0.8618900179862976, 0.9148100018501282,
+        -1.6153099536895752, -1.1951899528503418], [-0.5835999846458435,
+        0.7178199887275696, 0.5068299770355225, 2.2751901149749756,
+        -0.7717999815940857, 0.08042000234127045, 1.791450023651123,
+        1.6456600427627563, 0.014469999819993973, 1.4613100290298462,
+        -0.39739999175071716, -1.2383899688720703, -1.3691099882125854,
+        0.5442000031471252, 1.0620800256729126, -1.4834599494934082]],
+        [[-0.1715099960565567, -1.5785499811172485, 0.7818099856376648,
+        -0.01916000060737133, 0.43345001339912415, 1.3809200525283813,
+        0.9134500026702881, 0.4379499852657318, 1.334130048751831,
+        0.2569600045681, -0.2879500091075897, -1.3555599451065063,
+        0.20284000039100647, -0.6302199959754944, 0.9530900120735168,
+        0.9700400233268738], [0.17971999943256378, 0.6101999878883362,
+        1.0513999462127686, 0.0963200032711029, 0.9302099943161011,
+        -0.23940999805927277, -0.8767399787902832, 1.3978099822998047,
+        -1.544950008392334, 1.400339961051941, -0.61735999584198,
+        0.19472000002861023, -0.051500000059604645, 0.15855999290943146,
+        0.5734400153160095, 0.5597500205039978], [-1.9323999881744385,
+        0.3773699998855591, 0.5033800005912781, 1.141010046005249,
+        0.4706999957561493, -0.10152000188827515, 0.6263800263404846,
+        0.0700099989771843, -0.3443399965763092, 1.6690000295639038,
+        1.0858299732208252, -0.17241999506950378, 1.3758599758148193,
+        0.8036800026893616, -1.668179988861084, -1.8817600011825562],
+        [-0.7722100019454956, 1.13264000415802, -0.20931999385356903,
+        0.9792400002479553, 0.3135699927806854, 0.9737300276756287,
+        1.1010700464248657, 1.4529600143432617, -0.5558099746704102,
+        0.7136300206184387, 0.06159999966621399, -1.785730004310608,
+        -0.8295400142669678, 1.3349000215530396, 1.6167000532150269,
+        -1.7992700338363647]], [[1.321120023727417, -1.8167599439620972,
+        -0.054349999874830246, -0.08795999735593796, 0.06531000137329102,
+        1.2360999584197998, 0.4196699857711792, -0.7951899766921997,
+        1.063040018081665, -1.284440040588379, 0.7049599885940552,
+        0.8412600159645081, 0.2397100031375885, -1.8553600311279297,
+        0.8074300289154053, 1.0981500148773193], [0.7742800116539001,
+        0.48910999298095703, 0.4807400107383728, 0.2610799968242645,
+        -0.19160999357700348, -0.12825000286102295, -1.1599199771881104,
+        1.5437300205230713, -2.6361799240112305, -0.39566001296043396,
+        -1.2392799854278564, 0.16845999658107758, 0.9135100245475769,
+        -1.1449400186538696, -0.09943000227212906, 1.6989500522613525],
+        [-0.22479000687599182, 0.08504000306129456, 0.10998000204563141,
+        1.2863399982452393, -0.1297599971294403, -0.6305999755859375,
+        0.5876700282096863, -1.5831400156021118, -0.20052999258041382,
+        0.8934999704360962, 1.3002599477767944, -1.0375299453735352,
+        0.952269971370697, 1.1233799457550049, -0.5681599974632263,
+        -1.5566699504852295], [-1.1579899787902832, -0.21957999467849731,
+        -0.6193600296974182, 1.9904500246047974, -0.9571899771690369,
+        1.3269699811935425, 0.4110400080680847, 0.49393001198768616,
+        1.0010499954223633, 0.8552299737930298, -0.7496399879455566,
+        -1.6922099590301514, -0.8785099983215332, 0.8829600214958191,
+        0.9476799964904785, -2.572279930114746]], [[0.9612100124359131,
+        -2.0014400482177734, -0.6511600017547607, -0.5599899888038635,
+        0.11483000218868256, -0.4626699984073639, 1.4064500331878662,
+        0.7165799736976624, 0.9753000140190125, -0.34950000047683716,
+        0.6309099793434143, -0.9235600233078003, -0.5462700128555298,
+        -0.6067799925804138, 0.507669985294342, 0.6432999968528748],
+        [0.8668400049209595, 0.14295999705791473, 0.3395499885082245,
+        0.13997000455856323, -0.5833899974822998, 0.07591000199317932,
+        -0.5777199864387512, -0.4427500069141388, -1.998420000076294,
+        0.2627499997615814, -1.2514899969100952, 0.6157699823379517,
+        0.3578200042247772, 0.4803299903869629, -0.07989999651908875,
+        0.06419000029563904], [-0.7351400256156921, -0.6245499849319458,
+        1.4574099779129028, 0.46634000539779663, -1.3317099809646606,
+        0.20723000168800354, 0.5119199752807617, -2.2923901081085205,
+        -1.6805399656295776, 0.2595199942588806, 1.2338500022888184,
+        -0.6604200005531311, 0.9136499762535095, 0.08006999641656876,
+        -1.2006399631500244, -1.3127800226211548], [-0.6676999926567078,
+        0.33698999881744385, -1.659409999847412, 0.8252599835395813,
+        0.520799994468689, 1.1604499816894531, -0.6920199990272522,
+        0.2569600045681, -0.49483999609947205, -0.1886799931526184,
+        -1.2195199728012085, -1.0746599435806274, 0.21235999464988708,
+        0.4394800066947937, 0.7404099702835083, -1.585170030593872]],
+        [[1.0250799655914307, -2.832360029220581, 0.06936000287532806,
+        1.1046899557113647, -1.077370047569275, 0.41690000891685486,
+        0.7959399819374084, -0.9646599888801575, 1.7605500221252441,
+        -0.24110999703407288, -0.3756900131702423, -0.08848000317811966,
+        -0.4397900104522705, -0.371969997882843, 0.11016999930143356,
+        1.6151200532913208], [-1.0316400527954102, 0.26759999990463257,
+        -0.42778998613357544, 0.01027000043541193, -1.0806100368499756,
+        -0.39934998750686646, -0.6916800141334534, -0.2616100013256073,
+        -2.2708001136779785, 0.46101999282836914, -1.3636800050735474,
+        -1.306820034980774, 0.5103700160980225, -0.6944699883460999,
+        1.1484299898147583, 1.1571500301361084], [-0.7652000188827515,
+        0.4589200019836426, -1.468809962272644, 0.5317599773406982,
+        -0.012129999697208405, -0.5821700096130371, 1.0074599981307983,
+        -1.8421200513839722, -0.8621600270271301, 0.13399000465869904,
+        0.3608799874782562, -0.7675399780273438, 1.3035900592803955,
+        -0.31762000918388367, -0.9512199759483337, -1.318160057067871],
+        [-1.8979599475860596, 0.5802500247955322, -0.2503400146961212,
+        1.3275400400161743, -1.0202499628067017, 1.0981999635696411,
+        1.5920699834823608, 0.3898800015449524, 0.08291999995708466,
+        0.6244900226593018, 0.01761000044643879, -1.50941002368927,
+        -0.8275099992752075, 0.99235999584198, 1.6202600002288818,
+        -0.714460015296936]], [[0.42392000555992126, -1.5553200244903564,
+        -0.4138700067996979, 1.0700500011444092, -0.4253399968147278,
+        0.7030199766159058, 0.9330000281333923, -0.10760000348091125,
+        0.30410999059677124, -0.06177999824285507, 0.4994800090789795,
+        0.9291999936103821, -0.44460999965667725, -2.277750015258789,
+        -0.09573999792337418, 1.5151699781417847], [0.37762999534606934,
+        1.7828500270843506, 1.0575100183486938, 1.450350046157837,
+        -0.056129999458789825, -0.9200599789619446, -0.7251999974250793,
+        1.5745699405670166, -2.0137200355529785, 0.36970001459121704,
+        -0.47576001286506653, -1.215939998626709, 0.3750999867916107,
+        -0.7911800146102905, 0.4576199948787689, 0.2223999947309494],
+        [-1.4165199995040894, -0.45173999667167664, -0.3942199945449829,
+        -0.507070004940033, -1.1479500532150269, -0.8170700073242188,
+        -0.6508100032806396, -0.9143999814987183, 0.055229999125003815,
+        -0.013650000095367432, 1.5211900472640991, -1.7079299688339233,
+        0.8627300262451172, 1.3429900407791138, -0.06505999714136124,
+        -0.6665499806404114], [0.9231200218200684, 0.6071500182151794,
+        0.2472900003194809, 1.6211800575256348, 0.09144999831914902,
+        1.5280699729919434, 0.5797799825668335, 0.8230199813842773,
+        0.24506999552249908, -0.5227199792861938, 0.16176000237464905,
+        -0.7383300065994263, -0.7865300178527832, 2.1809499263763428,
+        0.052000001072883606, -1.383579969406128]], [[0.31147000193595886,
+        -2.1389999389648438, -1.0254299640655518, 0.4763999879360199,
+        -0.3124600052833557, -0.5622599720954895, 0.3170599937438965,
+        -0.19401000440120697, -0.23316000401973724, -1.2023899555206299,
+        0.5669400095939636, 0.03254999965429306, 0.10657999664545059,
+        -0.6723399758338928, -0.1407800018787384, 0.7316700220108032],
+        [0.8564800024032593, -0.7246000170707703, 0.6574900150299072,
+        -0.17915000021457672, -0.6095100045204163, -0.09305000305175781,
+        -0.3858500123023987, 0.7172600030899048, -1.1302200555801392,
+        -0.9507899880409241, -1.1075899600982666, -1.2974300384521484,
+        -0.4817900061607361, -0.2932099997997284, 0.17851999402046204,
+        0.6967800259590149], [-1.8992400169372559, 0.4241099953651428,
+        0.12646999955177307, -0.18147000670433044, 1.0651999711990356,
+        -0.932479977607727, 0.8500999808311462, -0.038350000977516174,
+        -0.5688300132751465, 0.6805599927902222, 0.6212400197982788,
+        -0.2882699966430664, -0.2144400030374527, 0.09927000105381012,
+        -2.344939947128296, -0.827180027961731], [-1.5081100463867188,
+        -0.43035000562667847, 0.40362998843193054, 1.1835399866104126,
+        0.1083500012755394, 0.6853100061416626, 0.2766200006008148,
+        1.180899977684021, -0.20340999960899353, -0.18564000725746155,
+        -1.2139099836349487, -0.4136100113391876, -1.0759899616241455,
+        1.3291300535202026, 0.8993800282478333, -1.5520800352096558]]],
+        'lse':
+        [[10.87349, 10.88195, 10.87655, 10.88522], [10.87393, 10.86952,
+        10.87967, 10.88702], [10.87987, 10.87195, 10.89201, 10.89001],
+        [10.88306, 10.88119, 10.88775, 10.87841], [10.86923, 10.87978,
+        10.87569, 10.89296], [10.86634, 10.88534, 10.88417, 10.88185],
+        [10.87018, 10.87992, 10.87559, 10.88628], [10.86908, 10.88131,
+        10.88603, 10.88664], [10.8828, 10.88422, 10.87707, 10.8892]],
+        'top1':
+        [[11227, 21301, 4613, 21545], [13952, 10357, 30666, 7989], [7800,
+        10502, 5373, 31685], [9003, 45, 4913, 6243], [11518, 21301, 4613,
+        27046], [30395, 24519, 15323, 15216], [1157, 17208, 1287, 28396],
+        [30395, 18831, 9227, 8317], [11227, 20741, 29067, 16302]],
+        'margin':
+        [[0.34163, 0.66231, 0.41447, 0.11043], [0.00029, 0.0528, 0.0474,
+        0.26052], [0.16481, 0.15778, 0.04031, 1.25182], [0.09724, 0.37066,
+        0.03262, 0.11046], [0.54691, 0.33277, 0.00721, 0.36696], [0.30272,
+        0.03624, 0.18758, 0.64555], [0.12905, 0.42984, 0.38134, 0.19127],
+        [0.04976, 0.1497, 0.13941, 0.10368], [0.09562, 0.02806, 0.10999,
+        0.24656]],
+    },
+    'deepseek-v2-236b': {
+        'logits':
+        [[[1.0131800174713135, -0.16866999864578247, 0.4271799921989441,
+        2.7059199810028076, -1.6041200160980225, -0.5949599742889404,
+        0.03888000175356865, 0.5207899808883667, -1.1234300136566162,
+        -0.31711000204086304, -0.36733001470565796, -0.5119900107383728,
+        0.6481299996376038, 0.9046400189399719, 0.6148800253868103,
+        0.20198999345302582], [-0.8189600110054016, -2.29328989982605,
+        0.441210001707077, 0.03523999825119972, 0.8624699711799622,
+        1.6140600442886353, -0.2532599866390228, -0.5257800221443176,
+        -0.2488500028848648, -0.49379000067710876, -0.5965399742126465,
+        0.45353999733924866, -0.8601899743080139, 0.16906000673770905,
+        0.9398800134658813, 1.5411900281906128], [-1.8369899988174438,
+        -0.5623499751091003, -0.19547000527381897, 0.4021899998188019,
+        0.840749979019165, 0.20541000366210938, 0.16110000014305115,
+        0.5229499936103821, 1.1559300422668457, 0.6281999945640564,
+        -0.7136499881744385, 0.6450899839401245, -2.281290054321289,
+        1.8624399900436401, 0.13333000242710114, -0.6866899728775024],
+        [0.8549500107765198, -0.42320001125335693, 2.1117000579833984,
+        2.162519931793213, -0.03959000110626221, -0.5933700203895569,
+        -0.0028099999763071537, -0.12926000356674194, -0.0775500014424324,
+        0.1612199991941452, 0.11901000142097473, -1.9360500574111938,
+        0.335970014333725, -0.3749200105667114, -0.8640999794006348,
+        -1.2393499612808228]], [[-0.4504300057888031, -1.2472200393676758,
+        -0.15310999751091003, 1.0570199489593506, -1.2330000400543213,
+        0.47453001141548157, 0.5941900014877319, -0.17497000098228455,
+        -0.6209400296211243, -1.2307499647140503, 0.4325999915599823,
+        0.8978599905967712, -1.383870005607605, 0.17267000675201416,
+        -0.3005000054836273, -0.17470000684261322], [-0.17117999494075775,
+        -1.3028299808502197, 0.19697999954223633, -0.4683600068092346,
+        0.7343699932098389, 0.31836000084877014, 0.889490008354187, -0.5625,
+        0.7369099855422974, 0.8795499801635742, -1.0398499965667725,
+        -0.3738099932670593, 1.4167100191116333, 2.025170087814331,
+        0.8915600180625916, 0.21096999943256378], [0.4014900028705597,
+        -0.060600001364946365, 0.002259999979287386, 0.8200200200080872,
+        1.4272500276565552, 0.458840012550354, -0.8009600043296814,
+        -0.11635000258684158, -0.7210999727249146, 0.09714999794960022,
+        0.742389976978302, 0.44032999873161316, 1.5384399890899658,
+        1.0668400526046753, -2.2516798973083496, -1.345639944076538],
+        [0.5071499943733215, -0.42904001474380493, 1.936560034751892,
+        0.7604100108146667, -0.4027099907398224, 0.8481199741363525,
+        0.20507000386714935, -0.3425700068473816, 0.8683900237083435,
+        -0.03505999967455864, 0.1160999983549118, -0.816290020942688,
+        -1.0413099527359009, -0.4574599862098694, -0.5806099772453308,
+        -1.300379991531372]], [[0.4571099877357483, -0.35231998562812805,
+        -0.6543899774551392, 1.4300800561904907, -0.7509899735450745,
+        -0.9731199741363525, -1.6867200136184692, 1.1449600458145142,
+        -0.6417700052261353, -1.5325299501419067, -1.5508500337600708,
+        -1.9112299680709839, -0.4731900095939636, 1.2148100137710571,
+        -0.724049985408783, -0.24494999647140503], [-1.404039978981018,
+        0.25352001190185547, 0.9164599776268005, 1.25586998462677,
+        1.2869199514389038, 1.045799970626831, 0.6208999752998352,
+        0.34033000469207764, 0.28918999433517456, -1.209030032157898,
+        -0.21775999665260315, -0.4961099922657013, -0.7242000102996826,
+        0.2236199975013733, 1.1927000284194946, 0.2449900060892105],
+        [0.0221599992364645, 0.27167999744415283, 0.6857500076293945,
+        -0.43942001461982727, 0.3448199927806854, -0.4728499948978424,
+        -1.496209979057312, -0.736739993095398, 0.11439000070095062,
+        0.8690000176429749, -0.3713200092315674, 0.40424999594688416,
+        0.2519800066947937, 0.7454800009727478, -0.9111899733543396,
+        -0.82669997215271], [1.0555499792099, -1.397439956665039,
+        0.009050000458955765, 0.3233500123023987, 0.8913499712944031,
+        0.12038999795913696, -1.1670299768447876, -0.7590299844741821,
+        -1.3833099603652954, 0.04994000121951103, -0.9850500226020813,
+        -0.7185199856758118, 1.4345099925994873, -3.355600118637085,
+        -0.42537999153137207, -2.080159902572632]], [[0.39423999190330505,
+        0.011529999785125256, 0.8344900012016296, 2.099940061569214,
+        0.7179800271987915, -0.561739981174469, 1.0197900533676147,
+        1.1305099725723267, -2.061769962310791, -0.1114799976348877,
+        1.0441299676895142, 0.2519499957561493, -0.9724299907684326,
+        -1.2086800336837769, -0.32541999220848083, -1.2966200113296509],
+        [0.24237999320030212, -1.3091399669647217, 0.11862000077962875,
+        0.02734999917447567, 0.4765399992465973, -0.296640008687973,
+        0.10802000015974045, -0.3178899884223938, -0.17768999934196472,
+        -0.5987899899482727, 0.28832000494003296, 0.2365500032901764,
+        0.1010499969124794, 0.9769799709320068, 0.025550000369548798,
+        -0.8607500195503235], [-0.566510021686554, 1.561669945716858,
+        1.3469500541687012, -0.08720999956130981, 3.163450002670288,
+        1.930109977722168, 1.2733299732208252, 0.28174999356269836,
+        0.7236899733543396, -0.6629400253295898, 0.21920999884605408,
+        -0.606190025806427, 0.338019996881485, 0.758679986000061,
+        1.4728000164031982, -0.874180018901825], [-0.6850100159645081,
+        1.0973800420761108, 1.35385000705719, -0.9499300122261047,
+        0.8332599997520447, 2.1054599285125732, 1.2501399517059326,
+        -1.1010700464248657, 0.004860000219196081, 1.4172799587249756,
+        0.38451001048088074, 0.06154000014066696, 0.12218999862670898,
+        -1.6933599710464478, -0.41130000352859497, -0.7622100114822388]],
+        [[0.2727600038051605, -0.15473000705242157, -0.39403000473976135,
+        1.148900032043457, -0.2756600081920624, 0.3465900123119354,
+        -0.9134799838066101, 0.6594099998474121, -2.251729965209961,
+        1.4303200244903564, -1.830739974975586, -0.8843299746513367,
+        1.160730004310608, -0.37525999546051025, -1.4269599914550781,
+        -0.9729599952697754], [-0.06419000029563904, -1.1998800039291382,
+        0.9653800129890442, 1.7359600067138672, 1.1313600540161133,
+        0.3436200022697449, 0.3278200030326843, 0.24991999566555023,
+        1.7419899702072144, -0.15795999765396118, 0.7043600082397461,
+        -0.5557500123977661, 0.9723799824714661, 1.3915599584579468,
+        0.8519099950790405, -0.687279999256134], [-1.2653100490570068,
+        -0.3743399977684021, -0.3750399947166443, -1.8438700437545776,
+        0.8890799880027771, -1.9843800067901611, -1.2368299961090088,
+        1.1658400297164917, 0.7788199782371521, -0.49869999289512634,
+        -0.9615700244903564, 1.4982999563217163, -0.8883699774742126,
+        -0.6955100297927856, -0.23617999255657196, -0.8614400029182434],
+        [0.3618200123310089, 0.25014999508857727, -0.18971000611782074,
+        -0.25731000304222107, 0.9799299836158752, 0.10972999781370163,
+        -0.9466800093650818, -1.0689799785614014, -0.4304099977016449,
+        -1.4914699792861938, -0.4692699909210205, -0.7093999981880188,
+        -0.37674999237060547, -0.17538000643253326, -0.18830999732017517,
+        -0.44165000319480896]], [[0.2699899971485138, 0.13446000218391418,
+        -1.0438499450683594, 1.9635299444198608, -2.001310110092163,
+        -0.600130021572113, -0.9860799908638, 1.0492600202560425,
+        0.18807999789714813, -0.7141799926757812, 0.33834001421928406,
+        -1.1441199779510498, -1.5633900165557861, 0.2506299912929535,
+        -0.5109400153160095, -0.9929199814796448], [2.9073100090026855,
+        -0.6699299812316895, 1.3375300168991089, -1.3439099788665771,
+        0.06719999760389328, 0.08959999680519104, 1.244570016860962,
+        0.05552000179886818, 0.06998000293970108, -0.26072001457214355,
+        -0.04129000008106232, -1.8809499740600586, -0.3555000126361847,
+        0.6797199845314026, 0.9555400013923645, 1.644610047340393],
+        [-1.0679199695587158, -0.7510300278663635, 1.0554499626159668,
+        -1.2992099523544312, 1.1339499950408936, -0.14967000484466553,
+        0.6640300154685974, 0.011620000004768372, -1.0592600107192993,
+        -0.2601900100708008, -1.4243500232696533, 0.13149000704288483,
+        0.4790099859237671, 1.4043999910354614, 0.15399999916553497,
+        0.011699999682605267], [1.936400055885315, -0.2886500060558319,
+        1.4318000078201294, 0.5017899870872498, -1.6420700550079346,
+        0.9916499853134155, -0.6159499883651733, -0.9186300039291382,
+        0.5641800165176392, 0.8101999759674072, 0.5312100052833557,
+        -0.4447700083255768, 0.6043800115585327, 0.29923999309539795,
+        -1.0559500455856323, -0.8241000175476074]], [[0.8113499879837036,
+        1.352620005607605, 0.7491700053215027, 3.5261099338531494,
+        0.427949994802475, 0.38040998578071594, -0.654009997844696,
+        1.3835200071334839, -1.0462299585342407, -0.2318899929523468,
+        -0.677299976348877, 1.3847800493240356, 0.23455999791622162,
+        -0.6943100094795227, 0.36695000529289246, -0.4631600081920624],
+        [1.3541300296783447, -0.9466999769210815, -0.227960005402565,
+        0.33594000339508057, -0.5523899793624878, 0.04397999867796898,
+        0.5072900056838989, -1.3884899616241455, 0.570609986782074,
+        0.6208599805831909, -0.8297600150108337, -0.2792699933052063,
+        0.8876500129699707, -0.8974199891090393, 0.25578999519348145,
+        0.8642500042915344], [-0.28255999088287354, 1.242900013923645,
+        -1.6821500062942505, 0.2459000051021576, 0.42778000235557556,
+        1.9951800107955933, 2.0903899669647217, -1.1059199571609497,
+        -1.0820300579071045, -1.3117799758911133, -1.0088399648666382,
+        -0.2584399878978729, -0.3691500127315521, 1.6792199611663818,
+        0.01795000024139881, 1.1048699617385864], [1.8910200595855713,
+        0.24759000539779663, -0.13244999945163727, -2.240489959716797,
+        0.23631000518798828, 2.6982901096343994, -0.5774099826812744,
+        -0.9897599816322327, -1.7983299493789673, 0.4329099953174591,
+        -0.4589099884033203, -0.2561100125312805, 0.9671499729156494,
+        -2.4809799194335938, -0.11410000175237656, -1.220479965209961]],
+        [[1.34893000125885, -0.006089999806135893, -1.634850025177002,
+        3.4874000549316406, -2.207750082015991, -0.2991499900817871,
+        -1.68982994556427, -0.031300000846385956, 0.241689994931221,
+        -0.0594400018453598, 0.6039299964904785, 0.03102000057697296,
+        -0.15881000459194183, 0.9607499837875366, -0.039250001311302185,
+        0.18897999823093414], [-1.1235400438308716, -1.9625099897384644,
+        0.6342499852180481, -0.11552999913692474, -1.6706600189208984,
+        0.052400000393390656, -0.8460900187492371, 0.354420006275177,
+        0.43990999460220337, 0.19981999695301056, -0.48159000277519226,
+        -0.46434998512268066, 0.08421000093221664, -0.22074000537395477,
+        0.8220599889755249, 1.080839991569519], [0.17091000080108643,
+        -0.0012600000482052565, -0.3768399953842163, -1.7187000513076782,
+        0.7288100123405457, 1.2081700563430786, -0.016620000824332237,
+        -0.16482000052928925, 0.32523998618125916, -0.7241600155830383,
+        0.5666400194168091, -0.30395999550819397, -0.3109300136566162,
+        0.706250011920929, -0.08316999673843384, -0.693310022354126],
+        [0.35558000206947327, 1.4968500137329102, 2.589329957962036,
+        1.429919958114624, 0.16675999760627747, 0.7394899725914001,
+        -0.30281999707221985, -0.3852599859237671, 0.24470999836921692,
+        1.2216299772262573, 1.7430399656295776, 0.26436999440193176,
+        -0.0737299993634224, -2.2328898906707764, -1.4381500482559204,
+        -0.41367998719215393]], [[1.2093700170516968, -0.3644300103187561,
+        -0.3711099922657013, 1.6315699815750122, -0.8346800208091736,
+        1.5404599905014038, 0.8235599994659424, 0.5990700125694275,
+        -0.5894500017166138, -0.09453999996185303, -0.3572700023651123,
+        0.3517700135707855, 0.16633999347686768, -0.10859999805688858,
+        0.5038400292396545, 0.24020999670028687], [2.3298699855804443,
+        -0.7561900019645691, -0.3422299921512604, 0.9574999809265137,
+        0.9528999924659729, -0.08359000086784363, 1.6359699964523315,
+        -0.2563599944114685, 0.25606000423431396, 0.3466399908065796,
+        1.1452399492263794, -0.7857300043106079, 0.6128699779510498,
+        0.6573600172996521, 0.8966699838638306, 2.0388801097869873],
+        [-1.716130018234253, 0.41903001070022583, 1.3532700538635254,
+        -0.609279990196228, 2.276930093765259, 0.08720999956130981,
+        0.47738999128341675, 0.11429999768733978, -0.42774999141693115,
+        -0.6637300252914429, 1.0410300493240356, -0.20424999296665192,
+        0.241799995303154, 1.7168400287628174, 1.0782300233840942,
+        -0.445279985666275], [0.9390400052070618, 0.14168000221252441,
+        0.6080399751663208, 2.160979986190796, -0.5333600044250488,
+        0.04247000068426132, 0.8829699754714966, 0.22878000140190125,
+        -1.4926300048828125, 1.0618799924850464, 0.4023599922657013,
+        0.13489000499248505, 0.3525499999523163, -2.2192699909210205,
+        -0.39520999789237976, 1.0801399946212769]]],
+        'lse':
+        [[12.03185, 12.0379, 12.03916, 12.03805], [12.04298, 12.03695,
+        12.03982, 12.0428], [12.04192, 12.04132, 12.03925, 12.0315],
+        [12.04839, 12.03772, 12.04534, 12.03689], [12.04976, 12.03491,
+        12.03655, 12.03988], [12.03897, 12.04153, 12.04092, 12.03125],
+        [12.03653, 12.03607, 12.03732, 12.04492], [12.03845, 12.04012,
+        12.03984, 12.03378], [12.04135, 12.03781, 12.03391, 12.04192]],
+        'top1':
+        [[96383, 96115, 66194, 46806], [28955, 6100, 84238, 84045], [93587,
+        90583, 17875, 97044], [28408, 93149, 82987, 46071], [36907, 93149,
+        57078, 46640], [81541, 39944, 2322, 48429], [17147, 82816, 15054,
+        40060], [44157, 69924, 26702, 42352], [79438, 77336, 18263, 4181]],
+        'margin':
+        [[0.2494, 0.06103, 0.05667, 0.27843], [0.11618, 0.17623, 0.7757,
+        0.04479], [0.25716, 0.21515, 0.03374, 0.30634], [0.18313, 0.01935,
+        1.2439, 0.31365], [0.03379, 0.30827, 0.05613, 0.10841], [0.15134,
+        0.01429, 0.51481, 0.12715], [0.07267, 0.77213, 0.93078, 0.26966],
+        [0.34599, 0.10215, 0.00398, 0.32292], [0.28933, 0.04879, 0.20625,
+        0.06621]],
+    },
+}
+
+
 def bf16_bits(x: np.ndarray) -> np.ndarray:
     """float32 -> bfloat16 bit patterns (uint16), rounded to nearest even
     (finite inputs)."""
@@ -928,26 +1844,49 @@ def dlrm_numpy_params(shapes: dict, seed: int) -> dict:
     return tree
 
 
-def _fan_in(name: str, shape: tuple) -> int:
-    """The true fan-in of a transformer weight: the product of the dims a
-    forward contracts (the reference's init takes ``shape[-2]``, which for
-    ``wq``/``wk``/``wv`` (D, H, Dh) is the head count)."""
-    if name in ("wq", "wk", "wv"):
+# per-channel leaves drawn at 0.1: norm scales and biases, and the
+# recurrent blocks' vectors (Mamba-2's A_log, dt_bias, D_skip, conv_b;
+# RWKV-6's w0, u, lerp mixes mu_*, group-norm ln_scale, ln_bias).  Every
+# decay stays in (0, 1) at any value: Mamba-2's exp(dt * -exp(A_log)) with
+# dt = softplus(.) > 0, RWKV-6's exp(-exp(w0 + lora))
+_SMALL_LEAVES = ("scale", "bias", "ln_scale", "ln_bias", "conv_b", "dt_bias",
+                 "A_log", "D_skip", "w0", "u")
+# leaves drawn around a mean other than 0: Mamba-2's dt_bias about
+# softplus^-1(0.01) = -4.6, so that dt = softplus(dt_bias + x w) spans
+# about the [0.001, 0.1] that Mamba-2's own init draws (at a mean of 0 dt
+# is about 0.7, and a random stack amplifies its bf16 roundings about
+# 1.85x a layer: PERF.md §6)
+_LEAF_MEAN = {"dt_bias": -4.6}
+
+
+def _fan_in(name: str, shape: tuple, parent: str = "") -> int:
+    """The true fan-in of a transformer weight (``shape`` may lead with a
+    layers dim): the product of the dims a forward contracts (the
+    reference's init takes ``shape[-2]``, which for ``wq``/``wk``/``wv``
+    (D, H, Dh) is the head count).  Attention's (``attn``) ``wq``, ``wk``,
+    ``wv`` and MLA's ``wq_b``, ``wkv_b`` (r, H, e) contract their first
+    dim, ``wo`` (H, Dh, D) its first two; the Mamba-2 and RWKV-6 blocks'
+    matrices (under ``mixer`` and ``ffn``: (in, out), the conv's (k, C))
+    and every other matrix, the expert stacks (E, D, F) and (E, F, D)
+    included, their next to last."""
+    if parent in ("mixer", "ffn"):
+        return shape[-2]
+    if name in ("wq", "wk", "wv", "wq_b", "wkv_b"):
         return shape[-3]
     if name == "wo":
         return shape[-3] * shape[-2]
     return shape[-2]
 
 
-def _init_std(name: str, shape: tuple) -> float:
+def _init_std(name: str, shape: tuple, parent: str = "") -> float:
     """The standard deviation of a transformer weight's draw: ``embed``
-    0.02, norm scales and biases 0.1, every matrix 1 / sqrt(true
-    fan-in)."""
+    0.02, per-channel leaves (``_SMALL_LEAVES``, ``mu_*``) 0.1, every
+    matrix 1 / sqrt(true fan-in)."""
     if name == "embed":
         return 0.02
-    if name in ("scale", "bias"):
+    if name in _SMALL_LEAVES or name.startswith("mu_"):
         return 0.1
-    return 1.0 / np.sqrt(_fan_in(name, shape))
+    return 1.0 / np.sqrt(_fan_in(name, shape, parent))
 
 
 def transformer_numpy_params(tree, seed: int, bf16: bool):
@@ -965,33 +1904,35 @@ def transformer_numpy_params(tree, seed: int, bf16: bool):
     bits."""
     rng = np.random.default_rng(seed)
 
-    def draw(name, shape):
-        std = _init_std(name, shape)
+    def draw(name, shape, parent):
+        std = _init_std(name, shape, parent)
+        mean = np.float32(_LEAF_MEAN.get(name, 0.0))
         out = np.empty(shape, np.uint16 if bf16 else np.float32)
         parts = out if len(shape) >= 3 else (out,)
         for part in parts:
             x = rng.standard_normal(part.shape, np.float32) * np.float32(std)
+            x = x + mean if mean else x
             part[...] = bf16_bits(x) if bf16 else x
         return out
 
-    def walk(node, name):
+    def walk(node, name, parent):
         if isinstance(node, dict):
-            return {k: walk(node[k], k) for k in sorted(node)}
+            return {k: walk(node[k], k, name) for k in sorted(node)}
         if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        return draw(name, tuple(node))
-    return walk(tree, "")
+            return [walk(v, name, parent) for v in node]
+        return draw(name, tuple(node), parent)
+    return walk(tree, "", "")
 
 
 def hashed_bf16(shape: tuple, seed: int, std: float, device,
-                block: int = 1 << 26):
+                block: int = 1 << 26, mean: float = 0.0):
     """A bf16 tensor of ``shape`` on ``device`` whose element i is a
     counter-based integer hash of (i, ``seed``) mapped to a uniform value
-    on [-std * sqrt(3), std * sqrt(3)) (the variance of N(0, std^2)) and
-    cut to bf16 by truncation.  Integer arithmetic, one exact float32
-    step and one float32 multiply: the same bits on the card and on a
-    CPU, in milliseconds on the card, where numpy's normal draws of a 9B
-    model take minutes of host time."""
+    on [-std * sqrt(3), std * sqrt(3)) (the variance of N(0, std^2)),
+    plus ``mean``, and cut to bf16 by truncation.  Integer arithmetic, one
+    exact float32 step, one float32 multiply and one add: the same bits on
+    the card and on a CPU, in milliseconds on the card, where numpy's
+    normal draws of a 9B model take minutes of host time."""
     import torch
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.int16, device=device)
@@ -1007,6 +1948,8 @@ def hashed_bf16(shape: tuple, seed: int, std: float, device,
         x = (x >> 16) ^ x
         u = (x >> 8).to(torch.float32) * (2.0 ** -23) - 1.0   # exact
         w = u * scale
+        if mean:
+            w = w + np.float32(mean)
         out[lo:lo + len(i)] = (w.view(torch.int32) >> 16).to(torch.int16)
     return out.view(torch.bfloat16).reshape(shape)
 
@@ -1019,18 +1962,19 @@ def hashed_params(tree, seed: int, device):
     ``tree`` are shapes."""
     count = [0]
 
-    def draw(name, shape):
+    def draw(name, shape, parent):
         count[0] += 1
         return hashed_bf16(shape, seed * 1_000_003 + count[0],
-                           _init_std(name, shape), device)
+                           _init_std(name, shape, parent), device,
+                           mean=_LEAF_MEAN.get(name, 0.0))
 
-    def walk(node, name):
+    def walk(node, name, parent):
         if isinstance(node, dict):
-            return {k: walk(node[k], k) for k in sorted(node)}
+            return {k: walk(node[k], k, name) for k in sorted(node)}
         if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        return draw(name, tuple(node))
-    return walk(tree, "")
+            return [walk(v, name, parent) for v in node]
+        return draw(name, tuple(node), parent)
+    return walk(tree, "", "")
 
 
 def emit(obj) -> None:
@@ -2421,13 +3365,19 @@ def rel_err(got, want) -> float:
     return abs(got - want) / abs(want) if want else abs(got - want)
 
 
-def no_kernel_launches(before: dict, what: str) -> None:
+def no_kernel_launches(before: dict, what: str) -> int:
+    """The gradient path runs the op path: no fused or PFC launch since
+    ``before``.  Its backward sums the gathers' gradients in a fixed order
+    through ``segment_reduce`` on the card (``engine._scatter_fixed``):
+    returns those launches."""
     from repro_torch.kernels.engine_step import ops
     launched = {k: ops.LAUNCHES[k] - before[k] for k in before
                 if ops.LAUNCHES[k] != before[k]}
+    seg = launched.pop("segment_reduce", 0)
     if launched:
         raise AssertionError(f"{what}: the gradient path launched kernels "
                              f"{launched}")
+    return seg
 
 
 def compare_tune(res, want: dict, what: str) -> dict:
@@ -2484,13 +3434,14 @@ def autotune_incast8(gpu: str) -> None:
         t0 = time.perf_counter()
         res = autotune_spec(spec, cfg=EngineConfig(**AUTOTUNE_CFG), **kw)
         wall = time.perf_counter() - t0
-        no_kernel_launches(before, f"autotune {run}")
         rows[run] = {"population": kw["population"],
                      "s_per_descent_step": wall / kw["steps"],
+                     "segment_reduce_launches": no_kernel_launches(
+                         before, f"autotune {run}"),
                      **compare_tune(res, AUTOTUNE_REFERENCE[run],
                                     f"autotune {run}")}
     emit({"phase": "autotune_incast8", "gpu": gpu, "device": "cuda",
-          "kernel_launches": 0, **rows})
+          "fused_or_pfc_launches": 0, **rows})
 
 
 def learn_step(gpu: str) -> None:
@@ -2507,7 +3458,7 @@ def learn_step(gpu: str) -> None:
     res = tr.train(tr.TrainConfig(steps=LEARN_STEPS, seed=0),
                    engine_cfg=tr.default_engine_cfg())
     wall = time.perf_counter() - t0
-    no_kernel_launches(before, "learn_step")
+    seg = no_kernel_launches(before, "learn_step")
     want = LEARN_REFERENCE
     cost_err = max(max(rel_err(h["loss"], w["loss"]), *(
         rel_err(h["per_task"][k], v) for k, v in w["per_task"].items()))
@@ -2522,7 +3473,7 @@ def learn_step(gpu: str) -> None:
            "cost_max_rel_err": cost_err, "grad_norm_max_rel_err": grad_err,
            "weight_max_rel_err": weight_err}
     emit({"phase": "learn_step", "gpu": gpu, "device": "cuda",
-          "kernel_launches": 0, **row,
+          "fused_or_pfc_launches": 0, "segment_reduce_launches": seg, **row,
           "tolerance": "costs rtol 1e-5, weights and grad norms rtol 1e-3"})
     if (len(res.history) != len(want["history"]) or cost_err > 1e-5
             or weight_err > 1e-3 or grad_err > 1e-3):
@@ -2560,55 +3511,179 @@ def soft_grad_run(sim, remat: bool) -> tuple:
             torch.cuda.max_memory_allocated() - base)
 
 
+def backward_plans(sim) -> int:
+    """The most fixed-order backward sums a step can take on the card
+    (``engine._scatter_fixed``, one ``segment_reduce`` launch each): the
+    delayed signals' two gathers (one delay-class plan each) and each
+    non-empty hop's share.  A gather whose output the soft cost never
+    reads has no backward (DCQCN reads no delayed transmit rate), nor has
+    one whose input does not depend on the parameters yet (the ring
+    before its first write): ``engine.BACKWARD_SUMS`` counts those that
+    ran."""
+    return 2 + sum(s[0] != "empty" for s in sim.plan.hop)
+
+
+GRAD_WINDOW = (300, 64, 16)     # warm steps, timed steps, traced steps
+GRAD_PR19 = {"bwd_device_busy_us_per_step": 820.8,
+             "bwd_host_ms_per_step": 5.846}    # PERF.md §5, before the fixed order
+
+
+def grad_window(sim) -> dict:
+    """The differentiable step's backward over a window, as
+    ``scripts/profile_step.py``'s ``clos128_grad`` measures it (beside
+    ``GRAD_PR19``, the ``index_add_`` backward's): warmed ``GRAD_WINDOW[0]`` steps without
+    autograd, then ``GRAD_WINDOW[1]`` steps recorded under autograd and
+    differentiated w.r.t. ``rai_frac`` and ``g`` (host ms a step) twice
+    over the same graph, the two gradients bit for bit (the backward
+    repeated at full scale), then ``GRAD_WINDOW[2]`` more, the backward
+    under ``torch.profiler`` (device kernels, busy µs and
+    ``segment_reduce`` launches a step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import engine
+    cfg = dataclasses.replace(sim.cfg, step_impl="torch", queue_stride=0)
+    leaves = {k: torch.tensor(np.float32(sim.policy.params[k]),
+                              device="cuda", requires_grad=True)
+              for k in ("rai_frac", "g")}
+    step = engine._make_step(sim.policy, cfg, sim.plan, sim.pp, leaves,
+                             sim.fabric, False, 1, None, grad=True)
+    carry = engine._init_carry(sim.pp, sim.plan, sim.policy, cfg, leaves, 1,
+                               False)
+    warm, n_timed, n_traced = GRAD_WINDOW
+    it = 0
+    with torch.no_grad():
+        for it in range(warm):
+            carry = step(carry, it)
+    it = warm
+
+    def window(n):
+        nonlocal carry, it
+        carry = engine._tree_map(lambda t: t.detach(), carry)
+        for _ in range(n):
+            carry = step(carry, it)
+            it += 1
+        torch.cuda.synchronize()
+
+        def backward():
+            g = torch.autograd.grad(carry["soft"].sum(),
+                                    list(leaves.values()), retain_graph=True)
+            torch.cuda.synchronize()
+            return [float(x) for x in g]
+        return backward
+    backward = window(n_timed)
+    t0 = time.perf_counter()
+    first = backward()
+    host_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    again = backward()
+    backward = window(n_traced)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        backward()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seg = sum("segment_" in e.name for e in dev)
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    return {"first_timed_step": warm, "timed_steps": n_timed,
+            "traced_steps": n_traced, "grad": first, "grad_again": again,
+            "grad_bit_equal": first == again,
+            "bwd_host_ms_per_step": host_ms,
+            "bwd_device_busy_us_per_step": busy / n_traced if dev else None,
+            "bwd_device_kernels_per_step": len(dev) / n_traced,
+            "bwd_segment_kernels_per_step": seg / n_traced,
+            "pr19": GRAD_PR19}
+
+
+SOFT_GRAD_RUNS = (("clos32_2d", False, None),
+                  ("clos128_1d", True, SOFT_GRAD_CHUNK))
+
+
 def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
     """The soft cost and its gradient through autograd on the op path:
     at 32 GPUs against the reference's value (bit for bit) and gradient,
-    run twice to record whether the card's gradient repeats bit for bit
-    (recorded, not held: ``ROADMAP.md`` §3);
     at the paper's 128 GPUs (``remat``, ``SOFT_GRAD_CHUNK`` steps a
     segment) with a finite gradient; each value bit-equal to the forward
     runs' ``Results.soft_cost`` of phases 3-4, which ``forward()``
-    returns (scenario -> soft cost and executed steps);
+    returns (scenario -> soft cost and executed steps).  The ``repeat``
+    runs are repeated in this process and must give the same gradient bit
+    for bit; at 128 GPUs (190-330 s a run) the backward repeats over
+    ``grad_window``'s 64 steps of the same graph, bit for bit, and
+    ``grad_window`` times it a step beside ``GRAD_PR19``.  The backward sums
+    the gathers' gradients in a fixed order (``engine._scatter_fixed``),
+    one ``segment_reduce`` launch a sum and no other kernel.
     ``step_impl="cuda"`` refuses it."""
-    import dataclasses
-    from repro_torch.core import ScenarioSpec
+    from repro_torch.core import ScenarioSpec, engine
     from repro_torch.kernels.engine_step import ops
-    rows = {}
-    for label, remat, chunk in (("clos32_2d", False, None),
-                                ("clos128_1d", True, SOFT_GRAD_CHUNK)):
+    rows, repeats = {}, {}
+    for label, remat, chunk in SOFT_GRAD_RUNS:
         fab, wl = scen[label]
         cfg = runner.cfg if chunk is None else dataclasses.replace(
             runner.cfg, chunk_steps=chunk)
         sim = runner.simulator(*ScenarioSpec(fab, wl, "dcqcn").build(), cfg)
         before = dict(ops.LAUNCHES)
+        sums0 = engine.BACKWARD_SUMS["fixed_order"]
         v, grads, fwd_s, bwd_s, peak = soft_grad_run(sim, remat)
-        no_kernel_launches(before, f"soft_grad {label}")
+        seg = no_kernel_launches(before, f"soft_grad {label}")
         rows[label] = {"remat": remat, "chunk_steps": chunk,
                        "soft_cost": v, "grad": grads,
                        "seconds": fwd_s + bwd_s, "fwd_s": fwd_s,
-                       "bwd_s": bwd_s, "peak_bytes": peak}
+                       "bwd_s": bwd_s, "peak_bytes": peak,
+                       "backward_plans": backward_plans(sim),
+                       "backward_sums": engine.BACKWARD_SUMS["fixed_order"]
+                       - sums0,
+                       "segment_reduce_launches": seg}
         if label == "clos32_2d":
-            # does the card's gradient repeat?  The same run again in this
-            # process: the backward's index_add_ adds with atomics on CUDA
+            # the same run again in this process: the backward must repeat
+            before = dict(ops.LAUNCHES)
+            sums0 = engine.BACKWARD_SUMS["fixed_order"]
             v2, grads2 = soft_grad_run(sim, remat)[:2]
-            no_kernel_launches(before, f"soft_grad {label} again")
-            diff = {k: abs(grads2[k] - grads[k]) for k in grads}
-            repeat = {"soft_cost_equal": v2 == v,
-                      "grad_bit_equal": all(grads2[k] == grads[k]
-                                            for k in grads),
-                      "grad_again": grads2, "grad_max_abs_diff":
-                      max(diff.values()), "grad_max_rel_diff": max(
-                          rel_err(grads2[k], grads[k]) for k in grads)}
+            seg2 = no_kernel_launches(before, f"soft_grad {label} again")
+            repeats[label] = {
+                "soft_cost_equal": v2 == v,
+                "grad_bit_equal": all(grads2[k] == grads[k] for k in grads),
+                "grad_again": grads2, "segment_reduce_launches": seg2,
+                "backward_sums": engine.BACKWARD_SUMS["fixed_order"] - sums0,
+                "grad_max_rel_diff": max(rel_err(grads2[k], grads[k])
+                                         for k in grads)}
+        if label == "clos128_1d":
+            rows[label]["backward_window"] = grad_window(sim)
+        del sim
     fwd = forward()
     for label, row in rows.items():
         steps = fwd[label]["steps_executed"]
+        if "backward_window" in row and not row["backward_window"][
+                "grad_bit_equal"]:
+            raise AssertionError(f"soft_grad {label}: the backward over the "
+                                 "window does not repeat bit for bit: "
+                                 f"{row['backward_window']}")
         row.update(steps=steps,
                    fwd_host_ms_per_step=1e3 * row.pop("fwd_s") / steps,
                    bwd_host_ms_per_step=1e3 * row.pop("bwd_s") / steps,
                    forward_run_soft_cost=fwd[label]["soft_cost"])
+        rep = repeats.get(label, {"soft_cost_equal": True,
+                                  "grad_bit_equal": True,
+                                  "backward_sums": row["backward_sums"],
+                                  "segment_reduce_launches":
+                                      row["segment_reduce_launches"]})
+        if label in repeats:
+            row["repeat"] = rep
+        row["backward_sums_per_step"] = row["backward_sums"] / steps
         if row["soft_cost"] != row["forward_run_soft_cost"] or not all(
                 np.isfinite(x) for x in row["grad"].values()):
             raise AssertionError(f"soft_grad {label}: {row}")
+        if not (rep["soft_cost_equal"] and rep["grad_bit_equal"]):
+            raise AssertionError(f"soft_grad {label}: the gradient does not "
+                                 f"repeat bit for bit: {row}")
+        if not (0 < row["backward_sums"] == rep["backward_sums"]
+                == row["segment_reduce_launches"]
+                == rep["segment_reduce_launches"]
+                <= row["backward_plans"] * steps):
+            raise AssertionError(f"soft_grad {label}: segment_reduce "
+                                 f"launches {row['segment_reduce_launches']}, "
+                                 f"{rep['segment_reduce_launches']} for "
+                                 f"{row['backward_sums']}, "
+                                 f"{rep['backward_sums']} backward sums of "
+                                 f"at most {row['backward_plans']} a step "
+                                 f"over {steps} steps")
         v, grads = row["soft_cost"], row["grad"]
         want = SOFT_GRAD_REFERENCE.get(label)
         if want is not None:
@@ -2628,10 +3703,17 @@ def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
     else:
         raise AssertionError("soft_cost_fn ran with step_impl='cuda'")
     emit({"phase": "soft_grad", "gpu": gpu, "keys": list(SOFT_GRAD_KEYS),
-          "kernel_launches": 0, **rows, "clos32_2d_repeat": repeat,
-          "cuda_step_impl_refused": refused,
+          "fused_or_pfc_launches": 0,
+          "segment_launches": sum(
+              r["segment_reduce_launches"]
+              + r.get("repeat", {}).get("segment_reduce_launches", 0)
+              for r in rows.values()),
+          **rows, "cuda_step_impl_refused": refused,
           "tolerance": "soft cost bit-equal; gradient finite, rtol 1e-3 "
-                       "of the reference where it is known"})
+                       "of the reference where it is known; each run's "
+                       "gradient bit-equal to its repeat; one "
+                       "segment_reduce launch a backward sum, at most "
+                       "backward_plans a step"})
 
 
 # the phases run in processes of their own, beside phases 3-5i: the three
@@ -3338,18 +4420,23 @@ def bf16_ulps(a, b):
     return (key(a) - key(b)).abs()
 
 
-def fd_tolerance(q, k, v, length, want, softcap=None):
+def fd_tolerance(q, k, v, length, want, softcap=None, scales=None):
     """Flash decode's tolerance, per output element: 1e-5 of the
-    softmax-weighted sum of |v| (the scale of the terms the output sums),
-    plus one bf16 ulp of the plain version's output ``want`` for bf16.
-    With a softcap the scores pass through ``cap * tanh(s / cap)``, whose
-    float32 tanh on each side is within 2 ulps of a value below 1: up to
-    ``cap * 2**-22`` more on each score, so as much more of that sum."""
+    softmax-weighted sum of |v| (the scale of the terms the output sums;
+    over an int8 cache, of |v| times its scale), plus one bf16 ulp of the
+    plain version's output ``want`` for bf16.  With a softcap the scores
+    pass through ``cap * tanh(s / cap)``, whose float32 tanh on each side
+    is within 2 ulps of a value below 1: up to ``cap * 2**-22`` more on
+    each score, so as much more of that sum."""
     import torch
     from repro_torch.kernels.flash_decode import ref
     rel = 1e-5 + (0.0 if softcap is None else softcap * 2.0 ** -22)
-    tol = rel * ref.flash_decode_ref(q.float(), k.float(), v.float().abs(),
-                                     length, softcap)
+    if scales is None:
+        tol = rel * ref.flash_decode_ref(q.float(), k.float(),
+                                         v.float().abs(), length, softcap)
+    else:
+        tol = rel * ref.flash_decode_quant_ref(q.float(), k, v.abs(),
+                                               *scales, length, softcap)
     if want.dtype == torch.bfloat16:
         w = want.float().abs()
         tol = tol + torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w))
@@ -3357,20 +4444,26 @@ def fd_tolerance(q, k, v, length, want, softcap=None):
     return tol
 
 
-def fd_compare(q, k, v, length, softcap=None) -> dict:
+def fd_compare(q, k, v, length, softcap=None, scales=None) -> dict:
     """The flash-decode kernel against its plain version on one input, and
     the kernel with the default split (``max_length`` S) against the
-    kernel split to the lengths: equal.  Tolerance: float32 within 1e-5 of
+    kernel split to the lengths: equal.  ``scales``: an int8 cache's
+    ``(k_scale, v_scale)`` (the int8 instantiation against
+    ``ref.flash_decode_quant_ref``).  Tolerance: float32 within 1e-5 of
     the softmax-weighted sum of |v|; bf16 within 1 bf16 ulp plus that
     (equal or 1 ulp apart unless the output cancels: counted)."""
     import torch
     from repro_torch.kernels.flash_decode import ops, ref
+    ks, vs = scales or (None, None)
     got = ops.flash_decode(q, k, v, length, max_length=int(length.max()),
-                           softcap=softcap)
-    again = ops.flash_decode(q, k, v, length, softcap=softcap)
-    want = ref.flash_decode_ref(q, k, v, length, softcap)
+                           softcap=softcap, k_scale=ks, v_scale=vs)
+    again = ops.flash_decode(q, k, v, length, softcap=softcap, k_scale=ks,
+                             v_scale=vs)
+    want = (ref.flash_decode_ref(q, k, v, length, softcap) if scales is None
+            else ref.flash_decode_quant_ref(q, k, v, ks, vs, length,
+                                            softcap))
     err = (got.float() - want.float()).abs()
-    tol = fd_tolerance(q, k, v, length, want, softcap)
+    tol = fd_tolerance(q, k, v, length, want, softcap, scales)
     out = {"elements": got.numel(), "max_abs_err": float(err.max()),
            "split_independent": bool(torch.equal(got, again))}
     if got.dtype == torch.bfloat16:
@@ -3389,17 +4482,18 @@ def decode_kernel_check(dev) -> dict:
     256 up to S = 2,048), bf16 and float32; K/V as views one element
     into a buffer (not 16-byte aligned: the scalar loads); and
     ``FD_ARCH_SHAPES`` (Gemma-2, Gemma-3, Phi-4-mini) at S = 100 and 4,352,
-    two rows, with the softcap and without."""
+    two rows, with the softcap and without; and the int8 instantiation
+    (``int8_check``)."""
     import torch
     from repro_torch.kernels.flash_decode import ops
     gen = torch.Generator(device=dev).manual_seed(13)
     C = ops.CHUNK
     totals = {"cases": 0, "elements": 0, "equal": 0, "one_ulp": 0,
               "beyond_one_ulp": 0, "max_abs_err": 0.0, "scalar_loads": 0,
-              "softcap_cases": 0, "arch_cases": 0}
+              "softcap_cases": 0, "arch_cases": 0, "int8_cases": 0}
     t0 = time.perf_counter()
 
-    def check(q, k, v, what, softcap=None):
+    def check(q, k, v, what, softcap=None, scales=None):
         B, S = k.shape[:2]
         lens = sorted({n for n in (1, C - 1, C, C + 1, S - 17, S)
                        if 1 <= n <= S})
@@ -3408,10 +4502,11 @@ def decode_kernel_check(dev) -> dict:
             vecs.append([lens[b % len(lens)] for b in range(B)])
         for vec in vecs:
             length = torch.tensor(vec, dtype=torch.int32, device=dev)
-            r = fd_compare(q, k, v, length, softcap)
+            r = fd_compare(q, k, v, length, softcap, scales)
             if not r["ok"]:
                 raise AssertionError(f"flash_decode {what} lengths {vec}: {r}")
             totals["cases"] += 1
+            totals["int8_cases"] += scales is not None
             totals["scalar_loads"] += not ops.vector_loads(k, v)
             for key in ("elements", "equal", "one_ulp", "beyond_one_ulp"):
                 totals[key] += r.get(key, 0)
@@ -3459,6 +4554,7 @@ def decode_kernel_check(dev) -> dict:
                     totals["softcap_cases" if softcap else "arch_cases"] \
                         += 1
                     del q, k, v
+    int8_check(check, gen, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     totals["seconds"] = time.perf_counter() - t0
@@ -3466,6 +4562,48 @@ def decode_kernel_check(dev) -> dict:
                            "+ cap x 2^-22 of it with a softcap; bf16: that "
                            "+ 1 bf16 ulp; split-independent")
     return totals
+
+
+def int8_check(check, gen, dev) -> None:
+    """``decode_kernel_check``'s int8 cases through its ``check``: bf16 q
+    over int8 K/V (``quantize_kv`` of random bf16 rows) with their scales,
+    B 1 and 8, S 100, 2,048 and 32,768 (D = 256 up to 2,048), kv heads x
+    group 4 x 8 and 2 x 4, D 64, 128 and 256; a cache one element into an
+    int8 buffer (the scalar loads) and one of D = 48 (no 16-byte rows);
+    ``FD_ARCH_SHAPES`` at S = 4,352 with the softcap, scores scaled 4x."""
+    import torch
+    from repro_torch.models.layers import quantize_kv
+
+    def rand(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+    def run(B, S, Hkv, G, D, what, softcap=None, qscale=1.0, offset=0):
+        q = rand((B, Hkv, G, D), qscale)
+        k8, ks = quantize_kv(rand((B, S, Hkv, D)))
+        v8, vs = quantize_kv(rand((B, S, Hkv, D)))
+        if offset:
+            n = k8.numel()
+            buf = torch.zeros(2 * n + 2 * offset, dtype=torch.int8,
+                              device=dev)
+            buf[offset:offset + n] = k8.reshape(-1)
+            buf[n + 2 * offset:] = v8.reshape(-1)
+            k8 = buf[offset:offset + n].view(k8.shape)
+            v8 = buf[n + 2 * offset:].view(v8.shape)
+        check(q, k8, v8, f"int8 {what}", softcap, (ks, vs))
+
+    for B in (1, 8):
+        for S in (100, 2048, 32768):
+            for Hkv, G in ((4, 8), (2, 4)):
+                for D in (64, 128, 256):
+                    if not (D == 256 and S > 2048):
+                        run(B, S, Hkv, G, D, f"B={B} S={S} Hkv={Hkv} G={G} "
+                            f"D={D}")
+    run(3, 2048, 4, 8, 64, "unaligned B=3 S=2048", offset=1)
+    run(3, 300, 4, 8, 48, "D=48 B=3 S=300")
+    for (Hkv, G, D), cap in FD_ARCH_SHAPES.items():
+        run(2, 4352, Hkv, G, D, f"S=4352 Hkv={Hkv} G={G} D={D} softcap={cap}",
+            cap, 4.0)
 
 
 def draw_serving_weights(model, seed: int, dev) -> tuple:
@@ -3528,19 +4666,21 @@ def serve_entry(gpu: str) -> int:
 
 class capture_decode_inputs:
     """While active, keeps copies of the flash-decode wrapper's inputs at
-    the layers ``want`` (0-based, counted per call in layer order), then
-    calls it as before."""
+    the calls ``want`` (0-based, counted per call in layer order, of
+    ``n_layers`` calls a step), their softcaps and, over an int8 cache,
+    their scales, then calls it as before."""
 
     def __init__(self, n_layers: int, want: tuple):
         self.n_layers, self.want, self.calls, self.inputs = \
             n_layers, want, 0, {}
-        self.softcap = {}
+        self.softcap, self.scales = {}, {}
 
     def __enter__(self):
         from repro_torch.kernels.flash_decode import ops
         self.ops, self.orig = ops, ops.gqa_decode_attention
 
-        def wrapped(q, k, v, length, max_length=None, softcap=None):
+        def wrapped(q, k, v, length, max_length=None, softcap=None,
+                    k_scale=None, v_scale=None):
             layer = self.calls % self.n_layers
             self.calls += 1
             if layer in self.want:
@@ -3549,7 +4689,10 @@ class capture_decode_inputs:
                 self.inputs[layer] = (q.reshape(B, Hkv, Hq // Hkv, D).clone(),
                                       k.clone(), v.clone(), length.clone())
                 self.softcap[layer] = softcap
-            return self.orig(q, k, v, length, max_length, softcap)
+                self.scales[layer] = (None if k_scale is None else
+                                      (k_scale.clone(), v_scale.clone()))
+            return self.orig(q, k, v, length, max_length, softcap, k_scale,
+                             v_scale)
         ops.gqa_decode_attention = wrapped
         return self
 
@@ -3560,7 +4703,8 @@ class capture_decode_inputs:
 class plain_decode_attention:
     """While active, the model's ``decode_impl="cuda"`` decode attention
     runs the kernel's plain version (``ref.flash_decode_ref``: float32
-    scores, softcap, softmax and p.v) on the card in the kernel's place,
+    scores, softcap, softmax and p.v; ``flash_decode_quant_ref`` over an
+    int8 cache) on the card in the kernel's place,
     over the same positions: the yardstick of the kernel inside a model.
     No kernel launches."""
 
@@ -3568,12 +4712,19 @@ class plain_decode_attention:
         from repro_torch.kernels.flash_decode import ops, ref
         self.ops, self.orig = ops, ops.gqa_decode_attention
 
-        def plain(q, k, v, length, max_length=None, softcap=None):
+        def plain(q, k, v, length, max_length=None, softcap=None,
+                  k_scale=None, v_scale=None):
             B, _, Hq, D = q.shape
             Hkv = k.shape[2]
             n = k.shape[1] if max_length is None else max_length
-            out = ref.flash_decode_ref(q.reshape(B, Hkv, Hq // Hkv, D),
-                                       k[:, :n], v[:, :n], length, softcap)
+            qr = q.reshape(B, Hkv, Hq // Hkv, D)
+            if k_scale is None:
+                out = ref.flash_decode_ref(qr, k[:, :n], v[:, :n], length,
+                                           softcap)
+            else:
+                out = ref.flash_decode_quant_ref(
+                    qr, k[:, :n], v[:, :n], k_scale[:, :n], v_scale[:, :n],
+                    length, softcap)
             return out.reshape(B, 1, Hq, D)
         ops.gqa_decode_attention = plain
         return self
@@ -3582,27 +4733,34 @@ class plain_decode_attention:
         self.ops.gqa_decode_attention = self.orig
 
 
-def time_flash_decode(inputs, traced: dict) -> dict:
+def time_flash_decode(inputs, traced: dict, int8: bool = False) -> dict:
     """The kernel (direct C calls), its plain version and
     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on the cache
     sliced to the (common) length, on captured decode inputs ``[(q, k, v,
     length), ...]``.  Cold (``ms``, ``library_ms``): each call takes the
-    next of ``FD_COLD_SETS`` input sets, the captured layers and copies of
-    them, whose live K/V together exceed ``FD_COLD_BYTES``, as the decode
-    step meets a layer's cache after 21 other layers' and the weights; hot
-    (``ms_hot``, ``library_ms_hot``): one set over and over, L2-resident."""
+    next of the input sets, the captured layers and copies of them, whose
+    live K/V together exceed ``FD_COLD_BYTES`` (``FD_COLD_SETS`` of them,
+    twice as many over an int8 cache), as the decode step meets a layer's
+    cache after 21 other layers' and the weights; hot (``ms_hot``,
+    ``library_ms_hot``): one set over and over, L2-resident.  ``int8``:
+    inputs ``(q, k, v, length, k_scale, v_scale)`` of an int8 cache, its
+    instantiation and ``ref.flash_decode_quant_ref``; no PyTorch call
+    computes attention over an int8 cache with its scales (no library
+    time), and the bound counts a byte an element and the scales."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import ops, ref
     sets = list(inputs)
-    while len(sets) < FD_COLD_SETS:
+    while len(sets) < FD_COLD_SETS * (2 if int8 else 1):
         sets.append(tuple(x.clone() for x in inputs[len(sets) % len(inputs)]))
-    q, k, v, length = sets[0]
+    q, k, v, length = sets[0][:4]
     B, Hkv, G, D = q.shape
     lens = length.tolist()
     L = max(lens)
     item = q.element_size()
-    n_bytes = sum(lens) * Hkv * D * item * 2 + 2 * q.numel() * item + 4 * B
+    kv_item = k.element_size() + (4 / D if int8 else 0)   # + a scale a row
+    n_bytes = int(sum(lens) * Hkv * D * kv_item * 2 + 2 * q.numel() * item
+                  + 4 * B)
     if n_bytes * len(sets) <= FD_COLD_BYTES:
         raise AssertionError(f"time_flash_decode: {len(sets)} sets of "
                              f"{n_bytes} live bytes stay in L2")
@@ -3610,12 +4768,12 @@ def time_flash_decode(inputs, traced: dict) -> dict:
     fn = ops.kernel_function()
     stream = torch.cuda.current_stream().cuda_stream
     args, sdpa_in, outs = [], [], []
-    for (qi, ki, vi, li) in sets:
+    for (qi, ki, vi, li, *scales) in sets:
         part_acc, part_ml = ops.scratch(qi, splits)
         out = torch.empty_like(qi)
         outs.append((out, part_acc, part_ml))
         args.append(ops.kernel_args(qi, ki, vi, li, out, splits, part_acc,
-                                    part_ml))
+                                    part_ml, None, *scales))
         sdpa_in.append((qi.reshape(B, Hkv * G, 1, D),
                         ki[:, :L].transpose(1, 2), vi[:, :L].transpose(1, 2)))
     turn = [0, 0]
@@ -3633,29 +4791,38 @@ def time_flash_decode(inputs, traced: dict) -> dict:
             turn[1] += 1
         return F.scaled_dot_product_attention(*sdpa_in[i], enable_gqa=True)
     ms, ms_hot = cuda_ms(launch), cuda_ms(lambda: launch(0))
+    flops = 4 * sum(lens) * Hkv * G * D
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    out = {"ms": ms, "ms_hot": ms_hot,
+           "host_us_per_launch": host_us(launch),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "shape": f"B={B} Hkv={Hkv} G={G} D={D} S={k.shape[1]} "
+                    f"length={L} splits={splits}" + (" int8" if int8 else ""),
+           "bytes": n_bytes, "cold_sets": len(sets),
+           "cold_live_bytes": n_bytes * len(sets)}
+    if int8:
+        traced["flash_decode/int8"] = (launch, None, (sets, outs))
+        out["plain_ms"] = cuda_ms(lambda: ref.flash_decode_quant_ref(
+            *sets[0][:3], *sets[0][4:], length), reps=10, inner=5)
+        out["library_ms"] = None
+        return out
     library, library_hot = cuda_ms(sdpa), cuda_ms(lambda: sdpa(0))
     traced["flash_decode"] = (launch, sdpa, (sets, outs))
     plain = cuda_ms(lambda: ref.flash_decode_ref(q, k, v, length), reps=10,
                     inner=5)
     launch(0)
     diff = (sdpa(0).reshape(B, Hkv, G, D).float() - outs[0][0].float())
-    flops = 4 * sum(lens) * Hkv * G * D
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return {"ms": ms, "ms_hot": ms_hot,
-            "host_us_per_launch": host_us(launch), "plain_ms": plain,
-            "library_ms": library, "library_ms_hot": library_hot,
+    return {**out, "plain_ms": plain, "library_ms": library,
+            "library_ms_hot": library_hot,
             "library_host_us_per_call": host_us(sdpa),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "shape": f"B={B} Hkv={Hkv} G={G} D={D} S={k.shape[1]} "
-                     f"length={L} splits={splits}", "bytes": n_bytes,
-            "cold_sets": len(sets), "cold_live_bytes": n_bytes * len(sets),
             "library_max_abs_diff": float(diff.abs().max())}
 
 
 def serve_long(gpu: str, dev, traced: dict) -> tuple:
-    """TinyLlama-1.1B at full width and depth with numpy weights at the
-    true fan-in: 8 requests of 2,048-token prompts (the blockwise prefill)
+    """TinyLlama-1.1B at full width and depth with hashed weights at the
+    true fan-in (``card_weights``; numpy's draw took 31 s of host time):
+    8 requests of 2,048-token prompts (the blockwise prefill)
     on 8 slots, a 32,768-token cache (``decode_32k``'s length), 64 new
     tokens, decode attention in the kernel; then the kernel path against
     the torch path, teacher-forced on the kernel path's tokens.  Returns
@@ -3669,7 +4836,7 @@ def serve_long(gpu: str, dev, traced: dict) -> tuple:
     from repro_torch.serve import Request, ServeEngine
     cfg = get_config("tinyllama-1.1b")
     model = Model(cfg, device="cuda")
-    params, draw_s = draw_serving_weights(model, SERVE_SEED, dev)
+    params, draw_s = card_weights(model, SERVE_SEED, dev)
     rng = np.random.default_rng(SERVE_SEED)
     prompts = rng.integers(0, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT),
                            dtype=np.int32)
@@ -3930,49 +5097,58 @@ def arch_config(arch: str, layers: int | None = None,
     return dataclasses.replace(cfg, **over)
 
 
-def serve_arch(arch: str, gpu: str, dev) -> int:
-    """``SERVE_ARCHS[arch]`` through ``ServeEngine`` on the card: full width
-    (depth as listed), hashed weights at the true fan-in, 2 slots, one
-    prompt per slot, decode attention in the kernel (one launch per layer
-    and decode step, ring layers included); then, teacher-forced on the
+def serve_arch(arch: str, gpu: str, dev, spec: dict | None = None) -> tuple:
+    """``SERVE_ARCHS[arch]`` (or ``spec``) through ``ServeEngine`` on the
+    card: full width (depth as listed, config overrides ``over``), hashed
+    weights at the true fan-in, ``slots`` slots (2 by default), one prompt
+    per slot, decode attention in the kernel (one launch per attention
+    layer (``KERNEL_MIXERS``) and decode step, ring layers, Zamba2's shared
+    block and an int8 cache included); then, teacher-forced on the
     engine's tokens, the kernel path against the same model with the
     kernel's plain version in its place (``plain_decode_attention``) and
     against the torch path (the reference's serving math, which rounds p
-    to bf16 before p.v), each per step at ``SERVE_REL_L2`` scaled by
-    sqrt(depth / ``SERVE_REL_L2_DEPTH``) above TinyLlama's depth; and the
-    kernel against its plain version on the captured inputs of a local
-    and a global layer of the last step, at ``fd_compare``'s tolerance.
-    Returns the engine's kernel launches."""
+    to bf16 before p.v), each per step (from the kernel path's cache of
+    that step where ``resync``) at ``SERVE_REL_L2`` scaled by
+    sqrt(depth / ``SERVE_REL_L2_DEPTH``) above TinyLlama's depth (depth:
+    every sub-layer, the residual adds); and the kernel against its plain
+    version on the captured inputs of the last step's attention calls
+    ``capture`` (by default the first of each mixer kind), at
+    ``fd_compare``'s tolerance.  Returns (the engine's kernel launches,
+    the capture, the line)."""
     import torch
     from repro_torch.common.pytree import tree_bytes
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops
     from repro_torch.models import Model
     from repro_torch.serve import Request, ServeEngine
-    spec = SERVE_ARCHS[arch]
-    cfg = arch_config(arch, spec["layers"], spec["block"])
+    spec = spec or SERVE_ARCHS[arch]
+    base = spec.get("arch", arch)
+    cfg = arch_config(base, spec["layers"], spec["block"],
+                      **spec.get("over", {}))
+    slots = spec.get("slots", SERVE_ARCH_SLOTS)
     model = Model(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     params, draw_s = card_weights(model, SERVE_SEED, dev)
     rng = np.random.default_rng(SERVE_SEED)
     S, new = spec["prompt"], spec["new"]
-    prompts = rng.integers(0, cfg.vocab, (SERVE_ARCH_SLOTS, S),
-                           dtype=np.int32)
-    eng = ServeEngine(model, params, batch_slots=SERVE_ARCH_SLOTS,
+    prompts = rng.integers(0, cfg.vocab, (slots, S), dtype=np.int32)
+    eng = ServeEngine(model, params, batch_slots=slots,
                       max_len=spec["max_len"], decode_impl="cuda")
-    reqs = [Request(i, prompts[i], new) for i in range(SERVE_ARCH_SLOTS)]
+    reqs = [Request(i, prompts[i], new) for i in range(slots)]
+    kinds = [k[0] for g in model.groups for _ in range(g.n) for k in g.kinds]
+    attn = [i for i, k in enumerate(kinds) if k in KERNEL_MIXERS]
     ops.reset_launches()
     results = eng.run(reqs)
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["flash_decode"]
     (tm,) = eng.timings
     if tm["decode_steps"] != new - 1 or \
-            launches != cfg.n_layers * tm["decode_steps"]:
+            launches != len(attn) * tm["decode_steps"]:
         raise AssertionError(f"{spec['phase']}: {launches} launches for "
                              f"{tm['decode_steps']} decode steps of "
-                             f"{cfg.n_layers} layers")
+                             f"{len(attn)} attention layers")
     toks = np.stack([r.tokens for r in results])
-    if toks.shape != (SERVE_ARCH_SLOTS, new) or toks.min() < 0 or \
+    if toks.shape != (slots, new) or toks.min() < 0 or \
             toks.max() >= cfg.vocab:
         raise AssertionError(f"{spec['phase']}: tokens {toks}")
     _, cache_c = model.prefill(params, {"tokens": prompts},
@@ -3984,16 +5160,19 @@ def serve_arch(arch: str, gpu: str, dev) -> int:
                 "pos": cache["pos"]}
     cache_p, cache_t = clone(cache_c), clone(cache_c)
     rel, rel_kt, rel_pt, agree, torch_s = [], [], [], 0, 0.0
-    bound = SERVE_REL_L2 * max(1.0, math.sqrt(cfg.n_layers
+    bound = SERVE_REL_L2 * max(1.0, math.sqrt(len(kinds)
                                               / SERVE_REL_L2_DEPTH))
-    kinds = [k[0] for g in model.groups for _ in range(g.n) for k in g.kinds]
-    want_layers = tuple(sorted({kinds.index(k) for k in set(kinds)}))
-    cap = capture_decode_inputs(cfg.n_layers, want_layers)
+    calls = [kinds[i] for i in attn]
+    want_calls = spec.get("capture") or tuple(sorted(
+        {calls.index(k) for k in set(calls)}))
+    cap = capture_decode_inputs(len(attn), want_calls)
 
     def rel_l2(a, b):
         return float((a - b).norm() / b.norm())
     for t in range(new - 1):
         cur = toks[:, t:t + 1]
+        if spec.get("resync"):
+            cache_p, cache_t = clone(cache_c), clone(cache_c)
         if t == new - 2:
             with cap:
                 got, cache_c = model.decode_step(params, cache_c, cur,
@@ -4014,28 +5193,32 @@ def serve_arch(arch: str, gpu: str, dev) -> int:
         rel_pt.append(rel_l2(plain, want))
         agree += int((got.argmax(-1) == want.argmax(-1)).sum())
     layer_checks = {}
-    for layer, (q, k, v, length) in cap.inputs.items():
-        r = fd_compare(q, k, v, length, cap.softcap[layer])
-        layer_checks[f"layer{layer}_{kinds[layer]}"] = {
+    for call, (q, k, v, length) in cap.inputs.items():
+        r = fd_compare(q, k, v, length, cap.softcap[call], cap.scales[call])
+        layer_checks[f"layer{attn[call]}_{calls[call]}"] = {
             "cache_slots": k.shape[1], "length": int(length.max()),
-            "softcap": cap.softcap[layer], **r}
+            "softcap": cap.softcap[call], "int8": cap.scales[call] is not None,
+            **r}
         if not r["ok"]:
             raise AssertionError(f"{spec['phase']}: flash_decode on layer "
-                                 f"{layer}'s decode inputs: {r}")
+                                 f"{attn[call]}'s decode inputs: {r}")
+    cache_bytes = tree_bytes(model.cache_defs(slots, spec["max_len"])[
+        "layers"])
     line = {"phase": spec["phase"], "gpu": gpu, "arch": cfg.name,
             "n_layers": cfg.n_layers,
-            "full_depth": get_config(arch).n_layers == cfg.n_layers,
+            "full_depth": get_config(base).n_layers == cfg.n_layers,
             "d_model": cfg.d_model, "vocab": cfg.vocab,
-            "local_layers": kinds.count("gqa_l"),
-            "global_layers": kinds.count("gqa_g"), "window": cfg.window,
-            "logit_softcap": cfg.logit_softcap,
-            "block_q": cfg.block_q, "slots": SERVE_ARCH_SLOTS, "prompt": S,
+            **{f"{k}_layers": kinds.count(k) for k in sorted(set(kinds))},
+            "window": cfg.window, "logit_softcap": cfg.logit_softcap,
+            "kv_quant_int8": cfg.kv_quant_int8,
+            "block_q": cfg.block_q, "slots": slots, "prompt": S,
             "new_tokens": new, "max_len": spec["max_len"],
             "weight_bytes": tree_bytes(params), "weights_draw_s": draw_s,
+            "cache_bytes": cache_bytes,
             "prefill_ms": tm["prefill_s"] * 1e3,
             "decode_ms_per_step": tm["decode_s"] / tm["decode_steps"] * 1e3,
             "torch_path_decode_ms_per_step": torch_s / (new - 1) * 1e3,
-            "tokens_per_s": SERVE_ARCH_SLOTS * new
+            "tokens_per_s": slots * new
             / (tm["prefill_s"] + tm["decode_s"]),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "launches": launches,
@@ -4046,21 +5229,358 @@ def serve_arch(arch: str, gpu: str, dev) -> int:
             "torch_path_rel_l2_mean": sum(rel_kt) / len(rel_kt),
             "plain_vs_torch_path_rel_l2_max": max(rel_pt),
             "plain_vs_torch_path_rel_l2_mean": sum(rel_pt) / len(rel_pt),
-            "greedy_agreement": agree / (SERVE_ARCH_SLOTS * (new - 1)),
+            "greedy_agreement": agree / (slots * (new - 1)),
             "tokens_0": toks[0, :16].tolist(),
             "layer_checks": layer_checks,
             "tolerance": f"kernel path vs its plain version in its place "
                          f"and vs the torch path: rel L2 <= {bound:.4g} per "
-                         f"step ({SERVE_REL_L2} x sqrt({cfg.n_layers} / "
+                         f"step ({SERVE_REL_L2} x sqrt({len(kinds)} / "
                          f"{SERVE_REL_L2_DEPTH}) above {SERVE_REL_L2_DEPTH} "
                          "layers); each captured layer at fd_compare's"}
+    if cfg.kv_quant_int8:
+        line["bf16_cache_bytes"] = tree_bytes(Model(
+            dataclasses.replace(cfg, kv_quant_int8=False),
+            device="cuda").cache_defs(
+                slots, spec["max_len"])["layers"])
     emit(line)
     if max(rel) > bound or max(rel_kt) > bound:
         raise AssertionError(f"{spec['phase']}: kernel path off its plain "
                              f"version or the torch path: {line}")
     del model, params, eng, cache_c, cache_p, cache_t
     torch.cuda.empty_cache()
-    return launches
+    return launches, cap, line
+
+
+def serve_int8(gpu: str, dev, traced: dict) -> tuple:
+    """``SERVE_INT8`` through ``serve_arch`` (22 launches of the int8
+    instantiation a decode step, the kernel path against the torch path's
+    ``decode_attention_quant`` and its plain version in its place, the
+    captured layers at ``fd_compare``'s tolerance, the cache's bytes: int8
+    and scales beside bf16's), then the int8 instantiation's times on the
+    captured inputs of layers 21 and 0 (``time_flash_decode``).
+    Returns (launches, the captured layers' checks, the timing)."""
+    launches, cap, line = serve_arch("tinyllama-1.1b/int8", gpu, dev,
+                                     SERVE_INT8)
+    inputs = [cap.inputs[c] + cap.scales[c] for c in (21, 0)]
+    timing = time_flash_decode(inputs, traced, int8=True)
+    checks = line["layer_checks"]
+    del cap, inputs
+    return launches, checks, timing
+
+
+def kernel_launch_counts() -> dict:
+    """Every kernel wrapper's launch count (the four CUDA sources')."""
+    from repro_torch.kernels.cc_update import ops as ccu
+    from repro_torch.kernels.embedding_bag import ops as emb
+    from repro_torch.kernels.engine_step import ops as es
+    from repro_torch.kernels.flash_decode import ops as fd
+    return {k: v for mod in (es, ccu, emb, fd) for k, v in mod.LAUNCHES.items()}
+
+
+class capture_routing:
+    """While active, records the top-k experts of every MoE call
+    (``moe.moe_apply``): ``calls[i]`` the (tokens, k) expert ids of the
+    i-th call, its tokens in the caller's (row-major) order."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.mod, self.calls = moe, []
+        self.orig = (moe.moe_apply, moe._router)
+
+        def apply(p, x2d, cfg, mesh=None):
+            self.calls.append([])
+            out = self.orig[0](p, x2d, cfg, mesh)
+            self.calls[-1] = torch.cat(self.calls[-1])
+            return out
+
+        def router(w, x, cfg):
+            gates, idx = self.orig[1](w, x, cfg)
+            self.calls[-1].append(idx.sort(-1).values)
+            return gates, idx
+        moe.moe_apply, moe._router = apply, router
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_apply, self.mod._router = self.orig
+
+
+def routed_alike(first, steps, full, n_moe: int, S: int, B: int):
+    """Per (row, position) whether every MoE layer routed that position's
+    token to the same experts in the prompt's prefill (``first``), the
+    decode steps (``steps``: one list of calls a step) and the
+    teacher-forced prefill (``full``): (B, S + len(steps)) bool."""
+    import torch
+    got = []
+    for layer in range(n_moe):
+        dec = [st[layer].reshape(B, 1, -1) for st in steps]
+        got.append(torch.cat([first[layer].reshape(B, S, -1), *dec], 1))
+    n = S + len(steps)
+    alike = torch.ones((B, n), dtype=torch.bool, device=got[0].device)
+    for layer in range(n_moe):
+        want = full[layer].reshape(B, -1, got[layer].shape[-1])[:, :n]
+        alike &= (got[layer] == want).all(-1)
+    return alike
+
+
+def mla_absorbed_check(model, params, dev, S: int = 64) -> dict:
+    """Layer 0's MLA at full width, float32: the absorbed decode
+    (``mla_decode`` over the latent cache) at every position against the
+    non-absorbed form (``mla_train``), at ``tests/test_blocks.py``'s
+    tolerance (rtol 2e-3, atol 2e-3); inputs 0.5 N(0, 1), 2 rows of
+    ``S``."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import mla as MLA
+    cfg = model.cfg
+    p = tree_map(lambda t: t[0].float(), params["groups"][0]["l0"]["attn"])
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    x = 0.5 * torch.randn((2, S, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev)[None].expand(2, S)
+    y_train = MLA.mla_train(p, x, cfg, pos)
+    c, pe = MLA.mla_prefill_cache(p, x, cfg, pos)
+    err, ok = 0.0, True
+    for t in range(S):
+        y = MLA.mla_decode(p, x[:, t:t + 1], cfg, c, pe, length=t)[:, 0]
+        d = (y - y_train[:, t]).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= 2e-3 + 2e-3 * y_train[:, t].abs()).all())
+    return {"positions": S, "max_abs_err": err, "ok": ok}
+
+
+def rwkv_chunk_check(model, params, dev) -> dict:
+    """RWKV-6's time mix at full width on layer 0's weights: the chunked
+    form (``rwkv_chunk``) against the token scan on float32 inputs
+    (0.5 N(0, 1), 2 rows of the phase's prompt length), outputs and final
+    states at ``tests/test_blocks.py``'s tolerance (``RWKV_CHUNK_TOL``)."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import rwkv as RWKV
+    spec = SERVE_FAMILIES["rwkv6-3b"]
+    cfg = model.cfg
+    p = tree_map(lambda t: t[0].float(), params["groups"][0]["l0"]["mixer"])
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    x = 0.5 * torch.randn((2, spec["prompt"], cfg.d_model), generator=gen,
+                          device=dev)
+    scan, s1 = RWKV.rwkv6_time_mix(p, x, dataclasses.replace(
+        cfg, rwkv_chunk=0), None)
+    chunked, s2 = RWKV.rwkv6_time_mix(p, x, dataclasses.replace(
+        cfg, rwkv_chunk=spec["chunk"]), None)
+    out = {}
+    for name, a, b in (("y", chunked, scan), ("state", s2["S"], s1["S"])):
+        err = (a - b).abs()
+        out[f"{name}_max_abs_err"] = float(err.max())
+        out[f"{name}_ok"] = bool((err <= RWKV_CHUNK_TOL * (1 + b.abs()))
+                                 .all())
+    return out
+
+
+def serve_family(arch: str, gpu: str, dev) -> dict:
+    """``SERVE_FAMILIES[arch]`` (no kernel on its decode path) through
+    ``ServeEngine`` on the card: full width, depth as listed, hashed
+    weights at the true fan-in, 2 slots, ``decode_impl="cuda"`` (the same
+    torch code as "torch": the reference has no kernel there), no kernel
+    launch; then, teacher-forced on the engine's tokens, each decode
+    step's logits against one prefill of the prompt and those tokens,
+    every position's logits (``prefill(all_logits=True)``), at rel. L2
+    ``SERVE_FAMILY_REL_L2``.  RWKV-6 (``chunk``): the prefill again in
+    chunks, its last logits held at the serving rule against the scan's,
+    and layer 0's time mix at ``rwkv_chunk_check``.  Returns the line."""
+    import torch
+    from repro_torch.common.pytree import tree_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeEngine
+    spec = SERVE_FAMILIES[arch]
+    cfg = arch_config(arch, spec["layers"])
+    model = Model(cfg, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, draw_s = card_weights(model, SERVE_SEED, dev)
+    rng = np.random.default_rng(SERVE_SEED)
+    S, new = spec["prompt"], spec["new"]
+    prompts = rng.integers(0, cfg.vocab, (SERVE_ARCH_SLOTS, S),
+                           dtype=np.int32)
+    eng = ServeEngine(model, params, batch_slots=SERVE_ARCH_SLOTS,
+                      max_len=spec["max_len"], decode_impl="cuda")
+    before = kernel_launch_counts()
+    results = eng.run([Request(i, prompts[i], new)
+                       for i in range(SERVE_ARCH_SLOTS)])
+    torch.cuda.synchronize()
+    (tm,) = eng.timings
+    toks = np.stack([r.tokens for r in results])
+    if tm["decode_steps"] != new - 1 or toks.shape != (SERVE_ARCH_SLOTS,
+                                                       new) \
+            or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{spec['phase']} {arch}: {tm}, tokens {toks}")
+    full = np.concatenate([prompts, toks[:, :-1]], axis=1)
+
+    n_moe = sum(k[1] == "moe" for g in model.groups for _ in range(g.n)
+                for k in g.kinds)
+
+    def teacher_forced(dtype):
+        """Each decode step's logits against one prefill's of the prompt
+        and the engine's tokens, activations in ``dtype``: (rel L2 a step
+        and row, whether every MoE layer routed each earlier token of the
+        row alike in both, top-1 agreements, all finite)."""
+        model.compute_dtype = dtype
+        with capture_routing() as r_first:
+            logits, cache = model.prefill(params, {"tokens": prompts},
+                                          max_len=spec["max_len"])
+        steps, routes = [logits], []
+        for t in range(new - 1):
+            with capture_routing() as r_step:
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[:, t:t + 1], "cuda")
+            steps.append(logits)
+            routes.append(r_step.calls)
+        del cache
+        with capture_routing() as r_full:
+            ref, _ = model.prefill(params, {"tokens": full},
+                                   max_len=full.shape[1], all_logits=True)
+        model.compute_dtype = torch.bfloat16
+        rel = torch.stack([(got - ref[:, S - 1 + t]).norm(dim=-1)
+                           / ref[:, S - 1 + t].norm(dim=-1)
+                           for t, got in enumerate(steps)])   # (steps, B)
+        clean = torch.ones_like(rel, dtype=torch.bool)
+        if n_moe:
+            alike = routed_alike(r_first.calls, routes, r_full.calls, n_moe,
+                                 S, SERVE_ARCH_SLOTS)
+            # step t reads positions 0 .. S - 1 + t
+            clean = torch.stack([alike[:, :S + t].all(-1)
+                                 for t in range(len(steps))])
+        agree = sum(int((got.argmax(-1) == ref[:, S - 1 + t].argmax(-1))
+                        .sum()) for t, got in enumerate(steps))
+        return (rel.cpu(), clean.cpu(), agree,
+                all(bool(torch.isfinite(x).all()) for x in steps), steps[0])
+    rel_bf16, clean_bf16, agree_bf16, finite, scan_bf16 = teacher_forced(
+        torch.bfloat16)
+    rel, clean, agree, finite32, scan_f32 = teacher_forced(torch.float32)
+    held = rel[clean]
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in kernel_launch_counts().items()
+                if v != before[k]}
+    finite = finite and finite32
+    kinds = [k for g in model.groups for _ in range(g.n) for k in g.kinds]
+    line = {"phase": spec["phase"], "gpu": gpu, "arch": cfg.name,
+            "n_layers": cfg.n_layers,
+            "full_depth": get_config(arch).n_layers == cfg.n_layers,
+            "layer_kinds": {str(k): kinds.count(k) for k in set(kinds)},
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "slots": SERVE_ARCH_SLOTS, "prompt": S, "new_tokens": new,
+            "max_len": spec["max_len"], "weight_bytes": tree_bytes(params),
+            "weights_draw_s": draw_s,
+            "cache_bytes": tree_bytes(model.cache_defs(
+                SERVE_ARCH_SLOTS, spec["max_len"])["layers"]),
+            "prefill_ms": tm["prefill_s"] * 1e3,
+            "decode_ms_per_step": tm["decode_s"] / tm["decode_steps"] * 1e3,
+            "tokens_per_s": SERVE_ARCH_SLOTS * new
+            / (tm["prefill_s"] + tm["decode_s"]),
+            "kernel_launches": launched,
+            "teacher_forced_rel_l2_max": float(rel.max()),
+            "teacher_forced_rel_l2_mean": float(rel.mean()),
+            "teacher_forced_routed_alike": [int(clean.sum()),
+                                            clean.numel()],
+            "teacher_forced_routed_alike_rel_l2_max": float(held.max())
+            if held.numel() else None,
+            "greedy_agreement": agree / (SERVE_ARCH_SLOTS * new),
+            "bf16_teacher_forced_rel_l2_max": float(rel_bf16.max()),
+            "bf16_teacher_forced_rel_l2_mean": float(rel_bf16.mean()),
+            "bf16_teacher_forced_routed_alike": [int(clean_bf16.sum()),
+                                                 clean_bf16.numel()],
+            "bf16_greedy_agreement": agree_bf16 / (SERVE_ARCH_SLOTS * new),
+            "tokens_0": toks[0, :16].tolist(),
+            "tolerance": f"activations in float32: each decode step's "
+                         f"logits, row by row, within rel L2 "
+                         f"{SERVE_FAMILY_REL_L2} of a teacher-forced "
+                         "prefill's wherever every MoE layer routed the "
+                         "row's tokens alike in both (at least half the "
+                         "steps; a near-tie of the top-k that the bf16 "
+                         "latent cache tips is a different computation); "
+                         "in bf16 reported, not held; no kernel launches"}
+    ok = (finite and not launched and held.numel() >= clean.numel() / 2
+          and float(held.max()) <= SERVE_FAMILY_REL_L2)
+    if n_moe:
+        line["mla_absorbed_check"] = mla_absorbed_check(model, params, dev)
+        ok = ok and line["mla_absorbed_check"]["ok"]
+    if "chunk" in spec:
+        def last_logits(chunk, dtype):
+            model.cfg = dataclasses.replace(cfg, rwkv_chunk=chunk)
+            model.compute_dtype = dtype
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, _ = model.prefill(params, {"tokens": prompts},
+                                   max_len=spec["max_len"])
+            torch.cuda.synchronize()
+            model.cfg, model.compute_dtype = cfg, torch.bfloat16
+            return out, time.perf_counter() - t1
+        # the scan's last logits: the teacher-forced runs' first prefill
+        chunk_bf16, chunk_s = last_logits(spec["chunk"], torch.bfloat16)
+        chunk_f32, _ = last_logits(spec["chunk"], torch.float32)
+        err = (chunk_f32 - scan_f32).abs()
+        line["chunked_prefill"] = {
+            "rwkv_chunk": spec["chunk"], "prefill_ms": chunk_s * 1e3,
+            "bf16_last_logits_rel_l2": float((chunk_bf16 - scan_bf16).norm()
+                                             / scan_bf16.norm()),
+            "f32_last_logits_max_abs_err": float(err.max()),
+            "f32_ok": bool((err <= RWKV_CHUNK_TOL
+                            * (1 + scan_f32.abs())).all()),
+            **rwkv_chunk_check(model, params, dev)}
+        c = line["chunked_prefill"]
+        ok = ok and c["f32_ok"] and c["y_ok"] and c["state_ok"]
+    line["peak_bytes"] = torch.cuda.max_memory_allocated()
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{spec['phase']} {arch}: {line}")
+    del model, params, eng
+    torch.cuda.empty_cache()
+    return line
+
+
+def serve_families_reference(name: str, dev) -> tuple:
+    """``FAMILIES_REF_CUTS[name]`` on the card with ``hashed_params`` drawn
+    there: 4 rows of 32-token prompts, then 8 teacher-forced decode steps
+    (``decode_impl="cuda"``: the kernel on the attention layers, its int8
+    instantiation on TinyLlama's int8 cache), against the reference's
+    logits at ``SERVE_REF_IDS``, its log-sum-exp and its top-1 ids
+    (``FAMILIES_REF``, the tolerances of ``serve_reference``).  Returns
+    the line and the kernel's launches."""
+    import torch
+    from repro_torch.kernels.flash_decode import ops
+    from repro_torch.models import Model
+    arch, layers, over = FAMILIES_REF_CUTS[name]
+    cfg = arch_config(arch, layers, **over)
+    model = Model(cfg, device="cuda")
+    params, _ = card_weights(model, SERVE_REF_SEED, dev)
+    toks = serve_reference_tokens(cfg.vocab)
+    S = SERVE_REF_PROMPT
+    attn = sum(k[0] in KERNEL_MIXERS for g in model.groups for _ in range(g.n)
+               for k in g.kinds)
+    ops.reset_launches()
+    logits, cache = model.prefill(params, {"tokens": toks[:, :S]},
+                                  max_len=S + SERVE_REF_STEPS + 8)
+    rows = [logits]
+    for t in range(S, S + SERVE_REF_STEPS):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1],
+                                          "cuda")
+        rows.append(logits)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_decode"]
+    if launches != attn * SERVE_REF_STEPS:
+        raise AssertionError(f"families reference {name}: {launches} "
+                             f"launches for {attn} attention layers")
+    out = {"name": name, **compare_reference_logits(
+        torch.stack(rows).float().cpu(), FAMILIES_REF[name])}
+    out.update(layers=cfg.n_layers, vocab=cfg.vocab, rows=toks.shape[0],
+               steps=SERVE_REF_STEPS + 1, launches=launches)
+    if not out.pop("ok"):
+        raise AssertionError(f"families reference {name}: off the "
+                             f"reference: {out}")
+    del model, params, cache
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def sliding_reference_config(arch: str):
@@ -4428,7 +5948,7 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
 
     # ---- 13b-d. sliding-window, softcapped serving: Gemma-2 at full depth,
     # Gemma-3 cut to 12 layers, Phi-4-mini, through ServeEngine -------------
-    arch_launches = {arch: serve_arch(arch, gpu, dev)
+    arch_launches = {arch: serve_arch(arch, gpu, dev)[0]
                      for arch in SERVE_ARCHS}
 
     # ---- 13e. Gemma-2 and Gemma-3 against the JAX reference's logits --------
@@ -4442,6 +5962,24 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
     emit({"phase": "kernel_timing", "gpu": gpu, "flash_decode_softcap": {
         k: v for k, v in timing["flash_decode"].items()
         if k.startswith("softcap_")}})
+
+    # ---- 13g. the int8 KV cache: TinyLlama on serve_long's shape ----------
+    int8_launches, int8_layers, int8_timing = serve_int8(gpu, dev, traced)
+    arch_launches["tinyllama-1.1b/int8"] = int8_launches
+    timing["flash_decode"].update({f"int8_{k}": v
+                                   for k, v in int8_timing.items()})
+    emit({"phase": "kernel_timing", "gpu": gpu,
+          "flash_decode_int8": int8_timing})
+
+    # ---- 13h. RWKV-6 and DeepSeek-V2/V3 (MLA + MoE): no kernel ------------
+    for arch in SERVE_FAMILIES:
+        serve_family(arch, gpu, dev)
+
+    # ---- 13i. the new families against the JAX reference's logits ---------
+    for name in FAMILIES_REF_CUTS:
+        line, n = serve_families_reference(name, dev)
+        emit({"phase": "serve_families_reference", **line})
+        arch_launches[f"{name}/reference"] = n
 
     # ---- 14. device time of every kernel row and its library call ---------
     # traced last: once the profiler has traced, later launches are slower
@@ -4467,6 +6005,7 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
     fd_t = timing["flash_decode"]
     cap_kernel, nocap_kernel, cap_lib, nocap_lib, _ = traced.pop(
         "flash_decode/softcap")
+    fd_t["int8_device_us"] = device_us(traced.pop("flash_decode/int8")[0])
     fd_t["softcap_device_us"] = device_us(cap_kernel)
     fd_t["softcap_nocap_device_us"] = device_us(nocap_kernel)
     fd_t["softcap_library_device_us"] = device_us(cap_lib)
@@ -4488,6 +6027,9 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
                 "ms", "host_us_per_launch", "device_us", "index_add_ms",
                 "index_add_device_us", "bound_ms")}
         for name, prefix, _, _ in SEGMENT_TIMED if prefix}, **{
+        "flash_decode/int8": {key: fd_t["int8_" + key] for key in (
+            "ms", "ms_hot", "host_us_per_launch", "device_us", "plain_ms",
+            "bound_ms")},
         "flash_decode/softcap": {key: fd_t["softcap_" + key] for key in (
             "ms", "ms_hot", "nocap_ms", "nocap_ms_hot", "device_us",
             "nocap_device_us", "bound_ms", "library_ms", "library_ms_hot",
@@ -4505,6 +6047,8 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
                      + child["campaign_ladder32"]["launches"][k]
                      + child["predict32"]["launches"][k]
                      for k in main_launches}
+    # the gradient path's backward sums (soft_grad's four runs)
+    path_launches["segment_reduce"] += child["soft_grad"]["segment_launches"]
     path_launches["dcqcn_update"] = ccu_launches
     path_launches.update(emb_launches)
     path_launches["flash_decode"] = (entry_launches + long_launches
@@ -4513,7 +6057,8 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
             "dcqcn_update": ccu_check["max_abs_err"],
             "embedding_bag_rows": emb_check["max_abs_err"],
             "flash_decode": max(fd_check["max_abs_err"], *(
-                r["max_abs_err"] for r in fd_layers.values()))}
+                r["max_abs_err"] for r in (*fd_layers.values(),
+                                           *int8_layers.values())))}
     kernels = []
     for name in SOURCES:
         if path_launches[name] == 0:
@@ -4533,7 +6078,7 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
         # launches too)
         row.update({k: v for k, v in tm.items()
                     if k.startswith(("mlp_", "b9_", "qlink_", "qport128_",
-                                     "index_add_", "softcap_"))})
+                                     "index_add_", "softcap_", "int8_"))})
         if name == "fused_signals_policy":
             row["mlp_launches"] = mlp_launches[name]
         if name == "flash_decode":

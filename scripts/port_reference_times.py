@@ -11,6 +11,9 @@ a seeded batch), ``dlrm_iteration`` (the DLRM training iteration on the
 and teacher-forced decode, at full width and 4 layers),
 ``sliding_reference`` (Gemma-2's and Gemma-3's, at full width and one
 attention period, the window cut; ``sliding_reference:gemma3-27b`` one),
+``families_reference`` (Zamba2 at one period, RWKV-6 at 2 layers,
+DeepSeek-V2 at 2 layers, TinyLlama with the int8 KV cache at 4 layers, at
+full width; ``families_reference:rwkv6-3b`` one),
 ``autotune_incast8`` (``examples/cc_autotune.py``'s tunings),
 ``learn_step`` (two Adam steps of the ``mlp`` trainer's curriculum) and
 ``soft_grad`` (the soft cost and its gradient; ``soft_grad:clos32_2d``,
@@ -20,7 +23,8 @@ batch a policy; ``atlas_ring128:hpcc`` one policy, minutes each); all of
 them by default.  Prints one JSON line per result;
 ``chip_smoke.py`` holds the port's card runs to these values
 (``REFERENCE``, ``FIG12_REFERENCE``, ``DLRM_ITER_REFERENCE``,
-``DLRM_REF_LOGITS``, ``SERVE_REF``, ``SLIDING_REF``, ``AUTOTUNE_REFERENCE``,
+``DLRM_REF_LOGITS``, ``SERVE_REF``, ``SLIDING_REF``, ``FAMILIES_REF``,
+``AUTOTUNE_REFERENCE``,
 ``LEARN_REFERENCE``, ``SOFT_GRAD_REFERENCE`` and ``PREDICT_REFERENCE``
 there; the atlas's cells are held to the committed CSV).
 The 128-GPU runs take a few minutes each on a CPU, the DLRM logits about
@@ -218,6 +222,72 @@ def serve_reference() -> None:
           "logits": lg[:, :, cs.SERVE_REF_IDS].astype(np.float32).tolist(),
           "lse": lse.tolist(), "top1": lg.argmax(-1).tolist(),
           "margin": (top2[..., 1] - top2[..., 0]).tolist()})
+
+
+def _hashed_reference(name: str, cfg) -> None:
+    """``cfg`` at full width with ``chip_smoke.hashed_params`` from
+    ``SERVE_REF_SEED`` (drawn with torch on the CPU, one leaf at a time:
+    the bits the card draws), tokens from
+    ``chip_smoke.serve_reference_tokens``: the prefill's last logits and
+    ``SERVE_REF_STEPS`` teacher-forced decode steps', at
+    ``SERVE_REF_IDS``, with log-sum-exp, top-1 ids and top-2 margins."""
+    import torch
+    cs = chip_smoke
+    model = Model(cfg)
+    shapes = jax.tree.map(lambda d: d.shape, model.param_defs(),
+                          is_leaf=lambda x: hasattr(x, "axes"))
+    t0 = time.perf_counter()
+    count = [0]
+
+    def leaf(name, shape, parent):
+        count[0] += 1
+        t = cs.hashed_bf16(shape, cs.SERVE_REF_SEED * 1_000_003 + count[0],
+                           cs._init_std(name, shape, parent), "cpu",
+                           mean=cs._LEAF_MEAN.get(name, 0.0))
+        return jnp.asarray(t.view(torch.int16).numpy().view(jnp.bfloat16))
+
+    def walk(node, name, parent):
+        if isinstance(node, dict):
+            return {k: walk(node[k], k, name) for k in sorted(node)}
+        if isinstance(node, list):
+            return [walk(v, name, parent) for v in node]
+        return leaf(name, tuple(node), parent)
+    params = walk(shapes, "", "")
+    toks = cs.serve_reference_tokens(cfg.vocab)
+    S = cs.SERVE_REF_PROMPT
+    logits, cache = jax.jit(lambda p, b: model.prefill(
+        p, b, max_len=S + cs.SERVE_REF_STEPS + 8))(
+        params, {"tokens": jnp.asarray(toks[:, :S])})
+    rows = [np.asarray(logits)]
+    decode = jax.jit(model.decode_step)
+    for t in range(S, S + cs.SERVE_REF_STEPS):
+        logits, cache = decode(params, cache, jnp.asarray(toks[:, t:t + 1]))
+        rows.append(np.asarray(logits))
+    del params, cache
+    lg = np.stack(rows).astype(np.float64)             # (steps + 1, B, V)
+    top2 = np.sort(lg, -1)[..., -2:]
+    m = lg.max(-1, keepdims=True)
+    lse = (m[..., 0] + np.log(np.exp(lg - m).sum(-1)))
+    emit({"scenario": "families_reference", "name": name,
+          "layers": cfg.n_layers, "vocab": cfg.vocab,
+          "seed": cs.SERVE_REF_SEED, "cpu_seconds": time.perf_counter() - t0,
+          "logits": lg[:, :, cs.SERVE_REF_IDS].astype(
+              np.float32).round(5).tolist(),
+          "lse": lse.round(5).tolist(), "top1": lg.argmax(-1).tolist(),
+          "margin": (top2[..., 1] - top2[..., 0]).round(5).tolist()})
+
+
+def families_reference(names=None) -> None:
+    """``chip_smoke.FAMILIES_REF_CUTS``' configs (Zamba2 at one period of
+    6 Mamba-2 layers and the shared block, RWKV-6 at 2 layers, DeepSeek-V2
+    at 2 layers, TinyLlama with the int8 KV cache at 4 layers) through
+    ``_hashed_reference``; DeepSeek-V2's 2 layers hold about 11 GB of bf16
+    weights here."""
+    cs = chip_smoke
+    for name in names or cs.FAMILIES_REF_CUTS:
+        arch, layers, over = cs.FAMILIES_REF_CUTS[name]
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, **over)
+        _hashed_reference(name, cfg)
 
 
 def sliding_reference(archs=None) -> None:
@@ -472,7 +542,7 @@ def main(names):
     runner = SweepRunner(CFG)
     for name in names or [*SCENARIOS, "batch_fig12", "dlrm_reference",
                           "dlrm_iteration", "serve_reference",
-                          "sliding_reference",
+                          "sliding_reference", "families_reference",
                           "fault_grid_dcqcn", "faults_clos32",
                           "mlp_clos128", "mlp_heldout16",
                           "autotune_incast8", "learn_step", "soft_grad",
@@ -512,6 +582,8 @@ def main(names):
             serve_reference()
         elif name == "sliding_reference":
             sliding_reference(arg.split(",") if arg else None)
+        elif name == "families_reference":
+            families_reference(arg.split(",") if arg else None)
         else:
             raise SystemExit(f"unknown scenario {name!r}")
 

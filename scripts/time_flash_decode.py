@@ -7,12 +7,13 @@ sliced to the length, for each given kernel source: the repository's by
 default, or others with the same C entry point (an earlier commit's, from
 ``git archive``) to compare two versions in one run.
 
-    python3 scripts/time_flash_decode.py [--source FILE.cu:CHUNK ...]
+    python3 scripts/time_flash_decode.py [--source FILE.cu:CHUNK[:noscale] ...]
         [--out time_flash_decode.json]
 
-Each source is called with softcap 0, the code without the softcap; its
-line also holds its kernels' SASS instruction counts
-(``chip_smoke.sass_counts``).
+Each source is called with softcap 0, the code without the softcap, and
+no int8 scales (``:noscale`` marks a source whose entry point predates
+the int8 cache's two scale pointers); its line also holds
+its kernels' SASS instruction counts (``chip_smoke.sass_counts``).
 
 Per source and for SDPA, cold (each call on the next of 4 input sets, 69 MB
 of live K/V, beyond the 50 MB L2) and hot (one set, L2-resident):
@@ -100,10 +101,15 @@ def main(argv=None) -> int:
     stream = torch.cuda.current_stream().cuda_stream
     lines = []
     for spec in sources:
-        path, chunk = spec.rsplit(":", 1)
+        path, chunk, *flags = spec.split(":")
+        # the scale pointers follow the softcap (argument 12); the stream
+        # is the signature's last argument
+        old_entry = "noscale" in flags
+        sig = [t for i, t in enumerate(ops._SIGNATURE)
+               if not (old_entry and i in (13, 14))]
         lib_path = build.build("flash_decode", Path(path))
         fn = ctypes.CDLL(str(lib_path)).flash_decode
-        fn.argtypes, fn.restype = ops._SIGNATURE, ctypes.c_int
+        fn.argtypes, fn.restype = sig, ctypes.c_int
         splits = -(-LENGTH // int(chunk))
         calls = []
         for q, k, v, length in sets:
@@ -111,6 +117,8 @@ def main(argv=None) -> int:
             acc, ml = ops.scratch(q, splits)
             a = ops.kernel_args(q, k, v, length, out, splits, acc, ml)
             a[10] = int(chunk)
+            if old_entry:
+                a = a[:13] + a[15:]
             calls.append((a, out, acc, ml))
         turn = [0]
 

@@ -115,9 +115,14 @@ def transformer_params_from_numpy(tree, device="cuda"):
     bf16 or float32 leaves anything ``np.asarray`` takes) -> the same tree
     of tensors on ``device``, bit for bit, for
     ``repro_torch.models.Model.prefill``/``decode_step``.  Every leaf
-    crosses by its key, so the Gemma and Phi-4-mini trees come across
-    whole: post-norms (``ln1_post``, ``ln2_post``), qk-norm (``q_norm``,
-    ``k_norm``), GeGLU's ``w3`` and tied embeddings (no ``lm_head``)."""
+    crosses by its key, so every ported tree comes across whole: the
+    Gemma and Phi-4-mini trees' post-norms (``ln1_post``, ``ln2_post``),
+    qk-norm (``q_norm``, ``k_norm``), GeGLU's ``w3`` and tied embeddings
+    (no ``lm_head``); DeepSeek's MLA leaves (``wq_a``, ``q_norm``,
+    ``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``) and 3-D expert stacks
+    (``w1``/``w3`` (E, D, F), ``w2`` (E, F, D), stacked on the layers dim
+    like every other leaf); Zamba2's ``shared_block`` and Mamba-2 leaves;
+    RWKV-6's time and channel leaves."""
     if isinstance(tree, dict):
         return {k: transformer_params_from_numpy(v, device)
                 for k, v in tree.items()}

@@ -360,32 +360,99 @@ class _PlanGather(torch.autograd.Function):
 
 class _GatherCols(torch.autograd.Function):
     """``x[:, idx]`` for a ``(B, n)`` ``x`` whose backward adds the
-    gradient back with ``index_add_``.  Autograd's own backward of an
-    index with repeats (every flow of a link reads that link) sorts the
-    indices and sums each run of repeats serially: at 128 GPUs, 88% of
-    the backward's device time (PERF.md §6).  ``index_add_`` is
-    deterministic on the CPU; on the card it adds with atomics, so the
-    last bits of a gradient may differ between runs."""
+    gradient back in a fixed order.  Autograd's own backward of an index
+    with repeats (every flow of a link reads that link) sorts the indices
+    and sums each run of repeats serially: at 128 GPUs, 88% of the
+    backward's device time (PERF.md §5).
+
+    On the CPU the backward is ``index_add_``, which adds each column's
+    entries in index order.  On the card ``index_add_`` adds with atomics,
+    in an order that changes from run to run, so the backward goes
+    through ``scatter``, the gather's static segment plan
+    (``_scatter_fixed``): each column's entries summed in the plan's
+    order by one ``segment_reduce`` launch, whatever the launch, the lane
+    count or the device."""
 
     @staticmethod
-    def forward(ctx, x, idx):
+    def forward(ctx, x, idx, scatter):
         ctx.save_for_backward(idx)
         ctx.n = x.shape[-1]
+        ctx.scatter = scatter
         return x[:, idx]
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
         B = g.shape[0]
+        if g.is_cuda:
+            return _scatter_fixed(g.reshape(B, -1), ctx.scatter, ctx.n), \
+                None, None
         out = g.new_zeros((B, ctx.n))
-        return out.index_add_(1, idx.reshape(-1), g.reshape(B, -1)), None
+        return out.index_add_(1, idx.reshape(-1), g.reshape(B, -1)), \
+            None, None
 
 
-def _gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[:, idx]``; under autograd through ``_GatherCols``."""
+def _gather_cols(x: torch.Tensor, idx: torch.Tensor,
+                 scatter: tuple | None = None) -> torch.Tensor:
+    """``x[:, idx]``; under autograd through ``_GatherCols``, whose
+    backward on the card sums through ``scatter`` (``_scatter_fixed``)."""
     if _grad_wanted(x):
-        return _GatherCols.apply(x, idx)
+        if x.is_cuda and scatter is None:
+            raise ValueError("a gather under autograd on the card needs "
+                             "its fixed-order backward plan")
+        return _GatherCols.apply(x, idx, scatter)
     return x[:, idx]
+
+
+# the fixed-order backward sums run on the card (one ``segment_reduce``
+# launch each): a check's count of the gathers whose gradient reached the
+# loss (a gather whose output the objective never reads, such as the
+# delayed transmit rates under DCQCN, has no backward)
+BACKWARD_SUMS = {"fixed_order": 0}
+
+
+def _scatter_fixed(g: torch.Tensor, scatter: tuple, n: int) -> torch.Tensor:
+    """The backward of a gather ``x[:, idx]`` (``x`` of ``n`` columns) in a
+    fixed order: ``g`` (B, idx.numel()), ``scatter = (strategy, plan
+    tensors, offsets, width)``.  The plan (``_reduce_plan``) sums the
+    entries of each (class j, column c) segment in its fixed member order,
+    one ``segment_reduce`` launch for all B lanes on the card (its plain
+    version on the CPU); class j's ``width`` sums then go to columns
+    ``offsets[j]`` .. ``offsets[j] + width - 1``, added class by class in
+    the order of ``offsets``, so that classes that land on the same
+    columns add in a fixed order too.  Entries the plan drops (the null
+    link's, whose gradient the step never reads back) add nothing."""
+    strategy, arrs, offsets, width = scatter
+    if g.is_cuda and strategy[0] != "empty":
+        BACKWARD_SUMS["fixed_order"] += 1
+    sums = _reduce_kernel(strategy, arrs, g)
+    out = g.new_zeros((g.shape[0], n))
+    for j, off in enumerate(offsets):
+        out[:, off:off + width] += sums[:, j * width:(j + 1) * width]
+    return out
+
+
+def _delay_class_plan(pp: dict, plan: "_Plan") -> tuple:
+    """The fixed-order backward plan of the delayed-signal gather
+    ``hist[:, slot * (Lk + 1) + path]``, whose ring row ``slot =
+    max(it - delay_steps, 0) % ring`` follows the step: the (flow, hop)
+    entries grouped by delay class (the distinct ``delay_steps``), one
+    segment per (class, link), each link's valid hops in flow order, the
+    null link's dropped.  Returns ``(classes, strategy, plan tensors)``,
+    made at first use and kept in ``pp``: the classes' delays, in the
+    order their sums are added (``_scatter_fixed``)."""
+    if "r_delay" not in pp:
+        path = pp["path"].cpu().numpy()
+        valid = pp["hopmask"].cpu().numpy().reshape(-1)
+        classes, cls = np.unique(pp["delay_steps"].cpu().numpy(),
+                                 return_inverse=True)
+        width = plan.n_links + 1
+        seg = (cls.reshape(-1, 1) * width + path).reshape(-1)
+        arrs, strategy = _reduce_plan(seg, path.size, len(classes) * width,
+                                      drop=~valid)
+        pp["r_delay"] = (tuple(int(d) for d in classes), strategy,
+                         _plan_tensors(arrs, pp["path"].device))
+    return pp["r_delay"]
 
 
 def _take(vals: torch.Tensor, arrs: dict, key: str) -> torch.Tensor:
@@ -793,6 +860,11 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
     if grad and (use_kernels or stride):
         raise ValueError("the differentiable step runs the op path "
                          "without a queue timeline (queue_stride=0)")
+    # on the card the gathers' backward adds in a fixed order through
+    # static segment plans (``_scatter_fixed``): the delayed signals'
+    # grouped by delay class, each hop's the hop's demand plan
+    delay_plan = (_delay_class_plan(pp, plan) if grad and dev.type == "cuda"
+                  else None)
     null_link = torch.arange(Lk + 1, device=dev) == Lk
 
     path, hopmask = pp["path"], pp["hopmask"]
@@ -911,8 +983,14 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             cc = {k: st_out[:, j] for j, k in enumerate(state_keys)}
         else:
             flat = slot[:, None] * (Lk + 1) + path               # (F, MAXHOP)
-            q_d = _gather_cols(hq, flat)                      # (B, F, MAXHOP)
-            tx_d = _gather_cols(htx, flat)
+            scatter = None
+            if delay_plan is not None:
+                classes, strategy, arrs = delay_plan
+                scatter = (strategy, arrs, tuple(
+                    max(it - d, 0) % plan.ring * (Lk + 1) for d in classes),
+                    Lk + 1)
+            q_d = _gather_cols(hq, flat, scatter)             # (B, F, MAXHOP)
+            tx_d = _gather_cols(htx, flat, scatter)
             rtt = pp["base_rtt"] + row_sum(q_d / caps * hopmask)
             mark = _clip((q_d - kmin_h) / _max(kmax_h - kmin_h, 1.0),
                          0.0, 1.0) * pmax_h
@@ -976,7 +1054,9 @@ def _make_step(policy: Policy, cfg: EngineConfig, plan: _Plan, pp: dict,
             dem = reduce_(plan.hop[h], pp["r_hop"][h], b_h)
             frac = torch.where(dem > 0,
                                _min(rem_cap / _max(dem, 1e-9), 1.0), 0.0)
-            frac_f = _gather_cols(frac, path_h[h])
+            frac_f = _gather_cols(frac, path_h[h], None if delay_plan is None
+                                  else (plan.hop[h], pp["r_hop"][h], (0,),
+                                        Lk + 1))
             moved = b_h * frac_f
             # backlog - backlog*frac and the capacity/tx updates are
             # multiply-adds the reference contracts (see cc.fma)

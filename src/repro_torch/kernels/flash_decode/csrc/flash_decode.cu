@@ -68,6 +68,24 @@
 //      max_length costs no block per idle chunk.  The merge kernel is a
 //      programmatic dependent launch: its blocks are scheduled while the
 //      split kernel runs and wait (griddepcontrol.wait) for its partials.
+// int8 route (ROADMAP item 9.3, the reference's kv_quant_int8 cache, which
+//   layers.decode_attention_quant reads; the Pallas kernel takes none): a
+//   template flag I8 of the bf16 body, so that the bf16 instantiations
+//   compile to the same code as without the flag (the same SASS counts).
+//   K and V arrive as int8 (B, S, Hkv, D) with float32 scales k_s, v_s
+//   (B, S, Hkv), one per (key, kv head):
+//       s_t = (q . k8_t) * k_s[t] * (1 / sqrt(D)),  softcapped where asked,
+//       out = sum_t p_t v_s[t] v8_t / sum_t p_t
+//   (the reference folds the scales into the logits and the probability
+//   weights the same way).  The int8 rows and the scales go into a staging
+//   ring by cp.async (16-byte copies of the rows, 4-byte copies of the
+//   scales, which lie Hkv floats apart), half the bytes of a bf16 tile;
+//   each tile is widened to bf16 in shared memory before its ldmatrix
+//   reads (exact: |x| <= 127 fits bf16's 8-bit significand), so the bf16
+//   body's mma.sync products run unchanged; each lane scales its four keys'
+//   scores by k_s, and their p by v_s before the three-term split.  Bound:
+//   the int8 rows and the scales, 2 * L * (D + 4) bytes per (b, h), about
+//   half the bf16 route's.
 // float32 route: no tensor-core product keeps 1e-5 on float32 inputs, and no
 //   path serves float32, so it keeps the CUDA-core body of the first port:
 //   256 threads, tiles of keys converted to float in shared memory, the
@@ -79,6 +97,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -115,6 +134,15 @@ __host__ __device__ constexpr size_t tc_smem(int LD, int slots) {
   return (size_t)LD * 2 * (16 + (size_t)slots * 2 * TK);
 }
 
+// bytes of dynamic shared memory of the int8 route: Q (16 rows), one bf16
+// tile of K and V (rows of LD elements) that each int8 tile is widened
+// into, and a ring of `slots` int8 tiles (rows of DP bytes) with their
+// scales (2 * TK floats a slot)
+__host__ __device__ constexpr size_t tc_smem_i8(int LD, int DP, int slots) {
+  return (size_t)LD * 2 * (16 + 2 * TK) +
+         (size_t)slots * 2 * TK * ((size_t)DP + sizeof(float));
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -123,6 +151,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4 bytes global -> shared (through L1); `bytes` 0 writes zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -149,6 +184,26 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "memory");
 }
 
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// 16 int8 values -> 16 bf16 values (exact) at dst (16-byte aligned)
+__device__ __forceinline__ void widen16(int4 x, bf16* dst) {
+  const int w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int v = w[i];
+    o[2 * i] = bits(__floats2bfloat162_rn((float)(int8_t)(v & 0xff),
+                                          (float)(int8_t)((v >> 8) & 0xff)));
+    o[2 * i + 1] = bits(__floats2bfloat162_rn(
+        (float)(int8_t)((v >> 16) & 0xff), (float)(int8_t)((v >> 24) & 0xff)));
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
 // c (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -157,10 +212,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
 }
 
 // (x0, x1) = hi + mid + lo exactly (to f32's 24 bits), each a bf16 pair
@@ -185,14 +236,22 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
 // K and V 16-byte aligned), else scalar loads.  n_splits == 1: writes out;
 // otherwise each chunk's acc (G * D floats) to part_acc and its m, l (G
 // floats each) to part_ml, at slot (b * Hkv + h) * n_splits + split.
-// CAP: the scaled scores go through the softcap `cap`.
-template <int DB, bool VEC, bool CAP>
+// CAP: the scaled scores go through the softcap `cap`.  I8: K and V are
+// int8 with the float32 scales k_scale, v_scale (B, S, Hkv); VEC then
+// needs D % 16 == 0.
+template <int DB, bool VEC, bool CAP, bool I8>
 __global__ void __launch_bounds__(32)
-flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const int32_t* __restrict__ length,
+flash_decode_tc(const bf16* __restrict__ q,
+                const typename std::conditional<I8, int8_t, bf16>::type*
+                    __restrict__ k,
+                const typename std::conditional<I8, int8_t, bf16>::type*
+                    __restrict__ v,
+                const int32_t* __restrict__ length,
                 int S, int Hkv, int G, int D, int chunk, int n_splits,
                 float scale, float cap, float* __restrict__ part_acc,
-                float* __restrict__ part_ml, bf16* __restrict__ out) {
+                float* __restrict__ part_ml, bf16* __restrict__ out,
+                const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale) {
   constexpr int NST = ring_depth(DB);   // tiles in flight
   constexpr int NT = DB / 8;            // d n-tiles at most
   constexpr int QPL = DB / 16;          // 8-element pieces of Q per lane
@@ -233,6 +292,10 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);       // 16 x LD
   bf16* ring = qs + 16 * LD;                           // [slot][K, V][TK x LD]
+  // int8 route: `ring` is the one widened tile; the int8 ring and its
+  // scales follow it
+  int8_t* stage = reinterpret_cast<int8_t*>(ring + 2 * TK * LD);
+  float* stage_s = reinterpret_cast<float*>(stage + NST * 2 * TK * DP);
 #pragma unroll
   for (int i = 0; i < QPL; ++i) {
     const int p = lane + 32 * i, r = p / (DP / 8), c = (p - r * (DP / 8)) * 8;
@@ -240,13 +303,14 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   // the padding columns of every ring row (the loads never write them)
   if (DP > D)
-    for (int e = lane; e < NST * 2 * TK * (DP - D); e += 32) {
+    for (int e = lane; e < (I8 ? 1 : NST) * 2 * TK * (DP - D); e += 32) {
       const int r = e / (DP - D);
       ring[r * LD + D + (e - r * (DP - D))] = zero;
     }
   __syncwarp();
   const int64_t stride = (int64_t)Hkv * D;
   const int64_t base = ((int64_t)b * S * Hkv + h) * D;   // k[b, 0, h, 0]
+  const int64_t sbase = (int64_t)b * S * Hkv + h;        // k_scale[b, 0, h]
 
   for (int split = blockIdx.x; split < n_splits && (split == 0 ||
                                                     split * chunk < len);
@@ -255,24 +319,55 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int n_tiles = s_end > s_begin ? (s_end - s_begin + TK - 1) / TK : 0;
     auto issue = [&](int tile) {
       const int t0 = s_begin + tile * TK;
-      bf16* ks = ring + (tile % NST) * 2 * TK * LD;
-      bf16* vs = ks + TK * LD;
-      if (VEC) {
-        const int per_row = D / 8;               // 16-byte pieces per row
-        for (int c = lane; c < TK * per_row; c += 32) {
-          const int r = c / per_row, col = (c - r * per_row) * 8;
-          const bool ok = t0 + r < s_end;
-          const int64_t off = base + (ok ? (t0 + r) * stride + col : 0);
-          cp_async16(smem_u32(ks + r * LD + col), k + off, ok ? 16 : 0);
-          cp_async16(smem_u32(vs + r * LD + col), v + off, ok ? 16 : 0);
+      if constexpr (I8) {
+        // the int8 rows, then lane r < TK the scale k_s of key r and lane
+        // TK + r its v_s
+        int8_t* k8 = stage + (tile % NST) * 2 * TK * DP;
+        int8_t* v8 = k8 + TK * DP;
+        if (VEC) {
+          const int per_row = D / 16;
+          for (int c = lane; c < TK * per_row; c += 32) {
+            const int r = c / per_row, col = (c - r * per_row) * 16;
+            const bool ok = t0 + r < s_end;
+            const int64_t off = base + (ok ? (t0 + r) * stride + col : 0);
+            cp_async16(smem_u32(k8 + r * DP + col), k + off, ok ? 16 : 0);
+            cp_async16(smem_u32(v8 + r * DP + col), v + off, ok ? 16 : 0);
+          }
+        } else {
+          for (int e = lane; e < TK * D; e += 32) {
+            const int r = e / D, col = e - r * D;
+            const bool ok = t0 + r < s_end;
+            const int64_t off = base + (t0 + r) * stride + col;
+            k8[r * DP + col] = ok ? k[off] : (int8_t)0;
+            v8[r * DP + col] = ok ? v[off] : (int8_t)0;
+          }
         }
+        const int r = lane & (TK - 1);
+        const bool ok = t0 + r < s_end;
+        const float* src = (lane < TK ? k_scale : v_scale) +
+                           (ok ? sbase + (int64_t)(t0 + r) * Hkv : 0);
+        cp_async4(smem_u32(stage_s + (tile % NST) * 2 * TK + lane), src,
+                  ok ? 4 : 0);
       } else {
-        for (int e = lane; e < TK * D; e += 32) {
-          const int r = e / D, col = e - r * D;
-          const bool ok = t0 + r < s_end;
-          const int64_t off = base + (t0 + r) * stride + col;
-          ks[r * LD + col] = ok ? k[off] : zero;
-          vs[r * LD + col] = ok ? v[off] : zero;
+        bf16* ks = ring + (tile % NST) * 2 * TK * LD;
+        bf16* vs = ks + TK * LD;
+        if (VEC) {
+          const int per_row = D / 8;               // 16-byte pieces per row
+          for (int c = lane; c < TK * per_row; c += 32) {
+            const int r = c / per_row, col = (c - r * per_row) * 8;
+            const bool ok = t0 + r < s_end;
+            const int64_t off = base + (ok ? (t0 + r) * stride + col : 0);
+            cp_async16(smem_u32(ks + r * LD + col), k + off, ok ? 16 : 0);
+            cp_async16(smem_u32(vs + r * LD + col), v + off, ok ? 16 : 0);
+          }
+        } else {
+          for (int e = lane; e < TK * D; e += 32) {
+            const int r = e / D, col = e - r * D;
+            const bool ok = t0 + r < s_end;
+            const int64_t off = base + (t0 + r) * stride + col;
+            ks[r * LD + col] = ok ? k[off] : zero;
+            vs[r * LD + col] = ok ? v[off] : zero;
+          }
         }
       }
     };
@@ -293,8 +388,28 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int tile = 0; tile < n_tiles; ++tile) {
       cp_async_wait<NST - 1>();
       __syncwarp();
-      const bf16* ks = ring + (tile % NST) * 2 * TK * LD;
+      const bf16* ks = ring + (I8 ? 0 : (tile % NST) * 2 * TK * LD);
       const bf16* vs = ks + TK * LD;
+      const float* sc = stage_s + (tile % NST) * 2 * TK;   // I8: k_s, v_s
+      if (I8) {
+        // widen the tile's int8 K and V rows to bf16
+        const int8_t* k8 = stage + (tile % NST) * 2 * TK * DP;
+        bf16* kt = ring;
+        if (VEC) {
+          const int per_row = D / 16;
+          for (int c = lane; c < 2 * TK * per_row; c += 32) {
+            const int r = c / per_row, col = (c - r * per_row) * 16;
+            widen16(*reinterpret_cast<const int4*>(k8 + r * DP + col),
+                    kt + r * LD + col);
+          }
+        } else {
+          for (int e = lane; e < 2 * TK * D; e += 32) {
+            const int r = e / D, col = e - r * D;
+            kt[r * LD + col] = __float2bfloat16_rn((float)k8[r * DP + col]);
+          }
+        }
+        __syncwarp();
+      }
 
       // scores: s[n] is the 16 x 8 block of keys n * 8 .. n * 8 + 7
       float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
@@ -319,7 +434,9 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const bool ok = t0 + n * 8 + tg * 2 + (j & 1) < s_end;
-          s[n][j] = ok ? capped<CAP>(s[n][j] * scale, cap) : NEG_INF;
+          const float x = I8 ? s[n][j] * sc[n * 8 + tg * 2 + (j & 1)]
+                             : s[n][j];
+          s[n][j] = ok ? capped<CAP>(x * scale, cap) : NEG_INF;
           mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
         }
       float corr[2];
@@ -346,6 +463,14 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[n][j] *= corr[j >> 1];
+
+      // the int8 route weighs each key's p by its value scale
+      if (I8)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[n][j] *= sc[TK + n * 8 + tg * 2 + (j & 1)];
 
       // acc += p . v, p as three bf16 terms, the smallest first
       uint32_t ph[4], pm[4], pl[4];
@@ -407,22 +532,25 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DB, bool VEC, bool CAP>
-cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
+template <int DB, bool VEC, bool CAP, bool I8>
+cudaError_t launch_tc(const bf16* q, const void* k, const void* v,
                       const int32_t* length, int B, int S, int Hkv, int G,
                       int D, int chunk, int n_splits, float scale, float cap,
                       float* part_acc, float* part_ml, bf16* out,
+                      const float* k_scale, const float* v_scale,
                       cudaStream_t stream) {
+  typedef typename std::conditional<I8, int8_t, bf16>::type KV;
   constexpr int NST = ring_depth(DB);
   // once per instantiation: allow the bucket's largest block (D = 256
   // needs 57 KB) and prefer shared memory over L1
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_tc<DB, VEC, CAP>,
+        flash_decode_tc<DB, VEC, CAP, I8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)tc_smem(DB + ROW_PAD, NST));
+        I8 ? (int)tc_smem_i8(DB + ROW_PAD, DB, NST)
+           : (int)tc_smem(DB + ROW_PAD, NST));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_decode_tc<DB, VEC, CAP>,
+    return cudaFuncSetAttribute(flash_decode_tc<DB, VEC, CAP, I8>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
   }();
@@ -434,54 +562,62 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_decode_tc<DB, VEC, CAP>, 32,
-        tc_smem(DB + ROW_PAD, NST));
+        &per_sm, flash_decode_tc<DB, VEC, CAP, I8>, 32,
+        I8 ? tc_smem_i8(DB + ROW_PAD, DB, NST) : tc_smem(DB + ROW_PAD, NST));
     return sms * (per_sm > 0 ? per_sm : 1);
   }();
   const int64_t rows = (int64_t)B * Hkv;
   const int n_blocks = (int)std::min<int64_t>(
       n_splits, std::max<int64_t>(1, (resident + rows - 1) / rows));
-  const int LD = ((D + 15) & ~15) + ROW_PAD;
+  const int DP = (D + 15) & ~15, LD = DP + ROW_PAD;
   const dim3 grid((unsigned)n_blocks, (unsigned)Hkv, (unsigned)B);
-  flash_decode_tc<DB, VEC, CAP><<<grid, 32, tc_smem(LD, NST), stream>>>(
-      q, k, v, length, S, Hkv, G, D, chunk, n_splits, scale, cap, part_acc,
-      part_ml, out);
+  flash_decode_tc<DB, VEC, CAP, I8>
+      <<<grid, 32, I8 ? tc_smem_i8(LD, DP, NST) : tc_smem(LD, NST), stream>>>(
+          q, static_cast<const KV*>(k), static_cast<const KV*>(v), length, S,
+          Hkv, G, D, chunk, n_splits, scale, cap, part_acc, part_ml, out,
+          k_scale, v_scale);
   return cudaGetLastError();
 }
 
-template <bool VEC, bool CAP>
-cudaError_t launch_tc_d(const bf16* q, const bf16* k, const bf16* v,
+template <bool VEC, bool CAP, bool I8>
+cudaError_t launch_tc_d(const bf16* q, const void* k, const void* v,
                         const int32_t* length, int B, int S, int Hkv, int G,
                         int D, int chunk, int n_splits, float scale,
                         float cap, float* part_acc, float* part_ml, bf16* out,
+                        const float* k_scale, const float* v_scale,
                         cudaStream_t stream) {
   const int DP = (D + 15) & ~15;
   if (DP <= 64)
-    return launch_tc<64, VEC, CAP>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                                   n_splits, scale, cap, part_acc, part_ml,
-                                   out, stream);
+    return launch_tc<64, VEC, CAP, I8>(q, k, v, length, B, S, Hkv, G, D,
+                                       chunk, n_splits, scale, cap, part_acc,
+                                       part_ml, out, k_scale, v_scale,
+                                       stream);
   if (DP <= 128)
-    return launch_tc<128, VEC, CAP>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                                    n_splits, scale, cap, part_acc, part_ml,
-                                    out, stream);
-  return launch_tc<256, VEC, CAP>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                                  n_splits, scale, cap, part_acc, part_ml,
-                                  out, stream);
+    return launch_tc<128, VEC, CAP, I8>(q, k, v, length, B, S, Hkv, G, D,
+                                        chunk, n_splits, scale, cap, part_acc,
+                                        part_ml, out, k_scale, v_scale,
+                                        stream);
+  return launch_tc<256, VEC, CAP, I8>(q, k, v, length, B, S, Hkv, G, D, chunk,
+                                      n_splits, scale, cap, part_acc, part_ml,
+                                      out, k_scale, v_scale, stream);
 }
 
-template <bool VEC>
-cudaError_t launch_tc_cap(const bf16* q, const bf16* k, const bf16* v,
+template <bool VEC, bool I8>
+cudaError_t launch_tc_cap(const bf16* q, const void* k, const void* v,
                           const int32_t* length, int B, int S, int Hkv, int G,
                           int D, int chunk, int n_splits, float scale,
                           float cap, float* part_acc, float* part_ml,
-                          bf16* out, cudaStream_t stream) {
+                          bf16* out, const float* k_scale,
+                          const float* v_scale, cudaStream_t stream) {
   return cap > 0.0f
-             ? launch_tc_d<VEC, true>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                                      n_splits, scale, cap, part_acc, part_ml,
-                                      out, stream)
-             : launch_tc_d<VEC, false>(q, k, v, length, B, S, Hkv, G, D,
-                                       chunk, n_splits, scale, cap, part_acc,
-                                       part_ml, out, stream);
+             ? launch_tc_d<VEC, true, I8>(q, k, v, length, B, S, Hkv, G, D,
+                                          chunk, n_splits, scale, cap,
+                                          part_acc, part_ml, out, k_scale,
+                                          v_scale, stream)
+             : launch_tc_d<VEC, false, I8>(q, k, v, length, B, S, Hkv, G, D,
+                                           chunk, n_splits, scale, cap,
+                                           part_acc, part_ml, out, k_scale,
+                                           v_scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -755,14 +891,20 @@ extern "C" {
 // Returns a cudaError_t: 0 when the launches were accepted.  q (B, Hkv, G,
 // D), k and v (B, S, Hkv, D), out (B, Hkv, G, D): float32 when is_f32 is
 // nonzero, else bf16; length (B,) int32; softcap > 0 caps the scaled
-// scores (cap * tanh(s / cap)), 0 means none.  With n_splits > 1, part_acc
+// scores (cap * tanh(s / cap)), 0 means none.  k_scale and v_scale, both
+// null or both (B, S, Hkv) float32: with them k and v are int8 (the int8
+// route, bf16 q and out only).  With n_splits > 1, part_acc
 // holds B * Hkv * n_splits * G * D floats and part_ml B * Hkv * n_splits *
 // 2 * G; chunk * n_splits positions are covered.  The bf16 route needs
 // chunk % 16 == 0 (whole tiles of keys).
 int flash_decode(const void* q, const void* k, const void* v,
                  const int32_t* length, int B, int S, int Hkv, int G, int D,
                  int is_f32, int chunk, int n_splits, float softcap,
+                 const float* k_scale, const float* v_scale,
                  float* part_acc, float* part_ml, void* out, void* stream) {
+  const bool i8 = k_scale != nullptr;
+  if ((k_scale == nullptr) != (v_scale == nullptr) || (i8 && is_f32))
+    return (int)cudaErrorInvalidValue;
   if (B < 1 || B > 65535 || S < 1 || Hkv < 1 || Hkv > 65535 || G < 1 ||
       G > MAX_G || D < 1 || D > MAX_D || G * D > MAX_GD || chunk < 1 ||
       n_splits < 1 || (!is_f32 && chunk % TK != 0) ||
@@ -784,18 +926,30 @@ int flash_decode(const void* q, const void* k, const void* v,
                                   n_splits, scale, softcap, part_acc, part_ml,
                                   static_cast<float*>(out), s);
   } else {
-    const bf16 *qb = static_cast<const bf16*>(q),
-               *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v);
-    const bool vec = D % 8 == 0 && ((uintptr_t)q & 15) == 0 &&
+    const bf16* qb = static_cast<const bf16*>(q);
+    bf16* ob = static_cast<bf16*>(out);
+    // 16-byte copies: the bf16 route's rows need D % 8 == 0, the int8
+    // route's D % 16 == 0 (and its q rows D % 8 == 0)
+    const bool vec = D % (i8 ? 16 : 8) == 0 && ((uintptr_t)q & 15) == 0 &&
                      ((uintptr_t)k & 15) == 0 && ((uintptr_t)v & 15) == 0;
-    err = vec ? launch_tc_cap<true>(qb, kb, vb, length, B, S, Hkv, G, D,
-                                    chunk, n_splits, scale, softcap, part_acc,
-                                    part_ml, static_cast<bf16*>(out), s)
-              : launch_tc_cap<false>(qb, kb, vb, length, B, S, Hkv, G, D,
-                                     chunk, n_splits, scale, softcap,
-                                     part_acc, part_ml,
-                                     static_cast<bf16*>(out), s);
+    if (i8)
+      err = vec ? launch_tc_cap<true, true>(qb, k, v, length, B, S, Hkv, G,
+                                            D, chunk, n_splits, scale,
+                                            softcap, part_acc, part_ml, ob,
+                                            k_scale, v_scale, s)
+                : launch_tc_cap<false, true>(qb, k, v, length, B, S, Hkv, G,
+                                             D, chunk, n_splits, scale,
+                                             softcap, part_acc, part_ml, ob,
+                                             k_scale, v_scale, s);
+    else
+      err = vec ? launch_tc_cap<true, false>(qb, k, v, length, B, S, Hkv, G,
+                                             D, chunk, n_splits, scale,
+                                             softcap, part_acc, part_ml, ob,
+                                             nullptr, nullptr, s)
+                : launch_tc_cap<false, false>(qb, k, v, length, B, S, Hkv, G,
+                                              D, chunk, n_splits, scale,
+                                              softcap, part_acc, part_ml, ob,
+                                              nullptr, nullptr, s);
   }
   if (err != cudaSuccess || n_splits == 1) return (int)err;
   const unsigned blocks = (unsigned)((G * D * MERGE_LANES + THREADS - 1) /

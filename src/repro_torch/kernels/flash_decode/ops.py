@@ -2,16 +2,17 @@
 counterparts of ``repro/kernels/flash_decode/flash_decode.py::flash_decode``
 and ``repro/kernels/flash_decode/ops.py::gqa_decode_attention``.
 
-For tensors on the CPU each wrapper checks that every length lies in
-``[1, S]`` and returns the plain version from ``ref.py``.  For CUDA tensors
-it checks device, dtype (q, k and v all bf16 or all float32, int32
-lengths), shapes, contiguity and the kernel's limits (G <= 16, D <= 256,
-G * D <= 2048), allocates the output and the split pass's scratch,
-launches on PyTorch's current stream, raises if the launch returns a CUDA
-error, and adds one to ``LAUNCHES["flash_decode"]``.  There is no
-fallback: a CUDA tensor either goes through the kernel or raises.  On the
-card the lengths are not range-checked (that would wait for the device):
-lengths above S read S positions, and lengths below 1 are not supported.
+For tensors on the CPU each wrapper checks that every length lies in ``[1,
+S]`` and returns the plain version from ``ref.py``. For CUDA tensors it
+checks device, dtype (q, k and v all bf16 or all float32, or bf16 q over
+an int8 cache with its float32 scales; int32 lengths), shapes, contiguity
+and the kernel's limits (G <= 16, D <= 256, G * D <= 2048), allocates the
+output and the split pass's scratch, launches on PyTorch's current stream,
+raises if the launch returns a CUDA error, and adds one to
+``LAUNCHES["flash_decode"]``. There is no fallback: a CUDA tensor either
+goes through the kernel or raises. On the card the lengths are not
+range-checked (that would wait for the device): lengths above S read S
+positions, and lengths below 1 are not supported.
 
 Any S is taken (the Pallas kernel needs S % block_s == 0).  The kernel
 splits the first ``max_length`` cache positions into fixed chunks of
@@ -26,6 +27,15 @@ CHUNK)`` partials (``split_plan``).
 through ``softcap * tanh(s / softcap)`` before the softmax, as the
 reference's ``layers.decode_attention`` does for Gemma-2: a template flag
 of the kernel, so that the code without it is unchanged.
+
+An int8 cache (the reference's ``kv_quant_int8``): ``k``/``v`` int8 with
+``k_scale``/``v_scale`` (B, S, Hkv) float32, one scale per (position, kv
+head), and q bf16.  The kernel's int8 instantiation (a template flag
+beside the softcap's) folds the key scales into the scores and the value
+scales into the probability weights, as the reference's
+``layers.decode_attention_quant``; on the CPU the wrapper returns
+``ref.flash_decode_quant_ref``.  An int8 CUDA tensor goes through that
+instantiation or raises.
 """
 from __future__ import annotations
 
@@ -48,7 +58,8 @@ _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p]
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p]
 
 
 def reset_launches() -> None:
@@ -118,16 +129,17 @@ def vector_loads(k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def kernel_args(q, k, v, length, out, splits: int, part_acc, part_ml,
-                softcap: float | None = None) -> list:
+                softcap: float | None = None, k_scale=None,
+                v_scale=None) -> list:
     """The C arguments (stream excluded) for ``q (B, Hkv, G, D)`` over
     ``k``/``v (B, S, Hkv, D)`` into ``out``; the softcap goes as 0 for
-    none."""
+    none, the scales of an int8 cache as null for none."""
     B, Hkv, G, D = q.shape
     ptr = (lambda t: 0 if t is None else t.data_ptr())
     return [q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), B,
             k.shape[1], Hkv, G, D, int(q.dtype == torch.float32), CHUNK,
-            splits, float(softcap or 0.0), ptr(part_acc), ptr(part_ml),
-            out.data_ptr()]
+            splits, float(softcap or 0.0), ptr(k_scale), ptr(v_scale),
+            ptr(part_acc), ptr(part_ml), out.data_ptr()]
 
 
 def _check_softcap(softcap) -> None:
@@ -150,9 +162,31 @@ def _check_max_length(length: torch.Tensor, max_length: int) -> None:
                          "positions")
 
 
+def _check_quant(q, k, v, k_scale, v_scale) -> bool:
+    """Whether the cache is int8; raises where the scales and the cache's
+    dtype disagree, or their shapes or dtypes are off."""
+    quant = k.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (
+            v_scale is None) or (v.dtype == torch.int8) != quant:
+        raise TypeError("flash_decode: an int8 cache (k and v int8) takes "
+                        "k_scale and v_scale, a bf16 or float32 one neither; "
+                        f"got k {k.dtype}, v {v.dtype}, scales "
+                        f"{k_scale is not None}, {v_scale is not None}")
+    if quant:
+        B, S, Hkv, _ = k.shape
+        for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+            if t.shape != (B, S, Hkv) or t.dtype != torch.float32:
+                raise ValueError(f"flash_decode: {name} must be ({B}, {S}, "
+                                 f"{Hkv}) float32, got {tuple(t.shape)} "
+                                 f"{t.dtype}")
+    return quant
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  length: torch.Tensor, max_length: int | None = None,
-                 softcap: float | None = None) -> torch.Tensor:
+                 softcap: float | None = None,
+                 k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """``q (B, Hkv, G, D)``; ``k``/``v (B, S, Hkv, D)``; ``length (B,)``
     int32 -> ``(B, Hkv, G, D)`` attention output in ``q.dtype``.
 
@@ -160,27 +194,36 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     first ``max_length`` positions into chunks, so it must be at least
     ``max(length)`` (None reads up to S).  The card does not check it,
     which would read ``length`` back to the host on every call; the CPU
-    path raises where it is below ``max(length)``.  ``softcap``: see the
-    module docstring."""
+    path raises where it is below ``max(length)``.  ``softcap`` and the
+    int8 cache's ``k_scale``/``v_scale``: see the module docstring."""
     B, Hkv, G, D = q.shape
     S = k.shape[1]
     _check_softcap(softcap)
-    if not on_cuda((q, k, v, length)):
+    quant = _check_quant(q, k, v, k_scale, v_scale)
+    tensors = (q, k, v, length) + ((k_scale, v_scale) if quant else ())
+    if not on_cuda(tensors):
         _check_lengths(length, S)
         if max_length is not None:
             _check_max_length(length, max_length)
+        if quant:
+            return ref.flash_decode_quant_ref(q, k, v, k_scale, v_scale,
+                                              length, softcap)
         return ref.flash_decode_ref(q, k, v, length, softcap)
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"flash_decode: q must be bf16 or float32, got "
-                        f"{q.dtype}")
+    if q.dtype not in ((torch.bfloat16,) if quant
+                       else (torch.bfloat16, torch.float32)):
+        raise TypeError(f"flash_decode: q must be bf16{'' if quant else ' or float32'}"
+                        f", got {q.dtype}")
     if not (G <= MAX_G and D <= MAX_D and G * D <= MAX_GD):
         raise ValueError(f"flash_decode: G={G}, D={D} outside the kernel's "
                          f"limits (G <= {MAX_G}, D <= {MAX_D}, G * D <= "
                          f"{MAX_GD})")
     check(q, "q", (B, Hkv, G, D), q.dtype)
-    check(k, "k", (B, S, Hkv, D), q.dtype)
-    check(v, "v", (B, S, Hkv, D), q.dtype)
+    check(k, "k", (B, S, Hkv, D), k.dtype if quant else q.dtype)
+    check(v, "v", (B, S, Hkv, D), k.dtype if quant else q.dtype)
     check(length, "length", (B,), torch.int32)
+    if quant:
+        check(k_scale, "k_scale", (B, S, Hkv), torch.float32)
+        check(v_scale, "v_scale", (B, S, Hkv), torch.float32)
     if max_length is not None and max_length < 1:
         raise ValueError(f"flash_decode: max_length {max_length} < 1")
     out = torch.empty_like(q)
@@ -190,7 +233,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_acc, part_ml = scratch(q, splits)
     stream = torch.cuda.current_stream().cuda_stream
     err = kernel_function()(*kernel_args(q, k, v, length, out, splits,
-                                         part_acc, part_ml, softcap), stream)
+                                         part_acc, part_ml, softcap, k_scale,
+                                         v_scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode: CUDA launch failed with "
                            f"cudaError_t {err}")
@@ -201,12 +245,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, length: torch.Tensor,
                          max_length: int | None = None,
-                         softcap: float | None = None) -> torch.Tensor:
+                         softcap: float | None = None,
+                         k_scale: torch.Tensor | None = None,
+                         v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B, 1, Hq, D) over cache (B, S, Hkv, D); length (B,) int32.
     Returns (B, 1, Hq, D).  Drop-in for ``models.layers.decode_attention``
-    with ``length`` on the device."""
+    (and, with an int8 cache and its scales, for
+    ``decode_attention_quant``) with ``length`` on the device."""
     B, _, Hq, D = q.shape
     Hkv = k_cache.shape[2]
     out = flash_decode(q.reshape(B, Hkv, Hq // Hkv, D), k_cache, v_cache,
-                       length, max_length, softcap)
+                       length, max_length, softcap, k_scale, v_scale)
     return out.reshape(B, 1, Hq, D)

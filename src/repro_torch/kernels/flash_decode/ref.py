@@ -4,10 +4,12 @@
 Float32 scores over the whole cache (through ``softcap * tanh(s /
 softcap)`` where a softcap is given, as the reference's
 ``layers.decode_attention``), positions at or past ``length`` masked,
-softmax, float32 p.v, cast to q's dtype.  The wrapper in
-``ops.py`` calls it for CPU tensors; the tests and ``chip_smoke.py`` hold
-the CUDA kernel against it.  ``flash_decode_chunked_ref`` models the
-kernel's split into fixed chunks and their merge, for the CPU tests.
+softmax, float32 p.v, cast to q's dtype; ``flash_decode_quant_ref`` the
+same over an int8 cache with its scales (``decode_attention_quant``). The
+wrapper in ``ops.py`` calls it for CPU tensors; the tests and
+``chip_smoke.py`` hold the CUDA kernel against it.
+``flash_decode_chunked_ref`` models the kernel's split into fixed chunks
+and their merge, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -30,6 +32,25 @@ def flash_decode_ref(q, k, v, length, softcap=None):
             < length.to(q.device)[:, None, None, None])
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return out.to(q.dtype)
+
+
+def flash_decode_quant_ref(q, k, v, k_scale, v_scale, length, softcap=None):
+    """The int8 cache's version (``layers.decode_attention_quant``'s math
+    in the kernel's layout): q (B,Hkv,G,D); k/v (B,S,Hkv,D) int8; scales
+    (B,S,Hkv) float32; float32 scores (q . k) * k_scale / sqrt(D),
+    softcapped where given, positions at or past ``length`` masked,
+    softmax, p weighted by v_scale, float32 p.v, cast to q's dtype."""
+    D = q.shape[-1]
+    S = k.shape[1]
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float())
+    s = s * torch.movedim(k_scale, 2, 1)[:, :, None, :] / (D ** 0.5)
+    s = _softcap(s, softcap)
+    mask = (torch.arange(S, device=q.device)[None, None, None, :]
+            < length.to(q.device)[:, None, None, None])
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1) * torch.movedim(v_scale, 2, 1)[:, :, None, :]
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return out.to(q.dtype)
 

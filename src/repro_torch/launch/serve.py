@@ -5,8 +5,13 @@
       [--smoke] [--device cpu]
 
 Runs on the card unless ``--device cpu``; the weights are drawn from seed
-0 by a ``torch.Generator`` on that device.  On the card decode attention
-runs in the ``flash_decode`` CUDA kernel, on the CPU in its plain version.
+0 by a ``torch.Generator`` on that device.  ``--arch`` takes every
+architecture of ``repro_torch.configs.ARCHS``: the GQA models, DeepSeek's
+MLA + MoE, Zamba2 and RWKV-6.  On the card the GQA layers' decode
+attention (global, sliding-window, Zamba2's shared block, the int8 cache)
+runs in the ``flash_decode`` CUDA kernel, on the CPU in its plain
+version; MLA, Mamba-2 and RWKV-6 have no kernel in the reference and run
+the same torch code on both.
 """
 from __future__ import annotations
 

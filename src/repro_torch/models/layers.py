@@ -11,7 +11,9 @@ that applies it.  Attention comes in four flavours, as in the reference:
                              with the causal wedge split, for longer prompts
 * ``local_attention``     -- exact sliding-window attention by the
                              two-chunk method, for prompts past the window
-* ``decode_attention``    -- one query token over a KV cache
+* ``decode_attention``    -- one query token over a KV cache (and
+                             ``decode_attention_quant`` over an int8 one,
+                             written by ``quantize_kv``)
 
 Layouts are the reference's: activations (B, S, H, D), caches
 (B, S_max, H_kv, D).  Where the reference asks for
@@ -61,6 +63,18 @@ def layernorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"].float() + p["bias"].float()).to(dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * (1 / (1 + exp(-x))), every op rounded to x's dtype: the
+    reference's ``jax.nn.silu`` as it lowers (negate, exp, add, divide,
+    multiply), bit for bit in bf16 on the CPU.  ``F.silu`` rounds once and
+    lies half a bf16 ulp away on 40% of inputs, which a deep random stack
+    amplifies.  The MoE experts, Mamba-2 and RWKV-6 use it; the swiglu MLP
+    keeps ``F.silu`` (with this SiLU there, a top-k near-tie flipped in
+    DeepSeek-V2's MoE layer and its logits moved 3.5% from the reference's,
+    against 1.3% with ``F.silu``: PERF.md)."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +357,42 @@ def decode_attention(q, k_cache, v_cache, *, length: int,
                      (p / torch.clamp_min(lsum, 1e-30)).to(v_cache.dtype),
                      v_cache)
     return o.reshape(B, 1, Hq, D)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple:
+    """(B,S,H,D) -> (int8 values, per-(token, head) float32 scales):
+    scale = max|x| / 127 (float32), floored at 1e-8; values x / scale
+    rounded half to even and clipped to +-127 (the reference's bits)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def decode_attention_quant(q, k_q, v_q, k_s, v_s, *, length: int,
+                           softcap: float | None = None) -> torch.Tensor:
+    """Decode attention over an int8 KV cache without a dequantized copy:
+    the key scales fold into the logits, the value scales into the
+    probability weights.  q: (B,1,Hq,D); k_q/v_q: (B,S,Hkv,D) int8;
+    k_s/v_s: (B,S,Hkv) float32; ``length`` valid positions (every row).
+
+    As ``decode_attention``, the port reads only the first ``length``
+    positions (the reference's masked ones add exact zeros)."""
+    B, _, Hq, D = q.shape
+    Smax, Hkv = k_q.shape[1], k_q.shape[2]
+    if not 1 <= length <= Smax:
+        raise ValueError(f"length {length} outside [1, {Smax}]")
+    G = Hq // Hkv
+    qr = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, k_q[:, :length].float())
+    s = s * torch.movedim(k_s[:, :length], 2, 1)[:, :, None, :] / math.sqrt(D)
+    s = _softcap(s, softcap)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+    pw = p * torch.movedim(v_s[:, :length], 2, 1)[:, :, None, :]
+    o = torch.einsum("bhgk,bkhd->bhgd", pw, v_q[:, :length].float())
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """Public Model API for the serving path (port of
 ``repro/models/model_api.py``): ``param_defs``, ``init``, ``cache_defs``,
-``init_cache``, ``prefill`` and ``decode_step``, for the GQA configs of
-``models/transformer.py`` (global and sliding-window layers; a local
-layer's cache is a ring of ``min(window, max_len)`` slots).
+``init_cache``, ``prefill`` and ``decode_step``, for the configs of
+``models/transformer.py``: GQA with global and sliding-window layers (a
+local layer's cache is a ring of ``min(window, max_len)`` slots) and an
+optional int8 KV cache, MLA with a dense or MoE FFN (DeepSeek), Mamba-2
+with Zamba2's shared attention block, and RWKV-6.
 
 As in the reference, a ``Model`` holds no weights: ``init(generator)``
-makes the parameter tree (the reference's tree, key for key:
-``embed``, ``final_norm``, ``groups[i]["l{j}"]...`` stacked on a leading
-layers dim, ``lm_head`` when embeddings are untied), and ``prefill`` and
-``decode_step`` take it.  Activations are bf16; the logits are computed in
-float32 from the bf16 operands, as the reference's
+makes the parameter tree (the reference's tree, key for key: ``embed``,
+``final_norm``, ``groups[i]["l{j}"]...`` stacked on a leading layers dim,
+``lm_head`` when embeddings are untied, ``shared_block`` for Zamba2), and
+``prefill`` and ``decode_step`` take it. Activations are bf16; the logits
+are computed in float32 from the bf16 operands, as the reference's
 ``preferred_element_type=float32`` einsum; ``prefill`` and ``decode_step``
 turn off cuBLAS's bf16 reduced-precision reduction while they run (the
 reference's dots reduce in float32).
@@ -17,10 +19,10 @@ reference's dots reduce in float32).
 ``decode_impl`` ("auto", "torch" or "cuda") picks decode attention:
 "torch" is the port of ``layers.decode_attention``, "cuda" the
 ``flash_decode`` kernel; "auto" gives "cuda" on the card and "torch" on
-the CPU, and "cuda" on the CPU raises.  The cache's position ``pos`` is a
+the CPU, and "cuda" on the CPU raises. The cache's position ``pos`` is a
 Python int (the reference keeps an int32 scalar on the device), and its
-K/V tensors are written in place.  Training (``loss``), the mesh and its
-specs come with a later slice.
+K/V tensors, latent caches and recurrent states are written in place.
+Training (``loss``), the mesh and its specs come with a later slice.
 """
 from __future__ import annotations
 
@@ -59,8 +61,8 @@ def _group_defs(cfg, g: Group) -> dict:
 
 
 class Model:
-    """A GQA transformer (global and sliding-window layers) on ``device``
-    (the card by default)."""
+    """A model of the serving zoo (``transformer.SUPPORTED_KINDS``) on
+    ``device`` (the card by default)."""
 
     def __init__(self, cfg, device="cuda", decode_impl: str = "auto"):
         T.check_supported(cfg)
@@ -84,6 +86,8 @@ class Model:
         if not cfg.tie_embeddings:
             d["lm_head"] = ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                                     init="scaled")
+        if cfg.shared_attn_period:
+            d["shared_block"] = T.layer_defs(cfg, ("gqa_g", "mlp"))
         return tree_map(lambda x: ParamDef(x.shape, x.axes, init=x.init,
                                            dtype=pd), d)
 
@@ -114,18 +118,20 @@ class Model:
             logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
         return logits
 
-    def _run_groups(self, pgroups, x, *, mode, caches, positions,
+    def _run_groups(self, params, x, *, mode, caches, positions,
                     decode: T.DecodeStep | None = None):
         """Every layer in order; ``caches`` (the stacked cache tree) is
-        written in place."""
+        written in place; a shared block takes ``params["shared_block"]``."""
         cfg = self.cfg
+        pgroups, shared = params["groups"], params.get("shared_block")
         for gi, g in enumerate(self.groups):
             for i in range(g.n):
                 for j, kind in enumerate(g.kinds):
                     p = tree_map(lambda t: t[i], pgroups[gi][f"l{j}"])
                     c = tree_map(lambda t: t[i], caches[gi][f"l{j}"])
                     x, _ = _apply_layer(cfg, kind, p, x, positions=positions,
-                                        mode=mode, cache=c, decode=decode)
+                                        mode=mode, cache=c, decode=decode,
+                                        shared_params=shared)
         return x
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -141,16 +147,21 @@ class Model:
                 "pos": ParamDef((), (), init="zeros", dtype=torch.int32)}
 
     def init_cache(self, batch: int, max_len: int):
-        """Zeroed K/V caches on the model's device, at position 0: a
-        global layer's of ``max_len`` positions, a local layer's a ring of
-        ``min(window, max_len)``."""
+        """Zeroed caches on the model's device, at position 0: a global
+        layer's K/V of ``max_len`` positions (int8 with scales under
+        ``kv_quant_int8``), a local layer's a ring of ``min(window,
+        max_len)``, MLA's latent of ``max_len``, and the Mamba-2 and
+        RWKV-6 recurrent states."""
         defs = self.cache_defs(batch, max_len)
         return {"layers": materialize(defs["layers"], None, self.device),
                 "pos": 0}
 
-    def prefill(self, params, batch, max_len: int | None = None):
+    def prefill(self, params, batch, max_len: int | None = None,
+                all_logits: bool = False):
         """Forward over the prompt ``batch["tokens"]`` (B, S), building
-        the decode cache.  Returns (last_logits (B, V) float32, cache)."""
+        the decode cache.  Returns (last_logits (B, V) float32, cache);
+        with ``all_logits``, every position's logits (B, S, V) in their
+        place (a teacher-forced yardstick for the decode steps)."""
         with float32_reduction():
             tokens = self._tokens(batch["tokens"])
             B, S = tokens.shape
@@ -158,10 +169,11 @@ class Model:
             max_len = max_len or S
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
             cache = self.init_cache(B, max_len)
-            x = self._run_groups(params["groups"], x, mode="prefill",
+            x = self._run_groups(params, x, mode="prefill",
                                  caches=cache["layers"], positions=positions)
             x = _norm_apply(self.cfg, params["final_norm"], x)
-            logits = self._logits(params, x[:, -1:])[:, 0]
+            logits = (self._logits(params, x) if all_logits
+                      else self._logits(params, x[:, -1:])[:, 0])
             return logits, {"layers": cache["layers"], "pos": S}
 
     def decode_step(self, params, cache, tokens, decode_impl: str | None = None):
@@ -177,7 +189,7 @@ class Model:
             pos = cache["pos"]
             x = self._embed(params, tokens)
             positions = torch.full((B, 1), pos, device=self.device)
-            x = self._run_groups(params["groups"], x, mode="decode",
+            x = self._run_groups(params, x, mode="decode",
                                  caches=cache["layers"], positions=positions,
                                  decode=T.DecodeStep(pos, impl, B,
                                                      self.device))

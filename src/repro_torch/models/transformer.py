@@ -1,6 +1,5 @@
-"""Model assembly for GQA transformers with global and sliding-window
-layers (port of the attention-family subset of
-``repro/models/transformer.py``).
+"""Model assembly for the serving zoo (port of
+``repro/models/transformer.py`` without the encoder-decoder layers).
 
 A model = embedding + a list of *groups*.  Each group is a stack of
 identical *periods* (weights stacked on a leading ``layers`` dim), where a
@@ -8,24 +7,40 @@ period is a short tuple of (mixer, ffn) sub-layers.  The port runs the
 stacked dim as a Python loop (the reference scans it with ``lax.scan``)
 and keeps the stacked tree layout, so that weights cross key for key.
 
-Ported kinds: ``("gqa_g", "mlp")``, global causal GQA, and
-``("gqa_l", "mlp")``, sliding-window GQA over ``cfg.window`` positions
-with a ring KV cache of ``min(window, max_len)`` slots (slot = position %
-slots), each with an MLP (all three ``mlp_kind``s), the attention-logit
-softcap, post-norms, qk-norm and a local rope theta.  Every other kind,
-and the options that only they or training use (the int8 KV cache,
-MLA/MoE/SSM/RWKV, encoder-decoder and VLM extras, flash attention for
-training), raise ``NotImplementedError``: they come with ROADMAP.md queue
-item 9.
+Ported kinds (mixer, ffn):
+  ("gqa_g", "mlp")      global causal GQA, optionally over an int8 KV
+                        cache (``kv_quant_int8``: int8 K/V with float32
+                        scales per (position, kv head), ``quantize_kv``)
+  ("gqa_l", "mlp")      sliding-window GQA over ``cfg.window`` positions,
+                        a ring KV cache of ``min(window, max_len)`` slots
+                        (slot = position % slots; bf16 even with the int8
+                        option, as in the reference)
+  ("mla", "mlp"|"moe")  DeepSeek latent attention (``models/mla.py``), a
+                        dense MLP or the MoE FFN (``models/moe.py``, the
+                        dense path on one device)
+  ("mamba", None)       Mamba-2 (``models/ssm.py``)
+  ("shared_gqa", "mlp") Zamba2's shared block: a global GQA layer whose
+                        weights live once at model level
+                        (``shared_block``), applied after every period of
+                        Mamba-2 layers, each application with its own
+                        KV cache
+  ("rwkv6", "rwkv_ffn") RWKV-6 time and channel mixing (``models/rwkv.py``)
+with the MLP's three ``mlp_kind``s, the attention-logit softcap,
+post-norms, qk-norm and a local rope theta.  The encoder-decoder and VLM
+extras and flash attention for training raise ``NotImplementedError``:
+they come with ROADMAP.md queue items 9.5 and 9.6.
 
-Decode attention runs through ``decode_impl``: ``"torch"`` is the port of
-``layers.decode_attention`` and ``_ring_decode`` (the reference's serving
+Decode attention of the GQA layers runs through ``decode_impl``:
+``"torch"`` is the port of ``layers.decode_attention``,
+``decode_attention_quant`` and ``_ring_decode`` (the reference's serving
 math), ``"cuda"`` the hand-written ``flash_decode`` kernel
-(``repro_torch.kernels.flash_decode``), softcap included.  A ring's valid
-slots are exactly ``[0, min(pos + 1, slots))``, and the softmax does not
-depend on the keys' order, so a ring decode is the kernel over the ring
-at that length.  The KV caches are updated in place (the reference
-returns new caches).
+(``repro_torch.kernels.flash_decode``), softcap and int8 cache included.
+A ring's valid slots are exactly ``[0, min(pos + 1, slots))``, and the
+softmax does not depend on the keys' order, so a ring decode is the
+kernel over the ring at that length.  MLA, Mamba-2 and RWKV-6 decode have
+no kernel in the reference: they run the same torch code under either
+``decode_impl``.  The KV caches and the recurrent states are updated in
+place (the reference returns new ones).
 """
 from __future__ import annotations
 
@@ -38,9 +53,15 @@ import torch.nn.functional as F
 from repro_torch.common.pytree import ParamDef, tree_map
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv as RWKV
+from repro_torch.models import ssm as SSM
 
-SUPPORTED_KINDS = (("gqa_g", "mlp"), ("gqa_l", "mlp"))
-_LATER = "comes with ROADMAP.md queue item 9"
+SUPPORTED_KINDS = (("gqa_g", "mlp"), ("gqa_l", "mlp"), ("mla", "mlp"),
+                   ("mla", "moe"), ("mamba", None), ("shared_gqa", "mlp"),
+                   ("rwkv6", "rwkv_ffn"))
+_LATER = "comes with ROADMAP.md queue items 9.5-9.6"
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +111,7 @@ def check_supported(cfg) -> None:
     port does not have yet."""
     kinds = {k for g in build_groups(cfg) for k in g.kinds}
     bad = sorted(str(k) for k in kinds if k not in SUPPORTED_KINDS)
-    options = {"kv_quant_int8": cfg.kv_quant_int8, "enc_dec": cfg.enc_dec,
+    options = {"enc_dec": cfg.enc_dec,
                "vlm_prefix_len": bool(cfg.vlm_prefix_len),
                "flash_attention": cfg.flash_attention}
     bad += [name for name, on in options.items() if on]
@@ -136,11 +157,31 @@ def mlp_apply(cfg, p, x):
 def layer_defs(cfg, kind) -> dict:
     if kind not in SUPPORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind}: {_LATER}")
-    d: dict = {"ln1": _norm_defs(cfg), "attn": L.gqa_defs(cfg),
-               "ln2": _norm_defs(cfg), "mlp": mlp_defs(cfg)}
+    mixer, ffn = kind
+    if mixer == "shared_gqa":
+        return {}  # all params live at model level (single shared copy)
+    d: dict = {"ln1": _norm_defs(cfg)}
+    if mixer in ("gqa_g", "gqa_l"):
+        d["attn"] = L.gqa_defs(cfg)
+    elif mixer == "mla":
+        d["attn"] = MLA.mla_defs(cfg)
+    elif mixer == "mamba":
+        d["mixer"] = SSM.mamba2_defs(cfg)
+    elif mixer == "rwkv6":
+        d["mixer"] = RWKV.rwkv6_defs(cfg)["time"]
+    if ffn == "mlp":
+        d["ln2"] = _norm_defs(cfg)
+        d["mlp"] = mlp_defs(cfg)
+    elif ffn == "moe":
+        d["ln2"] = _norm_defs(cfg)
+        d["moe"] = MOE.moe_defs(cfg)
+    elif ffn == "rwkv_ffn":
+        d["ln2"] = _norm_defs(cfg)
+        d["ffn"] = RWKV.rwkv6_defs(cfg)["channel"]
     if cfg.post_norm:
         d["ln1_post"] = _norm_defs(cfg)
-        d["ln2_post"] = _norm_defs(cfg)
+        if ffn in ("mlp", "moe"):
+            d["ln2_post"] = _norm_defs(cfg)
     return d
 
 
@@ -155,10 +196,27 @@ def _stack_defs(defs, n: int):
 # ---------------------------------------------------------------------------
 
 def _cache_defs_for(cfg, kind, batch: int, max_len: int) -> dict:
-    """The K/V cache of one layer: ``max_len`` positions for a global
-    layer, a ring of ``min(window, max_len)`` for a local one."""
+    """The decode cache of one layer: ``max_len`` positions of K/V for a
+    global layer (int8 with float32 scales ``k_s``/``v_s`` under
+    ``kv_quant_int8``), a ring of ``min(window, max_len)`` for a local one,
+    the latent ``c`` and rope key ``pe`` for MLA, the recurrent states
+    (float32) for Mamba-2 and RWKV-6."""
     mixer, _ = kind
     Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    if mixer in ("gqa_g", "shared_gqa"):
+        kv_dt = torch.int8 if cfg.kv_quant_int8 else torch.bfloat16
+        d = {
+            "k": ParamDef((batch, max_len, Hkv, dh), ("batch", "seq", "kv_heads", None),
+                          init="zeros", dtype=kv_dt),
+            "v": ParamDef((batch, max_len, Hkv, dh), ("batch", "seq", "kv_heads", None),
+                          init="zeros", dtype=kv_dt),
+        }
+        if cfg.kv_quant_int8:
+            d["k_s"] = ParamDef((batch, max_len, Hkv), ("batch", "seq", "kv_heads"),
+                                init="zeros", dtype=torch.float32)
+            d["v_s"] = ParamDef((batch, max_len, Hkv), ("batch", "seq", "kv_heads"),
+                                init="zeros", dtype=torch.float32)
+        return d
     if mixer == "gqa_l":
         W = min(cfg.window or max_len, max_len)
         return {
@@ -167,12 +225,18 @@ def _cache_defs_for(cfg, kind, batch: int, max_len: int) -> dict:
             "v": ParamDef((batch, W, Hkv, dh), ("batch", None, "kv_heads", None),
                           init="zeros", dtype=torch.bfloat16),
         }
-    return {
-        "k": ParamDef((batch, max_len, Hkv, dh), ("batch", "seq", "kv_heads", None),
-                      init="zeros", dtype=torch.bfloat16),
-        "v": ParamDef((batch, max_len, Hkv, dh), ("batch", "seq", "kv_heads", None),
-                      init="zeros", dtype=torch.bfloat16),
-    }
+    if mixer == "mla":
+        return {
+            "c": ParamDef((batch, max_len, cfg.kv_lora_rank), ("batch", "seq", "mla_latent"),
+                          init="zeros", dtype=torch.bfloat16),
+            "pe": ParamDef((batch, max_len, cfg.qk_rope_head_dim), ("batch", "seq", None),
+                           init="zeros", dtype=torch.bfloat16),
+        }
+    if mixer == "mamba":
+        return SSM.mamba2_state_defs(cfg, batch)
+    if mixer == "rwkv6":
+        return RWKV.rwkv6_state_defs(cfg, batch)
+    raise ValueError(mixer)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +314,18 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
         if not 0 <= pos0 < kc.shape[1]:
             raise ValueError(f"decode position {pos0} outside the cache of "
                              f"{kc.shape[1]}")
+        if cfg.kv_quant_int8:
+            ksc, vsc = cache["k_s"], cache["v_s"]
+            kc[:, pos0], ksc[:, pos0] = (t[:, 0] for t in L.quantize_kv(k))
+            vc[:, pos0], vsc[:, pos0] = (t[:, 0] for t in L.quantize_kv(v))
+            if decode.impl == "cuda":
+                o = fd_ops.gqa_decode_attention(
+                    q, kc, vc, decode.length(pos0 + 1), max_length=pos0 + 1,
+                    softcap=softcap, k_scale=ksc, v_scale=vsc)
+            else:
+                o = L.decode_attention_quant(q, kc, vc, ksc, vsc,
+                                             length=pos0 + 1, softcap=softcap)
+            return L.gqa_out(p, o, x.dtype), cache
         kc[:, pos0] = k[:, 0].to(kc.dtype)
         vc[:, pos0] = v[:, 0].to(vc.dtype)
         if decode.impl == "cuda":
@@ -278,30 +354,95 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
             if S > cache["k"].shape[1]:
                 raise ValueError(f"a prompt of {S} tokens does not fit a "
                                  f"cache of {cache['k'].shape[1]}")
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            if cfg.kv_quant_int8:
+                cache["k"][:, :S], cache["k_s"][:, :S] = L.quantize_kv(k)
+                cache["v"][:, :S], cache["v_s"][:, :S] = L.quantize_kv(v)
+            else:
+                cache["k"][:, :S] = k.to(cache["k"].dtype)
+                cache["v"][:, :S] = v.to(cache["v"].dtype)
     return L.gqa_out(p, o, x.dtype), cache
 
 
+def _write_state(cache, new) -> None:
+    """Copy a recurrent state's new leaves into the cache tree in place."""
+    for key, val in new.items():
+        if isinstance(val, dict):
+            _write_state(cache[key], val)
+        else:
+            cache[key].copy_(val)
+
+
 def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
-                 decode: DecodeStep | None = None):
-    """One ("gqa_g" | "gqa_l", "mlp") sub-layer (``check_supported`` has
-    vetted the config); a local layer takes ``rope_theta_local`` where the
-    config sets one.  Returns (x, cache)."""
-    local = kind[0] == "gqa_l"
-    theta = cfg.rope_theta
-    if local and cfg.rope_theta_local is not None:
-        theta = cfg.rope_theta_local
-    h = _norm_apply(cfg, p["ln1"], x)
-    o, cache = _gqa_attend(cfg, p["attn"], h, local=local,
-                           positions=positions, mode=mode, cache=cache,
-                           softcap=cfg.logit_softcap, theta=theta,
-                           decode=decode)
-    if cfg.post_norm:
-        o = _norm_apply(cfg, p["ln1_post"], o)
-    x = x + o
+                 decode: DecodeStep | None = None, shared_params=None):
+    """One sub-layer of a kind of ``SUPPORTED_KINDS`` (``check_supported``
+    has vetted the config); a local layer takes ``rope_theta_local``
+    where the config sets one, a shared block ``shared_params``.  The
+    cache (KV, latent or recurrent state) is written in place.  Returns
+    (x, cache)."""
+    mixer, ffn = kind
+    if mixer == "shared_gqa":
+        p = shared_params  # single copy, reused every period
+    if mixer in ("gqa_g", "gqa_l", "shared_gqa"):
+        local = mixer == "gqa_l"
+        theta = cfg.rope_theta
+        if local and cfg.rope_theta_local is not None:
+            theta = cfg.rope_theta_local
+        h = _norm_apply(cfg, p["ln1"], x)
+        o, cache = _gqa_attend(cfg, p["attn"], h, local=local,
+                               positions=positions, mode=mode, cache=cache,
+                               softcap=cfg.logit_softcap, theta=theta,
+                               decode=decode)
+        if cfg.post_norm and mixer != "shared_gqa":
+            o = _norm_apply(cfg, p["ln1_post"], o)
+        x = x + o
+    elif mixer == "mla":
+        h = _norm_apply(cfg, p["ln1"], x)
+        if mode == "decode":
+            pos0 = decode.pos
+            c_new, pe_new = MLA.mla_prefill_cache(p["attn"], h, cfg, positions)
+            cache["c"][:, pos0] = c_new[:, 0].to(cache["c"].dtype)
+            cache["pe"][:, pos0] = pe_new[:, 0].to(cache["pe"].dtype)
+            o = MLA.mla_decode(p["attn"], h, cfg, cache["c"], cache["pe"],
+                               length=pos0)
+        else:
+            o = MLA.mla_train(p["attn"], h, cfg, positions)
+            if cache is not None:
+                S = h.shape[1]
+                if S > cache["c"].shape[1]:
+                    raise ValueError(f"a prompt of {S} tokens does not fit "
+                                     f"a cache of {cache['c'].shape[1]}")
+                c_new, pe_new = MLA.mla_prefill_cache(p["attn"], h, cfg,
+                                                      positions)
+                cache["c"][:, :S] = c_new.to(cache["c"].dtype)
+                cache["pe"][:, :S] = pe_new.to(cache["pe"].dtype)
+        x = x + o
+    elif mixer == "mamba":
+        h = _norm_apply(cfg, p["ln1"], x)
+        o, st = SSM.mamba2_apply(p["mixer"], h, cfg, cache)
+        if cache is not None:
+            _write_state(cache, st)
+        return x + o, cache
+    elif mixer == "rwkv6":
+        h = _norm_apply(cfg, p["ln1"], x)
+        o, st = RWKV.rwkv6_time_mix(p["mixer"], h, cfg,
+                                    None if cache is None else cache["time"])
+        x = x + o
+        h = _norm_apply(cfg, p["ln2"], x)
+        o2, st2 = RWKV.rwkv6_channel_mix(
+            p["ffn"], h, cfg, None if cache is None else cache["channel"])
+        if cache is not None:
+            _write_state(cache, {"time": st, "channel": st2})
+        return x + o2, cache
+    else:
+        raise ValueError(mixer)
+
+    # ffn half (as in the reference, a post-norm follows the MLP only)
     h = _norm_apply(cfg, p["ln2"], x)
+    if ffn == "moe":
+        B, S, D = h.shape
+        return x + MOE.moe_apply(p["moe"], h.reshape(B * S, D),
+                                 cfg).reshape(B, S, D), cache
     o = mlp_apply(cfg, p["mlp"], h)
-    if cfg.post_norm:
+    if cfg.post_norm and mixer != "shared_gqa":
         o = _norm_apply(cfg, p["ln2_post"], o)
     return x + o, cache

@@ -49,7 +49,7 @@ class ServeEngine:
         if cfg.vlm_prefix_len or cfg.enc_dec:
             raise NotImplementedError("the VLM and encoder-decoder batch "
                                       "extras come with their configs "
-                                      "(ROADMAP.md queue item 9)")
+                                      "(ROADMAP.md queue item 9.5)")
         self.model = model
         self.params = params
         self.slots = batch_slots

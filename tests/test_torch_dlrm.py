@@ -181,9 +181,9 @@ def test_registry_matches_reference():
                        (configs.smoke_config, r_smoke_config)):
         assert _port_cfg_fields(get("dlrm")) == _port_cfg_fields(r_get("dlrm"))
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get_config("deepseek-v3-671b")
+        configs.get_config("paligemma-3b")
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.smoke_model("rwkv6-3b", device="cpu")
+        configs.smoke_model("whisper-base", device="cpu")
     m = configs.smoke_model("dlrm", device="cpu", seed=1)
     assert m.embedding_impl == "torch"
     assert m(dlrm_batch(0, 0, 4, m.cfg)).shape == (4,)

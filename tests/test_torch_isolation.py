@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch`` (its
 ``core/autotune.py``, ``learn/train.py``, ``core/campaign.py``,
-``core/predict.py``, ``launch/run_campaign.py``, ``common/sharding.py``
-and the Gemma-2, Gemma-3 and Phi-4-mini configs included, each run
-below: a batch over a mesh, each config's prefill and decode; nor
+``core/predict.py``, ``launch/run_campaign.py``, ``common/sharding.py``,
+``models/{mla,moe,ssm,rwkv}.py`` and the Gemma-2, Gemma-3, Phi-4-mini,
+DeepSeek-V2/V3, Zamba2 and RWKV-6 configs and TinyLlama's int8 KV cache
+included, each run below: a batch over a mesh, each config's prefill and
+decode; nor
 ``chip_smoke.py``, ``scripts/profile_step.py``,
 ``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
 or the JAX package, it
@@ -75,8 +77,15 @@ def test_port_runs_with_jax_unavailable():
         "assert b.finished.all() and b.meta['mesh_devices'] == 2, b\n"
         "import numpy as np, torch\n"
         "from repro_torch.configs import smoke_model\n"
-        "for arch in ('gemma2-9b', 'gemma3-27b', 'phi4-mini-3.8b'):\n"
-        "    m = smoke_model(arch, device='cpu')\n"
+        "for arch in ('gemma2-9b', 'gemma3-27b', 'phi4-mini-3.8b',\n"
+        "             'deepseek-v2-236b', 'deepseek-v3-671b', 'zamba2-1.2b',\n"
+        "             'rwkv6-3b', 'tinyllama-1.1b/int8'):\n"
+        "    m = smoke_model(arch.split('/')[0], device='cpu')\n"
+        "    if arch.endswith('/int8'):\n"
+        "        import dataclasses\n"
+        "        from repro_torch.models import Model\n"
+        "        m = Model(dataclasses.replace(m.cfg, kv_quant_int8=True),\n"
+        "                  device='cpu')\n"
         "    p = m.init(torch.Generator().manual_seed(0))\n"
         "    toks = np.arange(80, dtype=np.int32).reshape(2, 40) % 256\n"
         "    lg, c = m.prefill(p, {'tokens': toks}, max_len=44)\n"

@@ -776,3 +776,163 @@ def test_serving_kernel_path_matches_torch_path(dev):
     res = eng.run([Request(i, toks[i, :10], 5) for i in range(3)])
     assert [r.tokens.shape for r in res] == [(5,)] * 3
     assert fd_ops.LAUNCHES["flash_decode"] == cfg.n_layers * 4 * 2
+
+
+# ------------------------------------------------------------ the int8 cache
+
+def _fd_int8_inputs(B, S, Hkv, G, D, seed, dev, qscale=1.0):
+    """bf16 q over an int8 K/V cache quantised from random bf16 rows."""
+    from repro_torch.models.layers import quantize_kv
+    q, k, v = _fd_inputs(B, S, Hkv, G, D, torch.bfloat16, seed, dev)
+    q = (q.float() * qscale).to(torch.bfloat16)
+    k8, ks = quantize_kv(k)
+    v8, vs = quantize_kv(v)
+    return q, k8, v8, ks, vs
+
+
+# (B, S, Hkv, G, D): TinyLlama's heads, D = 128 and 256, a D that takes the
+# scalar loads (no 16-byte int8 rows); with the softcap and without
+@pytest.mark.parametrize("B,S,Hkv,G,D", [
+    (8, 2080, 4, 8, 64), (3, 100, 4, 8, 64), (2, 1000, 2, 4, 128),
+    (2, 600, 2, 8, 256), (3, 517, 1, 3, 40), (1, 1, 4, 8, 64)])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_flash_decode_int8_matches_plain(dev, B, S, Hkv, G, D, softcap):
+    q, k8, v8, ks, vs = _fd_int8_inputs(B, S, Hkv, G, D, S + D, dev,
+                                        4.0 if softcap else 1.0)
+    lens = [S, max(S - 17, 1), 1, max(S // 3, 1)]
+    length = torch.tensor([lens[b % 4] for b in range(B)], dtype=torch.int32,
+                          device=dev)
+    fd_ops.reset_launches()
+    got = fd_ops.flash_decode(q, k8, v8, length, max_length=max(lens[:B]),
+                              softcap=softcap, k_scale=ks, v_scale=vs)
+    assert fd_ops.LAUNCHES["flash_decode"] == 1
+    want = fd_ref.flash_decode_quant_ref(q, k8, v8, ks, vs, length, softcap)
+    err = (got.float() - want.float()).abs()
+    tol = chip_smoke.fd_tolerance(q, k8, v8, length, want, softcap, (ks, vs))
+    assert bool((err <= tol).all()), float(err.max())
+    again = fd_ops.flash_decode(q, k8, v8, length, softcap=softcap,
+                                k_scale=ks, v_scale=vs)
+    assert torch.equal(again, got)
+
+
+def test_flash_decode_int8_unaligned_cache(dev):
+    """An int8 cache one element into a larger buffer: the scalar loads."""
+    q, k8, v8, ks, vs = _fd_int8_inputs(2, 500, 2, 8, 64, 9, dev)
+    n = k8.numel()
+    buf = torch.zeros(2 * n + 2, dtype=torch.int8, device=dev)
+    buf[1:1 + n], buf[n + 2:] = k8.reshape(-1), v8.reshape(-1)
+    k8, v8 = buf[1:1 + n].view(k8.shape), buf[n + 2:].view(v8.shape)
+    assert not fd_ops.vector_loads(k8, v8)
+    length = torch.tensor([300, 500], dtype=torch.int32, device=dev)
+    got = fd_ops.flash_decode(q, k8, v8, length, k_scale=ks, v_scale=vs)
+    want = fd_ref.flash_decode_quant_ref(q, k8, v8, ks, vs, length)
+    tol = chip_smoke.fd_tolerance(q, k8, v8, length, want, None, (ks, vs))
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_flash_decode_int8_wrapper_rejects(dev):
+    q, k8, v8, ks, vs = _fd_int8_inputs(2, 64, 2, 4, 64, 0, dev)
+    length = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int8 cache"):
+        fd_ops.flash_decode(q, k8, v8, length)
+    with pytest.raises(TypeError, match="bf16"):
+        fd_ops.flash_decode(q.float(), k8, v8, length, k_scale=ks,
+                            v_scale=vs)
+    with pytest.raises(ValueError, match="v_scale"):
+        fd_ops.flash_decode(q, k8, v8, length, k_scale=ks,
+                            v_scale=vs.double())
+    # the C entry point refuses one scale pointer without the other
+    args = fd_ops.kernel_args(q, k8, v8, length, torch.empty_like(q), 1,
+                              None, None, None, ks, None)
+    assert fd_ops.kernel_function()(
+        *args, torch.cuda.current_stream().cuda_stream) != 0
+
+
+def test_int8_cache_serving_kernel_path_matches_torch_path(dev):
+    """Smoke TinyLlama with the int8 cache on the card: one launch of the
+    int8 instantiation per layer and decode step; the kernel path's logits
+    against the torch path's ``decode_attention_quant``."""
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"),
+                              kv_quant_int8=True)
+    model = Model(cfg, device="cuda")
+    shapes = tree_map(lambda d: d.shape, model.param_defs())
+    params = tree_map(lambda a: torch.from_numpy(a).to(dev),
+                      chip_smoke.transformer_numpy_params(shapes, 5, False))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 20),
+                                             dtype=np.int32)
+    _, cache_c = model.prefill(params, {"tokens": toks[:, :12]}, max_len=40)
+    _, cache_t = model.prefill(params, {"tokens": toks[:, :12]}, max_len=40)
+    assert cache_c["layers"][0]["l0"]["k"].dtype == torch.int8
+    for t in range(12, 20):
+        fd_ops.reset_launches()
+        got, cache_c = model.decode_step(params, cache_c, toks[:, t:t + 1])
+        assert fd_ops.LAUNCHES["flash_decode"] == cfg.n_layers
+        want, cache_t = model.decode_step(params, cache_t, toks[:, t:t + 1],
+                                          "torch")
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 2e-2, (t, rel)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b",
+                                  "deepseek-v2-236b"])
+def test_new_families_serve_on_the_card(dev, arch):
+    """The smoke configs of the new families on the card: Zamba2's shared
+    block through the kernel (one launch per application and step), RWKV-6
+    and MLA + MoE with no kernel; the kernel path's logits against the
+    torch path's, each step from the kernel path's cache (the recurrent
+    states would carry one step's rounding into every later one)."""
+    cfg = smoke_config(arch)
+    model = Model(cfg, device="cuda")
+    shapes = tree_map(lambda d: d.shape, model.param_defs())
+    params = tree_map(lambda a: torch.from_numpy(a).to(dev),
+                      chip_smoke.transformer_numpy_params(shapes, 5, False))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 24),
+                                             dtype=np.int32)
+    attn = sum(k[0] == "shared_gqa" for g in model.groups for _ in range(g.n)
+               for k in g.kinds)
+    _, cache_c = model.prefill(params, {"tokens": toks[:, :16]}, max_len=30)
+    for t in range(16, 24):
+        cache_t = {"layers": tree_map(lambda x: x.clone(),
+                                      cache_c["layers"]),
+                   "pos": cache_c["pos"]}
+        fd_ops.reset_launches()
+        got, cache_c = model.decode_step(params, cache_c, toks[:, t:t + 1])
+        assert fd_ops.LAUNCHES["flash_decode"] == attn
+        want, cache_t = model.decode_step(params, cache_t, toks[:, t:t + 1],
+                                          "torch")
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 2e-2, (t, rel)
+
+
+# --------------------------------------------- the gradients' fixed order
+
+def test_soft_cost_gradient_repeats_bit_for_bit(dev):
+    """The op path's gradient on the card, twice in one process: the
+    backward sums the gathers' gradients through the fixed-order segment
+    plans (``segment_reduce``, no atomics), so the gradients
+    are equal bit for bit; and within rtol 1e-5 of the CPU's
+    ``index_add_`` backward."""
+    from repro_torch.core import CollectiveSpec, FabricSpec, ScenarioSpec
+    topo, sched, pol = ScenarioSpec(
+        FabricSpec("clos", n_racks=2, nodes_per_rack=1, gpus_per_node=4,
+                   oversubscription=2.0),
+        CollectiveSpec("2d", 16e6), "dcqcn").build()
+    cfg = EngineConfig(dt=1e-6, max_steps=1500, max_extends=2,
+                       queue_stride=0)    # delay classes of 1 and 4 steps
+    grads = []
+    for device in ("cuda", "cuda", "cpu"):
+        sim = Simulator(topo, sched, pol, cfg, device=device)
+        leaves = {k: torch.tensor(np.float32(pol.params[k]), device=device,
+                                  requires_grad=True)
+                  for k in ("rai_frac", "g")}
+        before = dict(ops.LAUNCHES)
+        v = sim.soft_cost_fn()(leaves)
+        g = torch.autograd.grad(v, list(leaves.values()))
+        seg = ops.LAUNCHES["segment_reduce"] - before["segment_reduce"]
+        if device == "cuda":
+            assert seg > 0
+            assert ops.LAUNCHES["fused_signals_policy"] == \
+                before["fused_signals_policy"]
+        grads.append([float(x) for x in g] + [float(v)])
+    assert grads[0] == grads[1]
+    np.testing.assert_allclose(grads[0], grads[2], rtol=1e-5)

@@ -343,19 +343,25 @@ def test_registry_matches_reference():
             got, want = get(arch), r_get(arch)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert configs.ARCHS == ("tinyllama-1.1b", "phi4-mini-3.8b",
-                             "gemma2-9b", "gemma3-27b")
+                             "gemma2-9b", "gemma3-27b", "deepseek-v2-236b",
+                             "deepseek-v3-671b", "zamba2-1.2b", "rwkv6-3b")
     m = configs.smoke_model("tinyllama-1.1b", device="cpu")
     assert isinstance(m, Model) and m.decode_impl == "torch"
     assert configs.smoke_model("dlrm", device="cpu").cfg.name == "dlrm"
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get_model("deepseek-v2-236b", device="cpu")
+        configs.get_model("whisper-base", device="cpu")
 
 
+# the encoder-decoder and VLM configs, and flash attention for training,
+# on a GQA and on an MLA config (ROADMAP.md items 9.5-9.6)
 @pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v2-236b",
                                   "rwkv6-3b", "whisper-base"])
 def test_unported_configs_raise(arch):
+    r_cfg = r_smoke_config(arch)
+    if arch in ("deepseek-v2-236b", "rwkv6-3b"):
+        r_cfg = dataclasses.replace(r_cfg, flash_attention=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(_port_cfg(r_smoke_config(arch)), device="cpu")
+        Model(_port_cfg(r_cfg), device="cpu")
 
 
 def test_cuda_decode_on_cpu_raises():
