@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card: builds the engine-step, DCQCN-update, embedding-bag and
-flash-decode kernels, holds each against its plain PyTorch version (the
-engine kernels also inside one step of Fig 12's nine lanes and of Fig
-13's eight lossy lanes, against the op path), drives the simulator's main
-path through the kernels at the paper's 128-GPU scale and at 32 GPUs,
+card: builds the engine-step, DCQCN-update, embedding-bag (forward and
+backward) and flash-decode kernels, holds each against its plain PyTorch
+version (the engine kernels also inside one step of Fig 12's nine lanes
+and of Fig 13's eight lossy lanes, against the op path), drives the
+simulator's main path through the kernels at the paper's 128-GPU scale
+and at 32 GPUs,
 drives the DCQCN update through its entry point, runs Fig 12's fabric
 sweep as one batch of 9 lanes, again over a mesh of the card twice
 (``mesh_lanes``: bit-equal), and the 128-GPU policy comparison as one
@@ -26,16 +27,27 @@ period against the JAX reference's logits (``serve_sliding_reference``),
 times the softcap's instantiation at Gemma-2's decode shape, and checks
 the results
 against the plain paths, the port's serial runs and constants from the
-JAX reference.  Three gradient phases run through autograd on the op path
-(no kernel has a backward), each in a process of its own beside the main
-process's simulator phases: ``examples/cc_autotune.py``'s CC and fabric
-tunings (``autotune_incast8``), two Adam steps of the ``mlp`` trainer's
-curriculum (``learn_step``), and the soft cost's gradient at 32 GPUs
-against the reference and at the paper's 128 GPUs with remat
-(``soft_grad``).  Before them it measures the backend calibration on the
+JAX reference.  Training (since the slice that ported it): the bags'
+backward kernel against its plain version at Table II's shape and at a
+table of 100 rows (``bags_backward_check``, bit for bit), three AdamW
+steps of the Table II DLRM through both bag kernels, repeated and against
+the plain bags bit for bit (``train_dlrm``), TinyLlama-1.1B at full width
+and depth with flash attention at 8 x 2,048 tokens and microbatches of 4
+(``train_tinyllama``), the smoke TinyLlama and DLRM against the JAX
+reference's losses and gradient norms (``train_reference``), and
+``python -m repro_torch.launch.train`` with a failure injected, resumed
+to the uninterrupted run's log bit for bit (``train_entry``).  Three
+gradient phases run through autograd on the simulator's op path, each in
+a process of its own beside the main process's kernel checks and
+simulator phases (Fig 12's lanes, the policy axis, Fig 13's fault grid
+and the learned policy at 128 GPUs run in such processes too; every
+kernel is timed after they are done): ``examples/cc_autotune.py``'s CC
+and fabric tunings (``autotune_incast8``), one Adam step of the ``mlp``
+trainer's curriculum (``learn_step``), and the soft cost's gradient at 32
+GPUs against the reference and at the paper's 128 GPUs with remat
+(``soft_grad``).  Beside them it measures the backend calibration on the
 card (``calibrate``: serial against batched runs, persisted to a temporary
-``REPRO_CACHE_DIR``); beside them two more children run resilient
-campaigns: the committed 128-GPU atlas
+``REPRO_CACHE_DIR``); two more children run resilient campaigns: the committed 128-GPU atlas
 (``experiments/atlas/atlas_paper_ring128.csv``) through ``run_campaign``
 until the child SIGKILLs itself before its third chunk, which the main
 process then resumes from the journal and holds cell by cell against the
@@ -98,12 +110,15 @@ SRC = REPO / "src"
 KERNEL_SOURCE = "src/repro_torch/kernels/engine_step/csrc/engine_step.cu"
 CCU_SOURCE = "src/repro_torch/kernels/cc_update/csrc/cc_update.cu"
 EMB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+EMB_BWD_SOURCE = ("src/repro_torch/kernels/embedding_bag/csrc/"
+                  "embedding_bag_backward.cu")
 FD_SOURCE = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 SOURCES = {"fused_signals_policy": KERNEL_SOURCE,
            "segment_reduce": KERNEL_SOURCE,
            "segment_reduce_pfc": KERNEL_SOURCE,
            "dcqcn_update": CCU_SOURCE,
            "embedding_bag_rows": EMB_SOURCE,
+           "embedding_bag_backward": EMB_BWD_SOURCE,
            "flash_decode": FD_SOURCE}
 REPLACES = {
     "fused_signals_policy": "src/repro/kernels/engine_step/engine_step.py:96",
@@ -112,6 +127,9 @@ REPLACES = {
     "dcqcn_update": "src/repro/kernels/cc_update/cc_update.py:61",
     "embedding_bag_rows":
         "src/repro/kernels/embedding_bag/embedding_bag.py:31",
+    # no Pallas kernel: the reference's jnp bags, whose gradient jax.grad
+    # takes as a scatter-add
+    "embedding_bag_backward": "src/repro/models/dlrm.py:86",
     "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:60",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
@@ -322,7 +340,7 @@ AUTOTUNE_RUNS = {
                    lr=0.3, population=3),
 }
 # learn_step: Adam steps of the mlp trainer on curriculum_default()
-LEARN_STEPS = 2
+LEARN_STEPS = 1
 # soft_grad: the gradient's keys (fabric.<field> for a FabricParams leaf)
 SOFT_GRAD_KEYS = ("rai_frac", "g", "fabric.kmin")
 # remat segment length of the 128-GPU gradient (PERF.md: chosen by
@@ -382,50 +400,45 @@ LEARN_REFERENCE = {"history": [{"loss": 2.5,
               "per_task": {"incast8": 0.0005157451378181577,
                            "ring16": 0.001940512447617948,
                            "incast8_lossy_irn": 0.0005178329884074628},
-              "grad_norm": 1.49219732097982},
-             {"loss": 2.249004244625685,
-              "per_task": {"incast8": 0.000466607918497175,
-                           "ring16": 0.00173073704354465,
-                           "incast8_lossy_irn": 0.0004685161984525621},
-              "grad_norm": 1.3991786661934011}],
+              "grad_norm": 1.49219732097982}],
  "weights": {"w1_00": 0.02514604421867866,
              "w1_01": -0.026420972658260378,
-             "w1_02": 0.22800037592394692,
-             "w1_03": 0.12081677031439528,
-             "w1_04": -0.007260227113869082,
-             "w1_05": 0.1723329128411118,
-             "b1_0": 0.10001231191739615,
+             "w1_02": 0.17808452164956776,
+             "w1_03": 0.07097998701354599,
+             "w1_04": -0.057133921098626805,
+             "w1_05": 0.12231899102152291,
+             "b1_0": 0.04999999705769703,
              "w1_10": 0.26080000902602746,
              "w1_11": 0.18941619262584844,
-             "w1_12": -0.10613439348482653,
-             "w1_13": -0.21928498064500807,
-             "w1_14": -0.09049292223100278,
-             "w1_15": 0.04423692508763531,
-             "b1_1": 0.035944344585991196,
+             "w1_12": -0.09074712824927893,
+             "w1_13": -0.20308464534861936,
+             "w1_14": -0.07465533948051438,
+             "w1_15": 0.05826500408542572,
+             "b1_1": 0.04999997172152667,
              "w1_20": -0.46500615492776687,
              "w1_21": -0.043758332786509146,
-             "w1_22": -0.34902458627072186,
-             "w1_23": -0.24620649324182087,
-             "w1_24": -0.208646167788734,
-             "w1_25": -0.16322701498983244,
-             "b1_2": -0.09996443622055823,
+             "w1_22": -0.2991821791093156,
+             "w1_23": -0.19645342626468132,
+             "w1_24": -0.1588517396015522,
+             "w1_25": -0.1132600068109127,
+             "b1_2": -0.049999996394153326,
              "w1_30": 0.08232610727482657,
              "w1_31": 0.20850267388853552,
-             "w1_32": -0.124841008226725,
-             "w1_33": 0.1739824054086092,
-             "w1_34": -0.23227221414530846,
-             "w1_35": -0.02851495298294693,
-             "b1_3": -0.09882287012582182,
-             "w2_00": 0.27737934072067805,
-             "w2_01": -0.06393975259244115,
-             "w2_02": -0.24768194711356592,
-             "w2_03": -0.16315545497461909,
-             "b2_0": -6.400042164433112,
-             "w2_10": -0.0002674441264243488,
-             "w2_11": -0.03646668933225707,
-             "w2_12": -0.29503770150605424,
-             "w2_13": -0.026223019691899038,
-             "b2_1": -0.9036360603609014}}
+             "w1_32": -0.07570692434320946,
+             "w1_33": 0.22329272978925968,
+             "w1_34": -0.18303888924988532,
+             "w1_35": 0.020302033525035686,
+             "b1_3": -0.04999999712453452,
+             "w2_00": 0.23069402576980577,
+             "w2_01": -0.031197533476112708,
+             "w2_02": -0.19869984523875822,
+             "w2_03": -0.13434511049936865,
+             "b2_0": -6.450000000529997,
+             "w2_10": -0.04155420351250485,
+             "w2_11": -0.00595502204422841,
+             "w2_12": -0.2519196935107293,
+             "w2_13": 0.00813544017087938,
+             "b2_1": -0.9500004526836721}}
 SOFT_GRAD_REFERENCE = {"clos32_2d": {"soft_cost": 0.0013953729066997766,
                "grad": {"rai_frac": -0.00022894320136401802,
                         "g": -0.00012396377860568464,
@@ -945,6 +958,27 @@ SLIDING_REF = {
 # serve_reference's tokens and tolerances.  The reference's logits from
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py families_reference
 # (jax 0.9.0, numpy 2.0.2), rounded to 5 decimals
+# train_reference: TRAIN_REF_STEPS AdamW steps of the smoke TinyLlama and
+# DLRM with float32 activations, numpy weights from TRAIN_REF_SEED
+# (transformer_numpy_params, dlrm_numpy_params) and lm_batch / dlrm_batch
+# (TRAIN_REF_BATCH: (rows, seq) or rows); each step's loss and gradient
+# norm from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py train_reference
+# (jax 0.9.0, numpy 2.0.2); the port on the card within rtol 1e-3
+TRAIN_REF_SEED, TRAIN_REF_STEPS, TRAIN_REF_RTOL = 2, 3, 1e-3
+TRAIN_REF_TCFG = dict(learning_rate=1e-2, warmup_steps=2, total_steps=10)
+TRAIN_REF_BATCH = {"tinyllama-1.1b": (8, 64), "dlrm": 64}
+TRAIN_REF = {
+    "tinyllama-1.1b": {
+        "loss": [6.051462650299072, 6.013705253601074, 5.977534770965576],
+        "grad_norm": [5.731514930725098, 5.182557106018066,
+                      4.1219072341918945]},
+    "dlrm": {
+        "loss": [0.9292119741439819, 0.7119604349136353, 0.6386508941650391],
+        "grad_norm": [2.0691192150115967, 1.3968948125839233,
+                      1.380111813545227]},
+}
+
 FAMILIES_REF_CUTS = {
     "zamba2-1.2b": ("zamba2-1.2b", 6, {}),
     "rwkv6-3b": ("rwkv6-3b", 2, {}),
@@ -1807,6 +1841,73 @@ FAMILIES_REF = {
         0.01429, 0.51481, 0.12715], [0.07267, 0.77213, 0.93078, 0.26966],
         [0.34599, 0.10215, 0.00398, 0.32292], [0.28933, 0.04879, 0.20625,
         0.06621]],
+        'experts':
+        [[[[32, 49, 103, 114, 150, 152], [12, 19, 26, 49, 113, 152], [19,
+        70, 105, 113, 114, 116], [11, 32, 113, 114, 116, 145], [12, 22, 69,
+        114, 150, 152], [84, 86, 109, 113, 115, 133], [19, 24, 26, 37, 113,
+        159], [1, 81, 92, 114, 115, 155], [24, 25, 56, 86, 150, 155], [19,
+        37, 67, 140, 141, 155], [37, 57, 67, 86, 140, 157], [0, 19, 40, 86,
+        88, 157], [50, 56, 57, 67, 95, 140], [24, 84, 95, 98, 141, 157],
+        [24, 40, 88, 95, 116, 145], [57, 98, 116, 141, 145, 155], [57, 63,
+        92, 95, 141, 150], [14, 24, 25, 49, 157, 159], [14, 50, 57, 86, 88,
+        113], [24, 63, 88, 95, 113, 155], [5, 11, 19, 43, 141, 151], [0, 24,
+        86, 92, 107, 157], [66, 78, 88, 95, 150, 151], [2, 95, 113, 141,
+        145, 155], [1, 11, 24, 78, 95, 100], [6, 22, 43, 57, 95, 157], [10,
+        25, 83, 131, 138, 150], [13, 40, 62, 84, 88, 150], [22, 24, 42, 43,
+        92, 100], [21, 24, 54, 94, 138, 151], [19, 24, 41, 97, 128, 145],
+        [4, 42, 78, 92, 95, 157], [25, 56, 66, 81, 92, 117], [0, 56, 59, 63,
+        66, 81], [56, 59, 66, 92, 101, 115], [0, 8, 16, 59, 89, 140], [19,
+        23, 25, 59, 66, 155], [13, 25, 59, 66, 139, 151], [5, 25, 66, 115,
+        151, 155], [8, 19, 36, 46, 66, 151], [0, 18, 19, 89, 106, 142], [14,
+        25, 94, 126, 139, 151], [0, 5, 14, 15, 101, 151], [0, 18, 23, 25,
+        73, 78], [0, 12, 15, 19, 46, 107], [5, 8, 19, 51, 86, 146], [5, 8,
+        19, 22, 25, 59], [19, 25, 41, 113, 135, 140], [5, 11, 19, 23, 94,
+        141], [8, 18, 19, 66, 73, 140], [5, 29, 51, 66, 116, 151], [8, 19,
+        41, 66, 100, 143], [8, 11, 19, 41, 46, 143], [8, 19, 56, 94, 140,
+        153], [15, 19, 20, 59, 75, 113], [11, 12, 15, 46, 51, 86], [8, 19,
+        26, 46, 55, 115], [8, 15, 41, 86, 116, 121], [9, 14, 15, 19, 33,
+        61], [6, 11, 13, 14, 19, 25], [15, 19, 45, 46, 57, 76], [15, 24, 27,
+        30, 68, 83], [15, 30, 41, 66, 68, 152], [30, 41, 107, 116, 158,
+        159], [54, 82, 83, 110, 115, 128], [48, 82, 86, 104, 110, 115], [8,
+        82, 87, 106, 110, 151], [22, 26, 52, 57, 116, 139], [22, 25, 26, 48,
+        82, 104], [22, 24, 26, 57, 82, 117], [22, 24, 52, 57, 135, 159],
+        [22, 57, 61, 72, 117, 139], [22, 57, 72, 101, 110, 153], [22, 72,
+        78, 108, 110, 115], [25, 28, 108, 110, 117, 127], [26, 28, 33, 54,
+        82, 117], [4, 33, 72, 108, 146, 159], [22, 24, 26, 62, 107, 143],
+        [22, 24, 33, 106, 107, 117], [27, 43, 47, 48, 107, 117], [57, 62,
+        108, 118, 124, 144], [4, 28, 33, 65, 73, 117], [8, 26, 28, 53, 62,
+        108], [1, 4, 28, 36, 61, 77], [52, 84, 108, 132, 147, 151], [12, 26,
+        28, 76, 83, 125], [25, 33, 77, 84, 117, 128], [4, 33, 43, 52, 120,
+        146], [28, 36, 73, 108, 146, 148], [26, 33, 52, 95, 110, 146], [33,
+        48, 57, 61, 108, 109], [33, 48, 82, 88, 117, 141], [0, 27, 48, 52,
+        146, 151], [27, 48, 52, 84, 108, 159], [52, 57, 68, 82, 84, 85], [4,
+        33, 68, 82, 105, 108], [15, 23, 34, 50, 55, 76], [23, 55, 66, 99,
+        101, 106], [23, 30, 66, 80, 102, 140], [11, 19, 23, 55, 66, 102],
+        [17, 23, 25, 51, 83, 146], [11, 28, 42, 94, 118, 125], [28, 42, 59,
+        80, 83, 101], [5, 17, 94, 99, 102, 128], [17, 23, 57, 69, 114, 140],
+        [5, 17, 26, 30, 57, 115], [17, 18, 50, 73, 127, 146], [25, 28, 34,
+        35, 55, 102], [11, 13, 50, 59, 94, 114], [6, 13, 20, 28, 59, 94],
+        [14, 23, 59, 119, 128, 151], [25, 33, 57, 98, 128, 130], [32, 42,
+        60, 94, 127, 131], [28, 45, 50, 53, 66, 98], [6, 23, 35, 42, 119,
+        128], [5, 50, 86, 89, 100, 119], [28, 32, 86, 89, 94, 137], [5, 23,
+        42, 64, 73, 128], [8, 22, 23, 57, 79, 89], [14, 23, 55, 94, 128,
+        148], [42, 50, 59, 74, 82, 94], [21, 50, 78, 83, 119, 128], [22, 23,
+        53, 73, 128, 148], [5, 11, 69, 104, 125, 128], [5, 15, 23, 50, 82,
+        127], [5, 28, 83, 86, 102, 123], [8, 29, 33, 60, 94, 128], [57, 80,
+        86, 92, 104, 123]]], [[[1, 24, 43, 50, 97, 155], [15, 33, 83, 86,
+        107, 122], [24, 57, 82, 110, 124, 146], [21, 23, 45, 66, 83, 94]]],
+        [[[22, 43, 57, 89, 100, 128], [0, 15, 19, 42, 83, 126], [0, 62, 66,
+        68, 72, 141], [14, 20, 44, 57, 83, 128]]], [[[24, 35, 40, 41, 78,
+        92], [15, 24, 30, 41, 83, 152], [4, 52, 61, 82, 108, 141], [40, 55,
+        62, 74, 83, 128]]], [[[5, 60, 78, 95, 100, 151], [13, 14, 15, 41,
+        92, 99], [0, 4, 51, 82, 84, 86], [6, 21, 59, 83, 121, 128]]], [[[19,
+        24, 30, 78, 145, 151], [13, 15, 19, 50, 151, 159], [4, 33, 61, 108,
+        128, 146], [5, 6, 8, 74, 128, 152]]], [[[17, 24, 56, 78, 138, 157],
+        [13, 26, 30, 90, 94, 145], [0, 36, 84, 108, 124, 141], [11, 16, 60,
+        83, 112, 121]]], [[[25, 78, 92, 94, 151, 157], [15, 19, 50, 86, 153,
+        158], [25, 48, 82, 125, 146, 158], [28, 29, 60, 80, 110, 128]]],
+        [[[11, 14, 19, 20, 57, 75], [12, 15, 19, 33, 41, 138], [12, 61, 84,
+        108, 146, 151], [25, 44, 57, 59, 83, 147]]]],
     },
 }
 
@@ -1977,8 +2078,16 @@ def hashed_params(tree, seed: int, device):
     return walk(tree, "", "")
 
 
+# the run's start, shared with the child phases through the environment
+RUN_T0 = float(os.environ.setdefault("CHIP_SMOKE_T0", repr(time.time())))
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    # the timeline on stderr: seconds since the run began, at each line
+    print(f"chip_smoke t={time.time() - RUN_T0:.1f}s "
+          f"{obj.get('phase', '-')} {obj.get('kernel', '')}".rstrip(),
+          file=sys.stderr, flush=True)
 
 
 def ptxas_summary(log: str) -> dict:
@@ -2881,7 +2990,7 @@ def batch_fig12(runner, gpu: str) -> dict:
           "lane_steps_per_s": sum(batch.meta["lane_steps"]) / wall,
           "serial_steps_per_s": serial_rate,
           "serial_wall_s": sum(c["serial_wall_s"] for c in checks),
-          "launches": launches,
+          "launches": launches, "timing": CONTENDED,
           "checks": checks, "tolerance": "2 steps; PAUSE rtol 1e-3 + 1"})
     return launches, batch
 
@@ -2924,6 +3033,7 @@ def mesh_lanes(runner, fig12_sim, plain, gpu: str) -> dict:
             "mesh_devices": batch.meta["mesh_devices"],
             "chunk_lanes": batch.meta["chunk_lanes"],
             "step_impl": batch.meta["step_impl"], "wall_s": wall,
+            "timing": CONTENDED,
             "steps_executed": steps, "lane_steps": batch.meta["lane_steps"],
             "plain_lane_steps": plain.meta["lane_steps"],
             "launches": launches, "bit_equal": equal,
@@ -2947,13 +3057,14 @@ def mesh_lanes(runner, fig12_sim, plain, gpu: str) -> dict:
     return launches
 
 
-def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
+def policy_axis(runner, scen: dict, serial, gpu: str) -> None:
     """The 128-GPU 1D all-reduce under pfc, dcqcn and hpcc as one
     policy-axis batch (op path, as the reference runs stacked policies);
     each lane within two steps of ``REFERENCE``, and the dcqcn lane of
-    this script's serial kernel-path run.  The dcqcn lane is also the op-path side of
-    the 128-GPU kernel-vs-op-path check, at the port's whole-run
-    tolerances."""
+    this script's serial kernel-path run (phase 3's, which ``serial()``
+    returns once the batch is done: its ``SERIAL_KEYS`` as arrays).  The
+    dcqcn lane is also the op-path side of the 128-GPU kernel-vs-op-path
+    check, at the port's whole-run tolerances."""
     from types import SimpleNamespace
     import torch
     from repro_torch.core import ScenarioSpec
@@ -2970,6 +3081,11 @@ def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
     if any(ops.LAUNCHES.values()) or batch.meta["step_impl"] != "torch":
         raise AssertionError(f"policy_axis: {ops.LAUNCHES} on "
                              f"{batch.meta['step_impl']}")
+    d = serial()
+    ser_dcqcn = SimpleNamespace(
+        finished=bool(d["finished"]),
+        completion_time=float(d["completion_time"]),
+        **{k: d[k] for k in ("t_finish", "delivered", "pause_count")})
     rows = []
     for i, pol in enumerate(batch.policy_axis):
         ct = float(batch.completion_time[i])
@@ -2979,7 +3095,7 @@ def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
                "diff_steps_reference": float(steps_apart(
                    ct, REFERENCE[("clos128_1d", pol)], DT)),
                "pause_frames": float(batch.pause_count[i].sum())}
-        ser = results.get(("clos128_1d", pol))   # phase 3 runs dcqcn only
+        ser = ser_dcqcn if pol == "dcqcn" else None  # phase 3: dcqcn only
         if ser is not None:
             row.update(serial=ser.completion_time,
                        diff_steps_serial=float(steps_apart(
@@ -2994,7 +3110,7 @@ def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
           "steps_executed": batch.meta["steps_executed"],
           "lane_steps": batch.meta["lane_steps"], "wall_s": wall,
           "lane_steps_per_s": sum(batch.meta["lane_steps"]) / wall,
-          "rows": rows, "tolerance_steps": 2})
+          "rows": rows, "tolerance_steps": 2, "timing": CONTENDED})
     i = batch.policy_axis.index("dcqcn")
     lane = SimpleNamespace(
         finished=bool(batch.finished[i]),
@@ -3003,8 +3119,7 @@ def policy_axis(runner, scen: dict, results: dict, gpu: str) -> None:
         pause_count=batch.pause_count[i])
     emit({"phase": "kernel_vs_op_path", "scenario": "clos128_1d",
           "policy": "dcqcn", "op_path": "policy_axis lane",
-          **compare_runs(results[("clos128_1d", "dcqcn")], lane, DT,
-                         "clos128_1d dcqcn")})
+          **compare_runs(ser_dcqcn, lane, DT, "clos128_1d dcqcn")})
 
 
 # ---------------------------------------------------------------------------
@@ -3219,7 +3334,7 @@ def fault_grid_dcqcn(runner, gpu: str) -> dict:
           "serial_steps_per_s": ser.meta["steps_executed"] / ser_wall,
           "kernel_vs_op_path": compare_fault_runs(
               ser, op, DT, "fault_grid_dcqcn lane kernel vs op path"),
-          "op_path_wall_s": op_wall,
+          "op_path_wall_s": op_wall, "timing": CONTENDED,
           "tolerance": "2 steps, the status and lost rtol 1e-4 against "
                        "the reference; batch lane bit-equal to its serial "
                        "run"})
@@ -3299,7 +3414,8 @@ def mlp_clos128(runner, scen: dict, gpu: str) -> dict:
             row["kernel_vs_op_path"] = compare_fault_runs(
                 r, op, DT, f"mlp {name} kernel vs op path")
         rows[name] = row
-    emit({"phase": "mlp_clos128", "gpu": gpu, "policy": "mlp", **rows})
+    emit({"phase": "mlp_clos128", "gpu": gpu, "policy": "mlp", **rows,
+          "launches": total, "timing": CONTENDED})
     return total
 
 
@@ -3597,7 +3713,8 @@ SOFT_GRAD_RUNS = (("clos32_2d", False, None),
                   ("clos128_1d", True, SOFT_GRAD_CHUNK))
 
 
-def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
+def soft_grad(runner, scen: dict, forward, gpu: str, labels: tuple,
+              phase: str) -> None:
     """The soft cost and its gradient through autograd on the op path:
     at 32 GPUs against the reference's value (bit for bit) and gradient,
     at the paper's 128 GPUs (``remat``, ``SOFT_GRAD_CHUNK`` steps a
@@ -3610,11 +3727,15 @@ def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
     ``grad_window`` times it a step beside ``GRAD_PR19``.  The backward sums
     the gathers' gradients in a fixed order (``engine._scatter_fixed``),
     one ``segment_reduce`` launch a sum and no other kernel.
-    ``step_impl="cuda"`` refuses it."""
+    ``step_impl="cuda"`` refuses it.  Runs the ``SOFT_GRAD_RUNS`` of
+    ``labels`` and prints them as ``phase`` (the 32-GPU and 128-GPU runs
+    are two child phases, ``soft_grad`` and ``soft_grad128``)."""
     from repro_torch.core import ScenarioSpec, engine
     from repro_torch.kernels.engine_step import ops
     rows, repeats = {}, {}
     for label, remat, chunk in SOFT_GRAD_RUNS:
+        if label not in labels:
+            continue
         fab, wl = scen[label]
         cfg = runner.cfg if chunk is None else dataclasses.replace(
             runner.cfg, chunk_steps=chunk)
@@ -3693,7 +3814,8 @@ def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
             if v != want["soft_cost"] or row["grad_max_rel_err"] > 1e-3:
                 raise AssertionError(f"soft_grad {label} vs the reference: "
                                      f"{row}")
-    kern = runner.simulator(*ScenarioSpec(*scen["clos32_2d"], "dcqcn").build(),
+    label = labels[0]
+    kern = runner.simulator(*ScenarioSpec(*scen[label], "dcqcn").build(),
                             dataclasses.replace(runner.cfg,
                                                 step_impl="cuda"))
     try:
@@ -3702,7 +3824,7 @@ def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
         refused = str(e)
     else:
         raise AssertionError("soft_cost_fn ran with step_impl='cuda'")
-    emit({"phase": "soft_grad", "gpu": gpu, "keys": list(SOFT_GRAD_KEYS),
+    emit({"phase": phase, "gpu": gpu, "keys": list(SOFT_GRAD_KEYS),
           "fused_or_pfc_launches": 0,
           "segment_launches": sum(
               r["segment_reduce_launches"]
@@ -3716,23 +3838,31 @@ def soft_grad(runner, scen: dict, forward, gpu: str) -> None:
                        "backward_plans a step"})
 
 
-# the phases run in processes of their own, beside phases 3-5i: the three
-# gradient phases, the atlas campaign until its SIGKILL, and the ladder
-# and prediction phases (after the warm start of phase 2b's table)
-CHILD_PHASES = ("learn_step", "soft_grad", "autotune_incast8",
-                "campaign_atlas128_kill", "campaigns")
+# the phases run in processes of their own, beside the main process's
+# kernel checks and phases 3-5m, all started as soon as the engine
+# kernels are built: the three gradient phases (soft_grad's 32-GPU and
+# 128-GPU runs apart), the atlas campaign until its SIGKILL, the backend
+# calibration (phase 2b), Fig 12's lanes (batch and mesh), the policy
+# axis, Fig 13's fault grid and the learned policy at paper scale; the
+# ladder and prediction phases (``campaigns``) wait for phase 2b's table
+# on disk (their warm start)
+CHILD_PHASES = ("learn_step", "soft_grad", "soft_grad128",
+                "autotune_incast8", "campaign_atlas128_kill", "calibrate",
+                "campaigns", "fig12_lanes", "policy_axis", "fault_grid_dcqcn",
+                "mlp_clos128")
 # what a child phase's wall seconds were taken beside
 CONTENDED = ("wall seconds under contention: in a child process beside the "
-             "other child phases and the main process's phases 3-5i")
+             "other child phases and the main process's phases")
 
 
-def start_child_phases(tmp: Path) -> dict:
-    """Each child phase in a process of its own (``--child-phase NAME
-    TMP``), beside the main process's phases 3-5i: all of them are bound
-    by one host core each, not by the card.  Output goes to files in
-    ``tmp``; the children inherit phase 2b's ``REPRO_CACHE_DIR``."""
+def start_child_phases(tmp: Path, names) -> dict:
+    """Each child phase of ``names`` in a process of its own
+    (``--child-phase NAME TMP``), beside the main process: all of them are
+    bound by one host core each, not by the card.  Output goes to files in
+    ``tmp``; the children inherit the run's ``REPRO_CACHE_DIR``, where
+    phase 2b's child persists its table."""
     procs = {}
-    for name in CHILD_PHASES:
+    for name in names:
         out = open(tmp / f"{name}.out", "w")
         err = open(tmp / f"{name}.err", "w")
         procs[name] = (subprocess.Popen(
@@ -3742,33 +3872,51 @@ def start_child_phases(tmp: Path) -> dict:
     return procs
 
 
-def finish_child_phases(procs: dict, tmp: Path, forward: dict) -> dict:
-    """Hand ``soft_grad`` the forward runs' soft costs, wait for every
-    child phase, print its lines, and fail if one failed (the atlas child
-    must have died by its own SIGKILL).  Returns each child's JSON lines
-    by phase."""
-    stdin = procs["soft_grad"][0].stdin
-    stdin.write(json.dumps(forward) + "\n")
-    stdin.close()
-    failed, lines = [], {}
-    for name, (proc, out, err) in procs.items():
+def send_child(procs: dict, tmp: Path, name: str, line: str) -> None:
+    """Hand child phase ``name`` its one line of input from the main
+    process (``soft_grad``, ``soft_grad128``: the forward runs' soft
+    costs; ``policy_axis``:
+    where phase 3's serial run is saved)."""
+    stdin = procs[name][0].stdin
+    try:
+        stdin.write(line + "\n")
+        stdin.close()
+    except BrokenPipeError:
+        finish_child_phases(procs, tmp, (name,))
+        raise AssertionError(f"{name} ended before its input") from None
+
+
+def finish_child_phases(procs: dict, tmp: Path, names) -> dict:
+    """Wait for the child phases ``names`` (taking them out of ``procs``),
+    print their lines, and fail at the first that failed (the atlas child
+    must have died by its own SIGKILL; the others are then stopped).
+    Returns each child's JSON lines by phase."""
+    lines = {}
+    for name in names:
+        proc, out, err = procs.pop(name)
+        try:
+            proc.stdin.close()
+        except BrokenPipeError:      # the child ended before its input
+            pass
         proc.wait()
         out.close()
         err.close()
         text = (tmp / f"{name}.out").read_text()
         sys.stdout.write(text)
         sys.stdout.flush()
+        sys.stderr.writelines(
+            f"[{name}] {ln}" for ln in (tmp / f"{name}.err").read_text()
+            .splitlines(keepends=True) if ln.startswith("chip_smoke t="))
         for ln in text.splitlines():
             if ln.startswith("{"):
                 obj = json.loads(ln)
                 lines[obj.get("phase")] = obj
         want = -signal.SIGKILL if name == "campaign_atlas128_kill" else 0
         if proc.returncode != want:
-            failed.append(f"{name} (exit {proc.returncode}, expected "
-                          f"{want}): "
-                          + (tmp / f"{name}.err").read_text()[-3000:])
-    if failed:
-        raise AssertionError("child phases failed: " + "; ".join(failed))
+            raise AssertionError(
+                f"child phase {name} failed (exit {proc.returncode}, "
+                f"expected {want}): "
+                + (tmp / f"{name}.err").read_text()[-3000:])
     return lines
 
 
@@ -3781,12 +3929,19 @@ def stop_processes(procs: dict) -> None:
         err.close()
 
 
+def main_runner():
+    """The ``SweepRunner`` of the main paths (phases 3-5h), in the main
+    process and in the children that share its scenarios."""
+    from repro_torch.core import EngineConfig, SweepRunner
+    return SweepRunner(EngineConfig(dt=DT, max_steps=6000, max_extends=6,
+                                    queue_stride=0), device="cuda")
+
+
 def child_phase_main(name: str, tmp: Path) -> int:
     """One child phase in this process (``main`` starts it)."""
     import torch
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.core import EngineConfig, SweepRunner
     gpu = gpu_line()
     if name == "autotune_incast8":
         autotune_incast8(gpu)
@@ -3795,17 +3950,30 @@ def child_phase_main(name: str, tmp: Path) -> int:
     elif name == "campaign_atlas128_kill":
         campaign_atlas128_kill(tmp / "atlas")
     elif name == "campaigns":
+        wait_for_calibration()
         calibrate_warm_start()
         campaign_ladder32(gpu, tmp / "ladder")
         predict32(gpu)
+    elif name == "fig12_lanes":
+        runner = main_runner()
+        _, batch = batch_fig12(runner, gpu)
+        mesh_lanes(runner, runner.simulator(*fig12_scenario()), batch, gpu)
+    elif name == "policy_axis":
+        def serial():
+            with np.load(sys.stdin.readline().strip()) as d:
+                return {k: d[k] for k in d.files}
+        policy_axis(main_runner(), main_scenarios(), serial, gpu)
+    elif name == "fault_grid_dcqcn":
+        fault_grid_dcqcn(main_runner(), gpu)
+    elif name == "mlp_clos128":
+        mlp_clos128(main_runner(), main_scenarios(), gpu)
+    elif name == "calibrate":
+        calibrate(gpu)
     else:
-        runner = SweepRunner(EngineConfig(dt=DT, max_steps=6000,
-                                          max_extends=6, queue_stride=0),
-                             device="cuda")
-
         def forward():
             return json.loads(sys.stdin.readline())
-        soft_grad(runner, main_scenarios(), forward, gpu)
+        labels = ("clos128_1d",) if name == "soft_grad128" else ("clos32_2d",)
+        soft_grad(main_runner(), main_scenarios(), forward, gpu, labels, name)
     return 0
 
 
@@ -3813,10 +3981,11 @@ def child_phase_main(name: str, tmp: Path) -> int:
 # phases 2b, 5m-5p: backend calibration, campaigns, HLO-replay prediction
 # ---------------------------------------------------------------------------
 
-def calibrate(gpu: str) -> dict:
+def calibrate(gpu: str) -> None:
     """``calibrate_backend(device="cuda")`` with the default probes (90
     and 1,806 flows, B=6), persisted to this run's ``REPRO_CACHE_DIR``:
-    the table and every probe's serial and batched seconds."""
+    the table (``record``) and every probe's serial and batched seconds,
+    taken beside the other child phases."""
     from repro_torch.core.sweep import (calibrate_backend,
                                         calibration_cache_path)
     t0 = time.perf_counter()
@@ -3826,10 +3995,23 @@ def calibrate(gpu: str) -> dict:
         raise AssertionError(f"calibrate: no table persisted at {path}")
     rec = cal.record()
     emit({"phase": "calibrate", "gpu": gpu,
-          "seconds": time.perf_counter() - t0, **rec,
+          "seconds": time.perf_counter() - t0, "record": rec,
+          "timing": CONTENDED,
           "batching_loses": [p for p in rec["probes"]
                              if p["batched_s"] >= p["serial_s"]]})
-    return rec
+
+
+def wait_for_calibration(limit_s: float = 900.0) -> None:
+    """Wait until phase 2b's child has persisted its table (the write is
+    atomic: a temporary file, then a rename)."""
+    from repro_torch.core.sweep import calibration_cache_path
+    path = Path(calibration_cache_path("cuda"))
+    t0 = time.perf_counter()
+    while not path.is_file():
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"campaigns: no calibration table at {path} "
+                                 f"after {limit_s:.0f} s")
+        time.sleep(0.5)
 
 
 def calibrate_warm_start() -> None:
@@ -3957,7 +4139,8 @@ def campaign_atlas128(gpu: str, out: Path, killed: dict) -> dict:
           "max_diff_steps": max(c["diff_steps"] for c in cells),
           "disagree": bad,
           "timing": "dcqcn and hpcc " + CONTENDED + "; timely and mlp "
-                    "resumed in the main process with nothing beside it",
+                    "resumed in the main process beside the child phases "
+                    "still running",
           "tolerance": "completion within 2 steps, PAUSE rtol 1e-3 + 1, "
                        "lane status equal, lane params equal"})
     if (res.status != "complete" or m["coverage"] != 1.0 or replayed != 2
@@ -4216,8 +4399,9 @@ def time_embedding(model, B: int, dev) -> dict:
     """Kernel, plain version and ``F.embedding_bag`` on the model's Table
     II tables, for a batch of B samples from ``dlrm_batch``."""
     from repro_torch.kernels.embedding_bag import ref
-    launch, lib_fn, (_, idx, _, _), (T, R, D, P) = embedding_calls(
-        model, B, dev)
+    # ``held`` keeps the tensors whose raw pointers the launch passes
+    launch, lib_fn, held, (T, R, D, P) = embedding_calls(model, B, dev)
+    idx = held[1]
     NB = B * T
     library = cuda_ms(lib_fn, reps=10, inner=5)
     ms = cuda_ms(launch, reps=10, inner=5)
@@ -5545,8 +5729,11 @@ def serve_families_reference(name: str, dev) -> tuple:
     (``decode_impl="cuda"``: the kernel on the attention layers, its int8
     instantiation on TinyLlama's int8 cache), against the reference's
     logits at ``SERVE_REF_IDS``, its log-sum-exp and its top-1 ids
-    (``FAMILIES_REF``, the tolerances of ``serve_reference``).  Returns
-    the line and the kernel's launches."""
+    (``FAMILIES_REF``, the tolerances of ``serve_reference``); an MoE
+    model's only at the (step, row) pairs whose logits came from the
+    reference's routing (``routed_like_reference``, its expert ids in the
+    record), and on at least half of them.  Returns the line and the
+    kernel's launches."""
     import torch
     from repro_torch.kernels.flash_decode import ops
     from repro_torch.models import Model
@@ -5558,23 +5745,35 @@ def serve_families_reference(name: str, dev) -> tuple:
     S = SERVE_REF_PROMPT
     attn = sum(k[0] in KERNEL_MIXERS for g in model.groups for _ in range(g.n)
                for k in g.kinds)
+    n_moe = sum(g.n for g in model.groups for k in g.kinds if k[1] == "moe")
+    ref = FAMILIES_REF[name]
     ops.reset_launches()
-    logits, cache = model.prefill(params, {"tokens": toks[:, :S]},
-                                  max_len=S + SERVE_REF_STEPS + 8)
-    rows = [logits]
-    for t in range(S, S + SERVE_REF_STEPS):
-        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1],
-                                          "cuda")
-        rows.append(logits)
+    with capture_routing() as routing:
+        logits, cache = model.prefill(params, {"tokens": toks[:, :S]},
+                                      max_len=S + SERVE_REF_STEPS + 8)
+        rows = [logits]
+        for t in range(S, S + SERVE_REF_STEPS):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1], "cuda")
+            rows.append(logits)
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["flash_decode"]
     if launches != attn * SERVE_REF_STEPS:
         raise AssertionError(f"families reference {name}: {launches} "
                              f"launches for {attn} attention layers")
+    keep = strict = None
+    if n_moe:
+        keep, strict = routed_like_reference(
+            routing.calls, ref["experts"], n_moe, toks.shape[0],
+            model.groups[-1].kinds[-1][1] == "moe")
     out = {"name": name, **compare_reference_logits(
-        torch.stack(rows).float().cpu(), FAMILIES_REF[name])}
+        torch.stack(rows).float().cpu(), ref, keep)}
+    if strict is not None:
+        out["compared_strict"] = [int(strict.sum()), int(strict.size)]
     out.update(layers=cfg.n_layers, vocab=cfg.vocab, rows=toks.shape[0],
                steps=SERVE_REF_STEPS + 1, launches=launches)
+    if keep is not None and out["compared"][0] * 2 < out["compared"][1]:
+        out["ok"] = False
     if not out.pop("ok"):
         raise AssertionError(f"families reference {name}: off the "
                              f"reference: {out}")
@@ -5642,7 +5841,41 @@ def logit_scale(ref: dict) -> float:
                                                         np.float64)))))
 
 
-def compare_reference_logits(got, ref: dict) -> dict:
+def routed_like_reference(calls, want, n_moe: int, B: int,
+                          last_is_final: bool) -> tuple:
+    """Whether a (step, row)'s logits came from the routing the
+    reference's did: every MoE layer routed the tokens those logits
+    depend on to the experts the reference picked (``want``: the record's
+    ``experts``, one list of (tokens, k) sorted ids a layer a step;
+    ``calls``: ``capture_routing``'s, ``n_moe`` a step).  A token's MoE
+    output reaches later positions only through the layers after it: an
+    MoE layer before the last one counts every token of the row so far,
+    and the last, where it is the model's final layer
+    (``last_is_final``), only the token whose logits these are (the
+    prompt's last one at step 0).  A top-k near-tie that bf16 tips sends
+    a token to another expert, and logits that depend on it measure the
+    rounding, not the port.  Returns ((steps, rows) bool, the same with
+    every token of the row so far in every layer: the strict count)."""
+    history = np.ones(B, bool)
+    strict = np.ones(B, bool)
+    keep, keep_strict = [], []
+    for step, layers in enumerate(want):
+        own = np.ones(B, bool)
+        for layer, ids in enumerate(layers):
+            got = calls[step * n_moe + layer].cpu().numpy().reshape(
+                B, -1, len(ids[0]))
+            same = got == np.asarray(ids).reshape(got.shape)
+            strict &= same.all((1, 2))
+            if last_is_final and layer == n_moe - 1:
+                own &= same[:, -1].all(-1)
+            else:
+                history &= same.all((1, 2))
+        keep.append(history & own)
+        keep_strict.append(strict.copy())
+    return np.stack(keep), np.stack(keep_strict)
+
+
+def compare_reference_logits(got, ref: dict, keep=None) -> dict:
     """Logits ``got`` (steps, rows, V) against a reference record
     (``logits`` at ``SERVE_REF_IDS``, ``lse``, ``top1``, ``margin``) at
     ``serve_reference``'s tolerances, the absolute ones (logits at the
@@ -5650,7 +5883,10 @@ def compare_reference_logits(got, ref: dict) -> dict:
     over ``SERVE_REF``'s (bf16 rounding errors scale with the logits: a
     tied embedding of std 0.02 read out over sqrt(d_model), as the Gemma
     configs do, gives logits about 50x smaller than TinyLlama's head);
-    ``ok`` says whether they hold."""
+    ``ok`` says whether they hold.  ``keep`` (steps, rows) bool limits the
+    comparison to those (step, row) pairs (an MoE model's, where it
+    routed as the reference did: ``routed_like_reference``); ``compared``
+    counts them."""
     import torch
     scale = logit_scale(ref) / logit_scale(SERVE_REF)
     atol, lse_atol = SERVE_REF_ATOL * scale, SERVE_REF_LSE_ATOL * scale
@@ -5659,15 +5895,21 @@ def compare_reference_logits(got, ref: dict) -> dict:
     want = np.asarray(ref["logits"], np.float32)
     lse = torch.logsumexp(got, -1).numpy()
     top1 = got.argmax(-1).numpy()
-    differ = top1 != np.asarray(ref["top1"])
+    if keep is None:
+        keep = np.ones(top1.shape, bool)
+    differ = (top1 != np.asarray(ref["top1"])) & keep
     margin = np.asarray(ref["margin"])
-    out = {"max_abs_err_at_ids": float(np.abs(at_ids - want).max()),
+    err = np.abs(at_ids - want)[keep]
+    lse_err = np.abs(lse - np.asarray(ref["lse"]))[keep]
+    out = {"max_abs_err_at_ids": float(err.max()) if err.size else 0.0,
            "rel_l2_at_ids_max": float(max(
-               np.linalg.norm(at_ids[s] - want[s]) / np.linalg.norm(want[s])
-               for s in range(len(want)))),
-           "lse_max_abs_err": float(np.abs(lse - np.asarray(
-               ref["lse"])).max()),
-           "top1_equal": int((~differ).sum()), "top1_total": differ.size,
+               (np.linalg.norm(at_ids[s][keep[s]] - want[s][keep[s]])
+                / np.linalg.norm(want[s][keep[s]])
+                for s in range(len(want)) if keep[s].any()), default=0.0)),
+           "lse_max_abs_err": float(lse_err.max()) if lse_err.size else 0.0,
+           "compared": [int(keep.sum()), int(keep.size)],
+           "top1_equal": int((~differ & keep).sum()),
+           "top1_total": int(keep.sum()),
            "top1_differ_at_near_ties": int(differ.sum()),
            "logit_scale": scale,
            "tolerance": f"|logit diff| <= {atol:.4g} at the ids, "
@@ -5689,6 +5931,616 @@ def serve_reference_tokens(vocab: int) -> np.ndarray:
         dtype=np.int32)
 
 
+# ---------------------------------------------------------------------------
+# phases 7b-7c, 13j-13m: training
+# ---------------------------------------------------------------------------
+
+# the bags' backward: Table II's shape (dlrm_batch's ids) and a small table
+# with many repeats a row; (T, R, D, P, B)
+BAGS_BWD_SHAPES = ((64, 1_000_000, 64, 60, 256), (64, 100, 64, 60, 256))
+DIGEST_CHUNK = 1 << 26
+
+
+def tensor_digest(t):
+    """Two int64 sums over a tensor's bit patterns, plain and weighted by
+    position (a tensor of 4.1 G elements in chunks; a 0-dim tensor on the
+    CPU included): bit-equal tensors give equal digests, and a differing
+    bit changes them but with negligible chance.  A (2,) int64 tensor on
+    the tensor's device."""
+    import torch
+    flat = t.detach().reshape(-1)
+    bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    acc = torch.zeros(2, dtype=torch.int64, device=flat.device)
+    for i in range(0, bits.numel(), DIGEST_CHUNK):
+        w = bits[i:i + DIGEST_CHUNK].long()
+        pos = torch.arange(i, i + w.numel(), device=w.device) % 65521 + 1
+        acc[0] += w.sum()
+        acc[1] += (w * pos).sum()
+    return acc
+
+
+def tree_digest(tree) -> dict:
+    """name -> [plain, weighted] digest of every leaf
+    (``flatten_with_paths`` names)."""
+    from repro_torch.common.pytree import flatten_with_paths
+    return {name: tensor_digest(leaf).tolist()
+            for name, leaf in flatten_with_paths(tree)}
+
+
+def bags_bits_differ(a, b) -> tuple:
+    """(differing elements, max abs difference over them) of two tensors
+    of one dtype: ``torch.equal`` on their bits, and where that fails a
+    count in chunks (no temporary of the 4.1 G elements' size)."""
+    import torch
+    int_t = torch.int16 if a.element_size() == 2 else torch.int32
+    a, b = a.reshape(-1), b.reshape(-1)
+    if torch.equal(a.view(int_t), b.view(int_t)):
+        return 0, 0.0
+    n, err = 0, 0.0
+    for i in range(0, a.numel(), DIGEST_CHUNK):
+        x, y = a[i:i + DIGEST_CHUNK], b[i:i + DIGEST_CHUNK]
+        bad = x.view(int_t) != y.view(int_t)
+        k = int(bad.sum())
+        if k:
+            n += k
+            err = max(err, float((x[bad].float() - y[bad].float()).abs()
+                                 .max()))
+    return n, err
+
+
+def bags_backward_inputs(T, R, D, P, B, dev) -> tuple:
+    """dpooled (B, T, D) bf16 from a generator on the card and ids: Table
+    II's from ``dlrm_batch`` (seed 0, step 1) when R is Table II's, else
+    uniform draws."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import dlrm_batch
+    cfg = get_config("dlrm")
+    gen = torch.Generator(device=dev).manual_seed(R + D)
+    dp = torch.randn((B, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    if (T, R, D, P) == (cfg.n_tables, cfg.rows_per_table, cfg.emb_dim,
+                        cfg.pooling):
+        ids = dlrm_batch(0, 1, B, cfg)["sparse_idx"]
+    else:
+        ids = np.random.default_rng(R).integers(0, R, (B, T, P),
+                                                dtype=np.int32)
+    return dp, torch.as_tensor(ids, device=dev)
+
+
+def bags_backward_check(dev) -> dict:
+    """The bags' backward kernel against its plain version on the card
+    (``BAGS_BWD_SHAPES``: Table II's, 983,040 entries into 8.19 GB of
+    tables, and 100 rows a table, ~154 entries a row): bit for bit, and
+    equal to a second launch."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+    rows, differing, worst = [], 0, 0.0
+    for T, R, D, P, B in BAGS_BWD_SHAPES:
+        dp, idx = bags_backward_inputs(T, R, D, P, B, dev)
+        want = ref.embedding_bag_stacked_backward_ref(dp, idx, R,
+                                                      torch.bfloat16)
+        row = {"shape": f"T={T} R={R} D={D} P={P} B={B}",
+               "rows_touched": int(torch.unique(
+                   (idx + torch.arange(T, device=dev, dtype=torch.int32)
+                    [None, :, None] * R).reshape(-1)).numel())}
+        got = ops.embedding_bag_stacked_backward(dp, idx, R, torch.bfloat16)
+        n, err = bags_bits_differ(got, want)
+        again = ops.embedding_bag_stacked_backward(dp, idx, R,
+                                                   torch.bfloat16)
+        n_again, _ = bags_bits_differ(again, got)
+        row.update(differing=n, max_abs_err=err, repeat_differing=n_again)
+        differing += n + n_again
+        worst = max(worst, err)
+        del got, again
+        rows.append(row)
+        del want, dp, idx
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out = {"shapes": rows, "differing": differing, "max_abs_err": worst,
+           "tolerance": "bit-equal to the plain version and to a repeat"}
+    if differing:
+        raise AssertionError(f"embedding_bag_backward: {differing} elements "
+                             f"differ: {out}")
+    return out
+
+
+def bags_backward_calls(dev) -> dict:
+    """At Table II's shape: the backward as one call (``torch.zeros``, the
+    index, the sums: direct launches, no count), the same with the
+    library's own zero fill kernel in ``torch.zeros``' place, the pieces,
+    the plain version and PyTorch's two ways to the same function
+    (``F.embedding_bag``'s backward, ``index_add_`` into zeros): name ->
+    callable, and the shape."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+    T, R, D, P, B = BAGS_BWD_SHAPES[0]
+    dp, idx = bags_backward_inputs(T, R, D, P, B, dev)
+    fn, zero = ops.backward_functions()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows, perm = ops.backward_index(idx, R)
+    out = torch.zeros((T, R, D), dtype=torch.bfloat16, device=dev)
+    # the raw pointers of ``args`` live as long as ``held``, which the
+    # sums' closure keeps
+    held = (dp, rows, perm, out)
+    args = ops.backward_args(*held[:3], P, out)
+
+    def launch(fill="torch"):
+        if fill == "torch":
+            o = torch.zeros((T, R, D), dtype=torch.bfloat16, device=dev)
+        else:
+            o = torch.empty((T, R, D), dtype=torch.bfloat16, device=dev)
+            if zero(o.data_ptr(), o.numel() * 2, stream) != 0:
+                raise RuntimeError("embedding_bag_zero launch failed")
+        r, p = ops.backward_index(idx, R)
+        if fn(*ops.backward_args(dp, r, p, P, o), stream) != 0:
+            raise RuntimeError("embedding_bag_backward launch failed")
+        return o
+
+    def sums(held=held):
+        if fn(*args, stream) != 0:
+            raise RuntimeError("embedding_bag_backward launch failed")
+
+    def zero_kernel():
+        if zero(out.data_ptr(), out.numel() * 2, stream) != 0:
+            raise RuntimeError("embedding_bag_zero launch failed")
+    # F.embedding_bag(mode="sum")'s backward as its autograd node calls it
+    # (the aten op: no 8 GB table held for a forward)
+    flat_rows = (idx.long() + torch.arange(T, device=dev)[None, :, None]
+                 * R).reshape(-1)
+    offset2bag = torch.arange(B * T, device=dev).repeat_interleave(P)
+    bag_size = torch.full((B * T,), P, dtype=torch.int64, device=dev)
+    no_max = torch.empty(0, dtype=torch.int64, device=dev)
+    dflat = dp.view(B * T, D)
+    vals = dflat[:, None].expand(B * T, P, D).reshape(-1, D)
+    return {
+        "launch": launch,
+        "launch_kernel_fill": lambda: launch("kernel"),
+        "sums": sums, "zero_kernel": zero_kernel,
+        "zeros": lambda: torch.zeros((T, R, D), dtype=torch.bfloat16,
+                                     device=dev),
+        "index": lambda: ops.backward_index(idx, R),
+        "plain": lambda: ref.embedding_bag_stacked_backward_ref(
+            dp, idx, R, torch.bfloat16),
+        "library": lambda: torch.ops.aten._embedding_bag_dense_backward(
+            dflat, flat_rows, offset2bag, bag_size, no_max, T * R, False, 0,
+            None, -1),
+        "index_add": lambda: torch.zeros(
+            (T * R, D), dtype=torch.bfloat16, device=dev).index_add_(
+                0, flat_rows, vals),
+    }, (T, R, D, P, B)
+
+
+def time_bags_backward(dev, traced: dict) -> dict:
+    """The bags' backward at Table II's shape: the whole function (event
+    ms) as the wrapper runs it and with the zero fill kernel in
+    ``torch.zeros``' place, its pieces, the plain version, and PyTorch's
+    backward of ``F.embedding_bag(mode="sum")`` and ``index_add_`` into
+    zeros; the bound: the tables' gradient written once, dpooled and the
+    ids read once, at the card's memory rate."""
+    calls, (T, R, D, P, B) = bags_backward_calls(dev)
+    ms = {k: cuda_ms(calls[k], reps=5, inner=4)
+          for k in ("launch", "launch_kernel_fill", "sums", "zero_kernel",
+                    "zeros", "index", "library", "index_add")}
+    plain = cuda_ms(calls["plain"], reps=3, inner=1)
+    n_bytes = T * R * D * 2 + B * T * D * 2 + B * T * P * 4
+    host = host_us(calls["launch"], n=20)
+    del calls
+
+    def for_trace():
+        c, _ = bags_backward_calls(dev)
+        return c["launch"], c["library"], None
+    traced["embedding_bag_backward"] = for_trace
+    return {"ms": ms["launch"], "ms_kernel_fill": ms["launch_kernel_fill"],
+            "sums_ms": ms["sums"], "zero_kernel_ms": ms["zero_kernel"],
+            "zeros_ms": ms["zeros"], "index_ms": ms["index"],
+            "host_us_per_launch": host, "plain_ms": plain,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": ms["library"],
+            "index_add_ms": ms["index_add"], "bytes": n_bytes,
+            "shape": f"B={B} T={T} P={P} D={D} R={R}"}
+
+
+def dlrm_train_run(cfg, tcfg, batches, dev, probe: bool = False) -> dict:
+    """The DLRM of ``cfg`` drawn from seed 0 on the card, ``len(batches)``
+    AdamW steps through ``make_train_step``: losses, gradient norms, wall
+    s a step, the kernels' launches over the steps and the digest of the
+    final parameters and moments.  With ``probe``: ``DLRM.loss`` on the
+    first batch before the steps, the peak bytes, and one more step timed
+    in its two halves (loss and gradient; the optimizer)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import DLRM
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import (accumulate_grads,
+                                              init_train_state,
+                                              make_grad_fn, make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    model = DLRM(cfg, device=dev, seed=0)
+    params, opt = init_train_state(model, None, tcfg)
+    step = make_train_step(model, tcfg)
+    out = {}
+    if probe:
+        with torch.no_grad():
+            out["module_loss"] = float(model.loss(batches[0]))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    losses, norms, secs = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    out.update(losses=losses, grad_norms=norms, step_s=secs,
+               launches=dict(ops.LAUNCHES), digest=tree_digest((params, opt)))
+    if probe:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        grad_fn = make_grad_fn(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = accumulate_grads(grad_fn, params, batches[0], None)
+        float(loss)
+        t1 = time.perf_counter()
+        adamw_update(params, grads, opt, tcfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.update(grad_s=t1 - t0, optimizer_s=t2 - t1,
+                   optimizer_share=(t2 - t1) / (t2 - t0))
+        del grads
+    del model, params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_dlrm(gpu: str, dev) -> dict:
+    """The Table II DLRM (8.19 GB of tables, drawn from seed 0), B=256
+    from ``dlrm_batch``, the default ``embedding_impl`` (the kernels):
+    three AdamW steps (``TrainConfig`` defaults) through
+    ``make_train_step``, twice, and once with the plain bags in place of
+    both kernels.  Finite losses and norms; step 1's loss equal to
+    ``DLRM.loss`` on its batch; the two kernel runs and the plain run
+    equal bit for bit (losses, parameters, moments); one launch of each
+    kernel a step.  Returns the kernels' launches of the first run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import dlrm_batch
+    cfg = get_config("dlrm")
+    tcfg = TrainConfig()
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                dlrm_batch(0, i, 256, cfg).items()} for i in range(3)]
+    t0 = time.perf_counter()
+    a = dlrm_train_run(cfg, tcfg, batches, dev, probe=True)
+    b = dlrm_train_run(cfg, tcfg, batches, dev)
+    plain = dlrm_train_run(dataclasses.replace(cfg, embedding_impl="torch"),
+                           tcfg, batches, dev)
+    line = {"phase": "train_dlrm", "gpu": gpu, "batch": 256,
+            "tables_bytes": cfg.n_tables * cfg.rows_per_table
+            * cfg.emb_dim * 2, "steps": len(batches),
+            "losses": a["losses"], "grad_norms": a["grad_norms"],
+            "module_loss": a["module_loss"], "step_s": a["step_s"],
+            "plain_step_s": plain["step_s"],
+            "grad_s": a["grad_s"], "optimizer_s": a["optimizer_s"],
+            "optimizer_share": a["optimizer_share"],
+            "peak_bytes": a["peak_bytes"], "launches": a["launches"],
+            "repeat_equal": a["digest"] == b["digest"]
+            and a["losses"] == b["losses"],
+            "plain_equal": a["digest"] == plain["digest"]
+            and a["losses"] == plain["losses"],
+            "leaves": len(a["digest"]), "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not all(math.isfinite(x) for x in a["losses"] + a["grad_norms"]):
+        raise AssertionError(f"train_dlrm: non-finite {line}")
+    if a["losses"][0] != a["module_loss"]:
+        raise AssertionError(f"train_dlrm: step 1's loss {a['losses'][0]} "
+                             f"is not DLRM.loss {a['module_loss']}")
+    if a["launches"] != {"embedding_bag_rows": 3,
+                         "embedding_bag_backward": 3}:
+        raise AssertionError(f"train_dlrm: launches {a['launches']}")
+    if plain["launches"] != {"embedding_bag_rows": 0,
+                             "embedding_bag_backward": 0}:
+        raise AssertionError(f"train_dlrm: the plain bags launched "
+                             f"{plain['launches']}")
+    for other, what in ((b, "a repeat"), (plain, "the plain bags' run")):
+        bad = [k for k in a["digest"] if a["digest"][k] != other["digest"][k]]
+        if bad or a["losses"] != other["losses"]:
+            raise AssertionError(f"train_dlrm: differs from {what}: leaves "
+                                 f"{bad}, losses {a['losses']} vs "
+                                 f"{other['losses']}")
+    return a["launches"]
+
+
+def flash_grad_check(q, k, v, block: int) -> dict:
+    """``flash_attention``'s q/k/v gradients against autograd through
+    ``layers.blockwise_attention`` (no wedge split: plain tiles) on
+    captured inputs in float32, for a random upstream gradient: each
+    within rtol 1e-4 of its largest magnitude."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.flash import flash_attention
+    ins = [t.detach().float() for t in (q, k, v)]
+    w = torch.randn(q.shape, generator=torch.Generator(
+        device=q.device).manual_seed(0), device=q.device)
+    grads = []
+    for attn in (lambda a, b, c: flash_attention(a, b, c, True, block, block),
+                 lambda a, b, c: L.blockwise_attention(
+                     a, b, c, causal=True, block_q=block, block_k=block,
+                     split_wedge=False)):
+        xs = [t.clone().requires_grad_() for t in ins]
+        out = attn(*xs)
+        grads.append((out.detach(), torch.autograd.grad((out * w).sum(), xs)))
+        del out, xs
+    (o1, g1), (o2, g2) = grads
+    err = {"out": float((o1 - o2).abs().max() / o2.abs().max())}
+    err.update({n: float((a - b).abs().max() / b.abs().max())
+                for n, a, b in zip("qkv", g1, g2)})
+    out = {"shape": list(q.shape), "block": block, "rel_err": err,
+           "tolerance": "rtol 1e-4 of each gradient's largest magnitude"}
+    if max(err.values()) > 1e-4:
+        raise AssertionError(f"flash_grad_check: {out}")
+    return out
+
+
+class capture_flash:
+    """While active, keeps the first call's (q, k, v) of
+    ``transformer.flash_attention`` (detached) and counts the calls."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self.mod, self.orig, self.first, self.calls = T, T.flash_attention, \
+            None, 0
+
+        def wrapped(q, k, v, *a, **kw):
+            if self.first is None:
+                self.first = tuple(t.detach().clone() for t in (q, k, v))
+            self.calls += 1
+            return self.orig(q, k, v, *a, **kw)
+        T.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.orig
+
+
+def lm_train_run(model, tcfg, batches, dev) -> dict:
+    """``len(batches)`` AdamW steps of ``model`` from parameters drawn from
+    seed 0 on the card: losses, norms, wall s a step, peak bytes and the
+    digest of the parameters, master copy and moments."""
+    import torch
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), tcfg)
+    step = make_train_step(model, tcfg)
+    losses, norms, secs = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    out = {"losses": losses, "grad_norms": norms, "step_s": secs,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "digest": tree_digest((params, opt))}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def nondeterministic_leaves(model, batch, dev) -> list:
+    """The parameter leaves whose gradient differs between two
+    computations on the same parameters and batch."""
+    import torch
+    from repro_torch.train.train_step import make_grad_fn
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    grad_fn = make_grad_fn(model)
+    _, g1 = grad_fn(params, batch)
+    d1 = tree_digest(g1)
+    del g1
+    _, g2 = grad_fn(params, batch)
+    d2 = tree_digest(g2)
+    return [k for k in d1 if d1[k] != d2[k]]
+
+
+def train_tinyllama(gpu: str, dev) -> None:
+    """TinyLlama-1.1B at full width and depth with ``flash_attention`` on
+    (``Model.init`` on the card, seed 0), ``lm_batch`` at 8 x 2,048 (past
+    the dense cutoff: flash attention), ``TrainConfig`` defaults with
+    ``microbatch=4``: three AdamW steps, twice.  Finite losses and norms;
+    step 1's loss equal to the cross-entropy of
+    ``prefill(all_logits=True)`` on its tokens at bf16's tolerance (one
+    ulp relative); flash attention's gradient against blockwise
+    attention's on layer 0's captured q/k/v (``flash_grad_check``).
+    Whether the two runs repeat bit for bit is reported, with the leaves
+    whose gradient does not repeat where they do not."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_batch
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              flash_attention=True)
+    model = Model(cfg, device=dev)
+    tcfg = TrainConfig(microbatch=4)
+    B, S = 8, 2048
+    batches = [{"tokens": torch.as_tensor(lm_batch(0, i, B, S, cfg.vocab)
+                                          ["tokens"], device=dev)}
+               for i in range(3)]
+    t0 = time.perf_counter()
+    # the teacher-forced cross-entropy of the initial weights, and layer
+    # 0's attention inputs
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tok = batches[0]["tokens"]
+    with torch.no_grad(), capture_flash() as cap:
+        logits, _ = model.prefill(params, batches[0], all_logits=True)
+        ce = float(F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab),
+                                   tok[:, 1:].reshape(-1).long()))
+    del logits, params
+    torch.cuda.empty_cache()
+    flash = flash_grad_check(*(t[:2] for t in cap.first), cfg.block_q)
+    flash["prefill_calls"] = cap.calls
+    del cap
+    a = lm_train_run(model, tcfg, batches, dev)
+    b = lm_train_run(model, tcfg, batches, dev)
+    repeat = a["digest"] == b["digest"] and a["losses"] == b["losses"]
+    line = {"phase": "train_tinyllama", "gpu": gpu, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "batch": B, "seq": S,
+            "microbatch": tcfg.microbatch, "losses": a["losses"],
+            "grad_norms": a["grad_norms"], "prefill_cross_entropy": ce,
+            "step_s": a["step_s"], "repeat_step_s": b["step_s"],
+            "tokens_per_s": B * S / statistics.median(a["step_s"]),
+            "peak_bytes": a["peak_bytes"], "repeat_equal": repeat,
+            "flash_grad_check": flash}
+    if not repeat:
+        line["nondeterministic_leaves"] = nondeterministic_leaves(
+            model, {"tokens": tok[:tcfg.microbatch]}, dev)
+        line["repeat_differing_leaves"] = [
+            k for k in a["digest"] if a["digest"][k] != b["digest"][k]]
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if not all(math.isfinite(x) for x in a["losses"] + a["grad_norms"]):
+        raise AssertionError(f"train_tinyllama: non-finite {line}")
+    if abs(a["losses"][0] - ce) > 2 ** -8 * abs(ce):
+        raise AssertionError(f"train_tinyllama: step 1's loss "
+                             f"{a['losses'][0]} vs the prefill's "
+                             f"cross-entropy {ce}")
+    if flash["prefill_calls"] != cfg.n_layers:
+        raise AssertionError(f"train_tinyllama: {flash['prefill_calls']} "
+                             f"flash calls for {cfg.n_layers} layers")
+
+
+def train_reference(gpu: str, dev) -> None:
+    """``TRAIN_REF``'s runs on the card: the smoke TinyLlama and DLRM with
+    float32 activations and ``TRAIN_REF_SEED``'s numpy weights, three
+    AdamW steps (the DLRM's bags through both kernels); each step's loss
+    and gradient norm within ``TRAIN_REF_RTOL`` of the JAX reference's."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import dlrm_batch, lm_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import DLRM, Model, param_shapes
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    rows = {}
+    for name, want in TRAIN_REF.items():
+        cfg = smoke_config(name)
+        if name == "dlrm":
+            shapes = param_shapes(cfg)
+            tree = dlrm_numpy_params(
+                {"tables": shapes["tables"][0],
+                 **{part: {k: leaf[0] for k, leaf in shapes[part].items()}
+                    for part in ("bot", "top")}}, TRAIN_REF_SEED)
+            params = {"tables": torch.from_numpy(tree["tables"].view(
+                np.int16)).view(torch.bfloat16).to(dev),
+                **{part: {k: torch.from_numpy(v).to(dev)
+                          for k, v in tree[part].items()}
+                   for part in ("bot", "top")}}
+            model = DLRM(cfg, device=dev, params=params)
+            params = model.param_tree()
+        else:
+            model = Model(cfg, device=dev)
+            shapes = tree_map(lambda d: d.shape, model.param_defs())
+            params = convert.transformer_params_from_numpy(
+                transformer_numpy_params(shapes, TRAIN_REF_SEED, bf16=False),
+                dev)
+        model.compute_dtype = torch.float32
+        opt = init_opt_state(params, torch.float32, keep_master=False)
+        step = make_train_step(model, TrainConfig(**TRAIN_REF_TCFG))
+        ops.reset_launches()
+        losses, norms = [], []
+        for i in range(TRAIN_REF_STEPS):
+            b = (dlrm_batch(TRAIN_REF_SEED, i, TRAIN_REF_BATCH[name], cfg)
+                 if name == "dlrm" else
+                 lm_batch(TRAIN_REF_SEED, i, *TRAIN_REF_BATCH[name],
+                          cfg.vocab))
+            params, opt, m = step(params, opt, {
+                k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        err = max(abs(g - w) / abs(w) for g, w in zip(
+            losses + norms, want["loss"] + want["grad_norm"]))
+        rows[name] = {"losses": losses, "grad_norms": norms,
+                      "max_rel_err": err, "launches": dict(ops.LAUNCHES)}
+    out = {"phase": "train_reference", "gpu": gpu, "rows": rows,
+           "tolerance": f"rtol {TRAIN_REF_RTOL}"}
+    emit(out)
+    if any(r["max_rel_err"] > TRAIN_REF_RTOL for r in rows.values()):
+        raise AssertionError(f"train_reference: off the reference: {out}")
+
+
+TRAIN_ENTRY_ARGS = ("--smoke", "--steps", "8", "--ckpt-every", "2")
+TRAIN_ENTRY_FAIL_AT = 5
+
+
+def start_train_entry(tmp: Path) -> tuple:
+    """Start ``train_entry``'s runs (``finish_train_entry`` checks them):
+    ``python -m repro_torch.launch.train`` in child processes, all at
+    once (as ``serve_entry`` drives ``launch.serve``'s entry point, but
+    in processes of their own: a run restarts from its checkpoint
+    directory): ``--arch tinyllama-1.1b`` and ``--arch dlrm`` with
+    ``TRAIN_ENTRY_ARGS``, each with ``--fail-at 5`` and without, each
+    against a fresh ``--ckpt-dir``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    tmp.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for arch in ("tinyllama-1.1b", "dlrm"):
+        for cut in (True, False):
+            tag = f"{arch}_{'cut' if cut else 'full'}"
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", arch, *TRAIN_ENTRY_ARGS, "--ckpt-dir",
+                   str(tmp / tag), "--metrics-out", str(tmp / f"{tag}.jsonl")]
+            if cut:
+                cmd += ["--fail-at", str(TRAIN_ENTRY_FAIL_AT)]
+            procs[tag] = subprocess.Popen(cmd, env=env, cwd=str(REPO),
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True)
+    return procs, t0
+
+
+def finish_train_entry(gpu: str, tmp: Path, procs: dict, t0: float) -> None:
+    """Wait for ``start_train_entry``'s runs: the cut runs must print
+    ``restarts=1``, and their metrics logs, the re-run steps taken once,
+    must equal the uninterrupted runs' bit for bit."""
+    outs = {}
+    try:
+        for tag, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"train_entry {tag}: exit "
+                                     f"{proc.returncode}: {stderr[-3000:]}")
+            last = stdout.strip().splitlines()[-1]
+            outs[tag] = {"line": last, "fields": dict(
+                kv.split("=") for kv in last.split()),
+                "log": [json.loads(x) for x in
+                        (tmp / f"{tag}.jsonl").read_text().splitlines()]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rows = {}
+    for arch in ("tinyllama-1.1b", "dlrm"):
+        cut, full = outs[f"{arch}_cut"], outs[f"{arch}_full"]
+        resumed = {m["step"]: m for m in cut["log"]}
+        rows[arch] = {"cut": cut["line"], "full": full["line"],
+                      "steps_logged": len(cut["log"]),
+                      "log_equal": [resumed[s] for s in sorted(resumed)]
+                      == full["log"]}
+        if cut["fields"]["restarts"] != "1" or full["fields"][
+                "restarts"] != "0" or not rows[arch]["log_equal"]:
+            raise AssertionError(f"train_entry {arch}: {rows[arch]}")
+    emit({"phase": "train_entry", "gpu": gpu, "args": list(TRAIN_ENTRY_ARGS),
+          "fail_at": TRAIN_ENTRY_FAIL_AT, "rows": rows,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5704,114 +6556,126 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    from repro_torch.core import EngineConfig, ScenarioSpec, SweepRunner
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import ScenarioSpec
     from repro_torch.kernels import build
     from repro_torch.kernels.engine_step import ops
 
     # ---- 1. build (one nvcc per source, all at once) ----------------------
+    # the child phases start once every source but flash_decode (the
+    # longest build, first needed in phase 10) is built
     gpu = gpu_line()
     t0 = time.perf_counter()
-    build.build_all()
+    pool = ThreadPoolExecutor(len(build.SOURCES))
+    builds = {name: pool.submit(build.build, name) for name in build.SOURCES}
     for name in build.SOURCES:
-        build.load(name)
-    info = build.BUILD_INFO
+        if name != "flash_decode":
+            builds[name].result()
+            build.load(name)
+    engine_built = time.perf_counter() - t0
     # every fused_signals_policy_kernel<N>: registers, spills, SASS
     # instructions and asynchronous copies; each must copy asynchronously
-    ptxas = {k: ptxas_summary(v.get("ptxas", "")) for k, v in info.items()}
-    fused_sass = {k: dict(v, ptxas=ptxas.get("engine_step", {}).get(k))
-                  for k, v in sass_counts(build.build("engine_step")).items()
-                  if k.startswith("fused_signals_policy_kernel")}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": {k: v.get("seconds") for k, v in info.items()},
-          "nvcc": next(iter(info.values()), {}).get("nvcc"), "gpu": gpu,
-          "ptxas": ptxas, "fused_sass": fused_sass,
-          "flash_decode_sass": sass_counts(build.build("flash_decode"))})
+    fused_sass = sass_counts(build.build("engine_step"))
     for k, v in fused_sass.items():
-        if not v["LDGSTS"] + v["UBLKCP"] + v["UTMALDG"]:
+        if k.startswith("fused_signals_policy_kernel") and \
+                not v["LDGSTS"] + v["UBLKCP"] + v["UTMALDG"]:
             raise AssertionError(f"{k}: no asynchronous copy in its SASS")
 
-    cfg = EngineConfig(dt=DT, max_steps=6000, max_extends=6, queue_stride=0)
-    runner = SweepRunner(cfg, device="cuda")
-    scen = main_scenarios()
-    sims = {}
-    for label, (fab, wl) in scen.items():
-        topo, sched, pol = ScenarioSpec(fab, wl, "dcqcn").build()
-        sims[label] = runner.simulator(topo, sched, pol)
-    sims["fig12"] = runner.simulator(*fig12_scenario())
-
-    # ---- 2. kernels against their plain versions -------------------------
-    # at every padded flow count and plan of the main paths, B in CHECK_LANES
-    flows = sorted(set(FUSED_EDGE_FLOWS)
-                   | {s.plan.n_flows_pad for s in sims.values()})
-    fused = check_fused(dev, flows)
-    emit({"phase": "kernel_check", "kernel": "fused_signals_policy",
-          **fused})
-    # the policies' scalar device functions over every float32 input
-    scalar = scalar_exhaustive(ops.kernel_function("scalar_fn"))
-    emit({"phase": "scalar_exhaustive", "gpu": gpu, **scalar})
-    for name, r in scalar.items():
-        if r["mismatches"]:
-            raise AssertionError(f"scalar_fn {name}: {r['mismatches']} "
-                                 f"inputs differ from arith.{name}: "
-                                 f"{r['first']}")
-    plans = gather_plans(sims)
-    seg_err, seg_rows = check_segments(plans, dev)
-    emit({"phase": "kernel_check", "kernel": "segment_reduce(+_pfc)",
-          "plans": seg_rows, "lanes": list(CHECK_LANES),
-          "max_abs_err": seg_err,
-          "tolerance": "bit-equal sums; paused equal everywhere"})
-    emit({"phase": "batched_step_check",
-          **check_batched_step(sims["fig12"], cfg)})
-    s128 = sims["clos128_1d"]
-    traced = {}          # kernel row -> its timed calls, for phase 14
-    timing = {"fused_signals_policy": time_fused(s128, sims["fig12"], dev,
-                                                 traced)}
-    for name, prefix, label, what in SEGMENT_TIMED:
-        key = name + (f"/{prefix[:-1]}" if prefix else "")
-        row = time_segment(key, name, sims[label], what, dev, traced)
-        timing.setdefault(name, {}).update(
-            {prefix + k: v for k, v in row.items()})
-    emit({"phase": "kernel_timing", "gpu": gpu, **timing})
-    ccu_check = check_cc_update(dev)
-    emit({"phase": "cc_update_check", "kernel": "dcqcn_update", **ccu_check})
-    timing["dcqcn_update"] = time_cc_update(dev, traced)
-    emit({"phase": "kernel_timing", "gpu": gpu,
-          "dcqcn_update": timing["dcqcn_update"]})
-
-    # ---- 2b. the backend calibration, persisted for the child phases -----
-    # (before any child starts: its probes are wall-clock times)
     import tempfile
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = Path(tmp_dir.name)
     os.environ["REPRO_CACHE_DIR"] = str(tmp / "cache")
+    procs = start_child_phases(tmp, CHILD_PHASES)
     try:
-        calibration = calibrate(gpu)
-        # ---- 5j-5p start: gradients through the simulator, the atlas
-        # campaign until its SIGKILL, the ladder and the prediction, one
-        # process each (no kernel is timed until they are done: phases
-        # 6-14 follow them)
-        procs = start_child_phases(tmp)
-        try:
-            return main_paths(dev, gpu, t_start, runner, cfg, scen, sims,
-                              timing, traced, fused, seg_err, ccu_check,
-                              procs, tmp, calibration)
-        finally:
-            stop_processes(procs)
+        runner = main_runner()
+        cfg = runner.cfg
+        scen = main_scenarios()
+        sims = {}
+        for label, (fab, wl) in scen.items():
+            topo, sched, pol = ScenarioSpec(fab, wl, "dcqcn").build()
+            sims[label] = runner.simulator(topo, sched, pol)
+        sims["fig12"] = runner.simulator(*fig12_scenario())
+
+        # ---- 2. kernels against their plain versions (timed in phase 5q,
+        # once the child phases are done) -----------------------------------
+        # at every padded flow count and plan of the main paths, B in
+        # CHECK_LANES
+        flows = sorted(set(FUSED_EDGE_FLOWS)
+                       | {s.plan.n_flows_pad for s in sims.values()})
+        fused = check_fused(dev, flows)
+        emit({"phase": "kernel_check", "kernel": "fused_signals_policy",
+              **fused})
+        # the policies' scalar device functions over every float32 input
+        scalar = scalar_exhaustive(ops.kernel_function("scalar_fn"))
+        emit({"phase": "scalar_exhaustive", "gpu": gpu, **scalar})
+        for name, r in scalar.items():
+            if r["mismatches"]:
+                raise AssertionError(f"scalar_fn {name}: {r['mismatches']} "
+                                     f"inputs differ from arith.{name}: "
+                                     f"{r['first']}")
+        plans = gather_plans(sims)
+        seg_err, seg_rows = check_segments(plans, dev)
+        emit({"phase": "kernel_check", "kernel": "segment_reduce(+_pfc)",
+              "plans": seg_rows, "lanes": list(CHECK_LANES),
+              "max_abs_err": seg_err,
+              "tolerance": "bit-equal sums; paused equal everywhere"})
+        emit({"phase": "batched_step_check",
+              **check_batched_step(sims["fig12"], cfg)})
+        ccu_check = check_cc_update(dev)
+        emit({"phase": "cc_update_check", "kernel": "dcqcn_update",
+              **ccu_check})
+
+        builds["flash_decode"].result()
+        pool.shutdown()
+        build.load("flash_decode")
+        info = build.BUILD_INFO
+        ptxas = {k: ptxas_summary(v.get("ptxas", "")) for k, v in info.items()}
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "engine_seconds": engine_built,
+              "sources": {k: v.get("seconds") for k, v in info.items()},
+              "nvcc": next(iter(info.values()), {}).get("nvcc"), "gpu": gpu,
+              "ptxas": ptxas, "fused_sass": {
+                  k: dict(v, ptxas=ptxas.get("engine_step", {}).get(k))
+                  for k, v in fused_sass.items()
+                  if k.startswith("fused_signals_policy_kernel")},
+              "flash_decode_sass": sass_counts(build.build("flash_decode"))})
+
+        # (2b, the backend calibration, is a child phase: its probes are
+        # wall-clock times under contention; the ladder and prediction
+        # phases' child waits for its table on disk)
+        return main_paths(dev, gpu, t_start, runner, cfg, scen, sims,
+                          fused, seg_err, ccu_check, procs, tmp)
     finally:
+        stop_processes(procs)
         tmp_dir.cleanup()
 
 
-def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
-               fused, seg_err, ccu_check, procs, tmp, calibration) -> int:
-    """Phases 3-14 and the result lines (``main``'s second half)."""
-    import torch
+def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, fused, seg_err,
+               ccu_check, procs, tmp) -> int:
+    """Phases 3-14 and the result lines (``main``'s second half), with
+    phase 13m's ``launch.train`` runs beside them until the join."""
+    entry_procs, entry_t0 = start_train_entry(tmp / "train_entry")
+    try:
+        return main_sims(dev, gpu, t_start, runner, cfg, scen, sims, fused,
+                         seg_err, ccu_check, procs, tmp, entry_procs,
+                         entry_t0)
+    finally:
+        for proc in entry_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def main_sims(dev, gpu, t_start, runner, cfg, scen, sims, fused, seg_err,
+              ccu_check, procs, tmp, entry_procs, entry_t0) -> int:
+    """Phases 3-5m in the main process, then ``main_tail``."""
     from repro_torch.core import ScenarioSpec
     from repro_torch.kernels.engine_step import ops
     s128, s32 = sims["clos128_1d"], sims["clos32_2d"]
 
     # ---- 3. main path at the paper's scale ---------------------------------
-    # (pfc and hpcc run at this scale in phase 5d's policy-axis batch and
-    # mlp in phase 5h, each against the reference)
+    # (pfc and hpcc run at this scale in the policy-axis child's batch and
+    # mlp in the mlp_clos128 child, each against the reference)
     ops.reset_launches()
     results = {}
     for pol in ("dcqcn",):
@@ -5832,7 +6696,13 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
                                  "a step)")
         results[("clos128_1d", pol)] = r
     # the 128-GPU op-path side of the kernel-vs-op-path check is the dcqcn
-    # lane of phase 5d's policy-axis batch
+    # lane of the policy-axis child's batch: it gets this run
+    r = results[("clos128_1d", "dcqcn")]
+    np.savez(tmp / "clos128_dcqcn.npz", finished=r.finished,
+             completion_time=r.completion_time,
+             **{k: np.asarray(getattr(r, k))
+                for k in ("t_finish", "delivered", "pause_count")})
+    send_child(procs, tmp, "policy_axis", str(tmp / "clos128_dcqcn.npz"))
 
     # ---- 4. main path where all three kernels run ---------------------------
     fab, wl = scen["clos32_2d"]
@@ -5853,11 +6723,19 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
     emit({"phase": "kernel_vs_op_path", "scenario": "clos32_2d",
           "policy": "dcqcn", **compare_runs(r_k, r_t, DT, "clos32_2d dcqcn")})
     main_launches = dict(ops.LAUNCHES)
+    # soft_grad's children hold their gradients' values to these runs' costs
+    forward = json.dumps({
+        label: {"soft_cost": results[label, "dcqcn"].soft_cost,
+                "steps_executed": results[label, "dcqcn"].meta[
+                    "steps_executed"]}
+        for label in ("clos128_1d", "clos32_2d")})
+    for name in ("soft_grad", "soft_grad128"):
+        send_child(procs, tmp, name, forward)
 
     # ---- 5. against the JAX reference ---------------------------------------
     rows = []
     for key, want in REFERENCE.items():
-        if key not in results:           # held in phase 5d instead
+        if key not in results:           # held in the policy-axis child
             continue
         got = results[key].completion_time
         diff = float(steps_apart(got, want, DT))
@@ -5872,45 +6750,70 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
     ccu_launches, ccu_path = cc_update_path(dev)
     emit({"phase": "cc_update_path", "gpu": gpu, **ccu_path})
 
-    # ---- 5c. Fig 12's fabric sweep as one batch of 9 lanes ------------------
-    fig12_launches, fig12_batch = batch_fig12(runner, gpu)
-
-    # ---- 5c'. the same 9 lanes over a mesh of the card, twice ---------------
-    mesh_launches = mesh_lanes(runner, sims["fig12"], fig12_batch, gpu)
-    del fig12_batch
-
-    # ---- 5d. the policy comparison as one policy-axis batch (op path) ------
-    policy_axis(runner, scen, results, gpu)
+    # ---- 5c-5d, 5f, 5h run in child phases: Fig 12's 9 lanes as one batch
+    # and over a mesh of the card (fig12_lanes), the policy comparison as
+    # one policy-axis batch (op path), Fig 13's fault lanes as one batch
+    # and the learned policy at paper scale, lossless and lossy ----------
 
     # ---- 5e. the faulty step under mlp, kernel vs op path, paper scale -----
     emit({"phase": "lossy_step_check", **lossy_step_check(runner)})
 
-    # ---- 5f. Fig 13's fault lanes as one batch (kernel path) ---------------
-    fault_launches = fault_grid_dcqcn(runner, gpu)
-
     # ---- 5g. every engine kernel under loss, ECN scale and degradation -----
     f32_launches = faults_clos32(runner, scen, gpu)
-
-    # ---- 5h. the learned policy on the kernel path, lossless and lossy -----
-    mlp_launches = mlp_clos128(runner, scen, gpu)
 
     # ---- 5i. the held-out incast, all eight policies (op path) ------------
     mlp_heldout16(gpu)
 
+    # ---- 9. DLRM: the training iteration under each policy ------------------
+    iter_launches = dlrm_iteration(cfg, gpu)
+
+    # ---- 5m. the atlas campaign, resumed from the killed child's journal --
+    child = finish_child_phases(procs, tmp, ("campaign_atlas128_kill",))
+    atlas_launches = campaign_atlas128(gpu, tmp / "atlas",
+                                       child["campaign_atlas128_kill"])
+
+    return main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err,
+                     ccu_check, procs, tmp, child, main_launches,
+                     ccu_launches, f32_launches, iter_launches,
+                     atlas_launches, entry_procs, entry_t0)
+
+
+def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
+              procs, tmp, child, main_launches, ccu_launches,
+              f32_launches, iter_launches, atlas_launches, entry_procs,
+              entry_t0) -> int:
+    """Phases 5j-14 and the result lines: the child phases' lines and
+    ``launch.train``'s runs, then, with nothing beside the main process,
+    the kernels' times and the DLRM, serving and training phases."""
+    import torch
+    s128 = sims["clos128_1d"]
+
     # ---- 5j-5p end: the child phases' lines ------------------------------
-    child = finish_child_phases(procs, tmp, {
-        label: {"soft_cost": results[label, "dcqcn"].soft_cost,
-                "steps_executed": results[label, "dcqcn"].meta[
-                    "steps_executed"]}
-        for label in ("clos128_1d", "clos32_2d")})
+    child.update(finish_child_phases(procs, tmp, list(procs)))
+    calibration = child["calibrate"]["record"]
     if child["calibrate_warm_start"]["record"] != calibration:
         raise AssertionError("calibrate_warm_start: the child's table "
                              f"{child['calibrate_warm_start']} differs from "
                              f"phase 2b's {calibration}")
+    fig12_launches = child["batch_fig12"]["launches"]
+    mesh_launches = child["mesh_lanes"]["launches"]
+    fault_launches = child["fault_grid_dcqcn"]["launches"]
+    mlp_launches = child["mlp_clos128"]["launches"]
+    finish_train_entry(gpu, tmp / "train_entry", entry_procs, entry_t0)
 
-    # ---- 5m. the atlas campaign, resumed from the killed child's journal --
-    atlas_launches = campaign_atlas128(gpu, tmp / "atlas",
-                                       child["campaign_atlas128_kill"])
+    # ---- 5q. the engine kernels' times (phase 2's kernels) -----------------
+    traced = {}          # kernel row -> its timed calls, for phase 14
+    timing = {"fused_signals_policy": time_fused(s128, sims["fig12"], dev,
+                                                 traced)}
+    for name, prefix, label, what in SEGMENT_TIMED:
+        key = name + (f"/{prefix[:-1]}" if prefix else "")
+        row = time_segment(key, name, sims[label], what, dev, traced)
+        timing.setdefault(name, {}).update(
+            {prefix + k: v for k, v in row.items()})
+    emit({"phase": "kernel_timing", "gpu": gpu, **timing})
+    timing["dcqcn_update"] = time_cc_update(dev, traced)
+    emit({"phase": "kernel_timing", "gpu": gpu,
+          "dcqcn_update": timing["dcqcn_update"]})
 
     # ---- 6. DLRM: the embedding-bag kernel against its plain version -------
     emb_check = dlrm_kernel_check(dev)
@@ -5921,11 +6824,19 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
     emb_launches, timing["embedding_bag_rows"] = dlrm_forward(gpu, dev,
                                                               traced)
 
+    # ---- 7b. the bags' backward kernel against its plain version ---------
+    bwd_check = bags_backward_check(dev)
+    emit({"phase": "bags_backward_check", "kernel": "embedding_bag_backward",
+          **bwd_check})
+    timing["embedding_bag_backward"] = time_bags_backward(dev, traced)
+    emit({"phase": "kernel_timing", "gpu": gpu,
+          "embedding_bag_backward": timing["embedding_bag_backward"]})
+
+    # ---- 7c. training the Table II DLRM through both bag kernels ---------
+    train_launches = train_dlrm(gpu, dev)
+
     # ---- 8. DLRM: against the JAX reference's logits ------------------------
     emit({"phase": "dlrm_reference", **dlrm_reference(dev)})
-
-    # ---- 9. DLRM: the training iteration under each policy ------------------
-    iter_launches = dlrm_iteration(cfg, gpu)
 
     # ---- 10. serving: the flash-decode kernel against its plain version -----
     fd_check = decode_kernel_check(dev)
@@ -5980,6 +6891,12 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
         line, n = serve_families_reference(name, dev)
         emit({"phase": "serve_families_reference", **line})
         arch_launches[f"{name}/reference"] = n
+
+    # ---- 13j-13l. training: TinyLlama with flash attention, the smoke
+    # models against the reference (13m, launch.train with a restart, ran
+    # beside the child phases) -------------------------------------------
+    train_tinyllama(gpu, dev)
+    train_reference(gpu, dev)
 
     # ---- 14. device time of every kernel row and its library call ---------
     # traced last: once the profiler has traced, later launches are slower
@@ -6048,14 +6965,22 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
                      + child["predict32"]["launches"][k]
                      for k in main_launches}
     # the gradient path's backward sums (soft_grad's four runs)
-    path_launches["segment_reduce"] += child["soft_grad"]["segment_launches"]
+    path_launches["segment_reduce"] += (child["soft_grad"]["segment_launches"]
+                                        + child["soft_grad128"][
+                                            "segment_launches"])
     path_launches["dcqcn_update"] = ccu_launches
-    path_launches.update(emb_launches)
+    # the embedding kernels: the scoring forward and train_dlrm's steps
+    path_launches["embedding_bag_rows"] = (
+        emb_launches["embedding_bag_rows"]
+        + train_launches["embedding_bag_rows"])
+    path_launches["embedding_bag_backward"] = train_launches[
+        "embedding_bag_backward"]
     path_launches["flash_decode"] = (entry_launches + long_launches
                                      + sum(arch_launches.values()))
     errs = {"fused_signals_policy": fused["max_abs_err"], **seg_err,
             "dcqcn_update": ccu_check["max_abs_err"],
             "embedding_bag_rows": emb_check["max_abs_err"],
+            "embedding_bag_backward": bwd_check["max_abs_err"],
             "flash_decode": max(fd_check["max_abs_err"], *(
                 r["max_abs_err"] for r in (*fd_layers.values(),
                                            *int8_layers.values())))}
@@ -6079,6 +7004,10 @@ def main_paths(dev, gpu, t_start, runner, cfg, scen, sims, timing, traced,
         row.update({k: v for k, v in tm.items()
                     if k.startswith(("mlp_", "b9_", "qlink_", "qport128_",
                                      "index_add_", "softcap_", "int8_"))})
+        if name == "embedding_bag_backward":
+            row.update({k: tm[k] for k in (
+                "ms_kernel_fill", "sums_ms", "zero_kernel_ms", "zeros_ms",
+                "index_ms", "index_add_ms", "shape")})
         if name == "fused_signals_policy":
             row["mlp_launches"] = mlp_launches[name]
         if name == "flash_decode":

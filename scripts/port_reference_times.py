@@ -13,9 +13,13 @@ and teacher-forced decode, at full width and 4 layers),
 attention period, the window cut; ``sliding_reference:gemma3-27b`` one),
 ``families_reference`` (Zamba2 at one period, RWKV-6 at 2 layers,
 DeepSeek-V2 at 2 layers, TinyLlama with the int8 KV cache at 4 layers, at
-full width; ``families_reference:rwkv6-3b`` one),
+full width; ``families_reference:rwkv6-3b`` one; each MoE model's expert ids
+beside its logits), ``train_reference`` (3 AdamW steps of the TinyLlama
+and DLRM smoke configs with float32 activations: losses and gradient
+norms),
 ``autotune_incast8`` (``examples/cc_autotune.py``'s tunings),
-``learn_step`` (two Adam steps of the ``mlp`` trainer's curriculum) and
+``learn_step`` (``chip_smoke.LEARN_STEPS`` Adam steps of the ``mlp``
+trainer's curriculum) and
 ``soft_grad`` (the soft cost and its gradient; ``soft_grad:clos32_2d``,
 the default), ``predict32`` (the HLO-replay prediction on the 32-GPU
 CLOS) and ``atlas_ring128`` (the committed atlas's lanes re-run, one
@@ -24,6 +28,7 @@ them by default.  Prints one JSON line per result;
 ``chip_smoke.py`` holds the port's card runs to these values
 (``REFERENCE``, ``FIG12_REFERENCE``, ``DLRM_ITER_REFERENCE``,
 ``DLRM_REF_LOGITS``, ``SERVE_REF``, ``SLIDING_REF``, ``FAMILIES_REF``,
+``TRAIN_REF``,
 ``AUTOTUNE_REFERENCE``,
 ``LEARN_REFERENCE``, ``SOFT_GRAD_REFERENCE`` and ``PREDICT_REFERENCE``
 there; the atlas's cells are held to the committed CSV).
@@ -58,10 +63,14 @@ from repro.core.faults import FaultSpec
 from repro.core.scenario import (CollectiveSpec, FabricSpec, IncastSpec,
                                  ScenarioSpec)
 from repro.core.sweep import SweepRunner
-from repro.data.pipeline import dlrm_batch
+from repro.configs import smoke_config
+from repro.configs.base import TrainConfig
+from repro.data.pipeline import dlrm_batch, lm_batch
 from repro.kernels.embedding_bag.ops import embedding_bag_stacked
 from repro.models.dlrm import DLRM
 from repro.models.model_api import Model
+from repro.train.optimizer import init_opt_state
+from repro.train.train_step import make_train_step
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (numpy only at import: the shared inputs)
@@ -255,14 +264,19 @@ def _hashed_reference(name: str, cfg) -> None:
     params = walk(shapes, "", "")
     toks = cs.serve_reference_tokens(cfg.vocab)
     S = cs.SERVE_REF_PROMPT
-    logits, cache = jax.jit(lambda p, b: model.prefill(
-        p, b, max_len=S + cs.SERVE_REF_STEPS + 8))(
-        params, {"tokens": jnp.asarray(toks[:, :S])})
-    rows = [np.asarray(logits)]
-    decode = jax.jit(model.decode_step)
-    for t in range(S, S + cs.SERVE_REF_STEPS):
-        logits, cache = decode(params, cache, jnp.asarray(toks[:, t:t + 1]))
-        rows.append(np.asarray(logits))
+    with _record_routing() as routes:
+        logits, cache = jax.jit(lambda p, b: model.prefill(
+            p, b, max_len=S + cs.SERVE_REF_STEPS + 8))(
+            params, {"tokens": jnp.asarray(toks[:, :S])})
+        rows = [np.asarray(logits)]
+        n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.moe else 0
+        experts = [routes.take(n_moe)]
+        decode = jax.jit(model.decode_step)
+        for t in range(S, S + cs.SERVE_REF_STEPS):
+            logits, cache = decode(params, cache,
+                                   jnp.asarray(toks[:, t:t + 1]))
+            rows.append(np.asarray(logits))
+            experts.append(routes.take(n_moe))
     del params, cache
     lg = np.stack(rows).astype(np.float64)             # (steps + 1, B, V)
     top2 = np.sort(lg, -1)[..., -2:]
@@ -274,7 +288,45 @@ def _hashed_reference(name: str, cfg) -> None:
           "logits": lg[:, :, cs.SERVE_REF_IDS].astype(
               np.float32).round(5).tolist(),
           "lse": lse.round(5).tolist(), "top1": lg.argmax(-1).tolist(),
-          "margin": (top2[..., 1] - top2[..., 0]).round(5).tolist()})
+          "margin": (top2[..., 1] - top2[..., 0]).round(5).tolist(),
+          **({"experts": experts} if cfg.moe else {})})
+
+
+class _record_routing:
+    """While active, records the top-k experts the reference's router
+    picks (``repro.models.moe._router`` wrapped in this process, through
+    a host callback; the file is not edited), each token's ids sorted:
+    ``take(n)`` returns the n calls since the last ``take``, each a
+    (tokens, k) list, tokens in row-major order (the
+    port's ``chip_smoke.capture_routing`` layout)."""
+
+    def __enter__(self):
+        import repro.models.moe as rmoe
+        self.mod, self.orig, self.chunks = rmoe, rmoe._router, []
+
+        def router(w, x, cfg):
+            gates, idx = self.orig(w, x, cfg)
+            jax.debug.callback(
+                lambda i: self.chunks.append(np.sort(np.asarray(i), -1)),
+                idx)
+            return gates, idx
+        rmoe._router = router
+        return self
+
+    def take(self, n_calls: int) -> list:
+        """The ids recorded since the last ``take``: the prefill's or one
+        decode step's ``n_calls`` MoE layer calls, each a (tokens, k)
+        list (``moe_chunks`` splits a call's tokens in order, so the
+        joined chunks are the calls one after the other)."""
+        jax.effects_barrier()
+        chunks, self.chunks = self.chunks, []
+        if not n_calls:
+            return []
+        ids = np.concatenate(chunks) if chunks else np.zeros((0, 0), int)
+        return [c.astype(int).tolist() for c in np.split(ids, n_calls)]
+
+    def __exit__(self, *exc):
+        self.mod._router = self.orig
 
 
 def families_reference(names=None) -> None:
@@ -288,6 +340,51 @@ def families_reference(names=None) -> None:
         arch, layers, over = cs.FAMILIES_REF_CUTS[name]
         cfg = dataclasses.replace(get_config(arch), n_layers=layers, **over)
         _hashed_reference(name, cfg)
+
+
+def train_reference(names=None) -> None:
+    """``chip_smoke.TRAIN_REF_STEPS`` AdamW steps (``TRAIN_REF_TCFG``) of
+    the TinyLlama and DLRM smoke configs with float32 activations,
+    weights from ``chip_smoke.transformer_numpy_params`` /
+    ``dlrm_numpy_params`` at ``TRAIN_REF_SEED``, batches from
+    ``lm_batch``/``dlrm_batch`` (``TRAIN_REF_BATCH``): each step's loss
+    and gradient norm."""
+    cs = chip_smoke
+    for name in names or cs.TRAIN_REF:
+        cfg = smoke_config(name)
+        if name == "dlrm":
+            model = DLRM(cfg)
+            defs = model.param_defs()
+            tree = cs.dlrm_numpy_params(
+                {"tables": defs["tables"].shape,
+                 **{part: {k: d.shape for k, d in defs[part].items()}
+                    for part in ("bot", "top")}}, cs.TRAIN_REF_SEED)
+            params = {"tables": jnp.asarray(tree["tables"].view(jnp.bfloat16)),
+                      **{part: jax.tree.map(jnp.asarray, tree[part])
+                         for part in ("bot", "top")}}
+        else:
+            model = Model(cfg)
+            shapes = jax.tree.map(lambda d: d.shape, model.param_defs(),
+                                  is_leaf=lambda x: hasattr(x, "axes"))
+            params = jax.tree.map(jnp.asarray, cs.transformer_numpy_params(
+                shapes, cs.TRAIN_REF_SEED, bf16=False))
+        model.compute_dtype = jnp.float32
+        opt = init_opt_state(params, jnp.float32, keep_master=False)
+        step = jax.jit(make_train_step(model, TrainConfig(
+            **cs.TRAIN_REF_TCFG)))
+        losses, norms = [], []
+        for i in range(cs.TRAIN_REF_STEPS):
+            b = (dlrm_batch(cs.TRAIN_REF_SEED, i, cs.TRAIN_REF_BATCH[name],
+                            cfg) if name == "dlrm" else
+                 lm_batch(cs.TRAIN_REF_SEED, i, *cs.TRAIN_REF_BATCH[name],
+                          cfg.vocab))
+            params, opt, m = step(params, opt,
+                                  {k: jnp.asarray(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        emit({"scenario": "train_reference", "name": name,
+              "seed": cs.TRAIN_REF_SEED, "loss": losses,
+              "grad_norm": norms})
 
 
 def sliding_reference(archs=None) -> None:
@@ -444,7 +541,8 @@ def autotune_incast8() -> None:
 
 
 def learn_step() -> None:
-    """Two Adam steps of the trainer on ``curriculum_default()`` with
+    """``chip_smoke.LEARN_STEPS`` Adam steps of the trainer on
+    ``curriculum_default()`` with
     ``default_engine_cfg()``, the default corners, remat, seed 0: each
     step's per-task costs, loss and gradient norm, and the 40 weights."""
     import repro.learn.train  # noqa: F401  (the package exports train)
@@ -543,6 +641,7 @@ def main(names):
     for name in names or [*SCENARIOS, "batch_fig12", "dlrm_reference",
                           "dlrm_iteration", "serve_reference",
                           "sliding_reference", "families_reference",
+                          "train_reference",
                           "fault_grid_dcqcn", "faults_clos32",
                           "mlp_clos128", "mlp_heldout16",
                           "autotune_incast8", "learn_step", "soft_grad",
@@ -584,6 +683,8 @@ def main(names):
             sliding_reference(arg.split(",") if arg else None)
         elif name == "families_reference":
             families_reference(arg.split(",") if arg else None)
+        elif name == "train_reference":
+            train_reference(arg.split(",") if arg else None)
         else:
             raise SystemExit(f"unknown scenario {name!r}")
 

@@ -12,7 +12,10 @@ torch); and where one step of the differentiable simulator goes, its
 forward under autograd and its backward, at 128 GPUs (DCQCN, w.r.t.
 ``rai_frac`` and ``g``) and on the ``mlp`` trainer's ring all-reduce
 task (its three fabric corners as lanes, w.r.t. the 40 weights):
-``clos128_grad``, ``ring16_grad``.
+``clos128_grad``, ``ring16_grad``; and where one AdamW train step goes,
+at ``chip_smoke.py``'s training shapes: the Table II DLRM at B=256
+through both bag kernels (``train_dlrm``) and TinyLlama-1.1B with flash
+attention at 8 x 2,048 tokens in microbatches of 4 (``train_tinyllama``).
 
     python3 scripts/profile_step.py [--out profile.json] [--only name ...]
 
@@ -29,7 +32,11 @@ per step), and the kernels that take most device time.  The DLRM forward
 gets the same line per forward (``FORWARDS`` timed, then
 ``TRACE_FORWARDS`` traced), a decode step the same line per step
 (``DECODE_STEPS`` timed, then ``TRACE_DECODE`` traced, after
-``WARM_DECODE``).  Needs one CUDA card.
+``WARM_DECODE``), a train step the same line per step (``TRAIN_STEPS``
+timed, then ``TRAIN_TRACE`` traced, after one warm-up step; the training
+cells run last, one model on the card at a time, so run them alone,
+``--only train_dlrm train_tinyllama``, to time them before any trace).
+Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -51,7 +58,9 @@ FORWARDS, TRACE_FORWARDS = 100, 20
 WARM_DECODE, DECODE_STEPS, TRACE_DECODE = 4, 24, 8
 SCENARIOS = ("clos128_1d", "clos128_1d_lossy", "dlrm128_2d", "clos32_2d",
              "batch_fig12", "dlrm_forward", "serve_decode", "clos128_grad",
-             "ring16_grad")
+             "ring16_grad", "train_dlrm", "train_tinyllama")
+# AdamW train steps timed, then traced, after one warm-up step
+TRAIN_STEPS, TRAIN_TRACE = 3, 1
 # the differentiable step: steps recorded under autograd per window (its
 # activations stay on the card until the backward)
 GRAD_STEPS, GRAD_TRACE_STEPS = 64, 16
@@ -243,6 +252,51 @@ class Forwards:
         return (time.perf_counter() - t0) / n * 1e3
 
 
+class Training:
+    """AdamW steps of one model on ``chip_smoke.py``'s training shapes
+    (``TrainConfig`` defaults, parameters from seed 0 on the card, one
+    batch already there): ``train_dlrm``, the Table II DLRM at B=256;
+    ``train_tinyllama``, TinyLlama-1.1B with ``flash_attention`` at 8 x
+    2,048 tokens, microbatches of 4.  One "step" is one train step."""
+
+    def __init__(self, which: str):
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import TrainConfig
+        from repro_torch.data import dlrm_batch, lm_batch
+        from repro_torch.models import DLRM, Model
+        from repro_torch.train.train_step import (init_train_state,
+                                                  make_train_step)
+        if which == "train_dlrm":
+            model = DLRM(get_config("dlrm"), device="cuda", seed=0)
+            tcfg = TrainConfig()
+            batch = dlrm_batch(0, 0, 256, model.cfg)
+            self.tokens = 256
+        else:
+            cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                                      flash_attention=True)
+            model = Model(cfg, device="cuda")
+            tcfg = TrainConfig(microbatch=4)
+            batch = lm_batch(0, 0, 8, 2048, cfg.vocab)
+            self.tokens = 8 * 2048
+        self.batch = {k: torch.as_tensor(v, device="cuda")
+                      for k, v in batch.items()}
+        self.params, self.opt = init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0), tcfg)
+        self.step = make_train_step(model, tcfg)
+
+    def advance(self, n: int) -> None:
+        for _ in range(n):
+            self.params, self.opt, m = self.step(self.params, self.opt,
+                                                 self.batch)
+            float(m["loss"])
+
+    def host_ms(self, n: int) -> float:
+        t0 = time.perf_counter()
+        self.advance(n)
+        return (time.perf_counter() - t0) / n * 1e3
+
+
 class Decoding:
     """TinyLlama-1.1B (seed-0 weights) after the prefill of 8 prompts of
     2,048 tokens into a 32,768-token cache; one "step" is one greedy
@@ -424,6 +478,30 @@ def main(argv=None) -> int:
         lines["serve_decode", impl].update(trace(
             lambda dec=dec: dec.advance(TRACE_DECODE), TRACE_DECODE,
             args.top))
+    # the training cells: one model on the card at a time (the DLRM's
+    # state takes 50 GB), after every other cell
+    runs.clear()
+    decoding.clear()
+    grads.clear()
+    torch.cuda.empty_cache()
+    training = [w for w in ("train_dlrm", "train_tinyllama") if w in only]
+    for which in training:
+        tr = Training(which)
+        tr.advance(1)
+        ms = tr.host_ms(TRAIN_STEPS)
+        unit = "samples" if which == "train_dlrm" else "tokens"
+        lines[which] = {"scenario": which, "gpu": gpu,
+                        "host_ms_per_step": ms,
+                        f"{unit}_per_s": tr.tokens * 1e3 / ms}
+        del tr
+        torch.cuda.empty_cache()
+    for which in training:
+        tr = Training(which)
+        tr.advance(1)
+        lines[which].update(trace(lambda tr=tr: tr.advance(TRAIN_TRACE),
+                                  TRAIN_TRACE, args.top))
+        del tr
+        torch.cuda.empty_cache()
     for line in lines.values():
         if "host_ms_per_step" in line:
             line["device_idle_share"] = 1.0 - (

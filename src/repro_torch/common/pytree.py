@@ -2,8 +2,11 @@
 
 A model declares its parameters once as a tree (nested dicts and lists)
 of :class:`ParamDef` leaves; ``materialize`` turns the tree into the same
-tree of tensors, drawn by the rules of ``common/init.py``.  The sharding
-side of the reference (``specs_of``, ``abstract``) comes with the mesh.
+tree of tensors, drawn by the rules of ``common/init.py``.
+``flatten_with_paths`` names a tree's leaves as the reference's
+``jax.tree_util`` paths do (the checkpoint layout's file names).  The
+sharding side of the reference (``specs_of``, ``abstract``) comes with
+the mesh.
 """
 from __future__ import annotations
 
@@ -78,3 +81,45 @@ def tree_bytes(defs_or_params) -> int:
         if isinstance(leaf, (ParamDef, torch.Tensor)):
             total += _numel(leaf.shape) * leaf.dtype.itemsize
     return total
+
+
+def _path_leaves(tree, prefix: tuple):
+    """(path, leaf) in ``jax.tree_util``'s order: a dict's keys sorted,
+    a list's or tuple's items by index; None holds no leaf."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _path_leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _path_leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def flatten_with_paths(tree) -> list:
+    """[(dot.path, leaf)] as the reference's
+    ``repro.common.pytree.flatten_with_paths`` names them, in its order:
+    a checkpoint of either package names its files alike."""
+    return [(".".join(path), leaf) for path, leaf in _path_leaves(tree, ())]
+
+
+def unflatten_like(like, leaves):
+    """The tree of ``like`` with its leaves replaced, in
+    ``flatten_with_paths`` order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            vals = {k: build(node[k]) for k in sorted(node)}
+            return {k: vals[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

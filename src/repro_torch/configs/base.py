@@ -1,6 +1,7 @@
-"""Config dataclasses (port of ``repro/configs/base.py``): ``ModelConfig``
-and ``ShapeConfig``, field for field, so that config files port verbatim.
-The mesh and training configs come with the training slice."""
+"""Config dataclasses (port of ``repro/configs/base.py``): ``ModelConfig``,
+``ShapeConfig`` and ``TrainConfig``, field for field, so that config files
+port verbatim.  The mesh configs come with the logical-axis sharding
+(ROADMAP.md queue item 9.8)."""
 from __future__ import annotations
 
 import dataclasses
@@ -124,3 +125,21 @@ class ShapeConfig:
     # how to shard the KV cache for decode: "batch" (many requests) or
     # "seq" (single huge context -> sequence parallel cache)
     cache_shard: str = "batch"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatch: int | None = None      # grad accumulation microbatch size
+    remat: bool = True
+    zero1: bool = True                 # shard optimizer state over data axis
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    seed: int = 0

@@ -6,7 +6,9 @@ imports nothing of the JAX package, so a caller holding a
 engine carry dict gets the port's equivalent, and the port and the
 reference can be fed exactly the same scenario and the same mid-run state.
 ``dlrm_params_from_numpy`` and ``transformer_params_from_numpy`` do the
-same for a DLRM's and a transformer's parameter trees.
+same for a DLRM's and a transformer's parameter trees, and
+``opt_state_from_numpy`` for an AdamW state (``tree_to_numpy`` carries
+any of them back).
 """
 from __future__ import annotations
 
@@ -93,9 +95,9 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         bits = np.array(a).view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16).to(device)
-    if a.dtype != np.float32:
-        raise TypeError(f"parameter of dtype {a.dtype}: expected "
-                        "bfloat16 or float32")
+    if a.dtype not in (np.float32, np.int32):
+        raise TypeError(f"leaf of dtype {a.dtype}: expected bfloat16 or "
+                        "float32 (int32 for an optimizer's step count)")
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -129,3 +131,27 @@ def transformer_params_from_numpy(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [transformer_params_from_numpy(v, device) for v in tree]
     return _leaf_to_torch(tree, device)
+
+
+def opt_state_from_numpy(state: dict, device="cuda") -> dict:
+    """The reference's AdamW state (``init_opt_state``/``adamw_update``:
+    ``mu``, ``nu``, ``count`` and, with master weights, ``master``) -> the
+    port's, bit for bit: the trees on ``device``, ``count`` an int32
+    scalar on the CPU (where the port keeps it)."""
+    out = {k: transformer_params_from_numpy(v, device)
+           for k, v in state.items() if k != "count"}
+    out["count"] = torch.tensor(int(np.asarray(state["count"])),
+                                dtype=torch.int32)
+    return out
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (parameters, an AdamW state) -> the same tree of
+    numpy arrays; a bf16 leaf as its float32 widening (numpy has no bf16;
+    the values are exact)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,2 +1,3 @@
 """Deterministic synthetic batches (port of ``repro.data``)."""
-from repro_torch.data.pipeline import dlrm_batch  # noqa: F401
+from repro_torch.data.pipeline import (Prefetcher, dlrm_batch,  # noqa: F401
+                                       lm_batch)

@@ -1,13 +1,30 @@
-"""Deterministic synthetic batches (port of ``dlrm_batch`` of
+"""Deterministic synthetic batches with background prefetch (port of
 ``repro/data/pipeline.py``; numpy only).
 
-Every batch is a pure function of (seed, step), and its arrays are
-identical to the reference's.  The background prefetcher and mesh
-sharding wait for the training slice.
+Every batch is a pure function of (seed, step), so a restart reproduces
+the exact stream (what checkpoint/restart equivalence rests on), and its
+arrays are identical to the reference's.  ``Prefetcher`` builds the
+stream ahead on a background thread.  ``shard_batch`` takes a mesh and
+comes with the logical-axis sharding (ROADMAP.md queue item 9.8); a
+trainer on one device moves a batch with ``torch.as_tensor``.
 """
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Callable, Iterator
+
 import numpy as np
+
+
+def lm_batch(seed: int, step: int, global_batch: int, seq: int,
+             vocab: int) -> dict:
+    rng = np.random.default_rng(np.uint64(seed) * np.uint64(1_000_003)
+                                + np.uint64(step))
+    toks = rng.integers(0, vocab, (global_batch, seq), dtype=np.int32)
+    # inject learnable structure: token t+1 correlates with token t
+    toks[:, 1::2] = (toks[:, 0::2] * 31 + 7) % vocab
+    return {"tokens": toks}
 
 
 def dlrm_batch(seed: int, step: int, global_batch: int, cfg) -> dict:
@@ -21,3 +38,37 @@ def dlrm_batch(seed: int, step: int, global_batch: int, cfg) -> dict:
     w = np.asarray(np.sin(np.arange(cfg.n_dense)), np.float32)
     label = (dense @ w > 0).astype(np.float32)
     return {"dense": dense, "sparse_idx": idx, "label": label}
+
+
+class Prefetcher:
+    """Background-thread prefetch of the (deterministic) batch stream:
+    ``make_batch(step)`` for step = start_step, start_step + 1, ...,
+    at most ``depth`` ahead; iterate to take them in order."""
+
+    def __init__(self, make_batch: Callable[[int], dict], start_step: int = 0,
+                 depth: int = 2):
+        self._make = make_batch
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                self._q.put(self._make(step), timeout=0.1)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2)

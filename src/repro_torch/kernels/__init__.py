@@ -7,7 +7,9 @@
 #                   point dcqcn_update; shares the policy device functions
 #                   (csrc/cc_policy.cuh) with the fused step kernel.
 #   embedding_bag — multi-hot sum pooling of the DLRM forward (see
-#                   repro_torch.models.dlrm embedding_impl="cuda").
+#                   repro_torch.models.dlrm embedding_impl="cuda"), and
+#                   (embedding_bag_backward.cu) its backward, the tables'
+#                   gradient in a fixed order.
 #   flash_decode  — one-token GQA attention over a KV cache, the serving
 #                   path's decode attention (see repro_torch.models.model_api
 #                   decode_impl="cuda").

@@ -32,6 +32,8 @@ SOURCES = {
     "engine_step": _PKG / "engine_step" / "csrc" / "engine_step.cu",
     "cc_update": _PKG / "cc_update" / "csrc" / "cc_update.cu",
     "embedding_bag": _PKG / "embedding_bag" / "csrc" / "embedding_bag.cu",
+    "embedding_bag_backward": (_PKG / "embedding_bag" / "csrc"
+                               / "embedding_bag_backward.cu"),
     "flash_decode": _PKG / "flash_decode" / "csrc" / "flash_decode.cu",
 }
 

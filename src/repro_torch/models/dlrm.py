@@ -1,5 +1,5 @@
 """DLRM (Naumov et al., arXiv:1906.00091) with the paper's Table II sizes
-(port of ``repro/models/dlrm.py``, forward only).
+(port of ``repro/models/dlrm.py``).
 
 bottom-MLP(dense 1600 -> 1024 x (5+2) -> 64)  ||  64 embedding tables
 (dim 64, pooling factor 60)  ->  pairwise dot interaction -> top-MLP(2048 x
@@ -17,10 +17,14 @@ while it runs, and restores it after.
 
 The multi-hot pooled lookup runs in the embedding-bag CUDA kernel on the
 card (``embedding_impl="cuda"``, the default there) or in its plain
-version (``"torch"``, the default on the CPU).  The kernel is forward-only,
-so the parameters do not require grad: training, with the bags' backward,
-comes later.  Mesh sharding (``param_specs``, ``input_specs``,
-``batch_pspecs``) is not ported.
+version (``"torch"``, the default on the CPU).  Both are differentiable
+in the tables: under autograd the kernel path's gradient is the
+``embedding_bag_backward`` kernel, the plain path's the plain backward,
+which sums in the kernel's order.  The module's own parameters do not
+require grad (scoring records nothing); training passes its tree in
+(``loss(batch, params=...)``, ``param_tree``; ``repro_torch.train``).
+Mesh sharding (``param_specs``, ``input_specs``, ``batch_pspecs``) is not
+ported.
 """
 from __future__ import annotations
 
@@ -28,12 +32,12 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.common import init as init_mod
 from repro_torch.common.precision import float32_reduction
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels.embedding_bag import ops as emb_ops
-from repro_torch.kernels.embedding_bag import ref as emb_ref
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -151,11 +155,14 @@ class DLRM(nn.Module):
         return torch.as_tensor(x, device=self.device).to(dtype)
 
     def embed_bags(self, idx: torch.Tensor) -> torch.Tensor:
-        """idx (B, T, pooling) int32 -> pooled (B, T, dim) in the tables'
-        dtype."""
+        """idx (B, T, pooling) int32 -> pooled (B, T, dim) in the compute
+        dtype, rounded once from the float32 sums (the reference sums the
+        tables cast to its compute dtype)."""
         if self.embedding_impl == "cuda":
-            return emb_ops.embedding_bag_stacked(self.tables, idx)
-        return emb_ref.embedding_bag_stacked_ref(self.tables, idx)
+            return emb_ops.embedding_bag_stacked(self.tables, idx,
+                                                 self.compute_dtype)
+        return emb_ops.embedding_bag_stacked_plain(self.tables, idx,
+                                                   self.compute_dtype)
 
     def forward(self, batch: dict) -> torch.Tensor:
         """batch: dense (B, n_dense) f32, sparse_idx (B, T, pooling) int32
@@ -168,7 +175,7 @@ class DLRM(nn.Module):
         dense = self._as_tensor(batch["dense"], self.compute_dtype)
         idx = self._as_tensor(batch["sparse_idx"], torch.int32).contiguous()
         z_bot = _mlp_apply(self.bot, dense, len(cfg.bot_mlp))   # (B, dim)
-        pooled = self.embed_bags(idx).to(self.compute_dtype)    # (B, T, dim)
+        pooled = self.embed_bags(idx)                           # (B, T, dim)
         feats = torch.cat([z_bot[:, None], pooled], dim=1)      # (B, T+1, dim)
         f32 = feats.float()   # bf16 products are exact in float32
         inter = torch.bmm(f32, f32.transpose(1, 2))
@@ -178,9 +185,24 @@ class DLRM(nn.Module):
         x = torch.cat([flat, z_bot], dim=-1)
         return _mlp_apply(self.top, x, len(cfg.top_mlp))[:, 0]
 
-    def loss(self, batch: dict) -> torch.Tensor:
-        """Mean binary cross-entropy on the logits (float32)."""
-        logit = self.forward(batch).float()
+    def param_tree(self) -> dict:
+        """The weights as the reference's tree ``{"tables", "bot": {...},
+        "top": {...}}``, sharing the module's storage."""
+        return {"tables": self.tables.detach(),
+                "bot": {k: v.detach() for k, v in self.bot.items()},
+                "top": {k: v.detach() for k, v in self.top.items()}}
+
+    def loss(self, batch: dict, params: dict | None = None) -> torch.Tensor:
+        """Mean binary cross-entropy on the logits (float32); with
+        ``params`` (a tree shaped as ``param_tree``'s) the forward runs on
+        them in place of the module's own (``functional_call``)."""
+        if params is None:
+            logit = self.forward(batch).float()
+        else:
+            flat = {"tables": params["tables"],
+                    **{f"{part}.{k}": v for part in ("bot", "top")
+                       for k, v in params[part].items()}}
+            logit = functional_call(self, flat, (batch,)).float()
         y = self._as_tensor(batch["label"], torch.float32)
         return torch.mean(torch.clamp_min(logit, 0) - logit * y
                           + torch.log1p(torch.exp(-torch.abs(logit))))

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.pytree import ParamDef
 from repro_torch.models import layers as L
+from repro_torch.models.flash import flash_attention
 
 
 def mla_defs(cfg) -> dict:
@@ -70,11 +71,11 @@ def _latent_kv(p, x, cfg, positions):
 
 
 def mla_train(p, x, cfg, positions):
-    """Non-absorbed form for prefill: materialise per-head K/V and run
-    causal attention, dense up to 2,048 positions and blockwise above,
-    with V padded to the qk head dim so that one attention serves both.
-    (The reference's flash-attention and prefix-LM options come with
-    training and the VLM config.)"""
+    """Non-absorbed form for train and prefill: materialise per-head K/V
+    and run causal attention, dense up to 2,048 positions and blockwise
+    (or flash, with ``cfg.flash_attention``) above, with V padded to the
+    qk head dim so that one attention serves both.  (The reference's
+    prefix-LM option comes with the VLM config.)"""
     B, S, _ = x.shape
     H = cfg.n_heads
     d_nope, d_rope, d_v = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -88,6 +89,8 @@ def mla_train(p, x, cfg, positions):
         v = F.pad(v, (0, d_nope + d_rope - d_v))
     if S <= 2048:
         o = L.dense_attention(q, k, v, causal=True)
+    elif cfg.flash_attention:
+        o = flash_attention(q, k, v, True, cfg.block_q, cfg.block_k)
     else:
         o = L.blockwise_attention(q, k, v, causal=True, block_q=cfg.block_q,
                                   block_k=cfg.block_k)

@@ -22,13 +22,21 @@ reference's dots reduce in float32).
 the CPU, and "cuda" on the CPU raises. The cache's position ``pos`` is a
 Python int (the reference keeps an int32 scalar on the device), and its
 K/V tensors, latent caches and recurrent states are written in place.
-Training (``loss``), the mesh and its specs come with a later slice.
+
+``loss(params, batch)`` is the reference's next-token cross-entropy with
+an optional ``loss_mask``: the stack in ``mode="train"`` (the prefill's
+math without a cache), each stacked period rematerialised in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), the
+logits, log-sum-exp and gather in float32.  The mesh and its specs come
+with the logical-axis sharding (ROADMAP.md queue item 9.8); the VLM and
+encoder-decoder extras with item 9.5.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.precision import float32_reduction
 from repro_torch.common.pytree import ParamDef, materialize, tree_map
@@ -121,21 +129,58 @@ class Model:
     def _run_groups(self, params, x, *, mode, caches, positions,
                     decode: T.DecodeStep | None = None):
         """Every layer in order; ``caches`` (the stacked cache tree) is
-        written in place; a shared block takes ``params["shared_block"]``."""
+        written in place; a shared block takes ``params["shared_block"]``.
+        In ``mode="train"`` there is no cache, and each period (one index
+        of a group's stack, all its sub-layers) is checkpointed: its
+        activations are recomputed in the backward."""
         cfg = self.cfg
         pgroups, shared = params["groups"], params.get("shared_block")
         for gi, g in enumerate(self.groups):
             for i in range(g.n):
-                for j, kind in enumerate(g.kinds):
-                    p = tree_map(lambda t: t[i], pgroups[gi][f"l{j}"])
-                    c = tree_map(lambda t: t[i], caches[gi][f"l{j}"])
-                    x, _ = _apply_layer(cfg, kind, p, x, positions=positions,
-                                        mode=mode, cache=c, decode=decode,
-                                        shared_params=shared)
+                def period(x, gi=gi, g=g, i=i):
+                    for j, kind in enumerate(g.kinds):
+                        p = tree_map(lambda t: t[i], pgroups[gi][f"l{j}"])
+                        c = (None if caches is None else
+                             tree_map(lambda t: t[i], caches[gi][f"l{j}"]))
+                        x, _ = _apply_layer(cfg, kind, p, x,
+                                            positions=positions, mode=mode,
+                                            cache=c, decode=decode,
+                                            shared_params=shared)
+                    return x
+                if mode == "train":
+                    x = checkpoint(period, x, use_reentrant=False)
+                else:
+                    x = period(x)
         return x
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
+
+    # ------------------------------------------------------------------ train
+    def loss(self, params, batch) -> torch.Tensor:
+        """Next-token cross-entropy (a float32 scalar) of
+        ``batch["tokens"]`` (B, S), over the positions ``batch["loss_mask"]``
+        (B, S) keeps when it is given."""
+        cfg = self.cfg
+        with float32_reduction():
+            tokens = self._tokens(batch["tokens"])
+            B, S = tokens.shape
+            x = self._embed(params, tokens)
+            positions = torch.arange(S, device=self.device)[None].expand(B, S)
+            x = self._run_groups(params, x, mode="train", caches=None,
+                                 positions=positions)
+            x = _norm_apply(cfg, params["final_norm"], x)
+            logits = self._logits(params, x)
+            tgt = tokens[:, 1:]
+            lg = logits[:, :-1].float()
+            mask = batch.get("loss_mask")
+            mask = (torch.ones(tgt.shape, device=self.device) if mask is None
+                    else torch.as_tensor(mask, device=self.device)[:, 1:]
+                    .float())
+            lse = torch.logsumexp(lg, dim=-1)
+            picked = torch.take_along_dim(lg, tgt[..., None], dim=-1)[..., 0]
+            nll = (lse - picked) * mask
+            return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
     # ------------------------------------------------------------------ serve
     def cache_defs(self, batch: int, max_len: int):

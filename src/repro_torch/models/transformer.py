@@ -27,8 +27,15 @@ Ported kinds (mixer, ffn):
   ("rwkv6", "rwkv_ffn") RWKV-6 time and channel mixing (``models/rwkv.py``)
 with the MLP's three ``mlp_kind``s, the attention-logit softcap,
 post-norms, qk-norm and a local rope theta.  The encoder-decoder and VLM
-extras and flash attention for training raise ``NotImplementedError``:
-they come with ROADMAP.md queue items 9.5 and 9.6.
+extras raise ``NotImplementedError``: they come with ROADMAP.md queue
+item 9.5.
+
+Every kind trains (``mode="train"``: the prefill's math without a cache,
+under autograd); with ``cfg.flash_attention``, causal global attention
+past 1,024 positions without a softcap runs ``models/flash.py``, whose
+backward recomputes the probabilities, as in the reference.  The cache
+and state writes below happen only with a cache, never on the train
+path.
 
 Decode attention of the GQA layers runs through ``decode_impl``:
 ``"torch"`` is the port of ``layers.decode_attention``,
@@ -57,11 +64,12 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
+from repro_torch.models.flash import flash_attention
 
 SUPPORTED_KINDS = (("gqa_g", "mlp"), ("gqa_l", "mlp"), ("mla", "mlp"),
                    ("mla", "moe"), ("mamba", None), ("shared_gqa", "mlp"),
                    ("rwkv6", "rwkv_ffn"))
-_LATER = "comes with ROADMAP.md queue items 9.5-9.6"
+_LATER = "comes with ROADMAP.md queue item 9.5"
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +120,7 @@ def check_supported(cfg) -> None:
     kinds = {k for g in build_groups(cfg) for k in g.kinds}
     bad = sorted(str(k) for k in kinds if k not in SUPPORTED_KINDS)
     options = {"enc_dec": cfg.enc_dec,
-               "vlm_prefix_len": bool(cfg.vlm_prefix_len),
-               "flash_attention": cfg.flash_attention}
+               "vlm_prefix_len": bool(cfg.vlm_prefix_len)}
     bad += [name for name, on in options.items() if on]
     if bad:
         raise NotImplementedError(f"{cfg.name}: {', '.join(bad)} not ported "
@@ -338,12 +345,14 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
                                    softcap=softcap)
         return L.gqa_out(p, o, x.dtype), cache
 
-    # prefill
+    # train / prefill
     if local and W is not None and S > W:
         o = L.local_attention(q, k, v, window=W, softcap=softcap)
     elif S <= 1024:
         o = L.dense_attention(q, k, v, causal=True,
                               window=W if local else None, softcap=softcap)
+    elif cfg.flash_attention and softcap is None:
+        o = flash_attention(q, k, v, True, cfg.block_q, cfg.block_k)
     else:
         o = L.blockwise_attention(q, k, v, causal=True, softcap=softcap,
                                   block_q=cfg.block_q, block_k=cfg.block_k)

@@ -108,4 +108,8 @@ def test_cpu_path_never_counts_a_launch():
     ops.reset_launches()
     tab = torch.zeros((2, 10, 8), dtype=torch.bfloat16)
     ops.embedding_bag_stacked(tab, torch.zeros((1, 2, 3), dtype=torch.int32))
-    assert ops.LAUNCHES == {"embedding_bag_rows": 0}
+    ops.embedding_bag_stacked_backward(torch.zeros((1, 2, 8)),
+                                       torch.zeros((1, 2, 3),
+                                                   dtype=torch.int32), 10)
+    assert ops.LAUNCHES == {"embedding_bag_rows": 0,
+                            "embedding_bag_backward": 0}

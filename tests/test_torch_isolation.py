@@ -4,7 +4,11 @@
 ``models/{mla,moe,ssm,rwkv}.py`` and the Gemma-2, Gemma-3, Phi-4-mini,
 DeepSeek-V2/V3, Zamba2 and RWKV-6 configs and TinyLlama's int8 KV cache
 included, each run below: a batch over a mesh, each config's prefill and
-decode; nor
+decode; the training path, ``models/flash.py``, ``train/``,
+``checkpoint/``, ``ft/``, ``data/pipeline.py``'s ``lm_batch`` and
+``Prefetcher`` and ``launch/train.py``, run below too: a train step of a
+flash-enabled TinyLlama and of the DLRM, a checkpoint and its restore,
+``launch.train`` with a failure injected; nor
 ``chip_smoke.py``, ``scripts/profile_step.py``,
 ``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
 or the JAX package, it
@@ -91,6 +95,30 @@ def test_port_runs_with_jax_unavailable():
         "    lg, c = m.prefill(p, {'tokens': toks}, max_len=44)\n"
         "    lg, c = m.decode_step(p, c, toks[:, :1])\n"
         "    assert bool(torch.isfinite(lg).all()), arch\n"
+        "import dataclasses, tempfile\n"
+        "import repro_torch.train.train_step as ts, repro_torch.launch.train\n"
+        "from repro_torch.configs.base import TrainConfig\n"
+        "from repro_torch.data import Prefetcher, dlrm_batch, lm_batch\n"
+        "from repro_torch.checkpoint import restore, save\n"
+        "from repro_torch.models import Model\n"
+        "m = smoke_model('tinyllama-1.1b', device='cpu')\n"
+        "m = Model(dataclasses.replace(m.cfg, flash_attention=True,\n"
+        "          block_q=512, block_k=512, n_layers=1), device='cpu')\n"
+        "d = smoke_model('dlrm', device='cpu')\n"
+        "pf = Prefetcher(lambda s: lm_batch(0, s, 1, 2048, 256))\n"
+        "for model, b in ((m, next(pf)), (d, dlrm_batch(0, 0, 8, d.cfg))):\n"
+        "    tc = TrainConfig(microbatch=None)\n"
+        "    p, o = ts.init_train_state(model, torch.Generator(), tc)\n"
+        "    p, o, met = ts.make_train_step(model, tc)(p, o, b)\n"
+        "    assert bool(torch.isfinite(met['loss'])), met\n"
+        "    with tempfile.TemporaryDirectory() as tmp:\n"
+        "        save(tmp, 1, (p, o))\n"
+        "        restore(tmp, 1, (p, o))\n"
+        "pf.close()\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    repro_torch.launch.train.main(['--device', 'cpu', '--smoke',\n"
+        "        '--steps', '4', '--ckpt-every', '2', '--fail-at', '3',\n"
+        "        '--ckpt-dir', tmp, '--seq', '16'])\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
         "print('ok')\n")
@@ -138,6 +166,12 @@ def test_default_device_is_the_card():
         simulate(topo, sched, get_policy("pfc"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SweepRunner()
+    from repro_torch.configs import smoke_model
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        smoke_model("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--arch", "dlrm", "--steps", "1"])
 
 
 def test_cuda_step_impl_on_cpu_raises():

@@ -556,11 +556,93 @@ def test_embedding_bag_wrapper_rejects(dev):
         emb_ops.embedding_bag_stacked(tab.float(), idx)
     with pytest.raises(ValueError):
         emb_ops.embedding_bag_stacked(tab, idx.cpu())
+    # the stacked bags are differentiable (the backward kernel); the
+    # rows entry point stays forward-only
     grad_tab = tab.clone().requires_grad_(True)
+    out = emb_ops.embedding_bag_stacked(grad_tab, idx)
+    assert out.requires_grad
     with pytest.raises(RuntimeError, match="forward-only"):
-        emb_ops.embedding_bag_stacked(grad_tab, idx)
+        emb_ops.embedding_bag_rows(grad_tab.view(20, 8), idx.view(2, 3))
     with torch.no_grad():
         emb_ops.embedding_bag_stacked(grad_tab, idx)
+    dp = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(TypeError):
+        emb_ops.embedding_bag_stacked_backward(dp.half(), idx, 10)
+    with pytest.raises(ValueError):
+        emb_ops.embedding_bag_stacked_backward(dp[:, :1], idx, 10)
+    with pytest.raises(ValueError, match="int32 rows"):
+        emb_ops.embedding_bag_stacked_backward(dp, idx, 2 ** 30)
+
+
+# (T, R, D, P, B, dpooled dtype, tables dtype): Table II's shape (8 GB of
+# output), many repeats a row (R=100), an odd and a wide width, float32
+@pytest.mark.parametrize("T,R,D,P,B,dt_in,dt_out", [
+    (64, 1_000_000, 64, 60, 256, torch.bfloat16, torch.bfloat16),
+    (64, 100, 64, 60, 256, torch.bfloat16, torch.bfloat16),
+    (3, 1000, 33, 5, 7, torch.bfloat16, torch.bfloat16),
+    (4, 500, 128, 60, 64, torch.float32, torch.float32),
+    (2, 7, 8, 13, 9, torch.float32, torch.bfloat16)])
+def test_embedding_bag_backward_kernel_bit_equal(dev, T, R, D, P, B, dt_in,
+                                                 dt_out):
+    """The float32 sums by row, then (b, p), rounded once: equal to the
+    plain version and to a second launch."""
+    rng = np.random.default_rng(T * R + D)
+    gen = torch.Generator(device=dev).manual_seed(D + P)
+    dp = torch.randn((B, T, D), generator=gen, device=dev).to(dt_in)
+    idx = torch.as_tensor(rng.integers(0, R, (B, T, P), dtype=np.int32),
+                          device=dev)
+    want = emb_ref.embedding_bag_stacked_backward_ref(dp, idx, R, dt_out)
+    before = emb_ops.LAUNCHES["embedding_bag_backward"]
+    got = emb_ops.embedding_bag_stacked_backward(dp, idx, R, dt_out)
+    again = emb_ops.embedding_bag_stacked_backward(dp, idx, R, dt_out)
+    assert emb_ops.LAUNCHES["embedding_bag_backward"] == before + 2
+    assert got.dtype == dt_out and got.shape == (T, R, D)
+    assert _bits_equal(got, want)
+    assert _bits_equal(again, got)
+    del got, again
+    torch.cuda.synchronize()
+
+
+def test_embedding_bag_backward_unaligned_dpooled_takes_the_scalar_path(dev):
+    base = torch.randn(1 + 5 * 3 * 64, device=dev).to(torch.bfloat16)
+    dp = base[1:].view(5, 3, 64)             # 2 bytes off a 4-byte boundary
+    idx = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 40, (5, 3, 11), dtype=np.int32), device=dev)
+    assert _bits_equal(
+        emb_ops.embedding_bag_stacked_backward(dp, idx, 40),
+        emb_ref.embedding_bag_stacked_backward_ref(dp, idx, 40,
+                                                   torch.bfloat16))
+
+
+def test_dlrm_training_kernel_path_matches_plain_path(dev):
+    """Three AdamW steps of the smoke DLRM: the kernels' path (forward and
+    backward bags) equals the plain bags' path bit for bit, one launch of
+    each kernel a step."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = smoke_config("dlrm")
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2, total_steps=10)
+    runs = []
+    for impl in ("cuda", "torch"):
+        model = DLRM(dataclasses.replace(cfg, embedding_impl=impl),
+                     device="cuda", seed=0)
+        params, opt = init_train_state(model, None, tcfg)
+        step = make_train_step(model, tcfg)
+        losses = []
+        emb_ops.reset_launches()
+        for i in range(3):
+            params, opt, m = step(params, opt, dlrm_batch(0, i, 64, cfg))
+            losses.append(float(m["loss"]))
+        launches = dict(emb_ops.LAUNCHES)
+        runs.append((losses, params, opt, launches))
+    (l_k, p_k, o_k, n_k), (l_p, p_p, o_p, n_p) = runs
+    assert n_k == {"embedding_bag_rows": 3, "embedding_bag_backward": 3}
+    assert n_p == {"embedding_bag_rows": 0, "embedding_bag_backward": 0}
+    assert l_k == l_p
+    from repro_torch.common.pytree import tree_leaves
+    for x, y in zip(tree_leaves([p_k, o_k["mu"], o_k["nu"]]),
+                    tree_leaves([p_p, o_p["mu"], o_p["nu"]])):
+        assert _bits_equal(x, y)
 
 
 def test_dlrm_kernel_path_matches_plain_path(dev):
