@@ -36,7 +36,18 @@ and depth with flash attention at 8 x 2,048 tokens and microbatches of 4
 (``train_tinyllama``), the smoke TinyLlama and DLRM against the JAX
 reference's losses and gradient norms (``train_reference``), and
 ``python -m repro_torch.launch.train`` with a failure injected, resumed
-to the uninterrupted run's log bit for bit (``train_entry``).  Three
+to the uninterrupted run's log bit for bit (``train_entry``).  The
+device mesh (phase 7d, one job of four ranks sharing the card over
+``gloo``, started beside ``train_dlrm`` and let go once it has freed the
+card): the Table II DLRM's hybrid-parallel step on (data=4), tables over
+data, ZeRO-1, the bag kernels on each rank's table block, against one
+process (``mesh_dlrm``, with its bytes by collective beside
+``DLRMCommSpec``'s); a checkpoint saved with its specs restored into one
+process bit for bit and onto (data=2) for a fourth step
+(``mesh_elastic``); DeepSeek-V2 at 2 layers under ``ep_a2a`` and ``tp``
+against the dense path (``mesh_moe``); and 8 TinyLlama layers through
+``gpipe`` over 4 stages, bit-equal to the sequential stack
+(``mesh_gpipe``).  Three
 gradient phases run through autograd on the simulator's op path, each in
 a process of its own beside the main process's kernel checks and
 simulator phases (Fig 12's lanes, the policy axis, Fig 13's fault grid
@@ -6251,6 +6262,1081 @@ def train_dlrm(gpu: str, dev) -> dict:
     return a["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7d: the device mesh (mesh_dlrm, mesh_elastic, mesh_moe, mesh_gpipe):
+# one process a mesh position, the four sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_SEED = 7
+MESH_DLRM_BATCH = 256
+MESH_DLRM_STEPS = 3
+MESH_GROUP_TIMEOUT_S = 300.0     # every collective of the mesh job
+MESH_JOIN_S = 600.0
+MESH_EP = {"expert": ("data",)}  # the classic DLRM layout: tables over data
+# the mesh DLRM's limits against one process (mesh_elastic's step 4 on 2
+# ranks against 4 takes the first three), each above the sound runs'
+# readings (the mesh's and a one-process control's) and below the
+# planted faults' (PERF.md §6): step 1's loss (absolute; sound 6e-8,
+# faults 6.3e-3 and 1.1e-2) and norm (relative); the later steps' (Adam's
+# first steps move a weight by about lr x sign(g): a gradient near 0 that
+# rounds the other way moves it by 2 lr, and the runs part); the relative
+# L2 distance of step 1's gradient (mu after step 1; sound 1.3e-2, faults
+# 1.0-2.1), of the 3 steps' update and of the final moments, at the rows
+# the batches touch and over each MLP leaf
+MESH_DLRM_PERTURB = 1e-2       # the control's step-1 MLP gradient, rel.
+MESH_DLRM_TOL = {"loss1": 1e-5, "norm1": 1e-4, "loss": 1e-3, "norm": 5e-3,
+                 "grad1": 0.1, "update": 0.5, "moments": 0.5}
+# mesh_elastic's rows a table: a run may write at most 45 GiB to disk,
+# and Table II's whole state is 49.9 GB in the reference's checkpoint
+# layout (bf16 tables widened to float32)
+MESH_ELASTIC_ROWS = 250_000
+# 4 rows, cut from 8 to keep chip_smoke.py near 900 s on a slower host
+MESH_MOE_ROWS, MESH_MOE_SEQ = 4, 512
+# capacity factors with no slot dropped on these weights (their routing
+# is skewed: at 8, tp's buffers, 8x the mean load, dropped 178 slots);
+# ep_a2a's buffers and its psum over model grow as the factor squared
+MESH_MOE_CAPACITY = {"ep_a2a": 4.0, "tp": 24.0}
+MESH_MOE_CASES = (((4, 1), "ep_a2a"), ((2, 2), "ep_a2a"), ((2, 2), "tp"))
+MESH_MOE_TOL = 1e-3              # rel. L2 of the routed-alike rows, float32
+MESH_GPIPE = (8, 2, 8, 2048)     # layers (of 22), a stage, microbatches, S
+
+
+def mesh_log(rank: int, what: str) -> None:
+    print(f"chip_smoke t={time.time() - RUN_T0:.1f}s [mesh r{rank}] {what}",
+          file=sys.stderr, flush=True)
+
+
+def dlrm_hashed(cfg, seed: int, dev, tables: range | None = None) -> dict:
+    """Table II DLRM weights by ``hashed_bf16`` (the same bits on every
+    rank, no broadcast): table t from seed ``seed * 1_000_003 + t`` at std
+    0.02 (the models' rule), only the tables of ``tables`` (all by
+    default); the MLPs' weights at std sqrt(2 / fan_in) and biases at 0.1
+    (``dlrm_numpy_params``' scales: activations keep their scale through
+    the 19 ReLU layers), float32."""
+    import torch
+    from repro_torch.models.dlrm import param_shapes
+    shapes = param_shapes(cfg)
+    T, R, D = shapes["tables"][0]
+    tables = range(T) if tables is None else tables
+    out = {"tables": torch.stack([
+        hashed_bf16((R, D), seed * 1_000_003 + t, 0.02, dev)
+        for t in tables])}
+    k = T
+    for part in ("bot", "top"):
+        out[part] = {}
+        for name in sorted(shapes[part]):
+            shape = shapes[part][name][0]
+            k += 1
+            std = math.sqrt(2.0 / shape[0]) if len(shape) == 2 else 0.1
+            out[part][name] = hashed_bf16(shape, seed * 1_000_003 + k, std,
+                                          dev).float()
+    return out
+
+
+def hashed_blocks(shapes, seed: int, device, cut):
+    """``hashed_params(shapes, seed, device)`` with ``cut(path, leaf)``
+    applied to each leaf as it is drawn (a rank's block: no rank holds the
+    whole tree at once)."""
+    count = [0]
+
+    def walk(node, name, parent, path):
+        if isinstance(node, dict):
+            return {k: walk(node[k], k, name, path + (k,))
+                    for k in sorted(node)}
+        if isinstance(node, list):
+            return [walk(v, name, parent, path + (str(i),))
+                    for i, v in enumerate(node)]
+        count[0] += 1
+        leaf = hashed_bf16(tuple(node), seed * 1_000_003 + count[0],
+                           _init_std(name, tuple(node), parent), device,
+                           mean=_LEAF_MEAN.get(name, 0.0))
+        return cut(path, leaf)
+    return walk(shapes, "", "", ())
+
+
+def _untouched_digests(tables, touched) -> list:
+    """Per table, the digest of its rows with the touched ones zeroed."""
+    out = []
+    for t in range(tables.shape[0]):
+        x = tables[t].clone()
+        x[touched[t]] = 0
+        out.append(tensor_digest(x).tolist())
+        del x
+    return out
+
+
+def _skeleton(tree, dev):
+    """A tree of ``tree``'s structure with empty leaves on ``dev`` (what
+    ``checkpoint.restore`` reads: names and the device)."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    return tree_map(lambda _: torch.empty(0, device=dev), tree)
+
+
+def _touched_rows(batches, cfg, dev):
+    """(T, K) int64 on ``dev``: each table's rows that any of ``batches``
+    names (sorted, padded with its first), the only rows whose values a
+    step moves by more than the weight decay every row takes alike."""
+    import torch
+    ids = [np.unique(np.concatenate([np.asarray(b["sparse_idx"].cpu())[:, t]
+                                     .reshape(-1) for b in batches]))
+           for t in range(cfg.n_tables)]
+    K = max(len(x) for x in ids)
+    out = np.stack([np.concatenate([x, np.full(K - len(x), x[0])])
+                    for x in ids])
+    return torch.as_tensor(out, device=dev)
+
+
+def _dlrm_view(tree, touched, specs=None, mesh=None) -> dict:
+    """What the mesh DLRM's checks hold of a parameter, gradient or moment
+    tree ``{"tables", "bot", "top"}``: each table's ``touched`` rows
+    ``(T, K, D)`` and the MLPs' leaves whole, float32 copies in host memory
+    (0.74 GB of rows at Table II's 3 batches: the card holds the mesh's
+    state beside them).  Over a mesh the tables' blocks are all-gathered
+    over data and the MLPs gathered by ``specs`` (every rank takes part),
+    and only the mesh's rank 0, which holds the runs against each other,
+    gets the view (the others None)."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.common.sharding import flatten_specs, gather_full
+    tables = tree["tables"]
+    T_loc = tables.shape[0]
+    t0 = mesh.axis_index("data") * T_loc if mesh is not None else 0
+    rows = torch.stack([tables[t][touched[t0 + t]] for t in range(T_loc)])
+    mlp = flatten_with_paths({"bot": tree["bot"], "top": tree["top"]})
+    def host(x):
+        return x.to("cpu", torch.float32, copy=True)
+    if mesh is None:
+        return {"rows": host(rows), "mlp": {n: host(x) for n, x in mlp}}
+    spec_of = dict(flatten_specs({"bot": specs["bot"], "top": specs["top"]}))
+    rows = comm.all_gather(rows, mesh, "data")
+    mlp = {n: gather_full(x, spec_of[n], mesh) for n, x in mlp}
+    if mesh.rank != 0:
+        return None
+    return {"rows": host(rows), "mlp": {n: host(x) for n, x in mlp.items()}}
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| of two float32 tensors (||a - b|| where b is
+    0)."""
+    import torch
+    d = float(torch.linalg.vector_norm(a - b))
+    nb = float(torch.linalg.vector_norm(b))
+    return d / nb if nb else d
+
+
+def _views_rel(got, want) -> dict:
+    """Two ``_dlrm_view``s apart: the relative L2 distance of the tables'
+    rows (all of them), and the largest over the MLPs' leaves."""
+    return {"tables": _rel(got["rows"], want["rows"]),
+            "mlp": max(_rel(got["mlp"][n], want["mlp"][n])
+                       for n in want["mlp"])}
+
+
+def _views_sub(a, b) -> dict:
+    """``a - b`` of two ``_dlrm_view``s (a tree's update)."""
+    return {"rows": a["rows"] - b["rows"],
+            "mlp": {n: a["mlp"][n] - b["mlp"][n] for n in a["mlp"]}}
+
+
+def _faulty_grads(model, batch, T_loc: int, touched) -> dict:
+    """Planted faults of the mesh step, computed in one process: the loss
+    and the gradient (``_dlrm_view`` at ``touched``) of ``batch`` when
+    the all-to-all delivers each rank's bags one rank's block of tables
+    off (``a2a_off``: table t's bag in slot t + T_loc -- the tables and
+    their ids rolled by T_loc, the tables' gradient read back at the
+    rolled positions) and when each rank takes its block of the ids one
+    rank off (``ids_off``: the ids rolled by T_loc), beside the sound
+    step's (``sound``)."""
+    import torch
+    from repro_torch.train.train_step import make_grad_fn
+    grad_fn = make_grad_fn(model)
+    params = model.param_tree()
+    out = {}
+    for name in ("sound", "a2a_off", "ids_off"):
+        p, b, at = params, batch, touched
+        if name != "sound":
+            b = dict(batch, sparse_idx=torch.roll(batch["sparse_idx"], T_loc,
+                                                  dims=1))
+        if name == "a2a_off":
+            p = dict(params, tables=torch.roll(params["tables"], T_loc,
+                                               dims=0))
+            at = torch.roll(touched, T_loc, dims=0)
+        loss, g = grad_fn(p, b)
+        view = _dlrm_view(g, at)
+        if name == "a2a_off":
+            view["rows"] = torch.roll(view["rows"], -T_loc, dims=0)
+        out[name] = {"loss": float(loss), "grad": view}
+        del p, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def _perturbed_step(model, tcfg, rel: float):
+    """``make_train_step``'s one-process step (no accumulation) whose first
+    gradient has its MLP leaves multiplied by ``1 + rel x N(0, 1)``
+    (drawn from ``MESH_SEED``): a step-1 gradient apart from the sound one
+    by about ``rel``, as the mesh's partial sums in bf16 put it."""
+    import torch
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import make_grad_fn
+    grad_fn = make_grad_fn(model)
+
+    def step(params, opt, batch):
+        loss, g = grad_fn(params, batch)
+        if int(opt["count"]) == 0:
+            gen = torch.Generator(device=model.device).manual_seed(MESH_SEED)
+            for part in ("bot", "top"):
+                for name in sorted(g[part]):
+                    x = g[part][name]
+                    x.mul_(1 + rel * torch.randn(x.shape, generator=gen,
+                                                 device=x.device))
+        params, opt, m = adamw_update(params, g, opt, tcfg)
+        return params, opt, dict(m, loss=loss)
+    return step
+
+
+def mesh_dlrm_single(cfg, tcfg, batches, dev, faults: bool = True,
+                     perturb: float = 0.0) -> dict:
+    """Rank 0 alone: the Table II DLRM of ``dlrm_hashed`` in one process:
+    ``DLRM.loss`` on the first batch, the planted faults
+    (``_faulty_grads``, unless ``faults`` is False), then 3 AdamW steps
+    (``make_train_step``'s; with ``perturb``, ``_perturbed_step``'s): the
+    losses, norms and the ``_dlrm_view``s the mesh run is held against:
+    step 1's mu at the first batch's rows, the parameters before and
+    after, the final moments at every batch's rows, and the untouched
+    rows' digests."""
+    import torch
+    from repro_torch.models import DLRM
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    model = DLRM(cfg, device=dev, params=dlrm_hashed(cfg, MESH_SEED, dev))
+    touched1 = _touched_rows(batches[:1], cfg, dev)
+    touched = _touched_rows(batches, cfg, dev)
+    with torch.no_grad():
+        module_loss = float(model.loss(batches[0]))
+    faults = _faulty_grads(model, batches[0], cfg.n_tables // MESH_RANKS,
+                           touched1) if faults else None
+    params, opt = init_train_state(model, None, tcfg)
+    p0 = _dlrm_view(params, touched)
+    step = _perturbed_step(model, tcfg, perturb) if perturb else \
+        make_train_step(model, tcfg)
+    losses, norms, secs = [], [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            mu1 = _dlrm_view(opt["mu"], touched1)
+    out = {"module_loss": module_loss, "faults": faults, "losses": losses,
+           "norms": norms, "step_s": secs, "mu1": mu1, "p0": p0,
+           "p": _dlrm_view(params, touched),
+           "mu": _dlrm_view(opt["mu"], touched),
+           "nu": _dlrm_view(opt["nu"], touched),
+           "untouched": _untouched_digests(params["tables"], touched)}
+    del model, params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bags_launches() -> dict:
+    from repro_torch.kernels.embedding_bag import ops
+    return dict(ops.LAUNCHES)
+
+
+class capture_bags:
+    """Within the block, the first call of each bag kernel's wrapper on
+    the path keeps a copy of its inputs: ``forward`` (ids, out dtype) and
+    ``backward`` (dpooled, ids, rows a table, dtype), for holding the
+    kernels against their plain versions at a mesh rank's shapes once
+    the run is over."""
+
+    def __enter__(self):
+        from repro_torch.kernels.embedding_bag import ops
+        self._ops = ops
+        self._fwd, self._bwd = ops._stacked, ops.embedding_bag_stacked_backward
+        self.forward = self.backward = None
+
+        def fwd(tables, idx, out_dtype):
+            if self.forward is None:
+                self.forward = (idx.clone(), out_dtype)
+            return self._fwd(tables, idx, out_dtype)
+
+        def bwd(dpooled, idx, rows_per_table, *rest):
+            if self.backward is None:
+                self.backward = (dpooled.clone(), idx.clone(),
+                                 rows_per_table, *rest)
+            return self._bwd(dpooled, idx, rows_per_table, *rest)
+        ops._stacked, ops.embedding_bag_stacked_backward = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self._ops._stacked = self._fwd
+        self._ops.embedding_bag_stacked_backward = self._bwd
+
+
+def bags_rank_check(tables, cap: "capture_bags") -> dict:
+    """The bag kernels at a mesh rank's shapes (its block of tables,
+    every row of the global batch), on the inputs the path gave them
+    (``cap``): the forward over ``tables`` and the backward, each against
+    its plain version, bit for bit.  Its launches are not the path's."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+    idx, out_dtype = cap.forward
+    dp, bidx, R, *rest = cap.backward
+    T, _, D = tables.shape
+    out = {"shape": f"T={T} R={R} D={D} P={idx.shape[2]} B={idx.shape[0]}"}
+    with torch.no_grad():
+        got = ops.embedding_bag_stacked(tables, idx, out_dtype)
+        want = ref.embedding_bag_stacked_ref(tables, idx, out_dtype)
+        out["forward_differing"], err_f = bags_bits_differ(got, want)
+        del got, want
+        got = ops.embedding_bag_stacked_backward(dp, bidx, R, *rest)
+        want = ref.embedding_bag_stacked_backward_ref(dp, bidx, R, *rest)
+        out["backward_differing"], err_b = bags_bits_differ(got, want)
+        del got, want
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = max(err_f, err_b)
+    return out
+
+
+def _dlrm_mesh_run(rank, dev, cfg, tcfg, n_steps: int, watch=None) -> dict:
+    """Every rank: the DLRM of ``cfg`` over (data=4), the tables over
+    data, ZeRO-1 (the gradients reduce-scattered to its layout),
+    ``n_steps`` steps on the global batches of ``dlrm_batch`` (the bag
+    kernels' first inputs captured): the live state and each step's
+    numbers.  ``watch(i, params, opt, run)`` sees the state before the
+    steps (``i`` 0) and after each."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.data import dlrm_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import DLRM
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, mesh_layout)
+    mesh = make_mesh((MESH_RANKS,), ("data",))
+    T_loc = cfg.n_tables // MESH_RANKS
+    torch.cuda.reset_peak_memory_stats()
+    local = dlrm_hashed(cfg, MESH_SEED, dev,
+                        range(rank * T_loc, (rank + 1) * T_loc))
+    model = DLRM(cfg, device=dev, params=local, mesh=mesh,
+                 rules_overrides=MESH_EP)
+    grad_specs = mesh_layout(model, tcfg).moments
+    params, opt = init_train_state(model, None, tcfg, grad_specs)
+    step = make_train_step(model, tcfg, grad_specs)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                dlrm_batch(0, i, MESH_DLRM_BATCH, cfg).items()}
+               for i in range(n_steps + 1)]
+    run = {"mesh": mesh, "layout": step.layout, "batches": batches}
+    if watch is not None:
+        watch(0, params, opt, run)
+    ops.reset_launches()
+    losses, norms, secs, counts = [], [], [], []
+    with capture_bags() as cap:
+        for i, b in enumerate(batches[:n_steps]):
+            comm.reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts.append(comm.counters())
+            if watch is not None:
+                watch(i + 1, params, opt, run)
+    return dict(run, model=model, params=params, opt=opt, step=step,
+                losses=losses, norms=norms, step_s=secs, counts=counts,
+                launches=_bags_launches(), bags=cap,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def _dlrm_readings(run, single) -> dict:
+    """A 3-step DLRM run (``losses``, ``norms`` and the ``_dlrm_view``s of
+    ``mesh_dlrm_single``'s names) against the one-process run: step 1's
+    loss against ``DLRM.loss``, each step's loss (absolute) and norm
+    (relative), step 1's gradient, the update and the final moments
+    (``_views_rel``)."""
+    s = single
+    return {
+        "step1_loss_diff": abs(run["losses"][0] - s["module_loss"]),
+        "loss_diffs": [abs(a - b) for a, b in zip(run["losses"],
+                                                  s["losses"])],
+        "norm_rels": [abs(a - b) / abs(b) for a, b in zip(run["norms"],
+                                                          s["norms"])],
+        "grad1_rel": _views_rel(run["mu1"], s["mu1"]),
+        "update_rel": _views_rel(_views_sub(run["p"], run["p0"]),
+                                 _views_sub(s["p"], s["p0"])),
+        "moments_rel": {m: _views_rel(run[m], s[m]) for m in ("mu", "nu")}}
+
+
+def mesh_dlrm_rank(rank, dev, single) -> dict:
+    """Every rank: the Table II DLRM over (data=4), 3 steps (the
+    ``_dlrm_mesh_run``), held on rank 0 against the one-process run
+    (``single``): step 1's loss and mu (the gradient), the losses and
+    norms, the update of the parameters and the final moments (the
+    ``_dlrm_view``s), the untouched rows bit for bit, and the planted
+    faults' readings; then the bag kernels at this rank's shapes."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.dlrm import comm_profile
+    cfg = get_config("dlrm")
+    views = {}
+
+    def watch(i, params, opt, run):
+        mesh, layout = run["mesh"], run["layout"]
+        if i == 0:
+            batches = run["batches"][:MESH_DLRM_STEPS]
+            views["touched1"] = _touched_rows(batches[:1], cfg, dev)
+            views["touched"] = _touched_rows(batches, cfg, dev)
+            views["p0"] = _dlrm_view(params, views["touched"],
+                                     layout.params, mesh)
+        elif i == 1:
+            views["mu1"] = _dlrm_view(opt["mu"], views["touched1"],
+                                      layout.moments, mesh)
+    st = _dlrm_mesh_run(rank, dev, cfg, TrainConfig(), MESH_DLRM_STEPS, watch)
+    mesh, params, layout, opt = st["mesh"], st["params"], st["layout"], \
+        st["opt"]
+    mesh_log(rank, f"mesh_dlrm steps {st['step_s']}")
+    line = {"losses": st["losses"], "grad_norms": st["norms"],
+            "step_s": st["step_s"], "peak_bytes": st["peak_bytes"],
+            "launches": st["launches"], "bytes_per_step": st["counts"],
+            "transport": mesh.backend}
+    touched = views["touched"]
+    T_loc = params["tables"].shape[0]
+    t0 = rank * T_loc
+    p3 = _dlrm_view(params, touched, layout.params, mesh)
+    mu3 = _dlrm_view(opt["mu"], touched, layout.moments, mesh)
+    nu3 = _dlrm_view(opt["nu"], touched, layout.moments, mesh)
+    digests = comm.all_gather_object(_untouched_digests(
+        params["tables"], touched[t0:t0 + T_loc]))
+    if rank == 0:
+        s = single
+        line["touched_rows"] = [int(views["touched1"].shape[1]),
+                                int(touched.shape[1])]
+        line.update(_dlrm_readings(dict(
+            losses=st["losses"], norms=st["norms"], mu1=views["mu1"],
+            p0=views["p0"], p=p3, mu=mu3, nu=nu3), s))
+        line["control"] = dict(_dlrm_readings(s["control"], s),
+                               losses=s["control"]["losses"],
+                               step_s=s["control"]["step_s"])
+        line["params_max_abs_diff"] = {
+            "tables": float((p3["rows"] - s["p"]["rows"]).abs().max()),
+            "mlp": max(float((p3["mlp"][n] - s["p"]["mlp"][n]).abs().max())
+                       for n in p3["mlp"])}
+        line["p0_bit_equal"] = bool(
+            torch.equal(views["p0"]["rows"], s["p0"]["rows"])
+            and all(torch.equal(views["p0"]["mlp"][n], s["p0"]["mlp"][n])
+                    for n in s["p0"]["mlp"]))
+        line["tables_untouched_bit_equal"] = (
+            [d for r in digests for d in r] == s["untouched"])
+        sound = s["faults"]["sound"]
+        line["grad_fn_loss"] = sound["loss"]
+        line["single"] = {k: s[k] for k in ("module_loss", "losses",
+                                            "norms", "step_s")}
+        line["planted"] = {
+            f: {"step1_loss_diff": abs(s["faults"][f]["loss"]
+                                       - sound["loss"]),
+                "grad1_rel": _views_rel(s["faults"][f]["grad"],
+                                        sound["grad"])}
+            for f in ("a2a_off", "ids_off")}
+        line["comm_profile"] = comm_profile(cfg)
+        from repro_torch.core.workload import DLRMCommSpec
+        spec = DLRMCommSpec()
+        line["dlrm_comm_spec"] = {
+            "allreduce_bytes": spec.allreduce_bytes,
+            "alltoall_fwd_bytes": spec.alltoall_fwd_bytes,
+            "alltoall_bwd_bytes": spec.alltoall_bwd_bytes}
+    tables, cap = params["tables"], st["bags"]
+    del st, params, opt, layout, views, p3, mu3, nu3
+    torch.cuda.empty_cache()
+    line["bags_check"] = bags_rank_check(tables, cap)
+    del tables, cap
+    torch.cuda.empty_cache()
+    comm.barrier()
+    return line
+
+
+def mesh_elastic_rank(rank, dev, tmp) -> dict:
+    """The DLRM at Table II's widths with ``MESH_ELASTIC_ROWS`` rows a
+    table over (data=4), 3 steps, its state saved with its specs (every
+    rank its blocks), then step 4 on the 4 ranks; the checkpoint restored
+    into one process (rank 0: every leaf against the 4 ranks' blocks, bit
+    for bit), then onto a (data=2) mesh of ranks 0 and 1 (each block
+    against the one-process restore's, bit for bit), which take step 4:
+    its loss, norm and gradient (the change of mu) held on rank 0 against
+    the 4 ranks', and the bag kernels at the 2 ranks' shapes."""
+    import torch
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.common import comm
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.common.sharding import (MeshRules, flatten_specs,
+                                             shard_slices)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import dlrm_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import DLRM
+    from repro_torch.models.dlrm import param_defs, param_specs
+    from repro_torch.train.optimizer import opt_state_specs
+    from repro_torch.train.train_step import make_train_step, mesh_layout
+    cfg = dataclasses.replace(get_config("dlrm"),
+                              rows_per_table=MESH_ELASTIC_ROWS)
+    tcfg = TrainConfig()
+    st = _dlrm_mesh_run(rank, dev, cfg, tcfg, MESH_DLRM_STEPS)
+    mesh, layout = st["mesh"], st["layout"]
+    ckpt = str(tmp / "mesh_ckpt")
+    o_specs = opt_state_specs(layout.params, param_defs(cfg), mesh,
+                              zero1=True, keep_master=False)
+    specs = (layout.params, o_specs)
+    tree = (st["params"], st["opt"])
+    digests = {n: tensor_digest(x).tolist()
+               for n, x in flatten_with_paths(tree)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save(ckpt, MESH_DLRM_STEPS, tree, specs,
+         extra_meta={"next_step": MESH_DLRM_STEPS}, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    mesh_log(rank, f"mesh_elastic saved in {save_s:.1f} s")
+    # ---- step 4 on the 4 ranks --------------------------------------------
+    b4 = st["batches"][-1]
+    touched4 = _touched_rows([b4], cfg, dev)
+    mu3 = _dlrm_view(st["opt"]["mu"], touched4, layout.moments, mesh)
+    _, _, m = st["step"](st["params"], st["opt"], b4)
+    mu4 = _dlrm_view(st["opt"]["mu"], touched4, layout.moments, mesh)
+    four = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "dmu": _views_sub(mu4, mu3) if rank == 0 else None}
+    all_digests = comm.all_gather_object(digests)
+    line = {"save_s": save_s, "losses": st["losses"], "step_s": st["step_s"],
+            "ckpt_bytes": sum(f.stat().st_size for f in
+                              (tmp / "mesh_ckpt").rglob("*.npy"))}
+    skeleton = _skeleton(tree, dev)
+    del tree, m, st, mu3, mu4
+    torch.cuda.empty_cache()
+    mesh2 = make_mesh((2,), ("data",), ranks=(0, 1))
+    if mesh2 is not None:
+        specs2 = param_specs(cfg, MeshRules.create(mesh2, MESH_EP))
+        o_specs2 = opt_state_specs(specs2, param_defs(cfg), mesh2,
+                                   zero1=True, keep_master=False)
+    comm.barrier()
+    # ---- into one process: rank 0, the others waiting -------------------
+    want2 = {}
+    if rank == 0:
+        t0 = time.perf_counter()
+        (p1, o1), meta = restore(ckpt, MESH_DLRM_STEPS, skeleton, device=dev)
+        torch.cuda.synchronize()
+        line["restore_one_s"] = time.perf_counter() - t0
+        spec_of = dict(flatten_specs(specs))
+        spec2_of = dict(flatten_specs((specs2, o_specs2)))
+        bad = []
+        for name, x in flatten_with_paths((p1, o1)):
+            for r in range(MESH_RANKS):
+                idx = shard_slices(tuple(x.shape), spec_of[name], mesh, r)
+                if tensor_digest(x[idx]).tolist() != all_digests[r][name]:
+                    bad.append((name, r))
+            want2[name] = [tensor_digest(x[shard_slices(
+                tuple(x.shape), spec2_of[name], mesh2, r)]).tolist()
+                for r in range(2)]
+        line["restored_bit_equal"] = not bad
+        line["leaves"] = len(spec_of)
+        line["meta"] = meta
+        if bad:
+            raise AssertionError(f"mesh_elastic: the one-process restore "
+                                 f"differs from the ranks' blocks: {bad}")
+        del p1, o1
+        torch.cuda.empty_cache()
+    comm.barrier()
+    # ---- onto (data=2): ranks 0 and 1 -----------------------------------
+    mine2, two = {}, None
+    if mesh2 is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (p2, o2), _ = restore(ckpt, MESH_DLRM_STEPS, skeleton, mesh=mesh2,
+                              specs=(specs2, o_specs2), device=dev)
+        torch.cuda.synchronize()
+        line["restore_two_s"] = time.perf_counter() - t0
+        mine2 = {n: tensor_digest(x).tolist()
+                 for n, x in flatten_with_paths((p2, o2))}
+        model2 = DLRM(cfg, device=dev, params=p2, mesh=mesh2,
+                      rules_overrides=MESH_EP)
+        p2 = model2.param_tree()
+        layout2 = mesh_layout(model2, tcfg)
+        step2 = make_train_step(model2, tcfg, layout2.moments)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in dlrm_batch(
+            0, MESH_DLRM_STEPS, MESH_DLRM_BATCH, cfg).items()}
+        mu3 = _dlrm_view(o2["mu"], touched4, layout2.moments, mesh2)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_bags() as cap:
+            p2, o2, m2 = step2(p2, o2, b)
+            loss2, norm2 = float(m2["loss"]), float(m2["grad_norm"])
+        torch.cuda.synchronize()
+        mu4 = _dlrm_view(o2["mu"], touched4, layout2.moments, mesh2)
+        two = {"loss": loss2, "grad_norm": norm2,
+               "step_s": time.perf_counter() - t0,
+               "launches": _bags_launches(),
+               "dmu": _views_sub(mu4, mu3) if rank == 0 else None}
+        tables = p2["tables"]
+        del model2, p2, o2, step2, mu3, mu4
+        torch.cuda.empty_cache()
+        line["bags_check_two"] = bags_rank_check(tables, cap)
+        del tables, cap
+        torch.cuda.empty_cache()
+    got2 = comm.all_gather_object(mine2)
+    if rank == 0:
+        line["restored_two_bit_equal"] = all(
+            got2[r][n] == want2[n][r] for n in want2 for r in range(2))
+        n_half = cfg.n_tables // 2
+        line["step4_four"] = {k: four[k] for k in ("loss", "grad_norm")}
+        line["step4_two"] = {k: two[k] for k in ("loss", "grad_norm",
+                                                  "step_s", "launches")}
+        line["step4_loss_diff"] = abs(two["loss"] - four["loss"])
+        line["step4_norm_rel"] = abs(two["grad_norm"] - four["grad_norm"]) \
+            / four["grad_norm"]
+        line["step4_grad_rel"] = _views_rel(two["dmu"], four["dmu"])
+        # the planted fault: the two ranks' blocks of tables swapped
+        line["planted_blocks_swapped_rel"] = _rel(
+            torch.roll(two["dmu"]["rows"], n_half, dims=0),
+            four["dmu"]["rows"])
+    del four, two
+    torch.cuda.empty_cache()
+    comm.barrier()
+    return line
+
+
+def _moe_cfg(impl: str = "dense"):
+    return arch_config("deepseek-v2-236b", 2, moe_impl=impl,
+                       capacity_factor=MESH_MOE_CAPACITY.get(impl, 1.25))
+
+
+def _moe_tokens(vocab: int) -> np.ndarray:
+    return np.random.default_rng(MESH_SEED).integers(
+        0, vocab, (MESH_MOE_ROWS, MESH_MOE_SEQ), dtype=np.int32)
+
+
+def mesh_moe_single(dev) -> dict:
+    """Rank 0 alone: DeepSeek-V2 at full width, 2 layers (1 dense + 1
+    MoE), ``hashed_params`` from ``MESH_SEED``, prefill of the
+    ``MESH_MOE_ROWS`` rows on the dense path (every expert for every token: the reference's single
+    device semantics), float32 and bf16 activations: last logits and the
+    MoE layer's expert ids."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import Model
+    cfg = _moe_cfg()
+    model = Model(cfg, device=dev)
+    params = hashed_params(tree_map(lambda d: d.shape, model.param_defs()),
+                           MESH_SEED, dev)
+    toks = _moe_tokens(cfg.vocab)
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model.compute_dtype = dt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_routing() as routing:
+            logits, _ = model.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        out[name] = {"logits": logits.float().cpu().numpy(),
+                     "experts": routing.calls[0].cpu().numpy().reshape(
+                         MESH_MOE_ROWS, MESH_MOE_SEQ, -1),
+                     "s": time.perf_counter() - t0}
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_rank(rank, dev) -> dict:
+    """Every rank: the same model over each mesh of ``MESH_MOE_CASES``
+    (this rank's rows, the experts' blocks, every other leaf gathered for
+    the compute), float32 and bf16: its rows' last logits, their expert
+    ids at the MoE layer, dropped slots, the all-to-all bytes."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.common.sharding import flatten_specs, local_shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import moe as MOE
+    toks = _moe_tokens(_moe_cfg().vocab)
+    out = {}
+    for shape, impl in MESH_MOE_CASES:
+        cfg = _moe_cfg(impl)
+        mesh = make_mesh(shape, ("data", "model"))
+        model = Model(cfg, device=dev, mesh=mesh)
+        spec_of = dict(flatten_specs(model.param_specs()))
+        params = hashed_blocks(
+            tree_map(lambda d: d.shape, model.param_defs()), MESH_SEED, dev,
+            lambda path, x: local_shard(x, spec_of[".".join(path)],
+                                        mesh).clone())
+        torch.cuda.empty_cache()
+        n_data = shape[0]
+        rows = MESH_MOE_ROWS // n_data
+        i = mesh.axis_index("data")
+        mine = toks[i * rows:(i + 1) * rows]
+        case = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model.compute_dtype = dt
+            comm.reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with capture_routing() as routing, \
+                    MOE.count_dropped() as dropped:
+                logits, _ = model.prefill(params, {"tokens": mine})
+            torch.cuda.synchronize()
+            case[name] = {"logits": logits.float().cpu().numpy(),
+                          "experts": routing.calls[0].cpu().numpy()
+                          .reshape(rows, MESH_MOE_SEQ, -1),
+                          "s": time.perf_counter() - t0,
+                          "dropped": int(dropped),
+                          "bytes": comm.counters()}
+        case["rows"] = (i * rows, (i + 1) * rows)
+        out[f"{impl}_{shape[0]}x{shape[1]}"] = case
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_gpipe_rank(rank, dev) -> dict:
+    """Every rank a stage of (stage=4): TinyLlama's decoder layers at full
+    width, ``MESH_GPIPE``'s 8 of 22 layers, 2 a stage, 8 microbatches of
+    1 x 2,048 tokens' embeddings forward; rank 0 also runs the 8 layers
+    one after another over the same microbatches (the same ops and
+    shapes): bit for bit."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as T
+    from repro_torch.train.pipeline import gpipe
+    n_layers, per, n_micro, S = MESH_GPIPE
+    cfg = arch_config("tinyllama-1.1b", n_layers)
+    model = Model(cfg, device=dev)
+    params = hashed_params(tree_map(lambda d: d.shape, model.param_defs()),
+                           MESH_SEED, dev)
+    layers = params["groups"][0]["l0"]          # stacked (8, ...)
+    kind = model.groups[0].kinds[0]
+    toks = torch.as_tensor(np.random.default_rng(MESH_SEED).integers(
+        0, cfg.vocab, (n_micro, 1, S), dtype=np.int32), device=dev)
+    x = model._embed(params, toks.reshape(n_micro, S)).reshape(
+        n_micro, 1, S, -1)
+    positions = torch.arange(S, device=dev)[None]
+
+    def stage(p, h):
+        for j in range(per):
+            h, _ = T._apply_layer(cfg, kind, tree_map(lambda t: t[j], p), h,
+                                  positions=positions, mode="prefill",
+                                  cache=None)
+        return h
+    mesh = make_mesh((MESH_RANKS,), ("stage",))
+    mine = tree_map(lambda t: t[rank * per:(rank + 1) * per][None], layers)
+    comm.reset_counters()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = gpipe(stage, mine, x, mesh)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        out = {"pipe_s": pipe_s, "bytes": comm.counters()}
+        if rank == 0:
+            t0 = time.perf_counter()
+            seq = []
+            for m in range(n_micro):
+                h = x[m]
+                for s in range(MESH_RANKS):
+                    h = stage(tree_map(lambda t: t[s * per:(s + 1) * per],
+                                       layers), h)
+                seq.append(h)
+            seq = torch.stack(seq)
+            torch.cuda.synchronize()
+            out["sequential_s"] = time.perf_counter() - t0
+            same = torch.equal(y.view(torch.int16), seq.view(torch.int16))
+            out["bit_equal"] = bool(same)
+            out["max_abs_err"] = float((y.float() - seq.float()).abs().max())
+            out["finite"] = bool(torch.isfinite(y).all())
+    del model, params, layers, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phases_rank(rank, go_file: str, tmp: str) -> dict:
+    """The mesh job: every rank waits for ``go_file`` (the main process
+    writes it once ``train_dlrm`` has freed the card), then the four
+    phases one after another; rank 0 also runs the single-process sides.
+    Returns this rank's numbers by phase."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.launch.mesh import rank_device
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device()
+    tmp = Path(tmp)
+    while not Path(go_file).exists():
+        time.sleep(0.1)
+    t_go = time.perf_counter()
+    out = {}
+    # ---- mesh_dlrm --------------------------------------------------------
+    single = None
+    if rank == 0:
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import TrainConfig
+        from repro_torch.data import dlrm_batch
+        cfg = get_config("dlrm")
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                    dlrm_batch(0, i, MESH_DLRM_BATCH, cfg).items()}
+                   for i in range(MESH_DLRM_STEPS)]
+        t0 = time.perf_counter()
+        single = mesh_dlrm_single(cfg, TrainConfig(), batches, dev)
+        # the control: one process whose step-1 MLP gradient is perturbed
+        # by MESH_DLRM_PERTURB, about what the mesh's bf16 partial sums
+        # give it: how far 3 sound steps part from such a start
+        single["control"] = mesh_dlrm_single(
+            cfg, TrainConfig(), batches, dev, faults=False,
+            perturb=MESH_DLRM_PERTURB)
+        single["seconds"] = time.perf_counter() - t0
+        del batches
+        mesh_log(rank, f"mesh_dlrm single process {single['seconds']:.1f} s")
+    comm.barrier()
+    t0 = time.perf_counter()
+    out["mesh_dlrm"] = mesh_dlrm_rank(rank, dev, single)
+    out["mesh_dlrm"]["seconds"] = time.perf_counter() - t0
+    if single is not None:
+        out["mesh_dlrm"]["single_seconds"] = single["seconds"]
+    del single
+    torch.cuda.empty_cache()
+    # ---- mesh_elastic -----------------------------------------------------
+    t0 = time.perf_counter()
+    out["mesh_elastic"] = mesh_elastic_rank(rank, dev, tmp)
+    out["mesh_elastic"]["seconds"] = time.perf_counter() - t0
+    # ---- mesh_moe ---------------------------------------------------------
+    t0 = time.perf_counter()
+    ref = mesh_moe_single(dev) if rank == 0 else None
+    comm.barrier()
+    out["mesh_moe"] = mesh_moe_rank(rank, dev)
+    if ref is not None:
+        out["mesh_moe"]["single"] = ref
+    out["mesh_moe"]["seconds"] = time.perf_counter() - t0
+    comm.barrier()
+    # ---- mesh_gpipe -------------------------------------------------------
+    t0 = time.perf_counter()
+    out["mesh_gpipe"] = mesh_gpipe_rank(rank, dev)
+    out["mesh_gpipe"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_go
+    mesh_log(rank, f"mesh phases done in {out['seconds']:.1f} s")
+    return out
+
+
+def start_mesh_job(tmp: Path):
+    """The mesh job's ranks, started now on the card (``MESH_RANKS``
+    processes sharing ``cuda:0`` over gloo); they wait for the go file."""
+    from repro_torch.launch.mesh import RankJob
+    go = tmp / "mesh_go"
+    job = RankJob(mesh_phases_rank, MESH_RANKS,
+                  devices=["cuda:0"] * MESH_RANKS,
+                  args=(str(go), str(tmp)), timeout_s=MESH_GROUP_TIMEOUT_S,
+                  tmpdir=str(tmp / "mesh_rdv"))
+    return job, go
+
+
+def _over(reading: float, limit: float) -> bool:
+    return not reading <= limit
+
+
+def mesh_phases(gpu: str, job) -> dict:
+    """Phase 7d in the main process: joins the mesh job (let go once the
+    card is free of ``train_dlrm``), prints ``mesh_dlrm``,
+    ``mesh_elastic``, ``mesh_moe`` and ``mesh_gpipe`` and holds their
+    numbers (the DLRM's against ``MESH_DLRM_TOL``, each limit also below
+    its planted faults' readings of this run).  Returns the bag kernels'
+    launches on the mesh path (every rank's, ``mesh_dlrm``'s 3 steps)."""
+    t0 = time.perf_counter()
+    res = job.join(MESH_JOIN_S)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    tol = MESH_DLRM_TOL
+    # ---- mesh_dlrm ----------------------------------------------------------
+    d0 = r0["mesh_dlrm"]
+    single = d0["single"]
+    for r in res:
+        d = r["mesh_dlrm"]
+        if d["losses"] != d0["losses"] or d["grad_norms"] != d0["grad_norms"]:
+            raise AssertionError(f"mesh_dlrm: ranks read different metrics "
+                                 f"{d['losses']} vs {d0['losses']}")
+        if d["launches"] != {"embedding_bag_rows": MESH_DLRM_STEPS,
+                             "embedding_bag_backward": MESH_DLRM_STEPS}:
+            raise AssertionError(f"mesh_dlrm: rank launches {d['launches']}")
+    keys = ("touched_rows", "step1_loss_diff", "loss_diffs", "norm_rels",
+            "grad1_rel", "update_rel", "moments_rel", "params_max_abs_diff",
+            "p0_bit_equal", "tables_untouched_bit_equal", "grad_fn_loss",
+            "planted", "control", "dlrm_comm_spec", "comm_profile")
+    line = {"phase": "mesh_dlrm", "gpu": gpu, "transport": d0["transport"],
+            "ranks": MESH_RANKS, "mesh": {"data": MESH_RANKS},
+            "tables_over": "data", "batch": MESH_DLRM_BATCH,
+            "rows_a_rank": MESH_DLRM_BATCH // MESH_RANKS,
+            "losses": d0["losses"], "grad_norms": d0["grad_norms"],
+            "single_process": single, "step_s": d0["step_s"],
+            "peak_bytes_by_rank": [r["mesh_dlrm"]["peak_bytes"] for r in res],
+            "launches_by_rank": [r["mesh_dlrm"]["launches"] for r in res],
+            "bytes_per_step_by_rank": [r["mesh_dlrm"]["bytes_per_step"][-1]
+                                       for r in res],
+            **{k: d0[k] for k in keys},
+            "bags_check_by_rank": [r["mesh_dlrm"]["bags_check"] for r in res],
+            "tolerance": tol, "single_seconds": d0["single_seconds"],
+            "seconds": d0["seconds"]}
+    emit(line)
+    if not all(math.isfinite(x) for x in d0["losses"] + d0["grad_norms"]):
+        raise AssertionError(f"mesh_dlrm: non-finite {line}")
+    for r in res:
+        c = r["mesh_dlrm"]["bags_check"]
+        if c["forward_differing"] or c["backward_differing"]:
+            raise AssertionError(f"mesh_dlrm: a bag kernel at the rank's "
+                                 f"shapes differs from its plain version: {c}")
+    if not (d0["p0_bit_equal"] and d0["tables_untouched_bit_equal"]):
+        raise AssertionError("mesh_dlrm: the initial weights or the "
+                             "untouched rows differ from one process's")
+    for f, p in d0["planted"].items():
+        if not (_over(p["step1_loss_diff"], tol["loss1"])
+                and _over(p["grad1_rel"]["tables"], tol["grad1"])
+                and _over(p["grad1_rel"]["mlp"], tol["grad1"])):
+            raise AssertionError(f"mesh_dlrm: the limits {tol} do not "
+                                 f"separate the planted fault {f}: {p}")
+    readings = [("step 1's loss", d0["step1_loss_diff"], tol["loss1"]),
+                ("step 1's norm", d0["norm_rels"][0], tol["norm1"])]
+    readings += [(f"step {i + 1}'s loss", x, tol["loss"])
+                 for i, x in enumerate(d0["loss_diffs"])]
+    readings += [(f"step {i + 1}'s norm", x, tol["norm"])
+                 for i, x in enumerate(d0["norm_rels"])]
+    for k in ("tables", "mlp"):
+        readings += [(f"step 1's gradient ({k})", d0["grad1_rel"][k],
+                      tol["grad1"]),
+                     (f"the update ({k})", d0["update_rel"][k],
+                      tol["update"])]
+        readings += [(f"the final {m} ({k})", d0["moments_rel"][m][k],
+                      tol["moments"]) for m in ("mu", "nu")]
+    for what, x, limit in readings:
+        if _over(x, limit):
+            raise AssertionError(f"mesh_dlrm: {what} lies {x} from one "
+                                 f"process's (limit {limit})")
+    # ---- mesh_elastic -------------------------------------------------------
+    e0 = r0["mesh_elastic"]
+    keys = ("ckpt_bytes", "leaves", "restore_one_s", "restore_two_s",
+            "restored_bit_equal", "restored_two_bit_equal", "step4_four",
+            "step4_two", "step4_loss_diff", "step4_norm_rel",
+            "step4_grad_rel", "planted_blocks_swapped_rel")
+    line = {"phase": "mesh_elastic", "gpu": gpu, "transport": d0["transport"],
+            "rows_per_table": MESH_ELASTIC_ROWS,
+            "saved_on": {"data": MESH_RANKS}, "restored_onto": [
+                "one process", {"data": 2}],
+            "losses": e0["losses"], "step_s": e0["step_s"],
+            "save_s": [r["mesh_elastic"]["save_s"] for r in res],
+            **{k: e0[k] for k in keys},
+            "bags_check_by_rank": [r["mesh_elastic"]["bags_check_two"]
+                                   for r in res[:2]],
+            "tolerance": {"restore": "bit for bit", "step 4 on 2 ranks":
+                          {k: tol[k] for k in ("loss1", "norm1", "grad1")}},
+            "seconds": e0["seconds"]}
+    emit(line)
+    if e0["meta"] != {"next_step": MESH_DLRM_STEPS}:
+        raise AssertionError(f"mesh_elastic: meta {e0['meta']}")
+    if not (e0["restored_bit_equal"] and e0["restored_two_bit_equal"]):
+        raise AssertionError("mesh_elastic: a restored block differs")
+    for c in line["bags_check_by_rank"]:
+        if c["forward_differing"] or c["backward_differing"]:
+            raise AssertionError(f"mesh_elastic: a bag kernel at the rank's "
+                                 f"shapes differs from its plain version: {c}")
+    if not _over(e0["planted_blocks_swapped_rel"], tol["grad1"]):
+        raise AssertionError(f"mesh_elastic: the limit {tol['grad1']} does "
+                             "not separate the swapped blocks")
+    for what, x, limit in (
+            ("loss", e0["step4_loss_diff"], tol["loss1"]),
+            ("norm", e0["step4_norm_rel"], tol["norm1"]),
+            ("gradient (tables)", e0["step4_grad_rel"]["tables"],
+             tol["grad1"]),
+            ("gradient (mlp)", e0["step4_grad_rel"]["mlp"], tol["grad1"])):
+        if _over(x, limit):
+            raise AssertionError(f"mesh_elastic: step 4's {what} on 2 ranks "
+                                 f"lies {x} from 4 ranks' (limit {limit})")
+    # ---- mesh_moe -----------------------------------------------------------
+    m0 = r0["mesh_moe"]
+    ref = m0["single"]
+    rows_out = {}
+    for shape, impl in MESH_MOE_CASES:
+        case = f"{impl}_{shape[0]}x{shape[1]}"
+        row = {"mesh": dict(zip(("data", "model"), shape)), "impl": impl}
+        for dt in ("f32", "bf16"):
+            logits = np.zeros_like(ref[dt]["logits"])
+            experts = np.zeros_like(ref[dt]["experts"])
+            for r in res:
+                c = r["mesh_moe"][case]
+                lo, hi = c["rows"]
+                logits[lo:hi] = c[dt]["logits"]
+                experts[lo:hi] = c[dt]["experts"]
+            # the MoE layer is the last: a row's last logits depend on its
+            # last token's experts alone
+            alike = (experts[:, -1] == ref[dt]["experts"][:, -1]).all(-1)
+            want = ref[dt]["logits"]
+            err = float(np.linalg.norm(logits[alike] - want[alike])
+                        / max(np.linalg.norm(want[alike]), 1e-30)) \
+                if alike.any() else float("nan")
+            row[dt] = {"rel_l2": err, "rows_alike": [int(alike.sum()),
+                                                     len(alike)],
+                       "dropped": sum(r["mesh_moe"][case][dt]["dropped"]
+                                      for r in res),
+                       "prefill_s": max(r["mesh_moe"][case][dt]["s"]
+                                        for r in res),
+                       "single_prefill_s": ref[dt]["s"]}
+        row["all_to_all_bytes_by_rank"] = [
+            r["mesh_moe"][case]["f32"]["bytes"]["all_to_all"] for r in res]
+        row["psum_bytes_by_rank"] = [
+            r["mesh_moe"][case]["f32"]["bytes"]["psum"] for r in res]
+        rows_out[case] = row
+    line = {"phase": "mesh_moe", "gpu": gpu, "transport": d0["transport"],
+            "arch": "deepseek-v2-236b", "layers": 2,
+            "rows": MESH_MOE_ROWS, "seq": MESH_MOE_SEQ,
+            "capacity_factor": MESH_MOE_CAPACITY, "cases": rows_out,
+            "tolerance": f"f32 rel. L2 {MESH_MOE_TOL} over the rows whose "
+                         "last token routed alike (at least half); bf16 "
+                         "reported", "seconds": m0["seconds"]}
+    emit(line)
+    for case, row in rows_out.items():
+        for dt in ("f32", "bf16"):
+            if row[dt]["dropped"]:
+                raise AssertionError(f"mesh_moe {case}: {row[dt]['dropped']} "
+                                     "slots dropped")
+        n, total = row["f32"]["rows_alike"]
+        if 2 * n < total or not row["f32"]["rel_l2"] <= MESH_MOE_TOL:
+            raise AssertionError(f"mesh_moe {case}: {row['f32']}")
+    # ---- mesh_gpipe ---------------------------------------------------------
+    g0 = r0["mesh_gpipe"]
+    n_layers, per, n_micro, S = MESH_GPIPE
+    line = {"phase": "mesh_gpipe", "gpu": gpu, "transport": d0["transport"],
+            "arch": "tinyllama-1.1b", "layers": n_layers,
+            "layers_a_stage": per, "stages": MESH_RANKS,
+            "microbatches": n_micro, "tokens_a_microbatch": S,
+            "bit_equal": g0["bit_equal"], "max_abs_err": g0["max_abs_err"],
+            "pipe_s": [r["mesh_gpipe"]["pipe_s"] for r in res],
+            "sequential_s": g0["sequential_s"],
+            "ppermute_bytes_by_rank": [r["mesh_gpipe"]["bytes"]["ppermute"]
+                                       for r in res],
+            "seconds": g0["seconds"]}
+    emit(line)
+    if not (g0["bit_equal"] and g0["finite"]):
+        raise AssertionError(f"mesh_gpipe: {line}")
+    emit({"phase": "mesh_job", "gpu": gpu, "wall_s": wall,
+          "ranks_s": [r["seconds"] for r in res]})
+    return {k: sum(r["mesh_dlrm"]["launches"][k] for r in res)
+            for k in ("embedding_bag_rows", "embedding_bag_backward")}
+
+
 def flash_grad_check(q, k, v, block: int) -> dict:
     """``flash_attention``'s q/k/v gradients against autograd through
     ``layers.blockwise_attention`` (no wedge split: plain tiles) on
@@ -6832,16 +7918,29 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
     emit({"phase": "kernel_timing", "gpu": gpu,
           "embedding_bag_backward": timing["embedding_bag_backward"]})
 
-    # ---- 7c. training the Table II DLRM through both bag kernels ---------
-    train_launches = train_dlrm(gpu, dev)
+    # ---- 7c. training the Table II DLRM through both bag kernels, with
+    # the mesh job's ranks starting beside it ----------------------------
+    mesh_job, mesh_go = start_mesh_job(tmp)
+    try:
+        train_launches = train_dlrm(gpu, dev)
 
-    # ---- 8. DLRM: against the JAX reference's logits ------------------------
-    emit({"phase": "dlrm_reference", **dlrm_reference(dev)})
+        # ---- 7d. the device mesh: four ranks sharing the card, let go now
+        # that train_dlrm has freed it; phases 8 and 10 (checks, a few GB)
+        # run beside them ------------------------------------------------
+        torch.cuda.empty_cache()
+        mesh_go.write_text("go")
 
-    # ---- 10. serving: the flash-decode kernel against its plain version -----
-    fd_check = decode_kernel_check(dev)
-    emit({"phase": "decode_kernel_check", "kernel": "flash_decode",
-          "inputs": "random", **fd_check})
+        # ---- 8. DLRM: against the JAX reference's logits --------------------
+        emit({"phase": "dlrm_reference", **dlrm_reference(dev)})
+
+        # ---- 10. serving: the flash-decode kernel against its plain version -
+        fd_check = decode_kernel_check(dev)
+        emit({"phase": "decode_kernel_check", "kernel": "flash_decode",
+              "inputs": "random", **fd_check})
+
+        mesh_launches_dlrm = mesh_phases(gpu, mesh_job)
+    finally:
+        mesh_job.terminate()
 
     # ---- 11. serving: the driver's defaults through its entry point --------
     entry_launches = serve_entry(gpu)
@@ -6972,9 +8071,11 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
     # the embedding kernels: the scoring forward and train_dlrm's steps
     path_launches["embedding_bag_rows"] = (
         emb_launches["embedding_bag_rows"]
-        + train_launches["embedding_bag_rows"])
-    path_launches["embedding_bag_backward"] = train_launches[
-        "embedding_bag_backward"]
+        + train_launches["embedding_bag_rows"]
+        + mesh_launches_dlrm["embedding_bag_rows"])
+    path_launches["embedding_bag_backward"] = (
+        train_launches["embedding_bag_backward"]
+        + mesh_launches_dlrm["embedding_bag_backward"])
     path_launches["flash_decode"] = (entry_launches + long_launches
                                      + sum(arch_launches.values()))
     errs = {"fused_signals_policy": fused["max_abs_err"], **seg_err,

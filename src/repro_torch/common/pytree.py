@@ -4,9 +4,8 @@ A model declares its parameters once as a tree (nested dicts and lists)
 of :class:`ParamDef` leaves; ``materialize`` turns the tree into the same
 tree of tensors, drawn by the rules of ``common/init.py``.
 ``flatten_with_paths`` names a tree's leaves as the reference's
-``jax.tree_util`` paths do (the checkpoint layout's file names).  The
-sharding side of the reference (``specs_of``, ``abstract``) comes with
-the mesh.
+``jax.tree_util`` paths do (the checkpoint layout's file names).
+``specs_of`` gives the tree's ``PartitionSpec``s under a ``MeshRules``.
 """
 from __future__ import annotations
 
@@ -61,6 +60,28 @@ def materialize(defs, generator: torch.Generator | None, device):
             return d
         return init_mod.make(d.shape, d.init, d.dtype, generator, device)
     return tree_map(one, defs)
+
+
+def map_with_specs(fn, tree, specs, path: tuple = ()):
+    """``fn(leaf, spec, path)`` over the leaves of ``tree`` and the
+    matching leaves of ``specs`` (a tree of the same structure whose
+    leaves may be tuples, as ``PartitionSpec``s are), ``path`` the tuple
+    of keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, tree[k], specs[k], path + (str(k),))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_specs(fn, v, sp, path + (str(i),))
+                          for i, (v, sp) in enumerate(zip(tree, specs)))
+    return fn(tree, specs, path)
+
+
+def specs_of(defs, rules):
+    """PartitionSpec tree via ``MeshRules`` (duck-typed: no import
+    cycle).  Shape-aware: non-divisible assignments fall back to
+    replication."""
+    return tree_map(lambda d: rules.pspec(d.axes, d.shape)
+                    if isinstance(d, ParamDef) else d, defs)
 
 
 def _numel(shape) -> int:

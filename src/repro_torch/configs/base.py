@@ -1,7 +1,6 @@
 """Config dataclasses (port of ``repro/configs/base.py``): ``ModelConfig``,
-``ShapeConfig`` and ``TrainConfig``, field for field, so that config files
-port verbatim.  The mesh configs come with the logical-axis sharding
-(ROADMAP.md queue item 9.8)."""
+``ShapeConfig``, ``MeshConfig`` (with ``SINGLE_POD`` and ``MULTI_POD``) and
+``TrainConfig``, field for field, so that config files port verbatim."""
 from __future__ import annotations
 
 import dataclasses
@@ -125,6 +124,23 @@ class ShapeConfig:
     # how to shard the KV cache for decode: "batch" (many requests) or
     # "seq" (single huge context -> sequence parallel cache)
     cache_shard: str = "batch"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)

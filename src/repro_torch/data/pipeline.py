@@ -4,9 +4,10 @@
 Every batch is a pure function of (seed, step), so a restart reproduces
 the exact stream (what checkpoint/restart equivalence rests on), and its
 arrays are identical to the reference's.  ``Prefetcher`` builds the
-stream ahead on a background thread.  ``shard_batch`` takes a mesh and
-comes with the logical-axis sharding (ROADMAP.md queue item 9.8); a
-trainer on one device moves a batch with ``torch.as_tensor``.
+stream ahead on a background thread.  ``shard_batch(batch, mesh,
+pspecs)`` gives a rank of a live mesh its rows of the global batch (every
+rank builds the same global batch from the seed and step), and without a
+mesh the batch as tensors.
 """
 from __future__ import annotations
 
@@ -38,6 +39,20 @@ def dlrm_batch(seed: int, step: int, global_batch: int, cfg) -> dict:
     w = np.asarray(np.sin(np.arange(cfg.n_dense)), np.float32)
     label = (dense @ w > 0).astype(np.float32)
     return {"dense": dense, "sparse_idx": idx, "label": label}
+
+
+def shard_batch(batch: dict, mesh, pspecs: dict) -> dict:
+    """This rank's block of each array of the global ``batch`` under
+    ``pspecs`` (a view of a tensor; numpy arrays become tensors); without
+    a mesh, every array as a tensor."""
+    import torch
+
+    from repro_torch.common.sharding import local_shard
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t if mesh is None else local_shard(t, pspecs[k], mesh)
+    return out
 
 
 class Prefetcher:

@@ -5,8 +5,12 @@ The mechanisms are the reference's: a deterministic data stream, atomic
 checkpoints, a restart from the latest one.  ``TrainRunner`` waits for
 each step by reading its loss (the reference calls
 ``block_until_ready``), so a step's wall time includes the device's work.
-``reshard`` (a tree laid out on another mesh) comes with the logical-axis
-sharding (ROADMAP.md queue item 9.8).
+
+On a live mesh (``TrainRunner(..., mesh=, specs=)``) every rank runs the
+loop; the checkpoints are the mesh's (``checkpoint.save(mesh=)``: rank 0
+writes the manifest, each block its writer), written synchronously, and
+a restart restores each rank's blocks.  ``reshard`` lays a tree out on
+another mesh (the elastic re-shard).
 """
 from __future__ import annotations
 
@@ -17,7 +21,11 @@ from typing import Any, Callable
 
 import numpy as np
 
-from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, restore
+from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, gc_old,
+                                         latest_step, restore, save)
+from repro_torch.common import comm
+from repro_torch.common.pytree import flatten_with_paths, unflatten_like
+from repro_torch.common.sharding import flatten_specs, gather_full, local_shard
 
 log = logging.getLogger("repro_torch.ft")
 
@@ -70,6 +78,23 @@ class StragglerDetector:
         return False
 
 
+def reshard(tree, new_mesh, specs, old_mesh=None, old_specs=None):
+    """Elastic re-shard: this rank's blocks under ``specs`` on
+    ``new_mesh`` of a tree of whole arrays, or, with ``old_mesh`` and
+    ``old_specs``, of a tree of blocks on the old mesh (gathered whole
+    first: every rank of the old mesh calls it).  None on a rank outside
+    the new mesh."""
+    leaves = [x for _, x in flatten_with_paths(tree)]
+    if old_mesh is not None:
+        leaves = [gather_full(x, sp, old_mesh) for x, (_, sp) in
+                  zip(leaves, flatten_specs(old_specs))]
+    if new_mesh is None:
+        return None
+    return unflatten_like(tree, [
+        local_shard(x, sp, new_mesh).clone()
+        for x, (_, sp) in zip(leaves, flatten_specs(specs))])
+
+
 @dataclasses.dataclass
 class RunnerConfig:
     ckpt_dir: str
@@ -88,8 +113,11 @@ class TrainRunner:
     def __init__(self, cfg: RunnerConfig, train_step_fn: Callable,
                  make_batch: Callable[[int], Any],
                  injector: FailureInjector | None = None,
-                 straggler: StragglerDetector | None = None):
+                 straggler: StragglerDetector | None = None,
+                 mesh=None, specs=None):
         self.cfg = cfg
+        self.mesh = mesh if mesh is not None and mesh.is_live else None
+        self.specs = specs
         self.train_step = train_step_fn
         self.make_batch = make_batch
         self.injector = injector or FailureInjector()
@@ -103,7 +131,8 @@ class TrainRunner:
         if step is None:
             return params, opt_state, 0
         (params, opt_state), meta = restore(self.cfg.ckpt_dir, step,
-                                            (params, opt_state))
+                                            (params, opt_state),
+                                            mesh=self.mesh, specs=self.specs)
         log.info("restored checkpoint at step %d", step)
         return params, opt_state, int(meta.get("next_step", step))
 
@@ -123,8 +152,7 @@ class TrainRunner:
                 self.metrics_log.append({"step": step, "dt": dt, **values})
                 step += 1
                 if step % self.cfg.checkpoint_every == 0 or step == n_steps:
-                    self.ckpt.save(step, (params, opt_state),
-                                   extra_meta={"next_step": step})
+                    self._save(step, params, opt_state)
             except RuntimeError as e:
                 self.restarts += 1
                 log.warning("step %d failed (%s); restart %d", step, e,
@@ -135,3 +163,14 @@ class TrainRunner:
                 params, opt_state, step = self._restore_or(params, opt_state)
         self.ckpt.wait()
         return params, opt_state
+
+    def _save(self, step: int, params, opt_state) -> None:
+        meta = {"next_step": step}
+        if self.mesh is None:
+            self.ckpt.save(step, (params, opt_state), self.specs, meta)
+            return
+        save(self.cfg.ckpt_dir, step, (params, opt_state), self.specs, meta,
+             mesh=self.mesh)
+        if self.mesh.rank == 0:
+            gc_old(self.cfg.ckpt_dir, self.cfg.keep)
+        comm.barrier(self.mesh.group(self.mesh.axis_names))

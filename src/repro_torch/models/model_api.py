@@ -27,9 +27,19 @@ K/V tensors, latent caches and recurrent states are written in place.
 an optional ``loss_mask``: the stack in ``mode="train"`` (the prefill's
 math without a cache), each stacked period rematerialised in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), the
-logits, log-sum-exp and gather in float32.  The mesh and its specs come
-with the logical-axis sharding (ROADMAP.md queue item 9.8); the VLM and
-encoder-decoder extras with item 9.5.
+logits, log-sum-exp and gather in float32.  The VLM and encoder-decoder
+extras come with ROADMAP.md queue item 9.5.
+
+**On a mesh** (``Model(cfg, mesh=...)``): ``rules``, ``param_specs``,
+``input_specs`` (shapes and dtypes), ``batch_pspecs`` and ``cache_rules``
+are the reference's, spec for spec (MoE configs under ``ep_a2a`` take
+``moe_param_overrides``).  On a live mesh ``loss``, ``prefill`` and
+``decode_step`` take this rank's shards of the parameters (the
+``param_specs`` layout) and its rows of the batch (``shard_batch``): every
+leaf is gathered whole for the compute, but the MoE experts' ``w1``,
+``w3``, ``w2``, which the mesh bodies read as shards (``models/moe.py``).
+A Megatron-style layout that keeps dense layers sharded through the
+compute is later work.
 """
 from __future__ import annotations
 
@@ -39,8 +49,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.precision import float32_reduction
-from repro_torch.common.pytree import ParamDef, materialize, tree_map
+from repro_torch.common.pytree import (ParamDef, map_with_specs, materialize,
+                                       specs_of, tree_map)
+from repro_torch.common.sharding import MeshRules, P, gather_full
 from repro_torch.core.engine import resolve_device
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Group, _apply_layer, _norm_apply, _norm_defs
 
@@ -68,13 +81,43 @@ def _group_defs(cfg, g: Group) -> dict:
             for j, kind in enumerate(g.kinds)}
 
 
+class ShapeDtype(tuple):
+    """(shape, dtype) of a model input: the reference's
+    ``jax.ShapeDtypeStruct`` without an array library."""
+
+    def __new__(cls, shape, dtype):
+        return super().__new__(cls, (tuple(shape), dtype))
+
+    @property
+    def shape(self) -> tuple:
+        return self[0]
+
+    @property
+    def dtype(self):
+        return self[1]
+
+
+def _abstract(defs):
+    return tree_map(lambda d: ShapeDtype(d.shape, d.dtype)
+                    if isinstance(d, ParamDef) else d, defs)
+
+
+def _is_expert_leaf(path: tuple) -> bool:
+    return len(path) >= 2 and path[-2] == "moe" and path[-1] in BODY_LEAVES
+
+
+BODY_LEAVES = ("w1", "w3", "w2")
+
+
 class Model:
     """A model of the serving zoo (``transformer.SUPPORTED_KINDS``) on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default), over ``mesh`` when one is given."""
 
-    def __init__(self, cfg, device="cuda", decode_impl: str = "auto"):
+    def __init__(self, cfg, device="cuda", decode_impl: str = "auto",
+                 mesh=None):
         T.check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.decode_impl = resolve_decode_impl(decode_impl, self.device)
         self.groups = T.build_groups(cfg)
@@ -103,6 +146,76 @@ class Model:
         """The parameter tree drawn on the model's device from
         ``generator`` (a ``torch.Generator`` on that device)."""
         return materialize(self.param_defs(), generator, self.device)
+
+    # ----------------------------------------------------------------- mesh
+    def rules(self) -> MeshRules:
+        if self.mesh is None:
+            raise ValueError("rules() needs Model(cfg, mesh=...)")
+        overrides = MOE.moe_param_overrides(self.cfg) or {}
+        return MeshRules.create(self.mesh, overrides)
+
+    def param_specs(self, rules: MeshRules | None = None):
+        return specs_of(self.param_defs(), rules or self.rules())
+
+    def input_specs(self, shape) -> dict:
+        """(shape, dtype) of every model input of a shape cell."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if cfg.vlm_prefix_len or cfg.enc_dec:
+            raise NotImplementedError(f"{cfg.name}: the VLM and encoder-"
+                                      "decoder inputs come with ROADMAP.md "
+                                      "queue item 9.5")
+        if shape.kind in ("train", "prefill"):
+            return {"tokens": ShapeDtype((B, S), torch.int32)}
+        return {"tokens": ShapeDtype((B, 1), torch.int32),
+                "cache": _abstract(self.cache_defs(B, S))}
+
+    def batch_pspecs(self, shape, rules: MeshRules | None = None):
+        rules = rules or self.rules()
+        B = shape.global_batch
+        specs = self.input_specs(shape)
+        if shape.kind in ("train", "prefill"):
+            s = specs["tokens"]
+            return {"tokens": rules.pspec(("batch",) + (None,)
+                                          * (len(s.shape) - 1), s.shape)}
+        cache_rules = self.cache_rules(shape)
+        return {"tokens": cache_rules.pspec(("batch", None), (B, 1)),
+                "cache": specs_of(self.cache_defs(B, shape.seq_len),
+                                  cache_rules)}
+
+    def cache_rules(self, shape) -> MeshRules:
+        overrides = dict(MOE.moe_param_overrides(self.cfg) or {})
+        if shape.cache_shard == "seq":
+            overrides.update({"batch": (), "seq": ("pod", "data")})
+        elif self.cfg.decode_seq_shard:
+            overrides.update({"seq": ("model",), "kv_heads": ()})
+        else:
+            overrides.update({"seq": ()})
+        return MeshRules.create(self.mesh, overrides)
+
+    def _live(self) -> bool:
+        return self.mesh is not None and self.mesh.is_live
+
+    def compute_params(self, params):
+        """The tree the layers read: on a live mesh every leaf gathered
+        whole from this rank's shard (the MoE experts' ``w1``/``w3``/``w2``
+        kept as shards, checked against their mesh body's layout);
+        ``params`` itself otherwise."""
+        if not self._live():
+            return params
+        specs = self.param_specs()
+        body = MOE.BODY_SPECS.get(self.cfg.moe_impl, {})
+        moe_mesh = MOE.uses_mesh(self.cfg, self.mesh)
+
+        def one(node, spec, path):
+            if moe_mesh and _is_expert_leaf(path):
+                want = P(None, *body[path[-1]])     # the layers dim first
+                if spec != want:
+                    raise ValueError(f"{'.'.join(path)}: spec {spec}, the "
+                                     f"{self.cfg.moe_impl} body reads {want}")
+                return node
+            return gather_full(node, spec, self.mesh)
+        return map_with_specs(one, params, specs)
 
     # -------------------------------------------------------------- plumbing
     def _embed(self, params, tokens):
@@ -145,7 +258,8 @@ class Model:
                         x, _ = _apply_layer(cfg, kind, p, x,
                                             positions=positions, mode=mode,
                                             cache=c, decode=decode,
-                                            shared_params=shared)
+                                            shared_params=shared,
+                                            mesh=self.mesh)
                     return x
                 if mode == "train":
                     x = checkpoint(period, x, use_reentrant=False)
@@ -161,6 +275,32 @@ class Model:
         """Next-token cross-entropy (a float32 scalar) of
         ``batch["tokens"]`` (B, S), over the positions ``batch["loss_mask"]``
         (B, S) keeps when it is given."""
+        return self._loss(self.compute_params(params), batch)
+
+    def mesh_local(self, path: tuple) -> bool:
+        """Whether the mesh step hands ``mesh_loss`` this leaf as this
+        rank's block (the MoE experts under a mesh body) rather than
+        whole."""
+        return MOE.uses_mesh(self.cfg, self.mesh) and _is_expert_leaf(path)
+
+    def mesh_loss(self, params, batch) -> torch.Tensor:
+        """This rank's share of the global batch's loss (the shares sum,
+        over the batch axes, to ``loss`` of the whole batch when every
+        row counts as many tokens): ``params`` whole but the
+        ``mesh_local`` leaves, ``batch`` the global batch."""
+        from repro_torch.data.pipeline import shard_batch
+        if "loss_mask" in batch:
+            raise NotImplementedError(
+                "a loss_mask over a mesh: the shares of a masked mean do not "
+                "add up to the global mean")
+        tokens = torch.as_tensor(batch["tokens"])
+        spec = self.rules().pspec(("batch", None), tuple(tokens.shape))
+        axes = spec.axes(0)
+        n_b = self.mesh.axis_size(axes) if axes else 1
+        mine = shard_batch(batch, self.mesh, {"tokens": spec})
+        return self._loss(params, mine) / n_b
+
+    def _loss(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
         with float32_reduction():
             tokens = self._tokens(batch["tokens"])
@@ -207,6 +347,7 @@ class Model:
         the decode cache.  Returns (last_logits (B, V) float32, cache);
         with ``all_logits``, every position's logits (B, S, V) in their
         place (a teacher-forced yardstick for the decode steps)."""
+        params = self.compute_params(params)
         with float32_reduction():
             tokens = self._tokens(batch["tokens"])
             B, S = tokens.shape
@@ -228,6 +369,7 @@ class Model:
         model's."""
         impl = resolve_decode_impl(decode_impl or self.decode_impl,
                                    self.device)
+        params = self.compute_params(params)
         with float32_reduction():
             tokens = self._tokens(tokens)
             B = tokens.shape[0]

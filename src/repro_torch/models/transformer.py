@@ -382,10 +382,12 @@ def _write_state(cache, new) -> None:
 
 
 def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
-                 decode: DecodeStep | None = None, shared_params=None):
+                 decode: DecodeStep | None = None, shared_params=None,
+                 mesh=None):
     """One sub-layer of a kind of ``SUPPORTED_KINDS`` (``check_supported``
     has vetted the config); a local layer takes ``rope_theta_local``
-    where the config sets one, a shared block ``shared_params``.  The
+    where the config sets one, a shared block ``shared_params``, a MoE
+    FFN ``mesh`` (the reference's ``models/transformer.py:419``).  The
     cache (KV, latent or recurrent state) is written in place.  Returns
     (x, cache)."""
     mixer, ffn = kind
@@ -449,8 +451,8 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
     h = _norm_apply(cfg, p["ln2"], x)
     if ffn == "moe":
         B, S, D = h.shape
-        return x + MOE.moe_apply(p["moe"], h.reshape(B * S, D),
-                                 cfg).reshape(B, S, D), cache
+        return x + MOE.moe_apply(p["moe"], h.reshape(B * S, D), cfg,
+                                 mesh).reshape(B, S, D), cache
     o = mlp_apply(cfg, p["mlp"], h)
     if cfg.post_norm and mixer != "shared_gqa":
         o = _norm_apply(cfg, p["ln2_post"], o)

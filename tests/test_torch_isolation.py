@@ -8,7 +8,11 @@ decode; the training path, ``models/flash.py``, ``train/``,
 ``checkpoint/``, ``ft/``, ``data/pipeline.py``'s ``lm_batch`` and
 ``Prefetcher`` and ``launch/train.py``, run below too: a train step of a
 flash-enabled TinyLlama and of the DLRM, a checkpoint and its restore,
-``launch.train`` with a failure injected; nor
+``launch.train`` with a failure injected; the mesh modules,
+``common/sharding.py``'s logical half, ``common/comm.py``,
+``launch/mesh.py``, ``configs/shapes.py`` and ``train/pipeline.py``, run
+below too: specs on an abstract mesh, and two CPU ranks over ``gloo``
+taking a mesh step of the smoke DLRM and a pipeline; nor
 ``chip_smoke.py``, ``scripts/profile_step.py``,
 ``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
 or the JAX package, it
@@ -126,6 +130,59 @@ def test_port_runs_with_jax_unavailable():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+MESH_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, {tests!r})
+import torch
+import repro_torch.common.comm, repro_torch.train.pipeline
+from repro_torch.common import sharding as S
+from repro_torch.configs import get_config, shapes
+from repro_torch.configs.base import SINGLE_POD
+from repro_torch.launch import mesh as lm
+from repro_torch.models import Model
+
+
+def rank(r):
+    import _mesh_ranks
+    from repro_torch.train.pipeline import gpipe
+    assert sys.modules["jax"] is None
+    loss, norm = _mesh_ranks.dlrm_two_rank_step(r)
+    mesh = lm.make_mesh((2,), ("stage",))
+    w = torch.full((1, 3, 3), 0.5 * (r + 1))
+    y = gpipe(lambda wi, h: h @ wi, w, torch.ones(4, 1, 3), mesh)
+    return loss, norm, float(y.sum())
+
+
+if __name__ == "__main__":
+    m = lm.make_production_mesh()
+    assert not m.is_live
+    model = Model(get_config("tinyllama-1.1b"), device="cpu",
+                  mesh=S.abstract_mesh(SINGLE_POD.shape, SINGLE_POD.axes))
+    specs = model.param_specs()
+    assert specs["embed"] == S.P("model"), specs["embed"]
+    assert model.batch_pspecs(shapes.TRAIN_4K)["tokens"] == S.P("data")
+    out = lm.launch(rank, 2, devices=["cpu"] * 2, join_s=90)
+    assert out[0] == out[1], out
+    loss, norm, y = out[0]
+    assert loss == loss and norm > 0 and y == 4 * 3 * 0.5 * 3 * 3, out
+    assert "jax" not in {{k.split(".")[0] for k in sys.modules
+                          if sys.modules[k] is not None}}
+    print("ok")
+"""
+
+
+def test_mesh_modules_run_with_jax_unavailable(tmp_path):
+    script = tmp_path / "mesh_isolated.py"
+    script.write_text(MESH_SCRIPT.format(tests=str(ROOT / "tests")))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
 
 

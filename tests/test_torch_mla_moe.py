@@ -192,11 +192,23 @@ def test_capacity_helpers_match_reference(cap):
 
 
 def test_moe_over_a_mesh_raises():
+    """The mesh bodies run on a live mesh (``tests/test_torch_mesh_moe.py``
+    holds them against the reference): an abstract mesh raises; the
+    ``dense`` impl over a mesh is the dense path, as in the reference."""
+    import dataclasses
+
+    from repro_torch.common.sharding import abstract_mesh
     r_cfg, p_cfg = _cfgs("deepseek-v3-671b")
     _, pp = _params(RMOE.moe_defs(r_cfg), 17)
-    with pytest.raises(NotImplementedError, match="9.8"):
-        PMOE.moe_apply(pp, torch.zeros((4, p_cfg.d_model)), p_cfg,
-                       mesh=object())
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    x = torch.randn((4, p_cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    for impl in ("ep_a2a", "tp"):
+        with pytest.raises(ValueError, match="live mesh"):
+            PMOE.moe_apply(pp, x, dataclasses.replace(p_cfg, moe_impl=impl),
+                           mesh=mesh)
+    assert torch.equal(PMOE.moe_apply(pp, x, p_cfg, mesh=mesh),
+                       PMOE.moe_apply(pp, x, p_cfg))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
