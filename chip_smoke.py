@@ -74,7 +74,17 @@ the int8 instantiation of the flash-decode kernel and serves TinyLlama
 with the int8 KV cache (``serve_int8``), Zamba2 (``serve_zamba2``),
 RWKV-6 (``serve_rwkv6``) and DeepSeek-V2/V3 (``serve_deepseek``), each
 new family held against the JAX reference's logits
-(``serve_families_reference``).
+(``serve_families_reference``).  The VLM and encoder-decoder families:
+``flash_decode`` checked at PaliGemma's (one kv head, G * D = 2,048) and
+Whisper's decode shapes and timed on their serving inputs beside SDPA,
+PaliGemma-3B at full depth with a 1,024-token prompt after its 256-
+position image prefix (the prefix-LM blockwise prefill) and Whisper-base
+at full depth on a 448-token prompt through ``ServeEngine``
+(``serve_paligemma``, ``serve_whisper``), Whisper's encoder over 1,500
+frames (``whisper_encode``), both against the JAX reference's logits
+(PaliGemma at 2 layers, Whisper's encoder output sampled besides), both
+smoke configs' training against the reference's (``train_reference``),
+and ``launch.train --arch whisper-base`` at full width (``train_entry``).
 
     python3 chip_smoke.py
 
@@ -215,6 +225,13 @@ FD_COLD_SETS, FD_COLD_BYTES = 4, 64e6
 # decode, each with its attention-logit softcap (Gemma-2's 50; the
 # others have none, and are checked at 50 too) and without
 FD_ARCH_SHAPES = {(8, 2, 256): 50.0, (16, 2, 128): 50.0, (8, 3, 128): 50.0}
+# decode_kernel_check: (Hkv, G, D) of PaliGemma-3B's decode (one kv head,
+# G * D = 2,048: the wrapper's limit, the merge pass's per-thread output
+# loop at its full count) and Whisper-base's (G = 1), over caches of 100
+# positions, of the span serve_paligemma / serve_whisper reads at their
+# last step, and of their max_len; no softcap
+FD_FAMILY_SHAPES = {(1, 8, 256): (100, 1343, 1408),
+                    (8, 1, 64): (100, 511, 576)}
 # time_flash_decode_softcap: Gemma-2's decode on a full ring (window
 # 4,096), 2 rows, softcap 50
 FD_SOFTCAP_SHAPE = (2, 8, 2, 256, 4096, 50.0)       # B, Hkv, G, D, L, cap
@@ -704,7 +721,34 @@ SERVE_ARCHS = {
     "zamba2-1.2b": {"phase": "serve_zamba2", "layers": None, "prompt": 2048,
                     "new": 64, "max_len": 2176, "block": None,
                     "resync": True},
+    # PaliGemma-3B at full depth (18 layers): a 1,024-token text prompt
+    # after the 256 image positions (a zero image, as the reference's
+    # engine serves; S = 1,280: the prefix-LM blockwise prefill in tiles of
+    # 256), 64 new tokens in a cache of 1,408.  Whisper-base at full depth
+    # (6 + 6 layers) on a 448-token prompt (its text context) over zero
+    # frames as long as it; its encoder's tiles of 500 serve
+    # whisper_encode's 1,500 frames.  "time": the captured layers' inputs
+    # go to time_flash_decode.  PaliGemma's model-level yardstick is
+    # "rel_l2", the other families' 3e-2 (SERVE_FAMILY_REL_L2), not
+    # SERVE_REL_L2's 2e-2: two bf16 paths without the kernel (its plain
+    # version in its place and the torch path) lie 2.2% apart there at 18
+    # layers, where TinyLlama's lie 1.7% apart at 18 (PERF.md §6), so
+    # the kernel is held besides at every layer ("capture": all 18 calls
+    # of the last step at fd_compare's tolerance)
+    "paligemma-3b": {"phase": "serve_paligemma", "layers": None,
+                     "prompt": 1024, "new": 64, "max_len": 1408,
+                     "block": 256, "time": True, "rel_l2": 3e-2,
+                     "capture": tuple(range(18))},
+    "whisper-base": {"phase": "serve_whisper", "layers": None,
+                     "prompt": 448, "new": 64, "max_len": 576, "block": 500,
+                     "time": True},
 }
+# the flash_decode row's keys of the two serving shapes timed
+FD_FAMILY_PREFIX = {"paligemma-3b": "paligemma_", "whisper-base": "whisper_"}
+# whisper_encode: Whisper-base's encoder over 30 s of audio (1,500 frames),
+# 2 rows of seeded frames, tiles of 500 (the default 512 does not divide
+# 1,500); the encoder a Whisper server runs for every 30 s of audio
+WHISPER_FRAMES, WHISPER_BLOCK = 1500, 500
 SERVE_ARCH_SLOTS = 2
 # serve_int8: TinyLlama at full width and depth with the int8 KV cache
 # (the reference's kvquant knob, src/repro/launch/dryrun.py:78-79) on
@@ -969,16 +1013,18 @@ SLIDING_REF = {
 # serve_reference's tokens and tolerances.  The reference's logits from
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py families_reference
 # (jax 0.9.0, numpy 2.0.2), rounded to 5 decimals
-# train_reference: TRAIN_REF_STEPS AdamW steps of the smoke TinyLlama and
-# DLRM with float32 activations, numpy weights from TRAIN_REF_SEED
-# (transformer_numpy_params, dlrm_numpy_params) and lm_batch / dlrm_batch
-# (TRAIN_REF_BATCH: (rows, seq) or rows); each step's loss and gradient
-# norm from
+# train_reference: TRAIN_REF_STEPS AdamW steps of the smoke TinyLlama,
+# DLRM, PaliGemma and Whisper with float32 activations, numpy weights from
+# TRAIN_REF_SEED (transformer_numpy_params, dlrm_numpy_params) and lm_batch
+# / dlrm_batch (TRAIN_REF_BATCH: (rows, seq) or rows) with train_extras'
+# seeded image embeddings and frames; each step's loss and gradient norm
+# from
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/port_reference_times.py train_reference
 # (jax 0.9.0, numpy 2.0.2); the port on the card within rtol 1e-3
 TRAIN_REF_SEED, TRAIN_REF_STEPS, TRAIN_REF_RTOL = 2, 3, 1e-3
 TRAIN_REF_TCFG = dict(learning_rate=1e-2, warmup_steps=2, total_steps=10)
-TRAIN_REF_BATCH = {"tinyllama-1.1b": (8, 64), "dlrm": 64}
+TRAIN_REF_BATCH = {"tinyllama-1.1b": (8, 64), "dlrm": 64,
+                   "paligemma-3b": (8, 64), "whisper-base": (8, 64)}
 TRAIN_REF = {
     "tinyllama-1.1b": {
         "loss": [6.051462650299072, 6.013705253601074, 5.977534770965576],
@@ -988,6 +1034,16 @@ TRAIN_REF = {
         "loss": [0.9292119741439819, 0.7119604349136353, 0.6386508941650391],
         "grad_norm": [2.0691192150115967, 1.3968948125839233,
                       1.380111813545227]},
+    "paligemma-3b": {
+        "loss": [5.545977592468262, 5.543750762939453,
+                 5.541424751281738],
+        "grad_norm": [0.11339359730482101, 0.11293840408325195,
+                      0.11033271253108978]},
+    "whisper-base": {
+        "loss": [5.546421051025391, 5.5442423820495605,
+                 5.547424793243408],
+        "grad_norm": [0.04913872107863426, 0.04653319716453552,
+                      0.052776552736759186]},
 }
 
 FAMILIES_REF_CUTS = {
@@ -995,7 +1051,22 @@ FAMILIES_REF_CUTS = {
     "rwkv6-3b": ("rwkv6-3b", 2, {}),
     "deepseek-v2-236b": ("deepseek-v2-236b", 2, {}),
     "tinyllama-1.1b/int8": ("tinyllama-1.1b", 4, {"kv_quant_int8": True}),
+    # PaliGemma at full width, 2 layers, and Whisper at full width and
+    # depth, with seeded image embeddings and frames (family_extras); the
+    # logits of Whisper do not depend on its frames (its decoder never
+    # reads the encoder, as the reference's), so its record also holds a
+    # sample of the encoder's output over 1,500 frames (encoder_sample)
+    "paligemma-3b": ("paligemma-3b", 2, {}),
+    "whisper-base": ("whisper-base", None, {"block_q": WHISPER_BLOCK,
+                                            "block_k": WHISPER_BLOCK}),
 }
+# the extras' seed, and the encoder sample: frames (1, WHISPER_FRAMES,
+# d_model) from the seed, the output at ENC_SAMPLE_POS x ENC_SAMPLE_DIMS
+FAMILY_EXTRAS_SEED = 3
+ENC_SAMPLE_POS = [int(i) for i in np.linspace(0, WHISPER_FRAMES - 1, 16)]
+ENC_SAMPLE_DIMS = [int(i) for i in np.linspace(0, 511, 16)]
+# (the port on a CPU in bf16 read 2.2e-3 and 2.0e-3 from the reference)
+ENC_SAMPLE_REL_L2, ENC_SAMPLE_ATOL = 2e-2, 2e-2
 FAMILIES_REF = {
     'zamba2-1.2b': {
         'logits':
@@ -1919,6 +1990,253 @@ FAMILIES_REF = {
         158], [25, 48, 82, 125, 146, 158], [28, 29, 60, 80, 110, 128]]],
         [[[11, 14, 19, 20, 57, 75], [12, 15, 19, 33, 41, 138], [12, 61, 84,
         108, 146, 151], [25, 44, 57, 59, 83, 147]]]],
+    },
+    'paligemma-3b': {
+        'logits':
+        [[[-0.00155, 0.02547, 0.02746, -0.00129, 0.01697, -0.02368, -0.01827,
+        0.02395, 0.00281, -0.01438, -0.05107, 0.00575, 0.00377, -0.04753,
+        0.01014, -0.03341], [0.01837, 0.01712, -0.00432, 0.00469, -0.00129,
+        0.02688, 0.03196, -0.01648, 0.00464, 0.0007, -0.00721, -0.03181,
+        0.00308, 0.00271, 0.00663, -0.03701], [-0.00306, 0.00908, 0.01657,
+        -0.02448, -0.01047, -0.0058, -0.02999, 0.00354, -0.02588, -0.00552,
+        -0.00757, 0.0083, -0.00193, -0.00982, -0.0051, 0.0261], [0.01943,
+        0.0075, -0.00538, -0.01401, -0.04273, 0.00398, -0.01635, -0.02281,
+        0.00686, 0.01094, 0.02661, -0.00062, 0.00443, -0.01029, 0.02679,
+        0.01587]], [[0.03966, -0.01057, -0.00558, -0.00977, -0.02443, 0.00658,
+        0.00108, -0.02138, 0.01511, -0.00473, -0.00718, -0.0017, 0.05672,
+        0.02199, -0.01324, -0.04269], [0.03637, -0.02514, -0.03741, 0.00655,
+        -0.00754, -0.00414, -0.03555, -0.04421, 0.01648, 0.00708, 0.00614,
+        0.03463, -0.01528, -0.00127, -0.00361, 0.00824], [-0.00293, 0.00051,
+        0.00862, 0.01453, -0.0103, 0.00193, -0.01885, 0.01261, 0.0212, 0.0045,
+        -0.00181, 0.02167, 0.00591, -0.02561, -0.01862, -0.02869], [0.00591,
+        -0.02854, -0.00485, -0.01572, 0.00133, 0.00196, 0.01105, 0.00773,
+        0.0421, -0.01346, 0.03528, 0.02122, 0.00429, -0.00206, -0.00313,
+        0.01539]], [[0.01322, -0.0135, -0.00126, 0.00106, -0.0008, 0.0159,
+        -0.00596, 0.02645, 0.00362, -0.00616, -0.02581, -0.01545, 0.01723,
+        -0.01405, 0.0069, 0.00667], [0.04402, 0.03059, 0.02645, 0.04972,
+        0.02284, -0.01559, 0.00669, -0.00231, -0.02658, 0.01889, -0.04327,
+        0.01219, -0.00123, -8e-05, 0.00924, 0.01676], [-0.00262, 0.0243,
+        0.02831, -0.00868, 0.00877, -0.03461, -0.01423, -0.0051, -0.03966,
+        -0.02091, 0.01456, 0.02228, 0.00622, 0.01051, -0.01031, -0.02167],
+        [0.02523, -0.01909, -0.00758, -0.00317, 0.00678, -0.05428, -0.00936,
+        0.01177, -0.00257, 0.00878, 0.0033, 0.00669, -0.00897, 0.01664,
+        -0.00019, 0.02082]], [[0.03438, 0.00623, -0.04993, 0.00407, 0.02869,
+        0.00439, 0.03991, -0.01231, -0.01121, -0.00341, -0.01024, -0.02399,
+        0.04053, -0.00613, 0.04019, 0.00623], [-0.01866, 0.02168, 0.04885,
+        0.0213, -0.02859, -0.00115, 0.00805, -0.00193, -0.01111, 0.01856,
+        -0.00799, -0.02219, -0.00586, -0.02869, -0.01012, 0.00738], [0.01815,
+        -0.00462, -0.00936, -0.01234, 0.0312, 0.01733, 0.02839, 0.02754,
+        -0.03972, 0.05288, 0.01271, 0.01553, -0.02302, 0.01577, -0.01337,
+        -0.00345], [0.02725, -0.00233, 0.05337, 0.01004, -0.0058, 0.00185,
+        -0.0023, 0.03407, 0.01374, -0.02109, 0.03827, -0.00628, -0.014,
+        -0.03121, -0.00322, 0.00849]], [[-0.02537, 0.01261, -0.0089, -0.02687,
+        0.0003, -0.022, -0.02459, -0.0178, -0.02445, 0.01066, -0.02597,
+        0.02412, 0.01954, 0.01428, -0.02493, -0.01169], [0.01929, 0.02318,
+        0.0454, 0.00184, -0.01399, 0.03818, -0.00091, -0.01807, 0.02352,
+        -0.00542, -0.00733, 0.01573, 0.00012, 0.01056, -5e-05, 0.04226],
+        [0.02246, -0.01484, -0.02933, 0.0327, -0.02209, 0.0169, 0.00494,
+        -0.01648, 0.0107, -0.02399, 0.03572, -0.00622, -0.00654, -0.00414,
+        0.0241, -0.00322], [0.03365, 0.03374, -0.00091, -0.03049, -0.00427,
+        0.02247, 0.00994, -0.00295, 0.01319, -0.00194, -0.01176, 0.02344,
+        -0.03302, -0.02166, -0.01084, -0.00425]], [[0.00085, -0.00268,
+        -0.02314, -0.02607, 0.01458, -0.00825, 0.00548, -0.00408, 0.05466,
+        -0.03906, 0.01594, -0.0133, 0.00577, 0.01545, -0.00404, 0.00383],
+        [-0.02232, -0.00208, -0.01182, 0.00113, -0.01417, 0.02514, -0.01299,
+        -0.01074, 0.01449, -0.00354, -0.00537, 0.02343, -0.02655, 0.00314,
+        -0.05198, 0.00466], [-0.04058, -0.05115, -0.04447, -0.04039, 0.00274,
+        -0.01519, -0.01986, -0.00948, 0.01732, 0.01023, -0.00796, 0.00421,
+        -0.02078, -0.0311, 0.0079, -0.00367], [0.02151, -0.01756, -0.02454,
+        0.01399, 0.01582, 0.01652, 0.00862, 0.01549, -0.00369, -0.00408,
+        -0.01713, 0.04535, 0.00208, -0.05396, -0.00669, -0.00063]], [[0.00561,
+        -0.03036, 0.00022, -0.03424, -0.03104, -0.03935, 0.00739, -0.01668,
+        0.04246, 0.02324, -0.00058, 0.01314, -0.03014, 0.00472, 0.00541,
+        -0.02939], [0.00783, 0.02686, -0.00686, -0.01991, -0.02191, 0.02444,
+        0.00423, 0.04056, -0.03304, 0.00697, -0.01852, -0.01758, 0.04292,
+        -0.00896, -0.02589, -0.02704], [0.0021, 0.02662, 0.00635, 0.0363,
+        0.0009, 0.02824, 0.00732, 0.01634, 0.00065, -0.02039, -0.0081, 0.01987,
+        -0.00794, -0.02556, -0.00686, 0.0231], [-0.02624, 0.0337, 0.04705,
+        -0.0154, -0.00953, -0.0039, 0.0223, -0.00268, 0.01718, -0.02545,
+        0.00708, 0.00659, 0.00502, 3e-05, 0.00194, 0.00877]], [[0.00828,
+        0.05701, -0.01498, 0.03274, 0.00768, 0.00303, 0.00044, -0.00226,
+        -0.02569, 0.01599, -0.00837, 0.01265, 0.0017, 0.015, 0.01741, 0.01122],
+        [-0.00796, 0.01244, 0.01796, -0.00525, -0.0577, -0.0092, -0.00892,
+        -0.0086, -0.01823, -0.01508, 0.0178, 0.00442, 0.01387, -0.01608,
+        0.01029, -0.01029], [0.01132, -0.0153, -0.00603, -0.01229, 0.02201,
+        0.00522, 0.00092, 0.00914, 0.00061, -0.03618, -0.02818, 0.01084,
+        0.01929, -0.01662, 0.00246, -0.02701], [0.00503, 0.00232, 0.03124,
+        0.00653, -0.00288, -0.01657, 0.02089, 0.03464, -0.01054, 0.00468,
+        -0.01151, 0.01943, 0.02374, 0.00092, -0.00603, -0.0188]], [[-0.02576,
+        0.0066, -0.0138, 0.01096, 0.00345, -0.02157, -0.00012, 0.02559,
+        -0.01712, -0.02273, 0.00112, 0.00908, -0.028, -0.0313, 0.01295,
+        -0.03405], [-0.0045, -0.02079, -0.0286, -0.03035, 0.00224, -0.02634,
+        0.00965, -0.0073, -0.00654, 0.03883, 0.03447, 0.00341, -0.01664,
+        0.01554, -0.01757, 0.03767], [0.0373, 0.00305, -0.05583, -0.00394,
+        -0.00618, -0.00332, 0.00328, 0.00883, -0.02686, 0.00312, 0.04507,
+        -0.01875, -0.01676, 0.02075, -0.00643, 0.00879], [-0.00107, -0.00501,
+        0.01048, 0.0529, -0.02473, 0.00215, 0.01448, -0.01977, -0.01945,
+        0.0124, -0.00791, 0.00645, -0.00118, 0.01716, 0.01708, 0.01882]]],
+        'lse':
+        [[12.45788, 12.4579, 12.45785, 12.45784], [12.45789, 12.45786,
+        12.45788, 12.45788], [12.45792, 12.4579, 12.45785, 12.45789],
+        [12.45792, 12.45793, 12.45792, 12.45785], [12.45782, 12.45792,
+        12.45789, 12.45791], [12.45785, 12.4578, 12.4579, 12.45784], [12.45789,
+        12.45793, 12.45792, 12.4579], [12.45787, 12.45775, 12.45782, 12.45785],
+        [12.45784, 12.45787, 12.45792, 12.45793]],
+        'top1':
+        [[116646, 235943, 20976, 6299], [251275, 109911, 56587, 125964],
+        [34477, 10183, 219978, 173224], [98593, 184816, 171724, 116532],
+        [103687, 135961, 221535, 236404], [232490, 224316, 216064, 244493],
+        [52331, 118148, 225459, 212672], [129188, 94675, 79876, 119455],
+        [67471, 16037, 121382, 227769]],
+        'margin':
+        [[0.52317, 0.5323, 0.51371, 0.54382], [0.53356, 0.52268, 0.52716,
+        0.53385], [0.53317, 0.54581, 0.57374, 0.53165], [0.53087, 0.55724,
+        0.53929, 0.49714], [0.55141, 0.52527, 0.53264, 0.5345], [0.51883,
+        0.53699, 0.5639, 0.53921], [0.5299, 0.54689, 0.53088, 0.53983],
+        [0.51992, 0.54098, 0.5556, 0.53163], [0.56085, 0.52954, 0.53056,
+        0.54301]],
+    },
+    'whisper-base': {
+        'logits':
+        [[[-0.01305, 0.08492, -0.06308, -0.1048, -0.10757, 0.02399, 0.0059,
+        0.07717, -0.01249, -0.01288, -0.04875, -0.0816, -0.01764, -0.03434,
+        -0.07882, -2e-05], [-0.01116, 0.08852, -0.05922, -0.10569, -0.10274,
+        0.02402, 0.00658, 0.07266, -0.01476, -0.0119, -0.04989, -0.08056,
+        -0.01792, -0.03417, -0.07801, 0.00084], [-0.01112, 0.08758, -0.06002,
+        -0.10288, -0.10326, 0.02527, 0.00499, 0.07785, -0.01531, -0.00986,
+        -0.04943, -0.0834, -0.01746, -0.03588, -0.07591, 0.0009], [-0.01046,
+        0.08781, -0.06021, -0.10092, -0.1038, 0.02329, 0.00626, 0.07517,
+        -0.01442, -0.0136, -0.04987, -0.08039, -0.0159, -0.03557, -0.07677,
+        0.00269]], [[-0.00428, 0.08896, -0.05996, -0.09078, -0.10952, 0.02283,
+        0.00041, 0.07055, -0.01642, -0.02157, -0.04335, -0.07235, -0.01247,
+        -0.03003, -0.07852, -0.01426], [-0.00494, 0.09014, -0.05936, -0.09293,
+        -0.11055, 0.0258, 0.00405, 0.07224, -0.01757, -0.02081, -0.04345,
+        -0.0702, -0.0152, -0.02952, -0.079, -0.01556], [-0.00408, 0.0904,
+        -0.05632, -0.08949, -0.11161, 0.02288, 0.00275, 0.07303, -0.01785,
+        -0.02116, -0.04201, -0.07012, -0.01632, -0.02686, -0.07757, -0.01286],
+        [-0.00396, 0.08937, -0.05791, -0.09152, -0.11326, 0.02281, 0.00283,
+        0.07122, -0.01795, -0.02226, -0.04558, -0.07094, -0.01527, -0.03088,
+        -0.07817, -0.01444]], [[0.00843, 0.09599, -0.05782, -0.06291, -0.103,
+        0.03179, -0.0019, 0.06701, -0.01252, -0.03143, -0.04177, -0.06735,
+        -0.02747, -0.01133, -0.07785, -0.01802], [0.00867, 0.09565, -0.06009,
+        -0.06662, -0.10272, 0.03229, -0.00169, 0.06985, -0.01094, -0.03094,
+        -0.04468, -0.06681, -0.02704, -0.00996, -0.07609, -0.01621], [0.00772,
+        0.09553, -0.05822, -0.06509, -0.10294, 0.03146, 0.00147, 0.06469,
+        -0.01213, -0.02927, -0.04381, -0.06895, -0.03144, -0.01027, -0.07914,
+        -0.01538], [0.0107, 0.09652, -0.0558, -0.06534, -0.10118, 0.03088,
+        -0.00076, 0.06661, -0.01158, -0.03074, -0.04317, -0.06865, -0.02998,
+        -0.00833, -0.07707, -0.01746]], [[0.01898, 0.10629, -0.05767, -0.04695,
+        -0.08387, 0.04859, -0.00793, 0.06319, 0.00181, -0.04095, -0.0436,
+        -0.07329, -0.04866, 0.0055, -0.07537, -0.0024], [0.01878, 0.10705,
+        -0.05788, -0.04298, -0.08275, 0.05038, -0.00601, 0.06388, 0.0033,
+        -0.0411, -0.0438, -0.07342, -0.04756, 0.00334, -0.07711, -0.00243],
+        [0.0231, 0.10713, -0.05603, -0.04605, -0.08288, 0.04683, -0.00574,
+        0.0617, 0.0038, -0.03812, -0.04423, -0.072, -0.05147, 0.00447,
+        -0.07439, -0.00354], [0.01794, 0.10641, -0.05882, -0.04563, -0.0856,
+        0.04814, -0.00794, 0.0607, 0.00206, -0.03965, -0.0438, -0.07231,
+        -0.04664, 0.00661, -0.07691, -0.00439]], [[0.01751, 0.11622, -0.05559,
+        -0.04519, -0.06378, 0.06759, -0.01581, 0.06145, 0.01783, -0.04705,
+        -0.0426, -0.07589, -0.05365, 0.00159, -0.07598, 0.02048], [0.01813,
+        0.11227, -0.05752, -0.04406, -0.0637, 0.06781, -0.01512, 0.06102,
+        0.01904, -0.05019, -0.03976, -0.07209, -0.05441, 0.00134, -0.07763,
+        0.01863], [0.0164, 0.11425, -0.05807, -0.04546, -0.06493, 0.06911,
+        -0.01484, 0.0635, 0.01704, -0.0466, -0.04377, -0.0742, -0.0571,
+        0.00114, -0.07654, 0.01958], [0.01657, 0.1137, -0.05537, -0.0468,
+        -0.06252, 0.06589, -0.01502, 0.06202, 0.01799, -0.04719, -0.04085,
+        -0.07434, -0.05651, -0.00021, -0.07782, 0.02086]], [[0.00648, 0.11206,
+        -0.05536, -0.07317, -0.05491, 0.08043, -0.02761, 0.06504, 0.02807,
+        -0.05026, -0.03687, -0.06675, -0.04683, -0.02032, -0.08087, 0.03744],
+        [0.00884, 0.11637, -0.05652, -0.07304, -0.05841, 0.07969, -0.02596,
+        0.06692, 0.02576, -0.05037, -0.03388, -0.06359, -0.04614, -0.0219,
+        -0.08199, 0.03789], [0.00751, 0.11663, -0.05707, -0.07357, -0.05698,
+        0.079, -0.02758, 0.06501, 0.02625, -0.05035, -0.03437, -0.06642,
+        -0.04808, -0.01994, -0.08115, 0.03847], [0.0081, 0.11444, -0.05423,
+        -0.07044, -0.05735, 0.08035, -0.02846, 0.06932, 0.0283, -0.04745,
+        -0.03826, -0.06796, -0.04657, -0.02153, -0.08277, 0.0401]], [[-0.00164,
+        0.10528, -0.05847, -0.10873, -0.06636, 0.0729, -0.03738, 0.07241,
+        0.02557, -0.04175, -0.02947, -0.05361, -0.02784, -0.04689, -0.08473,
+        0.0369], [-0.00294, 0.10353, -0.05898, -0.10652, -0.06754, 0.0775,
+        -0.03711, 0.07435, 0.02319, -0.04365, -0.02628, -0.05269, -0.02878,
+        -0.04529, -0.08567, 0.03335], [-0.00215, 0.10859, -0.05946, -0.10647,
+        -0.06707, 0.07496, -0.0366, 0.07419, 0.02122, -0.04439, -0.02425,
+        -0.05336, -0.02993, -0.04819, -0.085, 0.03788], [-0.00274, 0.10829,
+        -0.05913, -0.1096, -0.06479, 0.07607, -0.0377, 0.07536, 0.02529,
+        -0.04493, -0.02646, -0.05322, -0.03068, -0.04765, -0.08498, 0.03977]],
+        [[-0.00395, 0.09485, -0.06736, -0.13202, -0.08473, 0.05126, -0.0385,
+        0.08459, 0.01341, -0.03192, -0.02158, -0.04091, -0.0185, -0.06115,
+        -0.08395, 0.01684], [-0.00215, 0.09467, -0.0676, -0.13126, -0.08577,
+        0.05168, -0.03497, 0.08413, 0.01426, -0.03566, -0.02229, -0.04234,
+        -0.01823, -0.05927, -0.08578, 0.01556], [-0.00339, 0.09514, -0.06802,
+        -0.13222, -0.08438, 0.05029, -0.03737, 0.08454, 0.01754, -0.03133,
+        -0.02164, -0.04062, -0.01971, -0.06131, -0.08396, 0.01718], [-0.00449,
+        0.09345, -0.06991, -0.13219, -0.08432, 0.04957, -0.03752, 0.08382,
+        0.01461, -0.03358, -0.02294, -0.04271, -0.01798, -0.05854, -0.08513,
+        0.01799]], [[0.00746, 0.07969, -0.07992, -0.1307, -0.10337, 0.01897,
+        -0.03424, 0.0891, -0.0008, -0.01974, -0.02088, -0.04582, -0.02567,
+        -0.05225, -0.08528, -0.01167], [0.00473, 0.08106, -0.082, -0.13055,
+        -0.10329, 0.0192, -0.03276, 0.08986, -0.00207, -0.02018, -0.02162,
+        -0.04525, -0.02365, -0.05602, -0.08393, -0.00822], [0.00511, 0.08266,
+        -0.08096, -0.12995, -0.10364, 0.01641, -0.03318, 0.0905, -0.00132,
+        -0.02157, -0.0192, -0.04453, -0.02283, -0.05623, -0.08471, -0.01075],
+        [0.00619, 0.08175, -0.07985, -0.13491, -0.10478, 0.01853, -0.03344,
+        0.09182, -0.00236, -0.02316, -0.0204, -0.04383, -0.02195, -0.0519,
+        -0.08328, -0.01018]]],
+        'lse':
+        [[10.85897, 10.85897, 10.85898, 10.85896], [10.85893, 10.85893,
+        10.85893, 10.85893], [10.85889, 10.85888, 10.85889, 10.8589],
+        [10.85883, 10.85884, 10.85884, 10.85884], [10.8588, 10.8588, 10.8588,
+        10.8588], [10.85876, 10.85879, 10.85877, 10.85877], [10.85877,
+        10.85876, 10.85878, 10.85877], [10.85877, 10.85877, 10.85875,
+        10.85877], [10.85872, 10.85873, 10.85873, 10.85872]],
+        'top1':
+        [[16045, 16045, 16045, 16045], [16045, 16045, 16045, 16045], [16045,
+        16045, 16045, 16045], [27489, 27489, 27489, 27489], [27489, 27489,
+        27489, 27489], [27489, 27489, 27489, 27489], [27489, 27489, 27489,
+        16045], [16045, 16045, 16045, 16045], [16045, 16045, 16045, 16045]],
+        'margin':
+        [[0.03003, 0.03289, 0.03492, 0.02886], [0.02275, 0.02445, 0.01972,
+        0.02253], [0.00708, 0.00638, 0.00902, 0.00584], [0.02189, 0.02157,
+        0.02406, 0.02483], [0.02103, 0.02124, 0.01991, 0.01817], [0.02041,
+        0.02265, 0.02142, 0.02212], [0.0025, 0.00276, 0.00586, 0.00016],
+        [0.02067, 0.01985, 0.02246, 0.02211], [0.02127, 0.02356, 0.02538,
+        0.01894]],
+        'encoder_sample':
+        [[0.01733, 0.29492, 0.0752, 0.19824, -0.11426, -0.0038, 0.00946,
+        0.25781, 0.32812, 0.37695, 0.26367, -0.15039, 0.0141, -0.16504,
+        0.26172, 0.05566], [0.11621, 0.1709, 0.12256, 0.15137, 0.00261,
+        -0.01648, 0.21777, 0.02002, 0.13477, 0.16504, 0.19238, -0.38281,
+        0.03711, -0.12891, 0.28516, 0.13965], [0.09277, 0.16699, 0.07031,
+        0.16992, -0.08838, -0.04614, 0.17871, 0.15723, 0.08057, -0.03198,
+        0.13086, -0.2168, -0.00021, -0.1123, 0.08643, 0.01276], [0.04297,
+        0.16602, 0.04907, 0.18848, -0.21484, -0.08838, 0.48438, 0.30859,
+        0.14355, 0.22461, 0.12695, -0.12598, -0.05615, -0.11719, 0.11084,
+        0.00662], [0.0918, -0.0054, 0.14844, 0.15527, -0.09766, -0.07568,
+        -0.28125, 0.16602, 0.16797, 0.12402, 0.28125, -0.28711, 0.10645,
+        -0.1377, 0.11768, 0.02222], [0.05396, 0.2832, 0.0874, 0.2041, -0.07178,
+        -0.02222, 0.10059, 0.26758, 0.2207, 0.08936, 0.01526, -0.28516, 0.0542,
+        -0.19434, 0.26562, -0.04346], [0.04858, 0.39844, 0.09863, 0.09521,
+        -0.12695, -0.06982, 0.23438, -0.00897, 0.38086, 0.24414, 0.25391,
+        -0.15332, -0.19922, -0.08984, 0.13574, -0.13574], [0.05078, 0.02075,
+        0.104, 0.21875, 0.0038, -0.05933, 0.00099, 0.18652, 0.27344, 0.27539,
+        0.24414, -0.06641, -0.2334, -0.09717, 0.2373, 0.07666], [0.04517,
+        0.20898, 0.04419, 0.13867, -0.00452, -0.02954, 0.24902, 0.1748,
+        0.26172, 0.21875, 0.20703, -0.15234, -0.21289, -0.12793, 0.20996,
+        0.21582], [0.0603, 0.26172, 0.03833, 0.24902, -0.125, -0.02869,
+        -0.0874, 0.16309, 0.35547, 0.18457, 0.24902, -0.03833, -0.07861,
+        -0.07764, 0.11816, 0.06738], [0.09375, -0.02173, 0.13965, 0.1123,
+        -0.04956, -0.0603, 0.13965, 0.11328, 0.19629, 0.15723, 0.25, -0.0874,
+        -0.05908, -0.16504, 0.4043, 0.11279], [0.06348, 0.31445, 0.09326,
+        0.2002, -0.08447, -0.04785, 0.04785, 0.12695, 0.14062, -0.0918,
+        0.20801, 0.04004, -0.12109, -0.16113, 0.16992, 0.12598], [0.07861,
+        0.10742, 0.01526, 0.1543, -0.07959, -0.01709, 0.21484, 0.26367,
+        0.26758, 0.28125, 0.25, -0.24512, -0.2334, -0.19238, 0.25, 0.05664],
+        [0.0791, 0.06934, 0.07666, 0.19727, -0.06982, -0.01361, 0.1416,
+        0.02222, 0.28906, 0.26758, 0.20898, -0.01038, -0.32812, -0.18555,
+        0.29883, 0.17871], [0.09717, 0.25781, 0.00635, 0.18359, -0.13379,
+        -0.01465, -0.01953, 0.14648, 0.22656, 0.36133, 0.22266, -0.28711,
+        0.04321, -0.10938, 0.18457, 0.04834], [0.07031, -0.00051, 0.08203,
+        0.16309, -0.00638, -0.04028, 0.0957, 0.21875, 0.31055, 0.21094,
+        0.11719, -0.08936, -0.16504, -0.02747, 0.16797, -0.04248]],
     },
 }
 
@@ -4677,15 +4995,17 @@ def decode_kernel_check(dev) -> dict:
     256 up to S = 2,048), bf16 and float32; K/V as views one element
     into a buffer (not 16-byte aligned: the scalar loads); and
     ``FD_ARCH_SHAPES`` (Gemma-2, Gemma-3, Phi-4-mini) at S = 100 and 4,352,
-    two rows, with the softcap and without; and the int8 instantiation
-    (``int8_check``)."""
+    two rows, with the softcap and without; ``FD_FAMILY_SHAPES``
+    (PaliGemma's one kv head at G * D = 2,048, Whisper's G = 1) at their
+    lengths, two rows; and the int8 instantiation (``int8_check``)."""
     import torch
     from repro_torch.kernels.flash_decode import ops
     gen = torch.Generator(device=dev).manual_seed(13)
     C = ops.CHUNK
     totals = {"cases": 0, "elements": 0, "equal": 0, "one_ulp": 0,
               "beyond_one_ulp": 0, "max_abs_err": 0.0, "scalar_loads": 0,
-              "softcap_cases": 0, "arch_cases": 0, "int8_cases": 0}
+              "softcap_cases": 0, "arch_cases": 0, "family_cases": 0,
+              "int8_cases": 0}
     t0 = time.perf_counter()
 
     def check(q, k, v, what, softcap=None, scales=None):
@@ -4749,6 +5069,19 @@ def decode_kernel_check(dev) -> dict:
                     totals["softcap_cases" if softcap else "arch_cases"] \
                         += 1
                     del q, k, v
+        # PaliGemma's and Whisper's decode shapes over caches of the spans
+        # their serving phases read and of their max_len
+        for (Hkv, G, D), spans in FD_FAMILY_SHAPES.items():
+            for S in spans:
+                q = torch.randn((2, Hkv, G, D), generator=gen,
+                                device=dev).to(dtype)
+                k = torch.randn((2, S, Hkv, D), generator=gen,
+                                device=dev).to(dtype)
+                v = torch.randn((2, S, Hkv, D), generator=gen,
+                                device=dev).to(dtype)
+                check(q, k, v, f"{dtype} S={S} Hkv={Hkv} G={G} D={D}")
+                totals["family_cases"] += 1
+                del q, k, v
     int8_check(check, gen, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4928,26 +5261,27 @@ class plain_decode_attention:
         self.ops.gqa_decode_attention = self.orig
 
 
-def time_flash_decode(inputs, traced: dict, int8: bool = False) -> dict:
+def time_flash_decode(inputs, traced: dict, int8: bool = False,
+                      key: str = "flash_decode") -> dict:
     """The kernel (direct C calls), its plain version and
     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on the cache
     sliced to the (common) length, on captured decode inputs ``[(q, k, v,
     length), ...]``.  Cold (``ms``, ``library_ms``): each call takes the
     next of the input sets, the captured layers and copies of them, whose
     live K/V together exceed ``FD_COLD_BYTES`` (``FD_COLD_SETS`` of them,
-    twice as many over an int8 cache), as the decode step meets a layer's
-    cache after 21 other layers' and the weights; hot (``ms_hot``,
+    twice as many over an int8 cache, more where the sets are small), as
+    the decode step meets a layer's cache after 21 other layers' and the
+    weights; hot (``ms_hot``,
     ``library_ms_hot``): one set over and over, L2-resident.  ``int8``:
     inputs ``(q, k, v, length, k_scale, v_scale)`` of an int8 cache, its
     instantiation and ``ref.flash_decode_quant_ref``; no PyTorch call
     computes attention over an int8 cache with its scales (no library
-    time), and the bound counts a byte an element and the scales."""
+    time), and the bound counts a byte an element and the scales.  The
+    calls go to ``traced[key]`` for phase 14's device times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import ops, ref
     sets = list(inputs)
-    while len(sets) < FD_COLD_SETS * (2 if int8 else 1):
-        sets.append(tuple(x.clone() for x in inputs[len(sets) % len(inputs)]))
     q, k, v, length = sets[0][:4]
     B, Hkv, G, D = q.shape
     lens = length.tolist()
@@ -4956,6 +5290,10 @@ def time_flash_decode(inputs, traced: dict, int8: bool = False) -> dict:
     kv_item = k.element_size() + (4 / D if int8 else 0)   # + a scale a row
     n_bytes = int(sum(lens) * Hkv * D * kv_item * 2 + 2 * q.numel() * item
                   + 4 * B)
+    n_sets = max(FD_COLD_SETS * (2 if int8 else 1),
+                 int(FD_COLD_BYTES // n_bytes) + 1)
+    while len(sets) < n_sets:
+        sets.append(tuple(x.clone() for x in inputs[len(sets) % len(inputs)]))
     if n_bytes * len(sets) <= FD_COLD_BYTES:
         raise AssertionError(f"time_flash_decode: {len(sets)} sets of "
                              f"{n_bytes} live bytes stay in L2")
@@ -4997,13 +5335,13 @@ def time_flash_decode(inputs, traced: dict, int8: bool = False) -> dict:
            "bytes": n_bytes, "cold_sets": len(sets),
            "cold_live_bytes": n_bytes * len(sets)}
     if int8:
-        traced["flash_decode/int8"] = (launch, None, (sets, outs))
+        traced[key] = (launch, None, (sets, outs))
         out["plain_ms"] = cuda_ms(lambda: ref.flash_decode_quant_ref(
             *sets[0][:3], *sets[0][4:], length), reps=10, inner=5)
         out["library_ms"] = None
         return out
     library, library_hot = cuda_ms(sdpa), cuda_ms(lambda: sdpa(0))
-    traced["flash_decode"] = (launch, sdpa, (sets, outs))
+    traced[key] = (launch, sdpa, (sets, outs))
     plain = cuda_ms(lambda: ref.flash_decode_ref(q, k, v, length), reps=10,
                     inner=5)
     launch(0)
@@ -5296,14 +5634,16 @@ def serve_arch(arch: str, gpu: str, dev, spec: dict | None = None) -> tuple:
     """``SERVE_ARCHS[arch]`` (or ``spec``) through ``ServeEngine`` on the
     card: full width (depth as listed, config overrides ``over``), hashed
     weights at the true fan-in, ``slots`` slots (2 by default), one prompt
-    per slot, decode attention in the kernel (one launch per attention
-    layer (``KERNEL_MIXERS``) and decode step, ring layers, Zamba2's shared
-    block and an int8 cache included); then, teacher-forced on the
-    engine's tokens, the kernel path against the same model with the
+    per slot (after a VLM's zero image, over an encoder-decoder's zero
+    frames: the engine's batch), decode attention in the kernel (one
+    launch per attention layer (``KERNEL_MIXERS``) and decode step, ring
+    layers, Zamba2's shared block and an int8 cache included); then,
+    teacher-forced on the engine's tokens, the kernel path against the same model with the
     kernel's plain version in its place (``plain_decode_attention``) and
     against the torch path (the reference's serving math, which rounds p
     to bf16 before p.v), each per step (from the kernel path's cache of
-    that step where ``resync``) at ``SERVE_REL_L2`` scaled by
+    that step where ``resync``) at ``SERVE_REL_L2`` (or the spec's
+    ``rel_l2``) scaled by
     sqrt(depth / ``SERVE_REL_L2_DEPTH``) above TinyLlama's depth (depth:
     every sub-layer, the residual adds); and the kernel against its plain
     version on the captured inputs of the last step's attention calls
@@ -5346,7 +5686,7 @@ def serve_arch(arch: str, gpu: str, dev, spec: dict | None = None) -> tuple:
     if toks.shape != (slots, new) or toks.min() < 0 or \
             toks.max() >= cfg.vocab:
         raise AssertionError(f"{spec['phase']}: tokens {toks}")
-    _, cache_c = model.prefill(params, {"tokens": prompts},
+    _, cache_c = model.prefill(params, eng.batch(prompts),
                                max_len=spec["max_len"])
 
     def clone(cache):
@@ -5355,8 +5695,8 @@ def serve_arch(arch: str, gpu: str, dev, spec: dict | None = None) -> tuple:
                 "pos": cache["pos"]}
     cache_p, cache_t = clone(cache_c), clone(cache_c)
     rel, rel_kt, rel_pt, agree, torch_s = [], [], [], 0, 0.0
-    bound = SERVE_REL_L2 * max(1.0, math.sqrt(len(kinds)
-                                              / SERVE_REL_L2_DEPTH))
+    rel_l2 = spec.get("rel_l2", SERVE_REL_L2)
+    bound = rel_l2 * max(1.0, math.sqrt(len(kinds) / SERVE_REL_L2_DEPTH))
     calls = [kinds[i] for i in attn]
     want_calls = spec.get("capture") or tuple(sorted(
         {calls.index(k) for k in set(calls)}))
@@ -5406,6 +5746,8 @@ def serve_arch(arch: str, gpu: str, dev, spec: dict | None = None) -> tuple:
             **{f"{k}_layers": kinds.count(k) for k in sorted(set(kinds))},
             "window": cfg.window, "logit_softcap": cfg.logit_softcap,
             "kv_quant_int8": cfg.kv_quant_int8,
+            "vlm_prefix_len": cfg.vlm_prefix_len,
+            "enc_layers": cfg.n_enc_layers if cfg.enc_dec else 0,
             "block_q": cfg.block_q, "slots": slots, "prompt": S,
             "new_tokens": new, "max_len": spec["max_len"],
             "weight_bytes": tree_bytes(params), "weights_draw_s": draw_s,
@@ -5420,6 +5762,7 @@ def serve_arch(arch: str, gpu: str, dev, spec: dict | None = None) -> tuple:
             "launches_per_decode_step": launches / tm["decode_steps"],
             "teacher_forced_rel_l2_max": max(rel),
             "teacher_forced_rel_l2_mean": sum(rel) / len(rel),
+            "teacher_forced_rel_l2_by_step": [round(x, 6) for x in rel],
             "torch_path_rel_l2_max": max(rel_kt),
             "torch_path_rel_l2_mean": sum(rel_kt) / len(rel_kt),
             "plain_vs_torch_path_rel_l2_max": max(rel_pt),
@@ -5429,7 +5772,7 @@ def serve_arch(arch: str, gpu: str, dev, spec: dict | None = None) -> tuple:
             "layer_checks": layer_checks,
             "tolerance": f"kernel path vs its plain version in its place "
                          f"and vs the torch path: rel L2 <= {bound:.4g} per "
-                         f"step ({SERVE_REL_L2} x sqrt({len(kinds)} / "
+                         f"step ({rel_l2} x sqrt({len(kinds)} / "
                          f"{SERVE_REL_L2_DEPTH}) above {SERVE_REL_L2_DEPTH} "
                          "layers); each captured layer at fd_compare's"}
     if cfg.kv_quant_int8:
@@ -5457,10 +5800,48 @@ def serve_int8(gpu: str, dev, traced: dict) -> tuple:
     launches, cap, line = serve_arch("tinyllama-1.1b/int8", gpu, dev,
                                      SERVE_INT8)
     inputs = [cap.inputs[c] + cap.scales[c] for c in (21, 0)]
-    timing = time_flash_decode(inputs, traced, int8=True)
+    timing = time_flash_decode(inputs, traced, int8=True,
+                               key="flash_decode/int8")
     checks = line["layer_checks"]
     del cap, inputs
     return launches, checks, timing
+
+
+def whisper_encode(gpu: str, dev) -> dict:
+    """Whisper-base's encoder at full width and depth (6 layers) on the
+    card, hashed weights at the true fan-in: ``Model.encode`` over 2 rows
+    of ``WHISPER_FRAMES`` seeded frames (``family_extras``), tiles of
+    ``WHISPER_BLOCK`` (the blockwise bidirectional attention past 1,024
+    frames), timed by CUDA events (3 calls after a warm one); the output
+    finite, of shape (2, 1,500, 512).  Returns the line."""
+    import torch
+    from repro_torch.models import Model
+    cfg = arch_config("whisper-base", block=WHISPER_BLOCK)
+    model = Model(cfg, device="cuda")
+    params, draw_s = card_weights(model, SERVE_SEED, dev)
+    frames = torch.as_tensor(family_extras(cfg, 2, WHISPER_FRAMES)["frames"],
+                             device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.encode(params, frames)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ms = cuda_ms(lambda: model.encode(params, frames), reps=3, inner=1)
+    line = {"phase": "whisper_encode", "gpu": gpu, "arch": cfg.name,
+            "enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+            "rows": 2, "frames": WHISPER_FRAMES, "block": WHISPER_BLOCK,
+            "weights_draw_s": draw_s, "first_call_s": first_s,
+            "encode_ms": ms,
+            "frames_per_s": 2 * WHISPER_FRAMES / (ms * 1e-3),
+            "out_shape": list(out.shape),
+            "out_abs_max": float(out.float().abs().max())}
+    emit(line)
+    if tuple(out.shape) != (2, WHISPER_FRAMES, cfg.d_model) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"whisper_encode: {line}")
+    del model, params, out
+    torch.cuda.empty_cache()
+    return line
 
 
 def kernel_launch_counts() -> dict:
@@ -5743,8 +6124,13 @@ def serve_families_reference(name: str, dev) -> tuple:
     (``FAMILIES_REF``, the tolerances of ``serve_reference``); an MoE
     model's only at the (step, row) pairs whose logits came from the
     reference's routing (``routed_like_reference``, its expert ids in the
-    record), and on at least half of them.  Returns the line and the
-    kernel's launches."""
+    record), and on at least half of them.  A VLM's prompts follow seeded
+    image embeddings, an encoder-decoder's come with seeded frames
+    (``family_extras``); its encoder's output over ``WHISPER_FRAMES``
+    seeded frames is held at the record's ``encoder_sample``
+    (``ENC_SAMPLE_POS`` x ``ENC_SAMPLE_DIMS``) within rel. L2
+    ``ENC_SAMPLE_REL_L2`` and ``ENC_SAMPLE_ATOL``.  Returns the line and
+    the kernel's launches."""
     import torch
     from repro_torch.kernels.flash_decode import ops
     from repro_torch.models import Model
@@ -5754,14 +6140,17 @@ def serve_families_reference(name: str, dev) -> tuple:
     params, _ = card_weights(model, SERVE_REF_SEED, dev)
     toks = serve_reference_tokens(cfg.vocab)
     S = SERVE_REF_PROMPT
+    extras = family_extras(cfg, toks.shape[0], S)
     attn = sum(k[0] in KERNEL_MIXERS for g in model.groups for _ in range(g.n)
                for k in g.kinds)
     n_moe = sum(g.n for g in model.groups for k in g.kinds if k[1] == "moe")
     ref = FAMILIES_REF[name]
     ops.reset_launches()
     with capture_routing() as routing:
-        logits, cache = model.prefill(params, {"tokens": toks[:, :S]},
-                                      max_len=S + SERVE_REF_STEPS + 8)
+        logits, cache = model.prefill(params, {"tokens": toks[:, :S],
+                                               **extras},
+                                      max_len=cfg.vlm_prefix_len + S
+                                      + SERVE_REF_STEPS + 8)
         rows = [logits]
         for t in range(S, S + SERVE_REF_STEPS):
             logits, cache = model.decode_step(params, cache,
@@ -5785,6 +6174,19 @@ def serve_families_reference(name: str, dev) -> tuple:
                steps=SERVE_REF_STEPS + 1, launches=launches)
     if keep is not None and out["compared"][0] * 2 < out["compared"][1]:
         out["ok"] = False
+    if cfg.enc_dec:
+        frames = family_extras(cfg, 1, WHISPER_FRAMES)["frames"]
+        enc = model.encode(params, frames)[0].float().cpu().numpy()
+        got = enc[np.ix_(ENC_SAMPLE_POS, ENC_SAMPLE_DIMS)]
+        want = np.asarray(ref["encoder_sample"], np.float32)
+        err = float(np.abs(got - want).max())
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        out["encoder"] = {"frames": WHISPER_FRAMES, "block": cfg.block_q,
+                          "max_abs_err": err, "rel_l2": rel,
+                          "tolerance": f"rel L2 <= {ENC_SAMPLE_REL_L2}, "
+                                       f"|diff| <= {ENC_SAMPLE_ATOL}"}
+        if rel > ENC_SAMPLE_REL_L2 or err > ENC_SAMPLE_ATOL:
+            out["ok"] = False
     if not out.pop("ok"):
         raise AssertionError(f"families reference {name}: off the "
                              f"reference: {out}")
@@ -5931,6 +6333,24 @@ def compare_reference_logits(got, ref: dict, keep=None) -> dict:
                  and out["lse_max_abs_err"] <= lse_atol
                  and out["rel_l2_at_ids_max"] <= SERVE_REF_REL_L2
                  and bool(np.all(margin[differ] <= atol)))
+    return out
+
+
+def family_extras(cfg, rows: int, frames: int,
+                  seed: int = FAMILY_EXTRAS_SEED) -> dict:
+    """A VLM's image embeddings ``img`` (rows, ``vlm_prefix_len``,
+    d_model) and an encoder-decoder's ``frames`` (rows, ``frames``,
+    d_model), standard normal float32 from ``seed`` (numpy), as the
+    config needs (shared with ``scripts/port_reference_times.py``: both
+    packages cast them to their compute dtype, the same bits)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.vlm_prefix_len:
+        out["img"] = rng.standard_normal(
+            (rows, cfg.vlm_prefix_len, cfg.d_model), np.float32)
+    if cfg.enc_dec:
+        out["frames"] = rng.standard_normal((rows, frames, cfg.d_model),
+                                            np.float32)
     return out
 
 
@@ -7498,17 +7918,41 @@ def train_tinyllama(gpu: str, dev) -> None:
                              f"flash calls for {cfg.n_layers} layers")
 
 
+def train_extras(name: str, cfg, step: int) -> dict:
+    """The image embeddings or frames of ``train_reference``'s batch of
+    ``step`` (``family_extras`` at ``TRAIN_REF_BATCH[name]``, a seed a
+    step; none for the DLRM); shared with
+    ``scripts/port_reference_times.py``."""
+    if name == "dlrm":
+        return {}
+    rows, seq = TRAIN_REF_BATCH[name]
+    return family_extras(cfg, rows, seq, seed=TRAIN_REF_SEED * 1000 + step)
+
+
+def train_batch(name: str, cfg, step: int) -> dict:
+    """``train_reference``'s batch of ``step`` (numpy): ``dlrm_batch`` or
+    ``lm_batch`` of ``TRAIN_REF_SEED`` at ``TRAIN_REF_BATCH[name]``, and
+    ``train_extras``."""
+    from repro_torch.data import dlrm_batch, lm_batch
+    if name == "dlrm":
+        return dlrm_batch(TRAIN_REF_SEED, step, TRAIN_REF_BATCH[name], cfg)
+    rows, seq = TRAIN_REF_BATCH[name]
+    return {**lm_batch(TRAIN_REF_SEED, step, rows, seq, cfg.vocab),
+            **train_extras(name, cfg, step)}
+
+
 def train_reference(gpu: str, dev) -> None:
-    """``TRAIN_REF``'s runs on the card: the smoke TinyLlama and DLRM with
-    float32 activations and ``TRAIN_REF_SEED``'s numpy weights, three
-    AdamW steps (the DLRM's bags through both kernels); each step's loss
-    and gradient norm within ``TRAIN_REF_RTOL`` of the JAX reference's."""
+    """``TRAIN_REF``'s runs on the card: the smoke TinyLlama, DLRM,
+    PaliGemma and Whisper with float32 activations and
+    ``TRAIN_REF_SEED``'s numpy weights, three AdamW steps (the DLRM's bags
+    through both kernels; PaliGemma's image embeddings and Whisper's
+    frames seeded: ``train_batch``); each step's loss and gradient norm
+    within ``TRAIN_REF_RTOL`` of the JAX reference's."""
     import torch
     from repro_torch import convert
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import smoke_config
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.data import dlrm_batch, lm_batch
     from repro_torch.kernels.embedding_bag import ops
     from repro_torch.models import DLRM, Model, param_shapes
     from repro_torch.train.optimizer import init_opt_state
@@ -7541,10 +7985,7 @@ def train_reference(gpu: str, dev) -> None:
         ops.reset_launches()
         losses, norms = [], []
         for i in range(TRAIN_REF_STEPS):
-            b = (dlrm_batch(TRAIN_REF_SEED, i, TRAIN_REF_BATCH[name], cfg)
-                 if name == "dlrm" else
-                 lm_batch(TRAIN_REF_SEED, i, *TRAIN_REF_BATCH[name],
-                          cfg.vocab))
+            b = train_batch(name, cfg, i)
             params, opt, m = step(params, opt, {
                 k: torch.as_tensor(v, device=dev) for k, v in b.items()})
             losses.append(float(m["loss"]))
@@ -7562,6 +8003,10 @@ def train_reference(gpu: str, dev) -> None:
 
 TRAIN_ENTRY_ARGS = ("--smoke", "--steps", "8", "--ckpt-every", "2")
 TRAIN_ENTRY_FAIL_AT = 5
+# launch.train on Whisper-base at full width and depth (its defaults: 8
+# rows of 128 tokens, zero frames as long), 3 steps, no checkpoint
+TRAIN_ENTRY_WHISPER = ("--arch", "whisper-base", "--steps", "3",
+                       "--ckpt-every", "100")
 
 
 def start_train_entry(tmp: Path) -> tuple:
@@ -7571,7 +8016,8 @@ def start_train_entry(tmp: Path) -> tuple:
     in processes of their own: a run restarts from its checkpoint
     directory): ``--arch tinyllama-1.1b`` and ``--arch dlrm`` with
     ``TRAIN_ENTRY_ARGS``, each with ``--fail-at 5`` and without, each
-    against a fresh ``--ckpt-dir``."""
+    against a fresh ``--ckpt-dir``; and Whisper-base at full width
+    (``TRAIN_ENTRY_WHISPER``)."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     tmp.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -7587,13 +8033,20 @@ def start_train_entry(tmp: Path) -> tuple:
             procs[tag] = subprocess.Popen(cmd, env=env, cwd=str(REPO),
                                           stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True)
+    tag = "whisper-base_full"
+    procs[tag] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *TRAIN_ENTRY_WHISPER, "--ckpt-dir", str(tmp / tag), "--metrics-out",
+         str(tmp / f"{tag}.jsonl")], env=env, cwd=str(REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return procs, t0
 
 
 def finish_train_entry(gpu: str, tmp: Path, procs: dict, t0: float) -> None:
     """Wait for ``start_train_entry``'s runs: the cut runs must print
     ``restarts=1``, and their metrics logs, the re-run steps taken once,
-    must equal the uninterrupted runs' bit for bit."""
+    must equal the uninterrupted runs' bit for bit; Whisper's run must
+    take its 3 steps with finite losses."""
     outs = {}
     try:
         for tag, proc in procs.items():
@@ -7622,6 +8075,13 @@ def finish_train_entry(gpu: str, tmp: Path, procs: dict, t0: float) -> None:
         if cut["fields"]["restarts"] != "1" or full["fields"][
                 "restarts"] != "0" or not rows[arch]["log_equal"]:
             raise AssertionError(f"train_entry {arch}: {rows[arch]}")
+    w = outs["whisper-base_full"]
+    losses = [m["loss"] for m in w["log"]]
+    rows["whisper-base"] = {"args": list(TRAIN_ENTRY_WHISPER),
+                            "line": w["line"], "losses": losses}
+    if w["fields"]["steps"] != "3" or w["fields"]["restarts"] != "0" or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_entry whisper-base: {rows['whisper-base']}")
     emit({"phase": "train_entry", "gpu": gpu, "args": list(TRAIN_ENTRY_ARGS),
           "fail_at": TRAIN_ENTRY_FAIL_AT, "rows": rows,
           "seconds": time.perf_counter() - t0})
@@ -7957,9 +8417,29 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
     emit({"phase": "serve_reference", **serve_reference(dev)})
 
     # ---- 13b-d. sliding-window, softcapped serving: Gemma-2 at full depth,
-    # Gemma-3 cut to 12 layers, Phi-4-mini, through ServeEngine -------------
-    arch_launches = {arch: serve_arch(arch, gpu, dev)[0]
-                     for arch in SERVE_ARCHS}
+    # Gemma-3 cut to 12 layers, Phi-4-mini, through ServeEngine; Zamba2;
+    # PaliGemma's prefix-LM and Whisper at full depth ----------------------
+    arch_launches, arch_caps = {}, {}
+    for arch, spec in SERVE_ARCHS.items():
+        arch_launches[arch], cap, _ = serve_arch(arch, gpu, dev)
+        if spec.get("time"):
+            arch_caps[arch] = cap
+        del cap
+
+    # ---- 13o. flash_decode at PaliGemma's and Whisper's decode shapes, on
+    # the last step's captured inputs (PaliGemma's 18 layers, Whisper's
+    # layer 0) ------------------------------------------------------------
+    for arch, cap in arch_caps.items():
+        prefix = FD_FAMILY_PREFIX[arch]
+        t = time_flash_decode([cap.inputs[c] for c in sorted(cap.inputs)],
+                              traced, key=f"flash_decode/{arch}")
+        timing["flash_decode"].update({prefix + k: v for k, v in t.items()})
+        emit({"phase": "kernel_timing", "gpu": gpu,
+              f"flash_decode_{prefix[:-1]}": t})
+    del arch_caps
+
+    # ---- 13p. Whisper's encoder over 1,500 frames ---------------------------
+    whisper_encode(gpu, dev)
 
     # ---- 13e. Gemma-2 and Gemma-3 against the JAX reference's logits --------
     for arch in ("gemma2-9b", "gemma3-27b"):
@@ -8026,6 +8506,10 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
     fd_t["softcap_nocap_device_us"] = device_us(nocap_kernel)
     fd_t["softcap_library_device_us"] = device_us(cap_lib)
     fd_t["softcap_nocap_library_device_us"] = device_us(nocap_lib)
+    for arch, prefix in FD_FAMILY_PREFIX.items():
+        kernel, library, _ = traced.pop(f"flash_decode/{arch}")
+        fd_t[prefix + "device_us"] = device_us(kernel)
+        fd_t[prefix + "library_device_us"] = device_us(library)
     fused_t = timing["fused_signals_policy"]
     for prefix, _, _ in FUSED_TIMED[1:]:
         fused_t[prefix + "device_us"] = device_us(
@@ -8050,7 +8534,12 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
             "ms", "ms_hot", "nocap_ms", "nocap_ms_hot", "device_us",
             "nocap_device_us", "bound_ms", "library_ms", "library_ms_hot",
             "library_device_us", "nocap_library_ms", "nocap_library_ms_hot",
-            "nocap_library_device_us")}}})
+            "nocap_library_device_us")}}, **{
+        f"flash_decode/{arch}": {key: fd_t[prefix + key] for key in (
+            "shape", "ms", "ms_hot", "host_us_per_launch", "device_us",
+            "plain_ms", "bound_ms", "library_ms", "library_ms_hot",
+            "library_device_us")}
+        for arch, prefix in FD_FAMILY_PREFIX.items()}})
 
     # ---- kernel table, device line ----------------------------------------
     # launches: the sum over the paths each kernel runs on, each path's
@@ -8104,7 +8593,8 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
         # launches too)
         row.update({k: v for k, v in tm.items()
                     if k.startswith(("mlp_", "b9_", "qlink_", "qport128_",
-                                     "index_add_", "softcap_", "int8_"))})
+                                     "index_add_", "softcap_", "int8_",
+                                     *FD_FAMILY_PREFIX.values()))})
         if name == "embedding_bag_backward":
             row.update({k: tm[k] for k in (
                 "ms_kernel_fill", "sums_ms", "zero_kernel_ms", "zeros_ms",

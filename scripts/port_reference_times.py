@@ -12,10 +12,13 @@ and teacher-forced decode, at full width and 4 layers),
 ``sliding_reference`` (Gemma-2's and Gemma-3's, at full width and one
 attention period, the window cut; ``sliding_reference:gemma3-27b`` one),
 ``families_reference`` (Zamba2 at one period, RWKV-6 at 2 layers,
-DeepSeek-V2 at 2 layers, TinyLlama with the int8 KV cache at 4 layers, at
-full width; ``families_reference:rwkv6-3b`` one; each MoE model's expert ids
-beside its logits), ``train_reference`` (3 AdamW steps of the TinyLlama
-and DLRM smoke configs with float32 activations: losses and gradient
+DeepSeek-V2 at 2 layers, TinyLlama with the int8 KV cache at 4 layers,
+PaliGemma at 2 layers and Whisper at full depth, at full width, the last
+two with seeded image embeddings and frames;
+``families_reference:rwkv6-3b`` one; each MoE model's expert ids beside
+its logits, Whisper's encoder output over 1,500 frames sampled),
+``train_reference`` (3 AdamW steps of the TinyLlama, DLRM, PaliGemma and
+Whisper smoke configs with float32 activations: losses and gradient
 norms),
 ``autotune_incast8`` (``examples/cc_autotune.py``'s tunings),
 ``learn_step`` (``chip_smoke.LEARN_STEPS`` Adam steps of the ``mlp``
@@ -264,10 +267,19 @@ def _hashed_reference(name: str, cfg) -> None:
     params = walk(shapes, "", "")
     toks = cs.serve_reference_tokens(cfg.vocab)
     S = cs.SERVE_REF_PROMPT
+    extras = {k: jnp.asarray(v) for k, v in cs.family_extras(
+        cfg, toks.shape[0], S).items()}
+    encoder = {}
+    if cfg.enc_dec:
+        frames = cs.family_extras(cfg, 1, cs.WHISPER_FRAMES)["frames"]
+        enc = np.asarray(jax.jit(model._encode)(params, jnp.asarray(frames)),
+                         np.float32)[0]
+        encoder["encoder_sample"] = enc[np.ix_(
+            cs.ENC_SAMPLE_POS, cs.ENC_SAMPLE_DIMS)].round(5).tolist()
     with _record_routing() as routes:
         logits, cache = jax.jit(lambda p, b: model.prefill(
-            p, b, max_len=S + cs.SERVE_REF_STEPS + 8))(
-            params, {"tokens": jnp.asarray(toks[:, :S])})
+            p, b, max_len=cfg.vlm_prefix_len + S + cs.SERVE_REF_STEPS + 8))(
+            params, {"tokens": jnp.asarray(toks[:, :S]), **extras})
         rows = [np.asarray(logits)]
         n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.moe else 0
         experts = [routes.take(n_moe)]
@@ -289,7 +301,7 @@ def _hashed_reference(name: str, cfg) -> None:
               np.float32).round(5).tolist(),
           "lse": lse.round(5).tolist(), "top1": lg.argmax(-1).tolist(),
           "margin": (top2[..., 1] - top2[..., 0]).round(5).tolist(),
-          **({"experts": experts} if cfg.moe else {})})
+          **({"experts": experts} if cfg.moe else {}), **encoder})
 
 
 class _record_routing:
@@ -332,23 +344,24 @@ class _record_routing:
 def families_reference(names=None) -> None:
     """``chip_smoke.FAMILIES_REF_CUTS``' configs (Zamba2 at one period of
     6 Mamba-2 layers and the shared block, RWKV-6 at 2 layers, DeepSeek-V2
-    at 2 layers, TinyLlama with the int8 KV cache at 4 layers) through
-    ``_hashed_reference``; DeepSeek-V2's 2 layers hold about 11 GB of bf16
-    weights here."""
+    at 2 layers, TinyLlama with the int8 KV cache at 4 layers, PaliGemma
+    at 2 layers, Whisper at full depth) through ``_hashed_reference``;
+    DeepSeek-V2's 2 layers hold about 11 GB of bf16 weights here."""
     cs = chip_smoke
     for name in names or cs.FAMILIES_REF_CUTS:
         arch, layers, over = cs.FAMILIES_REF_CUTS[name]
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers, **over)
-        _hashed_reference(name, cfg)
+        if layers is not None:
+            over = dict(over, n_layers=layers)
+        _hashed_reference(name, dataclasses.replace(get_config(arch), **over))
 
 
 def train_reference(names=None) -> None:
     """``chip_smoke.TRAIN_REF_STEPS`` AdamW steps (``TRAIN_REF_TCFG``) of
-    the TinyLlama and DLRM smoke configs with float32 activations,
-    weights from ``chip_smoke.transformer_numpy_params`` /
+    the TinyLlama, DLRM, PaliGemma and Whisper smoke configs with float32
+    activations, weights from ``chip_smoke.transformer_numpy_params`` /
     ``dlrm_numpy_params`` at ``TRAIN_REF_SEED``, batches from
-    ``lm_batch``/``dlrm_batch`` (``TRAIN_REF_BATCH``): each step's loss
-    and gradient norm."""
+    ``lm_batch``/``dlrm_batch`` (``TRAIN_REF_BATCH``) with
+    ``chip_smoke.train_extras``: each step's loss and gradient norm."""
     cs = chip_smoke
     for name in names or cs.TRAIN_REF:
         cfg = smoke_config(name)
@@ -376,8 +389,8 @@ def train_reference(names=None) -> None:
         for i in range(cs.TRAIN_REF_STEPS):
             b = (dlrm_batch(cs.TRAIN_REF_SEED, i, cs.TRAIN_REF_BATCH[name],
                             cfg) if name == "dlrm" else
-                 lm_batch(cs.TRAIN_REF_SEED, i, *cs.TRAIN_REF_BATCH[name],
-                          cfg.vocab))
+                 {**lm_batch(cs.TRAIN_REF_SEED, i, *cs.TRAIN_REF_BATCH[name],
+                             cfg.vocab), **cs.train_extras(name, cfg, i)})
             params, opt, m = step(params, opt,
                                   {k: jnp.asarray(v) for k, v in b.items()})
             losses.append(float(m["loss"]))

@@ -7,11 +7,14 @@
 Runs on the card unless ``--device cpu``; the weights are drawn from seed
 0 by a ``torch.Generator`` on that device.  ``--arch`` takes every
 architecture of ``repro_torch.configs.ARCHS``: the GQA models, DeepSeek's
-MLA + MoE, Zamba2 and RWKV-6.  On the card the GQA layers' decode
-attention (global, sliding-window, Zamba2's shared block, the int8 cache)
-runs in the ``flash_decode`` CUDA kernel, on the CPU in its plain
-version; MLA, Mamba-2 and RWKV-6 have no kernel in the reference and run
-the same torch code on both.
+MLA + MoE, Zamba2, RWKV-6, PaliGemma (a zero image prefix) and Whisper
+(zero frames).  The cache holds the prompt, the new tokens and 8 more
+positions, as the reference's, and a VLM's image prefix besides (the
+reference leaves it out, and its PaliGemma prefill does not fit).  On
+the card the GQA layers' decode attention (global, sliding-window,
+Zamba2's shared block, the int8 cache) runs in the ``flash_decode`` CUDA
+kernel, on the CPU in its plain version; MLA, Mamba-2 and RWKV-6 have no
+kernel in the reference and run the same torch code on both.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ def main(argv=None) -> dict:
                                     dtype=np.int32), args.new_tokens)
             for i in range(args.requests)]
     eng = ServeEngine(model, params, batch_slots=args.slots,
-                      max_len=args.prompt_len + args.new_tokens + 8)
+                      max_len=cfg.vlm_prefix_len + args.prompt_len
+                      + args.new_tokens + 8)
     results = eng.run(reqs)
     tput = sum(len(r.tokens) for r in results) / sum(r.latency_s for r in results)
     for r in results[:4]:

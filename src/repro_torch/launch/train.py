@@ -8,7 +8,10 @@ Trains on the card unless ``--device cpu``.  ``--smoke`` takes the
 reduced same-family config; without it the full config is built.
 ``--arch`` takes ``dlrm`` and every architecture of
 ``repro_torch.configs.ARCHS``.  Weights are drawn from seed 0 on the
-device; batches are ``lm_batch``/``dlrm_batch`` of seed 0, one per step.
+device; batches are ``lm_batch``/``dlrm_batch`` of seed 0, one per step,
+with the reference's zero extras: a VLM's ``img`` (batch,
+``vlm_prefix_len``, d_model) and an encoder-decoder's ``frames`` (batch,
+seq, d_model), bf16.
 Fault tolerance: checkpoint/restart through ``ft.TrainRunner`` under
 ``--ckpt-dir`` (by default ``repro_torch_ckpt`` in the temporary
 directory; a run resumes from the latest checkpoint there); ``--fail-at
@@ -66,8 +69,17 @@ def main(argv=None) -> dict:
             b = dlrm_batch(0, step, args.batch, cfg)
         else:
             b = lm_batch(0, step, args.batch, args.seq, cfg.vocab)
-        return {k: torch.as_tensor(v, device=model.device)
-                for k, v in b.items()}
+        out = {k: torch.as_tensor(v, device=model.device)
+               for k, v in b.items()}
+        if getattr(cfg, "vlm_prefix_len", 0):
+            out["img"] = torch.zeros((args.batch, cfg.vlm_prefix_len,
+                                      cfg.d_model), dtype=torch.bfloat16,
+                                     device=model.device)
+        if getattr(cfg, "enc_dec", False):
+            out["frames"] = torch.zeros((args.batch, args.seq, cfg.d_model),
+                                        dtype=torch.bfloat16,
+                                        device=model.device)
+        return out
 
     runner = TrainRunner(
         RunnerConfig(ckpt_dir=args.ckpt_dir,

@@ -1,14 +1,16 @@
-"""Building blocks of the transformer serving path (port of the parts of
-``repro/models/layers.py`` that GQA models with global and sliding-window
-layers reach).
+"""Building blocks of the transformer zoo (port of
+``repro/models/layers.py``): norms, rotary and sinusoidal positions,
+attention and the GQA projections.
 
 Each block is a pair: ``*_defs(cfg) -> tree of ParamDef`` and a function
 that applies it.  Attention comes in four flavours, as in the reference:
 
 * ``dense_attention``     -- one einsum, the prefill for S <= 1024 (with
-                             a sliding window on local layers)
+                             a sliding window on local layers, a
+                             bidirectional prefix for the VLM)
 * ``blockwise_attention`` -- online softmax over (block_q, block_k) tiles,
                              with the causal wedge split, for longer prompts
+                             (and the encoder's bidirectional attention)
 * ``local_attention``     -- exact sliding-window attention by the
                              two-chunk method, for prompts past the window
 * ``decode_attention``    -- one query token over a KV cache (and
@@ -28,6 +30,7 @@ import math
 import torch
 
 from repro_torch.common.pytree import ParamDef
+from repro_torch.core.arith import expf
 
 NEG_INF = -1e30
 
@@ -102,6 +105,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(dtype)
 
 
+def _sinusoid_div(dim: int, device=None) -> torch.Tensor:
+    """The frequencies exp(-2i ln(10000) / dim), through ``arith.expf``
+    (the reference's compiled exp, bit for bit): ``torch.exp`` lies an
+    ulp away on a tenth of them, which moves the angle at position 1,499
+    by 1.5e-4."""
+    return expf(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                * (-math.log(10000.0) / dim))
+
+
+def sinusoidal_at(pos: int, dim: int, device=None) -> torch.Tensor:
+    """Sinusoidal embedding of one position: (dim,) float32, sin(pos * div)
+    in the even columns and cos in the odd ones."""
+    return sinusoidal_pos(1, dim, offset=pos, device=device)[0]
+
+
+def sinusoidal_pos(seq: int, dim: int, offset: int = 0,
+                   device=None) -> torch.Tensor:
+    """(seq, dim) float32 sinusoidal embeddings of positions offset ..
+    offset + seq - 1."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    ang = pos * _sinusoid_div(dim, device)
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
 # ---------------------------------------------------------------------------
 # attention cores
 # ---------------------------------------------------------------------------
@@ -118,10 +149,11 @@ def _scores(q: torch.Tensor, k: torch.Tensor, spec: str) -> torch.Tensor:
 
 
 def dense_attention(q, k, v, *, causal: bool, window: int | None = None,
-                    softcap: float | None = None) -> torch.Tensor:
+                    softcap: float | None = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D).  Exact reference path; query i
-    sees key j where j <= i (``causal``) and j > i - ``window``.  (The
-    reference's prefix-LM mask comes with the VLM config that uses it.)"""
+    sees key j where j <= i or j < ``prefix_len`` (``causal``; the
+    prefix-LM's bidirectional prefix), and j > i - ``window``."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -134,6 +166,8 @@ def dense_attention(q, k, v, *, causal: bool, window: int | None = None,
         mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
         if causal:
             mask = ki <= qi
+            if prefix_len > 0:
+                mask = mask | (ki < prefix_len)
         if window is not None:
             mask = mask & (ki > qi - window)
         scores = torch.where(mask, scores, NEG_INF)
@@ -143,16 +177,19 @@ def dense_attention(q, k, v, *, causal: bool, window: int | None = None,
 
 
 def blockwise_attention(q, k, v, *, causal: bool, softcap: float | None = None,
-                        block_q: int = 512, block_k: int = 512,
+                        prefix_len: int = 0, block_q: int = 512,
+                        block_k: int = 512,
                         split_wedge: bool = True) -> torch.Tensor:
     """Online-softmax blockwise attention (flash-style).
 
     Memory: O(block_q * block_k) per step instead of O(S^2).  For causal
-    masks ``split_wedge`` takes the reference's recursive wedge split
-    (``_wedge_attention``).  A kv block that the causal mask hides from
-    every query of a q block is skipped: in the reference's scan it adds
-    exactly 0 to the sums and scales them by exactly 1, so skipping it
-    leaves the result bit for bit as it is.
+    masks without a prefix ``split_wedge`` takes the reference's recursive
+    wedge split (``_wedge_attention``).  ``prefix_len``: under ``causal``
+    every query also sees the first ``prefix_len`` keys (the prefix-LM).
+    A kv block that the mask hides from every query of a q block (it
+    starts past the block's last query and past the prefix) is skipped:
+    in the reference's scan it adds exactly 0 to the sums and scales them
+    by exactly 1, so skipping it leaves the result bit for bit as it is.
     """
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -163,7 +200,7 @@ def blockwise_attention(q, k, v, *, causal: bool, softcap: float | None = None,
         raise ValueError(f"S={S} is not a multiple of the blocks "
                          f"({block_q}, {block_k})")
 
-    if causal and split_wedge and nq >= 4 and nq % 2 == 0:
+    if causal and split_wedge and prefix_len == 0 and nq >= 4 and nq % 2 == 0:
         return _wedge_attention(q, k, v, softcap=softcap, block_q=block_q,
                                 block_k=block_k)
 
@@ -176,9 +213,10 @@ def blockwise_attention(q, k, v, *, causal: bool, softcap: float | None = None,
         m = torch.full((B, Hkv, G, block_q), NEG_INF, device=q.device)
         l = torch.zeros((B, Hkv, G, block_q), device=q.device)
         acc = torch.zeros((B, Hkv, G, block_q, D), device=q.device)
-        last_q = (qi + 1) * block_q - 1
+        # the last key any query of this block sees
+        last_k = max((qi + 1) * block_q - 1, prefix_len - 1)
         for ki in range(nk):
-            if causal and ki * block_k > last_q:
+            if causal and ki * block_k > last_k:
                 break            # hidden from every query of this block
             k_j = k[:, ki * block_k:(ki + 1) * block_k]
             v_j = v[:, ki * block_k:(ki + 1) * block_k]
@@ -186,7 +224,10 @@ def blockwise_attention(q, k, v, *, causal: bool, softcap: float | None = None,
             s = _softcap(s, softcap)
             if causal:
                 kpos = ki * block_k + torch.arange(block_k, device=q.device)
-                s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+                mask = kpos[None, :] <= qpos[:, None]
+                if prefix_len > 0:
+                    mask = mask | (kpos[None, :] < prefix_len)
+                s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)

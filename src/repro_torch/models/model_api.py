@@ -1,16 +1,18 @@
-"""Public Model API for the serving path (port of
-``repro/models/model_api.py``): ``param_defs``, ``init``, ``cache_defs``,
+"""Public Model API (port of ``repro/models/model_api.py``):
+``param_defs``, ``init``, ``loss``, ``encode``, ``cache_defs``,
 ``init_cache``, ``prefill`` and ``decode_step``, for the configs of
 ``models/transformer.py``: GQA with global and sliding-window layers (a
 local layer's cache is a ring of ``min(window, max_len)`` slots) and an
 optional int8 KV cache, MLA with a dense or MoE FFN (DeepSeek), Mamba-2
-with Zamba2's shared attention block, and RWKV-6.
+with Zamba2's shared attention block, RWKV-6, the VLM (PaliGemma) and the
+encoder-decoder (Whisper).
 
 As in the reference, a ``Model`` holds no weights: ``init(generator)``
 makes the parameter tree (the reference's tree, key for key: ``embed``,
 ``final_norm``, ``groups[i]["l{j}"]...`` stacked on a leading layers dim,
-``lm_head`` when embeddings are untied, ``shared_block`` for Zamba2), and
-``prefill`` and ``decode_step`` take it. Activations are bf16; the logits
+``lm_head`` when embeddings are untied, ``shared_block`` for Zamba2,
+``enc_groups`` and ``enc_norm`` for an encoder-decoder), and ``prefill``
+and ``decode_step`` take it. Activations are bf16; the logits
 are computed in float32 from the bf16 operands, as the reference's
 ``preferred_element_type=float32`` einsum; ``prefill`` and ``decode_step``
 turn off cuBLAS's bf16 reduced-precision reduction while they run (the
@@ -27,8 +29,20 @@ K/V tensors, latent caches and recurrent states are written in place.
 an optional ``loss_mask``: the stack in ``mode="train"`` (the prefill's
 math without a cache), each stacked period rematerialised in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), the
-logits, log-sum-exp and gather in float32.  The VLM and encoder-decoder
-extras come with ROADMAP.md queue item 9.5.
+logits, log-sum-exp and gather in float32.
+
+The VLM and encoder-decoder extras are the reference's, fact for fact.
+A VLM batch carries ``img`` (B, ``vlm_prefix_len``, d_model): the image
+embeddings go before the text's (cast to the compute dtype), every query
+sees them (the prefix-LM mask), the loss reads only the text's logits,
+and the cache holds the prefix's positions too, so a prefill of S text
+tokens fills ``vlm_prefix_len + S`` of them.  An encoder-decoder batch
+carries ``frames`` (B, T, d_model): ``encode`` runs the bidirectional
+encoder over them (sinusoidal positions added), and sinusoidal positions
+are added to the decoder's embeddings on top of its RoPE.  As in the
+reference, the decoder is ``build_groups``' causal GQA stack, which never
+reads the encoder's output: the loss and the logits do not depend on the
+frames, and the encoder's gradient is exactly 0.
 
 **On a mesh** (``Model(cfg, mesh=...)``): ``rules``, ``param_specs``,
 ``input_specs`` (shapes and dtypes), ``batch_pspecs`` and ``cache_rules``
@@ -50,9 +64,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.precision import float32_reduction
 from repro_torch.common.pytree import (ParamDef, map_with_specs, materialize,
-                                       specs_of, tree_map)
+                                       specs_of, tree_leaves, tree_map)
 from repro_torch.common.sharding import MeshRules, P, gather_full
 from repro_torch.core.engine import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Group, _apply_layer, _norm_apply, _norm_defs
@@ -116,6 +131,7 @@ class Model:
     def __init__(self, cfg, device="cuda", decode_impl: str = "auto",
                  mesh=None):
         T.check_supported(cfg)
+        self.enc_groups = T.enc_groups(cfg) if cfg.enc_dec else []
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -139,6 +155,9 @@ class Model:
                                     init="scaled")
         if cfg.shared_attn_period:
             d["shared_block"] = T.layer_defs(cfg, ("gqa_g", "mlp"))
+        if cfg.enc_dec:
+            d["enc_groups"] = [_group_defs(cfg, g) for g in self.enc_groups]
+            d["enc_norm"] = _norm_defs(cfg)
         return tree_map(lambda x: ParamDef(x.shape, x.axes, init=x.init,
                                            dtype=pd), d)
 
@@ -161,12 +180,15 @@ class Model:
         """(shape, dtype) of every model input of a shape cell."""
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
-        if cfg.vlm_prefix_len or cfg.enc_dec:
-            raise NotImplementedError(f"{cfg.name}: the VLM and encoder-"
-                                      "decoder inputs come with ROADMAP.md "
-                                      "queue item 9.5")
         if shape.kind in ("train", "prefill"):
-            return {"tokens": ShapeDtype((B, S), torch.int32)}
+            S_text = S - cfg.vlm_prefix_len if cfg.vlm_prefix_len else S
+            d = {"tokens": ShapeDtype((B, S_text), torch.int32)}
+            if cfg.vlm_prefix_len:
+                d["img"] = ShapeDtype((B, cfg.vlm_prefix_len, cfg.d_model),
+                                      torch.bfloat16)
+            if cfg.enc_dec:
+                d["frames"] = ShapeDtype((B, S, cfg.d_model), torch.bfloat16)
+            return d
         return {"tokens": ShapeDtype((B, 1), torch.int32),
                 "cache": _abstract(self.cache_defs(B, S))}
 
@@ -175,9 +197,9 @@ class Model:
         B = shape.global_batch
         specs = self.input_specs(shape)
         if shape.kind in ("train", "prefill"):
-            s = specs["tokens"]
-            return {"tokens": rules.pspec(("batch",) + (None,)
-                                          * (len(s.shape) - 1), s.shape)}
+            return {name: rules.pspec(("batch",) + (None,)
+                                      * (len(s.shape) - 1), s.shape)
+                    for name, s in specs.items()}
         cache_rules = self.cache_rules(shape)
         return {"tokens": cache_rules.pspec(("batch", None), (B, 1)),
                 "cache": specs_of(self.cache_defs(B, shape.seq_len),
@@ -240,15 +262,25 @@ class Model:
         return logits
 
     def _run_groups(self, params, x, *, mode, caches, positions,
-                    decode: T.DecodeStep | None = None):
-        """Every layer in order; ``caches`` (the stacked cache tree) is
-        written in place; a shared block takes ``params["shared_block"]``.
-        In ``mode="train"`` there is no cache, and each period (one index
-        of a group's stack, all its sub-layers) is checkpointed: its
-        activations are recomputed in the backward."""
+                    decode: T.DecodeStep | None = None, prefix_len: int = 0,
+                    enc_out=None, encoder: bool = False):
+        """Every layer in order (the encoder's, ``params["enc_groups"]``,
+        with ``encoder``); ``caches`` (the stacked cache tree) is written
+        in place; a shared block takes ``params["shared_block"]``.  In
+        ``mode="train"`` there is no cache, and where autograd records the
+        stack (grad mode on, and the input or a weight requiring grad)
+        each period (one index of a group's stack, all its sub-layers) is
+        checkpointed: its activations are recomputed in the backward.
+        Elsewhere, as ``encode`` serves, it runs as it is: the first
+        checkpoint of a process took 10.75 s on the card's host."""
         cfg = self.cfg
-        pgroups, shared = params["groups"], params.get("shared_block")
-        for gi, g in enumerate(self.groups):
+        shared = params.get("shared_block")
+        pgroups, groups = ((params["enc_groups"], self.enc_groups) if encoder
+                           else (params["groups"], self.groups))
+        remat = mode == "train" and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad
+                                   for t in tree_leaves(pgroups)))
+        for gi, g in enumerate(groups):
             for i in range(g.n):
                 def period(x, gi=gi, g=g, i=i):
                     for j, kind in enumerate(g.kinds):
@@ -259,9 +291,11 @@ class Model:
                                             positions=positions, mode=mode,
                                             cache=c, decode=decode,
                                             shared_params=shared,
-                                            mesh=self.mesh)
+                                            mesh=self.mesh,
+                                            prefix_len=prefix_len,
+                                            enc_out=enc_out)
                     return x
-                if mode == "train":
+                if remat:
                     x = checkpoint(period, x, use_reentrant=False)
                 else:
                     x = period(x)
@@ -270,11 +304,56 @@ class Model:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _extra(self, batch, name: str) -> torch.Tensor:
+        """``batch[name]`` (``img`` or ``frames``) on the device in the
+        compute dtype (bf16 values cross exactly)."""
+        return torch.as_tensor(batch[name], device=self.device).to(
+            self.compute_dtype)
+
+    def _inputs(self, params, batch):
+        """The decoder's input embeddings of ``batch``: the image prefix
+        before the text's (VLM), the sinusoidal positions added (encoder-
+        decoder); and (tokens, x, prefix_len, enc_out)."""
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        x = self._embed(params, tokens)
+        prefix_len, enc_out = 0, None
+        if cfg.vlm_prefix_len:
+            x = torch.cat([self._extra(batch, "img"), x], dim=1)
+            prefix_len = cfg.vlm_prefix_len
+        if cfg.enc_dec:
+            enc_out = self._encode(params, self._extra(batch, "frames"))
+            x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model,
+                                     device=self.device).to(x.dtype)[None]
+        return tokens, x, prefix_len, enc_out
+
+    def encode(self, params, frames) -> torch.Tensor:
+        """The encoder's output (B, T, d_model) over ``frames`` (B, T,
+        d_model): sinusoidal positions added, the bidirectional encoder
+        layers, the final ``enc_norm`` (the reference's ``_encode``)."""
+        if not self.cfg.enc_dec:
+            raise ValueError(f"{self.cfg.name} has no encoder")
+        params = self.compute_params(params)
+        with float32_reduction():
+            return self._encode(params, torch.as_tensor(
+                frames, device=self.device).to(self.compute_dtype))
+
+    def _encode(self, params, x):
+        cfg = self.cfg
+        B, Tn = x.shape[:2]
+        x = x + L.sinusoidal_pos(Tn, cfg.d_model, device=self.device).to(
+            x.dtype)[None]
+        positions = torch.arange(Tn, device=self.device)[None].expand(B, Tn)
+        x = self._run_groups(params, x, mode="train", caches=None,
+                             positions=positions, encoder=True)
+        return _norm_apply(cfg, params["enc_norm"], x)
+
     # ------------------------------------------------------------------ train
     def loss(self, params, batch) -> torch.Tensor:
         """Next-token cross-entropy (a float32 scalar) of
         ``batch["tokens"]`` (B, S), over the positions ``batch["loss_mask"]``
-        (B, S) keeps when it is given."""
+        (B, S) keeps when it is given; a VLM's batch carries ``img``, an
+        encoder-decoder's ``frames`` (see the module docstring)."""
         return self._loss(self.compute_params(params), batch)
 
     def mesh_local(self, path: tuple) -> bool:
@@ -293,24 +372,30 @@ class Model:
             raise NotImplementedError(
                 "a loss_mask over a mesh: the shares of a masked mean do not "
                 "add up to the global mean")
-        tokens = torch.as_tensor(batch["tokens"])
-        spec = self.rules().pspec(("batch", None), tuple(tokens.shape))
-        axes = spec.axes(0)
+        rules = self.rules()
+        specs = {}
+        for name, v in batch.items():
+            shape = tuple(torch.as_tensor(v).shape)
+            specs[name] = rules.pspec(("batch",) + (None,) * (len(shape) - 1),
+                                      shape)
+        axes = specs["tokens"].axes(0)
         n_b = self.mesh.axis_size(axes) if axes else 1
-        mine = shard_batch(batch, self.mesh, {"tokens": spec})
+        mine = shard_batch(batch, self.mesh, specs)
         return self._loss(params, mine) / n_b
 
     def _loss(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
         with float32_reduction():
-            tokens = self._tokens(batch["tokens"])
-            B, S = tokens.shape
-            x = self._embed(params, tokens)
+            tokens, x, prefix_len, enc_out = self._inputs(params, batch)
+            B, S = x.shape[:2]
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
             x = self._run_groups(params, x, mode="train", caches=None,
-                                 positions=positions)
+                                 positions=positions, prefix_len=prefix_len,
+                                 enc_out=enc_out)
             x = _norm_apply(cfg, params["final_norm"], x)
             logits = self._logits(params, x)
+            if cfg.vlm_prefix_len:
+                logits = logits[:, cfg.vlm_prefix_len:]
             tgt = tokens[:, 1:]
             lg = logits[:, :-1].float()
             mask = batch.get("loss_mask")
@@ -325,9 +410,13 @@ class Model:
     # ------------------------------------------------------------------ serve
     def cache_defs(self, batch: int, max_len: int):
         cfg = self.cfg
-        layers = [{f"l{j}": T._stack_defs(T._cache_defs_for(cfg, kind, batch,
-                                                            max_len), g.n)
-                   for j, kind in enumerate(g.kinds)} for g in self.groups]
+        layers = []
+        for g in self.groups:
+            gd = {}
+            for j, kind in enumerate(g.kinds):
+                cd = T._cache_defs_for(cfg, kind, batch, max_len)
+                gd[f"l{j}"] = {} if cd is None else T._stack_defs(cd, g.n)
+            layers.append(gd)
         return {"layers": layers,
                 "pos": ParamDef((), (), init="zeros", dtype=torch.int32)}
 
@@ -343,20 +432,24 @@ class Model:
 
     def prefill(self, params, batch, max_len: int | None = None,
                 all_logits: bool = False):
-        """Forward over the prompt ``batch["tokens"]`` (B, S), building
-        the decode cache.  Returns (last_logits (B, V) float32, cache);
+        """Forward over the prompt ``batch["tokens"]`` (B, S) (after the
+        image prefix ``batch["img"]`` of a VLM; an encoder-decoder's
+        ``batch["frames"]`` through the encoder), building the decode
+        cache of ``max_len`` positions (by default the prompt's, the
+        prefix included).  Returns (last_logits (B, V) float32, cache);
         with ``all_logits``, every position's logits (B, S, V) in their
-        place (a teacher-forced yardstick for the decode steps)."""
+        place (a teacher-forced yardstick for the decode steps; a VLM's
+        prefix positions included)."""
         params = self.compute_params(params)
         with float32_reduction():
-            tokens = self._tokens(batch["tokens"])
-            B, S = tokens.shape
-            x = self._embed(params, tokens)
+            _, x, prefix_len, enc_out = self._inputs(params, batch)
+            B, S = x.shape[:2]
             max_len = max_len or S
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
             cache = self.init_cache(B, max_len)
             x = self._run_groups(params, x, mode="prefill",
-                                 caches=cache["layers"], positions=positions)
+                                 caches=cache["layers"], positions=positions,
+                                 prefix_len=prefix_len, enc_out=enc_out)
             x = _norm_apply(self.cfg, params["final_norm"], x)
             logits = (self._logits(params, x) if all_logits
                       else self._logits(params, x[:, -1:])[:, 0])
@@ -375,6 +468,9 @@ class Model:
             B = tokens.shape[0]
             pos = cache["pos"]
             x = self._embed(params, tokens)
+            if self.cfg.enc_dec:
+                x = x + L.sinusoidal_at(pos, self.cfg.d_model,
+                                        device=self.device).to(x.dtype)
             positions = torch.full((B, 1), pos, device=self.device)
             x = self._run_groups(params, x, mode="decode",
                                  caches=cache["layers"], positions=positions,

@@ -1,5 +1,5 @@
-"""Model assembly for the serving zoo (port of
-``repro/models/transformer.py`` without the encoder-decoder layers).
+"""Model assembly for the whole zoo (port of
+``repro/models/transformer.py``).
 
 A model = embedding + a list of *groups*.  Each group is a stack of
 identical *periods* (weights stacked on a leading ``layers`` dim), where a
@@ -25,10 +25,19 @@ Ported kinds (mixer, ffn):
                         Mamba-2 layers, each application with its own
                         KV cache
   ("rwkv6", "rwkv_ffn") RWKV-6 time and channel mixing (``models/rwkv.py``)
+  ("enc_attn", "mlp")   Whisper's encoder: bidirectional attention
+                        without positions in the projections (dense up
+                        to 1,024 positions, blockwise above); no cache
+  ("dec_attn", "mlp")   a causal self-attention (``_gqa_attend``, its
+                        KV cache) then cross-attention over the encoder's
+                        output (or over the cache's ``xk``/``xv``, which
+                        the prefill fills from it)
 with the MLP's three ``mlp_kind``s, the attention-logit softcap,
-post-norms, qk-norm and a local rope theta.  The encoder-decoder and VLM
-extras raise ``NotImplementedError``: they come with ROADMAP.md queue
-item 9.5.
+post-norms, qk-norm, a local rope theta and the VLM's prefix-LM mask
+(``prefix_len``: every query also sees the image prefix).  As in the
+reference, ``Model`` builds Whisper's decoder from ``build_groups`` (causal
+GQA layers that never read the encoder): ``dec_groups`` and the
+``dec_attn`` mixer are here for the layer API, as they are there.
 
 Every kind trains (``mode="train"``: the prefill's math without a cache,
 under autograd); with ``cfg.flash_attention``, causal global attention
@@ -68,8 +77,8 @@ from repro_torch.models.flash import flash_attention
 
 SUPPORTED_KINDS = (("gqa_g", "mlp"), ("gqa_l", "mlp"), ("mla", "mlp"),
                    ("mla", "moe"), ("mamba", None), ("shared_gqa", "mlp"),
-                   ("rwkv6", "rwkv_ffn"))
-_LATER = "comes with ROADMAP.md queue item 9.5"
+                   ("rwkv6", "rwkv_ffn"), ("enc_attn", "mlp"),
+                   ("dec_attn", "mlp"))
 
 
 # ---------------------------------------------------------------------------
@@ -114,17 +123,24 @@ def build_groups(cfg) -> list[Group]:
     return groups
 
 
+def enc_groups(cfg) -> list[Group]:
+    return [Group((("enc_attn", "mlp"),), cfg.n_enc_layers)]
+
+
+def dec_groups(cfg) -> list[Group]:
+    return [Group((("dec_attn", "mlp"),), cfg.n_layers)]
+
+
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config that needs anything the
-    port does not have yet."""
-    kinds = {k for g in build_groups(cfg) for k in g.kinds}
+    """Raise ``ValueError`` for a config whose layers (decoder, and the
+    encoder of an encoder-decoder) include a kind outside
+    ``SUPPORTED_KINDS``."""
+    groups = build_groups(cfg) + (enc_groups(cfg) if cfg.enc_dec else [])
+    kinds = {k for g in groups for k in g.kinds}
     bad = sorted(str(k) for k in kinds if k not in SUPPORTED_KINDS)
-    options = {"enc_dec": cfg.enc_dec,
-               "vlm_prefix_len": bool(cfg.vlm_prefix_len)}
-    bad += [name for name, on in options.items() if on]
     if bad:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(bad)} not ported "
-                                  f"(ported: {SUPPORTED_KINDS}); {_LATER}")
+        raise ValueError(f"{cfg.name}: {', '.join(bad)} unknown (known: "
+                         f"{SUPPORTED_KINDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +179,12 @@ def mlp_apply(cfg, p, x):
 
 def layer_defs(cfg, kind) -> dict:
     if kind not in SUPPORTED_KINDS:
-        raise NotImplementedError(f"layer kind {kind}: {_LATER}")
+        raise ValueError(f"layer kind {kind} unknown")
     mixer, ffn = kind
     if mixer == "shared_gqa":
         return {}  # all params live at model level (single shared copy)
     d: dict = {"ln1": _norm_defs(cfg)}
-    if mixer in ("gqa_g", "gqa_l"):
+    if mixer in ("gqa_g", "gqa_l", "enc_attn", "dec_attn"):
         d["attn"] = L.gqa_defs(cfg)
     elif mixer == "mla":
         d["attn"] = MLA.mla_defs(cfg)
@@ -176,6 +192,9 @@ def layer_defs(cfg, kind) -> dict:
         d["mixer"] = SSM.mamba2_defs(cfg)
     elif mixer == "rwkv6":
         d["mixer"] = RWKV.rwkv6_defs(cfg)["time"]
+    if mixer == "dec_attn":
+        d["lnx"] = _norm_defs(cfg)
+        d["cross"] = L.gqa_defs(cfg)
     if ffn == "mlp":
         d["ln2"] = _norm_defs(cfg)
         d["mlp"] = mlp_defs(cfg)
@@ -202,15 +221,17 @@ def _stack_defs(defs, n: int):
 # cache defs
 # ---------------------------------------------------------------------------
 
-def _cache_defs_for(cfg, kind, batch: int, max_len: int) -> dict:
+def _cache_defs_for(cfg, kind, batch: int, max_len: int) -> dict | None:
     """The decode cache of one layer: ``max_len`` positions of K/V for a
     global layer (int8 with float32 scales ``k_s``/``v_s`` under
-    ``kv_quant_int8``), a ring of ``min(window, max_len)`` for a local one,
-    the latent ``c`` and rope key ``pe`` for MLA, the recurrent states
-    (float32) for Mamba-2 and RWKV-6."""
+    ``kv_quant_int8``; a decoder layer adds the cross-attention's
+    ``xk``/``xv`` over ``cfg.enc_len`` encoder positions, bf16), a ring of
+    ``min(window, max_len)`` for a local one, the latent ``c`` and rope key
+    ``pe`` for MLA, the recurrent states (float32) for Mamba-2 and RWKV-6;
+    None for an encoder layer."""
     mixer, _ = kind
     Hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    if mixer in ("gqa_g", "shared_gqa"):
+    if mixer in ("gqa_g", "dec_attn", "shared_gqa"):
         kv_dt = torch.int8 if cfg.kv_quant_int8 else torch.bfloat16
         d = {
             "k": ParamDef((batch, max_len, Hkv, dh), ("batch", "seq", "kv_heads", None),
@@ -223,6 +244,12 @@ def _cache_defs_for(cfg, kind, batch: int, max_len: int) -> dict:
                                 init="zeros", dtype=torch.float32)
             d["v_s"] = ParamDef((batch, max_len, Hkv), ("batch", "seq", "kv_heads"),
                                 init="zeros", dtype=torch.float32)
+        if mixer == "dec_attn":
+            el = cfg.enc_len
+            d["xk"] = ParamDef((batch, el, Hkv, dh), ("batch", None, "kv_heads", None),
+                               init="zeros", dtype=torch.bfloat16)
+            d["xv"] = ParamDef((batch, el, Hkv, dh), ("batch", None, "kv_heads", None),
+                               init="zeros", dtype=torch.bfloat16)
         return d
     if mixer == "gqa_l":
         W = min(cfg.window or max_len, max_len)
@@ -243,6 +270,8 @@ def _cache_defs_for(cfg, kind, batch: int, max_len: int) -> dict:
         return SSM.mamba2_state_defs(cfg, batch)
     if mixer == "rwkv6":
         return RWKV.rwkv6_state_defs(cfg, batch)
+    if mixer == "enc_attn":
+        return None
     raise ValueError(mixer)
 
 
@@ -297,9 +326,11 @@ def _ring_decode(q, kc, vc, pos: int, Wr: int, softcap):
 
 
 def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
-                theta, decode: DecodeStep | None = None):
-    """Causal GQA, global or over ``cfg.window`` (``local``, ring cache).
-    Returns (out, cache); the cache is written in place."""
+                theta, prefix_len: int = 0, decode: DecodeStep | None = None):
+    """Causal GQA, global or over ``cfg.window`` (``local``, ring cache);
+    in train and prefill every query also sees the first ``prefix_len``
+    positions (the VLM's prefix-LM).  Returns (out, cache); the cache is
+    written in place."""
     S = x.shape[1]
     q, k, v = L.gqa_project(p, x, cfg, positions, theta)
     W = cfg.window
@@ -350,12 +381,14 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
         o = L.local_attention(q, k, v, window=W, softcap=softcap)
     elif S <= 1024:
         o = L.dense_attention(q, k, v, causal=True,
-                              window=W if local else None, softcap=softcap)
-    elif cfg.flash_attention and softcap is None:
+                              window=W if local else None, softcap=softcap,
+                              prefix_len=prefix_len)
+    elif cfg.flash_attention and softcap is None and prefix_len == 0:
         o = flash_attention(q, k, v, True, cfg.block_q, cfg.block_k)
     else:
         o = L.blockwise_attention(q, k, v, causal=True, softcap=softcap,
-                                  block_q=cfg.block_q, block_k=cfg.block_k)
+                                  prefix_len=prefix_len, block_q=cfg.block_q,
+                                  block_k=cfg.block_k)
     if cache is not None:
         if local:
             _ring_fill(cache, k, v, S, cache["k"].shape[1])
@@ -381,15 +414,44 @@ def _write_state(cache, new) -> None:
             cache[key].copy_(val)
 
 
+def _proj_nopos(p, x):
+    """q, k, v projections without positions (the encoder's and the
+    cross-attention's)."""
+    return L._project(x, p["wq"]), L._project(x, p["wk"]), L._project(x, p["wv"])
+
+
+def _cross_attend(p, h, *, mode, cache, enc_out):
+    """The decoder's cross-attention of ``h`` over the encoder's output:
+    its keys and values from ``enc_out`` in train, and in a prefill that
+    has it (then written into the cache's ``xk``/``xv``, which hold
+    ``cfg.enc_len`` positions: an output of another length raises); from
+    the cache otherwise.  Returns the attention's output (B, S, Hq, D)."""
+    q = L._project(h, p["wq"])
+    if mode == "train" or (mode == "prefill" and enc_out is not None):
+        xk, xv = L._project(enc_out, p["wk"]), L._project(enc_out, p["wv"])
+        if cache is not None:
+            if xk.shape[1] != cache["xk"].shape[1]:
+                raise ValueError(f"an encoder output of {xk.shape[1]} "
+                                 f"positions for a cross cache of "
+                                 f"{cache['xk'].shape[1]} (cfg.enc_len)")
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+    else:
+        xk, xv = cache["xk"].to(h.dtype), cache["xv"].to(h.dtype)
+    return L.dense_attention(q, xk, xv, causal=False)
+
+
 def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
                  decode: DecodeStep | None = None, shared_params=None,
-                 mesh=None):
+                 mesh=None, prefix_len: int = 0, enc_out=None):
     """One sub-layer of a kind of ``SUPPORTED_KINDS`` (``check_supported``
     has vetted the config); a local layer takes ``rope_theta_local``
     where the config sets one, a shared block ``shared_params``, a MoE
-    FFN ``mesh`` (the reference's ``models/transformer.py:419``).  The
-    cache (KV, latent or recurrent state) is written in place.  Returns
-    (x, cache)."""
+    FFN ``mesh`` (the reference's ``models/transformer.py:419``), a
+    global or shared GQA layer ``prefix_len`` (the VLM's prefix-LM) and a
+    decoder layer ``enc_out`` (the encoder's output).  The cache (KV,
+    latent or recurrent state) is written in place.  Returns (x,
+    cache)."""
     mixer, ffn = kind
     if mixer == "shared_gqa":
         p = shared_params  # single copy, reused every period
@@ -402,10 +464,30 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
         o, cache = _gqa_attend(cfg, p["attn"], h, local=local,
                                positions=positions, mode=mode, cache=cache,
                                softcap=cfg.logit_softcap, theta=theta,
-                               decode=decode)
+                               prefix_len=prefix_len, decode=decode)
         if cfg.post_norm and mixer != "shared_gqa":
             o = _norm_apply(cfg, p["ln1_post"], o)
         x = x + o
+    elif mixer == "enc_attn":
+        h = _norm_apply(cfg, p["ln1"], x)
+        q, k, v = _proj_nopos(p["attn"], h)
+        o = (L.dense_attention(q, k, v, causal=False) if h.shape[1] <= 1024
+             else L.blockwise_attention(q, k, v, causal=False,
+                                        block_q=cfg.block_q,
+                                        block_k=cfg.block_k))
+        x = x + L.gqa_out(p["attn"], o, x.dtype)
+        cache = None
+    elif mixer == "dec_attn":
+        h = _norm_apply(cfg, p["ln1"], x)
+        o, _ = _gqa_attend(cfg, p["attn"], h, local=False, positions=positions,
+                           mode=mode, cache=None if cache is None else
+                           {"k": cache["k"], "v": cache["v"]},
+                           softcap=None, theta=cfg.rope_theta, decode=decode)
+        x = x + o
+        h = _norm_apply(cfg, p["lnx"], x)
+        o = _cross_attend(p["cross"], h, mode=mode, cache=cache,
+                          enc_out=enc_out)
+        x = x + L.gqa_out(p["cross"], o, x.dtype)
     elif mixer == "mla":
         h = _norm_apply(cfg, p["ln1"], x)
         if mode == "decode":

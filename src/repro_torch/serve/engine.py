@@ -6,7 +6,15 @@ batches of ``batch_slots`` with a common prompt length (shorter prompts
 padded with repeats of their last token, a short group filled with copies
 of its last request), one prefill builds the cache, then greedy decode
 steps run until the group's longest request is served, at most
-``max_len - prompt - 1`` new tokens.
+``max_len - prompt - 1`` new tokens.  A VLM's batch carries a zero image
+prefix (``img``), an encoder-decoder's zero ``frames`` as long as the
+padded prompt, as the reference's.
+
+The budget is the reference's rule, which does not count a VLM's image
+prefix: where the prefix, the prompt and the decode steps do not fit the
+cache, the reference's prefill fails or its decode writes are clamped
+onto the cache's last slot; the port raises ``ValueError`` before the
+prefill instead.
 
 The generated tokens stay on the device between steps (each step's argmax
 is the next step's input) and come to the host once per group.  A group's
@@ -45,11 +53,6 @@ class ServeEngine:
 
     def __init__(self, model, params, batch_slots: int = 8, max_len: int = 256,
                  greedy: bool = True, decode_impl: str | None = None):
-        cfg = model.cfg
-        if cfg.vlm_prefix_len or cfg.enc_dec:
-            raise NotImplementedError("the VLM and encoder-decoder batch "
-                                      "extras come with their configs "
-                                      "(ROADMAP.md queue item 9.5)")
         self.model = model
         self.params = params
         self.slots = batch_slots
@@ -69,6 +72,23 @@ class ServeEngine:
             out[i, len(r.prompt):] = r.prompt[-1]
         return out
 
+    def batch(self, prompts: np.ndarray) -> dict:
+        """The prefill's batch for padded ``prompts`` (B, S): the tokens
+        and a config's extras, zeros as the reference's (a VLM's ``img``
+        (B, ``vlm_prefix_len``, d_model), an encoder-decoder's ``frames``
+        (B, S, d_model), bf16)."""
+        cfg = self.model.cfg
+        B, S = prompts.shape
+        out = {"tokens": prompts}
+        dev = self.model.device
+        if cfg.vlm_prefix_len:
+            out["img"] = torch.zeros((B, cfg.vlm_prefix_len, cfg.d_model),
+                                     dtype=torch.bfloat16, device=dev)
+        if cfg.enc_dec:
+            out["frames"] = torch.zeros((B, S, cfg.d_model),
+                                        dtype=torch.bfloat16, device=dev)
+        return out
+
     def run(self, requests: list[Request]) -> list[Result]:
         results = []
         for i in range(0, len(requests), self.slots):
@@ -85,10 +105,19 @@ class ServeEngine:
         pad = self.slots - len(group)
         reqs = group + [Request(-1, group[-1].prompt, 0)] * pad
         prompts = self._pad_prompts(reqs)
-        logits, cache = self.model.prefill(self.params, {"tokens": prompts},
-                                           max_len=self.max_len)
         max_new = max(r.max_new_tokens for r in group)
         max_new = min(max_new, self.max_len - prompts.shape[1] - 1)
+        # the prefix and the prompt, then a position a decode step
+        need = self.model.cfg.vlm_prefix_len + prompts.shape[1] + max(
+            max_new - 1, 0)
+        if need > self.max_len:
+            raise ValueError(f"a prompt of {prompts.shape[1]} tokens after "
+                             f"{self.model.cfg.vlm_prefix_len} prefix "
+                             f"positions and {max_new - 1} decode steps take "
+                             f"{need} cache positions; max_len is "
+                             f"{self.max_len}")
+        logits, cache = self.model.prefill(self.params, self.batch(prompts),
+                                           max_len=self.max_len)
         cur = torch.argmax(logits, -1)[:, None]
         toks = [cur[:, 0]]
         self._sync()

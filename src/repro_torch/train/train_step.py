@@ -68,7 +68,10 @@ def make_grad_fn(model):
         with torch.enable_grad(), float32_reduction():
             loss = loss_fn(alias, batch)
             leaves = tree_leaves(alias)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss never reads (an encoder-decoder's encoder:
+            # models/model_api.py) gets a zero gradient, as jax.grad's
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it), alias)
     return grad_fn
@@ -204,7 +207,9 @@ def _mesh_train_step(model, tcfg, grad_specs=None):
         tree = map_with_specs(compute, params, layout.params)
         with torch.enable_grad(), float32_reduction():
             share = model.mesh_loss(tree, batch)
-            grads = torch.autograd.grad(share, [t for t, _, _ in aliases])
+            grads = torch.autograd.grad(share, [t for t, _, _ in aliases],
+                                        allow_unused=True,
+                                        materialize_grads=True)
         by_path = {}
         for (t, spec, path), g in zip(aliases, grads):
             have = spec if model.mesh_local(path) else whole

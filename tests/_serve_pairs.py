@@ -65,15 +65,20 @@ def pair(r_cfg, seed: int = 5, f32: bool = True):
 
 
 def teacher_forced(r_model, params, model, pp, S: int, N: int, seed: int = 0,
-                   B: int = 2):
-    """Both models' logits on the same tokens: prefill of S, then N decode
-    steps; [(reference (B, V), port (B, V)), ...]."""
+                   B: int = 2, extras: dict | None = None):
+    """Both models' logits on the same tokens: prefill of S (after a VLM's
+    image prefix; ``extras``: the batch's ``img``/``frames`` as numpy),
+    then N decode steps; [(reference (B, V), port (B, V)), ...]."""
     toks = np.random.default_rng(seed).integers(0, model.cfg.vocab,
                                                 (B, S + N), dtype=np.int32)
-    max_len = S + N + 2
+    extras = extras or {}
+    prefix = model.cfg.vlm_prefix_len
+    max_len = prefix + S + N + 2
     r_logits, r_cache = jax.jit(lambda p, b: r_model.prefill(
-        p, b, max_len=max_len))(params, {"tokens": jnp.asarray(toks[:, :S])})
-    logits, cache = model.prefill(pp, {"tokens": toks[:, :S]},
+        p, b, max_len=max_len))(params, {
+            "tokens": jnp.asarray(toks[:, :S]),
+            **{k: jnp.asarray(v) for k, v in extras.items()}})
+    logits, cache = model.prefill(pp, {"tokens": toks[:, :S], **extras},
                                   max_len=max_len)
     out = [(np.asarray(r_logits, np.float32), logits.numpy())]
     r_decode = jax.jit(r_model.decode_step)
@@ -82,7 +87,7 @@ def teacher_forced(r_model, params, model, pp, S: int, N: int, seed: int = 0,
                                      jnp.asarray(toks[:, t:t + 1]))
         logits, cache = model.decode_step(pp, cache, toks[:, t:t + 1])
         out.append((np.asarray(r_logits, np.float32), logits.numpy()))
-    assert cache["pos"] == S + N
+    assert cache["pos"] == prefix + S + N
     return out
 
 

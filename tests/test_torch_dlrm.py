@@ -180,10 +180,12 @@ def test_registry_matches_reference():
     for get, r_get in ((configs.get_config, r_get_config),
                        (configs.smoke_config, r_smoke_config)):
         assert _port_cfg_fields(get("dlrm")) == _port_cfg_fields(r_get("dlrm"))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get_config("paligemma-3b")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        configs.smoke_model("whisper-base", device="cpu")
+    # every architecture of the reference is there (the VLM and
+    # encoder-decoder ones once raised here)
+    assert configs.get_config("paligemma-3b").vlm_prefix_len == 256
+    assert configs.smoke_model("whisper-base", device="cpu").cfg.enc_dec
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("whisper-large")
     m = configs.smoke_model("dlrm", device="cpu", seed=1)
     assert m.embedding_impl == "torch"
     assert m(dlrm_batch(0, 0, 4, m.cfg)).shape == (4,)

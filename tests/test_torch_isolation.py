@@ -2,9 +2,10 @@
 ``core/autotune.py``, ``learn/train.py``, ``core/campaign.py``,
 ``core/predict.py``, ``launch/run_campaign.py``, ``common/sharding.py``,
 ``models/{mla,moe,ssm,rwkv}.py`` and the Gemma-2, Gemma-3, Phi-4-mini,
-DeepSeek-V2/V3, Zamba2 and RWKV-6 configs and TinyLlama's int8 KV cache
-included, each run below: a batch over a mesh, each config's prefill and
-decode; the training path, ``models/flash.py``, ``train/``,
+DeepSeek-V2/V3, Zamba2, RWKV-6, PaliGemma and Whisper configs and
+TinyLlama's int8 KV cache included, each run below: a batch over a mesh,
+each config's prefill and decode, the VLM's and the encoder-decoder's
+loss; the training path, ``models/flash.py``, ``train/``,
 ``checkpoint/``, ``ft/``, ``data/pipeline.py``'s ``lm_batch`` and
 ``Prefetcher`` and ``launch/train.py``, run below too: a train step of a
 flash-enabled TinyLlama and of the DLRM, a checkpoint and its restore,
@@ -87,7 +88,8 @@ def test_port_runs_with_jax_unavailable():
         "from repro_torch.configs import smoke_model\n"
         "for arch in ('gemma2-9b', 'gemma3-27b', 'phi4-mini-3.8b',\n"
         "             'deepseek-v2-236b', 'deepseek-v3-671b', 'zamba2-1.2b',\n"
-        "             'rwkv6-3b', 'tinyllama-1.1b/int8'):\n"
+        "             'rwkv6-3b', 'tinyllama-1.1b/int8', 'paligemma-3b',\n"
+        "             'whisper-base'):\n"
         "    m = smoke_model(arch.split('/')[0], device='cpu')\n"
         "    if arch.endswith('/int8'):\n"
         "        import dataclasses\n"
@@ -96,7 +98,13 @@ def test_port_runs_with_jax_unavailable():
         "                  device='cpu')\n"
         "    p = m.init(torch.Generator().manual_seed(0))\n"
         "    toks = np.arange(80, dtype=np.int32).reshape(2, 40) % 256\n"
-        "    lg, c = m.prefill(p, {'tokens': toks}, max_len=44)\n"
+        "    b = {'tokens': toks}\n"
+        "    if m.cfg.vlm_prefix_len:\n"
+        "        b['img'] = np.ones((2, m.cfg.vlm_prefix_len, m.cfg.d_model))\n"
+        "    if m.cfg.enc_dec:\n"
+        "        b['frames'] = np.ones((2, 40, m.cfg.d_model))\n"
+        "        assert bool(torch.isfinite(m.loss(p, b))), arch\n"
+        "    lg, c = m.prefill(p, b, max_len=44 + m.cfg.vlm_prefix_len)\n"
         "    lg, c = m.decode_step(p, c, toks[:, :1])\n"
         "    assert bool(torch.isfinite(lg).all()), arch\n"
         "import dataclasses, tempfile\n"

@@ -151,7 +151,7 @@ def test_mesh_configs_and_shapes_are_the_reference_s():
     assert {k: dataclasses.asdict(v) for k, v in pshapes.ALL_SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in rshapes.ALL_SHAPES.items()}
     assert pshapes.LONG_OK == rshapes.LONG_OK
-    for arch in ARCHS + ("paligemma-3b", "whisper-base"):
+    for arch in ARCHS:
         assert [s.name for s in pshapes.shapes_for(arch)] == \
             [s.name for s in rshapes.shapes_for(arch)]
         for shp in pshapes.ALL_SHAPES:
@@ -232,9 +232,33 @@ def test_dlrm_specs_match_reference(which, overrides):
 
 
 def test_unported_configs_keep_their_error():
+    """The VLM's and the encoder-decoder's extra inputs (``img``,
+    ``frames``; these configs raised here before they were ported, the
+    name is kept): shapes, dtypes and specs of every input at every shape
+    cell, under both meshes, as the reference's."""
     for arch in ("paligemma-3b", "whisper-base"):
-        with pytest.raises(KeyError, match="9.5"):
-            get_config(arch)
+        for port_cfg, ref_cfg in MESHES.values():
+            pmesh = S.abstract_mesh(port_cfg.shape, port_cfg.axes)
+            rmesh = _ref_mesh(ref_cfg.shape, ref_cfg.axes)
+            model = _port_model(arch, pmesh)
+            r_model = RModel(r_get_config(arch), mesh=rmesh)
+            extra = "img" if model.cfg.vlm_prefix_len else "frames"
+            seen = 0
+            for shape in pshapes.shapes_for(arch):
+                r_shape = rshapes.ALL_SHAPES[shape.name]
+                ins = model.input_specs(shape)
+                r_ins = r_model.input_specs(r_shape)
+                assert sorted(ins) == sorted(r_ins), shape.name
+                for name in ("tokens", extra):
+                    if name not in r_ins:
+                        continue
+                    seen += name == extra
+                    assert ins[name].shape == r_ins[name].shape
+                    assert str(ins[name].dtype).split(".")[-1] == \
+                        str(r_ins[name].dtype)
+                assert port_flat_specs(model.batch_pspecs(shape)) == \
+                    ref_flat_specs(r_model.batch_pspecs(r_shape))
+            assert seen, arch
 
 
 # ---------------------------------------------------------------------------
