@@ -45,9 +45,11 @@ process (``mesh_dlrm``, with its bytes by collective beside
 ``DLRMCommSpec``'s); a checkpoint saved with its specs restored into one
 process bit for bit and onto (data=2) for a fourth step
 (``mesh_elastic``); DeepSeek-V2 at 2 layers under ``ep_a2a`` and ``tp``
-against the dense path (``mesh_moe``); and 8 TinyLlama layers through
-``gpipe`` over 4 stages, bit-equal to the sequential stack
-(``mesh_gpipe``).  Three
+against the dense path at its own ``moe_chunks=8`` (``mesh_moe``); 8
+TinyLlama layers through ``gpipe`` over 4 stages, bit-equal to the
+sequential stack (``mesh_gpipe``); and TinyLlama at 4 layers trained on
+(data=2, model=2), its dense layers tensor-parallel, against one process
+and against the dry run's recording of the same step (``mesh_lm``).  Three
 gradient phases run through autograd on the simulator's op path, each in
 a process of its own beside the main process's kernel checks and
 simulator phases (Fig 12's lanes, the policy axis, Fig 13's fault grid
@@ -5856,29 +5858,24 @@ def kernel_launch_counts() -> dict:
 class capture_routing:
     """While active, records the top-k experts of every MoE call
     (``moe.moe_apply``): ``calls[i]`` the (tokens, k) expert ids of the
-    i-th call, its tokens in the caller's (row-major) order."""
+    i-th call, its tokens in the caller's (row-major) order (the router
+    run once more on the call's tokens: on a mesh the chunks hold other
+    ranks' rows)."""
 
     def __enter__(self):
-        import torch
         from repro_torch.models import moe
         self.mod, self.calls = moe, []
-        self.orig = (moe.moe_apply, moe._router)
+        self.orig = moe.moe_apply
 
         def apply(p, x2d, cfg, mesh=None):
-            self.calls.append([])
-            out = self.orig[0](p, x2d, cfg, mesh)
-            self.calls[-1] = torch.cat(self.calls[-1])
-            return out
-
-        def router(w, x, cfg):
-            gates, idx = self.orig[1](w, x, cfg)
-            self.calls[-1].append(idx.sort(-1).values)
-            return gates, idx
-        moe.moe_apply, moe._router = apply, router
+            _, idx = moe._router(p["router"], x2d, cfg)
+            self.calls.append(idx.sort(-1).values)
+            return self.orig(p, x2d, cfg, mesh)
+        moe.moe_apply = apply
         return self
 
     def __exit__(self, *exc):
-        self.mod.moe_apply, self.mod._router = self.orig
+        self.mod.moe_apply = self.orig
 
 
 def routed_alike(first, steps, full, n_moe: int, S: int, B: int):
@@ -6683,7 +6680,8 @@ def train_dlrm(gpu: str, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7d: the device mesh (mesh_dlrm, mesh_elastic, mesh_moe, mesh_gpipe):
+# phase 7d: the device mesh (mesh_dlrm, mesh_elastic, mesh_moe, mesh_gpipe,
+# mesh_lm):
 # one process a mesh position, the four sharing the card over gloo
 # ---------------------------------------------------------------------------
 
@@ -6718,8 +6716,20 @@ MESH_MOE_ROWS, MESH_MOE_SEQ = 4, 512
 # ep_a2a's buffers and its psum over model grow as the factor squared
 MESH_MOE_CAPACITY = {"ep_a2a": 4.0, "tp": 24.0}
 MESH_MOE_CASES = (((4, 1), "ep_a2a"), ((2, 2), "ep_a2a"), ((2, 2), "tp"))
+# DeepSeek-V2's own token chunks, split over the ranks as the reference
+# splits its global token array (models/moe.py)
+MESH_MOE_CHUNKS = 8
 MESH_MOE_TOL = 1e-3              # rel. L2 of the routed-alike rows, float32
 MESH_GPIPE = (8, 2, 8, 2048)     # layers (of 22), a stage, microbatches, S
+# mesh_lm: TinyLlama-1.1B at full width, 4 of 22 layers, on (data=2,
+# model=2), its dense layers tensor-parallel; 4 rows of 1,024 tokens,
+# TrainConfig's defaults (ZeRO-1), 2 steps
+MESH_LM = (4, 4, 1024, 2)          # layers, rows, tokens a row, steps
+MESH_LM_SHAPE = (2, 2)
+# its limits against one process (PERF.md §6): step 1's loss (relative),
+# step 1's gradient (mu after step 1) and the 2 steps' update of the
+# float32 master (relative L2 over the whole tree)
+MESH_LM_TOL = {"loss1": 1e-3, "grad1": 5e-2, "update": 0.5}
 
 
 def mesh_log(rank: int, what: str) -> None:
@@ -7335,7 +7345,8 @@ def mesh_elastic_rank(rank, dev, tmp) -> dict:
 
 def _moe_cfg(impl: str = "dense"):
     return arch_config("deepseek-v2-236b", 2, moe_impl=impl,
-                       capacity_factor=MESH_MOE_CAPACITY.get(impl, 1.25))
+                       capacity_factor=MESH_MOE_CAPACITY.get(impl, 1.25),
+                       moe_chunks=MESH_MOE_CHUNKS)
 
 
 def _moe_tokens(vocab: int) -> np.ndarray:
@@ -7488,9 +7499,167 @@ def mesh_gpipe_rank(rank, dev) -> dict:
     return out
 
 
+def _lm_cfg():
+    return arch_config("tinyllama-1.1b", MESH_LM[0])
+
+
+def _lm_batches(vocab: int, dev) -> list:
+    import torch
+    from repro_torch.data import lm_batch
+    _, rows, seq, steps = MESH_LM
+    return [{"tokens": torch.as_tensor(lm_batch(MESH_SEED, i, rows, seq,
+                                                vocab)["tokens"], device=dev)}
+            for i in range(steps)]
+
+
+def _host(tree) -> dict:
+    import torch
+    from repro_torch.common.pytree import flatten_with_paths
+    return {n: x.to("cpu", torch.float32, copy=True)
+            for n, x in flatten_with_paths(tree)}
+
+
+def _tree_rel(got: dict, want: dict) -> float:
+    """The relative L2 distance of two {path: tensor} trees, whole."""
+    import torch
+    d = sum(float(torch.linalg.vector_norm(got[n] - want[n])) ** 2
+            for n in want)
+    w = sum(float(torch.linalg.vector_norm(want[n])) ** 2 for n in want)
+    return math.sqrt(d / w) if w else math.sqrt(d)
+
+
+def mesh_lm_single(dev) -> dict:
+    """Rank 0 alone: ``MESH_LM``'s TinyLlama in one process,
+    ``hashed_params`` from ``MESH_SEED``, 2 steps of ``TrainConfig()``:
+    the losses, norms, step 1's mu and the master's update, in host
+    memory."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = _lm_cfg()
+    model = Model(cfg, device=dev)
+    params = hashed_params(tree_map(lambda d: d.shape, model.param_defs()),
+                           MESH_SEED, dev)
+    opt = init_opt_state(params, keep_master=True)
+    p0 = _host(params)
+    step = make_train_step(model, TrainConfig())
+    out = {"losses": [], "norms": [], "step_s": []}
+    for i, b in enumerate(_lm_batches(cfg.vocab, dev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        if i == 0:
+            out["mu1"] = _host(opt["mu"])
+    master = _host(opt["master"])
+    out["update"] = {n: master[n] - p0[n] for n in p0}
+    del model, params, opt, step, master, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_lm_rank(rank, dev, single) -> dict:
+    """Every rank: ``MESH_LM``'s TinyLlama over (data=2, model=2), its
+    dense layers tensor-parallel (this rank's blocks of the same hashed
+    draw), ZeRO-1 with the gradients reduce-scattered to its layout, 2
+    steps: the losses, norms, seconds and each step's collective counters
+    beside the dry run's recording of this rank's step on ``meta``
+    (``repro_torch.launch.dryrun``); rank 0 holds step 1's mu and the
+    master's update, gathered, against the one-process run
+    (``single``)."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.common.pytree import flatten_with_paths, tree_map
+    from repro_torch.common.sharding import (flatten_specs, gather_full,
+                                             local_shard)
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import _refine
+    from repro_torch.train.train_step import (init_mesh_opt_state,
+                                              make_train_step, mesh_layout)
+    cfg = _lm_cfg()
+    mesh = make_mesh(MESH_LM_SHAPE, ("data", "model"))
+    model = Model(cfg, device=dev, mesh=mesh)
+    spec_of = dict(flatten_specs(model.param_specs()))
+    shapes = tree_map(lambda d: d.shape, model.param_defs())
+    params = hashed_blocks(shapes, MESH_SEED, dev, lambda path, x: local_shard(
+        x, spec_of[".".join(path)], mesh).clone())
+    tcfg = TrainConfig()
+    layout = mesh_layout(model, tcfg)
+    opt = init_mesh_opt_state(params, layout, keep_master=True)
+    p0 = {n: x.float() for n, x in flatten_with_paths(params)}
+    step = make_train_step(model, tcfg, layout.moments)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "norms": [], "step_s": [], "counters": []}
+    mu1 = None
+    for i, b in enumerate(_lm_batches(cfg.vocab, dev)):
+        comm.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        out["counters"].append(comm.counters())
+        if i == 0:
+            mu1 = {n: x.clone() for n, x in flatten_with_paths(opt["mu"])}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # the same step recorded on meta (no card, no process group)
+    rec_mesh = comm.RecordingMesh(MESH_LM_SHAPE, ("data", "model"),
+                                  mesh.rank)
+    rec_model = Model(cfg, device="meta", mesh=rec_mesh)
+    _, rows, seq, _ = MESH_LM
+    t0 = time.perf_counter()
+    dryrun.trace_step(rec_model, ShapeConfig("mesh_lm", seq_len=seq,
+                                             global_batch=rows,
+                                             kind="train"),
+                      rec_mesh, gradspec=True, tcfg=tcfg)["run"]()
+    out["record_s"] = time.perf_counter() - t0
+    recorded = {k: {"calls": 0, "bytes": 0} for k in comm.KINDS}
+    for r in rec_mesh.records:
+        recorded[r.kind]["calls"] += 1
+        recorded[r.kind]["bytes"] += r.bytes
+    out["recorded"] = recorded
+    out["gathered_leaves"] = model.gathered_leaves()
+    # step 1's mu and the update, gathered whole for rank 0
+    mom = dict(flatten_specs(layout.moments))
+    master = {n: x for n, x in flatten_with_paths(opt["master"])}
+    whole_mu1, whole_upd = {}, {}
+    for n in mom:
+        g = gather_full(mu1[n], mom[n], mesh)
+        u = gather_full(master[n] - _refine(p0[n], spec_of[n], mom[n], mesh),
+                        mom[n], mesh)
+        if rank == 0:
+            whole_mu1[n] = g.to("cpu", copy=True)
+            whole_upd[n] = u.to("cpu", copy=True)
+        del g, u
+    if rank == 0:
+        out["grad1_rel"] = _tree_rel(whole_mu1, single["mu1"])
+        out["update_rel"] = _tree_rel(whole_upd, single["update"])
+        out["loss_rels"] = [abs(a - b) / abs(b) for a, b in
+                            zip(out["losses"], single["losses"])]
+        out["norm_rels"] = [abs(a - b) / abs(b) for a, b in
+                            zip(out["norms"], single["norms"])]
+        out["single"] = {k: single[k] for k in ("losses", "norms",
+                                                "step_s")}
+    del model, params, opt, step, mu1, master, p0, whole_mu1, whole_upd
+    torch.cuda.empty_cache()
+    comm.barrier()
+    return out
+
+
 def mesh_phases_rank(rank, go_file: str, tmp: str) -> dict:
     """The mesh job: every rank waits for ``go_file`` (the main process
-    writes it once ``train_dlrm`` has freed the card), then the four
+    writes it once ``train_dlrm`` has freed the card), then the five
     phases one after another; rank 0 also runs the single-process sides.
     Returns this rank's numbers by phase."""
     import torch
@@ -7500,10 +7669,18 @@ def mesh_phases_rank(rank, go_file: str, tmp: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = rank_device()
     tmp = Path(tmp)
+    # a process's first torch.utils.checkpoint took about 10 s on the
+    # card's host (mesh_lm's first step): pay it on the CPU while the
+    # card is busy elsewhere
+    from torch.utils.checkpoint import checkpoint
+    t0 = time.perf_counter()
+    x = torch.ones(2, requires_grad=True)
+    checkpoint(torch.sin, x, use_reentrant=False).sum().backward()
+    warm_s = time.perf_counter() - t0
     while not Path(go_file).exists():
         time.sleep(0.1)
     t_go = time.perf_counter()
-    out = {}
+    out = {"checkpoint_warm_s": warm_s}
     # ---- mesh_dlrm --------------------------------------------------------
     single = None
     if rank == 0:
@@ -7550,6 +7727,16 @@ def mesh_phases_rank(rank, go_file: str, tmp: str) -> dict:
     t0 = time.perf_counter()
     out["mesh_gpipe"] = mesh_gpipe_rank(rank, dev)
     out["mesh_gpipe"]["seconds"] = time.perf_counter() - t0
+    # ---- mesh_lm ----------------------------------------------------------
+    t0 = time.perf_counter()
+    single = mesh_lm_single(dev) if rank == 0 else None
+    if single is not None:
+        mesh_log(rank, f"mesh_lm single process "
+                       f"{time.perf_counter() - t0:.1f} s")
+    comm.barrier()
+    out["mesh_lm"] = mesh_lm_rank(rank, dev, single)
+    out["mesh_lm"]["seconds"] = time.perf_counter() - t0
+    del single
     out["seconds"] = time.perf_counter() - t_go
     mesh_log(rank, f"mesh phases done in {out['seconds']:.1f} s")
     return out
@@ -7574,7 +7761,8 @@ def _over(reading: float, limit: float) -> bool:
 def mesh_phases(gpu: str, job) -> dict:
     """Phase 7d in the main process: joins the mesh job (let go once the
     card is free of ``train_dlrm``), prints ``mesh_dlrm``,
-    ``mesh_elastic``, ``mesh_moe`` and ``mesh_gpipe`` and holds their
+    ``mesh_elastic``, ``mesh_moe``, ``mesh_gpipe`` and ``mesh_lm`` and
+    holds their
     numbers (the DLRM's against ``MESH_DLRM_TOL``, each limit also below
     its planted faults' readings of this run).  Returns the bag kernels'
     launches on the mesh path (every rank's, ``mesh_dlrm``'s 3 steps)."""
@@ -7685,8 +7873,37 @@ def mesh_phases(gpu: str, job) -> dict:
         if _over(x, limit):
             raise AssertionError(f"mesh_elastic: step 4's {what} on 2 ranks "
                                  f"lies {x} from 4 ranks' (limit {limit})")
-    # ---- mesh_moe -----------------------------------------------------------
-    m0 = r0["mesh_moe"]
+    mesh_moe_check(gpu, d0["transport"], res)
+    # ---- mesh_gpipe ---------------------------------------------------------
+    g0 = r0["mesh_gpipe"]
+    n_layers, per, n_micro, S = MESH_GPIPE
+    line = {"phase": "mesh_gpipe", "gpu": gpu, "transport": d0["transport"],
+            "arch": "tinyllama-1.1b", "layers": n_layers,
+            "layers_a_stage": per, "stages": MESH_RANKS,
+            "microbatches": n_micro, "tokens_a_microbatch": S,
+            "bit_equal": g0["bit_equal"], "max_abs_err": g0["max_abs_err"],
+            "pipe_s": [r["mesh_gpipe"]["pipe_s"] for r in res],
+            "sequential_s": g0["sequential_s"],
+            "ppermute_bytes_by_rank": [r["mesh_gpipe"]["bytes"]["ppermute"]
+                                       for r in res],
+            "seconds": g0["seconds"]}
+    emit(line)
+    if not (g0["bit_equal"] and g0["finite"]):
+        raise AssertionError(f"mesh_gpipe: {line}")
+    mesh_lm_check(gpu, d0["transport"], res)
+    emit({"phase": "mesh_job", "gpu": gpu, "wall_s": wall,
+          "ranks_s": [r["seconds"] for r in res],
+          "checkpoint_warm_s": [r["checkpoint_warm_s"] for r in res]})
+    return {k: sum(r["mesh_dlrm"]["launches"][k] for r in res)
+            for k in ("embedding_bag_rows", "embedding_bag_backward")}
+
+
+def mesh_moe_check(gpu: str, transport: str, res: list) -> None:
+    """``mesh_moe``'s line, and its checks: DeepSeek-V2's own
+    ``moe_chunks``, no slot dropped, and each case's float32 logits
+    within ``MESH_MOE_TOL`` of the dense path's over the rows routed
+    alike (at least half of them)."""
+    m0 = res[0]["mesh_moe"]
     ref = m0["single"]
     rows_out = {}
     for shape, impl in MESH_MOE_CASES:
@@ -7719,14 +7936,18 @@ def mesh_phases(gpu: str, job) -> dict:
         row["psum_bytes_by_rank"] = [
             r["mesh_moe"][case]["f32"]["bytes"]["psum"] for r in res]
         rows_out[case] = row
-    line = {"phase": "mesh_moe", "gpu": gpu, "transport": d0["transport"],
+    line = {"phase": "mesh_moe", "gpu": gpu, "transport": transport,
             "arch": "deepseek-v2-236b", "layers": 2,
+            "moe_chunks": _moe_cfg().moe_chunks,
             "rows": MESH_MOE_ROWS, "seq": MESH_MOE_SEQ,
             "capacity_factor": MESH_MOE_CAPACITY, "cases": rows_out,
             "tolerance": f"f32 rel. L2 {MESH_MOE_TOL} over the rows whose "
                          "last token routed alike (at least half); bf16 "
                          "reported", "seconds": m0["seconds"]}
     emit(line)
+    if line["moe_chunks"] != MESH_MOE_CHUNKS:
+        raise AssertionError(f"mesh_moe: moe_chunks {line['moe_chunks']}, "
+                             f"DeepSeek-V2's own is {MESH_MOE_CHUNKS}")
     for case, row in rows_out.items():
         for dt in ("f32", "bf16"):
             if row[dt]["dropped"]:
@@ -7735,26 +7956,62 @@ def mesh_phases(gpu: str, job) -> dict:
         n, total = row["f32"]["rows_alike"]
         if 2 * n < total or not row["f32"]["rel_l2"] <= MESH_MOE_TOL:
             raise AssertionError(f"mesh_moe {case}: {row['f32']}")
-    # ---- mesh_gpipe ---------------------------------------------------------
-    g0 = r0["mesh_gpipe"]
-    n_layers, per, n_micro, S = MESH_GPIPE
-    line = {"phase": "mesh_gpipe", "gpu": gpu, "transport": d0["transport"],
+
+
+def mesh_lm_check(gpu: str, transport: str, res: list) -> None:
+    """``mesh_lm``'s line, and its checks: finite, every rank's metrics
+    alike, each step's collectives on every rank equal to the dry run's
+    recording of that rank's step (calls and bytes by kind), no leaf
+    gathered whole, and rank 0's readings against one process within
+    ``MESH_LM_TOL``."""
+    l0 = res[0]["mesh_lm"]
+    n_layers, rows, seq, steps = MESH_LM
+    tol = MESH_LM_TOL
+    line = {"phase": "mesh_lm", "gpu": gpu, "transport": transport,
             "arch": "tinyllama-1.1b", "layers": n_layers,
-            "layers_a_stage": per, "stages": MESH_RANKS,
-            "microbatches": n_micro, "tokens_a_microbatch": S,
-            "bit_equal": g0["bit_equal"], "max_abs_err": g0["max_abs_err"],
-            "pipe_s": [r["mesh_gpipe"]["pipe_s"] for r in res],
-            "sequential_s": g0["sequential_s"],
-            "ppermute_bytes_by_rank": [r["mesh_gpipe"]["bytes"]["ppermute"]
-                                       for r in res],
-            "seconds": g0["seconds"]}
+            "mesh": dict(zip(("data", "model"), MESH_LM_SHAPE)),
+            "rows": rows, "tokens_a_row": seq, "steps": steps,
+            "losses": l0["losses"], "grad_norms": l0["norms"],
+            "single_process": l0["single"],
+            "loss_rels": l0["loss_rels"], "norm_rels": l0["norm_rels"],
+            "grad1_rel": l0["grad1_rel"], "update_rel": l0["update_rel"],
+            "step_s_by_rank": [r["mesh_lm"]["step_s"] for r in res],
+            "bytes_a_step_by_rank": [
+                {k: c["bytes"] for k, c in r["mesh_lm"]["counters"][-1]
+                 .items() if c["calls"]} for r in res],
+            "calls_a_step_by_rank": [
+                {k: c["calls"] for k, c in r["mesh_lm"]["counters"][-1]
+                 .items() if c["calls"]} for r in res],
+            "record_s_by_rank": [r["mesh_lm"]["record_s"] for r in res],
+            "gathered_leaves": l0["gathered_leaves"],
+            "peak_bytes_by_rank": [r["mesh_lm"]["peak_bytes"] for r in res],
+            "tolerance": tol, "seconds": l0["seconds"]}
     emit(line)
-    if not (g0["bit_equal"] and g0["finite"]):
-        raise AssertionError(f"mesh_gpipe: {line}")
-    emit({"phase": "mesh_job", "gpu": gpu, "wall_s": wall,
-          "ranks_s": [r["seconds"] for r in res]})
-    return {k: sum(r["mesh_dlrm"]["launches"][k] for r in res)
-            for k in ("embedding_bag_rows", "embedding_bag_backward")}
+    if not all(math.isfinite(x) for x in l0["losses"] + l0["norms"]):
+        raise AssertionError(f"mesh_lm: non-finite {line}")
+    for r in res:
+        lm = r["mesh_lm"]
+        if lm["losses"] != l0["losses"] or lm["norms"] != l0["norms"]:
+            raise AssertionError(f"mesh_lm: ranks read different metrics "
+                                 f"{lm['losses']} vs {l0['losses']}")
+        for i, c in enumerate(lm["counters"]):
+            live = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                    for k, v in c.items()}
+            if live != lm["recorded"]:
+                raise AssertionError(f"mesh_lm: step {i + 1}'s collectives "
+                                     f"{live} differ from the dry run's "
+                                     f"recording {lm['recorded']}")
+    if l0["gathered_leaves"]:
+        raise AssertionError(f"mesh_lm: leaves gathered whole "
+                             f"{l0['gathered_leaves']}")
+    for what, x, limit in (("step 1's loss", l0["loss_rels"][0],
+                            tol["loss1"]),
+                           ("step 1's gradient", l0["grad1_rel"],
+                            tol["grad1"]),
+                           ("the update", l0["update_rel"], tol["update"])):
+        if _over(x, limit):
+            raise AssertionError(f"mesh_lm: {what} lies {x} from one "
+                                 f"process's (limit {limit})")
 
 
 def flash_grad_check(q, k, v, block: int) -> dict:

@@ -17,7 +17,23 @@ along ``axes`` and i this rank's index there:
   blocks received concatenated in sender order (``split_axis=0,
   concat_axis=0, tiled=True``);
 * ``ppermute(x, perm)``: ``x`` sent along each (source, destination) pair
-  of index pairs; a rank nothing is sent to gets zeros.
+  of index pairs; a rank nothing is sent to gets zeros;
+* ``pmax(x)``: the elementwise maximum over the group (no gradient).
+
+**Tensor-parallel entries** (Megatron-LM's conjugate operators):
+``tp_enter(x)`` is the identity forward and a ``psum`` backward (the "f"
+before a column-parallel product, whose input's gradient is partial on
+each rank); ``tp_enter(x, dim=d)`` all-gathers dim ``d`` forward and
+reduce-scatters it backward (sequence parallelism's entry);
+``tp_split(x, dim=d)`` keeps this rank's block of dim ``d`` forward and
+all-gathers it backward.
+
+**Recording.**  Under a ``RecordingMesh`` (rank i of an abstract mesh,
+no process group) every collective appends a ``Record`` (its kind as
+the compiled HLO names it, the bytes of this rank's input buffer and of
+its result, the group's size and the number of groups) and returns a
+tensor of the result's shape on the ``meta`` device: the dry run's
+record of one rank's traffic (``repro_torch.launch.dryrun``).
 
 **Transport.**  ``choose_backend(devices)`` follows the mesh's device
 list: NCCL when every rank owns a card of its own, ``gloo`` when ranks
@@ -35,19 +51,28 @@ device (``_to_wire`` / ``_from_wire``); the compute stays on the card.
 **Byte counters.**  Each call adds, under its kind, one call, the bytes
 of its input buffer (``bytes``: what a collective "of N bytes" means, as
 ``DLRMCommSpec`` counts) and the bytes this rank sends on a ring
-(``sent``: 2 (n - 1) / n of the buffer for ``psum``, (n - 1) / n for
-``psum_scatter`` and ``all_to_all``, (n - 1) x the block for
-``all_gather``, the buffer for each ``ppermute`` hop to another rank).
+(``sent``: 2 (n - 1) / n of the buffer for ``psum`` and ``pmax``,
+(n - 1) / n for ``psum_scatter`` and ``all_to_all``, (n - 1) x the block
+for ``all_gather``, the buffer for each ``ppermute`` hop to another
+rank).
 ``reset_counters`` and ``counters`` read them per rank.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 
 import torch
 import torch.distributed as dist
 
-KINDS = ("psum", "all_gather", "psum_scatter", "all_to_all", "ppermute")
+from repro_torch.common.sharding import Mesh
+
+KINDS = ("psum", "all_gather", "psum_scatter", "all_to_all", "ppermute",
+         "pmax")
+# the compiled HLO's name of each kind
+HLO_KINDS = {"psum": "all-reduce", "pmax": "all-reduce",
+             "all_gather": "all-gather", "psum_scatter": "reduce-scatter",
+             "all_to_all": "all-to-all", "ppermute": "collective-permute"}
 _COUNTS: dict = {}
 
 
@@ -65,11 +90,55 @@ def counters() -> dict:
     return {k: dict(v) for k, v in _COUNTS.items()}
 
 
-def _count(kind: str, x: torch.Tensor, sent: float) -> None:
+def _count(kind: str, x: torch.Tensor, sent: float, mesh=None, axes=(),
+           out_numel: int | None = None) -> bool:
+    """Counts one call; under a ``RecordingMesh`` also records it and
+    returns True (the caller then returns a ``meta`` result)."""
     c = _COUNTS[kind]
+    nbytes = x.numel() * x.element_size()
     c["calls"] += 1
-    c["bytes"] += x.numel() * x.element_size()
+    c["bytes"] += nbytes
     c["sent"] += int(round(sent))
+    if not isinstance(mesh, RecordingMesh):
+        return False
+    n = mesh.axis_size(axes)
+    out = x.numel() if out_numel is None else out_numel
+    mesh.records.append(Record(kind, tuple(axes), nbytes,
+                               out * x.element_size(), n, mesh.size // n))
+    return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Record:
+    """One collective as a recording mesh saw it on its rank."""
+    kind: str               # the port's kind (``KINDS``)
+    axes: tuple             # the mesh axes of its group
+    bytes: int              # this rank's input buffer
+    out_bytes: int          # this rank's result
+    group_size: int
+    n_groups: int
+
+    @property
+    def hlo_kind(self) -> str:
+        return HLO_KINDS[self.kind]
+
+
+class RecordingMesh(Mesh):
+    """Rank ``rank`` of the mesh ``sizes`` x ``axis_names`` with no
+    process: it reports itself live, and every collective over it is
+    appended to ``records`` and returns a ``meta`` tensor."""
+
+    def __init__(self, sizes, axis_names, rank: int = 0):
+        super().__init__(sizes, axis_names, rank=rank, backend="record",
+                         device="meta")
+        self.records: list = []
+
+    def __repr__(self) -> str:
+        return f"RecordingMesh({self.shape}, rank {self.rank})"
+
+
+def _meta(shape, x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=x.dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +181,6 @@ def build_groups(mesh_sizes: dict, global_ranks: tuple, backend: str,
     members of the mesh or not."""
     from itertools import combinations
 
-    from repro_torch.common.sharding import Mesh
     names = tuple(mesh_sizes)
     probe = Mesh(tuple(mesh_sizes.values()), names)
     me = dist.get_rank()
@@ -193,9 +261,24 @@ def _psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     n = mesh.axis_size(axes)
     if n == 1:
         return x
-    _count("psum", x, 2 * (n - 1) / n * x.numel() * x.element_size())
+    if _count("psum", x, 2 * (n - 1) / n * x.numel() * x.element_size(),
+              mesh, axes):
+        return _meta(x.shape, x)
     buf = _to_wire(x, mesh, "all_reduce", written=True)
     dist.all_reduce(buf, group=mesh.group(axes))
+    return _from_wire(buf, x)
+
+
+def _pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    axes = mesh.ordered(axes)
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    if _count("pmax", x, 2 * (n - 1) / n * x.numel() * x.element_size(),
+              mesh, axes):
+        return _meta(x.shape, x)
+    buf = _to_wire(x, mesh, "all_reduce", written=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.group(axes))
     return _from_wire(buf, x)
 
 
@@ -204,7 +287,11 @@ def _all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     n = mesh.axis_size(axes)
     if n == 1:
         return x
-    _count("all_gather", x, (n - 1) * x.numel() * x.element_size())
+    shape = list(x.shape)
+    shape[dim] *= n
+    if _count("all_gather", x, (n - 1) * x.numel() * x.element_size(), mesh,
+              axes, n * x.numel()):
+        return _meta(shape, x)
     op = "all_gather_into_tensor"
     src = _to_wire(x.movedim(dim, 0), mesh, op)
     out = _empty_wire((n * src.shape[0],) + tuple(src.shape[1:]), x, mesh,
@@ -221,7 +308,11 @@ def _psum_scatter(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     if x.shape[dim] % n:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
                          f"not split over {axes} ({n})")
-    _count("psum_scatter", x, (n - 1) / n * x.numel() * x.element_size())
+    shape = list(x.shape)
+    shape[dim] //= n
+    if _count("psum_scatter", x, (n - 1) / n * x.numel() * x.element_size(),
+              mesh, axes, x.numel() // n):
+        return _meta(shape, x)
     op = "reduce_scatter_tensor"
     src = _to_wire(x.movedim(dim, 0), mesh, op)
     out = _empty_wire((src.shape[0] // n,) + tuple(src.shape[1:]), x, mesh,
@@ -238,7 +329,9 @@ def _all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if x.shape[0] % n:
         raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does not "
                          f"split over {axes} ({n})")
-    _count("all_to_all", x, (n - 1) / n * x.numel() * x.element_size())
+    if _count("all_to_all", x, (n - 1) / n * x.numel() * x.element_size(),
+              mesh, axes):
+        return _meta(x.shape, x)
     src = _to_wire(x, mesh, "all_to_all_single")
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=mesh.group(axes))
@@ -253,6 +346,10 @@ def _ppermute(x: torch.Tensor, mesh, axes, perm) -> torch.Tensor:
     src = [s for s, d in perm if d == i]
     if len(dst) > 1 or len(src) > 1:
         raise ValueError(f"ppermute: {perm} is not a permutation")
+    if isinstance(mesh, RecordingMesh):
+        if dst and dst[0] != i:
+            _count("ppermute", x, x.numel() * x.element_size(), mesh, axes)
+        return _meta(x.shape, x)
     out = torch.zeros_like(x)
     ops = []
     buf = _to_wire(x, mesh, "batch_isend_irecv")
@@ -347,8 +444,76 @@ class _Ppermute(torch.autograd.Function):
             None, None
 
 
+class _TpEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _TpEnterGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_psum_scatter(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
+                None, None, None)
+
+
+class _TpSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
+                None, None, None)
+
+
+def _block(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {axes} ({n})")
+    k = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axes) * k, k)
+
+
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _Psum.apply(x, mesh, axes) if _ad(x) else _psum(x, mesh, axes)
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise maximum over the group, detached (its callers,
+    log-sum-exp's shift, need no gradient through it)."""
+    return _pmax(x.detach(), mesh, axes)
+
+
+def tp_enter(x: torch.Tensor, mesh, axes, dim: int | None = None):
+    """The entry of a tensor-parallel block: ``x`` as it is (``dim``
+    None) or all-gathered along ``dim``, whose gradient is summed (or
+    reduce-scattered along ``dim``) over ``axes`` in the backward."""
+    if dim is None:
+        return _TpEnter.apply(x, mesh, axes) if _ad(x) else x
+    if _ad(x):
+        return _TpEnterGather.apply(x, mesh, axes, dim)
+    return _all_gather(x, mesh, axes, dim)
+
+
+def tp_split(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (no traffic), whose
+    gradient is all-gathered over ``axes`` in the backward."""
+    return _TpSplit.apply(x, mesh, axes, dim) if _ad(x) else \
+        _block(x, mesh, axes, dim)
 
 
 def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:

@@ -49,11 +49,25 @@ frames, and the encoder's gradient is exactly 0.
 are the reference's, spec for spec (MoE configs under ``ep_a2a`` take
 ``moe_param_overrides``).  On a live mesh ``loss``, ``prefill`` and
 ``decode_step`` take this rank's shards of the parameters (the
-``param_specs`` layout) and its rows of the batch (``shard_batch``): every
-leaf is gathered whole for the compute, but the MoE experts' ``w1``,
-``w3``, ``w2``, which the mesh bodies read as shards (``models/moe.py``).
-A Megatron-style layout that keeps dense layers sharded through the
-compute is later work.
+``param_specs`` layout) and its rows of the batch (``shard_batch``), and
+keep as this rank's blocks over ``model`` the leaves the reference's
+GSPMD keeps sharded there (``tp_leaf``): the GQA mixers' ``wq``, ``wk``,
+``wv``, ``wo`` and every MLP's ``w1``, ``w3``, ``w2`` run
+tensor-parallel (``models/transformer.py``), ``embed`` and ``lm_head``
+vocab-parallel: a lookup reads zero outside the rank's vocab block and
+is summed over ``model``; the cross-entropy takes the maximum, the sum
+of exponentials and the target's logit over ``model``; ``prefill`` and
+``decode_step`` all-gather the logits' vocab at the end.  The MoE
+experts' ``w1``, ``w3``, ``w2`` are the mesh bodies' blocks
+(``models/moe.py``).  Every other leaf (MLA, Mamba-2, RWKV-6, the MoE's
+router and shared experts, Whisper's encoder) is gathered whole for the
+compute (``gathered_leaves``).  A decode cache on a live mesh is the
+rank's block under ``cache_rules`` (its rows, and its kv heads where
+``kv_heads`` splits over ``model``); a cache sharded along the sequence
+is not run on a live mesh.  With ``cfg.seq_parallel`` the training
+stack keeps the residual as this rank's slice of the sequence
+between blocks (the reference's constraint to ``P(batch, "model",
+None)``).
 """
 from __future__ import annotations
 
@@ -65,7 +79,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.precision import float32_reduction
 from repro_torch.common.pytree import (ParamDef, map_with_specs, materialize,
                                        specs_of, tree_leaves, tree_map)
-from repro_torch.common.sharding import MeshRules, P, gather_full
+from repro_torch.common import comm
+from repro_torch.common.sharding import MeshRules, P, gather_full, shard_shape
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -122,6 +138,7 @@ def _is_expert_leaf(path: tuple) -> bool:
 
 
 BODY_LEAVES = ("w1", "w3", "w2")
+TP_LEAVES = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w1", "w3", "w2")}
 
 
 class Model:
@@ -134,7 +151,9 @@ class Model:
         self.enc_groups = T.enc_groups(cfg) if cfg.enc_dec else []
         self.cfg = cfg
         self.mesh = mesh
-        self.device = resolve_device(device)
+        # "meta" traces shapes only (the dry run, launch/dryrun.py)
+        self.device = (torch.device("meta") if str(device) == "meta"
+                       else resolve_device(device))
         self.decode_impl = resolve_decode_impl(decode_impl, self.device)
         self.groups = T.build_groups(cfg)
         self.compute_dtype = torch.bfloat16
@@ -218,11 +237,49 @@ class Model:
     def _live(self) -> bool:
         return self.mesh is not None and self.mesh.is_live
 
+    def tp_leaf(self, path: tuple) -> bool:
+        """Whether the leaf at ``path`` runs tensor- or vocab-parallel on
+        a live mesh (kept as this rank's block over ``model``): ``embed``,
+        ``lm_head``, a GQA mixer's projections and an MLP's weights, the
+        encoder's excepted."""
+        if path[0] in ("embed", "lm_head"):
+            return len(path) == 1
+        if path[0] == "shared_block":
+            block = path[1]
+        elif path[0] == "groups":
+            kind = self.groups[int(path[1])].kinds[int(path[2][1:])]
+            block = path[3]
+            if block == "attn" and kind[0] not in T.TP_MIXERS:
+                return False
+        else:
+            return False
+        return path[-1] in TP_LEAVES.get(block, ()) and len(path) == (
+            3 if path[0] == "shared_block" else 5)
+
+    def mesh_local(self, path: tuple) -> bool:
+        """Whether the mesh step reads this leaf as this rank's block
+        (``tp_leaf``, and the MoE experts under a mesh body) rather than
+        whole."""
+        return self.tp_leaf(path) or (MOE.uses_mesh(self.cfg, self.mesh)
+                                      and _is_expert_leaf(path))
+
+    def gathered_leaves(self) -> list:
+        """The dot paths of the leaves a rank gathers whole on a mesh
+        (every one its spec shards)."""
+        out = []
+
+        def one(node, spec, path):
+            if spec.used_axes() and not self.mesh_local(path):
+                out.append(".".join(path))
+            return node
+        map_with_specs(one, self.param_defs(), self.param_specs())
+        return out
+
     def compute_params(self, params):
-        """The tree the layers read: on a live mesh every leaf gathered
-        whole from this rank's shard (the MoE experts' ``w1``/``w3``/``w2``
-        kept as shards, checked against their mesh body's layout);
-        ``params`` itself otherwise."""
+        """The tree the layers read: on a live mesh this rank's blocks of
+        the ``mesh_local`` leaves (the MoE experts checked against their
+        mesh body's layout) and every other leaf gathered whole from this
+        rank's shard; ``params`` itself otherwise."""
         if not self._live():
             return params
         specs = self.param_specs()
@@ -236,24 +293,59 @@ class Model:
                     raise ValueError(f"{'.'.join(path)}: spec {spec}, the "
                                      f"{self.cfg.moe_impl} body reads {want}")
                 return node
+            if self.tp_leaf(path):
+                if any(a != "model" for a in spec.used_axes()):
+                    raise ValueError(f"{'.'.join(path)}: spec {spec}, a "
+                                     "tensor-parallel leaf splits over "
+                                     "model only")
+                return node
             return gather_full(node, spec, self.mesh)
         return map_with_specs(one, params, specs)
 
+    def _tp(self, mode: str = "prefill"):
+        """The ``TP`` of this model's live mesh (None without a ``model``
+        axis), sequence-parallel in training under ``cfg.seq_parallel``."""
+        seq = mode == "train" and self.cfg.seq_parallel
+        tp = T.tp_of(self.mesh if self._live() else None, seq)
+        if tp is not None and seq:
+            T.check_seq_parallel(self.cfg, self.groups)
+        return tp
+
     # -------------------------------------------------------------- plumbing
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, tp: T.TP | None = None):
+        """The tokens' embeddings; with ``embed`` split over ``model``
+        (``tp``), each rank looks up its vocab block (zero outside it)
+        and the lookups are summed (one term a token is not zero: exact)."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(self.compute_dtype)
+        w = params["embed"]
+        if tp is not None and w.shape[0] < cfg.vocab:
+            n = w.shape[0]
+            local = tokens - tp.i * n
+            inside = ((local >= 0) & (local < n))[..., None]
+            x = (w[local.clamp(0, n - 1)] * inside.to(w.dtype)).to(
+                self.compute_dtype)
+            x = comm.psum(x, tp.mesh, "model")
+        else:
+            x = w[tokens].to(self.compute_dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model),
                                  dtype=self.compute_dtype, device=x.device)
         return x
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, tp: T.TP | None = None):
+        """The logits of ``x``: under ``tp`` with the vocab split, this
+        rank's vocab block of them (``x`` entering a column-parallel
+        product; all-gathered along the sequence first under ``tp.seq``)."""
         cfg = self.cfg
         if cfg.tie_embeddings:
             w = params["embed"].to(x.dtype).float().T
         else:
             w = params["lm_head"].to(x.dtype).float()
+        if tp is not None:
+            if w.shape[1] < cfg.vocab:
+                x = tp.enter(x, True)
+            elif tp.seq:
+                x = comm.all_gather(x, tp.mesh, "model", dim=1)
         logits = torch.matmul(x.float(), w)
         if cfg.tie_embeddings and cfg.embed_scale:
             logits = logits / math.sqrt(cfg.d_model)
@@ -261,12 +353,21 @@ class Model:
             logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
         return logits
 
+    def _whole_vocab(self, logits, tp: T.TP | None):
+        """The logits over the whole vocab (an all-gather of the blocks
+        where ``tp`` splits it)."""
+        if tp is None or logits.shape[-1] == self.cfg.vocab:
+            return logits
+        return comm.all_gather(logits, tp.mesh, "model", dim=logits.dim() - 1)
+
     def _run_groups(self, params, x, *, mode, caches, positions,
                     decode: T.DecodeStep | None = None, prefix_len: int = 0,
-                    enc_out=None, encoder: bool = False):
+                    enc_out=None, encoder: bool = False,
+                    tp: T.TP | None = None):
         """Every layer in order (the encoder's, ``params["enc_groups"]``,
         with ``encoder``); ``caches`` (the stacked cache tree) is written
-        in place; a shared block takes ``params["shared_block"]``.  In
+        in place; a shared block takes ``params["shared_block"]``; the
+        decoder's GQA and MLP layers run over ``tp`` where given.  In
         ``mode="train"`` there is no cache, and where autograd records the
         stack (grad mode on, and the input or a weight requiring grad)
         each period (one index of a group's stack, all its sub-layers) is
@@ -293,7 +394,8 @@ class Model:
                                             shared_params=shared,
                                             mesh=self.mesh,
                                             prefix_len=prefix_len,
-                                            enc_out=enc_out)
+                                            enc_out=enc_out,
+                                            tp=None if encoder else tp)
                     return x
                 if remat:
                     x = checkpoint(period, x, use_reentrant=False)
@@ -310,13 +412,13 @@ class Model:
         return torch.as_tensor(batch[name], device=self.device).to(
             self.compute_dtype)
 
-    def _inputs(self, params, batch):
+    def _inputs(self, params, batch, tp: T.TP | None = None):
         """The decoder's input embeddings of ``batch``: the image prefix
         before the text's (VLM), the sinusoidal positions added (encoder-
         decoder); and (tokens, x, prefix_len, enc_out)."""
         cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, tp)
         prefix_len, enc_out = 0, None
         if cfg.vlm_prefix_len:
             x = torch.cat([self._extra(batch, "img"), x], dim=1)
@@ -356,12 +458,6 @@ class Model:
         encoder-decoder's ``frames`` (see the module docstring)."""
         return self._loss(self.compute_params(params), batch)
 
-    def mesh_local(self, path: tuple) -> bool:
-        """Whether the mesh step hands ``mesh_loss`` this leaf as this
-        rank's block (the MoE experts under a mesh body) rather than
-        whole."""
-        return MOE.uses_mesh(self.cfg, self.mesh) and _is_expert_leaf(path)
-
     def mesh_loss(self, params, batch) -> torch.Tensor:
         """This rank's share of the global batch's loss (the shares sum,
         over the batch axes, to ``loss`` of the whole batch when every
@@ -385,15 +481,19 @@ class Model:
 
     def _loss(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
+        tp = self._tp("train")
         with float32_reduction():
-            tokens, x, prefix_len, enc_out = self._inputs(params, batch)
+            tokens, x, prefix_len, enc_out = self._inputs(params, batch, tp)
             B, S = x.shape[:2]
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
+            if tp is not None and tp.seq:
+                x = comm.tp_split(x, tp.mesh, "model", dim=1)
             x = self._run_groups(params, x, mode="train", caches=None,
                                  positions=positions, prefix_len=prefix_len,
-                                 enc_out=enc_out)
-            x = _norm_apply(cfg, params["final_norm"], x)
-            logits = self._logits(params, x)
+                                 enc_out=enc_out, tp=tp)
+            x = (_norm_apply(cfg, params["final_norm"], x) if tp is None
+                 else tp.norm(cfg, params["final_norm"], x))
+            logits = self._logits(params, x, tp)
             if cfg.vlm_prefix_len:
                 logits = logits[:, cfg.vlm_prefix_len:]
             tgt = tokens[:, 1:]
@@ -402,10 +502,26 @@ class Model:
             mask = (torch.ones(tgt.shape, device=self.device) if mask is None
                     else torch.as_tensor(mask, device=self.device)[:, 1:]
                     .float())
-            lse = torch.logsumexp(lg, dim=-1)
-            picked = torch.take_along_dim(lg, tgt[..., None], dim=-1)[..., 0]
-            nll = (lse - picked) * mask
+            nll = self._nll(lg, tgt, tp) * mask
             return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+
+    def _nll(self, lg, tgt, tp: T.TP | None):
+        """-log p(target) at each position from float32 logits over the
+        vocab or, under ``tp`` with the vocab split, this rank's block of
+        it: the maximum (no gradient: log-sum-exp's shift), the sum of
+        exponentials and the target's logit taken over ``model``."""
+        if tp is None or lg.shape[-1] == self.cfg.vocab:
+            lse = torch.logsumexp(lg, dim=-1)
+            return lse - torch.take_along_dim(lg, tgt[..., None],
+                                              dim=-1)[..., 0]
+        n = lg.shape[-1]
+        m = comm.pmax(lg.amax(-1), tp.mesh, "model")
+        se = comm.psum(torch.exp(lg - m[..., None]).sum(-1), tp.mesh, "model")
+        local = tgt - tp.i * n
+        inside = (local >= 0) & (local < n)
+        mine = torch.take_along_dim(lg, local.clamp(0, n - 1)[..., None],
+                                    dim=-1)[..., 0] * inside
+        return torch.log(se) + m - comm.psum(mine, tp.mesh, "model")
 
     # ------------------------------------------------------------------ serve
     def cache_defs(self, batch: int, max_len: int):
@@ -425,10 +541,16 @@ class Model:
         layer's K/V of ``max_len`` positions (int8 with scales under
         ``kv_quant_int8``), a local layer's a ring of ``min(window,
         max_len)``, MLA's latent of ``max_len``, and the Mamba-2 and
-        RWKV-6 recurrent states."""
-        defs = self.cache_defs(batch, max_len)
-        return {"layers": materialize(defs["layers"], None, self.device),
-                "pos": 0}
+        RWKV-6 recurrent states.  On a live mesh, ``batch`` rows of this
+        rank's block (``cache_block_shape``)."""
+        defs = self.cache_defs(batch, max_len)["layers"]
+        if self._live():
+            rules = self.cache_rules(_BATCH_CACHE)
+            defs = tree_map(lambda d: ParamDef(
+                cache_block_shape(d, rules.pspec(d.axes, d.shape), self.mesh,
+                                  cut_batch=False), d.axes, init=d.init,
+                dtype=d.dtype), defs)
+        return {"layers": materialize(defs, None, self.device), "pos": 0}
 
     def prefill(self, params, batch, max_len: int | None = None,
                 all_logits: bool = False):
@@ -441,19 +563,22 @@ class Model:
         place (a teacher-forced yardstick for the decode steps; a VLM's
         prefix positions included)."""
         params = self.compute_params(params)
+        tp = self._tp()
         with float32_reduction():
-            _, x, prefix_len, enc_out = self._inputs(params, batch)
+            _, x, prefix_len, enc_out = self._inputs(params, batch, tp)
             B, S = x.shape[:2]
             max_len = max_len or S
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
             cache = self.init_cache(B, max_len)
             x = self._run_groups(params, x, mode="prefill",
                                  caches=cache["layers"], positions=positions,
-                                 prefix_len=prefix_len, enc_out=enc_out)
+                                 prefix_len=prefix_len, enc_out=enc_out,
+                                 tp=tp)
             x = _norm_apply(self.cfg, params["final_norm"], x)
-            logits = (self._logits(params, x) if all_logits
-                      else self._logits(params, x[:, -1:])[:, 0])
-            return logits, {"layers": cache["layers"], "pos": S}
+            logits = (self._logits(params, x, tp) if all_logits
+                      else self._logits(params, x[:, -1:], tp)[:, 0])
+            return (self._whole_vocab(logits, tp),
+                    {"layers": cache["layers"], "pos": S})
 
     def decode_step(self, params, cache, tokens, decode_impl: str | None = None):
         """tokens (B, 1) at position ``cache["pos"]``.  Returns (logits
@@ -463,11 +588,12 @@ class Model:
         impl = resolve_decode_impl(decode_impl or self.decode_impl,
                                    self.device)
         params = self.compute_params(params)
+        tp = self._tp()
         with float32_reduction():
             tokens = self._tokens(tokens)
             B = tokens.shape[0]
             pos = cache["pos"]
-            x = self._embed(params, tokens)
+            x = self._embed(params, tokens, tp)
             if self.cfg.enc_dec:
                 x = x + L.sinusoidal_at(pos, self.cfg.d_model,
                                         device=self.device).to(x.dtype)
@@ -475,7 +601,31 @@ class Model:
             x = self._run_groups(params, x, mode="decode",
                                  caches=cache["layers"], positions=positions,
                                  decode=T.DecodeStep(pos, impl, B,
-                                                     self.device))
+                                                     self.device), tp=tp)
             x = _norm_apply(self.cfg, params["final_norm"], x)
-            logits = self._logits(params, x)[:, 0]
-            return logits, {"layers": cache["layers"], "pos": pos + 1}
+            logits = self._logits(params, x, tp)[:, 0]
+            return (self._whole_vocab(logits, tp),
+                    {"layers": cache["layers"], "pos": pos + 1})
+
+
+# a decode cache split by batch rows (``cache_rules``' default cell)
+_BATCH_CACHE = ShapeConfig("batch_cache", seq_len=1, global_batch=1,
+                           kind="decode", cache_shard="batch")
+
+
+def cache_block_shape(d: ParamDef, spec, mesh, cut_batch: bool = True):
+    """The shape of a rank's block of the cache leaf ``d`` under ``spec``
+    as the port's layers read it: its kv heads where they split over
+    ``model``, its rows (``cut_batch``) where they split over the batch
+    axes; MLA's latent whole (MLA runs on gathered weights).  A cache
+    split along the sequence raises: no layer reads one."""
+    local = list(shard_shape(d.shape, spec, mesh))
+    for i, ax in enumerate(d.axes):
+        if ax == "seq" and spec.axes(i):
+            raise NotImplementedError(
+                f"a decode cache split along the sequence over "
+                f"{spec.axes(i)}: the port's decode reads whole sequences")
+        if ax not in ("kv_heads", "batch") or (ax == "batch"
+                                                and not cut_batch):
+            local[i] = d.shape[i]
+    return tuple(local)

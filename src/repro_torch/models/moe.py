@@ -27,10 +27,14 @@ mesh bodies add the slots they drop (at dispatch and, under ``ep_a2a``,
 at the receiving rank's expert buffers) to ``d``, on the device; outside
 one they count nothing.
 
-One departure: ``cfg.moe_chunks`` splits each rank's own tokens on a
-mesh, where the reference splits the global token array and each chunk
-then over the ranks.  Without drops the two compute the same function;
-with drops, only ``moe_chunks=1`` drops exactly the reference's slots.
+``cfg.moe_chunks`` splits the tokens as the reference does: the count
+halves until it divides the global tokens and a chunk divides over the
+batch axes; chunk c of the global token array is split over the batch
+axes, so the rank at batch index r holds its global rows ``c T / n + r T
+/ (n R) + [0, T / (n R))``.  A rank holds the contiguous global rows
+``r T / R + [0, T / R)``, so this is a fixed permutation of rows over
+the batch axes: one ``all_to_all`` before the chunks and its inverse
+after (``_to_chunks``, ``_from_chunks``).
 
 No kernel: the reference runs the MoE as plain array code (no Pallas
 kernel reaches it).
@@ -44,6 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.common import comm
 from repro_torch.common.pytree import ParamDef
+from repro_torch.common.sharding import BATCH_AXES
 from repro_torch.models.layers import silu
 
 _DROPS: contextvars.ContextVar = contextvars.ContextVar("moe_drops",
@@ -144,8 +149,11 @@ def _scatter_slots(x, idx2d, pos2d, kept2d, n_buckets: int, cap: int):
     for j in range(idx2d.shape[1]):
         e, pos = idx2d[:, j].long(), pos2d[:, j].long()
         inside = (e >= 0) & (e < n_buckets) & (pos >= 0) & (pos < cap)
-        rows = x * kept2d[:, j, None].to(x.dtype)
-        buf.index_put_((e[inside], pos[inside]), rows[inside], accumulate=True)
+        rows = x * (kept2d[:, j] & inside)[:, None].to(x.dtype)
+        # a row outside adds zeros to a clamped slot: no shape that
+        # depends on the data (the dry run traces this on ``meta``)
+        buf.index_put_((e.clamp(0, n_buckets - 1), pos.clamp(0, cap - 1)),
+                       rows, accumulate=True)
     return buf
 
 
@@ -207,8 +215,8 @@ def _add_meta(meta, dst, pos, vals):
     dropped."""
     n, cap = meta.shape
     inside = (dst >= 0) & (dst < n) & (pos >= 0) & (pos < cap)
-    meta.index_put_((dst[inside].long(), pos[inside].long()),
-                    vals[inside].to(meta.dtype), accumulate=True)
+    meta.index_put_((dst.long().clamp(0, n - 1), pos.long().clamp(0, cap - 1)),
+                    (vals * inside).to(meta.dtype), accumulate=True)
 
 
 def _moe_ep_local(router_w, w1, w3, w2, x, *, cfg, n_data, mesh):
@@ -257,17 +265,83 @@ def _moe_ep_local(router_w, w1, w3, w2, x, *, cfg, n_data, mesh):
 # public entry
 # ---------------------------------------------------------------------------
 
-def _moe_chunked(fn, x2d, cfg):
-    """Tokens through ``fn`` in ``cfg.moe_chunks`` microchunks, to bound
-    the dispatch buffers; the count halves until it divides the tokens
-    (on a mesh: this rank's tokens, so every rank runs as many chunks)."""
+def _batch_axes(mesh) -> tuple:
+    return tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+
+
+def _n_chunks(cfg, T: int, shards: int) -> int:
+    """``cfg.moe_chunks`` halved until it divides the ``T`` tokens into
+    chunks that divide over ``shards`` ranks (the reference's rule)."""
     n = cfg.moe_chunks
-    T = x2d.shape[0]
-    while n > 1 and T % n != 0:
+    while n > 1 and (T % n != 0 or (T // n) % shards != 0):
         n //= 2
+    return n
+
+
+def _chunk_plan(n: int, R: int, r: int) -> tuple:
+    """Blocks of t = T / (n R) rows: this rank's block j (global block r n
+    + j) goes to rank (r n + j) % R as its chunk (r n + j) // R.  Returns
+    (the slots a destination's buffer holds from each rank, [(destination,
+    slot) for each block j])."""
+    def slots(q):
+        return [((q * n + j) % R, (q * n + j) // R - (q * n) // R)
+                for j in range(n)]
+    per = 1 + max(s for q in range(R) for _, s in slots(q))
+    return per, slots(r)
+
+
+def _to_chunks(x2d, n: int, mesh, axes):
+    """This rank's rows (R shards of the global tokens) -> its rows of
+    each of the ``n`` chunks (n, T / (n R), D): one ``all_to_all`` over
+    ``axes``, a destination's blocks from each rank in ``per`` slots (n /
+    R of them where R divides n; 1 where n divides R, the other ranks'
+    slots zeros: R / n times the rows' bytes)."""
+    R = mesh.axis_size(axes)
+    r = mesh.axis_index(axes)
+    t = x2d.shape[0] // n
+    per, dest = _chunk_plan(n, R, r)
+    send = x2d.new_zeros((R, per, t, x2d.shape[-1]))
+    for j, (d, slot) in enumerate(dest):
+        send[d, slot] = x2d[j * t:(j + 1) * t]
+    recv = comm.all_to_all(send.reshape(R * per, t, -1), mesh, axes)
+    recv = recv.reshape(R, per, t, -1)
+    out = []
+    for c in range(n):
+        b = c * R + r                     # the global block of chunk c here
+        src, j = divmod(b, n)
+        out.append(recv[src, _chunk_plan(n, R, src)[1][j][1]])
+    return torch.stack(out)
+
+
+def _from_chunks(y, n: int, mesh, axes):
+    """The inverse of ``_to_chunks``: (n, t, D) -> this rank's rows."""
+    R = mesh.axis_size(axes)
+    r = mesh.axis_index(axes)
+    t = y.shape[1]
+    per, dest = _chunk_plan(n, R, r)
+    send = y.new_zeros((R, per, t, y.shape[-1]))
+    for c in range(n):
+        src, j = divmod(c * R + r, n)
+        send[src, _chunk_plan(n, R, src)[1][j][1]] = y[c]
+    back = comm.all_to_all(send.reshape(R * per, t, -1), mesh, axes)
+    back = back.reshape(R, per, t, -1)
+    return torch.cat([back[d, slot] for d, slot in dest])
+
+
+def _moe_chunked(fn, x2d, cfg, mesh=None):
+    """Tokens through ``fn`` in ``cfg.moe_chunks`` microchunks, to bound
+    the dispatch buffers; without a mesh body, this process's tokens in
+    order, with one, the global tokens split as the reference splits them
+    (the module docstring)."""
+    axes = () if mesh is None else _batch_axes(mesh)
+    R = mesh.axis_size(axes) if axes else 1
+    n = _n_chunks(cfg, x2d.shape[0] * R, R)
     if n <= 1:
         return fn(x2d)
-    return torch.cat([fn(xc) for xc in x2d.reshape(n, T // n, -1)])
+    if R == 1:
+        return torch.cat([fn(xc) for xc in x2d.reshape(n, -1, x2d.shape[-1])])
+    xc = _to_chunks(x2d, n, mesh, axes)
+    return _from_chunks(torch.stack([fn(c) for c in xc]), n, mesh, axes)
 
 
 # the layout each mesh body reads its expert weights in (leading layers
@@ -302,13 +376,13 @@ def moe_apply(p, x2d, cfg, mesh=None):
             return _moe_tp_local(p["router"], p["w1"], p["w3"], p["w2"], xs,
                                  cfg=cfg, n_model=mesh.shape["model"],
                                  mesh=mesh)
-        routed = _moe_chunked(fn, x2d, cfg)
+        routed = _moe_chunked(fn, x2d, cfg, mesh)
     else:
         def fn(xs):
             return _moe_ep_local(p["router"], p["w1"], p["w3"], p["w2"], xs,
                                  cfg=cfg, n_data=mesh.shape["data"],
                                  mesh=mesh)
-        routed = _moe_chunked(fn, x2d, cfg)
+        routed = _moe_chunked(fn, x2d, cfg, mesh)
     if cfg.n_shared_experts:
         routed = routed + _shared_ffn(p["shared"], x2d)
     return routed

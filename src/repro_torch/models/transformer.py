@@ -46,6 +46,24 @@ backward recomputes the probabilities, as in the reference.  The cache
 and state writes below happen only with a cache, never on the train
 path.
 
+**Tensor parallelism** (``TP``, on a live mesh with a ``model`` axis, as
+the reference's GSPMD lays these layers out): a GQA mixer and an MLP take
+their weights as this rank's blocks over ``model`` (``heads``,
+``kv_heads``, ``mlp``), Megatron-style.  Attention runs this rank's q
+heads against the kv heads they read (where ``kv_heads`` stays
+replicated, every rank projects every kv head and selects ``h // G`` for
+its q heads), ``wo`` gives a partial sum; the MLP's ``w1``/``w3`` are
+column-parallel and ``w2`` row-parallel.  A block is entered through
+``comm.tp_enter`` (its gradient summed over ``model``) and left through
+a ``psum``; a replicated weight that the block reads on a part of the
+work (q/k-norm, replicated ``wk``/``wv``, and every norm under sequence
+parallelism) is read through ``tp_enter`` too, so its gradient is whole
+on every rank.  With ``TP.seq`` (``cfg.seq_parallel`` in training) the
+residual between blocks is this rank's ``S / model`` slice of the
+sequence: a block enters by an all-gather along the sequence and leaves
+by a reduce-scatter.  A weight whose dim does not divide over ``model``
+stays whole (``MeshRules``), and its block runs replicated.
+
 Decode attention of the GQA layers runs through ``decode_impl``:
 ``"torch"`` is the port of ``layers.decode_attention``,
 ``decode_attention_quant`` and ``_ring_decode`` (the reference's serving
@@ -66,6 +84,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import comm
 from repro_torch.common.pytree import ParamDef, tree_map
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.models import layers as L
@@ -164,6 +183,76 @@ def mlp_defs(cfg) -> dict:
     if cfg.mlp_kind in ("swiglu", "geglu"):
         d["w3"] = ParamDef((D, Fd), ("embed", "mlp"), init="scaled")
     return d
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """The ``model`` axis of a live mesh that the dense layers are split
+    over (``n`` ranks, this one ``i``); ``seq``: sequence parallelism."""
+    mesh: object
+    n: int
+    i: int
+    seq: bool = False
+
+    def rep(self, w: torch.Tensor) -> torch.Tensor:
+        """A replicated weight read on a part of the work: its gradient
+        is summed over ``model``."""
+        return comm.tp_enter(w, self.mesh, "model")
+
+    def enter(self, h: torch.Tensor, split: bool) -> torch.Tensor:
+        """A block's input: all-gathered along the sequence under
+        ``seq``; into a split block through ``tp_enter``."""
+        if self.seq:
+            return comm.tp_enter(h, self.mesh, "model", dim=1)
+        return comm.tp_enter(h, self.mesh, "model") if split else h
+
+    def leave(self, o: torch.Tensor, split: bool) -> torch.Tensor:
+        """A block's output: the partial sums of a split block reduced
+        (scattered along the sequence under ``seq``), a replicated
+        block's output cut to this rank's slice under ``seq``."""
+        if split:
+            return (comm.psum_scatter(o, self.mesh, "model", dim=1)
+                    if self.seq else comm.psum(o, self.mesh, "model"))
+        if self.seq:
+            k = o.shape[1] // self.n
+            return o.narrow(1, self.i * k, k)
+        return o
+
+    def norm(self, cfg, p, x):
+        """A norm of the residual: its scale read on this rank's slice
+        under ``seq``."""
+        if self.seq:
+            p = tree_map(self.rep, p)
+        return _norm_apply(cfg, p, x)
+
+
+TP_MIXERS = ("gqa_g", "gqa_l", "shared_gqa")
+
+
+def _tp_block(tp: TP | None, p: dict, split: bool) -> dict:
+    """A block's weights; under ``seq`` a replicated block keeps only its
+    slice's outputs, so its weights are read through ``tp.rep``."""
+    if tp is not None and tp.seq and not split:
+        return tree_map(tp.rep, p)
+    return p
+
+
+def tp_of(mesh, seq: bool = False) -> TP | None:
+    """The ``TP`` of a live mesh whose ``model`` axis is larger than 1;
+    None otherwise."""
+    if mesh is None or not mesh.is_live or mesh.shape.get("model", 1) == 1:
+        return None
+    return TP(mesh, mesh.shape["model"], mesh.axis_index("model"), seq)
+
+
+def check_seq_parallel(cfg, groups) -> None:
+    """Sequence parallelism covers the tensor-parallel kinds only."""
+    bad = sorted({str(k) for g in groups for k in g.kinds
+                  if k[0] not in TP_MIXERS or k[1] != "mlp"})
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: seq_parallel on a mesh runs the GQA and MLP "
+            f"layers only, not {', '.join(bad)}")
 
 
 def mlp_apply(cfg, p, x):
@@ -325,13 +414,40 @@ def _ring_decode(q, kc, vc, pos: int, Wr: int, softcap):
     return o.reshape(B, 1, Hq, Dh)
 
 
+def _tp_heads(cfg, p, tp: TP | None):
+    """(``p`` with the replicated weights a split attention reads on a
+    part of its heads through ``tp.rep``, the kv heads' selector): the
+    selector maps the kv heads a rank holds (every one, where
+    ``kv_heads`` stays replicated) to the ones its q heads read."""
+    hq = p["wq"].shape[-2]
+    if tp is None or hq == cfg.n_heads:
+        return p, None
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = tree_map(tp.rep, p[name])
+    if p["wk"].shape[-2] < cfg.n_kv_heads:
+        return p, None
+    p["wk"], p["wv"] = tp.rep(p["wk"]), tp.rep(p["wv"])
+    G = cfg.n_heads // cfg.n_kv_heads
+    idx = torch.arange(tp.i * hq, (tp.i + 1) * hq,
+                       device=p["wq"].device) // G
+    return p, idx
+
+
 def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
-                theta, prefix_len: int = 0, decode: DecodeStep | None = None):
+                theta, prefix_len: int = 0, decode: DecodeStep | None = None,
+                tp: TP | None = None):
     """Causal GQA, global or over ``cfg.window`` (``local``, ring cache);
     in train and prefill every query also sees the first ``prefix_len``
-    positions (the VLM's prefix-LM).  Returns (out, cache); the cache is
-    written in place."""
+    positions (the VLM's prefix-LM).  Under ``tp`` with the heads split,
+    this rank's heads (``_tp_heads``), the output a partial sum.  Returns
+    (out, cache); the cache is written in place."""
     S = x.shape[1]
+    p, idx = _tp_heads(cfg, p, tp)
+
+    def sel(t):          # the kv heads this rank's q heads read (dim 2)
+        return t if idx is None else t.index_select(2, idx.to(t.device))
     q, k, v = L.gqa_project(p, x, cfg, positions, theta)
     W = cfg.window
     if mode == "decode":
@@ -344,10 +460,11 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
             vc[:, slot] = v[:, 0].to(vc.dtype)
             n = min(pos0 + 1, Wr)
             if decode.impl == "cuda":
-                o = fd_ops.gqa_decode_attention(q, kc, vc, decode.length(n),
+                o = fd_ops.gqa_decode_attention(q, sel(kc), sel(vc),
+                                                decode.length(n),
                                                 max_length=n, softcap=softcap)
             else:
-                o = _ring_decode(q, kc, vc, pos0, Wr, softcap)
+                o = _ring_decode(q, sel(kc), sel(vc), pos0, Wr, softcap)
             return L.gqa_out(p, o, x.dtype), cache
         if not 0 <= pos0 < kc.shape[1]:
             raise ValueError(f"decode position {pos0} outside the cache of "
@@ -358,35 +475,38 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
             vc[:, pos0], vsc[:, pos0] = (t[:, 0] for t in L.quantize_kv(v))
             if decode.impl == "cuda":
                 o = fd_ops.gqa_decode_attention(
-                    q, kc, vc, decode.length(pos0 + 1), max_length=pos0 + 1,
-                    softcap=softcap, k_scale=ksc, v_scale=vsc)
+                    q, sel(kc), sel(vc), decode.length(pos0 + 1),
+                    max_length=pos0 + 1, softcap=softcap, k_scale=sel(ksc),
+                    v_scale=sel(vsc))
             else:
-                o = L.decode_attention_quant(q, kc, vc, ksc, vsc,
-                                             length=pos0 + 1, softcap=softcap)
+                o = L.decode_attention_quant(q, sel(kc), sel(vc), sel(ksc),
+                                             sel(vsc), length=pos0 + 1,
+                                             softcap=softcap)
             return L.gqa_out(p, o, x.dtype), cache
         kc[:, pos0] = k[:, 0].to(kc.dtype)
         vc[:, pos0] = v[:, 0].to(vc.dtype)
         if decode.impl == "cuda":
-            o = fd_ops.gqa_decode_attention(q, kc, vc,
+            o = fd_ops.gqa_decode_attention(q, sel(kc), sel(vc),
                                             decode.length(pos0 + 1),
                                             max_length=pos0 + 1,
                                             softcap=softcap)
         else:
-            o = L.decode_attention(q, kc, vc, length=pos0 + 1,
+            o = L.decode_attention(q, sel(kc), sel(vc), length=pos0 + 1,
                                    softcap=softcap)
         return L.gqa_out(p, o, x.dtype), cache
 
     # train / prefill
+    ka, va = sel(k), sel(v)
     if local and W is not None and S > W:
-        o = L.local_attention(q, k, v, window=W, softcap=softcap)
+        o = L.local_attention(q, ka, va, window=W, softcap=softcap)
     elif S <= 1024:
-        o = L.dense_attention(q, k, v, causal=True,
+        o = L.dense_attention(q, ka, va, causal=True,
                               window=W if local else None, softcap=softcap,
                               prefix_len=prefix_len)
     elif cfg.flash_attention and softcap is None and prefix_len == 0:
-        o = flash_attention(q, k, v, True, cfg.block_q, cfg.block_k)
+        o = flash_attention(q, ka, va, True, cfg.block_q, cfg.block_k)
     else:
-        o = L.blockwise_attention(q, k, v, causal=True, softcap=softcap,
+        o = L.blockwise_attention(q, ka, va, causal=True, softcap=softcap,
                                   prefix_len=prefix_len, block_q=cfg.block_q,
                                   block_k=cfg.block_k)
     if cache is not None:
@@ -443,29 +563,41 @@ def _cross_attend(p, h, *, mode, cache, enc_out):
 
 def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
                  decode: DecodeStep | None = None, shared_params=None,
-                 mesh=None, prefix_len: int = 0, enc_out=None):
+                 mesh=None, prefix_len: int = 0, enc_out=None,
+                 tp: TP | None = None):
     """One sub-layer of a kind of ``SUPPORTED_KINDS`` (``check_supported``
     has vetted the config); a local layer takes ``rope_theta_local``
     where the config sets one, a shared block ``shared_params``, a MoE
     FFN ``mesh`` (the reference's ``models/transformer.py:419``), a
     global or shared GQA layer ``prefix_len`` (the VLM's prefix-LM) and a
-    decoder layer ``enc_out`` (the encoder's output).  The cache (KV,
-    latent or recurrent state) is written in place.  Returns (x,
-    cache)."""
+    decoder layer ``enc_out`` (the encoder's output); under ``tp`` the
+    GQA mixers and the MLP run tensor-parallel on their weights' blocks
+    (the module docstring).  The cache (KV, latent or recurrent state) is
+    written in place.  Returns (x, cache)."""
     mixer, ffn = kind
     if mixer == "shared_gqa":
         p = shared_params  # single copy, reused every period
-    if mixer in ("gqa_g", "gqa_l", "shared_gqa"):
+    if mixer in TP_MIXERS:
         local = mixer == "gqa_l"
         theta = cfg.rope_theta
         if local and cfg.rope_theta_local is not None:
             theta = cfg.rope_theta_local
-        h = _norm_apply(cfg, p["ln1"], x)
-        o, cache = _gqa_attend(cfg, p["attn"], h, local=local,
+        post = cfg.post_norm and mixer != "shared_gqa"
+        split = p["attn"]["wq"].shape[-2] < cfg.n_heads
+        if tp is None:
+            h = _norm_apply(cfg, p["ln1"], x)
+        else:
+            h = tp.enter(tp.norm(cfg, p["ln1"], x), split)
+        o, cache = _gqa_attend(cfg, _tp_block(tp, p["attn"], split), h,
+                               local=local,
                                positions=positions, mode=mode, cache=cache,
                                softcap=cfg.logit_softcap, theta=theta,
-                               prefix_len=prefix_len, decode=decode)
-        if cfg.post_norm and mixer != "shared_gqa":
+                               prefix_len=prefix_len, decode=decode, tp=tp)
+        if tp is not None:
+            o = tp.leave(o, split)
+            if post:
+                o = tp.norm(cfg, p["ln1_post"], o)
+        elif post:
             o = _norm_apply(cfg, p["ln1_post"], o)
         x = x + o
     elif mixer == "enc_attn":
@@ -530,12 +662,21 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
         raise ValueError(mixer)
 
     # ffn half (as in the reference, a post-norm follows the MLP only)
+    post = cfg.post_norm and mixer != "shared_gqa"
+    if ffn == "mlp" and tp is not None:
+        split = p["mlp"]["w1"].shape[-1] < cfg.d_ff
+        h = tp.enter(tp.norm(cfg, p["ln2"], x), split)
+        o = tp.leave(mlp_apply(cfg, _tp_block(tp, p["mlp"], split), h),
+                     split)
+        if post:
+            o = tp.norm(cfg, p["ln2_post"], o)
+        return x + o, cache
     h = _norm_apply(cfg, p["ln2"], x)
     if ffn == "moe":
         B, S, D = h.shape
         return x + MOE.moe_apply(p["moe"], h.reshape(B * S, D), cfg,
                                  mesh).reshape(B, S, D), cache
     o = mlp_apply(cfg, p["mlp"], h)
-    if cfg.post_norm and mixer != "shared_gqa":
+    if post:
         o = _norm_apply(cfg, p["ln2_post"], o)
     return x + o, cache

@@ -21,10 +21,15 @@ roundings (``g / n_acc`` in the gradient's dtype).
 step on the *global* batch, the same on every rank, and its own blocks of
 the parameters and the optimizer state):
 
-* each leaf is gathered whole for the compute (``gather_full``), but the
-  leaves the model reads as blocks (``model.mesh_local``: the DLRM's
-  tables, the MoE experts); the model's ``mesh_loss`` gives this rank's
-  share of the loss from its rows of the batch;
+* the leaves the model reads as this rank's blocks
+  (``model.mesh_local``: the DLRM's tables, a ``Model``'s tensor- and
+  vocab-parallel leaves over ``model`` and its MoE experts) stay blocks,
+  every other leaf is gathered whole for the compute (``gather_full``);
+  the model's ``mesh_loss`` gives this rank's share of the loss from its
+  rows of the batch.  A block's gradient is whole for the block on
+  every rank of ``model`` (the layers read a replicated weight that they
+  use on a part of the work through ``comm.tp_enter``, which sums its
+  gradient over ``model``);
 * the gradients are summed over the batch axes into ``grad_specs``'
   layout (the parameters' by default): a ``psum_scatter`` over the batch
   axes a layout shards a dim over (the reference's

@@ -21,6 +21,19 @@ DLRM_CASES = {"data4": ((4,), ("data",), {"expert": ("data",)}),
 DLRM_BATCH = 16
 LM_BATCH, LM_SEQ = 4, 32
 STEPS = 3
+# the dry run's smoke cells: small shapes on (data=4, model=2); the
+# first train cell accumulates 2 microbatches (the reference's rule:
+# 16 rows a microbatch on this mesh), the second takes its 16 rows whole
+DRYRUN_MESH = (4, 2)
+DRYRUN_SHAPES = {
+    "smoke_train": dict(seq_len=128, global_batch=32, kind="train"),
+    "smoke_train1": dict(seq_len=128, global_batch=16, kind="train"),
+    "smoke_prefill": dict(seq_len=256, global_batch=8, kind="prefill"),
+    "smoke_decode": dict(seq_len=256, global_batch=16, kind="decode",
+                         cache_shard="batch")}
+DRYRUN_CELLS = tuple((a, s) for a in ("tinyllama-1.1b", "gemma2-9b")
+                     for s in DRYRUN_SHAPES
+                     if (a, s) != ("gemma2-9b", "smoke_decode"))
 
 
 def _setup():
@@ -70,9 +83,10 @@ def _port_dlrm_cfg():
 
 # ---------------------------------------------------------------------------
 
-def moe_rank(rank, npz):
-    """Each (impl, mesh) case of ``moe.npz`` on this rank's tokens and
-    expert blocks: {case: (its rows' output, dropped slots)}."""
+def moe_rank(rank, npz, moe_chunks=1):
+    """Each (impl, mesh) case of ``moe.npz`` (``moe_chunks.npz``) on this
+    rank's tokens and expert blocks, the tokens in ``moe_chunks`` chunks:
+    {case: (its rows' output, dropped slots)}."""
     _setup()
     from repro_torch.models import moe as MOE
     d = np.load(npz)
@@ -81,7 +95,8 @@ def moe_rank(rank, npz):
          if k.startswith("p.") and not k.startswith("p.shared.")}
     shared = {k[len("p.shared."):]: torch.from_numpy(d[k]) for k in d.files
               if k.startswith("p.shared.")}
-    base = smoke_config("deepseek-v2-236b")
+    base = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                               moe_chunks=moe_chunks)
     out = {}
     for shape, impl in (((4, 1), "ep_a2a"), ((2, 2), "ep_a2a"),
                         ((2, 2), "tp")):
@@ -137,16 +152,21 @@ def dlrm_rank(rank, npz, case, zero1_grads):
 
 # ---------------------------------------------------------------------------
 
-def lm_rank(rank, npz, microbatch):
+def lm_rank(rank, npz, microbatch, seq_parallel=False):
     """The smoke TinyLlama's ZeRO-1 step on (data=2, model=2), float32
-    activations, 3 steps."""
+    activations, 3 steps (``seq_parallel`` as given): losses, norms, the
+    final tree gathered, each step's collective counters and step 1's
+    dot FLOPs on this rank (``FlopCounterMode``)."""
     _setup()
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.data import lm_batch
     from repro_torch.models import Model
     from repro_torch.train.train_step import (init_mesh_opt_state,
                                               make_train_step, mesh_layout)
     d = np.load(npz)
-    cfg = smoke_config("tinyllama-1.1b")
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"),
+                              seq_parallel=seq_parallel)
     mesh = make_mesh((2, 2), ("data", "model"))
     model = Model(cfg, device="cpu", mesh=mesh)
     model.compute_dtype = torch.float32
@@ -159,14 +179,19 @@ def lm_rank(rank, npz, microbatch):
     params = blocks(tree, specs, mesh)
     opt = init_mesh_opt_state(params, layout, keep_master=False)
     step = make_train_step(model, tcfg, layout.moments)
-    losses, norms = [], []
+    losses, norms, counts, flops = [], [], [], None
     for i in range(STEPS):
-        params, opt, m = step(params, opt,
-                              lm_batch(0, i, LM_BATCH, LM_SEQ, cfg.vocab))
+        comm.reset_counters()
+        batch = lm_batch(0, i, LM_BATCH, LM_SEQ, cfg.vocab)
+        with FlopCounterMode(display=False) as fc:
+            params, opt, m = step(params, opt, batch)
+        flops = fc.get_total_flops() if flops is None else flops
+        counts.append(comm.counters())
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return {"losses": losses, "norms": norms,
-            "params": gathered(params, specs, mesh)}
+            "params": gathered(params, specs, mesh), "counters": counts,
+            "flops": flops}
 
 
 # ---------------------------------------------------------------------------
@@ -303,3 +328,28 @@ def dlrm_two_rank_step(rank):
     _, _, m = make_train_step(model, tcfg)(params, opt,
                                            dlrm_batch(0, 0, 8, cfg))
     return float(m["loss"]), float(m["grad_norm"])
+
+
+# ---------------------------------------------------------------------------
+
+def counted_lm_step(rank, seq_parallel, microbatch):
+    """One ZeRO-1 step of the smoke TinyLlama (drawn weights) on (data=2,
+    model=2): this rank's collective counters."""
+    _setup()
+    from repro_torch.data import lm_batch
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import (init_mesh_opt_state,
+                                              make_train_step, mesh_layout)
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"),
+                              seq_parallel=seq_parallel)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model = Model(cfg, device="cpu", mesh=mesh)
+    tcfg = TrainConfig(microbatch=microbatch, **TCFG)
+    layout = mesh_layout(model, tcfg)
+    params = blocks(model.init(torch.Generator().manual_seed(0)),
+                    model.param_specs(), mesh)
+    opt = init_mesh_opt_state(params, layout, keep_master=False)
+    step = make_train_step(model, tcfg, layout.moments)
+    comm.reset_counters()
+    step(params, opt, lm_batch(0, 0, LM_BATCH, LM_SEQ, cfg.vocab))
+    return comm.counters()

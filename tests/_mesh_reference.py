@@ -19,12 +19,23 @@ seeds, and the reference's results), which the port's ranks read:
 * ``ckpt_write``: a checkpoint of the smoke DLRM's state on (data=4)
   with its specs, under ``OUT_DIR/ref_ckpt``;
 * ``ckpt_read``: the port's checkpoint under ``OUT_DIR/port_ckpt``
-  restored onto (data=2, model=2) with its specs.
+  restored onto (data=2, model=2) with its specs;
+* ``lm_tp_comm``: ``lm_train``'s step with and without ``seq_parallel``,
+  each step's compiled HLO (``hlo_comm.summarize``, ``hlo_counter.totals``
+  and the text);
+* ``moe_chunks``: ``moe``'s cases at ``moe_chunks=4``, slots dropped;
+* ``dryrun_smoke``: ``repro.launch.dryrun.dryrun_cell`` of the smoke
+  cells of ``_mesh_ranks.DRYRUN_CELLS`` on (data=4, model=2): 8 forced
+  host devices, so it runs alone (jax is initialised before
+  ``repro.launch.dryrun``, which sets ``XLA_FLAGS`` at import, is).
 """
 import os
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# 8 devices for the dry run's (data=4, model=2), run alone; 4 otherwise
+N_DEVICES = 8 if "dryrun_smoke" in sys.argv[2:] else 4
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                           f"{N_DEVICES}")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import dataclasses  # noqa: E402
@@ -223,6 +234,108 @@ def run_lm_train(out: Path):
     np.savez(out / "lm_train.npz", **res)
 
 
+def run_lm_tp_comm(out: Path):
+    """``run_lm_train``'s step with and without ``seq_parallel``: 3 steps
+    of the whole batch and of microbatches of 2, and each step's compiled
+    HLO read by ``hlo_comm.summarize`` and ``hlo_counter.totals``."""
+    import json
+
+    from repro.core.hlo_comm import extract, summarize
+    from repro.core.hlo_counter import totals
+    from repro.models.model_api import Model
+    from repro.train.optimizer import init_opt_state, opt_state_specs
+    from repro.train.train_step import make_train_step
+    mesh = make_mesh((2, 2), ("data", "model"))
+    tree = lm_pair_tree(Model(smoke_config("tinyllama-1.1b"), mesh))
+    res = {"w." + n: np.asarray(v) for n, v in flatten_with_paths(tree)}
+    for sp in (False, True):
+        cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"),
+                                  seq_parallel=sp)
+        model = Model(cfg, mesh)
+        model.compute_dtype = jnp.float32
+        specs = model.param_specs()
+        o_specs = opt_state_specs(specs, model.param_defs(), mesh,
+                                  zero1=True, keep_master=False)
+        b_specs = {"tokens": P("data", None)}
+        for mb in (None, 2):
+            name = f"sp{int(sp)}.mb{mb}"
+            tcfg = TrainConfig(microbatch=mb, **TCFG)
+            params = jax.device_put(jax.tree.map(jnp.asarray, tree),
+                                    shard(mesh, specs))
+            opt = jax.device_put(init_opt_state(params, keep_master=False),
+                                 shard(mesh, o_specs))
+            step = jax.jit(make_train_step(model, tcfg),
+                           in_shardings=(shard(mesh, specs),
+                                         shard(mesh, o_specs),
+                                         shard(mesh, b_specs)),
+                           out_shardings=(shard(mesh, specs),
+                                          shard(mesh, o_specs), None))
+            batches = [{"tokens": jnp.asarray(lm_batch(
+                0, i, LM_BATCH, LM_SEQ, cfg.vocab)["tokens"])}
+                for i in range(STEPS)]
+            with mesh:
+                hlo = step.lower(params, opt, batches[0]).compile().as_text()
+                losses, norms = [], []
+                for b in batches:
+                    params, opt, m = step(params, opt, b)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+            t = totals(hlo)
+            res[f"{name}.losses"] = np.asarray(losses)
+            res[f"{name}.norms"] = np.asarray(norms)
+            res[f"{name}.hlo"] = np.asarray(hlo)
+            res[f"{name}.comm"] = np.asarray(json.dumps({
+                "summarize": summarize(extract(hlo)),
+                "totals": {"flops": t.flops, "bytes": t.bytes,
+                           "bytes_floor": t.bytes_floor, "coll": t.coll}}))
+            res.update(flat(params, f"{name}.p."))
+    np.savez(out / "lm_tp_comm.npz", **res)
+
+
+def run_moe_chunks(out: Path):
+    """``run_moe``'s cases at ``moe_chunks=4``: the skewed router drops
+    slots, so the split of the tokens into chunks shows."""
+    from repro.models.moe import moe_apply
+    base = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                               moe_chunks=4)
+    p, x = moe_inputs(base)
+    res = {"x": x, **{f"p.{k}": v for k, v in flat(p).items()}}
+    for shape, impl in MOE_CASES:
+        cfg = dataclasses.replace(base, moe_impl=impl)
+        mesh = make_mesh(shape, ("data", "model"))
+        y = jax.jit(lambda p_, x_: moe_apply(p_, x_, cfg, mesh))(
+            jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+        res[f"{impl}_{shape[0]}x{shape[1]}"] = np.asarray(y)
+    np.savez(out / "moe_chunks.npz", **res)
+
+
+def run_dryrun_smoke(out: Path):
+    """The reference's ``dryrun_cell`` (lowered and compiled) of each of
+    ``_mesh_ranks.DRYRUN_CELLS``: the smoke config, the smoke shape, on
+    (data=4, model=2) of 8 forced host devices."""
+    import json
+
+    import repro.configs
+    import repro.launch.mesh
+    from _mesh_ranks import DRYRUN_CELLS, DRYRUN_MESH, DRYRUN_SHAPES
+    from repro.configs.base import ShapeConfig
+    from repro.configs.shapes import ALL_SHAPES
+    from repro.models.model_api import Model
+    mesh = make_mesh(DRYRUN_MESH, ("data", "model"))
+    # the module sets XLA_FLAGS at import: jax has its 8 devices by now
+    from repro.launch import dryrun
+    repro.launch.mesh.make_production_mesh = lambda multi_pod=False: mesh
+    repro.configs.get_model = lambda arch, mesh_: Model(smoke_config(arch),
+                                                        mesh_)
+    ALL_SHAPES.update({k: ShapeConfig(k, **v)
+                       for k, v in DRYRUN_SHAPES.items()})
+    res = {}
+    for arch, shape in DRYRUN_CELLS:
+        cell = dryrun.dryrun_cell(arch, shape, False, verbose=False)
+        res[f"{arch}.{shape}"] = np.asarray(json.dumps(cell))
+    np.savez(out / "dryrun_smoke.npz", **res)
+
+
 # ---------------------------------------------------------------------------
 
 def run_gpipe(out: Path):
@@ -286,10 +399,13 @@ def run_ckpt_read(out: Path):
 
 RUNS = {"moe": run_moe, "dlrm_train": run_dlrm_train, "lm_train": run_lm_train,
         "gpipe": run_gpipe, "ckpt_write": run_ckpt_write,
-        "ckpt_read": run_ckpt_read}
+        "ckpt_read": run_ckpt_read, "lm_tp_comm": run_lm_tp_comm,
+        "moe_chunks": run_moe_chunks, "dryrun_smoke": run_dryrun_smoke}
 
 if __name__ == "__main__":
-    assert len(jax.devices()) == 4, jax.devices()
+    assert len(jax.devices()) == N_DEVICES, jax.devices()
+    if N_DEVICES == 8 and len(sys.argv) > 3:
+        raise SystemExit("dryrun_smoke runs alone (8 devices)")
     out_dir = Path(sys.argv[1])
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in sys.argv[2:]:

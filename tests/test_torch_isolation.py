@@ -13,7 +13,9 @@ flash-enabled TinyLlama and of the DLRM, a checkpoint and its restore,
 ``common/sharding.py``'s logical half, ``common/comm.py``,
 ``launch/mesh.py``, ``configs/shapes.py`` and ``train/pipeline.py``, run
 below too: specs on an abstract mesh, and two CPU ranks over ``gloo``
-taking a mesh step of the smoke DLRM and a pipeline; nor
+taking a mesh step of the smoke DLRM and a pipeline; ``core/hlo_counter.py``,
+``common/cache.py`` and ``launch/dryrun.py``, a smoke cell traced on
+``meta`` under a recording mesh; nor
 ``chip_smoke.py``, ``scripts/profile_step.py``,
 ``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
 or the JAX package, it
@@ -131,6 +133,17 @@ def test_port_runs_with_jax_unavailable():
         "    repro_torch.launch.train.main(['--device', 'cpu', '--smoke',\n"
         "        '--steps', '4', '--ckpt-every', '2', '--fail-at', '3',\n"
         "        '--ckpt-dir', tmp, '--seq', '16'])\n"
+        "import repro_torch.core.hlo_counter as hc, repro_torch.common.cache\n"
+        "from repro_torch.configs import smoke_config\n"
+        "from repro_torch.configs.base import ShapeConfig\n"
+        "from repro_torch.launch import dryrun\n"
+        "cell = dryrun.dryrun_cell('tinyllama-1.1b', 't', False, False,\n"
+        "    cfg=smoke_config('tinyllama-1.1b'), mesh_shape=(2, 2),\n"
+        "    shape=ShapeConfig('t', seq_len=32, global_batch=4,\n"
+        "                      kind='train'))\n"
+        "assert cell['flops'] > 0 and cell['collective_bytes']['total'] > 0\n"
+        "assert hc.totals('ENTRY %m (x: f32[2]) -> f32[2] {\\n'\n"
+        "                 '  ROOT %x = f32[2]{0} parameter(0)\\n}').flops == 0\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
         "print('ok')\n")

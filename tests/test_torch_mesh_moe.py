@@ -1,7 +1,9 @@
 """MoE's mesh bodies in the port against the reference's ``shard_map``:
 ``ep_a2a`` on (data=4, model=1) and (data=2, model=2) and ``tp`` on
 (data=2, model=2), the DeepSeek-V2 smoke config (E = 8, top-2) at its own
-capacity factor, so slots drop; float32, rtol 1e-5.  The reference runs
+capacity factor, so slots drop; float32, rtol 1e-5; and again at
+``moe_chunks=4``, the tokens split into chunks as the reference splits
+them (``tests/_mesh_reference.py moe_chunks``).  The reference runs
 in a subprocess on 4 forced host devices (``tests/_mesh_reference.py``),
 the port on 4 CPU ranks over ``gloo`` (``tests/_mesh_ranks.py``).  Then a
 DeepSeek-V2 smoke ``Model`` over a mesh: its prefill on each rank's rows,
@@ -39,7 +41,7 @@ def run_reference(out: Path, *names):
 @pytest.fixture(scope="module")
 def ref_dir(tmp_path_factory):
     out = tmp_path_factory.mktemp("mesh_ref")
-    run_reference(out, "moe")
+    run_reference(out, "moe", "moe_chunks")
     return out
 
 
@@ -58,6 +60,27 @@ def test_mesh_bodies_match_reference_drops_included(ref_dir):
                                        rtol=1e-5, atol=1e-5 * scale,
                                        err_msg=case)
         # the router leans on the first experts: capacity drops happen
+        assert sum(r[case][1] for r in res) > 0, case
+
+
+def test_mesh_bodies_match_reference_at_moe_chunks_4(ref_dir):
+    """The tokens in 4 chunks, split as the reference splits its global
+    token array (each chunk over the batch axes), slots dropped: the
+    same slots drop, so the outputs agree row for row."""
+    npz = ref_dir / "moe_chunks.npz"
+    d = np.load(npz)
+    res = lmesh.launch(_mesh_ranks.moe_rank, 4, devices=CPU4,
+                       args=(str(npz), 4), join_s=JOIN_S)
+    for case in ("ep_a2a_4x1", "ep_a2a_2x2", "tp_2x2"):
+        want = d[case]
+        n_data = int(case.split("_")[-1].split("x")[0])
+        rows = want.shape[0] // n_data
+        scale = float(np.abs(want).max())
+        for r in res:
+            y, dropped, di = r[case]
+            np.testing.assert_allclose(y, want[di * rows:(di + 1) * rows],
+                                       rtol=1e-5, atol=1e-5 * scale,
+                                       err_msg=case)
         assert sum(r[case][1] for r in res) > 0, case
 
 
