@@ -142,7 +142,8 @@ SOURCES = {"fused_signals_policy": KERNEL_SOURCE,
            "dcqcn_update": CCU_SOURCE,
            "embedding_bag_rows": EMB_SOURCE,
            "embedding_bag_backward": EMB_BWD_SOURCE,
-           "flash_decode": FD_SOURCE}
+           "flash_decode": FD_SOURCE,
+           "flash_decode_lse": FD_SOURCE}
 REPLACES = {
     "fused_signals_policy": "src/repro/kernels/engine_step/engine_step.py:96",
     "segment_reduce": "src/repro/kernels/engine_step/engine_step.py:171",
@@ -154,6 +155,9 @@ REPLACES = {
     # takes as a scatter-add
     "embedding_bag_backward": "src/repro/models/dlrm.py:86",
     "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:60",
+    # the same Pallas kernel, over a rank's block of a cache split along
+    # the sequence (the reference's GSPMD reduces its softmax across them)
+    "flash_decode_lse": "src/repro/kernels/flash_decode/flash_decode.py:60",
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -5263,6 +5267,148 @@ class plain_decode_attention:
         self.ops.gqa_decode_attention = self.orig
 
 
+# the log-sum-exp instantiation's shapes: mesh_long's (a rank's block of
+# Zamba2-1.2B's shared-block cache in long_500k: 262,144 positions of 16
+# kv heads, G = 1, D = 64) with rows at lengths near the block's end, at
+# 4 and at 0; Gemma-2's global layers (Hkv 8, G 2, D 256) with the
+# softcap, and over an int8 cache
+FD_LSE_SHAPES = (((1, 262_144, 16, 1, 64), (262_140,), None, False),
+                 ((3, 65_536, 16, 1, 64), (4, 40_000, 0), None, False),
+                 ((2, 4_096, 8, 2, 256), (4_000, 0), 50.0, False),
+                 ((2, 4_096, 8, 2, 256), (3_001, 0), 50.0, True),
+                 ((3, 2_080, 4, 8, 64), (2_080, 1, 0), None, True))
+
+
+def lse_kernel_check(dev, traced: dict) -> tuple:
+    """The ``flash_decode`` log-sum-exp instantiation against its plain
+    version (``ref.flash_decode_ref(..., lse=True)``, the int8 one) on
+    ``FD_LSE_SHAPES``: the float32 output within ``fd_tolerance`` (no bf16
+    ulp: it is not cast), a row of length 0 exactly 0 with lse -inf, the
+    lse within 1e-5 (1 + |lse|) (plus the softcap's tanh bound); and its
+    timing at mesh_long's shape beside the unsplit kernel at the same
+    length (a 1.07 GB read: cold), the plain version, and the library
+    call that returns the same pair: at G = 1 the flash attention
+    operator behind SDPA, ``aten._scaled_dot_product_flash_attention``,
+    gives the output (bf16) and the rows' log-sum-exp (float32) in one
+    call (``library_ms``; its distance from the plain pair beside).
+    Returns (the check, the row's timing); the launches go to
+    ``traced``."""
+    import torch
+    from repro_torch.kernels.flash_decode import ops, ref
+    from repro_torch.models.layers import quantize_kv
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases, worst, ok = [], 0.0, True
+    keep = None
+    for shape, lens, cap, int8 in FD_LSE_SHAPES:
+        B, S, Hkv, G, D = shape
+        q = torch.randn((B, Hkv, G, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        if cap:
+            q = (q.float() * 4).to(torch.bfloat16)
+        k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        scales = {}
+        if int8:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            scales = {"k_scale": ks, "v_scale": vs}
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got, lse = ops.flash_decode_lse(q, k, v, length,
+                                        max_length=max(lens), softcap=cap,
+                                        **scales)
+        if int8:
+            want, want_lse = ref.flash_decode_quant_ref(
+                q, k, v, ks, vs, length, cap, lse=True)
+            tol = fd_tolerance(q, k, v, length, want, cap, (ks, vs))
+        else:
+            want, want_lse = ref.flash_decode_ref(q, k, v, length, cap,
+                                                  lse=True)
+            tol = fd_tolerance(q, k, v, length, want, cap)
+        err = (got - want).abs()
+        empty = length == 0
+        live = ~empty
+        rel = 1e-5 + (0.0 if cap is None else cap * 2.0 ** -22)
+        lse_err = (lse[live] - want_lse[live]).abs()
+        case_ok = (bool((err <= tol).all())
+                   and bool((got[empty] == 0).all())
+                   and bool(torch.isneginf(lse[empty]).all())
+                   and bool((lse_err <= rel * (1 + want_lse[live].abs()))
+                            .all()))
+        ok &= case_ok
+        worst = max(worst, float(err.max()))
+        cases.append({"shape": f"B={B} S={S} Hkv={Hkv} G={G} D={D}",
+                      "lengths": list(lens), "softcap": cap, "int8": int8,
+                      "max_abs_err": float(err.max()),
+                      "lse_max_abs_err": float(lse_err.max()),
+                      "ok": case_ok})
+        if keep is None:
+            keep = (q, k, v, length)
+        del q, k, v, got, lse, want, want_lse, tol, err
+    check = {"cases": cases, "max_abs_err": worst, "ok": ok}
+    # timing at mesh_long's shape
+    q, k, v, length = keep
+    B, Hkv, G, D = q.shape
+    L = int(length.max())
+    splits = ops.n_splits(k.shape[1], L)
+    part_acc, part_ml = ops.scratch(q, splits)
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    lse = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
+    fn = ops.kernel_function()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = ops.kernel_args(q, k, v, length, out, splits, part_acc, part_ml,
+                           lse=lse)
+
+    def launch():
+        if fn(*args, stream) != 0:
+            raise RuntimeError("flash_decode_lse launch failed")
+    unsplit_out = torch.empty_like(q)
+    uargs = ops.kernel_args(q, k, v, length, unsplit_out, splits, part_acc,
+                            part_ml)
+
+    def unsplit():
+        if fn(*uargs, stream) != 0:
+            raise RuntimeError("flash_decode launch failed")
+    # the library's layout: (B, H, 1, D) queries over (B, H, L, D) views
+    # of the cache's first L positions (G = 1: a query head a kv head)
+    assert G == 1, "the flash operator's yardstick needs G = 1"
+    lib_in = (q.reshape(B, Hkv, 1, D), k[:, :L].transpose(1, 2),
+              v[:, :L].transpose(1, 2))
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            *lib_in, scale=D ** -0.5)
+    lib_out = library()
+    want, want_lse = ref.flash_decode_ref(q, k, v, length, lse=True)
+    lib_err = float((lib_out[0].reshape(q.shape).float() - want).abs().max())
+    lib_lse_err = float((lib_out[1][..., :1].reshape(want_lse.shape)
+                         - want_lse).abs().max())
+    del lib_out, want, want_lse
+    n_bytes = int(L * Hkv * D * 2 * 2 + q.numel() * 2 + 4 * B
+                  + (q.numel() + B * Hkv * G) * 4)
+    flops = 4 * L * Hkv * G * D
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    timing = {"ms": cuda_ms(launch, reps=10, inner=5),
+              "unsplit_ms": cuda_ms(unsplit, reps=10, inner=5),
+              "host_us_per_launch": host_us(launch, 50),
+              "plain_ms": cuda_ms(lambda: ref.flash_decode_ref(
+                  q, k, v, length, lse=True), reps=3, inner=1),
+              "bound_ms": max(t_bytes, t_ops) * 1e3,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "library_ms": cuda_ms(library, reps=10, inner=5),
+              "library_host_us_per_call": host_us(library, 50),
+              "library_call": "torch.ops.aten."
+                              "_scaled_dot_product_flash_attention",
+              "library_max_abs_diff": lib_err,
+              "library_lse_max_abs_diff": lib_lse_err,
+              "shape": f"B={B} Hkv={Hkv} G={G} D={D} S={k.shape[1]} "
+                       f"length={L} splits={splits}", "bytes": n_bytes}
+    traced["flash_decode_lse"] = (launch, library, (keep, out, lse, part_acc,
+                                                    part_ml, lib_in))
+    traced["flash_decode_lse/unsplit"] = (unsplit, None, unsplit_out)
+    return check, timing
+
+
 def time_flash_decode(inputs, traced: dict, int8: bool = False,
                       key: str = "flash_decode") -> dict:
     """The kernel (direct C calls), its plain version and
@@ -5857,25 +6003,33 @@ def kernel_launch_counts() -> dict:
 
 class capture_routing:
     """While active, records the top-k experts of every MoE call
-    (``moe.moe_apply``): ``calls[i]`` the (tokens, k) expert ids of the
-    i-th call, its tokens in the caller's (row-major) order (the router
-    run once more on the call's tokens: on a mesh the chunks hold other
-    ranks' rows)."""
+    (``moe.moe_apply``, and ``moe.moe_block_tp`` on a mesh with a
+    ``model`` axis, outside ``seq_parallel``): ``calls[i]`` the (tokens,
+    k) expert ids of the i-th call, its tokens in the caller's
+    (row-major) order (the router run once more on the call's tokens: on
+    a mesh the chunks hold other ranks' rows)."""
 
     def __enter__(self):
         from repro_torch.models import moe
         self.mod, self.calls = moe, []
         self.orig = moe.moe_apply
+        self.orig_tp = moe.moe_block_tp
 
         def apply(p, x2d, cfg, mesh=None):
             _, idx = moe._router(p["router"], x2d, cfg)
             self.calls.append(idx.sort(-1).values)
             return self.orig(p, x2d, cfg, mesh)
-        moe.moe_apply = apply
+
+        def block(p, h, cfg, mesh, seq):
+            _, idx = moe._router(p["router"], h.reshape(-1, h.shape[-1]),
+                                 cfg)
+            self.calls.append(idx.sort(-1).values)
+            return self.orig_tp(p, h, cfg, mesh, seq)
+        moe.moe_apply, moe.moe_block_tp = apply, block
         return self
 
     def __exit__(self, *exc):
-        self.mod.moe_apply = self.orig
+        self.mod.moe_apply, self.mod.moe_block_tp = self.orig, self.orig_tp
 
 
 def routed_alike(first, steps, full, n_moe: int, S: int, B: int):
@@ -6732,6 +6886,36 @@ MESH_LM_SHAPE = (2, 2)
 MESH_LM_TOL = {"loss1": 1e-3, "grad1": 5e-2, "update": 0.5}
 
 
+# mesh_long: Zamba2-1.2B at full width and depth in long_500k's cell
+# (batch 1, a cache of 524,288 positions whose sequence splits over data)
+# on (data=2, model=2): a seeded cache filled to MESH_LONG_POS0, then 8
+# decode steps across the data ranks' block boundary at 262,144, each
+# rank attending over its block through the flash_decode log-sum-exp
+# instantiation, the ranks merging exactly; each step from one process's
+# state after the step before (resync, as serve_zamba2's: the recurrent
+# states carry a step's rounding into every later one), held against one
+# process's 8 steps over the whole cache (the unsplit kernel) at
+# MESH_LONG_TOL, the relative L2 distance of a step's logits: the mesh's
+# bf16 partial sums of w_out, wo and w2 in all 44 layers round apart from
+# one process's sums (3.47% at the first step on the card, PERF.md §6),
+# and a planted wrong merge (the blocks' outputs averaged) must lie
+# beyond it; the last step's first sequence-split attention held tightly
+# by SplitProbe (the pair, the exact merge, the write), which must see a
+# second planted fault (the second block's pair dropped) that the logits
+# cannot; and rank 0's collectives equal to the dry run's recording of
+# the same step
+MESH_LONG = ("zamba2-1.2b", 524_288, 8)      # arch, cache positions, steps
+MESH_LONG_POS0 = 262_140
+MESH_LONG_TOL = 6e-2
+# SplitProbe's limit on the merge of the blocks' pairs against a float64
+# merge of the same pairs, of the weighted |out|: float32 rounds each
+# weight exp(lse - M) and each product (a few 6e-8), and lse - M loses up
+# to half an ulp of |lse - M| (~1e-6 at 10: 5e-7 of a weight)
+SPLIT_MERGE_REL = 2e-6
+# mesh_moe's decode: 8 steps on (2, 2) after its prefill, float32
+MESH_MOE_DECODE = 8
+
+
 def mesh_log(rank: int, what: str) -> None:
     print(f"chip_smoke t={time.time() - RUN_T0:.1f}s [mesh r{rank}] {what}",
           file=sys.stderr, flush=True)
@@ -7354,12 +7538,39 @@ def _moe_tokens(vocab: int) -> np.ndarray:
         0, vocab, (MESH_MOE_ROWS, MESH_MOE_SEQ), dtype=np.int32)
 
 
+def _moe_decode_tokens(vocab: int) -> np.ndarray:
+    return np.random.default_rng(MESH_SEED + 1).integers(
+        0, vocab, (MESH_MOE_DECODE, MESH_MOE_ROWS, 1), dtype=np.int32)
+
+
+def _moe_decode(model, params, cache, toks, dropped=None) -> dict:
+    """``MESH_MOE_DECODE`` decode steps of ``toks`` (steps, rows, 1) from
+    ``cache``: each step's logits and the MoE layer's expert ids (host),
+    the slots the mesh bodies dropped each step, the seconds."""
+    import torch
+    from repro_torch.models import moe as MOE
+    out = {"logits": [], "experts": [], "dropped": [], "s": []}
+    for t in toks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_routing() as routing, MOE.count_dropped() as d:
+            lg, cache = model.decode_step(params, cache, t)
+        torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        out["logits"].append(lg.float().cpu().numpy())
+        out["experts"].append(routing.calls[0].cpu().numpy().reshape(
+            t.shape[0], -1))
+        out["dropped"].append(int(d))
+    return out
+
+
 def mesh_moe_single(dev) -> dict:
     """Rank 0 alone: DeepSeek-V2 at full width, 2 layers (1 dense + 1
     MoE), ``hashed_params`` from ``MESH_SEED``, prefill of the
     ``MESH_MOE_ROWS`` rows on the dense path (every expert for every token: the reference's single
     device semantics), float32 and bf16 activations: last logits and the
-    MoE layer's expert ids."""
+    MoE layer's expert ids; in float32 then ``MESH_MOE_DECODE`` decode
+    steps (``_moe_decode``)."""
     import torch
     from repro_torch.common.pytree import tree_map
     from repro_torch.models import Model
@@ -7374,12 +7585,18 @@ def mesh_moe_single(dev) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with capture_routing() as routing:
-            logits, _ = model.prefill(params, {"tokens": toks})
+            logits, cache = model.prefill(
+                params, {"tokens": toks},
+                max_len=MESH_MOE_SEQ + MESH_MOE_DECODE)
         torch.cuda.synchronize()
         out[name] = {"logits": logits.float().cpu().numpy(),
                      "experts": routing.calls[0].cpu().numpy().reshape(
                          MESH_MOE_ROWS, MESH_MOE_SEQ, -1),
                      "s": time.perf_counter() - t0}
+        if name == "f32":
+            out["decode"] = _moe_decode(model, params, cache,
+                                        _moe_decode_tokens(cfg.vocab))
+        del cache
     del model, params
     torch.cuda.empty_cache()
     return out
@@ -7387,9 +7604,11 @@ def mesh_moe_single(dev) -> dict:
 
 def mesh_moe_rank(rank, dev) -> dict:
     """Every rank: the same model over each mesh of ``MESH_MOE_CASES``
-    (this rank's rows, the experts' blocks, every other leaf gathered for
-    the compute), float32 and bf16: its rows' last logits, their expert
-    ids at the MoE layer, dropped slots, the all-to-all bytes."""
+    (this rank's rows, its blocks of the experts, and over ``model`` of
+    MLA and the shared experts), float32 and bf16: its rows' last logits, their expert
+    ids at the MoE layer, dropped slots, the all-to-all bytes; on the
+    meshes with a ``model`` axis, then ``MESH_MOE_DECODE`` float32
+    decode steps (``_moe_decode``)."""
     import torch
     from repro_torch.common import comm
     from repro_torch.common.pytree import tree_map
@@ -7421,7 +7640,9 @@ def mesh_moe_rank(rank, dev) -> dict:
             t0 = time.perf_counter()
             with capture_routing() as routing, \
                     MOE.count_dropped() as dropped:
-                logits, _ = model.prefill(params, {"tokens": mine})
+                logits, cache = model.prefill(
+                    params, {"tokens": mine},
+                    max_len=MESH_MOE_SEQ + MESH_MOE_DECODE)
             torch.cuda.synchronize()
             case[name] = {"logits": logits.float().cpu().numpy(),
                           "experts": routing.calls[0].cpu().numpy()
@@ -7429,6 +7650,17 @@ def mesh_moe_rank(rank, dev) -> dict:
                           "s": time.perf_counter() - t0,
                           "dropped": int(dropped),
                           "bytes": comm.counters()}
+            if name == "f32" and shape[1] > 1:
+                # MLA on its heads and latent columns, the shared experts
+                # tensor-parallel
+                comm.reset_counters()
+                case["decode"] = _moe_decode(
+                    model, params, cache,
+                    _moe_decode_tokens(cfg.vocab)[:, i * rows:(i + 1) * rows])
+                case["decode"]["bytes"] = comm.counters()
+                case["decode"]["c_cols"] = int(
+                    cache["layers"][-1]["l0"]["c"].shape[-1])
+            del cache
         case["rows"] = (i * rows, (i + 1) * rows)
         out[f"{impl}_{shape[0]}x{shape[1]}"] = case
         del model, params
@@ -7657,6 +7889,444 @@ def mesh_lm_rank(rank, dev, single) -> dict:
     return out
 
 
+def _long_shape():
+    from repro_torch.configs.base import ShapeConfig
+    _, S, _ = MESH_LONG
+    return ShapeConfig("long_500k", seq_len=S, global_batch=1, kind="decode",
+                       cache_shard="seq")
+
+
+def _long_tokens(vocab: int) -> np.ndarray:
+    return np.random.default_rng(MESH_SEED).integers(
+        0, vocab, (MESH_LONG[2], 1, 1), dtype=np.int32)
+
+
+def long_cache(model, dev, cut=None) -> dict:
+    """The seeded decode cache of ``MESH_LONG`` for ``model``: a global
+    layer's K/V N(0, 1) below ``MESH_LONG_POS0`` and zero from it, the
+    Mamba-2 states 0.5 N(0, 1), each layer's leaf drawn whole by a card
+    generator from its own seed (leaf k, layer i: ``MESH_SEED`` * 1,000,003
+    + 64 k + i) and cut by ``cut(path, layer's leaf)`` (a rank's block;
+    whole without), so that every rank's blocks are slices of the one
+    process's cache."""
+    import torch
+    from repro_torch.common.pytree import flatten_with_paths, unflatten_like
+    _, S, _ = MESH_LONG
+    defs = model.cache_defs(1, S)["layers"]
+    leaves = []
+    for k, (name, d) in enumerate(flatten_with_paths(defs)):
+        layers = []
+        for i in range(d.shape[0]):
+            g = torch.Generator(device=dev).manual_seed(
+                MESH_SEED * 1_000_003 + 64 * k + i)
+            # drawn in the leaf's dtype: no float32 copy of a 2.1 GB leaf
+            x = torch.randn(d.shape[1:], generator=g, device=dev,
+                            dtype=d.dtype)
+            if "seq" in d.axes:
+                x[:, MESH_LONG_POS0:] = 0
+            else:
+                x *= 0.5
+            layers.append(x if cut is None else cut(name, d, x))
+            del x
+        leaves.append(torch.stack(layers))
+        del layers
+    return {"layers": unflatten_like(defs, leaves), "pos": MESH_LONG_POS0}
+
+
+def mesh_long_single(dev, sync_file: str) -> dict:
+    """Rank 0 alone: ``MESH_LONG``'s Zamba2 in one process, hashed weights
+    from ``MESH_SEED``, the whole seeded cache (25.8 GB), 8 decode steps
+    through the unsplit ``flash_decode``: each step's logits (host) and
+    seconds; after each step, the Mamba-2 states and the K/V rows the
+    step wrote go to ``sync_file`` (the ranks start each step from them:
+    ``resync``); the cache freed before the ranks allocate theirs."""
+    import torch
+    from repro_torch.common.pytree import flatten_with_paths, tree_map
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models import Model
+    arch, S, steps = MESH_LONG
+    cfg = arch_config(arch)
+    model = Model(cfg, device=dev, decode_impl="cuda")
+    params = hashed_params(tree_map(lambda d: d.shape, model.param_defs()),
+                           MESH_SEED, dev)
+    t0 = time.perf_counter()
+    cache = long_cache(model, dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fd_ops.reset_launches()
+    out = {"logits": [], "step_s": [], "fill_s": fill_s,
+           "cache_bytes": sum(t.numel() * t.element_size() for t in
+                              _leaves(cache["layers"]))}
+    seq_leaf = {n: "seq" in d.axes for n, d in flatten_with_paths(
+        model.cache_defs(1, S)["layers"])}
+    sync = []
+    for t in _long_tokens(cfg.vocab):
+        pos = cache["pos"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, t)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["logits"].append(lg.float().cpu())
+        sync.append({n: (x[:, :, pos:pos + 1] if seq_leaf[n] else x)
+                     .to("cpu", copy=True)
+                     for n, x in flatten_with_paths(cache["layers"])})
+    torch.save(sync, sync_file)
+    out["launches"] = dict(fd_ops.LAUNCHES)
+    del model, params, cache, lg, sync
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resync(cache, sync: dict, defs, specs, mesh, pos: int) -> None:
+    """This rank's blocks of one process's state after the step that wrote
+    position ``pos``: the Mamba-2 states, and the K/V row at ``pos``
+    where this rank's block of the sequence holds it (in place)."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.common.sharding import P, local_shard
+    from repro_torch.models.model_api import cache_read_spec
+    seq = cache["seq"]
+    for name, x in flatten_with_paths(cache["layers"]):
+        spec = cache_read_spec(defs[name], specs[name])
+        if "seq" in defs[name].axes:            # K/V (layers, B, S, H, D)
+            S_r = x.shape[2]
+            lo = mesh.axis_index(seq) * S_r
+            if lo <= pos < lo + S_r:
+                row = local_shard(sync[name], P(*[
+                    None if i == 2 else (spec[i] if i < len(spec) else None)
+                    for i in range(5)]), mesh)
+                x[:, :, pos - lo:pos - lo + 1] = row.to(x.device)
+        else:
+            x.copy_(local_shard(sync[name], spec, mesh))
+
+
+def _leaves(tree) -> list:
+    from repro_torch.common.pytree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _bits_sum(x):
+    """An exact checksum of ``x``'s bits (its 16-bit words, or bytes,
+    summed as int64): a row changed anywhere changes it but for a
+    collision."""
+    import torch
+    return int(x.view(torch.int16 if x.element_size() == 2 else
+                      torch.uint8).sum(dtype=torch.int64))
+
+
+class SplitProbe:
+    """The first sequence-split attention of a decode step (the first
+    shared-block application), caught on its way through
+    ``transformer._split_decode``: whether the rank whose block holds the
+    position wrote exactly the new K/V row there and no other row (the
+    blocks' bit sums before and after), the wrapper's pair
+    (``fd_ops.gqa_decode_attention_lse``'s inputs and outputs) and the
+    merged output (``layers.merge_split``'s, float32; under
+    ``decode_impl="torch"`` the pair of ``ref.gqa_decode_lse_ref``, which
+    the CPU tests probe).  ``check`` holds
+    them, after the step, against plain versions at tight limits:
+
+    - the pair against ``ref.flash_decode_ref(..., lse=True)`` on this
+      rank's block (``fd_tolerance``; lse 1e-5 (1 + |lse|));
+    - the merged output against a float64 merge of every block's pair
+      (all-gathered over the split axes): within ``SPLIT_MERGE_REL`` of
+      the weighted |out| (the merge is exact to float32 rounding);
+    - the merged output against the float64 merge of the blocks' plain
+      pairs, which is the unsplit attention over the whole sequence
+      (``fd_tolerance`` of that attention).
+
+    The second block holds a few live keys of ~262k, about 1e-5 of the
+    softmax's weight: the end-to-end logits cannot see it, the merge check
+    can (a planted fault drops its pair)."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_decode import ops as fd_ops
+        from repro_torch.kernels.flash_decode import ref as fd_ref
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        self.mods = (fd_ops, fd_ref, L, T)
+        self.rec = None
+        self.capturing = False
+
+    def __enter__(self):
+        import torch
+        fd_ops, fd_ref, L, T = self.mods
+        self.orig = orig_pair, orig_ref, orig_merge, orig_split = (
+            fd_ops.gqa_decode_attention_lse, fd_ref.gqa_decode_lse_ref,
+            L.merge_split, T._split_decode)
+
+        def split(cfg, q, k, v, cache, decode, *args):
+            if self.rec is not None:
+                return orig_split(cfg, q, k, v, cache, decode, *args)
+            kc, vc = cache["k"], cache["v"]
+            S_r = kc.shape[1]
+            i = decode.pos - decode.seq_index * S_r
+            rec = self.rec = {"owner": 0 <= i < S_r, "S_r": S_r,
+                              "sums": [_bits_sum(kc), _bits_sum(vc)]}
+            if rec["owner"]:
+                rec["rows"] = [_bits_sum(kc[:, i]), _bits_sum(vc[:, i])]
+            self.capturing = True
+            try:
+                out = orig_split(cfg, q, k, v, cache, decode, *args)
+            finally:
+                self.capturing = False
+            after = [_bits_sum(kc), _bits_sum(vc)]
+            if rec["owner"]:
+                rows = [_bits_sum(kc[:, i]), _bits_sum(vc[:, i])]
+                rec["written"] = (
+                    torch.equal(kc[:, i], k[:, 0].to(kc.dtype))
+                    and torch.equal(vc[:, i], v[:, 0].to(vc.dtype)))
+                rec["untouched"] = all(
+                    b - rb == a - ra for b, rb, a, ra in
+                    zip(rec["sums"], rec["rows"], after, rows))
+            else:
+                rec["written"] = True
+                rec["untouched"] = after == rec["sums"]
+            return out
+
+        def keep(q, k, v, length, softcap, scales, o, lse):
+            if self.capturing:
+                self.rec.update(q=q, k=k, v=v, length=length.clone(),
+                                softcap=softcap, scales=scales, o=o.clone(),
+                                lse=lse.clone())
+            return o, lse
+
+        def pair(q, k_cache, v_cache, length, max_length=None,
+                 softcap=None, **scales):
+            return keep(q, k_cache, v_cache, length, softcap, scales,
+                        *orig_pair(q, k_cache, v_cache, length, max_length,
+                                   softcap, **scales))
+
+        def pair_ref(q, k, v, n, softcap=None, **scales):
+            length = torch.full((q.shape[0],), n, dtype=torch.int32,
+                                device=q.device)
+            return keep(q, k, v, length, softcap, scales,
+                        *orig_ref(q, k, v, n, softcap, **scales))
+
+        def merge(o, lse, mesh, axes):
+            out = orig_merge(o, lse, mesh, axes)
+            if self.capturing:
+                self.rec.update(merged=out.clone(), mesh=mesh, axes=axes)
+            return out
+        (fd_ops.gqa_decode_attention_lse, fd_ref.gqa_decode_lse_ref,
+         L.merge_split, T._split_decode) = pair, pair_ref, merge, split
+        return self
+
+    def __exit__(self, *exc):
+        fd_ops, fd_ref, L, T = self.mods
+        (fd_ops.gqa_decode_attention_lse, fd_ref.gqa_decode_lse_ref,
+         L.merge_split, T._split_decode) = self.orig
+
+    def check(self) -> dict:
+        """The three comparisons (the class docstring), on every rank
+        (collectives: all ranks call it together).  Ratios are each
+        distance over its limit: ``ok`` where all are at most 1."""
+        import torch
+        from repro_torch.common import comm
+        from repro_torch.kernels.flash_decode import ref
+        r = self.rec
+        if r is None or "merged" not in r:
+            raise AssertionError("mesh_long: the probe saw no "
+                                 "sequence-split attention")
+        if r["scales"]:
+            raise AssertionError("mesh_long: the probe takes a bf16 cache")
+        q, k, v, length, cap = r["q"], r["k"], r["v"], r["length"], \
+            r["softcap"]
+        B, _, Hq, D = q.shape
+        Hkv = k.shape[2]
+        q4 = q.reshape(B, Hkv, Hq // Hkv, D)
+        o4, lse4 = r["o"].reshape(q4.shape), r["lse"].reshape(B, Hkv, -1)
+        want, want_lse = ref.flash_decode_ref(q4, k, v, length, cap,
+                                              lse=True)
+        live = length > 0
+        n = int(length.max())
+        out = {"owner": r["owner"], "local_length": n,
+               "written": r["written"], "untouched": r["untouched"]}
+        if n:
+            # rows at length 0 get a tolerance too, unread: no copy of k
+            tol = fd_tolerance(q4, k, v, length, want, cap)
+            out["pair_max_abs_err"] = float((o4 - want).abs().max())
+            out["pair_ratio"] = float(((o4 - want).abs() / tol)[live].max())
+            rel = 1e-5 + (0.0 if cap is None else cap * 2.0 ** -22)
+            out["lse_ratio"] = float(((lse4 - want_lse)[live].abs()
+                                      / (rel * (1 + want_lse[live].abs())))
+                                     .max())
+            wabs, _ = ref.flash_decode_ref(q4, k, v.abs(), length, cap,
+                                           lse=True)
+            del tol
+        else:
+            out["pair_max_abs_err"] = float(o4.abs().max())
+            out["pair_ratio"] = 0.0 if bool(
+                (o4 == 0).all() and torch.isneginf(lse4).all()) else \
+                float("inf")
+            out["lse_ratio"] = out["pair_ratio"]
+            wabs = torch.zeros_like(want)
+        # every block's pairs, in block order
+        pairs = comm.all_gather(torch.stack([o4, want, wabs])[None],
+                                r["mesh"], r["axes"], dim=0).double()
+        lses = comm.all_gather(torch.stack([lse4, want_lse])[None],
+                               r["mesh"], r["axes"], dim=0).double()
+
+        def merged64(o, lse):
+            m = lse.amax(0)
+            m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+            w = torch.exp(lse - m)[..., None]
+            return (w * o).sum(0) / w.sum(0), w
+        got = r["merged"].reshape(o4.shape).double()
+        exact, w = merged64(pairs[:, 0], lses[:, 0])
+        scale = (w * pairs[:, 0].abs()).sum(0) / w.sum(0)
+        out["merge_ratio"] = float(((got - exact).abs()
+                                    / (SPLIT_MERGE_REL * scale)).max())
+        unsplit, w = merged64(pairs[:, 1], lses[:, 1])
+        vabs = (w * pairs[:, 2]).sum(0) / w.sum(0)
+        rel = 1e-5 + (0.0 if cap is None else cap * 2.0 ** -22)
+        out["unsplit_max_abs_err"] = float((got - unsplit).abs().max())
+        out["unsplit_ratio"] = float(((got - unsplit).abs()
+                                      / (rel * vabs)).max())
+        out["blocks"] = int(pairs.shape[0])
+        out["ok"] = bool(r["written"] and r["untouched"] and max(
+            out["pair_ratio"], out["lse_ratio"], out["merge_ratio"],
+            out["unsplit_ratio"]) <= 1.0)
+        del want, want_lse, wabs, pairs, lses
+        self.rec = None
+        return out
+
+
+def mesh_long_rank(rank, dev, single, sync_file: str) -> dict:
+    """Every rank: ``MESH_LONG``'s Zamba2 over (data=2, model=2) in
+    long_500k's cell: its blocks of the same hashed weights (Mamba-2 and
+    the shared block tensor-parallel over ``model``) and of the same
+    seeded cache (the global layers' sequence over ``data``, their kv
+    heads and the conv states over ``model``), 8 decode steps through the
+    log-sum-exp instantiation, each from one process's state after the
+    step before (``_resync``: a step's distance is that step's rounding,
+    as ``serve_zamba2``'s): each step's logits, seconds and collective
+    counters, the 8 steps' kernel launches, and ``SplitProbe``'s check of
+    the last step's first shared-block attention; then the last step
+    twice again, through the probe, with the merge planted wrong (the
+    ranks' outputs averaged, not weighted by their log-sum-exps; the
+    second block's pair dropped); the dry run's recording of this rank's
+    step on ``meta``; rank 0 holds the logits against the one-process
+    run (``single``)."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.common.pytree import flatten_with_paths, tree_map
+    from repro_torch.common.sharding import P, flatten_specs, local_shard
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_api import cache_read_spec
+    arch, S, steps = MESH_LONG
+    cfg = arch_config(arch)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model = Model(cfg, device=dev, mesh=mesh, decode_impl="cuda")
+    spec_of = dict(flatten_specs(model.param_specs()))
+    params = hashed_blocks(
+        tree_map(lambda d: d.shape, model.param_defs()), MESH_SEED, dev,
+        lambda path, x: local_shard(x, spec_of[".".join(path)],
+                                    mesh).clone())
+    shape = _long_shape()
+    cspec = dict(flatten_specs(model.batch_pspecs(shape)["cache"]["layers"]))
+    cdefs = dict(flatten_with_paths(model.cache_defs(1, S)["layers"]))
+
+    def cut(name, d, x):
+        spec = cache_read_spec(d, cspec[name])
+        return local_shard(x, P(*spec[1:]), mesh).clone()
+    t0 = time.perf_counter()
+    cache = long_cache(model, dev, cut)
+    cache["seq"] = model.cache_seq_axes(shape)
+    torch.cuda.synchronize()
+    out = {"fill_s": time.perf_counter() - t0, "seq": cache["seq"],
+           "cache_bytes": sum(t.numel() * t.element_size() for t in
+                              _leaves(cache["layers"])),
+           "logits": [], "step_s": [], "counters": []}
+    sync = torch.load(sync_file)
+    toks = _long_tokens(cfg.vocab)
+    fd_ops.reset_launches()
+    for i, t in enumerate(toks):
+        if i:
+            _resync(cache, sync[i - 1], cdefs, cspec, mesh,
+                    MESH_LONG_POS0 + i - 1)
+        # the last step's first shared-block attention goes through the
+        # probe (its bit sums add ~4 reads of a 537 MB block to the step)
+        probe = SplitProbe() if i == steps - 1 else None
+        comm.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if probe is None:
+            lg, cache = model.decode_step(params, cache, t)
+        else:
+            with probe:
+                lg, cache = model.decode_step(params, cache, t)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["counters"].append(comm.counters())
+        out["logits"].append(lg.float().cpu())
+    # the main path's launches: the 8 steps only
+    out["launches"] = dict(fd_ops.LAUNCHES)
+    out["probe"] = probe.check()
+    out["finite"] = all(bool(torch.isfinite(x).all()) for x in out["logits"])
+    # the planted faults, each the last step again through the probe: the
+    # blocks' outputs averaged (not weighted by their log-sum-exps), and
+    # the second block's pair dropped from the merge (its few live keys:
+    # only the probe's merge check can see it)
+    merge = L.merge_split
+
+    def averaged(o, lse, m, axes):
+        return comm.psum(o, m, axes) / m.axis_size(axes)
+
+    def second_dropped(o, lse, m, axes):
+        if m.axis_index(axes) == 1:
+            o, lse = torch.zeros_like(o), torch.full_like(lse, -float("inf"))
+        return merge(o, lse, m, axes)
+    planted = {}
+    for name, fault in (("averaged", averaged),
+                        ("second_block_dropped", second_dropped)):
+        _resync(cache, sync[-2], cdefs, cspec, mesh,
+                MESH_LONG_POS0 + steps - 2)
+        cache["pos"] = MESH_LONG_POS0 + steps - 1
+        L.merge_split = fault
+        try:
+            with SplitProbe() as probe:
+                lg_f, cache = model.decode_step(params, cache, toks[-1])
+        finally:
+            L.merge_split = merge
+        planted[name] = {"logits": lg_f.float().cpu(),
+                         "probe": probe.check()}
+    out["planted_launches"] = {k: v - out["launches"][k]
+                               for k, v in fd_ops.LAUNCHES.items()}
+    out["gathered_leaves"] = model.gathered_leaves()
+    del model, params, cache, lg, lg_f, sync
+    torch.cuda.empty_cache()
+    # the same step recorded on meta (no card, no process group)
+    rec_mesh = comm.RecordingMesh((2, 2), ("data", "model"), mesh.rank)
+    rec_model = Model(cfg, device="meta", mesh=rec_mesh)
+    t0 = time.perf_counter()
+    dryrun.trace_step(rec_model, shape, rec_mesh)["run"]()
+    out["record_s"] = time.perf_counter() - t0
+    recorded = {k: {"calls": 0, "bytes": 0} for k in comm.KINDS}
+    for r in rec_mesh.records:
+        recorded[r.kind]["calls"] += 1
+        recorded[r.kind]["bytes"] += r.bytes
+    out["recorded"] = recorded
+    if rank == 0:
+        def rel(a, b):
+            return float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b))
+        out["rel_l2"] = [rel(a, b) for a, b in zip(out["logits"],
+                                                   single["logits"])]
+        out["planted_rel_l2"] = {k: rel(x["logits"], single["logits"][-1])
+                                 for k, x in planted.items()}
+        out["single"] = {k: single[k] for k in ("step_s", "fill_s",
+                                                "cache_bytes", "launches")}
+    out["planted_probe"] = {k: x["probe"] for k, x in planted.items()}
+    out["logits"] = None
+    comm.barrier()
+    return out
+
+
 def mesh_phases_rank(rank, go_file: str, tmp: str) -> dict:
     """The mesh job: every rank waits for ``go_file`` (the main process
     writes it once ``train_dlrm`` has freed the card), then the five
@@ -7737,6 +8407,18 @@ def mesh_phases_rank(rank, go_file: str, tmp: str) -> dict:
     out["mesh_lm"] = mesh_lm_rank(rank, dev, single)
     out["mesh_lm"]["seconds"] = time.perf_counter() - t0
     del single
+    torch.cuda.empty_cache()
+    # ---- mesh_long --------------------------------------------------------
+    t0 = time.perf_counter()
+    sync_file = str(tmp / "mesh_long_sync.pt")
+    single = mesh_long_single(dev, sync_file) if rank == 0 else None
+    if single is not None:
+        mesh_log(rank, f"mesh_long single process "
+                       f"{time.perf_counter() - t0:.1f} s")
+    comm.barrier()
+    out["mesh_long"] = mesh_long_rank(rank, dev, single, sync_file)
+    out["mesh_long"]["seconds"] = time.perf_counter() - t0
+    del single
     out["seconds"] = time.perf_counter() - t_go
     mesh_log(rank, f"mesh phases done in {out['seconds']:.1f} s")
     return out
@@ -7761,11 +8443,12 @@ def _over(reading: float, limit: float) -> bool:
 def mesh_phases(gpu: str, job) -> dict:
     """Phase 7d in the main process: joins the mesh job (let go once the
     card is free of ``train_dlrm``), prints ``mesh_dlrm``,
-    ``mesh_elastic``, ``mesh_moe``, ``mesh_gpipe`` and ``mesh_lm`` and
-    holds their
+    ``mesh_elastic``, ``mesh_moe``, ``mesh_gpipe``, ``mesh_lm`` and
+    ``mesh_long`` and holds their
     numbers (the DLRM's against ``MESH_DLRM_TOL``, each limit also below
     its planted faults' readings of this run).  Returns the bag kernels'
-    launches on the mesh path (every rank's, ``mesh_dlrm``'s 3 steps)."""
+    launches on the mesh path (every rank's, ``mesh_dlrm``'s 3 steps) and
+    the log-sum-exp instantiation's (``mesh_long``'s)."""
     t0 = time.perf_counter()
     res = job.join(MESH_JOIN_S)
     wall = time.perf_counter() - t0
@@ -7891,11 +8574,13 @@ def mesh_phases(gpu: str, job) -> dict:
     if not (g0["bit_equal"] and g0["finite"]):
         raise AssertionError(f"mesh_gpipe: {line}")
     mesh_lm_check(gpu, d0["transport"], res)
+    lse_launches = mesh_long_check(gpu, d0["transport"], res)
     emit({"phase": "mesh_job", "gpu": gpu, "wall_s": wall,
           "ranks_s": [r["seconds"] for r in res],
           "checkpoint_warm_s": [r["checkpoint_warm_s"] for r in res]})
-    return {k: sum(r["mesh_dlrm"]["launches"][k] for r in res)
-            for k in ("embedding_bag_rows", "embedding_bag_backward")}
+    return {**{k: sum(r["mesh_dlrm"]["launches"][k] for r in res)
+               for k in ("embedding_bag_rows", "embedding_bag_backward")},
+            "flash_decode_lse": lse_launches}
 
 
 def mesh_moe_check(gpu: str, transport: str, res: list) -> None:
@@ -7931,6 +8616,8 @@ def mesh_moe_check(gpu: str, transport: str, res: list) -> None:
                        "prefill_s": max(r["mesh_moe"][case][dt]["s"]
                                         for r in res),
                        "single_prefill_s": ref[dt]["s"]}
+        if "decode" in m0[case]:
+            row["decode"] = _moe_decode_rows(ref["decode"], res, case)
         row["all_to_all_bytes_by_rank"] = [
             r["mesh_moe"][case]["f32"]["bytes"]["all_to_all"] for r in res]
         row["psum_bytes_by_rank"] = [
@@ -7956,6 +8643,53 @@ def mesh_moe_check(gpu: str, transport: str, res: list) -> None:
         n, total = row["f32"]["rows_alike"]
         if 2 * n < total or not row["f32"]["rel_l2"] <= MESH_MOE_TOL:
             raise AssertionError(f"mesh_moe {case}: {row['f32']}")
+        dec = row.get("decode")
+        if dec is not None:
+            n, total = dec["pairs_alike"]
+            if (2 * n < total or not dec["rel_l2"] <= MESH_MOE_TOL
+                    or not dec["finite"] or 2 * dec["c_cols"][0] != dec[
+                        "kv_lora_rank"]):
+                raise AssertionError(f"mesh_moe {case} decode: {dec}")
+
+
+def _moe_decode_rows(want: dict, res: list, case: str) -> dict:
+    """``mesh_moe``'s decode of ``case`` against one process's (``want``):
+    the relative L2 distance of the float32 logits over the (step, row)
+    pairs whose MoE layer (the last) routed the step's token as one
+    process did, in steps where no rank's body dropped a slot (under
+    ``ep_a2a`` a rank's expert buffers hold other ranks' tokens: a drop
+    anywhere may be any row's; a dropped slot or a top-k near-tie is
+    another function; at least half the pairs), and the step's seconds,
+    bytes and latent columns."""
+    steps = len(want["logits"])
+    logits = np.zeros((steps,) + want["logits"][0].shape, np.float32)
+    alike = np.zeros(logits.shape[:2], bool)
+    clean = [not any(r["mesh_moe"][case]["decode"]["dropped"][i]
+                     for r in res) for i in range(steps)]
+    for r in res:
+        c = r["mesh_moe"][case]
+        lo, hi = c["rows"]
+        d = c["decode"]
+        for i in range(steps):
+            logits[i, lo:hi] = d["logits"][i]
+            same = (np.sort(d["experts"][i], -1)
+                    == np.sort(want["experts"][i][lo:hi], -1)).all(-1)
+            alike[i, lo:hi] = same & clean[i]
+    ref = np.stack(want["logits"])
+    err = (float(np.linalg.norm(logits[alike] - ref[alike])
+                 / max(np.linalg.norm(ref[alike]), 1e-30))
+           if alike.any() else float("nan"))
+    return {"steps": steps, "rel_l2": err,
+            "pairs_alike": [int(alike.sum()), int(alike.size)],
+            "finite": bool(np.isfinite(logits).all()),
+            "dropped_by_rank": [r["mesh_moe"][case]["decode"]["dropped"]
+                                for r in res],
+            "step_s": res[0]["mesh_moe"][case]["decode"]["s"],
+            "single_step_s": want["s"],
+            "bytes_by_rank": [{k: v["bytes"] for k, v in r["mesh_moe"][case][
+                "decode"]["bytes"].items() if v["calls"]} for r in res],
+            "c_cols": [r["mesh_moe"][case]["decode"]["c_cols"] for r in res],
+            "kv_lora_rank": _moe_cfg().kv_lora_rank}
 
 
 def mesh_lm_check(gpu: str, transport: str, res: list) -> None:
@@ -8012,6 +8746,91 @@ def mesh_lm_check(gpu: str, transport: str, res: list) -> None:
         if _over(x, limit):
             raise AssertionError(f"mesh_lm: {what} lies {x} from one "
                                  f"process's (limit {limit})")
+
+
+def mesh_long_check(gpu: str, transport: str, res: list) -> int:
+    """``mesh_long``'s line, and its checks: finite, every rank through
+    the log-sum-exp instantiation (6 shared-block applications a step, no
+    launch of the unsplit kernel: no rank falls back), each step's
+    collectives on every rank equal to the dry run's recording of that
+    rank's step, no leaf gathered whole, and rank 0's logits within
+    ``MESH_LONG_TOL`` of one process's, the planted averaged merge beyond
+    it; every rank's probe of the last step within its limits, and each
+    planted fault beyond the probe's merge limit on every rank.  Returns
+    the instantiation's launches over the ranks in the 8 steps (the
+    planted steps' apart)."""
+    g0 = res[0]["mesh_long"]
+    arch, S, steps = MESH_LONG
+    per_step = arch_config(arch).n_layers // arch_config(
+        arch).shared_attn_period
+    line = {"phase": "mesh_long", "gpu": gpu, "transport": transport,
+            "arch": arch, "cell": "long_500k", "cache_positions": S,
+            "mesh": {"data": 2, "model": 2}, "seq_split_over": g0["seq"],
+            "pos0": MESH_LONG_POS0, "steps": steps,
+            "rel_l2": g0["rel_l2"], "planted_rel_l2": g0["planted_rel_l2"],
+            "probe_by_rank": [r["mesh_long"]["probe"] for r in res],
+            "planted_probe_by_rank": [r["mesh_long"]["planted_probe"]
+                                      for r in res],
+            "planted_launches_by_rank": [r["mesh_long"]["planted_launches"]
+                                         for r in res],
+            "single_process": g0["single"],
+            "step_s_by_rank": [r["mesh_long"]["step_s"] for r in res],
+            "fill_s_by_rank": [r["mesh_long"]["fill_s"] for r in res],
+            "cache_bytes_by_rank": [r["mesh_long"]["cache_bytes"]
+                                    for r in res],
+            "bytes_a_step_by_rank": [
+                {k: c["bytes"] for k, c in r["mesh_long"]["counters"][-1]
+                 .items() if c["calls"]} for r in res],
+            "calls_a_step_by_rank": [
+                {k: c["calls"] for k, c in r["mesh_long"]["counters"][-1]
+                 .items() if c["calls"]} for r in res],
+            "launches_by_rank": [r["mesh_long"]["launches"] for r in res],
+            "record_s_by_rank": [r["mesh_long"]["record_s"] for r in res],
+            "gathered_leaves": g0["gathered_leaves"],
+            "tolerance": {"rel_l2": MESH_LONG_TOL,
+                          "probe_merge_rel": SPLIT_MERGE_REL},
+            "seconds": g0["seconds"]}
+    emit(line)
+    for r in res:
+        g = r["mesh_long"]
+        if not g["finite"]:
+            raise AssertionError(f"mesh_long: non-finite logits {line}")
+        if g["launches"] != {"flash_decode": 0,
+                             "flash_decode_lse": per_step * steps}:
+            raise AssertionError(f"mesh_long: a rank's launches "
+                                 f"{g['launches']}, {per_step * steps}"
+                                 " of the log-sum-exp instantiation "
+                                 "expected")
+        if not g["probe"]["ok"]:
+            raise AssertionError(f"mesh_long: the last step's sequence-split "
+                                 f"attention is off: {g['probe']}")
+        for name, pr in g["planted_probe"].items():
+            if not _over(pr["merge_ratio"], 1.0):
+                raise AssertionError(f"mesh_long: the probe does not see the "
+                                     f"planted fault {name}: {pr}")
+        for i, c in enumerate(g["counters"]):
+            live = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                    for k, v in c.items()}
+            if live != g["recorded"]:
+                raise AssertionError(f"mesh_long: step {i + 1}'s "
+                                     f"collectives {live} differ from the "
+                                     f"dry run's recording {g['recorded']}")
+    if g0["gathered_leaves"]:
+        raise AssertionError(f"mesh_long: leaves gathered whole "
+                             f"{g0['gathered_leaves']}")
+    if g0["single"]["launches"]["flash_decode"] != per_step * steps:
+        raise AssertionError(f"mesh_long: one process's launches "
+                             f"{g0['single']['launches']}")
+    for i, x in enumerate(g0["rel_l2"]):
+        if _over(x, MESH_LONG_TOL):
+            raise AssertionError(f"mesh_long: step {i + 1}'s logits lie {x} "
+                                 f"from one process's (limit "
+                                 f"{MESH_LONG_TOL})")
+    if not _over(g0["planted_rel_l2"]["averaged"], MESH_LONG_TOL):
+        raise AssertionError(f"mesh_long: the limit {MESH_LONG_TOL} does not "
+                             f"separate the planted wrong merge "
+                             f"({g0['planted_rel_l2']})")
+    return sum(r["mesh_long"]["launches"]["flash_decode_lse"] for r in res)
 
 
 def flash_grad_check(q, k, v, block: int) -> dict:
@@ -8659,6 +9478,16 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
     finally:
         mesh_job.terminate()
 
+    # ---- 10b. the log-sum-exp instantiation against its plain version, and
+    # its time at mesh_long's block (a few GB: after the mesh job) ---------
+    lse_check, timing["flash_decode_lse"] = lse_kernel_check(dev, traced)
+    torch.cuda.empty_cache()
+    emit({"phase": "decode_kernel_check", "kernel": "flash_decode_lse",
+          "inputs": "random", **lse_check})
+    if not lse_check["ok"]:
+        raise AssertionError(f"flash_decode_lse differs from its plain "
+                             f"version: {lse_check}")
+
     # ---- 11. serving: the driver's defaults through its entry point --------
     entry_launches = serve_entry(gpu)
 
@@ -8755,6 +9584,8 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
         row[prefix + "library_device_us"] = (
             None if row[prefix + "library_ms"] is None
             else row[prefix + "index_add_device_us"])
+    timing["flash_decode_lse"]["unsplit_device_us"] = device_us(
+        traced.pop("flash_decode_lse/unsplit")[0])
     fd_t = timing["flash_decode"]
     cap_kernel, nocap_kernel, cap_lib, nocap_lib, _ = traced.pop(
         "flash_decode/softcap")
@@ -8824,13 +9655,16 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
         + mesh_launches_dlrm["embedding_bag_backward"])
     path_launches["flash_decode"] = (entry_launches + long_launches
                                      + sum(arch_launches.values()))
+    # mesh_long's ranks, the sequence-split cache's only path
+    path_launches["flash_decode_lse"] = mesh_launches_dlrm["flash_decode_lse"]
     errs = {"fused_signals_policy": fused["max_abs_err"], **seg_err,
             "dcqcn_update": ccu_check["max_abs_err"],
             "embedding_bag_rows": emb_check["max_abs_err"],
             "embedding_bag_backward": bwd_check["max_abs_err"],
             "flash_decode": max(fd_check["max_abs_err"], *(
                 r["max_abs_err"] for r in (*fd_layers.values(),
-                                           *int8_layers.values())))}
+                                           *int8_layers.values()))),
+            "flash_decode_lse": lse_check["max_abs_err"]}
     kernels = []
     for name in SOURCES:
         if path_launches[name] == 0:
@@ -8860,6 +9694,11 @@ def main_tail(dev, gpu, t_start, cfg, sims, fused, seg_err, ccu_check,
             row["mlp_launches"] = mlp_launches[name]
         if name == "flash_decode":
             row["launches_by_arch"] = arch_launches
+        if name == "flash_decode_lse":
+            row.update({k: tm[k] for k in (
+                "unsplit_ms", "unsplit_device_us", "shape", "library_call",
+                "library_host_us_per_call", "library_max_abs_diff",
+                "library_lse_max_abs_diff")})
         kernels.append(row)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)

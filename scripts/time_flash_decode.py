@@ -7,12 +7,15 @@ sliced to the length, for each given kernel source: the repository's by
 default, or others with the same C entry point (an earlier commit's, from
 ``git archive``) to compare two versions in one run.
 
-    python3 scripts/time_flash_decode.py [--source FILE.cu:CHUNK[:noscale] ...]
+    python3 scripts/time_flash_decode.py
+        [--source FILE.cu:CHUNK[:noscale|:nolse] ...]
         [--out time_flash_decode.json]
 
-Each source is called with softcap 0, the code without the softcap, and
-no int8 scales (``:noscale`` marks a source whose entry point predates
-the int8 cache's two scale pointers); its line also holds
+Each source is called with softcap 0, the code without the softcap, no
+int8 scales and no log-sum-exp output (``:noscale`` marks a source whose
+entry point predates the int8 cache's two scale pointers, ``:nolse`` one
+that predates the lse pointer; a ``:noscale`` source lacks both); its
+line also holds
 its kernels' SASS instruction counts (``chip_smoke.sass_counts``).
 
 Per source and for SDPA, cold (each call on the next of 4 input sets, 69 MB
@@ -102,11 +105,13 @@ def main(argv=None) -> int:
     lines = []
     for spec in sources:
         path, chunk, *flags = spec.split(":")
-        # the scale pointers follow the softcap (argument 12); the stream
-        # is the signature's last argument
+        # the scale pointers follow the softcap (argument 12), the lse
+        # pointer the output (argument 18); the stream is the signature's
+        # last argument
         old_entry = "noscale" in flags
+        no_lse = old_entry or "nolse" in flags
         sig = [t for i, t in enumerate(ops._SIGNATURE)
-               if not (old_entry and i in (13, 14))]
+               if not (old_entry and i in (13, 14) or no_lse and i == 18)]
         lib_path = build.build("flash_decode", Path(path))
         fn = ctypes.CDLL(str(lib_path)).flash_decode
         fn.argtypes, fn.restype = sig, ctypes.c_int
@@ -117,6 +122,8 @@ def main(argv=None) -> int:
             acc, ml = ops.scratch(q, splits)
             a = ops.kernel_args(q, k, v, length, out, splits, acc, ml)
             a[10] = int(chunk)
+            if no_lse:
+                a = a[:18]
             if old_entry:
                 a = a[:13] + a[15:]
             calls.append((a, out, acc, ml))

@@ -19,7 +19,7 @@
 //     q (B, Hkv, G, D); k, v (B, S, Hkv, D) row-major; any S; G <= 16,
 //     D <= 256, G * D <= 2048.  Positions at or past length[b] are never
 //     read (in the Pallas kernel their tiles add exactly 0 when length >= 1).
-//     length < 1 is not supported (the output is then 0).
+//     length < 1 gives an output of 0 (the log-sum-exp route's lse -inf).
 //
 // Bound: device-memory bytes, the K and V rows below length (2 * L * D
 //     elements per (b, h)).  In bf16 the work is about 8 FLOP per byte read,
@@ -86,6 +86,17 @@
 //   scores by k_s, and their p by v_s before the three-term split.  Bound:
 //   the int8 rows and the scales, 2 * L * (D + 4) bytes per (b, h), about
 //   half the bf16 route's.
+// log-sum-exp route (a decode cache split along the sequence across ranks,
+//   the reference's long_500k and decode_seq_shard layouts, whose softmax
+//   GSPMD reduces across the ranks): a template flag LSE of the bf16 and
+//   int8 bodies and of the merge, taken where flash_decode is given an lse
+//   output.  Each row
+//   also writes its log-sum-exp m + log(l) (B, Hkv, G), and out is float32,
+//   normalised by the row's own sum, so that the ranks merge exactly
+//   without a bf16 rounding per rank.  A row of length 0 (a rank whose
+//   block lies past the decode position) gives out 0 and lse -inf.  Only
+//   the 16-byte copy variant is instantiated (the caches are whole
+//   allocations); the flag-free instantiations are unchanged.
 // float32 route: no tensor-core product keeps 1e-5 on float32 inputs, and no
 //   path serves float32, so it keeps the CUDA-core body of the first port:
 //   256 threads, tiles of keys converted to float in shared memory, the
@@ -238,8 +249,10 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
 // floats each) to part_ml, at slot (b * Hkv + h) * n_splits + split.
 // CAP: the scaled scores go through the softcap `cap`.  I8: K and V are
 // int8 with the float32 scales k_scale, v_scale (B, S, Hkv); VEC then
-// needs D % 16 == 0.
-template <int DB, bool VEC, bool CAP, bool I8>
+// needs D % 16 == 0.  LSE: out is float32 and lse (B, Hkv, G) gets each
+// row's log-sum-exp m + log(l) (-inf where the row reads no key: its out
+// is then 0).
+template <int DB, bool VEC, bool CAP, bool I8, bool LSE>
 __global__ void __launch_bounds__(32)
 flash_decode_tc(const bf16* __restrict__ q,
                 const typename std::conditional<I8, int8_t, bf16>::type*
@@ -249,7 +262,10 @@ flash_decode_tc(const bf16* __restrict__ q,
                 const int32_t* __restrict__ length,
                 int S, int Hkv, int G, int D, int chunk, int n_splits,
                 float scale, float cap, float* __restrict__ part_acc,
-                float* __restrict__ part_ml, bf16* __restrict__ out,
+                float* __restrict__ part_ml,
+                typename std::conditional<LSE, float, bf16>::type*
+                    __restrict__ out,
+                float* __restrict__ lse,
                 const float* __restrict__ k_scale,
                 const float* __restrict__ v_scale) {
   constexpr int NST = ring_depth(DB);   // tiles in flight
@@ -528,29 +544,32 @@ flash_decode_tc(const bf16* __restrict__ q,
         part_ml[slot * 2 * G + g] = m_r[r];
         part_ml[slot * 2 * G + G + g] = l_r[r];
       }
+      if (LSE && n_splits == 1 && tg == 0)
+        lse[bh * G + g] = l_r[r] > 0.0f ? m_r[r] + logf(l_r[r]) : -INFINITY;
     }
   }
 }
 
-template <int DB, bool VEC, bool CAP, bool I8>
+template <int DB, bool VEC, bool CAP, bool I8, bool LSE>
 cudaError_t launch_tc(const bf16* q, const void* k, const void* v,
                       const int32_t* length, int B, int S, int Hkv, int G,
                       int D, int chunk, int n_splits, float scale, float cap,
-                      float* part_acc, float* part_ml, bf16* out,
+                      float* part_acc, float* part_ml, void* out, float* lse,
                       const float* k_scale, const float* v_scale,
                       cudaStream_t stream) {
   typedef typename std::conditional<I8, int8_t, bf16>::type KV;
+  typedef typename std::conditional<LSE, float, bf16>::type OT;
   constexpr int NST = ring_depth(DB);
   // once per instantiation: allow the bucket's largest block (D = 256
   // needs 57 KB) and prefer shared memory over L1
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_tc<DB, VEC, CAP, I8>,
+        flash_decode_tc<DB, VEC, CAP, I8, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         I8 ? (int)tc_smem_i8(DB + ROW_PAD, DB, NST)
            : (int)tc_smem(DB + ROW_PAD, NST));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_decode_tc<DB, VEC, CAP, I8>,
+    return cudaFuncSetAttribute(flash_decode_tc<DB, VEC, CAP, I8, LSE>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
   }();
@@ -562,7 +581,7 @@ cudaError_t launch_tc(const bf16* q, const void* k, const void* v,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_decode_tc<DB, VEC, CAP, I8>, 32,
+        &per_sm, flash_decode_tc<DB, VEC, CAP, I8, LSE>, 32,
         I8 ? tc_smem_i8(DB + ROW_PAD, DB, NST) : tc_smem(DB + ROW_PAD, NST));
     return sms * (per_sm > 0 ? per_sm : 1);
   }();
@@ -571,53 +590,53 @@ cudaError_t launch_tc(const bf16* q, const void* k, const void* v,
       n_splits, std::max<int64_t>(1, (resident + rows - 1) / rows));
   const int DP = (D + 15) & ~15, LD = DP + ROW_PAD;
   const dim3 grid((unsigned)n_blocks, (unsigned)Hkv, (unsigned)B);
-  flash_decode_tc<DB, VEC, CAP, I8>
+  flash_decode_tc<DB, VEC, CAP, I8, LSE>
       <<<grid, 32, I8 ? tc_smem_i8(LD, DP, NST) : tc_smem(LD, NST), stream>>>(
           q, static_cast<const KV*>(k), static_cast<const KV*>(v), length, S,
-          Hkv, G, D, chunk, n_splits, scale, cap, part_acc, part_ml, out,
-          k_scale, v_scale);
+          Hkv, G, D, chunk, n_splits, scale, cap, part_acc, part_ml,
+          static_cast<OT*>(out), lse, k_scale, v_scale);
   return cudaGetLastError();
 }
 
-template <bool VEC, bool CAP, bool I8>
+template <bool VEC, bool CAP, bool I8, bool LSE>
 cudaError_t launch_tc_d(const bf16* q, const void* k, const void* v,
                         const int32_t* length, int B, int S, int Hkv, int G,
                         int D, int chunk, int n_splits, float scale,
-                        float cap, float* part_acc, float* part_ml, bf16* out,
-                        const float* k_scale, const float* v_scale,
+                        float cap, float* part_acc, float* part_ml, void* out,
+                        float* lse, const float* k_scale, const float* v_scale,
                         cudaStream_t stream) {
   const int DP = (D + 15) & ~15;
   if (DP <= 64)
-    return launch_tc<64, VEC, CAP, I8>(q, k, v, length, B, S, Hkv, G, D,
-                                       chunk, n_splits, scale, cap, part_acc,
-                                       part_ml, out, k_scale, v_scale,
-                                       stream);
+    return launch_tc<64, VEC, CAP, I8, LSE>(
+        q, k, v, length, B, S, Hkv, G, D, chunk, n_splits, scale, cap,
+        part_acc, part_ml, out, lse, k_scale, v_scale, stream);
   if (DP <= 128)
-    return launch_tc<128, VEC, CAP, I8>(q, k, v, length, B, S, Hkv, G, D,
-                                        chunk, n_splits, scale, cap, part_acc,
-                                        part_ml, out, k_scale, v_scale,
-                                        stream);
-  return launch_tc<256, VEC, CAP, I8>(q, k, v, length, B, S, Hkv, G, D, chunk,
-                                      n_splits, scale, cap, part_acc, part_ml,
-                                      out, k_scale, v_scale, stream);
+    return launch_tc<128, VEC, CAP, I8, LSE>(
+        q, k, v, length, B, S, Hkv, G, D, chunk, n_splits, scale, cap,
+        part_acc, part_ml, out, lse, k_scale, v_scale, stream);
+  return launch_tc<256, VEC, CAP, I8, LSE>(
+      q, k, v, length, B, S, Hkv, G, D, chunk, n_splits, scale, cap,
+      part_acc, part_ml, out, lse, k_scale, v_scale, stream);
 }
 
-template <bool VEC, bool I8>
+template <bool VEC, bool I8, bool LSE = false>
 cudaError_t launch_tc_cap(const bf16* q, const void* k, const void* v,
                           const int32_t* length, int B, int S, int Hkv, int G,
                           int D, int chunk, int n_splits, float scale,
                           float cap, float* part_acc, float* part_ml,
-                          bf16* out, const float* k_scale,
-                          const float* v_scale, cudaStream_t stream) {
+                          void* out, const float* k_scale,
+                          const float* v_scale, cudaStream_t stream,
+                          float* lse = nullptr) {
   return cap > 0.0f
-             ? launch_tc_d<VEC, true, I8>(q, k, v, length, B, S, Hkv, G, D,
-                                          chunk, n_splits, scale, cap,
-                                          part_acc, part_ml, out, k_scale,
-                                          v_scale, stream)
-             : launch_tc_d<VEC, false, I8>(q, k, v, length, B, S, Hkv, G, D,
-                                           chunk, n_splits, scale, cap,
-                                           part_acc, part_ml, out, k_scale,
-                                           v_scale, stream);
+             ? launch_tc_d<VEC, true, I8, LSE>(q, k, v, length, B, S, Hkv, G,
+                                               D, chunk, n_splits, scale, cap,
+                                               part_acc, part_ml, out, lse,
+                                               k_scale, v_scale, stream)
+             : launch_tc_d<VEC, false, I8, LSE>(q, k, v, length, B, S, Hkv,
+                                                G, D, chunk, n_splits, scale,
+                                                cap, part_acc, part_ml, out,
+                                                lse, k_scale, v_scale,
+                                                stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -826,13 +845,16 @@ constexpr int MERGE_BATCH = 8;   // partials a lane loads at once
 // MERGE_BATCH chunks are loaded at once (all of them up to 64 chunks).
 // Launched as a programmatic dependent of the split kernel: it reads the
 // length, then waits for the split grid (griddepcontrol.wait) before it
-// reads a partial.
-template <typename T>
+// reads a partial.  LSE: the element's first lane group of each query
+// (d == 0) also writes the row's log-sum-exp M + log(L) to lse (-inf
+// where the row reads no key).
+template <typename T, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_merge(const float* __restrict__ part_acc,
                    const float* __restrict__ part_ml,
                    const int32_t* __restrict__ length, int S, int G, int D,
-                   int chunk, int n_splits, T* __restrict__ out) {
+                   int chunk, int n_splits, T* __restrict__ out,
+                   float* __restrict__ lse) {
   const int b = blockIdx.z;
   const int64_t bh = (int64_t)b * gridDim.y + blockIdx.y;
   const int GD = G * D;
@@ -881,7 +903,11 @@ flash_decode_merge(const float* __restrict__ part_acc,
     l += __shfl_xor_sync(FULL, l, o);
     a += __shfl_xor_sync(FULL, a, o);
   }
-  if (live && j == 0) store(out + bh * GD + e, a / fmaxf(l, 1e-30f));
+  if (live && j == 0) {
+    store(out + bh * GD + e, a / fmaxf(l, 1e-30f));
+    if (LSE && e - g * D == 0)
+      lse[bh * G + g] = l > 0.0f ? m + logf(l) : -INFINITY;
+  }
 }
 
 }  // namespace
@@ -897,13 +923,27 @@ extern "C" {
 // holds B * Hkv * n_splits * G * D floats and part_ml B * Hkv * n_splits *
 // 2 * G; chunk * n_splits positions are covered.  The bf16 route needs
 // chunk % 16 == 0 (whole tiles of keys).
+// lse, null for none: the log-sum-exp route, for a cache split along the
+// sequence across ranks (bf16 q over a bf16 or int8 cache): out is then
+// float32, normalised by the row's own sum, and lse (B, Hkv, G) float32
+// gets each row's log-sum-exp, so that the ranks' rows merge exactly: M =
+// max lse_r, out = sum_r exp(lse_r - M) out_r / sum_r exp(lse_r - M).  A
+// row of length 0 gives out 0 and lse -inf.  It needs 16-byte copies (D %
+// 8 == 0, or % 16 with int8; q, k, v 16-byte aligned).
 int flash_decode(const void* q, const void* k, const void* v,
                  const int32_t* length, int B, int S, int Hkv, int G, int D,
                  int is_f32, int chunk, int n_splits, float softcap,
                  const float* k_scale, const float* v_scale,
-                 float* part_acc, float* part_ml, void* out, void* stream) {
+                 float* part_acc, float* part_ml, void* out, float* lse,
+                 void* stream) {
   const bool i8 = k_scale != nullptr;
-  if ((k_scale == nullptr) != (v_scale == nullptr) || (i8 && is_f32))
+  // 16-byte copies: the bf16 route's rows need D % 8 == 0, the int8
+  // route's D % 16 == 0 (and its q rows D % 8 == 0)
+  const bool vec = !is_f32 && D % (i8 ? 16 : 8) == 0 &&
+                   ((uintptr_t)q & 15) == 0 && ((uintptr_t)k & 15) == 0 &&
+                   ((uintptr_t)v & 15) == 0;
+  if ((k_scale == nullptr) != (v_scale == nullptr) || (i8 && is_f32) ||
+      (lse != nullptr && !vec))
     return (int)cudaErrorInvalidValue;
   if (B < 1 || B > 65535 || S < 1 || Hkv < 1 || Hkv > 65535 || G < 1 ||
       G > MAX_G || D < 1 || D > MAX_D || G * D > MAX_GD || chunk < 1 ||
@@ -927,28 +967,34 @@ int flash_decode(const void* q, const void* k, const void* v,
                                   static_cast<float*>(out), s);
   } else {
     const bf16* qb = static_cast<const bf16*>(q);
-    bf16* ob = static_cast<bf16*>(out);
-    // 16-byte copies: the bf16 route's rows need D % 8 == 0, the int8
-    // route's D % 16 == 0 (and its q rows D % 8 == 0)
-    const bool vec = D % (i8 ? 16 : 8) == 0 && ((uintptr_t)q & 15) == 0 &&
-                     ((uintptr_t)k & 15) == 0 && ((uintptr_t)v & 15) == 0;
-    if (i8)
+    if (lse != nullptr)
+      err = i8 ? launch_tc_cap<true, true, true>(qb, k, v, length, B, S, Hkv,
+                                                 G, D, chunk, n_splits, scale,
+                                                 softcap, part_acc, part_ml,
+                                                 out, k_scale, v_scale, s,
+                                                 lse)
+               : launch_tc_cap<true, false, true>(qb, k, v, length, B, S, Hkv,
+                                                  G, D, chunk, n_splits,
+                                                  scale, softcap, part_acc,
+                                                  part_ml, out, nullptr,
+                                                  nullptr, s, lse);
+    else if (i8)
       err = vec ? launch_tc_cap<true, true>(qb, k, v, length, B, S, Hkv, G,
                                             D, chunk, n_splits, scale,
-                                            softcap, part_acc, part_ml, ob,
+                                            softcap, part_acc, part_ml, out,
                                             k_scale, v_scale, s)
                 : launch_tc_cap<false, true>(qb, k, v, length, B, S, Hkv, G,
                                              D, chunk, n_splits, scale,
-                                             softcap, part_acc, part_ml, ob,
+                                             softcap, part_acc, part_ml, out,
                                              k_scale, v_scale, s);
     else
       err = vec ? launch_tc_cap<true, false>(qb, k, v, length, B, S, Hkv, G,
                                              D, chunk, n_splits, scale,
-                                             softcap, part_acc, part_ml, ob,
+                                             softcap, part_acc, part_ml, out,
                                              nullptr, nullptr, s)
                 : launch_tc_cap<false, false>(qb, k, v, length, B, S, Hkv, G,
                                               D, chunk, n_splits, scale,
-                                              softcap, part_acc, part_ml, ob,
+                                              softcap, part_acc, part_ml, out,
                                               nullptr, nullptr, s);
   }
   if (err != cudaSuccess || n_splits == 1) return (int)err;
@@ -963,14 +1009,19 @@ int flash_decode(const void* q, const void* k, const void* v,
   cfg.stream = s;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  if (is_f32)
-    err = cudaLaunchKernelEx(&cfg, flash_decode_merge<float>, part_acc,
+  if (lse != nullptr)
+    err = cudaLaunchKernelEx(&cfg, flash_decode_merge<float, true>, part_acc,
                              part_ml, length, S, G, D, chunk, n_splits,
-                             static_cast<float*>(out));
+                             static_cast<float*>(out), lse);
+  else if (is_f32)
+    err = cudaLaunchKernelEx(&cfg, flash_decode_merge<float, false>,
+                             part_acc, part_ml, length, S, G, D, chunk,
+                             n_splits, static_cast<float*>(out),
+                             (float*)nullptr);
   else
-    err = cudaLaunchKernelEx(&cfg, flash_decode_merge<bf16>, part_acc,
+    err = cudaLaunchKernelEx(&cfg, flash_decode_merge<bf16, false>, part_acc,
                              part_ml, length, S, G, D, chunk, n_splits,
-                             static_cast<bf16*>(out));
+                             static_cast<bf16*>(out), (float*)nullptr);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

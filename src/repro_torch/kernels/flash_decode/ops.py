@@ -36,6 +36,17 @@ scales into the probability weights, as the reference's
 ``layers.decode_attention_quant``; on the CPU the wrapper returns
 ``ref.flash_decode_quant_ref``.  An int8 CUDA tensor goes through that
 instantiation or raises.
+
+**The log-sum-exp instantiation** (``flash_decode_lse``: the C entry
+point given an ``lse`` output): the same attention over each rank's
+block of a cache split along the sequence, returning the output in float32,
+normalised by the row's own sum, and each row's log-sum-exp (B, Hkv, G)
+float32, so that the ranks merge exactly (``models.layers.merge_split``).
+A length of 0 is taken (a rank whose block lies past the decode position):
+the row's output is 0 and its lse -inf.  bf16 or int8 caches, softcap
+included; q bf16 on the card; ``LAUNCHES["flash_decode_lse"]`` counts it.
+On the CPU it returns ``ref.flash_decode_ref(..., lse=True)`` (or the
+int8 version).
 """
 from __future__ import annotations
 
@@ -49,7 +60,7 @@ from repro_torch.kernels.flash_decode import ref
 
 # kernel launches since the last reset_launches(); the plain version never
 # counts
-LAUNCHES = {"flash_decode": 0}
+LAUNCHES = {"flash_decode": 0, "flash_decode_lse": 0}
 
 CHUNK = 64           # cache positions per partial of the split pass
 MAX_G, MAX_D, MAX_GD = 16, 256, 2048
@@ -59,7 +70,7 @@ _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p]
+              ctypes.c_void_p, ctypes.c_void_p]
 
 
 def reset_launches() -> None:
@@ -130,16 +141,18 @@ def vector_loads(k: torch.Tensor, v: torch.Tensor) -> bool:
 
 def kernel_args(q, k, v, length, out, splits: int, part_acc, part_ml,
                 softcap: float | None = None, k_scale=None,
-                v_scale=None) -> list:
+                v_scale=None, lse=None) -> list:
     """The C arguments (stream excluded) for ``q (B, Hkv, G, D)`` over
     ``k``/``v (B, S, Hkv, D)`` into ``out``; the softcap goes as 0 for
-    none, the scales of an int8 cache as null for none."""
+    none, the scales of an int8 cache and the log-sum-exp output ``lse``
+    (which takes the log-sum-exp route, ``out`` float32) as null for
+    none."""
     B, Hkv, G, D = q.shape
     ptr = (lambda t: 0 if t is None else t.data_ptr())
     return [q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), B,
             k.shape[1], Hkv, G, D, int(q.dtype == torch.float32), CHUNK,
             splits, float(softcap or 0.0), ptr(k_scale), ptr(v_scale),
-            ptr(part_acc), ptr(part_ml), out.data_ptr()]
+            ptr(part_acc), ptr(part_ml), out.data_ptr(), ptr(lse)]
 
 
 def _check_softcap(softcap) -> None:
@@ -148,10 +161,10 @@ def _check_softcap(softcap) -> None:
                          f"float or None, got {softcap}")
 
 
-def _check_lengths(length: torch.Tensor, S: int) -> None:
-    if length.numel() and (int(length.min()) < 1 or int(length.max()) > S):
-        raise ValueError(f"flash_decode: lengths must lie in [1, {S}], got "
-                         f"[{int(length.min())}, {int(length.max())}]")
+def _check_lengths(length: torch.Tensor, S: int, lo: int = 1) -> None:
+    if length.numel() and (int(length.min()) < lo or int(length.max()) > S):
+        raise ValueError(f"flash_decode: lengths must lie in [{lo}, {S}], "
+                         f"got [{int(length.min())}, {int(length.max())}]")
 
 
 def _check_max_length(length: torch.Tensor, max_length: int) -> None:
@@ -182,6 +195,43 @@ def _check_quant(q, k, v, k_scale, v_scale) -> bool:
     return quant
 
 
+def _card_checks(name: str, q, k, v, length, k_scale, v_scale, quant,
+                 dtypes: tuple) -> None:
+    """The CUDA path's checks of ``flash_decode``'s arguments (q's dtype
+    among ``dtypes``)."""
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    if q.dtype not in dtypes:
+        names = {torch.bfloat16: "bf16", torch.float32: "float32"}
+        raise TypeError(f"{name}: q must be "
+                        f"{' or '.join(names[t] for t in dtypes)}, got "
+                        f"{q.dtype}")
+    if not (G <= MAX_G and D <= MAX_D and G * D <= MAX_GD):
+        raise ValueError(f"{name}: G={G}, D={D} outside the kernel's "
+                         f"limits (G <= {MAX_G}, D <= {MAX_D}, G * D <= "
+                         f"{MAX_GD})")
+    check(q, "q", (B, Hkv, G, D), q.dtype)
+    check(k, "k", (B, S, Hkv, D), k.dtype if quant else q.dtype)
+    check(v, "v", (B, S, Hkv, D), k.dtype if quant else q.dtype)
+    check(length, "length", (B,), torch.int32)
+    if quant:
+        check(k_scale, "k_scale", (B, S, Hkv), torch.float32)
+        check(v_scale, "v_scale", (B, S, Hkv), torch.float32)
+
+
+def _plain(q, k, v, length, max_length, softcap, k_scale, v_scale, quant,
+           lse: bool, lo: int):
+    """The CPU path: the lengths checked (from ``lo``), the plain
+    version."""
+    _check_lengths(length, k.shape[1], lo)
+    if max_length is not None:
+        _check_max_length(length, max_length)
+    if quant:
+        return ref.flash_decode_quant_ref(q, k, v, k_scale, v_scale, length,
+                                          softcap, lse=lse)
+    return ref.flash_decode_ref(q, k, v, length, softcap, lse=lse)
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  length: torch.Tensor, max_length: int | None = None,
                  softcap: float | None = None,
@@ -196,40 +246,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which would read ``length`` back to the host on every call; the CPU
     path raises where it is below ``max(length)``.  ``softcap`` and the
     int8 cache's ``k_scale``/``v_scale``: see the module docstring."""
-    B, Hkv, G, D = q.shape
-    S = k.shape[1]
     _check_softcap(softcap)
     quant = _check_quant(q, k, v, k_scale, v_scale)
-    tensors = (q, k, v, length) + ((k_scale, v_scale) if quant else ())
-    if not on_cuda(tensors):
-        _check_lengths(length, S)
-        if max_length is not None:
-            _check_max_length(length, max_length)
-        if quant:
-            return ref.flash_decode_quant_ref(q, k, v, k_scale, v_scale,
-                                              length, softcap)
-        return ref.flash_decode_ref(q, k, v, length, softcap)
-    if q.dtype not in ((torch.bfloat16,) if quant
-                       else (torch.bfloat16, torch.float32)):
-        raise TypeError(f"flash_decode: q must be bf16{'' if quant else ' or float32'}"
-                        f", got {q.dtype}")
-    if not (G <= MAX_G and D <= MAX_D and G * D <= MAX_GD):
-        raise ValueError(f"flash_decode: G={G}, D={D} outside the kernel's "
-                         f"limits (G <= {MAX_G}, D <= {MAX_D}, G * D <= "
-                         f"{MAX_GD})")
-    check(q, "q", (B, Hkv, G, D), q.dtype)
-    check(k, "k", (B, S, Hkv, D), k.dtype if quant else q.dtype)
-    check(v, "v", (B, S, Hkv, D), k.dtype if quant else q.dtype)
-    check(length, "length", (B,), torch.int32)
-    if quant:
-        check(k_scale, "k_scale", (B, S, Hkv), torch.float32)
-        check(v_scale, "v_scale", (B, S, Hkv), torch.float32)
+    if not on_cuda((q, k, v, length) + ((k_scale, v_scale) if quant
+                                         else ())):
+        return _plain(q, k, v, length, max_length, softcap, k_scale,
+                      v_scale, quant, False, 1)
+    _card_checks("flash_decode", q, k, v, length, k_scale, v_scale, quant,
+                 (torch.bfloat16,) if quant
+                 else (torch.bfloat16, torch.float32))
     if max_length is not None and max_length < 1:
         raise ValueError(f"flash_decode: max_length {max_length} < 1")
     out = torch.empty_like(q)
-    if B == 0:
+    if q.shape[0] == 0:
         return out
-    splits = n_splits(S, max_length)
+    splits = n_splits(k.shape[1], max_length)
     part_acc, part_ml = scratch(q, splits)
     stream = torch.cuda.current_stream().cuda_stream
     err = kernel_function()(*kernel_args(q, k, v, length, out, splits,
@@ -257,3 +288,62 @@ def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = flash_decode(q.reshape(B, Hkv, Hq // Hkv, D), k_cache, v_cache,
                        length, max_length, softcap, k_scale, v_scale)
     return out.reshape(B, 1, Hq, D)
+
+
+def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: torch.Tensor, max_length: int | None = None,
+                     softcap: float | None = None,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> tuple:
+    """``flash_decode``'s arguments (lengths from 0) -> ``(out (B, Hkv, G,
+    D) float32, lse (B, Hkv, G) float32)``: the log-sum-exp instantiation
+    (the module docstring).  On the card q is bf16 and the tensors take
+    16-byte copies (D a multiple of 8, of 16 with int8; 16-byte aligned),
+    else it raises."""
+    B, Hkv, G, D = q.shape
+    _check_softcap(softcap)
+    quant = _check_quant(q, k, v, k_scale, v_scale)
+    if not on_cuda((q, k, v, length) + ((k_scale, v_scale) if quant
+                                         else ())):
+        return _plain(q, k, v, length, max_length, softcap, k_scale,
+                      v_scale, quant, True, 0)
+    _card_checks("flash_decode_lse", q, k, v, length, k_scale, v_scale,
+                 quant, (torch.bfloat16,))
+    if D % (16 if quant else 8) or not (vector_loads(k, v)
+                                        and q.data_ptr() % 16 == 0):
+        raise ValueError("flash_decode_lse: the kernel takes 16-byte copies "
+                         f"only (D={D}, q, k, v 16-byte aligned)")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return out, lse
+    splits = n_splits(k.shape[1], None if max_length is None
+                      else max(1, max_length))
+    part_acc, part_ml = scratch(q, splits)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = kernel_function()(*kernel_args(q, k, v, length, out, splits,
+                                         part_acc, part_ml, softcap, k_scale,
+                                         v_scale, lse), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode_lse: CUDA launch failed with "
+                           f"cudaError_t {err}")
+    LAUNCHES["flash_decode_lse"] += 1
+    return out, lse
+
+
+def gqa_decode_attention_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, length: torch.Tensor,
+                             max_length: int | None = None,
+                             softcap: float | None = None,
+                             k_scale: torch.Tensor | None = None,
+                             v_scale: torch.Tensor | None = None) -> tuple:
+    """q: (B, 1, Hq, D) over this rank's block (B, S_r, Hkv, D) of a cache
+    split along the sequence; length (B,) int32 from 0.  Returns (out
+    (B, 1, Hq, D) float32, lse (B, 1, Hq) float32), the pair
+    ``models.layers.merge_split`` merges across the ranks."""
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    out, lse = flash_decode_lse(q.reshape(B, Hkv, Hq // Hkv, D), k_cache,
+                                v_cache, length, max_length, softcap,
+                                k_scale, v_scale)
+    return out.reshape(B, 1, Hq, D), lse.reshape(B, 1, Hq)

@@ -9,7 +9,14 @@ same over an int8 cache with its scales (``decode_attention_quant``). The
 wrapper in ``ops.py`` calls it for CPU tensors; the tests and
 ``chip_smoke.py`` hold the CUDA kernel against it.
 ``flash_decode_chunked_ref`` models the kernel's split into fixed chunks
-and their merge, for the CPU tests.
+and their merge, for the CPU tests; ``gqa_decode_lse_ref`` is the
+log-sum-exp pair in the model's layout (``decode_impl="torch"``).
+
+With ``lse=True`` both return the log-sum-exp instantiation's pair: the
+output in float32 (not cast) and each row's log-sum-exp (B, Hkv, G)
+float32 over its scores; a row of length 0 gives an output of 0 and an
+lse of -inf (the rank of a sequence-split cache whose block lies past
+the decode position).
 """
 from __future__ import annotations
 
@@ -22,21 +29,40 @@ def _softcap(s, cap):
     return s if cap is None else cap * torch.tanh(s / cap)
 
 
-def flash_decode_ref(q, k, v, length, softcap=None):
-    """q: (B,Hkv,G,D); k/v: (B,S,Hkv,D); length (B,) -> (B,Hkv,G,D)."""
+def _softmax(s, mask, lse: bool):
+    """(p, the rows' log-sum-exp or None) of the masked scores; a row
+    without a valid key gets p = 0 and lse = -inf."""
+    s = torch.where(mask, s, NEG_INF)
+    if not lse:
+        return torch.softmax(s, dim=-1), None
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m) * mask
+    tot = e.sum(-1, keepdim=True)
+    p = e / torch.clamp_min(tot, 1e-30)
+    lse_ = torch.where(tot[..., 0] > 0, m[..., 0] + torch.log(tot[..., 0]),
+                       float("-inf"))
+    return p, lse_
+
+
+def _mask(q, S, length):
+    return (torch.arange(S, device=q.device)[None, None, None, :]
+            < length.to(q.device)[:, None, None, None])
+
+
+def flash_decode_ref(q, k, v, length, softcap=None, lse: bool = False):
+    """q: (B,Hkv,G,D); k/v: (B,S,Hkv,D); length (B,) -> (B,Hkv,G,D); with
+    ``lse``, (float32 output, log-sum-exp (B,Hkv,G))."""
     D = q.shape[-1]
     S = k.shape[1]
     logits = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) / (D ** 0.5)
     logits = _softcap(logits, softcap)
-    mask = (torch.arange(S, device=q.device)[None, None, None, :]
-            < length.to(q.device)[:, None, None, None])
-    logits = torch.where(mask, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
+    p, rows = _softmax(logits, _mask(q, S, length), lse)
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    return out.to(q.dtype)
+    return (out, rows) if lse else out.to(q.dtype)
 
 
-def flash_decode_quant_ref(q, k, v, k_scale, v_scale, length, softcap=None):
+def flash_decode_quant_ref(q, k, v, k_scale, v_scale, length, softcap=None,
+                           lse: bool = False):
     """The int8 cache's version (``layers.decode_attention_quant``'s math
     in the kernel's layout): q (B,Hkv,G,D); k/v (B,S,Hkv,D) int8; scales
     (B,S,Hkv) float32; float32 scores (q . k) * k_scale / sqrt(D),
@@ -47,12 +73,34 @@ def flash_decode_quant_ref(q, k, v, k_scale, v_scale, length, softcap=None):
     s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float())
     s = s * torch.movedim(k_scale, 2, 1)[:, :, None, :] / (D ** 0.5)
     s = _softcap(s, softcap)
-    mask = (torch.arange(S, device=q.device)[None, None, None, :]
-            < length.to(q.device)[:, None, None, None])
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1) * torch.movedim(v_scale, 2, 1)[:, :, None, :]
+    p, rows = _softmax(s, _mask(q, S, length), lse)
+    p = p * torch.movedim(v_scale, 2, 1)[:, :, None, :]
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    return out.to(q.dtype)
+    return (out, rows) if lse else out.to(q.dtype)
+
+
+def gqa_decode_lse_ref(q, k, v, n: int, softcap=None, k_scale=None,
+                       v_scale=None):
+    """The log-sum-exp pair in the model's layout over the first ``n``
+    positions of every row (a Python int, 0 included), on any device (the
+    dry run's ``meta`` too): q (B,1,Hq,D) over k/v (B,S,Hkv,D), bf16 or
+    int8 with ``k_scale``/``v_scale`` -> (out (B,1,Hq,D) float32, lse
+    (B,1,Hq)).  Only those positions are read, so the dry run counts the
+    dots of the live keys, as the kernel reads them."""
+    B, _, Hq, D = q.shape
+    if n == 0:
+        return (torch.zeros((B, 1, Hq, D), device=q.device),
+                torch.full((B, 1, Hq), float("-inf"), device=q.device))
+    q4 = q.reshape(B, k.shape[2], Hq // k.shape[2], D)
+    length = torch.full((B,), n, dtype=torch.int32, device=q.device)
+    if k_scale is None:
+        o, lse = flash_decode_ref(q4, k[:, :n], v[:, :n], length, softcap,
+                                  lse=True)
+    else:
+        o, lse = flash_decode_quant_ref(q4, k[:, :n], v[:, :n],
+                                        k_scale[:, :n], v_scale[:, :n],
+                                        length, softcap, lse=True)
+    return o.reshape(B, 1, Hq, D), lse.reshape(B, 1, Hq)
 
 
 def flash_decode_chunked_ref(q, k, v, length, chunk: int, chunks_read,

@@ -21,8 +21,9 @@ The record's keys are the reference's:
 * ``n_params``: the parameter count;
 * ``memory.argument_bytes``: this rank's blocks of the parameters, the
   optimizer state (ZeRO-1) and the batch, or of the parameters, the
-  decode cache and the tokens (``Model.cache_block_shape``: MLA's latent
-  is held whole, where the reference's cache splits it over ``model``);
+  decode cache and the tokens (``model_api.cache_block_shape``: a global
+  layer's K/V split along the sequence where the cell's cache rules split
+  it, ``long_500k`` and ``seqcache``);
   ``memory.output_bytes``, ``temp_bytes`` and ``peak_bytes`` are null:
   the port has no compiler memory plan, and they are not estimated;
 * ``flops``: the rank's dot FLOPs (``torch.utils.flop_counter``: matmuls
@@ -201,7 +202,8 @@ def trace_step(model, shape, mesh, gradspec: bool = False,
                        torch.int32)
         # the last position: the step reads the whole cache, as the
         # reference's masked decode does
-        cache = {"layers": layers, "pos": S - 1}
+        cache = {"layers": layers, "pos": S - 1,
+                 "seq": model.cache_seq_axes(shape)}
         args += _tree_bytes(layers) + 4 + _nbytes(tokens)
 
         def run():

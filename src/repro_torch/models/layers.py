@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch.common import comm
 from repro_torch.common.pytree import ParamDef
 from repro_torch.core.arith import expf
 
@@ -434,6 +435,18 @@ def decode_attention_quant(q, k_q, v_q, k_s, v_s, *, length: int,
     pw = p * torch.movedim(v_s[:, :length], 2, 1)[:, :, None, :]
     o = torch.einsum("bhgk,bkhd->bhgd", pw, v_q[:, :length].float())
     return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def merge_split(o: torch.Tensor, lse: torch.Tensor, mesh, axes) -> tuple:
+    """The exact merge of the ranks' (out, lse) pairs of a cache split
+    along the sequence over ``axes``, in float32: M = pmax(lse), out =
+    psum(exp(lse - M) out) / psum(exp(lse - M)) (one ``psum`` of both).
+    o (B,1,H,D), lse (B,1,H) -> (B,1,H,D) float32."""
+    m = comm.pmax(lse, mesh, axes)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    both = comm.psum(torch.cat([o * w, w], dim=-1), mesh, axes)
+    return both[..., :-1] / both[..., -1:]
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import comm
 from repro_torch.common.pytree import ParamDef
 from repro_torch.models import layers as L
 from repro_torch.models.flash import flash_attention
@@ -46,6 +47,18 @@ def mla_defs(cfg) -> dict:
     return d
 
 
+def tp_params(p, tp):
+    """``p`` with the replicated leaves a head-split MLA reads through
+    ``tp.rep`` (None: ``p``)."""
+    if tp is None:
+        return p
+    p = dict(p, kv_norm={"scale": tp.rep(p["kv_norm"]["scale"])})
+    if "wq_a" in p:
+        p["wq_a"] = tp.rep(p["wq_a"])
+        p["q_norm"] = {"scale": tp.rep(p["q_norm"]["scale"])}
+    return p
+
+
 def _queries(p, x, cfg, positions):
     d_nope = cfg.qk_nope_head_dim
     if cfg.q_lora_rank:
@@ -59,28 +72,30 @@ def _queries(p, x, cfg, positions):
     return q_nope, q_pe
 
 
-def _latent_kv(p, x, cfg, positions):
+def _latent_kv(p, x, cfg, positions, tp=None):
     """Returns (c_kv normalized, k_pe roped): exactly what the cache
-    stores."""
+    stores (whole; under ``tp`` the column block's output all-gathered)."""
     r_kv = cfg.kv_lora_rank
     kv_a = x @ p["wkv_a"].to(x.dtype)
+    if tp is not None and kv_a.shape[-1] < r_kv + cfg.qk_rope_head_dim:
+        kv_a = tp.gather(kv_a)
     c_kv, k_pe = kv_a[..., :r_kv], kv_a[..., r_kv:]
     c_kv = L.rmsnorm_apply(p["kv_norm"], c_kv)
     k_pe = L.apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return c_kv, k_pe
 
 
-def mla_train(p, x, cfg, positions):
+def mla_train(p, x, cfg, positions, tp=None):
     """Non-absorbed form for train and prefill: materialise per-head K/V
     and run causal attention, dense up to 2,048 positions and blockwise
     (or flash, with ``cfg.flash_attention``) above, with V padded to the
     qk head dim so that one attention serves both.  (The reference's
     prefix-LM option comes with the VLM config.)"""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = p["wkv_b"].shape[-2]               # this rank's heads under tp
     d_nope, d_rope, d_v = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     q_nope, q_pe = _queries(p, x, cfg, positions)
-    c_kv, k_pe = _latent_kv(p, x, cfg, positions)
+    c_kv, k_pe = _latent_kv(p, x, cfg, positions, tp)
     kv = L._project(c_kv, p["wkv_b"])
     k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, d_rope)], dim=-1)
@@ -97,12 +112,12 @@ def mla_train(p, x, cfg, positions):
     return L.gqa_out(p, o[..., :d_v], x.dtype)
 
 
-def mla_prefill_cache(p, x, cfg, positions):
-    """(c_kv, k_pe) to stash in the decode cache."""
-    return _latent_kv(p, x, cfg, positions)
+def mla_prefill_cache(p, x, cfg, positions, tp=None):
+    """(c_kv, k_pe) to stash in the decode cache (whole)."""
+    return _latent_kv(p, x, cfg, positions, tp)
 
 
-def mla_decode(p, x, cfg, c_cache, pe_cache, *, length: int):
+def mla_decode(p, x, cfg, c_cache, pe_cache, *, length: int, tp=None):
     """Absorbed decode: x (B,1,D) at position ``length``, whose entry the
     cache already holds; cache c (B,Smax,r_kv), pe (B,Smax,d_rope).
 
@@ -111,7 +126,9 @@ def mla_decode(p, x, cfg, c_cache, pe_cache, *, length: int):
     ctx_h = W_UV_h^T (sum_t p_t c_t)
 
     Positions 0 .. ``length`` are valid; the reference masks the rest of
-    Smax, whose terms add exact zeros, and the port reads only those."""
+    Smax, whose terms add exact zeros, and the port reads only those.
+    Under ``tp`` ``c_cache`` holds this rank's latent columns: its valid
+    positions are all-gathered; the output is a partial sum."""
     B = x.shape[0]
     d_nope, d_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     n = length + 1
@@ -123,7 +140,10 @@ def mla_decode(p, x, cfg, c_cache, pe_cache, *, length: int):
     w_uk = p["wkv_b"][..., :d_nope].to(x.dtype)               # (r, H, d_nope)
     w_uv = p["wkv_b"][..., d_nope:].to(x.dtype)               # (r, H, d_v)
     q_eff = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], w_uk)  # (B,H,r)
-    c, pe = c_cache[:, :n].to(x.dtype), pe_cache[:, :n].to(x.dtype)
+    c, pe = c_cache[:, :n], pe_cache[:, :n].to(x.dtype)
+    if tp is not None and c.shape[-1] < cfg.kv_lora_rank:
+        c = comm.all_gather(c.contiguous(), tp.mesh, "model", dim=2)
+    c = c.to(x.dtype)
     scale = 1.0 / math.sqrt(d_nope + d_rope)
     s = (L._scores(q_eff, c, "bhr,bkr->bhk")
          + L._scores(q_pe[:, 0], pe, "bhe,bke->bhk")) * scale

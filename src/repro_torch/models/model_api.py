@@ -50,27 +50,35 @@ are the reference's, spec for spec (MoE configs under ``ep_a2a`` take
 ``moe_param_overrides``).  On a live mesh ``loss``, ``prefill`` and
 ``decode_step`` take this rank's shards of the parameters (the
 ``param_specs`` layout) and its rows of the batch (``shard_batch``), and
-keep as this rank's blocks over ``model`` the leaves the reference's
-GSPMD keeps sharded there (``tp_leaf``): the GQA mixers' ``wq``, ``wk``,
-``wv``, ``wo`` and every MLP's ``w1``, ``w3``, ``w2`` run
-tensor-parallel (``models/transformer.py``), ``embed`` and ``lm_head``
-vocab-parallel: a lookup reads zero outside the rank's vocab block and
-is summed over ``model``; the cross-entropy takes the maximum, the sum
-of exponentials and the target's logit over ``model``; ``prefill`` and
-``decode_step`` all-gather the logits' vocab at the end.  The MoE
-experts' ``w1``, ``w3``, ``w2`` are the mesh bodies' blocks
-(``models/moe.py``).  Every other leaf (MLA, Mamba-2, RWKV-6, the MoE's
-router and shared experts, Whisper's encoder) is gathered whole for the
-compute (``gathered_leaves``).  A decode cache on a live mesh is the
-rank's block under ``cache_rules`` (its rows, and its kv heads where
-``kv_heads`` splits over ``model``); a cache sharded along the sequence
-is not run on a live mesh.  With ``cfg.seq_parallel`` the training
-stack keeps the residual as this rank's slice of the sequence
-between blocks (the reference's constraint to ``P(batch, "model",
-None)``).
+keep as this rank's blocks over ``model`` every leaf the reference's
+GSPMD keeps sharded there (``tp_leaf``, ``transformer.tp_leaves``): the
+GQA mixers' (the encoder's too) ``wq``, ``wk``, ``wv``, ``wo``, every
+MLP's ``w1``, ``w3``, ``w2`` and the MoE's shared experts', MLA's heads
+and latent columns, Mamba-2's projections, conv and ``out_norm``, RWKV-6's
+time and channel mixes run tensor-parallel (``models/transformer.py``,
+``mla.py``, ``ssm.py``, ``rwkv.py``, ``moe.moe_block_tp``), ``embed``
+and ``lm_head`` vocab-parallel: a lookup reads zero outside the rank's
+vocab block and is summed over ``model``; the cross-entropy takes the
+maximum, the sum of exponentials and the target's logit over ``model``;
+``prefill`` and ``decode_step`` all-gather the logits' vocab at the end.
+The MoE experts' ``w1``, ``w3``, ``w2`` are the mesh bodies' blocks
+(``models/moe.py``).  A leaf whose kind's tensor-parallel form does not
+divide over ``model`` is gathered whole (``gathered_leaves``; none on the
+production meshes).  A decode cache on a live mesh is the rank's block
+under ``cache_rules`` of a shape cell (``init_cache(..., shape)``,
+``cache_block_shape``): its rows, its kv heads, MLA's latent columns,
+Mamba-2's conv channels and RWKV-6's heads where they split over
+``model``, and a global layer's sequence where the cell splits it
+(``cache_shard="seq"`` over ``("pod", "data")``, ``decode_seq_shard``
+over ``model``: ``cache["seq"]`` names the axes; each rank attends over
+its block and the ranks merge, ``transformer._split_decode``).  With
+``cfg.seq_parallel`` the training stack keeps the residual as this
+rank's slice of the sequence between blocks of every kind (the
+reference's constraint to ``P(batch, "model", None)``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -138,7 +146,6 @@ def _is_expert_leaf(path: tuple) -> bool:
 
 
 BODY_LEAVES = ("w1", "w3", "w2")
-TP_LEAVES = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w1", "w3", "w2")}
 
 
 class Model:
@@ -240,21 +247,20 @@ class Model:
     def tp_leaf(self, path: tuple) -> bool:
         """Whether the leaf at ``path`` runs tensor- or vocab-parallel on
         a live mesh (kept as this rank's block over ``model``): ``embed``,
-        ``lm_head``, a GQA mixer's projections and an MLP's weights, the
-        encoder's excepted."""
+        ``lm_head``, and the leaves ``transformer.tp_leaves`` names for
+        each layer kind (decoder, shared block and encoder)."""
         if path[0] in ("embed", "lm_head"):
             return len(path) == 1
         if path[0] == "shared_block":
-            block = path[1]
-        elif path[0] == "groups":
-            kind = self.groups[int(path[1])].kinds[int(path[2][1:])]
-            block = path[3]
-            if block == "attn" and kind[0] not in T.TP_MIXERS:
-                return False
+            kind, rel = ("shared_gqa", "mlp"), tuple(path[1:])
+        elif path[0] in ("groups", "enc_groups"):
+            groups = self.groups if path[0] == "groups" else self.enc_groups
+            kind = groups[int(path[1])].kinds[int(path[2][1:])]
+            rel = tuple(path[3:])
         else:
             return False
-        return path[-1] in TP_LEAVES.get(block, ()) and len(path) == (
-            3 if path[0] == "shared_block" else 5)
+        return rel in T.tp_leaves(kind, self.cfg,
+                                  self.mesh.shape.get("model", 1))
 
     def mesh_local(self, path: tuple) -> bool:
         """Whether the mesh step reads this leaf as this rank's block
@@ -306,10 +312,7 @@ class Model:
         """The ``TP`` of this model's live mesh (None without a ``model``
         axis), sequence-parallel in training under ``cfg.seq_parallel``."""
         seq = mode == "train" and self.cfg.seq_parallel
-        tp = T.tp_of(self.mesh if self._live() else None, seq)
-        if tp is not None and seq:
-            T.check_seq_parallel(self.cfg, self.groups)
-        return tp
+        return T.tp_of(self.mesh if self._live() else None, seq)
 
     # -------------------------------------------------------------- plumbing
     def _embed(self, params, tokens, tp: T.TP | None = None):
@@ -394,8 +397,7 @@ class Model:
                                             shared_params=shared,
                                             mesh=self.mesh,
                                             prefix_len=prefix_len,
-                                            enc_out=enc_out,
-                                            tp=None if encoder else tp)
+                                            enc_out=enc_out, tp=tp)
                     return x
                 if remat:
                     x = checkpoint(period, x, use_reentrant=False)
@@ -424,7 +426,9 @@ class Model:
             x = torch.cat([self._extra(batch, "img"), x], dim=1)
             prefix_len = cfg.vlm_prefix_len
         if cfg.enc_dec:
-            enc_out = self._encode(params, self._extra(batch, "frames"))
+            if self._reads_encoder():
+                enc_out = self._encode(params, self._extra(batch, "frames"),
+                                       tp)
             x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model,
                                      device=self.device).to(x.dtype)[None]
         return tokens, x, prefix_len, enc_out
@@ -438,16 +442,26 @@ class Model:
         params = self.compute_params(params)
         with float32_reduction():
             return self._encode(params, torch.as_tensor(
-                frames, device=self.device).to(self.compute_dtype))
+                frames, device=self.device).to(self.compute_dtype),
+                self._tp())
 
-    def _encode(self, params, x):
+    def _reads_encoder(self) -> bool:
+        """Whether a decoder layer reads the encoder's output (a
+        ``dec_attn`` layer).  The reference's ``Model`` builds the
+        decoder from ``build_groups``, whose causal GQA layers do not, and
+        its compiled loss drops the unread encoder; so does the port."""
+        return any(k[0] == "dec_attn" for g in self.groups for k in g.kinds)
+
+    def _encode(self, params, x, tp: T.TP | None = None):
         cfg = self.cfg
         B, Tn = x.shape[:2]
         x = x + L.sinusoidal_pos(Tn, cfg.d_model, device=self.device).to(
             x.dtype)[None]
         positions = torch.arange(Tn, device=self.device)[None].expand(B, Tn)
         x = self._run_groups(params, x, mode="train", caches=None,
-                             positions=positions, encoder=True)
+                             positions=positions, encoder=True,
+                             tp=None if tp is None else
+                             dataclasses.replace(tp, seq=False))
         return _norm_apply(cfg, params["enc_norm"], x)
 
     # ------------------------------------------------------------------ train
@@ -536,21 +550,40 @@ class Model:
         return {"layers": layers,
                 "pos": ParamDef((), (), init="zeros", dtype=torch.int32)}
 
-    def init_cache(self, batch: int, max_len: int):
+    def cache_seq_axes(self, shape=None, max_len: int | None = None) -> tuple:
+        """The mesh axes a global layer's decode cache splits its sequence
+        of ``max_len`` positions (the cell's by default) over in the shape
+        cell ``shape`` (``cache_rules``: ``("pod", "data")`` under
+        ``cache_shard="seq"``, ``model`` under ``decode_seq_shard``; none
+        for the batch cell, the default)."""
+        if not self._live():
+            return ()
+        shape = shape or _BATCH_CACHE
+        return self.cache_rules(shape).pspec(
+            ("seq",), (max_len or shape.seq_len,)).axes(0)
+
+    def init_cache(self, batch: int, max_len: int, shape=None):
         """Zeroed caches on the model's device, at position 0: a global
         layer's K/V of ``max_len`` positions (int8 with scales under
         ``kv_quant_int8``), a local layer's a ring of ``min(window,
         max_len)``, MLA's latent of ``max_len``, and the Mamba-2 and
         RWKV-6 recurrent states.  On a live mesh, ``batch`` rows of this
-        rank's block (``cache_block_shape``)."""
+        rank's block (``cache_block_shape``) under the cache rules of the
+        shape cell ``shape`` (by default the batch cell): a global layer's
+        sequence split over ``cache_seq_axes(shape)`` (``"seq"``, which
+        ``decode_step`` reads)."""
         defs = self.cache_defs(batch, max_len)["layers"]
+        seq = ()
         if self._live():
-            rules = self.cache_rules(_BATCH_CACHE)
+            shape = shape or _BATCH_CACHE
+            rules = self.cache_rules(shape)
             defs = tree_map(lambda d: ParamDef(
                 cache_block_shape(d, rules.pspec(d.axes, d.shape), self.mesh,
                                   cut_batch=False), d.axes, init=d.init,
                 dtype=d.dtype), defs)
-        return {"layers": materialize(defs, None, self.device), "pos": 0}
+            seq = self.cache_seq_axes(shape, max_len)
+        return {"layers": materialize(defs, None, self.device), "pos": 0,
+                "seq": seq}
 
     def prefill(self, params, batch, max_len: int | None = None,
                 all_logits: bool = False):
@@ -570,6 +603,11 @@ class Model:
             max_len = max_len or S
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
             cache = self.init_cache(B, max_len)
+            if cache["seq"]:
+                raise NotImplementedError(
+                    f"a prefill into a decode cache split along the sequence "
+                    f"over {cache['seq']} (decode_seq_shard): fill the "
+                    "ranks' blocks and decode")
             x = self._run_groups(params, x, mode="prefill",
                                  caches=cache["layers"], positions=positions,
                                  prefix_len=prefix_len, enc_out=enc_out,
@@ -578,13 +616,14 @@ class Model:
             logits = (self._logits(params, x, tp) if all_logits
                       else self._logits(params, x[:, -1:], tp)[:, 0])
             return (self._whole_vocab(logits, tp),
-                    {"layers": cache["layers"], "pos": S})
+                    {"layers": cache["layers"], "pos": S, "seq": ()})
 
     def decode_step(self, params, cache, tokens, decode_impl: str | None = None):
         """tokens (B, 1) at position ``cache["pos"]``.  Returns (logits
         (B, V) float32, cache at the next position); the K/V tensors are
         the same, written in place.  ``decode_impl`` overrides the
-        model's."""
+        model's.  ``cache["seq"]`` (``init_cache``; none where absent)
+        names the mesh axes its global layers split the sequence over."""
         impl = resolve_decode_impl(decode_impl or self.decode_impl,
                                    self.device)
         params = self.compute_params(params)
@@ -593,6 +632,7 @@ class Model:
             tokens = self._tokens(tokens)
             B = tokens.shape[0]
             pos = cache["pos"]
+            seq = tuple(cache.get("seq", ()))
             x = self._embed(params, tokens, tp)
             if self.cfg.enc_dec:
                 x = x + L.sinusoidal_at(pos, self.cfg.d_model,
@@ -600,12 +640,14 @@ class Model:
             positions = torch.full((B, 1), pos, device=self.device)
             x = self._run_groups(params, x, mode="decode",
                                  caches=cache["layers"], positions=positions,
-                                 decode=T.DecodeStep(pos, impl, B,
-                                                     self.device), tp=tp)
+                                 decode=T.DecodeStep(
+                                     pos, impl, B, self.device, self.mesh,
+                                     seq, self.mesh.axis_index(seq)
+                                     if seq else 0), tp=tp)
             x = _norm_apply(self.cfg, params["final_norm"], x)
             logits = self._logits(params, x, tp)[:, 0]
             return (self._whole_vocab(logits, tp),
-                    {"layers": cache["layers"], "pos": pos + 1})
+                    {"layers": cache["layers"], "pos": pos + 1, "seq": seq})
 
 
 # a decode cache split by batch rows (``cache_rules``' default cell)
@@ -613,19 +655,18 @@ _BATCH_CACHE = ShapeConfig("batch_cache", seq_len=1, global_batch=1,
                            kind="decode", cache_shard="batch")
 
 
+def cache_read_spec(d: ParamDef, spec, cut_batch: bool = True):
+    """The part of a cache leaf's spec the port's layers read as a block:
+    all of it (the kv heads, a global layer's sequence under
+    ``cache_shard="seq"`` or ``decode_seq_shard``, MLA's latent columns,
+    Mamba-2's conv channels, RWKV-6's heads), the rows only with
+    ``cut_batch``."""
+    return P(*[None if ax == "batch" and not cut_batch else
+               (spec[i] if i < len(spec) else None)
+               for i, ax in enumerate(d.axes)])
+
+
 def cache_block_shape(d: ParamDef, spec, mesh, cut_batch: bool = True):
     """The shape of a rank's block of the cache leaf ``d`` under ``spec``
-    as the port's layers read it: its kv heads where they split over
-    ``model``, its rows (``cut_batch``) where they split over the batch
-    axes; MLA's latent whole (MLA runs on gathered weights).  A cache
-    split along the sequence raises: no layer reads one."""
-    local = list(shard_shape(d.shape, spec, mesh))
-    for i, ax in enumerate(d.axes):
-        if ax == "seq" and spec.axes(i):
-            raise NotImplementedError(
-                f"a decode cache split along the sequence over "
-                f"{spec.axes(i)}: the port's decode reads whole sequences")
-        if ax not in ("kv_heads", "batch") or (ax == "batch"
-                                                and not cut_batch):
-            local[i] = d.shape[i]
-    return tuple(local)
+    as the port's layers read it (``cache_read_spec``)."""
+    return shard_shape(d.shape, cache_read_spec(d, spec, cut_batch), mesh)

@@ -187,9 +187,12 @@ def _moe_dense(p, x, cfg):
 # TP MoE: experts over "model", tokens replicated over "model"
 # ---------------------------------------------------------------------------
 
-def _moe_tp_local(router_w, w1, w3, w2, x, *, cfg, n_model, mesh):
+def _moe_tp_local(router_w, w1, w3, w2, x, *, cfg, n_model, mesh,
+                  reduce: bool = True):
     """Per-rank body.  x: (T_loc, D) replicated over ``model``; w*: this
-    rank's expert slices (E_loc, ...)."""
+    rank's expert slices (E_loc, ...).  With ``reduce`` False the output
+    is this rank's partial sum (``moe_block_tp`` reduces it with the
+    shared experts')."""
     E = cfg.n_experts
     E_loc = E // n_model
     my = comm.axis_index(mesh, "model")
@@ -203,7 +206,7 @@ def _moe_tp_local(router_w, w1, w3, w2, x, *, cfg, n_model, mesh):
     buf = _scatter_slots(x, e_local, pos, kept, E_loc, cap)
     y = _expert_ffn(w1, w3, w2, buf)
     out = _gather_slots(y, e_local, pos, kept, gates)
-    return comm.psum(out, mesh, "model")
+    return comm.psum(out, mesh, "model") if reduce else out
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +222,13 @@ def _add_meta(meta, dst, pos, vals):
                     (vals * inside).to(meta.dtype), accumulate=True)
 
 
-def _moe_ep_local(router_w, w1, w3, w2, x, *, cfg, n_data, mesh):
+def _moe_ep_local(router_w, w1, w3, w2, x, *, cfg, n_data, mesh,
+                  enter=None):
     """Per-rank body.  x: (T_loc, D), this rank's tokens; experts sharded
     over ``data`` (E_loc a rank), their d_ff over ``model`` (a ``psum``
     combines).  Dispatch and combine are each one tiled ``all_to_all``
-    over ``data``."""
+    over ``data``.  ``enter`` wraps the dispatched rows (their gradient,
+    partial over the d_ff blocks, summed over ``model``: ``moe_block_tp``)."""
     E = cfg.n_experts
     E_loc = E // n_data
     D = x.shape[-1]
@@ -233,7 +238,8 @@ def _moe_ep_local(router_w, w1, w3, w2, x, *, cfg, n_data, mesh):
     cap = max(1, int(cfg.capacity_factor * Tk / n_data))
     pos, kept = _positions(dst, torch.ones_like(dst, dtype=torch.bool),
                            n_data, cap)
-    send = _scatter_slots(x, dst, pos, kept, n_data, cap)
+    send = _scatter_slots(x if enter is None else enter(x), dst, pos, kept,
+                          n_data, cap)
     # metadata rides along: the local expert id at the destination, + 1 so
     # that empty slots (0) mark invalid rows after the exchange
     meta = torch.zeros((n_data, cap), dtype=torch.int32, device=x.device)
@@ -386,6 +392,72 @@ def moe_apply(p, x2d, cfg, mesh=None):
     if cfg.n_shared_experts:
         routed = routed + _shared_ffn(p["shared"], x2d)
     return routed
+
+
+def moe_block_tp(p, h, cfg, mesh, seq: bool):
+    """The MoE FFN over a live mesh's ``model`` axis (the module
+    docstring's bodies; ``transformer.TP``): h (B, S_h, D), this rank's
+    rows (and its ``S / model`` slice of the sequence under ``seq``) ->
+    the block's output in h's layout.
+
+    Under ``seq`` the tokens are first all-gathered along the sequence
+    (its backward keeps this rank's slice: every rank below computes
+    whole gradients for every token).  The shared experts run as a
+    tensor-parallel MLP on their ``mlp`` blocks (``w1``/``w3``
+    column-parallel, ``w2`` row-parallel; the input's gradient summed over
+    ``model``).  Under ``tp`` the routed body's partial sum (this rank's
+    experts; the tokens and the router read through ``comm.tp_enter``,
+    whose gradients each rank holds a part of) and the shared experts' are
+    reduced by one ``psum`` over ``model`` (``psum_scatter`` along the
+    sequence under ``seq``).  Under ``ep_a2a`` the body's output is whole
+    on every rank (its ``psum`` over the d_ff blocks inside; the
+    dispatched rows' gradient summed over ``model``), the shared
+    experts' partial sum reduced alone.  The dense path (gathered experts)
+    runs replicated, as the body's output under ``ep_a2a`` is kept, and
+    so do shared experts whose d_ff does not split over ``model``."""
+    B, S_h, D = h.shape
+    hf = comm.all_gather(h, mesh, "model", dim=1) if seq else h
+    S = hf.shape[1]
+    flat = hf.reshape(B * S, D)
+
+    def enter(t):
+        return comm.tp_enter(t, mesh, "model")
+
+    def reduce(part):                      # a partial (B * S, D) sum
+        part = part.reshape(B, S, D)
+        return (comm.psum_scatter(part, mesh, "model", dim=1) if seq
+                else comm.psum(part, mesh, "model"))
+
+    def whole(out):                        # an output alike on every rank
+        out = out.reshape(B, S, D)
+        return comm.tp_split(out, mesh, "model", dim=1) if seq else out
+
+    partial, alike = [], []      # terms partial over model; whole on each
+    if cfg.n_shared_experts:
+        if p["shared"]["w1"].shape[-1] < cfg.moe_d_ff * cfg.n_shared_experts:
+            partial.append(_shared_ffn(p["shared"], enter(flat)))
+        else:                              # d_ff whole: run replicated
+            alike.append(_shared_ffn(p["shared"], flat))
+    impl = cfg.moe_impl if uses_mesh(cfg, mesh) else "dense"
+    if impl == "tp":
+        def fn(xs):
+            return _moe_tp_local(enter(p["router"]), p["w1"], p["w3"],
+                                 p["w2"], enter(xs), cfg=cfg,
+                                 n_model=mesh.shape["model"], mesh=mesh,
+                                 reduce=False)
+        partial.append(_moe_chunked(fn, flat, cfg, mesh))
+    elif impl == "ep_a2a":
+        def fn(xs):
+            return _moe_ep_local(p["router"], p["w1"], p["w3"], p["w2"], xs,
+                                 cfg=cfg, n_data=mesh.shape["data"],
+                                 mesh=mesh, enter=enter)
+        alike.append(_moe_chunked(fn, flat, cfg, mesh))
+    else:
+        alike.append(_moe_chunked(lambda xs: _moe_dense(p, xs, cfg), flat,
+                                  cfg))
+    out = [reduce(sum(partial))] if partial else []
+    out += [whole(sum(alike))] if alike else []
+    return sum(out)
 
 
 def moe_param_overrides(cfg) -> dict | None:

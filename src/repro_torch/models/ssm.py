@@ -5,6 +5,19 @@ linear state passing between chunks (the reference's ``lax.scan`` over
 chunks is a Python loop here).  Decode: the exact single-step recurrence
 on (conv_state, ssm_state).
 
+**Tensor-parallel** (``tp``, a live mesh's ``transformer.TP``, where the
+heads, ``d_inner`` and the conv channels divide over ``model``): ``w_in``
+is this rank's column block and ``w_out`` its row block, ``conv_w``,
+``conv_b`` and ``out_norm.scale`` blocks over ``mlp``.  The projection's
+columns ``[z | x | B | C | dt]`` are all-gathered (the reference's GSPMD
+moves each segment's pieces by collective-permutes), the depthwise conv
+runs on this rank's conv channels with its block of the conv state and is
+all-gathered, and the SSD scan or the S == 1 recurrence runs on this
+rank's heads (B and C whole; ``A_log``, ``dt_bias`` and ``D_skip`` read
+through ``tp.rep``); ``out_norm``'s sum of squares over the whole
+``d_inner`` is summed over ``model``; ``w_out`` gives a partial sum.  The
+``ssm`` state's spec is whole: a rank updates its heads' part of it.
+
 No kernel: the reference runs Mamba-2 as plain array code (no Pallas
 kernel reaches it), and so does the port under either ``decode_impl``.
 """
@@ -117,24 +130,53 @@ def _ssd_chunked(xh, dt, A, Bc, Cc, cfg, init_state=None):
     return y.to(xh.dtype), s_prev
 
 
-def mamba2_apply(p, x, cfg, state=None):
+def tp_divides(cfg, n: int) -> bool:
+    """Whether the tensor-parallel form runs over ``n`` ranks: the heads,
+    the conv channels and the projection's columns divide."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return (cfg.ssm_nheads % n == 0 and conv_dim % n == 0
+            and (conv_dim + cfg.d_inner + cfg.ssm_nheads) % n == 0)
+
+
+def mamba2_apply(p, x, cfg, state=None, tp=None):
     """x: (B,S,D) -> (B,S,D).  ``state``: None, or {"conv", "ssm"} to
-    carry (decode; a zeroed one in prefill).  Returns (y, new_state)."""
+    carry (decode; a zeroed one in prefill).  Returns (y, new_state).
+    Under ``tp`` (the module docstring) ``p`` holds this rank's blocks, y
+    is a partial sum over ``model`` and ``state["conv"]`` this rank's
+    channels."""
     Bsz, S, _ = x.shape
     nh, hd, ds = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    Din = cfg.d_inner
     zxbcdt = x @ p["w_in"].to(x.dtype)
+    if tp is not None:
+        zxbcdt = tp.gather(zxbcdt)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
     conv_state = None if state is None else state["conv"]
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
-    xs = xbc[..., :cfg.d_inner].reshape(Bsz, S, nh, hd)
-    Bc = xbc[..., cfg.d_inner:cfg.d_inner + ds]
-    Cc = xbc[..., cfg.d_inner + ds:]
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
+    heads = slice(None)
+    if tp is None:
+        xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                                     conv_state)
+        dt_bias, A_log, D_skip = p["dt_bias"], p["A_log"], p["D_skip"]
+    else:
+        conv, new_conv = _causal_conv(tp.cols(xbc), p["conv_w"],
+                                      p["conv_b"], conv_state)
+        xbc = tp.gather(conv)
+        nh = nh // tp.n
+        heads = slice(tp.i * nh, (tp.i + 1) * nh)
+        dt = dt[..., heads]
+        z = tp.cols(z)
+        dt_bias, A_log, D_skip = (tp.rep(p[k])[heads]
+                                  for k in ("dt_bias", "A_log", "D_skip"))
+    xs = (xbc[..., :Din] if tp is None else tp.cols(xbc, Din)
+          ).reshape(Bsz, S, nh, hd)
+    Bc = xbc[..., Din:Din + ds]
+    Cc = xbc[..., Din + ds:]
+    dt = F.softplus(dt.float() + dt_bias.float())
+    A = -torch.exp(A_log.float())
 
     if S == 1:  # decode: exact single-step recurrence
         s_prev = (x.new_zeros((Bsz, nh, ds, hd), dtype=torch.float32)
-                  if state is None else state["ssm"].float())
+                  if state is None else state["ssm"][:, heads].float())
         dA = torch.exp(dt[:, 0] * A[None, :])                     # (B,nh)
         dBx = torch.einsum("bh,bs,bhe->bhse", dt[:, 0], Bc[:, 0].float(),
                            xs[:, 0].float())
@@ -143,13 +185,23 @@ def mamba2_apply(p, x, cfg, state=None):
         y = y[:, None].to(x.dtype)
         final = s_new
     else:
-        init = None if state is None else state["ssm"]
+        init = None if state is None else state["ssm"][:, heads]
         y, final = _ssd_chunked(xs, dt, A, Bc, Cc, cfg, init)
 
-    y = y + xs * p["D_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(Bsz, S, cfg.d_inner)
-    y = rmsnorm_apply(p["out_norm"], y) * silu(z)
-    out = y @ p["w_out"].to(x.dtype)
+    y = y + xs * D_skip.to(x.dtype)[None, None, :, None]
+    y = y.reshape(Bsz, S, nh * hd)
+    if tp is None:
+        y = rmsnorm_apply(p["out_norm"], y)
+    else:                        # a norm over the whole d_inner
+        yf = y.float()
+        var = tp.sum(torch.square(yf).sum(-1, keepdim=True)) / Din
+        y = (yf * torch.rsqrt(var + 1e-6)
+             * (1.0 + p["out_norm"]["scale"].float())).to(y.dtype)
+    out = (y * silu(z)) @ p["w_out"].to(x.dtype)
+    if tp is not None and state is not None:
+        whole = state["ssm"].float().clone()
+        whole[:, heads] = final
+        final = whole
     return out, {"conv": new_conv.float(), "ssm": final}
 
 

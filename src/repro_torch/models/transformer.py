@@ -47,28 +47,39 @@ and state writes below happen only with a cache, never on the train
 path.
 
 **Tensor parallelism** (``TP``, on a live mesh with a ``model`` axis, as
-the reference's GSPMD lays these layers out): a GQA mixer and an MLP take
-their weights as this rank's blocks over ``model`` (``heads``,
-``kv_heads``, ``mlp``), Megatron-style.  Attention runs this rank's q
-heads against the kv heads they read (where ``kv_heads`` stays
+the reference's GSPMD lays these layers out): a GQA mixer (the encoder's
+too) and an MLP take their weights as this rank's blocks over ``model``
+(``heads``, ``kv_heads``, ``mlp``), Megatron-style.  Attention runs this
+rank's q heads against the kv heads they read (where ``kv_heads`` stays
 replicated, every rank projects every kv head and selects ``h // G`` for
 its q heads), ``wo`` gives a partial sum; the MLP's ``w1``/``w3`` are
-column-parallel and ``w2`` row-parallel.  A block is entered through
-``comm.tp_enter`` (its gradient summed over ``model``) and left through
-a ``psum``; a replicated weight that the block reads on a part of the
-work (q/k-norm, replicated ``wk``/``wv``, and every norm under sequence
-parallelism) is read through ``tp_enter`` too, so its gradient is whole
-on every rank.  With ``TP.seq`` (``cfg.seq_parallel`` in training) the
-residual between blocks is this rank's ``S / model`` slice of the
-sequence: a block enters by an all-gather along the sequence and leaves
-by a reduce-scatter.  A weight whose dim does not divide over ``model``
-stays whole (``MeshRules``), and its block runs replicated.
+column-parallel and ``w2`` row-parallel.  MLA (``mla.py``), Mamba-2
+(``ssm.py``), RWKV-6 (``rwkv.py``) and the MoE FFN with its shared
+experts (``moe.moe_block_tp``) have their own tensor-parallel forms
+(``tp_leaves`` names the leaves each kind reads as blocks).  A block is
+entered through ``comm.tp_enter`` (its gradient summed over ``model``)
+and left through a ``psum``; a replicated weight that the block reads
+on a part of the work (q/k-norm, replicated ``wk``/``wv``, MLA's norms,
+Mamba-2's ``A_log``/``dt_bias``/``D_skip``, RWKV-6's mixes, decay and
+group norm, and every norm under sequence parallelism) is read through
+``TP.rep``, so its gradient is whole on every rank.  With ``TP.seq``
+(``cfg.seq_parallel`` in training) the residual between blocks of every
+kind is this rank's ``S / model`` slice of the sequence: a block enters
+by an all-gather along the sequence and leaves by a reduce-scatter (the
+recurrent kinds scan whole sequences).  A weight whose dim does not
+divide over ``model`` stays whole (``MeshRules``), and its block runs
+replicated.
 
 Decode attention of the GQA layers runs through ``decode_impl``:
 ``"torch"`` is the port of ``layers.decode_attention``,
 ``decode_attention_quant`` and ``_ring_decode`` (the reference's serving
 math), ``"cuda"`` the hand-written ``flash_decode`` kernel
 (``repro_torch.kernels.flash_decode``), softcap and int8 cache included.
+A global layer whose cache splits along the sequence across ranks runs
+``_split_decode``: the log-sum-exp pair over each rank's block (the
+kernel's log-sum-exp instantiation under ``"cuda"``, its plain version
+``ref.gqa_decode_lse_ref`` under ``"torch"``), merged exactly
+(``layers.merge_split``).
 A ring's valid slots are exactly ``[0, min(pos + 1, slots))``, and the
 softmax does not depend on the keys' order, so a ring decode is the
 kernel over the ring at that length.  MLA, Mamba-2 and RWKV-6 decode have
@@ -87,6 +98,7 @@ import torch.nn.functional as F
 from repro_torch.common import comm
 from repro_torch.common.pytree import ParamDef, tree_map
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
@@ -218,6 +230,13 @@ class TP:
             return o.narrow(1, self.i * k, k)
         return o
 
+    def leave_whole(self, o: torch.Tensor) -> torch.Tensor:
+        """The output of a split block that is whole on every rank (its
+        partial sums reduced inside): as it is, or this rank's slice of
+        the sequence under ``seq``, whose backward all-gathers the
+        gradient (every rank's partial work needs every position's)."""
+        return comm.tp_split(o, self.mesh, "model", dim=1) if self.seq else o
+
     def norm(self, cfg, p, x):
         """A norm of the residual: its scale read on this rank's slice
         under ``seq``."""
@@ -225,8 +244,52 @@ class TP:
             p = tree_map(self.rep, p)
         return _norm_apply(cfg, p, x)
 
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The last dim of a column-parallel product's output all-gathered
+        (its gradient, partial on each rank, reduce-scattered)."""
+        return comm.tp_enter(t, self.mesh, "model", dim=t.dim() - 1)
 
-TP_MIXERS = ("gqa_g", "gqa_l", "shared_gqa")
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model`` of a partial result that each rank then
+        reads on its part of the work (its gradient summed too)."""
+        return comm.psum(self.rep(t), self.mesh, "model")
+
+    def cols(self, t: torch.Tensor, n: int | None = None) -> torch.Tensor:
+        """This rank's block of the last dim of a whole tensor."""
+        k = (t.shape[-1] if n is None else n) // self.n
+        return t[..., self.i * k:(self.i + 1) * k]
+
+
+TP_MIXERS = ("gqa_g", "gqa_l", "shared_gqa", "enc_attn")
+_W3 = ("w1", "w3", "w2")
+# the leaves each mixer and FFN kind runs on as this rank's blocks over
+# ``model`` (paths below the sub-layer's parameters)
+_TP_LEAVES = {
+    "gqa": tuple(("attn", n) for n in ("wq", "wk", "wv", "wo")),
+    "mlp": tuple(("mlp", n) for n in _W3),
+    "moe": tuple(("moe", "shared", n) for n in _W3),
+    "mla": tuple(("attn", n) for n in ("wq", "wq_b", "wkv_a", "wkv_b", "wo")),
+    "mamba": tuple(("mixer", n) for n in ("w_in", "conv_w", "conv_b", "w_out"))
+    + (("mixer", "out_norm", "scale"),),
+    "rwkv6": tuple(("mixer", n) for n in ("wr", "wk", "wv", "wg", "wo", "u")),
+    "rwkv_ffn": tuple(("ffn", n) for n in ("wk", "wv", "wr")),
+}
+
+
+def tp_leaves(kind, cfg, n: int) -> tuple:
+    """The leaf paths of a sub-layer of ``kind`` that run tensor-parallel
+    over ``n`` ranks of ``model`` (``Model.tp_leaf``): a kind whose
+    tensor-parallel form does not divide (MLA's heads, Mamba-2's heads or
+    conv channels) has none, and runs on gathered weights."""
+    mixer, ffn = kind
+    out = _TP_LEAVES["gqa"] if mixer in TP_MIXERS else ()
+    if mixer == "mla" and cfg.n_heads % n == 0:
+        out = out + _TP_LEAVES["mla"]
+    elif mixer == "mamba" and SSM.tp_divides(cfg, n):
+        out = out + _TP_LEAVES["mamba"]
+    elif mixer == "rwkv6":
+        out = out + _TP_LEAVES["rwkv6"]
+    return out + _TP_LEAVES.get(ffn, ())
 
 
 def _tp_block(tp: TP | None, p: dict, split: bool) -> dict:
@@ -243,16 +306,6 @@ def tp_of(mesh, seq: bool = False) -> TP | None:
     if mesh is None or not mesh.is_live or mesh.shape.get("model", 1) == 1:
         return None
     return TP(mesh, mesh.shape["model"], mesh.axis_index("model"), seq)
-
-
-def check_seq_parallel(cfg, groups) -> None:
-    """Sequence parallelism covers the tensor-parallel kinds only."""
-    bad = sorted({str(k) for g in groups for k in g.kinds
-                  if k[0] not in TP_MIXERS or k[1] != "mlp"})
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: seq_parallel on a mesh runs the GQA and MLP "
-            f"layers only, not {', '.join(bad)}")
 
 
 def mlp_apply(cfg, p, x):
@@ -372,11 +425,17 @@ def _cache_defs_for(cfg, kind, batch: int, max_len: int) -> dict | None:
 class DecodeStep:
     """One decode step: the position it writes (every row of ``batch``),
     the decode attention to run (``"torch"`` or ``"cuda"``) and, for
-    ``"cuda"``, the device the per-row valid lengths live on."""
+    ``"cuda"``, the device the per-row valid lengths live on.  A global
+    layer's cache split along the sequence over the mesh axes
+    ``seq_axes`` (``Model.cache_seq_axes``) holds this rank's block
+    ``seq_index`` of it (``_split_decode``)."""
     pos: int
     impl: str
     batch: int
     device: torch.device | None
+    mesh: object = None
+    seq_axes: tuple = ()
+    seq_index: int = 0
     _lengths: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def length(self, n: int) -> torch.Tensor:
@@ -412,6 +471,63 @@ def _ring_decode(q, kc, vc, pos: int, Wr: int, softcap):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p.to(vc.dtype), vc[:, :n])
     return o.reshape(B, 1, Hq, Dh)
+
+
+def _kv_select(cfg, hq: int, hkv_cache: int, tp: TP | None):
+    """The cache's kv heads that this rank's ``hq`` q heads read, where
+    the cache holds every kv head and the q heads split over ``model``;
+    None where they are the cache's in order."""
+    if tp is None or hq == cfg.n_heads or hkv_cache < cfg.n_kv_heads:
+        return None
+    G = cfg.n_heads // cfg.n_kv_heads
+    return torch.arange(tp.i * hq, (tp.i + 1) * hq) // G
+
+
+def _split_decode(cfg, q, k, v, cache, decode: DecodeStep, softcap,
+                  tp: TP | None, sel):
+    """Decode attention of a global layer whose cache is this rank's
+    block of the sequence (``decode.seq_axes``; block ``seq_index`` of
+    ``S_r`` positions): the rank whose block holds ``pos`` writes the new
+    K/V there (the others leave theirs), every rank attends over its
+    ``clamp(pos + 1 - index * S_r, 0, S_r)`` positions (the
+    ``flash_decode`` log-sum-exp instantiation under ``"cuda"``, its
+    plain version ``ref.gqa_decode_lse_ref`` under ``"torch"``), and the
+    ranks' pairs merge exactly (``layers.merge_split``).  Where the sequence
+    splits over ``model`` (``decode_seq_shard``) every rank attends every
+    q head over its block (the q heads all-gathered over ``model``) and
+    keeps its own after the merge.  The result is cast as the unsplit
+    layer's (the cache's dtype, q's over an int8 cache)."""
+    pos0 = decode.pos
+    kc, vc = cache["k"], cache["v"]
+    quant = cfg.kv_quant_int8
+    S_r = kc.shape[1]
+    lo = decode.seq_index * S_r
+    if lo <= pos0 < lo + S_r:
+        i = pos0 - lo
+        if quant:
+            kc[:, i], cache["k_s"][:, i] = (t[:, 0] for t in L.quantize_kv(k))
+            vc[:, i], cache["v_s"][:, i] = (t[:, 0] for t in L.quantize_kv(v))
+        else:
+            kc[:, i] = k[:, 0].to(kc.dtype)
+            vc[:, i] = v[:, 0].to(vc.dtype)
+    n = min(max(pos0 + 1 - lo, 0), S_r)
+    hq = q.shape[2]
+    gather = (tp is not None and "model" in decode.seq_axes
+              and hq < cfg.n_heads)
+    if gather:
+        q, sel = comm.all_gather(q, tp.mesh, "model", dim=2), (lambda t: t)
+    scales = ({"k_scale": sel(cache["k_s"]), "v_scale": sel(cache["v_s"])}
+              if quant else {})
+    if decode.impl == "cuda":
+        o, lse = fd_ops.gqa_decode_attention_lse(
+            q, sel(kc), sel(vc), decode.length(n), max_length=n,
+            softcap=softcap, **scales)
+    else:
+        o, lse = fd_ref.gqa_decode_lse_ref(q, sel(kc), sel(vc), n, softcap,
+                                           **scales)
+    o = L.merge_split(o, lse, decode.mesh, decode.seq_axes).to(
+        q.dtype if quant else vc.dtype)
+    return o.narrow(2, tp.i * hq, hq) if gather else o
 
 
 def _tp_heads(cfg, p, tp: TP | None):
@@ -453,6 +569,12 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
     if mode == "decode":
         pos0 = decode.pos
         kc, vc = cache["k"], cache["v"]
+        if kc.shape[2] > k.shape[2]:
+            # the cache holds every kv head (``decode_seq_shard``), this
+            # rank projects its block of them
+            k = comm.all_gather(k, tp.mesh, "model", dim=2)
+            v = comm.all_gather(v, tp.mesh, "model", dim=2)
+        idx = _kv_select(cfg, q.shape[2], kc.shape[2], tp)
         if local:
             Wr = kc.shape[1]
             slot = pos0 % Wr
@@ -465,6 +587,9 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
                                                 max_length=n, softcap=softcap)
             else:
                 o = _ring_decode(q, sel(kc), sel(vc), pos0, Wr, softcap)
+            return L.gqa_out(p, o, x.dtype), cache
+        if decode.seq_axes:
+            o = _split_decode(cfg, q, k, v, cache, decode, softcap, tp, sel)
             return L.gqa_out(p, o, x.dtype), cache
         if not 0 <= pos0 < kc.shape[1]:
             raise ValueError(f"decode position {pos0} outside the cache of "
@@ -525,6 +650,26 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
     return L.gqa_out(p, o, x.dtype), cache
 
 
+def _enter(cfg, tp: TP | None, norm_p, x, split: bool):
+    """A sub-layer's normed input: plain without ``tp``, else through
+    ``tp.enter`` (the block split over ``model`` or not)."""
+    if tp is None:
+        return _norm_apply(cfg, norm_p, x)
+    return tp.enter(tp.norm(cfg, norm_p, x), split)
+
+
+def _leave(tp: TP | None, o, split: bool):
+    return o if tp is None else tp.leave(o, split)
+
+
+def _latent_cols(c, cache_c, tp: TP | None):
+    """This rank's columns of a whole latent ``c`` where the cache holds
+    its block of ``mla_latent``."""
+    if tp is None or c.shape[-1] == cache_c.shape[-1]:
+        return c
+    return tp.cols(c)
+
+
 def _write_state(cache, new) -> None:
     """Copy a recurrent state's new leaves into the cache tree in place."""
     for key, val in new.items():
@@ -577,7 +722,7 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
     mixer, ffn = kind
     if mixer == "shared_gqa":
         p = shared_params  # single copy, reused every period
-    if mixer in TP_MIXERS:
+    if mixer in ("gqa_g", "gqa_l", "shared_gqa"):
         local = mixer == "gqa_l"
         theta = cfg.rope_theta
         if local and cfg.rope_theta_local is not None:
@@ -601,13 +746,22 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
             o = _norm_apply(cfg, p["ln1_post"], o)
         x = x + o
     elif mixer == "enc_attn":
-        h = _norm_apply(cfg, p["ln1"], x)
-        q, k, v = _proj_nopos(p["attn"], h)
+        pa = p["attn"]
+        split = pa["wq"].shape[-2] < cfg.n_heads
+        if tp is None:
+            h, idx = _norm_apply(cfg, p["ln1"], x), None
+        else:
+            h = tp.enter(tp.norm(cfg, p["ln1"], x), split)
+            pa, idx = _tp_heads(cfg, _tp_block(tp, pa, split), tp)
+        q, k, v = _proj_nopos(pa, h)
+        if idx is not None:
+            k, v = (t.index_select(2, idx.to(t.device)) for t in (k, v))
         o = (L.dense_attention(q, k, v, causal=False) if h.shape[1] <= 1024
              else L.blockwise_attention(q, k, v, causal=False,
                                         block_q=cfg.block_q,
                                         block_k=cfg.block_k))
-        x = x + L.gqa_out(p["attn"], o, x.dtype)
+        o = L.gqa_out(pa, o, x.dtype)
+        x = x + (o if tp is None else tp.leave(o, split))
         cache = None
     elif mixer == "dec_attn":
         h = _norm_apply(cfg, p["ln1"], x)
@@ -621,43 +775,61 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
                           enc_out=enc_out)
         x = x + L.gqa_out(p["cross"], o, x.dtype)
     elif mixer == "mla":
-        h = _norm_apply(cfg, p["ln1"], x)
+        split = tp is not None and p["attn"]["wkv_b"].shape[-2] < cfg.n_heads
+        h = _enter(cfg, tp, p["ln1"], x, split)
+        pa = MLA.tp_params(_tp_block(tp, p["attn"], split),
+                           tp if split else None)
         if mode == "decode":
+            if decode.seq_axes:
+                raise NotImplementedError(
+                    "MLA over a latent cache split along the sequence")
             pos0 = decode.pos
-            c_new, pe_new = MLA.mla_prefill_cache(p["attn"], h, cfg, positions)
-            cache["c"][:, pos0] = c_new[:, 0].to(cache["c"].dtype)
+            c_new, pe_new = MLA.mla_prefill_cache(pa, h, cfg, positions, tp)
+            cache["c"][:, pos0] = _latent_cols(c_new[:, 0], cache["c"],
+                                               tp).to(cache["c"].dtype)
             cache["pe"][:, pos0] = pe_new[:, 0].to(cache["pe"].dtype)
-            o = MLA.mla_decode(p["attn"], h, cfg, cache["c"], cache["pe"],
-                               length=pos0)
+            o = MLA.mla_decode(pa, h, cfg, cache["c"], cache["pe"],
+                               length=pos0, tp=tp)
         else:
-            o = MLA.mla_train(p["attn"], h, cfg, positions)
+            o = MLA.mla_train(pa, h, cfg, positions, tp)
             if cache is not None:
                 S = h.shape[1]
                 if S > cache["c"].shape[1]:
                     raise ValueError(f"a prompt of {S} tokens does not fit "
                                      f"a cache of {cache['c'].shape[1]}")
-                c_new, pe_new = MLA.mla_prefill_cache(p["attn"], h, cfg,
-                                                      positions)
-                cache["c"][:, :S] = c_new.to(cache["c"].dtype)
+                c_new, pe_new = MLA.mla_prefill_cache(pa, h, cfg, positions,
+                                                      tp)
+                cache["c"][:, :S] = _latent_cols(c_new, cache["c"], tp).to(
+                    cache["c"].dtype)
                 cache["pe"][:, :S] = pe_new.to(cache["pe"].dtype)
-        x = x + o
+        x = x + _leave(tp, o, split)
     elif mixer == "mamba":
-        h = _norm_apply(cfg, p["ln1"], x)
-        o, st = SSM.mamba2_apply(p["mixer"], h, cfg, cache)
+        split = tp is not None and p["mixer"]["w_in"].shape[-1] < (
+            2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_nheads)
+        h = _enter(cfg, tp, p["ln1"], x, split)
+        o, st = SSM.mamba2_apply(_tp_block(tp, p["mixer"], split), h, cfg,
+                                 cache, tp if split else None)
         if cache is not None:
             _write_state(cache, st)
-        return x + o, cache
+        return x + _leave(tp, o, split), cache
     elif mixer == "rwkv6":
-        h = _norm_apply(cfg, p["ln1"], x)
-        o, st = RWKV.rwkv6_time_mix(p["mixer"], h, cfg,
-                                    None if cache is None else cache["time"])
-        x = x + o
-        h = _norm_apply(cfg, p["ln2"], x)
+        split = tp is not None and p["mixer"]["wr"].shape[-1] < cfg.d_model
+        h = _enter(cfg, tp, p["ln1"], x, split)
+        o, st = RWKV.rwkv6_time_mix(_tp_block(tp, p["mixer"], split), h, cfg,
+                                    None if cache is None else cache["time"],
+                                    tp if split else None)
+        x = x + _leave(tp, o, split)
+        split = tp is not None and p["ffn"]["wk"].shape[-1] < cfg.d_ff
+        h = _enter(cfg, tp, p["ln2"], x, split)
         o2, st2 = RWKV.rwkv6_channel_mix(
-            p["ffn"], h, cfg, None if cache is None else cache["channel"])
+            _tp_block(tp, p["ffn"], split), h, cfg,
+            None if cache is None else cache["channel"],
+            tp if split else None)
         if cache is not None:
             _write_state(cache, {"time": st, "channel": st2})
-        return x + o2, cache
+        if tp is not None and split:
+            return x + tp.leave_whole(o2), cache
+        return x + _leave(tp, o2, False), cache
     else:
         raise ValueError(mixer)
 
@@ -671,6 +843,9 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
         if post:
             o = tp.norm(cfg, p["ln2_post"], o)
         return x + o, cache
+    if ffn == "moe" and tp is not None:
+        h = tp.norm(cfg, p["ln2"], x)
+        return x + MOE.moe_block_tp(p["moe"], h, cfg, tp.mesh, tp.seq), cache
     h = _norm_apply(cfg, p["ln2"], x)
     if ffn == "moe":
         B, S, D = h.shape

@@ -23,13 +23,16 @@ the parameters and the optimizer state):
 
 * the leaves the model reads as this rank's blocks
   (``model.mesh_local``: the DLRM's tables, a ``Model``'s tensor- and
-  vocab-parallel leaves over ``model`` and its MoE experts) stay blocks,
-  every other leaf is gathered whole for the compute (``gather_full``);
-  the model's ``mesh_loss`` gives this rank's share of the loss from its
-  rows of the batch.  A block's gradient is whole for the block on
-  every rank of ``model`` (the layers read a replicated weight that they
-  use on a part of the work through ``comm.tp_enter``, which sums its
-  gradient over ``model``);
+  vocab-parallel leaves over ``model`` (``Model.tp_leaf``: every leaf the
+  reference's GSPMD keeps sharded there, MLA, Mamba-2, RWKV-6, the MoE's
+  shared experts and Whisper's encoder included) and its MoE experts)
+  stay blocks, every other leaf is gathered whole for the compute
+  (``gather_full``; none on the production meshes); the model's
+  ``mesh_loss`` gives this rank's share of the loss from its rows of the
+  batch.  A block's gradient is whole for the block on every rank of
+  ``model`` (the layers read a replicated weight that they use on a part
+  of the work through ``comm.tp_enter``, which sums its gradient over
+  ``model``);
 * the gradients are summed over the batch axes into ``grad_specs``'
   layout (the parameters' by default): a ``psum_scatter`` over the batch
   axes a layout shards a dim over (the reference's

@@ -34,6 +34,75 @@ DRYRUN_SHAPES = {
 DRYRUN_CELLS = tuple((a, s) for a in ("tinyllama-1.1b", "gemma2-9b")
                      for s in DRYRUN_SHAPES
                      if (a, s) != ("gemma2-9b", "smoke_decode"))
+# a decode cache split along the sequence: 256 positions on (data=4,
+# model=2), 8 steps from 124: the blocks of 64 (over data) and of 128 (over
+# model) both cross a boundary at 128, and the last blocks hold no
+# position yet (local length 0)
+SEQ_CACHE = {"S": 256, "pos0": 124, "steps": 8, "mesh": (4, 2)}
+SEQ_CACHE_ARCHS = ("gemma2-9b", "zamba2-1.2b")
+# layout -> (batch, cache_shard, decode_seq_shard)
+SEQ_LAYOUTS = {"seq": (1, "seq", False), "seqshard": (4, "batch", True)}
+# the model axis of the other families: (name, arch, config overrides),
+# each a ZeRO-1 step on (data=2, model=2) with and without seq_parallel
+FAMILY_CASES = {
+    "zamba2": ("zamba2-1.2b", {}),
+    "rwkv6": ("rwkv6-3b", {}),
+    # one head of 64 on model = 2: each rank's 32 columns cut through it
+    # (RWKV-6-3B's 40 heads on 16 ranks are 2.5 heads a rank)
+    "rwkv6_h1": ("rwkv6-3b", {"n_heads": 1}),
+    "deepseek_ep": ("deepseek-v2-236b", {"moe_impl": "ep_a2a"}),
+    "deepseek_tp": ("deepseek-v2-236b", {"moe_impl": "tp"}),
+    "whisper": ("whisper-base", {}),
+}
+
+
+# DeepSeek-V2's decode with the latent cache split over model: prefill of
+# S tokens a row, then the steps
+MLA_DECODE = {"B": 4, "S": 24, "steps": 8}
+
+
+def mla_decode_tokens(vocab: int) -> np.ndarray:
+    return np.random.default_rng(19).integers(
+        0, vocab, (MLA_DECODE["B"], MLA_DECODE["S"] + MLA_DECODE["steps"]),
+        dtype=np.int32)
+
+
+def family_batch(cfg, step: int) -> dict:
+    """A family step's global batch: ``lm_batch``'s tokens, and for an
+    encoder-decoder seeded frames (B, S, d_model)."""
+    from repro_torch.data import lm_batch
+    b = dict(lm_batch(0, step, LM_BATCH, LM_SEQ, cfg.vocab))
+    if cfg.enc_dec:
+        b["frames"] = np.random.default_rng(100 + step).standard_normal(
+            (LM_BATCH, LM_SEQ, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def seq_cache_numpy(shapes: dict, pos0: int, seed: int = 13) -> dict:
+    """A seeded decode cache as float32 numpy arrays, {dot.path: array}
+    for ``shapes`` ({dot.path: shape} of a cache's layers, either
+    package's names): a global layer's K/V (the sequence dim
+    ``SEQ_CACHE["S"]`` long) N(0, 1) below ``pos0`` and zero from it, a
+    ring's every slot N(0, 1), a recurrent state 0.5 N(0, 1); leaves drawn
+    in name order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(shapes):
+        shape = tuple(shapes[name])
+        x = rng.standard_normal(shape).astype(np.float32)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("k", "v") and shape[2] == SEQ_CACHE["S"]:
+            x[:, :, pos0:] = 0
+        elif leaf not in ("k", "v"):
+            x *= np.float32(0.5)
+        out[name] = x
+    return out
+
+
+def seq_cache_tokens(vocab: int, batch: int) -> np.ndarray:
+    """(steps, batch, 1) int32 tokens of the ``seq_cache`` steps."""
+    return np.random.default_rng(17).integers(
+        0, vocab, (SEQ_CACHE["steps"], batch, 1), dtype=np.int32)
 
 
 def _setup():
@@ -353,3 +422,244 @@ def counted_lm_step(rank, seq_parallel, microbatch):
     comm.reset_counters()
     step(params, opt, lm_batch(0, 0, LM_BATCH, LM_SEQ, cfg.vocab))
     return comm.counters()
+
+
+# ---------------------------------------------------------------------------
+
+def seq_cache_rank(rank, npz):
+    """``_mesh_reference.py seq_cache``'s steps on (data=4, model=2): each
+    arch and layout from the same weights and seeded cache (this rank's
+    blocks, ``model_api.cache_read_spec``), 8 decode steps under
+    ``decode_impl="torch"``: {name: this rank's rows, their logits (steps,
+    rows, V) and step 1's collective counters}."""
+    _setup()
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.common.sharding import shard_slices
+    from repro_torch.models import Model
+    from repro_torch.models.model_api import cache_read_spec
+    d = np.load(npz)
+    S, pos0 = SEQ_CACHE["S"], SEQ_CACHE["pos0"]
+    mesh = make_mesh(SEQ_CACHE["mesh"], ("data", "model"))
+    out = {}
+    for arch in SEQ_CACHE_ARCHS:
+        for lay, (B, shard_kind, seq_model) in SEQ_LAYOUTS.items():
+            name = f"{arch}.{lay}"
+            cfg = dataclasses.replace(smoke_config(arch),
+                                      decode_seq_shard=seq_model)
+            model = Model(cfg, device="cpu", mesh=mesh)
+            model.compute_dtype = torch.float32
+            defs = model.param_defs()
+            tree = unflatten_like(defs, [torch.from_numpy(
+                d[f"{name}.w.{n}"]) for n, _ in flatten_with_paths(defs)])
+            params = blocks(tree, model.param_specs(), mesh)
+            shape = ShapeConfig("seq_cache", seq_len=S, global_batch=B,
+                                kind="decode", cache_shard=shard_kind)
+            bspecs = model.batch_pspecs(shape)
+            cdefs = model.cache_defs(B, S)["layers"]
+            named = flatten_with_paths(cdefs)
+            whole = seq_cache_numpy({n: c.shape for n, c in named}, pos0)
+            specs = dict(flatten_specs(bspecs["cache"]["layers"]))
+            layers = unflatten_like(cdefs, [local_shard(
+                torch.from_numpy(whole[n]).to(c.dtype),
+                cache_read_spec(c, specs[n]), mesh).clone()
+                for n, c in named])
+            cache = {"layers": layers, "pos": pos0,
+                     "seq": model.cache_seq_axes(shape)}
+            rows = shard_slices((B, 1), bspecs["tokens"], mesh)[0]
+            logits, counts = [], []
+            for t in seq_cache_tokens(cfg.vocab, B):
+                comm.reset_counters()
+                lg, cache = model.decode_step(params, cache, t[rows],
+                                              decode_impl="torch")
+                counts.append(comm.counters())
+                logits.append(lg.float().numpy())
+            out[name] = {"rows": (rows.start, rows.stop),
+                         "logits": np.stack(logits), "counters": counts[0],
+                         "seq": cache["seq"]}
+    return out
+
+
+def family_rank(rank, npz, fam, seq_parallel):
+    """``_mesh_reference.py families_tp``'s step for the family ``fam`` on
+    (data=2, model=2), float32 activations, 3 steps: losses, norms, the
+    final tree gathered, step 1's collective counters and dot FLOPs on
+    this rank (``FlopCounterMode``), and the leaves gathered whole."""
+    _setup()
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import (init_mesh_opt_state,
+                                              make_train_step, mesh_layout)
+    d = np.load(npz)
+    arch, over = FAMILY_CASES[fam]
+    cfg = dataclasses.replace(smoke_config(arch), seq_parallel=seq_parallel,
+                              **over)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model = Model(cfg, device="cpu", mesh=mesh)
+    model.compute_dtype = torch.float32
+    defs = model.param_defs()
+    tree = unflatten_like(defs, [torch.from_numpy(d[f"{fam}.w.{n}"])
+                                 for n, _ in flatten_with_paths(defs)])
+    specs = model.param_specs()
+    tcfg = TrainConfig(**TCFG)
+    layout = mesh_layout(model, tcfg)
+    params = blocks(tree, specs, mesh)
+    opt = init_mesh_opt_state(params, layout, keep_master=False)
+    step = make_train_step(model, tcfg, layout.moments)
+    losses, norms, counts, flops = [], [], [], None
+    for i in range(STEPS):
+        comm.reset_counters()
+        with FlopCounterMode(display=False) as fc:
+            params, opt, m = step(params, opt, family_batch(cfg, i))
+        flops = fc.get_total_flops() if flops is None else flops
+        counts.append(comm.counters())
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "norms": norms,
+            "params": gathered(params, specs, mesh), "counters": counts,
+            "flops": flops, "gathered_leaves": model.gathered_leaves()}
+
+
+def mla_decode_rank(rank, npz):
+    """``_mesh_reference.py mla_decode``'s prefill and steps on (data=2,
+    model=2), this rank's rows: the prefill's last logits, each step's
+    logits, the latent cache's block shape and step 1's counters."""
+    _setup()
+    from repro_torch.models import Model
+    d = np.load(npz)
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                              moe_impl="tp")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model = Model(cfg, device="cpu", mesh=mesh)
+    model.compute_dtype = torch.float32
+    defs = model.param_defs()
+    tree = unflatten_like(defs, [torch.from_numpy(d[f"w.{n}"])
+                                 for n, _ in flatten_with_paths(defs)])
+    params = blocks(tree, model.param_specs(), mesh)
+    B, S, steps = (MLA_DECODE[k] for k in ("B", "S", "steps"))
+    toks = mla_decode_tokens(cfg.vocab)
+    rows = B // 2
+    lo = mesh.axis_index("data") * rows
+    mine = toks[lo:lo + rows]
+    last, cache = model.prefill(params, {"tokens": mine[:, :S]},
+                                max_len=S + steps)
+    logits, counts = [], []
+    for i in range(steps):
+        comm.reset_counters()
+        lg, cache = model.decode_step(params, cache, mine[:, S + i:S + i + 1])
+        counts.append(comm.counters())
+        logits.append(lg.numpy())
+    c = cache["layers"][-1]["l0"]["c"]
+    return {"rows": (lo, lo + rows), "prefill": last.numpy(),
+            "logits": np.stack(logits), "c_shape": tuple(c.shape),
+            "counters": counts[0], "gathered": model.gathered_leaves()}
+
+
+def family_serve_rank(rank, npz, fam, steps=6, over=None):
+    """The family ``fam``'s prefill (4 rows of 16 tokens, 2 a data rank)
+    and ``steps`` decode steps on (data=2, model=2), float32 activations,
+    against the same weights in one process on this rank: the relative
+    L2 distances of the logits (prefill's last, then each step's) and
+    this rank's cache leaves' shapes.  ``over``: config overrides on top
+    of the case's."""
+    _setup()
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.models import Model
+    d = np.load(npz)
+    arch, case = FAMILY_CASES[fam]
+    cfg = dataclasses.replace(smoke_config(arch), **dict(case, **(over or {})))
+    mesh = make_mesh((2, 2), ("data", "model"))
+    models = {"mesh": Model(cfg, device="cpu", mesh=mesh),
+              "one": Model(cfg, device="cpu")}
+    defs = models["one"].param_defs()
+    tree = unflatten_like(defs, [torch.from_numpy(d[f"{fam}.w.{n}"])
+                                 for n, _ in flatten_with_paths(defs)])
+    toks = np.random.default_rng(23).integers(0, cfg.vocab, (4, 16 + steps),
+                                              dtype=np.int32)
+    lo = 2 * mesh.axis_index("data")
+    batch = {"tokens": toks[lo:lo + 2, :16]}
+    if cfg.enc_dec:
+        batch["frames"] = np.random.default_rng(29).standard_normal(
+            (4, 16, cfg.d_model)).astype(np.float32)[lo:lo + 2]
+    out = {}
+    for name, model in models.items():
+        model.compute_dtype = torch.float32
+        params = (blocks(tree, model.param_specs(), mesh) if name == "mesh"
+                  else tree)
+        last, cache = model.prefill(params, batch, max_len=16 + steps)
+        got = [last]
+        for i in range(steps):
+            lg, cache = model.decode_step(params, cache,
+                                          toks[lo:lo + 2, 16 + i:17 + i])
+            got.append(lg)
+        out[name] = (got, [tuple(t.shape) for t in tree_leaves(
+            cache["layers"])])
+    rel = [float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+           for a, b in zip(out["mesh"][0], out["one"][0])]
+    return {"rel": rel, "mesh_cache": out["mesh"][1],
+            "one_cache": out["one"][1]}
+
+
+# chip_smoke.SplitProbe on the CPU: smoke Zamba2 over (data=2, model=2),
+# batch 1, the shared block's cache of SEQ_CACHE["S"] positions split
+# over data (blocks of 128), 8 steps from position 124: the last step's
+# second block holds 4 live keys
+SPLIT_PROBE_FAULTS = ("sound", "second_block_dropped")
+
+
+def split_probe_rank(rank):
+    """8 decode steps, the last through ``chip_smoke.SplitProbe``, then the
+    last step again from the same state with the second block's pair
+    dropped from the merge: {fault: the probe's check on this rank}."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_api import cache_read_spec
+    _setup()
+    S, pos0, steps = SEQ_CACHE["S"], SEQ_CACHE["pos0"], SEQ_CACHE["steps"]
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model = Model(smoke_config("zamba2-1.2b"), device="cpu", mesh=mesh)
+    spec_of = dict(flatten_specs(model.param_specs()))
+    params = chip_smoke.hashed_blocks(
+        tree_map(lambda d: d.shape, model.param_defs()), 3, "cpu",
+        lambda path, x: local_shard(x, spec_of[".".join(path)], mesh).clone())
+    shape = ShapeConfig("split_probe", seq_len=S, global_batch=1,
+                        kind="decode", cache_shard="seq")
+    cspec = dict(flatten_specs(model.batch_pspecs(shape)["cache"]["layers"]))
+    cdefs = model.cache_defs(1, S)["layers"]
+    named = flatten_with_paths(cdefs)
+    whole = seq_cache_numpy({n: c.shape for n, c in named}, pos0)
+    cache = {"layers": unflatten_like(cdefs, [local_shard(
+        torch.from_numpy(whole[n]).to(c.dtype), cache_read_spec(
+            c, cspec[n]), mesh).clone() for n, c in named]),
+        "pos": pos0, "seq": model.cache_seq_axes(shape)}
+    toks = seq_cache_tokens(model.cfg.vocab, 1)
+    for t in toks[:-1]:
+        _, cache = model.decode_step(params, cache, t, decode_impl="torch")
+    before = {n: x.clone() for n, x in flatten_with_paths(cache["layers"])}
+    merge = L.merge_split
+
+    def second_dropped(o, lse, m, axes):
+        if m.axis_index(axes) == 1:
+            o, lse = torch.zeros_like(o), torch.full_like(lse, -float("inf"))
+        return merge(o, lse, m, axes)
+    out = {}
+    for fault in SPLIT_PROBE_FAULTS:
+        for n, x in flatten_with_paths(cache["layers"]):
+            x.copy_(before[n])
+        cache["pos"] = pos0 + steps - 1
+        L.merge_split = second_dropped if fault != "sound" else merge
+        try:
+            with chip_smoke.SplitProbe() as probe:
+                _, cache = model.decode_step(params, cache, toks[-1],
+                                             decode_impl="torch")
+        finally:
+            L.merge_split = merge
+        out[fault] = probe.check()
+    return out

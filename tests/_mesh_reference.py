@@ -27,13 +27,33 @@ seeds, and the reference's results), which the port's ranks read:
 * ``dryrun_smoke``: ``repro.launch.dryrun.dryrun_cell`` of the smoke
   cells of ``_mesh_ranks.DRYRUN_CELLS`` on (data=4, model=2): 8 forced
   host devices, so it runs alone (jax is initialised before
-  ``repro.launch.dryrun``, which sets ``XLA_FLAGS`` at import, is).
+  ``repro.launch.dryrun``, which sets ``XLA_FLAGS`` at import, is);
+* ``families_tp[:a,b]``: the smoke Zamba2, RWKV-6 (and its one-head
+  variant, whose columns cut through a head), DeepSeek-V2 under
+  ``ep_a2a`` and ``tp`` and Whisper (``_mesh_ranks.FAMILY_CASES``, or
+  the cases named) jit-ed ZeRO-1 steps on (data=2, model=2), with and
+  without ``seq_parallel``: losses, norms, the updated tree and the
+  compiled step's collectives and dot FLOPs; ``families_tp_a_b.npz``
+  for named cases;
+* ``mla_decode``: the smoke DeepSeek-V2's prefill and 8 decode steps on
+  (data=2, model=2), the latent cache split over ``model``, and on one
+  device;
+* ``seq_cache``: the smoke Gemma-2 and Zamba2 ``decode_step`` jit-ed on
+  (data=4, model=2) (8 forced host devices, alone) over a decode cache
+  split along the sequence, ``cache_shard="seq"`` (batch 1, the sequence
+  over ``data``) and ``decode_seq_shard`` (batch 4, the sequence over
+  ``model``): a seeded cache of ``_mesh_ranks.SEQ_CACHE`` positions
+  (``seq_cache_numpy``), 8 steps from position 124 across a block
+  boundary, float32 activations; the logits, each compiled step's
+  collectives, and the logits of the same steps on one device over the
+  whole cache (``single``).
 """
 import os
 import sys
 
-# 8 devices for the dry run's (data=4, model=2), run alone; 4 otherwise
-N_DEVICES = 8 if "dryrun_smoke" in sys.argv[2:] else 4
+# 8 devices for the (data=4, model=2) runs, each alone; 4 otherwise
+EIGHT = ("dryrun_smoke", "seq_cache")
+N_DEVICES = 8 if set(EIGHT) & set(sys.argv[2:]) else 4
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
                            f"{N_DEVICES}")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -336,6 +356,209 @@ def run_dryrun_smoke(out: Path):
     np.savez(out / "dryrun_smoke.npz", **res)
 
 
+def _keep_hlo(name: str, hlo: str) -> None:
+    """``$REPRO_HLO_DIR/<name>.hlo.gz`` when the variable is set (for
+    ``scripts/hlo_dots.py`` and ``scripts/hlo_collectives.py``)."""
+    import gzip
+    d = os.environ.get("REPRO_HLO_DIR")
+    if d:
+        Path(d).mkdir(parents=True, exist_ok=True)
+        with gzip.open(Path(d) / f"{name}.hlo.gz", "wt") as f:
+            f.write(hlo)
+
+
+def _comm_json(hlo: str) -> str:
+    import json
+
+    from repro.core.hlo_comm import extract, summarize
+    from repro.core.hlo_counter import totals
+    t = totals(hlo)
+    return json.dumps({"summarize": summarize(extract(hlo)),
+                       "totals": {"flops": t.flops, "bytes": t.bytes,
+                                  "bytes_floor": t.bytes_floor,
+                                  "coll": t.coll}})
+
+
+def run_families_tp(out: Path, names=None):
+    """The smoke families' ZeRO-1 step on (data=2, model=2), float32
+    activations, 3 steps, with and without ``seq_parallel``
+    (``_mesh_ranks.FAMILY_CASES``, or the ``names`` of them): losses,
+    norms, the updated tree, and the compiled step's collectives and dot
+    FLOPs (``_comm_json``)."""
+    from _mesh_ranks import FAMILY_CASES, family_batch
+    from repro.models.model_api import Model
+    from repro.train.optimizer import init_opt_state, opt_state_specs
+    from repro.train.train_step import make_train_step
+    mesh = make_mesh((2, 2), ("data", "model"))
+    res = {}
+    for fam in names or FAMILY_CASES:
+        arch, over = FAMILY_CASES[fam]
+        tree = None
+        for sp in (False, True):
+            cfg = dataclasses.replace(smoke_config(arch), seq_parallel=sp,
+                                      **over)
+            model = Model(cfg, mesh)
+            model.compute_dtype = jnp.float32
+            if tree is None:
+                tree = lm_pair_tree(model)
+                res.update({f"{fam}.w.{n}": np.asarray(v)
+                            for n, v in flatten_with_paths(tree)})
+            specs = model.param_specs()
+            o_specs = opt_state_specs(specs, model.param_defs(), mesh,
+                                      zero1=True, keep_master=False)
+            batches = [{k: jnp.asarray(v) for k, v in
+                        family_batch(cfg, i).items()} for i in range(STEPS)]
+            b_specs = {k: P("data", *([None] * (v.ndim - 1)))
+                       for k, v in batches[0].items()}
+            params = jax.device_put(jax.tree.map(jnp.asarray, tree),
+                                    shard(mesh, specs))
+            opt = jax.device_put(init_opt_state(params, keep_master=False),
+                                 shard(mesh, o_specs))
+            step = jax.jit(make_train_step(model, TrainConfig(**TCFG)),
+                           in_shardings=(shard(mesh, specs),
+                                         shard(mesh, o_specs),
+                                         shard(mesh, b_specs)),
+                           out_shardings=(shard(mesh, specs),
+                                          shard(mesh, o_specs), None))
+            name = f"{fam}.sp{int(sp)}"
+            with mesh:
+                hlo = step.lower(params, opt, batches[0]).compile().as_text()
+                losses, norms = [], []
+                for b in batches:
+                    params, opt, m = step(params, opt, b)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+            res[f"{name}.losses"] = np.asarray(losses)
+            res[f"{name}.norms"] = np.asarray(norms)
+            res[f"{name}.comm"] = np.asarray(_comm_json(hlo))
+            res.update(flat(params, f"{name}.p."))
+            _keep_hlo(name, hlo)
+    tag = "families_tp" if names is None else "families_tp_" + "_".join(names)
+    np.savez(out / f"{tag}.npz", **res)
+
+
+def run_mla_decode(out: Path):
+    """The smoke DeepSeek-V2 (``moe_impl="tp"``) on (data=2, model=2):
+    prefill of ``_mesh_ranks.MLA_DECODE``'s rows into a cache split by the
+    default cache rules (the latent ``c`` over ``model``), then its decode
+    steps, float32 activations, jit-ed with the specs: the prefill's last
+    logits, each step's logits, and the compiled decode step's
+    collectives; and the same on one device (``single``)."""
+    from _mesh_ranks import MLA_DECODE, mla_decode_tokens
+    from repro.configs.base import ShapeConfig
+    from repro.models.model_api import Model
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                              moe_impl="tp")
+    model = Model(cfg, mesh)
+    model.compute_dtype = jnp.float32
+    tree = lm_pair_tree(model)
+    B, S, steps = (MLA_DECODE[k] for k in ("B", "S", "steps"))
+    max_len = S + steps
+    toks = mla_decode_tokens(cfg.vocab)
+    res = {f"w.{n}": np.asarray(v) for n, v in flatten_with_paths(tree)}
+    specs = model.param_specs()
+    shape = ShapeConfig("mla", seq_len=max_len, global_batch=B,
+                        kind="decode")
+    bspecs = model.batch_pspecs(shape)
+    for tag in ("mesh", "single"):
+        if tag == "mesh":
+            params = jax.device_put(jax.tree.map(jnp.asarray, tree),
+                                    shard(mesh, specs))
+            pre = jax.jit(lambda p, b: model.prefill(p, b, max_len=max_len),
+                          in_shardings=(shard(mesh, specs),
+                                        shard(mesh, {"tokens": P("data")})),
+                          out_shardings=(None, shard(mesh, bspecs["cache"])))
+            step = jax.jit(model.decode_step,
+                           in_shardings=(shard(mesh, specs),
+                                         shard(mesh, bspecs["cache"]),
+                                         shard(mesh, bspecs["tokens"])),
+                           out_shardings=(None,
+                                          shard(mesh, bspecs["cache"])))
+        else:
+            params = jax.tree.map(jnp.asarray, tree)
+            pre = jax.jit(lambda p, b: model.prefill(p, b, max_len=max_len))
+            step = jax.jit(model.decode_step)
+        with mesh:
+            last, cache = pre(params, {"tokens": jnp.asarray(toks[:, :S])})
+            logits = []
+            for i in range(steps):
+                t = jnp.asarray(toks[:, S + i:S + i + 1])
+                if i == 0 and tag == "mesh":
+                    hlo = step.lower(params, cache, t).compile().as_text()
+                lg, cache = step(params, cache, t)
+                logits.append(np.asarray(lg))
+        res[f"{tag}.prefill"] = np.asarray(last)
+        res[f"{tag}.logits"] = np.stack(logits)
+    res["comm"] = np.asarray(_comm_json(hlo))
+    _keep_hlo("mla_decode", hlo)
+    np.savez(out / "mla_decode.npz", **res)
+
+
+def run_seq_cache(out: Path):
+    """The module docstring's ``seq_cache``."""
+    from _mesh_ranks import (SEQ_CACHE, SEQ_CACHE_ARCHS, SEQ_LAYOUTS,
+                             seq_cache_numpy, seq_cache_tokens)
+    from repro.configs.base import ShapeConfig
+    from repro.models.model_api import Model
+    S, pos0, steps, mshape = (SEQ_CACHE[k] for k in ("S", "pos0", "steps",
+                                                       "mesh"))
+    mesh = make_mesh(mshape, ("data", "model"))
+    res = {}
+    for arch in SEQ_CACHE_ARCHS:
+        for lay, (B, shard_kind, seq_model) in SEQ_LAYOUTS.items():
+            cfg = dataclasses.replace(smoke_config(arch),
+                                      decode_seq_shard=seq_model)
+            model = Model(cfg, mesh)
+            model.compute_dtype = jnp.float32
+            tree = lm_pair_tree(model)
+            shape = ShapeConfig("seq_cache", seq_len=S, global_batch=B,
+                                kind="decode", cache_shard=shard_kind)
+            specs = model.param_specs()
+            bspecs = model.batch_pspecs(shape)
+            like = model.init_cache(B, S)["layers"]
+            cache_np = seq_cache_numpy(
+                {n: a.shape for n, a in flatten_with_paths(like)}, pos0)
+            leaves = [jnp.asarray(cache_np[n], a.dtype)
+                      for n, a in flatten_with_paths(like)]
+            layers = jax.tree.unflatten(jax.tree.structure(like), leaves)
+            toks = seq_cache_tokens(cfg.vocab, B)
+            # one device, the whole cache: the yardstick of both runs
+            one = jax.jit(model.decode_step)
+            c1 = {"layers": layers, "pos": jnp.asarray(pos0, jnp.int32)}
+            p1 = jax.tree.map(jnp.asarray, tree)
+            single = []
+            for t in toks:
+                lg, c1 = one(p1, c1, jnp.asarray(t))
+                single.append(np.asarray(lg))
+            cache = {"layers": jax.device_put(
+                layers, shard(mesh, bspecs["cache"]["layers"])),
+                "pos": jnp.asarray(pos0, jnp.int32)}
+            params = jax.device_put(jax.tree.map(jnp.asarray, tree),
+                                    shard(mesh, specs))
+            step = jax.jit(model.decode_step,
+                           in_shardings=(shard(mesh, specs),
+                                         shard(mesh, bspecs["cache"]),
+                                         shard(mesh, bspecs["tokens"])),
+                           out_shardings=(None,
+                                          shard(mesh, bspecs["cache"])))
+            name = f"{arch}.{lay}"
+            with mesh:
+                hlo = step.lower(params, cache, jnp.asarray(
+                    toks[0])).compile().as_text()
+                logits = []
+                for t in toks:
+                    lg, cache = step(params, cache, jnp.asarray(t))
+                    logits.append(np.asarray(lg))
+            res[f"{name}.logits"] = np.stack(logits)
+            res[f"{name}.single"] = np.stack(single)
+            _keep_hlo(name, hlo)
+            res[f"{name}.comm"] = np.asarray(_comm_json(hlo))
+            res.update({f"{name}.w.{n}": np.asarray(v)
+                        for n, v in flatten_with_paths(tree)})
+    np.savez(out / "seq_cache.npz", **res)
+
+
 # ---------------------------------------------------------------------------
 
 def run_gpipe(out: Path):
@@ -400,13 +623,20 @@ def run_ckpt_read(out: Path):
 RUNS = {"moe": run_moe, "dlrm_train": run_dlrm_train, "lm_train": run_lm_train,
         "gpipe": run_gpipe, "ckpt_write": run_ckpt_write,
         "ckpt_read": run_ckpt_read, "lm_tp_comm": run_lm_tp_comm,
-        "moe_chunks": run_moe_chunks, "dryrun_smoke": run_dryrun_smoke}
+        "moe_chunks": run_moe_chunks, "dryrun_smoke": run_dryrun_smoke,
+        "seq_cache": run_seq_cache, "families_tp": run_families_tp,
+        "mla_decode": run_mla_decode}
 
 if __name__ == "__main__":
     assert len(jax.devices()) == N_DEVICES, jax.devices()
     if N_DEVICES == 8 and len(sys.argv) > 3:
-        raise SystemExit("dryrun_smoke runs alone (8 devices)")
+        raise SystemExit(f"{EIGHT} run alone (8 devices)")
     out_dir = Path(sys.argv[1])
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in sys.argv[2:]:
-        RUNS[name](out_dir)
+        # NAME:a,b runs the cases a and b of NAME (families_tp)
+        name, _, cases = name.partition(":")
+        if cases:
+            RUNS[name](out_dir, cases.split(","))
+        else:
+            RUNS[name](out_dir)

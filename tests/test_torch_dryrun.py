@@ -16,8 +16,12 @@ on ``meta`` under a recording mesh:
   step on 4 CPU ranks: calls and bytes by kind, exactly;
 * the CLI's flags and record at full width, ``--all`` writing only under
   ``experiments/dryrun_torch/`` and listing its failing cells, the
-  records as ``CollectiveOp``s for ``predict``'s replay, and the cells the
-  port does not trace raising."""
+  records as ``CollectiveOp``s for ``predict``'s replay, the cells the
+  port once refused now tracing (a sequence-split cache, ``seq_parallel``
+  over MLA) and the one it does not trace raising;
+* the smoke ``long_500k``-style cells (a cache split along the sequence
+  over ``data``) of the long-context families traced, and no leaf of any
+  arch gathered whole on the production mesh (16, 16) or (2, 16, 16)."""
 import dataclasses
 import json
 import os
@@ -183,13 +187,65 @@ def test_records_feed_the_hlo_replay():
     assert sched is not None
 
 
-@pytest.mark.parametrize("arch,shape,over", [
-    ("gemma2-9b", ShapeConfig("long", seq_len=512, global_batch=1,
-                              kind="decode", cache_shard="seq"), {}),
-    ("deepseek-v2-236b", SHAPES["smoke_train1"], {"seq_parallel": True})],
-    ids=["sequence-split-cache", "seq_parallel-over-mla"])
-def test_cells_the_port_does_not_trace_raise(arch, shape, over):
+LONG = ShapeConfig("long", seq_len=512, global_batch=1, kind="decode",
+                   cache_shard="seq")
+
+
+@pytest.mark.parametrize("arch,shape,over,traces", [
+    ("gemma2-9b", LONG, {}, True),
+    ("deepseek-v2-236b", SHAPES["smoke_train1"],
+     {"seq_parallel": True, "moe_impl": "tp"}, True),
+    ("deepseek-v2-236b", ShapeConfig("seqcache", seq_len=512,
+                                     global_batch=4, kind="decode"),
+     {"decode_seq_shard": True}, False)],
+    ids=["sequence-split-cache", "seq_parallel-over-mla",
+         "mla-sequence-split-cache"])
+def test_cells_the_port_does_not_trace_raise(arch, shape, over, traces):
+    """A cache split along the sequence (``long_500k``'s layout) and
+    ``seq_parallel`` over MLA once raised here; they trace now, the
+    former merging its blocks' attention across the data ranks (a
+    ``pmax`` and a ``psum`` a global layer) and neither gathering a leaf
+    whole.  MLA over a latent cache split along the sequence still
+    raises."""
     cfg = dataclasses.replace(smoke_config(arch), **over)
-    with pytest.raises(NotImplementedError):
-        dryrun.dryrun_cell(arch, shape.name, False, False, cfg=cfg,
-                           shape=shape, mesh_shape=(2, 2))
+    if not traces:
+        with pytest.raises(NotImplementedError):
+            dryrun.dryrun_cell(arch, shape.name, False, False, cfg=cfg,
+                               shape=shape, mesh_shape=(2, 2))
+        return
+    cell = dryrun.dryrun_cell(arch, shape.name, False, False, cfg=cfg,
+                              shape=shape, mesh_shape=(2, 2))
+    assert cell["gathered_leaves"] == []
+    assert np.isfinite(cell["flops"]) and cell["flops"] > 0
+    if shape.cache_shard == "seq":
+        n_global = sum(c == "g" for c in cfg.attn_pattern) * (
+            cfg.n_layers // len(cfg.attn_pattern))
+        assert cell["collective_calls"]["pmax"] == n_global
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "zamba2-1.2b",
+                                  "rwkv6-3b"])
+def test_smoke_long_500k_cell_traces(arch):
+    """``long_500k``'s layout at the smoke widths on (data=4, model=2):
+    batch 1, the global layers' sequence over ``data`` (RWKV-6 has no
+    global layer: its states are the whole cache)."""
+    cell = dryrun.dryrun_cell(arch, "long", False, False,
+                              cfg=smoke_config(arch), shape=LONG,
+                              mesh_shape=_mesh_ranks.DRYRUN_MESH)
+    assert cell["gathered_leaves"] == []
+    calls = cell["collective_calls"]
+    assert (calls.get("pmax", 0) > 0) == (arch != "rwkv6-3b")
+    assert cell["memory"]["argument_bytes"] > 0
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["sp", "mp"])
+def test_no_leaf_is_gathered_whole_on_the_production_mesh(multi_pod):
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import Model
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    mesh = comm.RecordingMesh(shape, ("pod", "data", "model")[-len(shape):])
+    for arch in ARCHS:
+        if arch == "dlrm":
+            continue
+        model = Model(get_config(arch), device="meta", mesh=mesh)
+        assert model.gathered_leaves() == [], arch

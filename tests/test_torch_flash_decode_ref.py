@@ -205,3 +205,156 @@ def test_chunked_merge_model_matches_ref_and_pallas(B, S, Hkv, G, D, lengths,
             tol = tol + _bf16_ulp(want)
         err = np.abs(got.float().numpy() - want)
         assert np.all(err <= tol), float((err / tol).max())
+
+
+# ---------------------------------------------------------------------------
+# the log-sum-exp pair: a cache split along the sequence, merged exactly
+# ---------------------------------------------------------------------------
+
+LSE_KINDS = ["bf16", "int8", "softcap"]
+LSE_CASES = [(3, 256, 2, 4, 64, 2, (250, 100, 1)),
+             (2, 384, 4, 2, 16, 4, (384, 95)),
+             (1, 192, 1, 8, 256, 3, (100,))]
+
+
+def _lse_inputs(kind, B, S, Hkv, G, D, seed):
+    rng = np.random.default_rng(seed)
+    q = _torch(rng.standard_normal((B, Hkv, G, D), np.float32),
+               torch.bfloat16)
+    k = rng.standard_normal((B, S, Hkv, D), np.float32)
+    v = rng.standard_normal((B, S, Hkv, D), np.float32)
+    extra = {"softcap": 5.0 if kind == "softcap" else None}
+    if kind == "int8":
+        from repro_torch.models.layers import quantize_kv
+        kq, ks = quantize_kv(torch.from_numpy(k))
+        vq, vs = quantize_kv(torch.from_numpy(v))
+        return q, kq, vq, dict(extra, k_scale=ks, v_scale=vs)
+    return q, _torch(k, torch.bfloat16), _torch(v, torch.bfloat16), extra
+
+
+def _block(extra, lo, hi):
+    return {n: (t[:, lo:hi] if isinstance(t, torch.Tensor) else t)
+            for n, t in extra.items()}
+
+
+def _merge(parts):
+    """The exact merge of (out, lse) pairs, in float32."""
+    lse = torch.stack([p[1] for p in parts])
+    m = lse.amax(0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    o = torch.stack([p[0] for p in parts])
+    return (w * o).sum(0) / w.sum(0)
+
+
+@pytest.mark.parametrize("kind", LSE_KINDS)
+@pytest.mark.parametrize("B,S,Hkv,G,D,n,lengths", LSE_CASES,
+                         ids=[f"B{c[0]}S{c[1]}D{c[4]}n{c[5]}"
+                              for c in LSE_CASES])
+def test_lse_merge_of_split_blocks_equals_unsplit(kind, B, S, Hkv, G, D, n,
+                                                  lengths):
+    """Each block's (out, lse) from the CPU wrapper of the log-sum-exp
+    instantiation (blocks past a row's length at local length 0: out 0,
+    lse -inf), merged exactly, equals the unsplit plain result to float32
+    rounding (``F32_TOL`` of the weighted |v|), and its lse the unsplit
+    one's (1e-5)."""
+    q, k, v, extra = _lse_inputs(kind, B, S, Hkv, G, D, S + n)
+    length = torch.tensor(lengths, dtype=torch.int32)
+    whole_o, whole_lse = fd_ops.flash_decode_lse(q, k, v, length, **extra)
+    Sr = S // n
+    parts = []
+    for r in range(n):
+        local = torch.clamp(length - r * Sr, 0, Sr).to(torch.int32)
+        o, lse = fd_ops.flash_decode_lse(
+            q, k[:, r * Sr:(r + 1) * Sr].contiguous(),
+            v[:, r * Sr:(r + 1) * Sr].contiguous(), local,
+            **_block(extra, r * Sr, (r + 1) * Sr))
+        assert o.dtype == lse.dtype == torch.float32
+        empty = local == 0
+        assert torch.all(o[empty] == 0) and torch.all(
+            torch.isneginf(lse[empty]))
+        parts.append((o, lse))
+    assert any(bool((torch.clamp(length - r * Sr, 0, Sr) == 0).any())
+               for r in range(n))
+    merged = _merge(parts)
+    # the scale of the summed terms: the softmax-weighted |v|
+    vmag = (v.float().abs() if kind != "int8" else
+            v.float().abs() * extra["v_scale"][..., None])
+    scale = torch.einsum("bhgs,bshd->bhgd", torch.softmax(torch.where(
+        torch.arange(S)[None, None, None] < length[:, None, None, None],
+        torch.zeros(B, Hkv, G, S), -1e30), -1), vmag)
+    assert torch.all((merged - whole_o).abs() <= F32_TOL * (scale + 1)), (
+        float((merged - whole_o).abs().max()))
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    got_lse = m + torch.log(torch.stack([torch.exp(p[1] - m)
+                                         for p in parts]).sum(0))
+    torch.testing.assert_close(got_lse, whole_lse, rtol=1e-5, atol=1e-5)
+    # the pair's output, cast, is the plain flash_decode's
+    want = (fd_ref.flash_decode_quant_ref(q, k, v, extra["k_scale"],
+                                          extra["v_scale"], length,
+                                          extra["softcap"])
+            if kind == "int8" else
+            fd_ref.flash_decode_ref(q, k, v, length, extra["softcap"]))
+    torch.testing.assert_close(whole_o.to(torch.bfloat16), want, rtol=0,
+                               atol=float(_bf16_ulp(np.float32(
+                                   whole_o.abs().max())))
+                               + F32_TOL)
+
+
+@pytest.mark.parametrize("kind", LSE_KINDS)
+def test_lse_pair_matches_the_layers_plain_version(kind):
+    """The wrapper's pair in the model's (B, 1, Hq, D) layout
+    (``gqa_decode_attention_lse``, which ``transformer._split_decode``
+    calls), cast to bf16, equals the unsplit layer's plain decode
+    (``layers.decode_attention``, ``decode_attention_quant`` over the
+    int8 cache) within one bf16 ulp plus ``F32_TOL``, and its lse the
+    log-sum-exp of the layer's scaled (softcapped) scores (1e-5); a block
+    at length 0 gives 0 and -inf.  ``ref.gqa_decode_lse_ref`` (the path
+    of ``decode_impl="torch"``, reading the first n positions) gives the
+    same pair."""
+    from repro_torch.models import layers as L
+    B, S, Hkv, G, D = 2, 96, 2, 4, 64
+    q, k, v, extra = _lse_inputs(kind, B, S, Hkv, G, D, 3)
+    qh = q.reshape(B, 1, Hkv * G, D)
+    cap = extra["softcap"]
+    for n in (0, 1, 70, S):
+        o, lse = fd_ops.gqa_decode_attention_lse(
+            qh, k, v, torch.full((B,), n, dtype=torch.int32), **extra)
+        assert o.shape == (B, 1, Hkv * G, D) and lse.shape == (B, 1, Hkv * G)
+        assert o.dtype == lse.dtype == torch.float32
+        o2, lse2 = fd_ref.gqa_decode_lse_ref(
+            qh, k, v, n, cap, **{s: extra[s] for s in ("k_scale", "v_scale")
+                                  if s in extra})
+        torch.testing.assert_close(o2, o, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(lse2, lse, rtol=1e-5, atol=1e-5)
+        if n == 0:
+            assert torch.all(o == 0) and torch.all(torch.isneginf(lse))
+            continue
+        if kind == "int8":
+            want = L.decode_attention_quant(
+                qh, k, v, extra["k_scale"], extra["v_scale"], length=n,
+                softcap=cap)
+            s = torch.einsum("bhgd,bkhd->bhgk", q.float(), k[:, :n].float())
+            s = s * torch.movedim(extra["k_scale"][:, :n], 2, 1)[:, :, None]
+        else:
+            want = L.decode_attention(qh, k, v, length=n, softcap=cap)
+            s = torch.einsum("bhgd,bkhd->bhgk", q.float(), k[:, :n].float())
+        s = L._softcap(s / D ** 0.5, cap)
+        torch.testing.assert_close(
+            o.to(torch.bfloat16), want, rtol=0,
+            atol=float(_bf16_ulp(np.float32(o.abs().max()))) + F32_TOL)
+        torch.testing.assert_close(
+            lse, torch.logsumexp(s, -1).reshape(B, 1, Hkv * G), rtol=1e-5,
+            atol=1e-5)
+
+
+def test_lse_wrapper_takes_length_zero_and_checks_the_rest():
+    q, k, v, _ = _lse_inputs("bf16", 1, 32, 1, 2, 16, 0)
+    o, lse = fd_ops.flash_decode_lse(q, k, v,
+                                     torch.zeros(1, dtype=torch.int32),
+                                     max_length=0)
+    assert torch.all(o == 0) and torch.all(torch.isneginf(lse))
+    with pytest.raises(ValueError):
+        fd_ops.flash_decode_lse(q, k, v, torch.tensor([33], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fd_ops.flash_decode_lse(q, k, v, torch.tensor([-1], dtype=torch.int32))

@@ -15,9 +15,13 @@ flash-enabled TinyLlama and of the DLRM, a checkpoint and its restore,
 below too: specs on an abstract mesh, and two CPU ranks over ``gloo``
 taking a mesh step of the smoke DLRM and a pipeline; ``core/hlo_counter.py``,
 ``common/cache.py`` and ``launch/dryrun.py``, a smoke cell traced on
-``meta`` under a recording mesh; nor
+``meta`` under a recording mesh, and the model axis of the other
+families: a smoke Zamba2 decode cell over a cache split along the
+sequence (the log-sum-exp merge, Mamba-2 tensor-parallel) and a smoke
+RWKV-6 and DeepSeek-V2 train cell under ``seq_parallel``; nor
 ``chip_smoke.py``, ``scripts/profile_step.py``,
-``scripts/time_flash_decode.py`` or ``scripts/time_grad.py``) imports jax
+``scripts/time_flash_decode.py``, ``scripts/time_grad.py`` or
+``scripts/hlo_collectives.py``) imports jax
 or the JAX package, it
 imports and runs with jax unavailable, and it never runs on the CPU unless
 asked to."""
@@ -37,7 +41,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_step.py",
     ROOT / "scripts" / "time_flash_decode.py",
-    ROOT / "scripts" / "time_grad.py"]
+    ROOT / "scripts" / "time_grad.py", ROOT / "scripts" / "hlo_collectives.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -59,7 +63,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_port_runs_with_jax_unavailable():
     code = (
-        "import sys\n"
+        "import dataclasses, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
@@ -142,6 +146,19 @@ def test_port_runs_with_jax_unavailable():
         "    shape=ShapeConfig('t', seq_len=32, global_batch=4,\n"
         "                      kind='train'))\n"
         "assert cell['flops'] > 0 and cell['collective_bytes']['total'] > 0\n"
+        "cell = dryrun.dryrun_cell('zamba2-1.2b', 'long', False, False,\n"
+        "    cfg=smoke_config('zamba2-1.2b'), mesh_shape=(2, 2),\n"
+        "    shape=ShapeConfig('long', seq_len=64, global_batch=1,\n"
+        "                      kind='decode', cache_shard='seq'))\n"
+        "assert cell['collective_calls']['pmax'] > 0, cell\n"
+        "for a, o in (('rwkv6-3b', {}), ('deepseek-v2-236b',\n"
+        "                                {'moe_impl': 'tp'})):\n"
+        "    cell = dryrun.dryrun_cell(a, 't', False, False,\n"
+        "        cfg=dataclasses.replace(smoke_config(a), seq_parallel=True,\n"
+        "                                **o), mesh_shape=(2, 2),\n"
+        "        shape=ShapeConfig('t', seq_len=32, global_batch=4,\n"
+        "                          kind='train'))\n"
+        "    assert cell['gathered_leaves'] == [], cell\n"
         "assert hc.totals('ENTRY %m (x: f32[2]) -> f32[2] {\\n'\n"
         "                 '  ROOT %x = f32[2]{0} parameter(0)\\n}').flops == 0\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"

@@ -897,6 +897,74 @@ def test_flash_decode_int8_matches_plain(dev, B, S, Hkv, G, D, softcap):
     assert torch.equal(again, got)
 
 
+# ------------------------------------------------- the log-sum-exp pair
+
+# (B, S, Hkv, G, D, lengths): one chunk and many, D = 16 (the smoke
+# models'), 64 (Zamba2's) and 256 (Gemma-2's), rows at length 0 (a rank
+# whose block of a sequence-split cache lies past the position)
+LSE_CASES = [(3, 100, 4, 8, 64, (100, 0, 1)),
+             (2, 4096, 2, 4, 256, (4096, 0)),
+             (4, 2080, 8, 1, 16, (2080, 1999, 64, 0)),
+             (1, 65536, 2, 16, 64, (65000,))]
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,lengths", LSE_CASES,
+                         ids=[f"B{c[0]}S{c[1]}D{c[4]}" for c in LSE_CASES])
+@pytest.mark.parametrize("kind", ["bf16", "softcap", "int8"])
+def test_flash_decode_lse_matches_plain(dev, B, S, Hkv, G, D, lengths, kind):
+    """The log-sum-exp instantiation against ``ref.flash_decode_ref(...,
+    lse=True)``: the float32 output within ``fd_tolerance`` (no bf16 ulp:
+    the output is not cast), a row of length 0 exactly 0 with an lse of
+    -inf, the lse within 1e-5 (plus the softcap's tanh bound) of the
+    plain one; one launch counted."""
+    softcap = 50.0 if kind == "softcap" else None
+    if kind == "int8":
+        q, k, v, ks, vs = _fd_int8_inputs(B, S, Hkv, G, D, S + D, dev)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        q, k, v = _fd_inputs(B, S, Hkv, G, D, torch.bfloat16, S + D, dev)
+        if softcap:
+            q = (q.float() * 4).to(torch.bfloat16)
+        scales = {}
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    fd_ops.reset_launches()
+    got, lse = fd_ops.flash_decode_lse(q, k, v, length,
+                                       max_length=max(lengths),
+                                       softcap=softcap, **scales)
+    assert fd_ops.LAUNCHES == {"flash_decode": 0, "flash_decode_lse": 1}
+    if scales:
+        want, want_lse = fd_ref.flash_decode_quant_ref(
+            q, k, v, ks, vs, length, softcap, lse=True)
+        tol = chip_smoke.fd_tolerance(q, k, v, length, want, softcap,
+                                      (ks, vs))
+    else:
+        want, want_lse = fd_ref.flash_decode_ref(q, k, v, length, softcap,
+                                                 lse=True)
+        tol = chip_smoke.fd_tolerance(q, k, v, length, want, softcap)
+    assert got.dtype == lse.dtype == torch.float32
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float(err.max())
+    empty = length == 0
+    assert torch.all(got[empty] == 0) and torch.all(torch.isneginf(lse[empty]))
+    live = ~empty
+    rel = 1e-5 + (0.0 if softcap is None else softcap * 2.0 ** -22)
+    assert bool(((lse[live] - want_lse[live]).abs()
+                 <= rel * (1 + want_lse[live].abs())).all())
+    again, lse2 = fd_ops.flash_decode_lse(q, k, v, length, softcap=softcap,
+                                          **scales)
+    assert torch.equal(again, got) and torch.equal(lse2, lse)
+
+
+def test_flash_decode_lse_rejects_scalar_loads(dev):
+    q, k, v = _fd_inputs(1, 64, 1, 2, 36, torch.bfloat16, 0, dev)
+    with pytest.raises(ValueError):
+        fd_ops.flash_decode_lse(q, k, v, torch.ones(1, dtype=torch.int32,
+                                                    device=dev))
+    with pytest.raises(TypeError):
+        fd_ops.flash_decode_lse(q.float(), k.float(), v.float(),
+                                torch.ones(1, dtype=torch.int32, device=dev))
+
+
 def test_flash_decode_int8_unaligned_cache(dev):
     """An int8 cache one element into a larger buffer: the scalar loads."""
     q, k8, v8, ks, vs = _fd_int8_inputs(2, 500, 2, 8, 64, 9, dev)
