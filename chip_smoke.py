@@ -49,7 +49,12 @@ against the dense path at its own ``moe_chunks=8`` (``mesh_moe``); 8
 TinyLlama layers through ``gpipe`` over 4 stages, bit-equal to the
 sequential stack (``mesh_gpipe``); and TinyLlama at 4 layers trained on
 (data=2, model=2), its dense layers tensor-parallel, against one process
-and against the dry run's recording of the same step (``mesh_lm``).  Three
+and against the dry run's recording of the same step (``mesh_lm``);
+Zamba2-1.2B decoding in ``long_500k``'s cell, its cache split along the
+sequence over data (``mesh_long``); and the same TinyLlama and
+DeepSeek-V2 prefilled into caches split along the sequence over model,
+then decoding across their blocks, against one process
+(``mesh_seqcache``).  Three
 gradient phases run through autograd on the simulator's op path, each in
 a process of its own beside the main process's kernel checks and
 simulator phases (Fig 12's lanes, the policy axis, Fig 13's fault grid
@@ -5270,10 +5275,12 @@ class plain_decode_attention:
 # the log-sum-exp instantiation's shapes: mesh_long's (a rank's block of
 # Zamba2-1.2B's shared-block cache in long_500k: 262,144 positions of 16
 # kv heads, G = 1, D = 64) with rows at lengths near the block's end, at
-# 4 and at 0; Gemma-2's global layers (Hkv 8, G 2, D 256) with the
-# softcap, and over an int8 cache
+# 4 and at 0; a rank's block of mesh_seqcache's TinyLlama cache (1,040
+# positions of 4 kv heads, G = 8) whole, at 17 and at 0; Gemma-2's global
+# layers (Hkv 8, G 2, D 256) with the softcap, and over an int8 cache
 FD_LSE_SHAPES = (((1, 262_144, 16, 1, 64), (262_140,), None, False),
                  ((3, 65_536, 16, 1, 64), (4, 40_000, 0), None, False),
+                 ((3, 1_040, 4, 8, 64), (1_040, 17, 0), None, False),
                  ((2, 4_096, 8, 2, 256), (4_000, 0), 50.0, False),
                  ((2, 4_096, 8, 2, 256), (3_001, 0), 50.0, True),
                  ((3, 2_080, 4, 8, 64), (2_080, 1, 0), None, True))
@@ -6914,6 +6921,31 @@ MESH_LONG_TOL = 6e-2
 SPLIT_MERGE_REL = 2e-6
 # mesh_moe's decode: 8 steps on (2, 2) after its prefill, float32
 MESH_MOE_DECODE = 8
+# mesh_seqcache: a prefill into a decode cache whose sequence splits over
+# model (decode_seq_shard) on (data=2, model=2), then decode across the
+# blocks. (a) mesh_lm's TinyLlama (4 of 22 layers, the same hashed
+# draw): 4 rows (2 a data rank) of 1,024-token prompts into a cache of
+# 2,080 positions (blocks of 1,040: model rank 1 starts empty), 32 decode
+# steps across 1,040 through the log-sum-exp instantiation, against one
+# process's prefill and decode on the unsplit cache (flash_decode) at the
+# serving rule's 2e-2 x sqrt(4 / 22); its hand-off's collectives against
+# the dry run's recording of the same prefill. (b) mesh_moe's DeepSeek-V2
+# (2 layers, the tp body, its weights) and prefill of 4 x 512 into a
+# cache of 1,032 (blocks of 516), the 8 float32 decode steps across 516
+# against one process's under mesh_moe's decode rule
+MESH_SEQ_LM = (4, 1024, 2080, 32)       # rows, prompt, max_len, steps
+MESH_SEQ_LM_TOL = 2e-2 * math.sqrt(MESH_LM[0] / 22)
+# (a)'s limit against one process: the mesh's bf16 partial sums (wo, w2,
+# the vocab-parallel embedding) round apart from one process's sums in
+# every layer, the prefill included, whatever the cache's layout:
+# mesh_long's limit at 44 layers scaled to 4 as the serving rule scales
+# (sqrt of the depth); the split path's own limit is the serving rule,
+# against the same rows over the unsplit cache on the same mesh (the
+# same tensor-parallel sums, the unsplit kernel); a planted hand-off
+# fault (the kv-head blocks in the wrong order) must lie beyond both
+MESH_SEQ_LM_ONE_TOL = MESH_LONG_TOL * math.sqrt(MESH_LM[0] / 44)
+MESH_SEQ_PLANTED_STEPS = 2
+MESH_SEQ_MOE_LEN = 1032
 
 
 def mesh_log(rank: int, what: str) -> None:
@@ -7663,6 +7695,11 @@ def mesh_moe_rank(rank, dev) -> dict:
             del cache
         case["rows"] = (i * rows, (i + 1) * rows)
         out[f"{impl}_{shape[0]}x{shape[1]}"] = case
+        if (impl, shape) == ("tp", (2, 2)):
+            # mesh_seqcache (b): the same model and weights, the latent
+            # cache split along the sequence over model
+            out["tp_2x2_seqcache"] = _moe_seqcache(cfg, params, mesh, dev,
+                                                   mine, i, rows)
         del model, params
         torch.cuda.empty_cache()
     return out
@@ -7856,11 +7893,7 @@ def mesh_lm_rank(rank, dev, single) -> dict:
                                              kind="train"),
                       rec_mesh, gradspec=True, tcfg=tcfg)["run"]()
     out["record_s"] = time.perf_counter() - t0
-    recorded = {k: {"calls": 0, "bytes": 0} for k in comm.KINDS}
-    for r in rec_mesh.records:
-        recorded[r.kind]["calls"] += 1
-        recorded[r.kind]["bytes"] += r.bytes
-    out["recorded"] = recorded
+    out["recorded"] = _by_kind(rec_mesh.records)
     out["gathered_leaves"] = model.gathered_leaves()
     # step 1's mu and the update, gathered whole for rank 0
     mom = dict(flatten_specs(layout.moments))
@@ -8306,11 +8339,7 @@ def mesh_long_rank(rank, dev, single, sync_file: str) -> dict:
     t0 = time.perf_counter()
     dryrun.trace_step(rec_model, shape, rec_mesh)["run"]()
     out["record_s"] = time.perf_counter() - t0
-    recorded = {k: {"calls": 0, "bytes": 0} for k in comm.KINDS}
-    for r in rec_mesh.records:
-        recorded[r.kind]["calls"] += 1
-        recorded[r.kind]["bytes"] += r.bytes
-    out["recorded"] = recorded
+    out["recorded"] = _by_kind(rec_mesh.records)
     if rank == 0:
         def rel(a, b):
             return float(torch.linalg.vector_norm(a - b)
@@ -8324,6 +8353,220 @@ def mesh_long_rank(rank, dev, single, sync_file: str) -> dict:
     out["planted_probe"] = {k: x["probe"] for k, x in planted.items()}
     out["logits"] = None
     comm.barrier()
+    return out
+
+
+def _seq_lm_tokens(vocab: int) -> np.ndarray:
+    """``MESH_SEQ_LM``'s prompts and each decode step's token (rows,
+    prompt + steps)."""
+    rows, prompt, _, steps = MESH_SEQ_LM
+    return np.random.default_rng(MESH_SEED + 2).integers(
+        0, vocab, (rows, prompt + steps), dtype=np.int32)
+
+
+def mesh_seqcache_single(dev) -> dict:
+    """Rank 0 alone: ``MESH_SEQ_LM``'s TinyLlama in one process (the
+    hashed draw from ``MESH_SEED``), the prefill of the 4 prompts into
+    the unsplit cache and the 32 decode steps through the unsplit
+    ``flash_decode``: the prefill's last logits and each step's (host),
+    seconds and launches."""
+    import torch
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models import Model
+    rows, prompt, max_len, steps = MESH_SEQ_LM
+    cfg = _lm_cfg()
+    model = Model(cfg, device=dev, decode_impl="cuda")
+    params = hashed_params(tree_map(lambda d: d.shape, model.param_defs()),
+                           MESH_SEED, dev)
+    toks = _seq_lm_tokens(cfg.vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                max_len=max_len)
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t0,
+           "logits": [last.float().cpu().numpy()], "step_s": []}
+    fd_ops.reset_launches()
+    for t in range(prompt, prompt + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["logits"].append(lg.float().cpu().numpy())
+    out["launches"] = dict(fd_ops.LAUNCHES)
+    del model, params, cache, last, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def _by_kind(records) -> dict:
+    """{kind: {"calls", "bytes"}} of recorded collectives (every kind)."""
+    from repro_torch.common import comm
+    out = {k: {"calls": 0, "bytes": 0} for k in comm.KINDS}
+    for r in records:
+        out[r.kind]["calls"] += 1
+        out[r.kind]["bytes"] += r.bytes
+    return out
+
+
+def _live_by_kind(counters: dict) -> dict:
+    return {k: {"calls": v["calls"], "bytes": v["bytes"]}
+            for k, v in counters.items()}
+
+
+def mesh_seqcache_rank(rank, dev) -> dict:
+    """Every rank: ``MESH_SEQ_LM``'s TinyLlama under ``decode_seq_shard``
+    over (data=2, model=2) (this rank's blocks of the same hashed draw),
+    its data rank's 2 prompts prefilled into its block of the split cache
+    (every kv head at its 1,040 positions), then the 32 decode steps
+    through the log-sum-exp instantiation: the logits (the prefill's last
+    and each step's), seconds, each step's collectives, the prefill's
+    (its hand-off apart: ``comm``'s ``"handoff"`` section) beside the dry
+    run's recording of this rank's prefill on ``meta``, the block's live
+    positions after the prefill and the decode's kernel launches; then
+    the same rows over the unsplit cache on the same mesh, and the first
+    steps again with the hand-off planted wrong."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.common.sharding import flatten_specs, local_shard
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as T
+    rows, prompt, max_len, steps = MESH_SEQ_LM
+    cfg = dataclasses.replace(_lm_cfg(), decode_seq_shard=True)
+    mesh = make_mesh(MESH_LM_SHAPE, ("data", "model"))
+    model = Model(cfg, device=dev, mesh=mesh, decode_impl="cuda")
+    spec_of = dict(flatten_specs(model.param_specs()))
+    params = hashed_blocks(
+        tree_map(lambda d: d.shape, model.param_defs()), MESH_SEED, dev,
+        lambda path, x: local_shard(x, spec_of[".".join(path)],
+                                    mesh).clone())
+    n = rows // MESH_LM_SHAPE[0]
+    i = mesh.axis_index("data")
+    toks = _seq_lm_tokens(cfg.vocab)[i * n:(i + 1) * n]
+    comm.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                max_len=max_len)
+    torch.cuda.synchronize()
+    k0 = cache["layers"][0]["l0"]["k"]          # (layers, rows, S_r, H, D)
+    out = {"rows": (i * n, (i + 1) * n), "seq": cache["seq"],
+           "block": mesh.axis_index(cache["seq"]),
+           "prefill_s": time.perf_counter() - t0,
+           "prefill": {"handoff": _live_by_kind(comm.counters("handoff")),
+                       "all": _live_by_kind(comm.counters())},
+           "block_shape": tuple(k0.shape),
+           "held": int((k0[0].float().abs().sum((0, 2, 3)) > 0).sum()),
+           "logits": [last.float().cpu().numpy()], "step_s": [], "counters": []}
+    fd_ops.reset_launches()
+    for t in range(prompt, prompt + steps):
+        comm.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["counters"].append(comm.counters())
+        out["logits"].append(lg.float().cpu().numpy())
+    # the main path's launches: the 32 steps
+    out["launches"] = dict(fd_ops.LAUNCHES)
+    out["finite"] = all(bool(np.isfinite(x).all()) for x in out["logits"])
+    out["gathered_leaves"] = model.gathered_leaves()
+    del cache, last, lg, k0
+    torch.cuda.empty_cache()
+    # the same rows over the unsplit cache on the same mesh (every
+    # position, this rank's kv heads; the same tensor-parallel prefill and
+    # bf16 cache) through the unsplit kernel: the split path's yardstick
+    flat = Model(_lm_cfg(), device=dev, mesh=mesh, decode_impl="cuda")
+    last, cache = flat.prefill(params, {"tokens": toks[:, :prompt]},
+                               max_len=max_len)
+    out["unsplit_logits"] = [last.float().cpu().numpy()]
+    for t in range(prompt, prompt + steps):
+        lg, cache = flat.decode_step(params, cache, toks[:, t:t + 1])
+        out["unsplit_logits"].append(lg.float().cpu().numpy())
+    del flat, cache, last, lg
+    # the planted fault: the hand-off's kv-head blocks in the wrong order
+    # (each q head then reads another kv head), the first steps
+    handoff = T._heads_to_block
+
+    def swapped(t, split, S_r):
+        got = handoff(t, split, S_r)
+        h = got.shape[-2] // 2
+        return torch.cat([got[..., h:, :], got[..., :h, :]], dim=-2)
+    T._heads_to_block = swapped
+    try:
+        last, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                    max_len=max_len)
+        out["planted_logits"] = [last.float().cpu().numpy()]
+        for t in range(prompt, prompt + MESH_SEQ_PLANTED_STEPS):
+            lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+            out["planted_logits"].append(lg.float().cpu().numpy())
+    finally:
+        T._heads_to_block = handoff
+    del model, params, cache, last, lg
+    torch.cuda.empty_cache()
+    # the same prefill recorded on meta (no card, no process group)
+    rec_mesh = comm.RecordingMesh(MESH_LM_SHAPE, ("data", "model"),
+                                  mesh.rank)
+    rec_model = Model(cfg, device="meta", mesh=rec_mesh)
+    t0 = time.perf_counter()
+    dryrun.trace_step(rec_model, ShapeConfig("mesh_seqcache",
+                                             seq_len=prompt,
+                                             global_batch=rows,
+                                             kind="prefill"),
+                      rec_mesh, max_len=max_len)["run"]()
+    out["record_s"] = time.perf_counter() - t0
+    out["recorded"] = {
+        "handoff": _by_kind(dryrun.step_records(rec_mesh.records,
+                                                "handoff")),
+        "step": _by_kind(dryrun.step_records(rec_mesh.records))}
+    comm.barrier()
+    return out
+
+
+def _moe_seqcache(cfg, params, mesh, dev, mine, i: int, rows: int) -> dict:
+    """``mesh_seqcache`` (b) on this rank: ``mesh_moe``'s tp model on
+    (2, 2) (its blocks of the same weights, ``params``) under
+    ``decode_seq_shard``, float32, its rows ``mine`` prefilled into a
+    latent cache of ``MESH_SEQ_MOE_LEN`` split along the sequence over
+    ``model`` (every latent column a rank), then ``_moe_decode``'s 8
+    steps across the blocks' boundary."""
+    import torch
+    from repro_torch.common import comm
+    from repro_torch.models import Model
+    model = Model(dataclasses.replace(cfg, decode_seq_shard=True),
+                  device=dev, mesh=mesh)
+    model.compute_dtype = torch.float32
+    t_all = time.perf_counter()
+    comm.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill(params, {"tokens": mine},
+                             max_len=MESH_SEQ_MOE_LEN)
+    torch.cuda.synchronize()
+    c = cache["layers"][-1]["l0"]["c"]                # (layers, B, S_r, r)
+    out = {"rows": (i * rows, (i + 1) * rows), "seq": cache["seq"],
+           "block": mesh.axis_index(cache["seq"]),
+           "prefill_s": time.perf_counter() - t0,
+           "handoff": _live_by_kind(comm.counters("handoff")),
+           "held": int((c[0].float().abs().sum((0, 2)) > 0).sum())}
+    comm.reset_counters()
+    out["decode"] = _moe_decode(model, params, cache,
+                                _moe_decode_tokens(cfg.vocab)[
+                                    :, i * rows:(i + 1) * rows])
+    out["decode"]["bytes"] = comm.counters()
+    out["decode"]["c_cols"] = int(c.shape[-1])
+    out["decode"]["c_positions"] = int(c.shape[2])
+    out["seconds"] = time.perf_counter() - t_all
+    del model, cache, c
+    torch.cuda.empty_cache()
     return out
 
 
@@ -8406,6 +8649,16 @@ def mesh_phases_rank(rank, go_file: str, tmp: str) -> dict:
     comm.barrier()
     out["mesh_lm"] = mesh_lm_rank(rank, dev, single)
     out["mesh_lm"]["seconds"] = time.perf_counter() - t0
+    del single
+    torch.cuda.empty_cache()
+    # ---- mesh_seqcache (a; (b) ran in mesh_moe) ---------------------------
+    t0 = time.perf_counter()
+    single = mesh_seqcache_single(dev) if rank == 0 else None
+    comm.barrier()
+    out["mesh_seqcache"] = mesh_seqcache_rank(rank, dev)
+    if single is not None:
+        out["mesh_seqcache"]["single"] = single
+    out["mesh_seqcache"]["seconds"] = time.perf_counter() - t0
     del single
     torch.cuda.empty_cache()
     # ---- mesh_long --------------------------------------------------------
@@ -8575,6 +8828,7 @@ def mesh_phases(gpu: str, job) -> dict:
         raise AssertionError(f"mesh_gpipe: {line}")
     mesh_lm_check(gpu, d0["transport"], res)
     lse_launches = mesh_long_check(gpu, d0["transport"], res)
+    lse_launches += mesh_seqcache_check(gpu, d0["transport"], res)
     emit({"phase": "mesh_job", "gpu": gpu, "wall_s": wall,
           "ranks_s": [r["seconds"] for r in res],
           "checkpoint_warm_s": [r["checkpoint_warm_s"] for r in res]})
@@ -8831,6 +9085,171 @@ def mesh_long_check(gpu: str, transport: str, res: list) -> int:
                              f"separate the planted wrong merge "
                              f"({g0['planted_rel_l2']})")
     return sum(r["mesh_long"]["launches"]["flash_decode_lse"] for r in res)
+
+
+def mesh_seqcache_check(gpu: str, transport: str, res: list) -> int:
+    """``mesh_seqcache``'s two lines, and their checks.  (a) on every
+    rank: the cache's sequence over ``model``, its block of 1,040
+    positions holding every kv head and exactly the prompt's positions
+    inside it (model rank 1 none), finite logits, the log-sum-exp
+    instantiation launched once a layer a step and the unsplit kernel
+    never, the prefill's collectives (its hand-off apart) equal to the
+    dry run's recording of the same prefill, no leaf gathered whole; the
+    logits (the prefill's last and every step's, all rows) within
+    ``MESH_SEQ_LM_ONE_TOL`` of one process's and ``MESH_SEQ_LM_TOL`` of
+    the unsplit cache's on the same mesh, the planted hand-off beyond
+    both.  (b): the latent cache's
+    sequence over ``model`` (every latent column a rank, 516 positions),
+    no hand-off collective, and ``mesh_moe``'s decode rule against one
+    process.  Returns (a)'s launches of the instantiation, every rank's."""
+    a0 = res[0]["mesh_seqcache"]
+    single = a0["single"]
+    rows, prompt, max_len, steps = MESH_SEQ_LM
+    n_layers = MESH_LM[0]
+    S_r = max_len // MESH_LM_SHAPE[1]
+    got = {k: [np.zeros_like(single["logits"][0]) for _ in a0[k]]
+           for k in ("logits", "unsplit_logits", "planted_logits")}
+    for r in res:
+        a = r["mesh_seqcache"]
+        lo, hi = a["rows"]
+        for k, steps_k in got.items():
+            for t, x in enumerate(a[k]):
+                steps_k[t][lo:hi] = x
+
+    def dist(xs, ws):
+        return [float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                for g, w in zip(xs, ws)]
+    rel = dist(got["logits"], single["logits"])
+    rel_mesh = dist(got["logits"], got["unsplit_logits"])
+    rel_mesh_one = dist(got["unsplit_logits"], single["logits"])
+    planted = {"one_process": dist(got["planted_logits"],
+                                   single["logits"]),
+               "unsplit_mesh": dist(got["planted_logits"],
+                                    got["unsplit_logits"])}
+    line = {"phase": "mesh_seqcache", "case": "a", "gpu": gpu,
+            "transport": transport, "arch": "tinyllama-1.1b",
+            "layers": n_layers, "mesh": dict(zip(("data", "model"),
+                                                 MESH_LM_SHAPE)),
+            "seq_split_over": a0["seq"], "rows": rows, "prompt": prompt,
+            "max_len": max_len, "block": S_r, "steps": steps,
+            "rel_l2": rel, "max_rel_l2": max(rel),
+            "rel_l2_unsplit_mesh": rel_mesh,
+            "max_rel_l2_unsplit_mesh": max(rel_mesh),
+            "unsplit_mesh_rel_l2_one_process": rel_mesh_one,
+            "planted_rel_l2": planted,
+            "tolerance": {"one_process": MESH_SEQ_LM_ONE_TOL,
+                          "unsplit_mesh": MESH_SEQ_LM_TOL},
+            "prefill_s_by_rank": [r["mesh_seqcache"]["prefill_s"]
+                                  for r in res],
+            "step_s_by_rank": [r["mesh_seqcache"]["step_s"] for r in res],
+            "bytes_a_step_by_rank": [
+                {k: c["bytes"] for k, c in r["mesh_seqcache"]["counters"][-1]
+                 .items() if c["calls"]} for r in res],
+            "calls_a_step_by_rank": [
+                {k: c["calls"] for k, c in r["mesh_seqcache"]["counters"][-1]
+                 .items() if c["calls"]} for r in res],
+            "handoff_by_rank": [{k: c for k, c in r["mesh_seqcache"][
+                "prefill"]["handoff"].items() if c["calls"]} for r in res],
+            "launches_by_rank": [r["mesh_seqcache"]["launches"]
+                                 for r in res],
+            "held_by_rank": [r["mesh_seqcache"]["held"] for r in res],
+            "record_s_by_rank": [r["mesh_seqcache"]["record_s"]
+                                 for r in res],
+            "single_process": {k: single[k] for k in ("prefill_s", "step_s",
+                                                      "launches")},
+            "seconds": a0["seconds"]}
+    emit(line)
+    for r in res:
+        a = r["mesh_seqcache"]
+        live = a["prefill"]["all"]
+        hand = a["prefill"]["handoff"]
+        step = {k: {"calls": v["calls"] - hand[k]["calls"],
+                    "bytes": v["bytes"] - hand[k]["bytes"]}
+                for k, v in live.items()}
+        want_held = min(max(prompt - a["block"] * S_r, 0), S_r)
+        if (a["seq"] != ("model",) or a["block_shape"][2:4] != (
+                S_r, arch_config("tinyllama-1.1b").n_kv_heads)
+                or a["held"] != want_held):
+            raise AssertionError(f"mesh_seqcache (a): a rank's block "
+                                 f"{a['seq']} {a['block_shape']} holds "
+                                 f"{a['held']} positions, {want_held} "
+                                 "expected")
+        if not a["finite"]:
+            raise AssertionError("mesh_seqcache (a): non-finite logits")
+        if a["launches"] != {"flash_decode": 0,
+                             "flash_decode_lse": n_layers * steps}:
+            raise AssertionError(f"mesh_seqcache (a): a rank's launches "
+                                 f"{a['launches']}, {n_layers * steps} of "
+                                 "the log-sum-exp instantiation expected")
+        if (hand, step) != (a["recorded"]["handoff"],
+                            a["recorded"]["step"]):
+            raise AssertionError(f"mesh_seqcache (a): the prefill's "
+                                 f"collectives {step}, hand-off {hand} "
+                                 f"differ from the dry run's recording "
+                                 f"{a['recorded']}")
+        if hand["all_to_all"]["calls"] != n_layers:
+            raise AssertionError(f"mesh_seqcache (a): hand-off {hand}, one "
+                                 "all-to-all a layer expected")
+        if a["gathered_leaves"]:
+            raise AssertionError(f"mesh_seqcache (a): leaves gathered whole "
+                                 f"{a['gathered_leaves']}")
+    if single["launches"]["flash_decode"] != n_layers * steps:
+        raise AssertionError(f"mesh_seqcache (a): one process's launches "
+                             f"{single['launches']}")
+    for yard, xs, limit in (
+            ("one process's", rel, MESH_SEQ_LM_ONE_TOL),
+            ("the unsplit cache's on the mesh", rel_mesh, MESH_SEQ_LM_TOL)):
+        for t, x in enumerate(xs):
+            if _over(x, limit):
+                what = f"step {t}" if t else "the prefill"
+                raise AssertionError(f"mesh_seqcache (a): {what}'s logits "
+                                     f"lie {x} from {yard} (limit {limit})")
+    if not (_over(max(planted["one_process"][1:]), MESH_SEQ_LM_ONE_TOL)
+            and _over(max(planted["unsplit_mesh"][1:]), MESH_SEQ_LM_TOL)):
+        raise AssertionError(f"mesh_seqcache (a): the limits do not "
+                             f"separate the planted hand-off {planted}")
+    # ---- (b) ---------------------------------------------------------------
+    case = "tp_2x2_seqcache"
+    want = res[0]["mesh_moe"]["single"]["decode"]
+    dec = _moe_decode_rows(want, res, case)
+    b0 = res[0]["mesh_moe"][case]
+    kv_lora = _moe_cfg().kv_lora_rank
+    S_b = MESH_SEQ_MOE_LEN // 2
+    line = {"phase": "mesh_seqcache", "case": "b", "gpu": gpu,
+            "transport": transport, "arch": "deepseek-v2-236b", "layers": 2,
+            "moe_impl": "tp", "mesh": {"data": 2, "model": 2},
+            "seq_split_over": b0["seq"], "rows": MESH_MOE_ROWS,
+            "prompt": MESH_MOE_SEQ, "max_len": MESH_SEQ_MOE_LEN,
+            "block": S_b, "decode": dec,
+            "prefill_s_by_rank": [r["mesh_moe"][case]["prefill_s"]
+                                  for r in res],
+            "held_by_rank": [r["mesh_moe"][case]["held"] for r in res],
+            "c_positions": [r["mesh_moe"][case]["decode"]["c_positions"]
+                            for r in res],
+            "launches": {"flash_decode": 0, "flash_decode_lse": 0},
+            "tolerance": f"f32 rel. L2 {MESH_MOE_TOL} over the (step, row) "
+                         "pairs routed as one process routed, in steps no "
+                         "rank dropped a slot in (at least half)",
+            "seconds": b0["seconds"]}
+    emit(line)
+    for r in res:
+        b = r["mesh_moe"][case]
+        want_held = min(max(MESH_MOE_SEQ - b["block"] * S_b, 0), S_b)
+        if (b["seq"] != ("model",) or b["decode"]["c_cols"] != kv_lora
+                or b["decode"]["c_positions"] != S_b
+                or b["held"] != want_held
+                or any(c["calls"] for c in b["handoff"].values())):
+            raise AssertionError(f"mesh_seqcache (b): a rank's latent block "
+                                 f"{b['seq']} {b['decode']['c_cols']} x "
+                                 f"{b['decode']['c_positions']}, holding "
+                                 f"{b['held']} ({want_held} expected), "
+                                 f"hand-off {b['handoff']}")
+    n, total = dec["pairs_alike"]
+    if 2 * n < total or not dec["rel_l2"] <= MESH_MOE_TOL or \
+            not dec["finite"]:
+        raise AssertionError(f"mesh_seqcache (b) decode: {dec}")
+    return sum(r["mesh_seqcache"]["launches"]["flash_decode_lse"]
+               for r in res)
 
 
 def flash_grad_check(q, k, v, block: int) -> dict:

@@ -55,10 +55,14 @@ of its input buffer (``bytes``: what a collective "of N bytes" means, as
 (n - 1) / n for ``psum_scatter`` and ``all_to_all``, (n - 1) x the block
 for ``all_gather``, the buffer for each ``ppermute`` hop to another
 rank).
-``reset_counters`` and ``counters`` read them per rank.
+``reset_counters`` and ``counters`` read them per rank.  Inside
+``section(name)`` a call is also counted under ``name``
+(``counters(name)``) and its ``Record`` carries ``name``: the dry run
+keeps a prefill's hand-off into a sequence-split cache apart that way.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 
@@ -74,37 +78,59 @@ HLO_KINDS = {"psum": "all-reduce", "pmax": "all-reduce",
              "all_gather": "all-gather", "psum_scatter": "reduce-scatter",
              "all_to_all": "all-to-all", "ppermute": "collective-permute"}
 _COUNTS: dict = {}
+_SECTIONS: dict = {}        # section name -> its counters
+_SECTION = [None]           # the open section's name
+
+
+def _zeros() -> dict:
+    return {k: {"calls": 0, "bytes": 0, "sent": 0} for k in KINDS}
 
 
 def reset_counters() -> None:
     _COUNTS.clear()
-    for k in KINDS:
-        _COUNTS[k] = {"calls": 0, "bytes": 0, "sent": 0}
+    _COUNTS.update(_zeros())
+    _SECTIONS.clear()
 
 
 reset_counters()
 
 
-def counters() -> dict:
-    """{kind: {"calls", "bytes", "sent"}} since the last reset."""
-    return {k: dict(v) for k, v in _COUNTS.items()}
+def counters(section: str | None = None) -> dict:
+    """{kind: {"calls", "bytes", "sent"}} since the last reset: of every
+    call, or of those made inside ``section(section)``."""
+    src = _COUNTS if section is None else _SECTIONS.get(section, _zeros())
+    return {k: dict(v) for k, v in src.items()}
+
+
+@contextlib.contextmanager
+def section(name: str):
+    """Count (and record) the collectives made inside under ``name`` as
+    well as under their kind."""
+    prev, _SECTION[0] = _SECTION[0], name
+    try:
+        yield
+    finally:
+        _SECTION[0] = prev
 
 
 def _count(kind: str, x: torch.Tensor, sent: float, mesh=None, axes=(),
            out_numel: int | None = None) -> bool:
     """Counts one call; under a ``RecordingMesh`` also records it and
     returns True (the caller then returns a ``meta`` result)."""
-    c = _COUNTS[kind]
     nbytes = x.numel() * x.element_size()
-    c["calls"] += 1
-    c["bytes"] += nbytes
-    c["sent"] += int(round(sent))
+    name = _SECTION[0]
+    for c in ([_COUNTS] if name is None else
+              [_COUNTS, _SECTIONS.setdefault(name, _zeros())]):
+        c[kind]["calls"] += 1
+        c[kind]["bytes"] += nbytes
+        c[kind]["sent"] += int(round(sent))
     if not isinstance(mesh, RecordingMesh):
         return False
     n = mesh.axis_size(axes)
     out = x.numel() if out_numel is None else out_numel
     mesh.records.append(Record(kind, tuple(axes), nbytes,
-                               out * x.element_size(), n, mesh.size // n))
+                               out * x.element_size(), n, mesh.size // n,
+                               name))
     return True
 
 
@@ -117,6 +143,7 @@ class Record:
     out_bytes: int          # this rank's result
     group_size: int
     n_groups: int
+    section: str | None = None      # ``section``'s name, if one was open
 
     @property
     def hlo_kind(self) -> str:

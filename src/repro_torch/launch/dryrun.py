@@ -37,6 +37,12 @@ The record's keys are the reference's:
   recorded (no trip correction); ``collective_bytes_raw``:
   ``hlo_comm.summarize`` of the records as ``CollectiveOp``s (each op's
   result bytes, as ``hlo_comm.extract`` reads them);
+  ``collective_bytes_handoff``: a prefill's hand-off of its K/V into a
+  cache split along the sequence (``comm``'s ``"handoff"`` section),
+  kept out of the two above: the reference's compiled prefill leaves
+  its cache unconstrained and reshards it at the jit boundary, so a
+  prefill cell's ``collective_bytes`` under ``seqcache`` equal the same
+  cell's without it;
 * ``lower_s`` and ``compile_s`` are null (nothing is lowered or
   compiled); ``trace_s`` is the host seconds of the traced step;
 * ``gathered_leaves``: the leaves the rank gathers whole for the compute
@@ -114,6 +120,12 @@ def collective_ops(records, mesh) -> tuple:
     return ops, axis_of_op
 
 
+def step_records(records, section: str | None = None) -> list:
+    """The records made outside any ``comm.section`` (the step's own), or
+    inside ``section``."""
+    return [r for r in records if r.section == section]
+
+
 def collective_bytes(records) -> dict:
     """This rank's input bytes by HLO kind, with ``total``."""
     out: dict = {}
@@ -147,13 +159,14 @@ def apply_opts(cfg, opts) -> tuple:
 
 
 def trace_step(model, shape, mesh, gradspec: bool = False,
-               tcfg=None) -> dict:
+               tcfg=None, max_len: int | None = None) -> dict:
     """One rank's step of ``shape`` (a ``ShapeConfig``) for ``model`` (on
     ``meta`` over ``mesh``, a ``RecordingMesh``) and its arguments' bytes:
     ``{"run", "argument_bytes", "microbatch"}``; ``run()`` runs it.  A
     train step takes ``tcfg`` (by default the reference's microbatch
     rule), its gradients reduced into the moments' layout with
-    ``gradspec``."""
+    ``gradspec``; a prefill builds a cache of ``max_len`` positions (by
+    default the prompt's) under the cell's cache rules."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.models.model_api import cache_block_shape
     from repro_torch.train.optimizer import DTYPES
@@ -192,7 +205,7 @@ def trace_step(model, shape, mesh, gradspec: bool = False,
 
         def run():
             with torch.no_grad():
-                return model.prefill(params, batch)
+                return model.prefill(params, batch, max_len, shape=shape)
     else:
         cdefs = model.cache_defs(B, S)
         layers = map_with_specs(lambda d, sp, _: _meta(cache_block_shape(
@@ -240,8 +253,12 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
     with FlopCounterMode(display=False) as flops, ByteCounter() as nb:
         cell["run"]()
     trace_s = time.perf_counter() - t0
-    ops, _ = collective_ops(mesh.records, mesh)
-    coll = collective_bytes(mesh.records)
+    mine = step_records(mesh.records)
+    ops, _ = collective_ops(mine, mesh)
+    coll = collective_bytes(mine)
+    calls: dict = {}
+    for r in mine:
+        calls[r.kind] = calls.get(r.kind, 0) + 1
     out = {
         "arch": arch,
         "shape": shape.name,
@@ -257,8 +274,9 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
         "bytes_floor": float(cell["argument_bytes"] + nb.written),
         "collective_bytes": coll,
         "collective_bytes_raw": summarize(ops),
-        "collective_calls": {k: v["calls"] for k, v in
-                             comm.counters().items() if v["calls"]},
+        "collective_bytes_handoff": collective_bytes(
+            step_records(mesh.records, "handoff")),
+        "collective_calls": calls,
         "microbatch": cell["microbatch"],
         "gathered_leaves": model.gathered_leaves(),
         "lower_s": None,

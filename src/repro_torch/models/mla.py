@@ -6,7 +6,10 @@ key; the decode cache stores only (c_kv, k_rope) per token, 576 dims
 instead of 2 * H * head_dim.  Prefill materialises per-head K/V (the
 non-absorbed form); decode uses the *absorbed* form (W_UK folded into the
 query, W_UV applied to the latent context), so attention runs on the
-latent cache directly.
+latent cache directly.  A latent cache split along the sequence over
+the mesh (``decode_seq_shard``, ``cache_shard="seq"``) decodes by
+``mla_decode_split``: each rank's block, the blocks' log-sum-exp pairs
+merged exactly.
 
 No kernel: the reference runs MLA as plain array code on every backend
 (no Pallas kernel reaches it), and so does the port, under either
@@ -150,4 +153,64 @@ def mla_decode(p, x, cfg, c_cache, pe_cache, *, length: int, tp=None):
     pr = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhk,bkr->bhr", pr.to(x.dtype), c)
     o = torch.einsum("bhr,rhe->bhe", ctx, w_uv)               # (B,H,d_v)
+    return torch.einsum("bhe,hed->bd", o, p["wo"].to(x.dtype))[:, None]
+
+
+def mla_decode_split(p, x, cfg, c_cache, pe_cache, c_new, pe_new, decode,
+                     tp=None):
+    """Absorbed decode over this rank's block of a latent cache split
+    along the sequence over ``decode.seq_axes`` (block ``decode.seq_index``
+    of ``S_r`` positions, every latent column of them where the sequence
+    splits over ``model``), ``_split_decode``'s pattern: the rank whose
+    block holds ``decode.pos`` writes ``c_new`` (B, r) and ``pe_new`` (B,
+    d_rope) there; where the heads and the sequence both split over
+    ``model``, the q side (``q_eff = W_UK^T q_nope`` and ``q_pe``) is
+    all-gathered over it; each rank scores every head it holds the q side
+    of over its ``clamp(pos + 1 - index * S_r, 0, S_r)`` positions and
+    forms its partial ``sum_t p_t c_t`` with its log-sum-exp in float32
+    (a block of no position gives 0 and -inf); ``layers.merge_split``
+    merges the ranks' pairs exactly; this rank's heads then go through
+    ``W_UV`` and ``wo`` (a partial sum under ``tp``, as ``mla_decode``'s).
+    Under ``tp`` with ``c_cache`` holding a block of the latent columns,
+    the valid positions' columns are all-gathered over ``model``."""
+    B = x.shape[0]
+    d_nope, d_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    pos, S_r = decode.pos, c_cache.shape[1]
+    lo = decode.seq_index * S_r
+    if lo <= pos < lo + S_r:
+        c_cache[:, pos - lo] = c_new.to(c_cache.dtype)
+        pe_cache[:, pos - lo] = pe_new.to(pe_cache.dtype)
+    n = min(max(pos + 1 - lo, 0), S_r)
+    positions = torch.full((B, 1), pos, device=x.device)
+    q_nope, q_pe = _queries(p, x, cfg, positions)            # (B,1,H,*)
+    H = q_nope.shape[2]
+    w_uk = p["wkv_b"][..., :d_nope].to(x.dtype)               # (r, H, d_nope)
+    w_uv = p["wkv_b"][..., d_nope:].to(x.dtype)               # (r, H, d_v)
+    q_eff = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], w_uk)  # (B,H,r)
+    q_pe = q_pe[:, 0]
+    gather = (tp is not None and "model" in decode.seq_axes
+              and H < cfg.n_heads)
+    if gather:
+        q_eff = comm.all_gather(q_eff, tp.mesh, "model", dim=1)
+        q_pe = comm.all_gather(q_pe, tp.mesh, "model", dim=1)
+    c, pe = c_cache[:, :n], pe_cache[:, :n].to(x.dtype)
+    if tp is not None and n and c.shape[-1] < cfg.kv_lora_rank:
+        c = comm.all_gather(c.contiguous(), tp.mesh, "model", dim=2)
+    c = c.to(x.dtype)
+    Hq = q_eff.shape[1]
+    if n:
+        s = (L._scores(q_eff, c, "bhr,bkr->bhk")
+             + L._scores(q_pe, pe, "bhe,bke->bhk")) * (
+                 1.0 / math.sqrt(d_nope + d_rope))
+        lse = torch.logsumexp(s, dim=-1)                       # (B,Hq)
+        ctx = torch.einsum("bhk,bkr->bhr", torch.exp(s - lse[..., None]),
+                           c.float())
+    else:
+        lse = torch.full((B, Hq), float("-inf"), device=x.device)
+        ctx = torch.zeros((B, Hq, cfg.kv_lora_rank), device=x.device)
+    ctx = L.merge_split(ctx[:, None], lse[:, None], decode.mesh,
+                        decode.seq_axes)[:, 0]
+    if gather:
+        ctx = ctx.narrow(1, tp.i * H, H)
+    o = torch.einsum("bhr,rhe->bhe", ctx.to(x.dtype), w_uv)  # (B,H,d_v)
     return torch.einsum("bhe,hed->bd", o, p["wo"].to(x.dtype))[:, None]

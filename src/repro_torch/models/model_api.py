@@ -29,7 +29,9 @@ K/V tensors, latent caches and recurrent states are written in place.
 an optional ``loss_mask``: the stack in ``mode="train"`` (the prefill's
 math without a cache), each stacked period rematerialised in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), the
-logits, log-sum-exp and gather in float32.
+logits, log-sum-exp and gather in float32.  On a mesh ``mesh_loss`` gives
+a rank's share of it; with a ``loss_mask``, its rows' masked sum over the
+mask's count on the whole batch (a ``psum`` over the batch axes).
 
 The VLM and encoder-decoder extras are the reference's, fact for fact.
 A VLM batch carries ``img`` (B, ``vlm_prefix_len``, d_model): the image
@@ -71,7 +73,9 @@ Mamba-2's conv channels and RWKV-6's heads where they split over
 ``model``, and a global layer's sequence where the cell splits it
 (``cache_shard="seq"`` over ``("pod", "data")``, ``decode_seq_shard``
 over ``model``: ``cache["seq"]`` names the axes; each rank attends over
-its block and the ranks merge, ``transformer._split_decode``).  With
+its block and the ranks merge, ``transformer._split_decode``, MLA's
+absorbed form ``mla.mla_decode_split``); ``prefill`` fills such a cache
+(``prefill(..., shape=...)``: its K/V handed into the ranks' blocks).  With
 ``cfg.seq_parallel`` the training stack keeps the residual as this
 rank's slice of the sequence between blocks of every kind (the
 reference's constraint to ``P(batch, "model", None)``).
@@ -366,11 +370,13 @@ class Model:
     def _run_groups(self, params, x, *, mode, caches, positions,
                     decode: T.DecodeStep | None = None, prefix_len: int = 0,
                     enc_out=None, encoder: bool = False,
-                    tp: T.TP | None = None):
+                    tp: T.TP | None = None, seq: T.SeqSplit | None = None):
         """Every layer in order (the encoder's, ``params["enc_groups"]``,
         with ``encoder``); ``caches`` (the stacked cache tree) is written
-        in place; a shared block takes ``params["shared_block"]``; the
-        decoder's GQA and MLP layers run over ``tp`` where given.  In
+        in place (a prefill's global layers into this rank's block of the
+        sequence under ``seq``); a shared block takes
+        ``params["shared_block"]``; the decoder's GQA and MLP layers run
+        over ``tp`` where given.  In
         ``mode="train"`` there is no cache, and where autograd records the
         stack (grad mode on, and the input or a weight requiring grad)
         each period (one index of a group's stack, all its sub-layers) is
@@ -397,7 +403,7 @@ class Model:
                                             shared_params=shared,
                                             mesh=self.mesh,
                                             prefix_len=prefix_len,
-                                            enc_out=enc_out, tp=tp)
+                                            enc_out=enc_out, tp=tp, seq=seq)
                     return x
                 if remat:
                     x = checkpoint(period, x, use_reentrant=False)
@@ -474,14 +480,15 @@ class Model:
 
     def mesh_loss(self, params, batch) -> torch.Tensor:
         """This rank's share of the global batch's loss (the shares sum,
-        over the batch axes, to ``loss`` of the whole batch when every
-        row counts as many tokens): ``params`` whole but the
-        ``mesh_local`` leaves, ``batch`` the global batch."""
+        over the batch axes, to ``loss`` of the whole batch): ``params``
+        whole but the ``mesh_local`` leaves, ``batch`` the global batch.
+        Without a ``loss_mask`` every row counts as many tokens, and the
+        share is this rank's mean over its rows divided by the number of
+        batch shards; with one, the share is its rows' masked NLL sum
+        divided by the mask's count over the whole batch (a ``psum`` over
+        the batch axes, floored at 1), the reference's global masked
+        mean cut by rows."""
         from repro_torch.data.pipeline import shard_batch
-        if "loss_mask" in batch:
-            raise NotImplementedError(
-                "a loss_mask over a mesh: the shares of a masked mean do not "
-                "add up to the global mean")
         rules = self.rules()
         specs = {}
         for name, v in batch.items():
@@ -491,9 +498,16 @@ class Model:
         axes = specs["tokens"].axes(0)
         n_b = self.mesh.axis_size(axes) if axes else 1
         mine = shard_batch(batch, self.mesh, specs)
-        return self._loss(params, mine) / n_b
+        if "loss_mask" not in batch:
+            return self._loss(params, mine) / n_b
+        nll, count = self._loss(params, mine, parts=True)
+        if axes:
+            count = comm.psum(count, self.mesh, axes)
+        return nll / torch.clamp_min(count, 1.0)
 
-    def _loss(self, params, batch) -> torch.Tensor:
+    def _loss(self, params, batch, parts: bool = False):
+        """The masked mean NLL of ``batch``; with ``parts``, its sum and
+        the mask's count, apart."""
         cfg = self.cfg
         tp = self._tp("train")
         with float32_reduction():
@@ -517,6 +531,8 @@ class Model:
                     else torch.as_tensor(mask, device=self.device)[:, 1:]
                     .float())
             nll = self._nll(lg, tgt, tp) * mask
+            if parts:
+                return nll.sum(), mask.sum()
             return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
     def _nll(self, lg, tgt, tp: T.TP | None):
@@ -586,7 +602,7 @@ class Model:
                 "seq": seq}
 
     def prefill(self, params, batch, max_len: int | None = None,
-                all_logits: bool = False):
+                all_logits: bool = False, shape=None):
         """Forward over the prompt ``batch["tokens"]`` (B, S) (after the
         image prefix ``batch["img"]`` of a VLM; an encoder-decoder's
         ``batch["frames"]`` through the encoder), building the decode
@@ -594,7 +610,21 @@ class Model:
         prefix included).  Returns (last_logits (B, V) float32, cache);
         with ``all_logits``, every position's logits (B, S, V) in their
         place (a teacher-forced yardstick for the decode steps; a VLM's
-        prefix positions included)."""
+        prefix positions included).
+
+        On a live mesh the cache is this rank's block under the cache
+        rules of the shape cell ``shape`` (``init_cache``; by default the
+        batch cell).  Where its global layers split the sequence
+        (``cache["seq"]``, which ``decode_step`` continues from) the
+        prefill computes what it computes unsplit and hands each global
+        layer's K/V (MLA's latent) into this rank's block of positions:
+        over ``model`` (``decode_seq_shard``) by one all-to-all a layer
+        from this rank's kv heads at every position to every kv head at
+        its block's (``transformer._fill_split``), over ``("pod",
+        "data")`` (``cache_shard="seq"``, rows whole) by keeping its
+        slice.  Positions past the prompt stay zero; a block that starts
+        past it holds nothing.  The hand-off's collectives are counted in
+        ``comm``'s ``"handoff"`` section."""
         params = self.compute_params(params)
         tp = self._tp()
         with float32_reduction():
@@ -602,21 +632,20 @@ class Model:
             B, S = x.shape[:2]
             max_len = max_len or S
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
-            cache = self.init_cache(B, max_len)
-            if cache["seq"]:
-                raise NotImplementedError(
-                    f"a prefill into a decode cache split along the sequence "
-                    f"over {cache['seq']} (decode_seq_shard): fill the "
-                    "ranks' blocks and decode")
+            cache = self.init_cache(B, max_len, shape)
+            seq = (T.SeqSplit(self.mesh, cache["seq"],
+                              self.mesh.axis_index(cache["seq"]))
+                   if cache["seq"] else None)
             x = self._run_groups(params, x, mode="prefill",
                                  caches=cache["layers"], positions=positions,
                                  prefix_len=prefix_len, enc_out=enc_out,
-                                 tp=tp)
+                                 tp=tp, seq=seq)
             x = _norm_apply(self.cfg, params["final_norm"], x)
             logits = (self._logits(params, x, tp) if all_logits
                       else self._logits(params, x[:, -1:], tp)[:, 0])
             return (self._whole_vocab(logits, tp),
-                    {"layers": cache["layers"], "pos": S, "seq": ()})
+                    {"layers": cache["layers"], "pos": S,
+                     "seq": cache["seq"]})
 
     def decode_step(self, params, cache, tokens, decode_impl: str | None = None):
         """tokens (B, 1) at position ``cache["pos"]``.  Returns (logits

@@ -84,7 +84,12 @@ A ring's valid slots are exactly ``[0, min(pos + 1, slots))``, and the
 softmax does not depend on the keys' order, so a ring decode is the
 kernel over the ring at that length.  MLA, Mamba-2 and RWKV-6 decode have
 no kernel in the reference: they run the same torch code under either
-``decode_impl``.  The KV caches and the recurrent states are updated in
+``decode_impl``; MLA over a latent cache split along the sequence runs
+``mla.mla_decode_split`` (the same merge).  A prefill into such a cache
+(``SeqSplit``) computes what the unsplit prefill computes and keeps this
+rank's block of positions (``_fill_split``: over ``model`` one
+all-to-all a layer from this rank's kv heads to its block's positions;
+a ring's kv heads all-gathered where it holds every one).  The KV caches and the recurrent states are updated in
 place (the reference returns new ones).
 """
 from __future__ import annotations
@@ -447,13 +452,89 @@ class DecodeStep:
         return self._lengths[n]
 
 
-def _ring_fill(cache, k, v, S: int, Wr: int) -> None:
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A prefill's decode cache whose global layers split their sequence
+    over the mesh axes ``axes`` (``Model.cache_seq_axes``): this rank
+    holds block ``index``."""
+    mesh: object
+    axes: tuple
+    index: int
+
+    def block(self, S_r: int, S: int) -> tuple:
+        """(first position, count) of a prompt of ``S`` positions in
+        this rank's block of ``S_r``: a block that starts at or past the
+        prompt holds none of it."""
+        lo = self.index * S_r
+        return lo, min(max(S - lo, 0), S_r)
+
+
+def _heads_to_block(t, split: SeqSplit, S_r: int):
+    """(..., S, h, D) of this rank's ``h`` kv heads at every prompt
+    position (dim -3) -> (..., c, n h, D): every kv head at the first
+    ``c = min(S, S_r)`` positions of this rank's block (zero past the
+    prompt), by one tiled all-to-all over ``model`` (heads to sequence),
+    counted in the ``"handoff"`` section."""
+    if split.axes != ("model",):
+        raise ValueError(f"kv heads split over model hand off to sequence "
+                         f"blocks over model, not {split.axes}")
+    S, d = t.shape[-3], t.dim() - 3
+    c, n = min(S, S_r), split.mesh.axis_size("model")
+    chunks = []
+    for j in range(n):
+        blk = t.narrow(d, min(j * S_r, S), max(min(c, S - j * S_r), 0))
+        if blk.shape[d] < c:
+            pad = list(blk.shape)
+            pad[d] = c - blk.shape[d]
+            blk = torch.cat([blk, blk.new_zeros(pad)], dim=d)
+        chunks.append(blk)
+    with comm.section("handoff"):
+        got = comm.all_to_all(torch.stack(chunks), split.mesh, "model")
+    # block i came from model rank i: its kv heads
+    return torch.cat(got.unbind(0), dim=-2)
+
+
+def _fill_split(cfg, cache, k, v, S: int, split: SeqSplit) -> None:
+    """A global layer's prompt K/V (B, S, h, D) into this rank's block of
+    a cache split along the sequence (``split``), in place: the prompt's
+    positions inside the block (none where it starts past the prompt;
+    the rest stays zero), every kv head the cache holds (``_heads_to_
+    block`` where this rank projected a block of them), int8 codes and
+    scales under ``kv_quant_int8`` (per position and head, as the unsplit
+    fill quantizes them)."""
+    S_r = cache["k"].shape[1]
+    if S > S_r * split.mesh.axis_size(split.axes):
+        raise ValueError(f"a prompt of {S} tokens does not fit the blocks "
+                         f"of {S_r} over {split.axes}")
+    lo, n = split.block(S_r, S)
+    if k.shape[2] < cache["k"].shape[2]:
+        k, v = _heads_to_block(torch.stack([k, v]), split, S_r)[:, :, :n]
+    else:
+        k, v = k[:, lo:lo + n], v[:, lo:lo + n]
+    if cfg.kv_quant_int8:
+        cache["k"][:, :n], cache["k_s"][:, :n] = L.quantize_kv(k)
+        cache["v"][:, :n], cache["v_s"][:, :n] = L.quantize_kv(v)
+    else:
+        cache["k"][:, :n] = k.to(cache["k"].dtype)
+        cache["v"][:, :n] = v.to(cache["v"].dtype)
+
+
+def _ring_fill(cache, k, v, S: int, Wr: int, tp: TP | None = None) -> None:
     """Store the last ``Wr`` positions of (k, v) in ring order (slot =
-    position % Wr), in place."""
+    position % Wr), in place; where the ring holds every kv head and
+    this rank projected a block of them, the block all-gathered over
+    ``tp``'s ``model`` (in the ``"handoff"`` section)."""
     take = min(S, Wr)
     pos = torch.arange(S - take, S, device=k.device) % Wr
-    cache["k"][:, pos] = k[:, S - take:].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, S - take:].to(cache["v"].dtype)
+    k, v = k[:, S - take:], v[:, S - take:]
+    if k.shape[2] < cache["k"].shape[2]:
+        # the ring holds every kv head (``decode_seq_shard``), this rank
+        # projected its block of them
+        with comm.section("handoff"):
+            k, v = comm.all_gather(torch.stack([k, v]), tp.mesh, "model",
+                                   dim=3).unbind(0)
+    cache["k"][:, pos] = k.to(cache["k"].dtype)
+    cache["v"][:, pos] = v.to(cache["v"].dtype)
 
 
 def _ring_decode(q, kc, vc, pos: int, Wr: int, softcap):
@@ -515,7 +596,9 @@ def _split_decode(cfg, q, k, v, cache, decode: DecodeStep, softcap,
     gather = (tp is not None and "model" in decode.seq_axes
               and hq < cfg.n_heads)
     if gather:
-        q, sel = comm.all_gather(q, tp.mesh, "model", dim=2), (lambda t: t)
+        # the kernel reads q contiguous; the gather's result is a view
+        q = comm.all_gather(q, tp.mesh, "model", dim=2).contiguous()
+        sel = (lambda t: t)
     scales = ({"k_scale": sel(cache["k_s"]), "v_scale": sel(cache["v_s"])}
               if quant else {})
     if decode.impl == "cuda":
@@ -553,12 +636,14 @@ def _tp_heads(cfg, p, tp: TP | None):
 
 def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
                 theta, prefix_len: int = 0, decode: DecodeStep | None = None,
-                tp: TP | None = None):
+                tp: TP | None = None, split: SeqSplit | None = None):
     """Causal GQA, global or over ``cfg.window`` (``local``, ring cache);
     in train and prefill every query also sees the first ``prefix_len``
     positions (the VLM's prefix-LM).  Under ``tp`` with the heads split,
-    this rank's heads (``_tp_heads``), the output a partial sum.  Returns
-    (out, cache); the cache is written in place."""
+    this rank's heads (``_tp_heads``), the output a partial sum.  A
+    prefill into a cache whose global layers split the sequence
+    (``split``) fills this rank's block (``_fill_split``).  Returns (out,
+    cache); the cache is written in place."""
     S = x.shape[1]
     p, idx = _tp_heads(cfg, p, tp)
 
@@ -636,7 +721,9 @@ def _gqa_attend(cfg, p, x, *, local: bool, positions, mode, cache, softcap,
                                   block_k=cfg.block_k)
     if cache is not None:
         if local:
-            _ring_fill(cache, k, v, S, cache["k"].shape[1])
+            _ring_fill(cache, k, v, S, cache["k"].shape[1], tp)
+        elif split is not None:
+            _fill_split(cfg, cache, k, v, S, split)
         else:
             if S > cache["k"].shape[1]:
                 raise ValueError(f"a prompt of {S} tokens does not fit a "
@@ -709,7 +796,7 @@ def _cross_attend(p, h, *, mode, cache, enc_out):
 def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
                  decode: DecodeStep | None = None, shared_params=None,
                  mesh=None, prefix_len: int = 0, enc_out=None,
-                 tp: TP | None = None):
+                 tp: TP | None = None, seq: SeqSplit | None = None):
     """One sub-layer of a kind of ``SUPPORTED_KINDS`` (``check_supported``
     has vetted the config); a local layer takes ``rope_theta_local``
     where the config sets one, a shared block ``shared_params``, a MoE
@@ -718,7 +805,8 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
     decoder layer ``enc_out`` (the encoder's output); under ``tp`` the
     GQA mixers and the MLP run tensor-parallel on their weights' blocks
     (the module docstring).  The cache (KV, latent or recurrent state) is
-    written in place.  Returns (x, cache)."""
+    written in place; a prefill fills this rank's block of a cache split
+    along the sequence (``seq``).  Returns (x, cache)."""
     mixer, ffn = kind
     if mixer == "shared_gqa":
         p = shared_params  # single copy, reused every period
@@ -737,7 +825,8 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
                                local=local,
                                positions=positions, mode=mode, cache=cache,
                                softcap=cfg.logit_softcap, theta=theta,
-                               prefix_len=prefix_len, decode=decode, tp=tp)
+                               prefix_len=prefix_len, decode=decode, tp=tp,
+                               split=seq)
         if tp is not None:
             o = tp.leave(o, split)
             if post:
@@ -780,28 +869,34 @@ def _apply_layer(cfg, kind, p, x, *, positions, mode, cache,
         pa = MLA.tp_params(_tp_block(tp, p["attn"], split),
                            tp if split else None)
         if mode == "decode":
-            if decode.seq_axes:
-                raise NotImplementedError(
-                    "MLA over a latent cache split along the sequence")
             pos0 = decode.pos
             c_new, pe_new = MLA.mla_prefill_cache(pa, h, cfg, positions, tp)
-            cache["c"][:, pos0] = _latent_cols(c_new[:, 0], cache["c"],
-                                               tp).to(cache["c"].dtype)
-            cache["pe"][:, pos0] = pe_new[:, 0].to(cache["pe"].dtype)
-            o = MLA.mla_decode(pa, h, cfg, cache["c"], cache["pe"],
-                               length=pos0, tp=tp)
+            c_new = _latent_cols(c_new[:, 0], cache["c"], tp)
+            if decode.seq_axes:
+                o = MLA.mla_decode_split(pa, h, cfg, cache["c"], cache["pe"],
+                                         c_new, pe_new[:, 0], decode, tp=tp)
+            else:
+                cache["c"][:, pos0] = c_new.to(cache["c"].dtype)
+                cache["pe"][:, pos0] = pe_new[:, 0].to(cache["pe"].dtype)
+                o = MLA.mla_decode(pa, h, cfg, cache["c"], cache["pe"],
+                                   length=pos0, tp=tp)
         else:
             o = MLA.mla_train(pa, h, cfg, positions, tp)
             if cache is not None:
-                S = h.shape[1]
-                if S > cache["c"].shape[1]:
+                S, S_r = h.shape[1], cache["c"].shape[1]
+                lo, n = (0, S) if seq is None else seq.block(S_r, S)
+                if S > (S_r if seq is None else
+                        S_r * seq.mesh.axis_size(seq.axes)):
                     raise ValueError(f"a prompt of {S} tokens does not fit "
-                                     f"a cache of {cache['c'].shape[1]}")
+                                     f"a cache of {S_r} a block")
                 c_new, pe_new = MLA.mla_prefill_cache(pa, h, cfg, positions,
                                                       tp)
-                cache["c"][:, :S] = _latent_cols(c_new, cache["c"], tp).to(
-                    cache["c"].dtype)
-                cache["pe"][:, :S] = pe_new.to(cache["pe"].dtype)
+                # this rank's positions (its block where the sequence
+                # splits: every latent column of them there)
+                cache["c"][:, :n] = _latent_cols(
+                    c_new[:, lo:lo + n], cache["c"], tp).to(cache["c"].dtype)
+                cache["pe"][:, :n] = pe_new[:, lo:lo + n].to(
+                    cache["pe"].dtype)
         x = x + _leave(tp, o, split)
     elif mixer == "mamba":
         split = tp is not None and p["mixer"]["w_in"].shape[-1] < (

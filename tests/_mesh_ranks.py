@@ -42,6 +42,13 @@ SEQ_CACHE = {"S": 256, "pos0": 124, "steps": 8, "mesh": (4, 2)}
 SEQ_CACHE_ARCHS = ("gemma2-9b", "zamba2-1.2b")
 # layout -> (batch, cache_shard, decode_seq_shard)
 SEQ_LAYOUTS = {"seq": (1, "seq", False), "seqshard": (4, "batch", True)}
+# a prefill into a cache split along the sequence on SEQ_CACHE's mesh,
+# then decode: prompts of 60 tokens (past Gemma-2's smoke window of 32:
+# its rings wrap) end inside the first block of 64 (max_len 256 over
+# data under "seq", 128 over model under "seqshard"), 8 steps cross into
+# the second; the blocks past it stay empty
+SEQ_PREFILL = {"P": 60, "steps": 8, "max_len": {"seq": 256, "seqshard": 128}}
+SEQ_PREFILL_ARCHS = ("gemma2-9b", "zamba2-1.2b", "deepseek-v2-236b")
 # the model axis of the other families: (name, arch, config overrides),
 # each a ZeRO-1 step on (data=2, model=2) with and without seq_parallel
 FAMILY_CASES = {
@@ -81,22 +88,30 @@ def family_batch(cfg, step: int) -> dict:
 def seq_cache_numpy(shapes: dict, pos0: int, seed: int = 13) -> dict:
     """A seeded decode cache as float32 numpy arrays, {dot.path: array}
     for ``shapes`` ({dot.path: shape} of a cache's layers, either
-    package's names): a global layer's K/V (the sequence dim
-    ``SEQ_CACHE["S"]`` long) N(0, 1) below ``pos0`` and zero from it, a
-    ring's every slot N(0, 1), a recurrent state 0.5 N(0, 1); leaves drawn
-    in name order."""
+    package's names): a global layer's K/V and MLA's latent ``c`` and
+    rope key ``pe`` (the sequence dim ``SEQ_CACHE["S"]`` long) N(0, 1)
+    below ``pos0`` and zero from it, a ring's every slot N(0, 1), a
+    recurrent state 0.5 N(0, 1); leaves drawn in name order."""
     rng = np.random.default_rng(seed)
     out = {}
     for name in sorted(shapes):
         shape = tuple(shapes[name])
         x = rng.standard_normal(shape).astype(np.float32)
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("k", "v") and shape[2] == SEQ_CACHE["S"]:
+        if leaf in ("k", "v", "c", "pe") and shape[2] == SEQ_CACHE["S"]:
             x[:, :, pos0:] = 0
         elif leaf not in ("k", "v"):
             x *= np.float32(0.5)
         out[name] = x
     return out
+
+
+def seq_prefill_tokens(vocab: int) -> np.ndarray:
+    """(4, P + steps) int32 tokens of ``SEQ_PREFILL``: the prompts, then
+    each step's token (the "seq" layout's one row is row 0)."""
+    return np.random.default_rng(31).integers(
+        0, vocab, (4, SEQ_PREFILL["P"] + SEQ_PREFILL["steps"]),
+        dtype=np.int32)
 
 
 def seq_cache_tokens(vocab: int, batch: int) -> np.ndarray:
@@ -221,11 +236,22 @@ def dlrm_rank(rank, npz, case, zero1_grads):
 
 # ---------------------------------------------------------------------------
 
-def lm_rank(rank, npz, microbatch, seq_parallel=False):
+def lm_loss_mask(step: int) -> np.ndarray:
+    """The seeded ``loss_mask`` (LM_BATCH, LM_SEQ) float32 of step
+    ``step``: each row keeps its positions with its own probability
+    (0.9, 0.15, 0.6, 0.35), so the data ranks' and microbatches' shares
+    of the kept positions differ."""
+    rng = np.random.default_rng(41 + step)
+    keep = np.asarray([0.9, 0.15, 0.6, 0.35])[:, None]
+    return (rng.random((LM_BATCH, LM_SEQ)) < keep).astype(np.float32)
+
+
+def lm_rank(rank, npz, microbatch, seq_parallel=False, masked=False):
     """The smoke TinyLlama's ZeRO-1 step on (data=2, model=2), float32
-    activations, 3 steps (``seq_parallel`` as given): losses, norms, the
-    final tree gathered, each step's collective counters and step 1's
-    dot FLOPs on this rank (``FlopCounterMode``)."""
+    activations, 3 steps (``seq_parallel`` as given; with ``masked``
+    each batch carries ``lm_loss_mask``): losses, norms, the final tree
+    gathered, each step's collective counters and step 1's dot FLOPs on
+    this rank (``FlopCounterMode``)."""
     _setup()
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -251,7 +277,9 @@ def lm_rank(rank, npz, microbatch, seq_parallel=False):
     losses, norms, counts, flops = [], [], [], None
     for i in range(STEPS):
         comm.reset_counters()
-        batch = lm_batch(0, i, LM_BATCH, LM_SEQ, cfg.vocab)
+        batch = dict(lm_batch(0, i, LM_BATCH, LM_SEQ, cfg.vocab))
+        if masked:
+            batch["loss_mask"] = lm_loss_mask(i)
         with FlopCounterMode(display=False) as fc:
             params, opt, m = step(params, opt, batch)
         flops = fc.get_total_flops() if flops is None else flops
@@ -426,56 +454,147 @@ def counted_lm_step(rank, seq_parallel, microbatch):
 
 # ---------------------------------------------------------------------------
 
-def seq_cache_rank(rank, npz):
-    """``_mesh_reference.py seq_cache``'s steps on (data=4, model=2): each
-    arch and layout from the same weights and seeded cache (this rank's
-    blocks, ``model_api.cache_read_spec``), 8 decode steps under
-    ``decode_impl="torch"``: {name: this rank's rows, their logits (steps,
-    rows, V) and step 1's collective counters}."""
-    _setup()
+def _seq_model(d, arch: str, lay: str, mesh, name: str, max_len: int,
+               split: bool = True):
+    """(model, this rank's blocks of ``name``'s weights in ``d``, the
+    shape cell of ``lay`` with a cache of ``max_len``, this rank's rows)
+    of a sequence-split case: the smoke ``arch`` under ``lay``'s
+    ``decode_seq_shard``, float32 activations, on ``mesh``; without
+    ``split``, the same rows over the batch cell's cache (the sequence
+    whole on every rank)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.common.sharding import shard_slices
     from repro_torch.models import Model
+    B, shard_kind, seq_model = SEQ_LAYOUTS[lay]
+    if not split:
+        shard_kind, seq_model = "batch", False
+    cfg = dataclasses.replace(smoke_config(arch), decode_seq_shard=seq_model)
+    model = Model(cfg, device="cpu", mesh=mesh)
+    model.compute_dtype = torch.float32
+    defs = model.param_defs()
+    tree = unflatten_like(defs, [torch.from_numpy(d[f"{name}.w.{n}"])
+                                 for n, _ in flatten_with_paths(defs)])
+    shape = ShapeConfig("seq_cache", seq_len=max_len, global_batch=B,
+                        kind="decode", cache_shard=shard_kind)
+    rows = shard_slices((B, 1), model.batch_pspecs(shape)["tokens"],
+                        mesh)[0]
+    return model, blocks(tree, model.param_specs(), mesh), shape, rows
+
+
+def _seq_cache_case(d, arch: str, lay: str, mesh) -> dict:
+    """One (arch, layout) case of ``_mesh_reference.py seq_cache`` on this
+    rank: the seeded cache's blocks (``model_api.cache_read_spec``), 8
+    decode steps under ``decode_impl="torch"``."""
     from repro_torch.models.model_api import cache_read_spec
-    d = np.load(npz)
     S, pos0 = SEQ_CACHE["S"], SEQ_CACHE["pos0"]
+    name = f"{arch}.{lay}"
+    model, params, shape, rows = _seq_model(d, arch, lay, mesh, name, S)
+    B = shape.global_batch
+    cdefs = model.cache_defs(B, S)["layers"]
+    named = flatten_with_paths(cdefs)
+    whole = seq_cache_numpy({n: c.shape for n, c in named}, pos0)
+    specs = dict(flatten_specs(model.batch_pspecs(shape)["cache"]["layers"]))
+    layers = unflatten_like(cdefs, [local_shard(
+        torch.from_numpy(whole[n]).to(c.dtype),
+        cache_read_spec(c, specs[n]), mesh).clone() for n, c in named])
+    cache = {"layers": layers, "pos": pos0,
+             "seq": model.cache_seq_axes(shape)}
+    logits, counts = [], []
+    for t in seq_cache_tokens(model.cfg.vocab, B):
+        comm.reset_counters()
+        lg, cache = model.decode_step(params, cache, t[rows],
+                                      decode_impl="torch")
+        counts.append(comm.counters())
+        logits.append(lg.float().numpy())
+    return {"rows": (rows.start, rows.stop), "logits": np.stack(logits),
+            "counters": counts[0], "seq": cache["seq"],
+            "gathered": model.gathered_leaves()}
+
+
+def seq_cache_rank(rank, npz):
+    """``_mesh_reference.py seq_cache``'s steps on (data=4, model=2): each
+    arch and layout from the same weights and seeded cache
+    (``_seq_cache_case``): {name: this rank's rows, their logits (steps,
+    rows, V) and step 1's collective counters}."""
+    _setup()
+    d = np.load(npz)
     mesh = make_mesh(SEQ_CACHE["mesh"], ("data", "model"))
-    out = {}
-    for arch in SEQ_CACHE_ARCHS:
-        for lay, (B, shard_kind, seq_model) in SEQ_LAYOUTS.items():
-            name = f"{arch}.{lay}"
-            cfg = dataclasses.replace(smoke_config(arch),
-                                      decode_seq_shard=seq_model)
-            model = Model(cfg, device="cpu", mesh=mesh)
-            model.compute_dtype = torch.float32
-            defs = model.param_defs()
-            tree = unflatten_like(defs, [torch.from_numpy(
-                d[f"{name}.w.{n}"]) for n, _ in flatten_with_paths(defs)])
-            params = blocks(tree, model.param_specs(), mesh)
-            shape = ShapeConfig("seq_cache", seq_len=S, global_batch=B,
-                                kind="decode", cache_shard=shard_kind)
-            bspecs = model.batch_pspecs(shape)
-            cdefs = model.cache_defs(B, S)["layers"]
-            named = flatten_with_paths(cdefs)
-            whole = seq_cache_numpy({n: c.shape for n, c in named}, pos0)
-            specs = dict(flatten_specs(bspecs["cache"]["layers"]))
-            layers = unflatten_like(cdefs, [local_shard(
-                torch.from_numpy(whole[n]).to(c.dtype),
-                cache_read_spec(c, specs[n]), mesh).clone()
-                for n, c in named])
-            cache = {"layers": layers, "pos": pos0,
-                     "seq": model.cache_seq_axes(shape)}
-            rows = shard_slices((B, 1), bspecs["tokens"], mesh)[0]
-            logits, counts = [], []
-            for t in seq_cache_tokens(cfg.vocab, B):
-                comm.reset_counters()
-                lg, cache = model.decode_step(params, cache, t[rows],
-                                              decode_impl="torch")
-                counts.append(comm.counters())
-                logits.append(lg.float().numpy())
-            out[name] = {"rows": (rows.start, rows.stop),
-                         "logits": np.stack(logits), "counters": counts[0],
-                         "seq": cache["seq"]}
+    return {f"{arch}.{lay}": _seq_cache_case(d, arch, lay, mesh)
+            for arch in SEQ_CACHE_ARCHS for lay in SEQ_LAYOUTS}
+
+
+def decode_attention_f32(q, k_cache, v_cache, *, length, window=None,
+                         softcap=None):
+    """``layers.decode_attention`` with p kept in float32 through p.V (the
+    output cast to the cache's dtype), as the sequence-split path's pair
+    keeps it (``transformer._split_decode``); the layer rounds p to the
+    cache's bf16 first, as the reference does."""
+    from repro_torch.models import layers as L
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    k, v = k_cache[:, :length], v_cache[:, :length]
+    s = L._scores(q.reshape(B, Hkv, Hq // Hkv, D), k,
+                  "bhgd,bkhd->bhgk") / np.sqrt(D)
+    p = torch.softmax(L._softcap(s, softcap), dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float()).to(v_cache.dtype)
+    return o.reshape(B, 1, Hq, D)
+
+
+def seq_prefill_case(d, arch: str, lay: str, mesh, split=True) -> dict:
+    """``SEQ_PREFILL``'s prefill into a cache split along the sequence
+    under ``lay`` on this rank (its rows, float32 activations, the
+    reference's weights), then its decode steps under
+    ``decode_impl="torch"``: the logits (the prefill's last, then each
+    step's), the prefill's counters (all, and the hand-off's section),
+    each global layer's live positions in this rank's block after the
+    prefill, and the cache's ``seq``.  Without ``split``, the same rows
+    over an unsplit cache on the same mesh, its global layers' decode
+    attention keeping p in float32 (``decode_attention_f32``): the same
+    function at the split path's precision."""
+    from repro_torch.models import layers as L
+    P_len, steps = SEQ_PREFILL["P"], SEQ_PREFILL["steps"]
+    model, params, shape, rows = _seq_model(
+        d, arch, lay, mesh, arch, SEQ_PREFILL["max_len"][lay], split)
+    toks = seq_prefill_tokens(model.cfg.vocab)[rows]
+    comm.reset_counters()
+    last, cache = model.prefill(params, {"tokens": toks[:, :P_len]},
+                                max_len=shape.seq_len, shape=shape)
+    counts = {"all": comm.counters(), "handoff": comm.counters("handoff")}
+    S_r = shape.seq_len // mesh.axis_size(cache["seq"] or ())
+    held = [int((x.float().abs().sum(tuple(i for i in range(x.dim())
+                                            if i != 2)) > 0).sum())
+            for n, x in flatten_with_paths(cache["layers"])
+            if n.rsplit(".", 1)[-1] in ("k", "v", "c", "pe")
+            and x.shape[2] == S_r]
+    logits = [last.numpy()]
+    plain = L.decode_attention
+    L.decode_attention = plain if split else decode_attention_f32
+    try:
+        for i in range(steps):
+            lg, cache = model.decode_step(params, cache,
+                                          toks[:, P_len + i:P_len + i + 1],
+                                          decode_impl="torch")
+            logits.append(lg.numpy())
+    finally:
+        L.decode_attention = plain
+    return {"rows": (rows.start, rows.stop), "logits": np.stack(logits),
+            "counters": counts, "held": held, "seq": cache["seq"],
+            "index": mesh.axis_index(cache["seq"]) if cache["seq"] else 0}
+
+
+def seq_serve_rank(rank, cache_npz, serve_npz):
+    """``seq_cache_rank``'s cases, then ``_mesh_reference.py seq_serve``'s
+    on this rank: DeepSeek-V2's seeded decode under ``decode_seq_shard``
+    (``_seq_cache_case``) and ``seq_prefill_case`` for each arch of
+    ``SEQ_PREFILL_ARCHS`` and each layout, split and unsplit."""
+    out = {"cache": seq_cache_rank(rank, cache_npz)}
+    d = np.load(serve_npz)
+    mesh = make_mesh(SEQ_CACHE["mesh"], ("data", "model"))
+    out["deepseek"] = _seq_cache_case(d, "deepseek-v2-236b", "seqshard",
+                                      mesh)
+    for key, split in (("prefill", True), ("unsplit", False)):
+        out[key] = {f"{a}.{lay}": seq_prefill_case(d, a, lay, mesh, split)
+                    for a in SEQ_PREFILL_ARCHS for lay in SEQ_LAYOUTS}
     return out
 
 

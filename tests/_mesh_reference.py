@@ -12,9 +12,16 @@ seeds, and the reference's results), which the port's ranks read:
   on (data=2, model=2), at the config's own capacity factor;
 * ``dlrm_train``: the smoke DLRM's ``make_train_step`` jit-ed with the
   meshes' ``in_shardings``, 3 steps, on (data=4) with the tables over
-  ``data`` and on (data=2, model=2) with the default rules, ZeRO-1;
+  ``data`` and on (data=2, model=2) with the default rules, ZeRO-1; the
+  compiled step's collectives (``scripts/hlo_collectives.py``; its HLO
+  kept under ``$REPRO_HLO_DIR`` as ``dlrm_train_<case>``);
+* ``dlrm_table2_hlo``: the Table II DLRM's step at B=256 on the same
+  meshes, lowered and compiled from abstract arguments (no tables
+  allocated): its collectives, its HLO kept as ``dlrm_table2_<case>``;
 * ``lm_train``: the smoke TinyLlama's ZeRO-1 step on (data=2, model=2),
   float32 activations, 3 steps, whole batch and microbatches of 2;
+* ``lm_masked``: ``lm_train`` with a seeded ``loss_mask`` in every batch
+  (``_mesh_ranks.lm_loss_mask``: rows kept in unequal shares);
 * ``gpipe``: ``tests/test_pipeline.py``'s case over (stage=4);
 * ``ckpt_write``: a checkpoint of the smoke DLRM's state on (data=4)
   with its specs, under ``OUT_DIR/ref_ckpt``;
@@ -46,13 +53,23 @@ seeds, and the reference's results), which the port's ranks read:
   (``seq_cache_numpy``), 8 steps from position 124 across a block
   boundary, float32 activations; the logits, each compiled step's
   collectives, and the logits of the same steps on one device over the
-  whole cache (``single``).
+  whole cache (``single``);
+* ``seq_serve``: (8 forced host devices, beside ``seq_cache`` or alone)
+  the smoke DeepSeek-V2 under ``decode_seq_shard`` on (data=4, model=2),
+  ``seq_cache``'s case: its latent cache split along the sequence over
+  ``model`` (every latent column a rank), 8 steps across the block
+  boundary with model rank 1 empty at first, the mesh run and one
+  device's (``deepseek.seqshard.*``); and for each of
+  ``_mesh_ranks.SEQ_PREFILL_ARCHS`` the ordinary prefill of
+  ``SEQ_PREFILL``'s prompts, then its decode steps, on one device
+  (``<arch>.ref``: the prefill's last logits and each step's).
 """
 import os
 import sys
 
-# 8 devices for the (data=4, model=2) runs, each alone; 4 otherwise
-EIGHT = ("dryrun_smoke", "seq_cache")
+# 8 devices for the (data=4, model=2) runs (``dryrun_smoke`` alone); 4
+# otherwise
+EIGHT = ("dryrun_smoke", "seq_cache", "seq_serve")
 N_DEVICES = 8 if set(EIGHT) & set(sys.argv[2:]) else 4
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
                            f"{N_DEVICES}")
@@ -188,13 +205,67 @@ def run_dlrm_train(out: Path):
         for i in range(STEPS):
             b = {k: jnp.asarray(v) for k, v in
                  dlrm_batch(0, i, DLRM_BATCH, cfg).items()}
+            if i == 0:
+                with mesh:
+                    hlo = step.lower(params, opt, b).compile().as_text()
             params, opt, m = step(params, opt, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         res[f"{name}.losses"] = np.asarray(losses)
         res[f"{name}.norms"] = np.asarray(norms)
+        res[f"{name}.collectives"] = np.asarray(_collectives_json(hlo))
         res.update(flat(params, f"{name}.p."))
+        _keep_hlo(f"dlrm_train_{name}", hlo)
     np.savez(out / "dlrm_train.npz", **res)
+
+
+def run_dlrm_table2_hlo(out: Path):
+    """The Table II DLRM's step (``make_train_step``, ``TrainConfig()``,
+    B=256) lowered and compiled for each of ``DLRM_CASES``' meshes from
+    abstract arguments (nothing allocated, nothing run): its collectives
+    (``_collectives_json``), the HLO kept as ``dlrm_table2_<case>``."""
+    from repro.configs import get_config
+    from repro.models.dlrm import DLRM
+    from repro.train.optimizer import init_opt_state, opt_state_specs
+    from repro.train.train_step import make_train_step
+    cfg = get_config("dlrm")
+    res = {}
+    for name, (shape, axes, overrides) in DLRM_CASES.items():
+        mesh = make_mesh(shape, axes)
+        model = DLRM(cfg, mesh)
+        rules = MeshRules.create(mesh, overrides)
+        specs = model.param_specs(rules)
+        o_specs = opt_state_specs(specs, model.param_defs(), mesh,
+                                  zero1=True, keep_master=False)
+        params = jax.tree.map(lambda d: jax.ShapeDtypeStruct(d.shape,
+                                                             d.dtype),
+                              model.param_defs(),
+                              is_leaf=lambda x: hasattr(x, "axes"))
+        opt = jax.eval_shape(lambda p: init_opt_state(p, keep_master=False),
+                             params)
+        batch = {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in
+                 dlrm_batch(0, 0, 256, cfg).items()}
+        step = jax.jit(make_train_step(model, TrainConfig()),
+                       in_shardings=(shard(mesh, specs), shard(mesh, o_specs),
+                                     shard(mesh, model.batch_pspecs(rules))),
+                       out_shardings=(shard(mesh, specs),
+                                      shard(mesh, o_specs), None))
+        with mesh:
+            hlo = step.lower(params, opt, batch).compile().as_text()
+        res[f"{name}.collectives"] = np.asarray(_collectives_json(hlo))
+        _keep_hlo(f"dlrm_table2_{name}", hlo)
+    np.savez(out / "dlrm_table2_hlo.npz", **res)
+
+
+def _collectives_json(hlo: str) -> str:
+    """The compiled step's collectives in program order, as
+    ``scripts/hlo_collectives.py`` reads them: [kind, result shape,
+    result bytes, op name]."""
+    import json
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from hlo_collectives import collectives, shape_bytes
+    return json.dumps([[k, shp, shape_bytes(shp), op]
+                       for k, shp, _, op in collectives(hlo)])
 
 
 def _flat_np(tree, prefix=""):
@@ -215,10 +286,11 @@ def lm_pair_tree(r_model, seed=6):
     return chip_smoke.transformer_numpy_params(shapes, seed, bf16=False)
 
 
-def run_lm_train(out: Path):
+def run_lm_train(out: Path, masked: bool = False):
     from repro.models.model_api import Model
     from repro.train.optimizer import init_opt_state, opt_state_specs
     from repro.train.train_step import make_train_step
+    from _mesh_ranks import lm_loss_mask
     cfg = smoke_config("tinyllama-1.1b")
     mesh = make_mesh((2, 2), ("data", "model"))
     model = Model(cfg, mesh)
@@ -229,6 +301,8 @@ def run_lm_train(out: Path):
     o_specs = opt_state_specs(specs, model.param_defs(), mesh, zero1=True,
                               keep_master=False)
     b_specs = {"tokens": P("data", None)}
+    if masked:
+        b_specs["loss_mask"] = P("data", None)
     for mb in (None, 2):
         tcfg = TrainConfig(microbatch=mb, **TCFG)
         params = jax.device_put(jax.tree.map(jnp.asarray, tree),
@@ -244,6 +318,8 @@ def run_lm_train(out: Path):
         for i in range(STEPS):
             b = {"tokens": jnp.asarray(lm_batch(0, i, LM_BATCH, LM_SEQ,
                                                 cfg.vocab)["tokens"])}
+            if masked:
+                b["loss_mask"] = jnp.asarray(lm_loss_mask(i))
             params, opt, m = step(params, opt, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
@@ -251,7 +327,13 @@ def run_lm_train(out: Path):
         res[f"{name}.losses"] = np.asarray(losses)
         res[f"{name}.norms"] = np.asarray(norms)
         res.update(flat(params, f"{name}.p."))
-    np.savez(out / "lm_train.npz", **res)
+    np.savez(out / ("lm_masked.npz" if masked else "lm_train.npz"), **res)
+
+
+def run_lm_masked(out: Path):
+    """``lm_train``'s steps with ``_mesh_ranks.lm_loss_mask``'s seeded
+    ``loss_mask`` in every batch."""
+    run_lm_train(out, masked=True)
 
 
 def run_lm_tp_comm(out: Path):
@@ -495,68 +577,102 @@ def run_mla_decode(out: Path):
     np.savez(out / "mla_decode.npz", **res)
 
 
-def run_seq_cache(out: Path):
-    """The module docstring's ``seq_cache``."""
-    from _mesh_ranks import (SEQ_CACHE, SEQ_CACHE_ARCHS, SEQ_LAYOUTS,
-                             seq_cache_numpy, seq_cache_tokens)
+def _seq_cache_case(mesh, arch: str, lay: str, res: dict) -> None:
+    """One (arch, layout) case of ``seq_cache`` into ``res``."""
+    from _mesh_ranks import (SEQ_CACHE, SEQ_LAYOUTS, seq_cache_numpy,
+                             seq_cache_tokens)
     from repro.configs.base import ShapeConfig
     from repro.models.model_api import Model
-    S, pos0, steps, mshape = (SEQ_CACHE[k] for k in ("S", "pos0", "steps",
-                                                       "mesh"))
-    mesh = make_mesh(mshape, ("data", "model"))
+    S, pos0 = SEQ_CACHE["S"], SEQ_CACHE["pos0"]
+    B, shard_kind, seq_model = SEQ_LAYOUTS[lay]
+    cfg = dataclasses.replace(smoke_config(arch), decode_seq_shard=seq_model)
+    model = Model(cfg, mesh)
+    model.compute_dtype = jnp.float32
+    tree = lm_pair_tree(model)
+    shape = ShapeConfig("seq_cache", seq_len=S, global_batch=B,
+                        kind="decode", cache_shard=shard_kind)
+    specs = model.param_specs()
+    bspecs = model.batch_pspecs(shape)
+    like = model.init_cache(B, S)["layers"]
+    cache_np = seq_cache_numpy(
+        {n: a.shape for n, a in flatten_with_paths(like)}, pos0)
+    leaves = [jnp.asarray(cache_np[n], a.dtype)
+              for n, a in flatten_with_paths(like)]
+    layers = jax.tree.unflatten(jax.tree.structure(like), leaves)
+    toks = seq_cache_tokens(cfg.vocab, B)
+    # one device, the whole cache: the yardstick of both runs
+    one = jax.jit(model.decode_step)
+    c1 = {"layers": layers, "pos": jnp.asarray(pos0, jnp.int32)}
+    p1 = jax.tree.map(jnp.asarray, tree)
+    single = []
+    for t in toks:
+        lg, c1 = one(p1, c1, jnp.asarray(t))
+        single.append(np.asarray(lg))
+    cache = {"layers": jax.device_put(
+        layers, shard(mesh, bspecs["cache"]["layers"])),
+        "pos": jnp.asarray(pos0, jnp.int32)}
+    params = jax.device_put(jax.tree.map(jnp.asarray, tree),
+                            shard(mesh, specs))
+    step = jax.jit(model.decode_step,
+                   in_shardings=(shard(mesh, specs),
+                                 shard(mesh, bspecs["cache"]),
+                                 shard(mesh, bspecs["tokens"])),
+                   out_shardings=(None, shard(mesh, bspecs["cache"])))
+    name = f"{arch}.{lay}"
+    with mesh:
+        hlo = step.lower(params, cache, jnp.asarray(
+            toks[0])).compile().as_text()
+        logits = []
+        for t in toks:
+            lg, cache = step(params, cache, jnp.asarray(t))
+            logits.append(np.asarray(lg))
+    res[f"{name}.logits"] = np.stack(logits)
+    res[f"{name}.single"] = np.stack(single)
+    _keep_hlo(name, hlo)
+    res[f"{name}.comm"] = np.asarray(_comm_json(hlo))
+    res.update({f"{name}.w.{n}": np.asarray(v)
+                for n, v in flatten_with_paths(tree)})
+
+
+def run_seq_cache(out: Path):
+    """The module docstring's ``seq_cache``."""
+    from _mesh_ranks import SEQ_CACHE, SEQ_CACHE_ARCHS, SEQ_LAYOUTS
+    mesh = make_mesh(SEQ_CACHE["mesh"], ("data", "model"))
     res = {}
     for arch in SEQ_CACHE_ARCHS:
-        for lay, (B, shard_kind, seq_model) in SEQ_LAYOUTS.items():
-            cfg = dataclasses.replace(smoke_config(arch),
-                                      decode_seq_shard=seq_model)
-            model = Model(cfg, mesh)
-            model.compute_dtype = jnp.float32
-            tree = lm_pair_tree(model)
-            shape = ShapeConfig("seq_cache", seq_len=S, global_batch=B,
-                                kind="decode", cache_shard=shard_kind)
-            specs = model.param_specs()
-            bspecs = model.batch_pspecs(shape)
-            like = model.init_cache(B, S)["layers"]
-            cache_np = seq_cache_numpy(
-                {n: a.shape for n, a in flatten_with_paths(like)}, pos0)
-            leaves = [jnp.asarray(cache_np[n], a.dtype)
-                      for n, a in flatten_with_paths(like)]
-            layers = jax.tree.unflatten(jax.tree.structure(like), leaves)
-            toks = seq_cache_tokens(cfg.vocab, B)
-            # one device, the whole cache: the yardstick of both runs
-            one = jax.jit(model.decode_step)
-            c1 = {"layers": layers, "pos": jnp.asarray(pos0, jnp.int32)}
-            p1 = jax.tree.map(jnp.asarray, tree)
-            single = []
-            for t in toks:
-                lg, c1 = one(p1, c1, jnp.asarray(t))
-                single.append(np.asarray(lg))
-            cache = {"layers": jax.device_put(
-                layers, shard(mesh, bspecs["cache"]["layers"])),
-                "pos": jnp.asarray(pos0, jnp.int32)}
-            params = jax.device_put(jax.tree.map(jnp.asarray, tree),
-                                    shard(mesh, specs))
-            step = jax.jit(model.decode_step,
-                           in_shardings=(shard(mesh, specs),
-                                         shard(mesh, bspecs["cache"]),
-                                         shard(mesh, bspecs["tokens"])),
-                           out_shardings=(None,
-                                          shard(mesh, bspecs["cache"])))
-            name = f"{arch}.{lay}"
-            with mesh:
-                hlo = step.lower(params, cache, jnp.asarray(
-                    toks[0])).compile().as_text()
-                logits = []
-                for t in toks:
-                    lg, cache = step(params, cache, jnp.asarray(t))
-                    logits.append(np.asarray(lg))
-            res[f"{name}.logits"] = np.stack(logits)
-            res[f"{name}.single"] = np.stack(single)
-            _keep_hlo(name, hlo)
-            res[f"{name}.comm"] = np.asarray(_comm_json(hlo))
-            res.update({f"{name}.w.{n}": np.asarray(v)
-                        for n, v in flatten_with_paths(tree)})
+        for lay in SEQ_LAYOUTS:
+            _seq_cache_case(mesh, arch, lay, res)
     np.savez(out / "seq_cache.npz", **res)
+
+
+def run_seq_serve(out: Path):
+    """The module docstring's ``seq_serve``."""
+    from _mesh_ranks import (SEQ_CACHE, SEQ_PREFILL, SEQ_PREFILL_ARCHS,
+                             seq_prefill_tokens)
+    from repro.models.model_api import Model
+    mesh = make_mesh(SEQ_CACHE["mesh"], ("data", "model"))
+    res = {}
+    _seq_cache_case(mesh, "deepseek-v2-236b", "seqshard", res)
+    P_len, steps = SEQ_PREFILL["P"], SEQ_PREFILL["steps"]
+    for arch in SEQ_PREFILL_ARCHS:
+        cfg = smoke_config(arch)
+        model = Model(cfg, mesh)
+        model.compute_dtype = jnp.float32
+        tree = lm_pair_tree(model)
+        toks = seq_prefill_tokens(cfg.vocab)
+        params = jax.tree.map(jnp.asarray, tree)
+        pre = jax.jit(lambda p, b: model.prefill(p, b, max_len=P_len + steps))
+        step = jax.jit(model.decode_step)
+        last, cache = pre(params, {"tokens": jnp.asarray(toks[:, :P_len])})
+        logits = [np.asarray(last)]
+        for i in range(steps):
+            lg, cache = step(params, cache, jnp.asarray(
+                toks[:, P_len + i:P_len + i + 1]))
+            logits.append(np.asarray(lg))
+        res[f"{arch}.ref"] = np.stack(logits)
+        res.update({f"{arch}.w.{n}": np.asarray(v)
+                    for n, v in flatten_with_paths(tree)})
+    np.savez(out / "seq_serve.npz", **res)
 
 
 # ---------------------------------------------------------------------------
@@ -625,12 +741,16 @@ RUNS = {"moe": run_moe, "dlrm_train": run_dlrm_train, "lm_train": run_lm_train,
         "ckpt_read": run_ckpt_read, "lm_tp_comm": run_lm_tp_comm,
         "moe_chunks": run_moe_chunks, "dryrun_smoke": run_dryrun_smoke,
         "seq_cache": run_seq_cache, "families_tp": run_families_tp,
-        "mla_decode": run_mla_decode}
+        "mla_decode": run_mla_decode, "seq_serve": run_seq_serve,
+        "lm_masked": run_lm_masked, "dlrm_table2_hlo": run_dlrm_table2_hlo}
 
 if __name__ == "__main__":
     assert len(jax.devices()) == N_DEVICES, jax.devices()
-    if N_DEVICES == 8 and len(sys.argv) > 3:
-        raise SystemExit(f"{EIGHT} run alone (8 devices)")
+    names = set(sys.argv[2:])
+    if N_DEVICES == 8 and not (names <= set(EIGHT) and (
+            "dryrun_smoke" not in names or len(names) == 1)):
+        raise SystemExit(f"{EIGHT} run without the 4-device runs, "
+                         "dryrun_smoke alone")
     out_dir = Path(sys.argv[1])
     out_dir.mkdir(parents=True, exist_ok=True)
     for name in sys.argv[2:]:

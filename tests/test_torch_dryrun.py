@@ -34,7 +34,7 @@ import pytest
 
 import _mesh_ranks
 from repro_torch.common import comm
-from repro_torch.configs import smoke_config
+from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as lmesh
@@ -197,16 +197,17 @@ LONG = ShapeConfig("long", seq_len=512, global_batch=1, kind="decode",
      {"seq_parallel": True, "moe_impl": "tp"}, True),
     ("deepseek-v2-236b", ShapeConfig("seqcache", seq_len=512,
                                      global_batch=4, kind="decode"),
-     {"decode_seq_shard": True}, False)],
+     {"decode_seq_shard": True, "moe_impl": "ep_a2a"}, True)],
     ids=["sequence-split-cache", "seq_parallel-over-mla",
          "mla-sequence-split-cache"])
 def test_cells_the_port_does_not_trace_raise(arch, shape, over, traces):
-    """A cache split along the sequence (``long_500k``'s layout) and
-    ``seq_parallel`` over MLA once raised here; they trace now, the
-    former merging its blocks' attention across the data ranks (a
-    ``pmax`` and a ``psum`` a global layer) and neither gathering a leaf
-    whole.  MLA over a latent cache split along the sequence still
-    raises."""
+    """A cache split along the sequence (``long_500k``'s layout),
+    ``seq_parallel`` over MLA and MLA over a latent cache split along the
+    sequence over ``model`` (``decode_seq_shard``, DeepSeek-V2's own
+    ``ep_a2a`` body) once raised here; they trace now, the first merging
+    its blocks' attention across the data ranks (a ``pmax`` and a
+    ``psum`` a global layer), the last across the model ranks (one
+    ``pmax`` an MLA layer), and none gathering a leaf whole."""
     cfg = dataclasses.replace(smoke_config(arch), **over)
     if not traces:
         with pytest.raises(NotImplementedError):
@@ -221,6 +222,72 @@ def test_cells_the_port_does_not_trace_raise(arch, shape, over, traces):
         n_global = sum(c == "g" for c in cfg.attn_pattern) * (
             cfg.n_layers // len(cfg.attn_pattern))
         assert cell["collective_calls"]["pmax"] == n_global
+    if cfg.decode_seq_shard:
+        assert cell["collective_calls"]["pmax"] == cfg.n_layers
+
+
+def _moe_own(arch) -> dict:
+    """An MoE arch's own mesh body (the smoke configs run the dense
+    path, which gathers the experts whole)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return {"moe_impl": cfg.moe_impl} if cfg.moe else {}
+
+
+SMOKE_ARCHS = [a for a in ARCHS if a != "dlrm"]
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_smoke_prefill_cell_traces_under_seqcache(arch):
+    """Every smoke arch's prefill cell under the reference's ``seqcache``
+    knob (``decode_seq_shard``) on (2, 2) traces, gathering no leaf,
+    with the same ``collective_bytes`` as the cell without it (the
+    reference's prefill is its ordinary one, its cache resharded at the
+    jit boundary); the hand-off into the ranks' blocks of the sequence
+    is recorded apart (``collective_bytes_handoff``): one all-to-all a
+    global layer where the kv heads split over ``model``, an all-gather
+    a ring, nothing where every rank holds every kv head (PaliGemma's
+    one) or the latent (MLA) or where there is no global layer
+    (RWKV-6)."""
+    from repro_torch.models.transformer import build_groups
+    base = dataclasses.replace(smoke_config(arch), **_moe_own(arch))
+    cells = {}
+    for seqcache in (False, True):
+        cfg = dataclasses.replace(base, decode_seq_shard=seqcache)
+        cells[seqcache] = dryrun.dryrun_cell(
+            arch, "smoke_prefill", False, False, cfg=cfg,
+            shape=SHAPES["smoke_prefill"], mesh_shape=(2, 2))
+    cell = cells[True]
+    assert cell["gathered_leaves"] == []
+    assert cell["collective_bytes"] == cells[False]["collective_bytes"]
+    assert cell["collective_bytes_raw"] == cells[False][
+        "collective_bytes_raw"]
+    assert cells[False]["collective_bytes_handoff"] == {"total": 0}
+    kinds = [k for g in build_groups(base) for k in g.kinds for _ in
+             range(g.n)]
+    split_kv = base.n_kv_heads % 2 == 0
+    want = {"all-to-all": split_kv * sum(k[0] in ("gqa_g", "shared_gqa")
+                                         for k in kinds),
+            "all-gather": split_kv * sum(k[0] == "gqa_l" for k in kinds)}
+    got = cell["collective_bytes_handoff"]
+    assert {k for k in got if k != "total"} == {k for k, n in want.items()
+                                                if n}, got
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_mla_decode_cell_traces_under_seqcache(arch):
+    """DeepSeek-V2's and V3's smoke decode cells under ``seqcache`` on
+    (2, 2): the latent cache's sequence over ``model``, every latent
+    column a rank; one ``pmax`` an MLA layer (the merge), no leaf
+    gathered."""
+    cfg = dataclasses.replace(smoke_config(arch), decode_seq_shard=True,
+                              **_moe_own(arch))
+    cell = dryrun.dryrun_cell(arch, "smoke_decode", False, False, cfg=cfg,
+                              shape=SHAPES["smoke_decode"],
+                              mesh_shape=(2, 2))
+    assert cell["gathered_leaves"] == []
+    assert cell["collective_calls"]["pmax"] == cfg.n_layers
+    assert cell["collective_bytes_handoff"] == {"total": 0}
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "zamba2-1.2b",

@@ -199,3 +199,28 @@ def test_mesh_coordinates_are_row_major():
     with pytest.raises(ValueError, match="order"):
         m.ordered(("model", "data"))
     assert P("a", ("b", "c")).used_axes() == ("a", "b", "c")
+
+
+def test_a_section_counts_and_records_its_calls_apart():
+    """``comm.section(name)``: the calls made inside count under their
+    kind and under ``name`` (``counters(name)``, zeros for a section never
+    opened), and a recording mesh's records carry the name."""
+    mesh = comm.RecordingMesh((2, 2), ("data", "model"))
+    x = torch.empty((4, 8), device="meta")
+    comm.reset_counters()
+    comm.psum(x, mesh, "model")
+    with comm.section("handoff"):
+        comm.all_to_all(x, mesh, "model")
+        comm.all_gather(x, mesh, "data", dim=1)
+    comm.psum(x, mesh, "data")
+    every, apart = comm.counters(), comm.counters("handoff")
+    assert {k: v["calls"] for k, v in every.items() if v["calls"]} == \
+        {"psum": 2, "all_to_all": 1, "all_gather": 1}
+    assert {k: v["calls"] for k, v in apart.items() if v["calls"]} == \
+        {"all_to_all": 1, "all_gather": 1}
+    assert apart["all_to_all"]["bytes"] == every["all_to_all"]["bytes"] == 128
+    assert [r.section for r in mesh.records] == [None, "handoff", "handoff",
+                                                 None]
+    assert not any(v["calls"] for v in comm.counters("other").values())
+    comm.reset_counters()
+    assert not any(v["calls"] for v in comm.counters("handoff").values())

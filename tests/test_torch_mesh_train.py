@@ -13,6 +13,17 @@ with the meshes' ``in_shardings`` on 4 forced host devices (a subprocess,
 * the smoke TinyLlama's ZeRO-1 step on (data=2, model=2), float32
   activations, whole batch and microbatches of 2: losses and norms rtol
   1e-4, parameters within 2 lr a step (``tests/test_torch_train.py``);
+* the same TinyLlama step with a seeded ``loss_mask`` (rows kept in
+  unequal shares, ``_mesh_ranks.lm_loss_mask``): each rank's share is
+  its rows' masked sum over the whole (micro)batch's count, so the
+  shares add to the reference's global masked mean; the same
+  tolerances;
+* the smoke DLRM step's collectives beside the reference's compiled
+  step's (``scripts/hlo_collectives.py`` on its HLO): both move float32
+  (no bf16 gradient, as ``DLRM.comm_profile``'s analytic profile
+  assumes); the reference's GSPMD moves no all-to-all (it all-gathers
+  the tables whole, widened to float32), the port the paper's
+  all-to-all of the bags;
 * the sharded global norm equal to the unsharded one, and ZeRO-1's
   moments one block a rank."""
 import os
@@ -46,7 +57,7 @@ def run_reference(out: Path, *names):
 @pytest.fixture(scope="module")
 def ref_dir(tmp_path_factory):
     out = tmp_path_factory.mktemp("mesh_ref")
-    run_reference(out, "dlrm_train", "lm_train")
+    run_reference(out, "dlrm_train", "lm_train", "lm_masked")
     return out
 
 
@@ -63,11 +74,16 @@ def dlrm_cases_rank(rank, npz):
             for case in _mesh_ranks.DLRM_CASES}
 
 
-def test_dlrm_mesh_steps_match_reference(ref_dir):
+@pytest.fixture(scope="module")
+def dlrm_res(ref_dir):
+    return lmesh.launch(dlrm_cases_rank, 4, devices=CPU4,
+                        args=(str(ref_dir / "dlrm_train.npz"),),
+                        join_s=JOIN_S)
+
+
+def test_dlrm_mesh_steps_match_reference(ref_dir, dlrm_res):
     d = np.load(ref_dir / "dlrm_train.npz")
-    res = lmesh.launch(dlrm_cases_rank, 4, devices=CPU4,
-                       args=(str(ref_dir / "dlrm_train.npz"),),
-                       join_s=JOIN_S)
+    res = dlrm_res
     for case in _mesh_ranks.DLRM_CASES:
         r0 = res[0][case]
         for r in res:        # every rank reads the same metrics
@@ -96,8 +112,78 @@ def test_dlrm_mesh_steps_match_reference(ref_dir):
             ("data",) if case == "data4" else ("model",))
 
 
+def test_dlrm_collectives_beside_the_references_compiled_step(ref_dir,
+                                                              dlrm_res):
+    """Open item 1 of the port's roadmap, settled by the reference's HLO:
+    the compiled step moves only float32 (the port's gradients are
+    float32 too: ``comm_profile``'s bf16 gradients and ``DLRMCommSpec``'s
+    4 MiB all-to-all are the paper's analytic profile at the paper's
+    batch, not what the reference compiles), and no all-to-all: on
+    (data=4) with the tables over ``data`` GSPMD all-gathers the whole
+    tables, widened to float32; the port exchanges the rows' bags with
+    their tables' owners (one all-to-all each way, bf16) and
+    reduce-scatters the MLP's float32 gradient."""
+    import json
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.dlrm import param_shapes
+    d = np.load(ref_dir / "dlrm_train.npz")
+    cfg = smoke_config("dlrm")
+    shapes = param_shapes(cfg)
+    for case in _mesh_ranks.DLRM_CASES:
+        ops = json.loads(str(d[f"{case}.collectives"]))
+        port = {k: (v["calls"], v["bytes"]) for k, v in
+                dlrm_res[0][case]["counters"][0].items() if v["calls"]}
+        ref = {}
+        for kind, shape, nbytes, _ in ops:
+            c = ref.setdefault((kind, shape.split("[")[0]), [0, 0])
+            c[0] += 1
+            c[1] += nbytes
+        print(f"{case}: reference {ref}; port {port}")
+        assert ops and all(not s.startswith("bf16") for _, s, _, _ in ops)
+        assert all(k != "all-to-all" for k, _, _, _ in ops)
+    ops = json.loads(str(d["data4.collectives"]))
+    tables = "f32[{}]".format(",".join(map(str, shapes["tables"][0])))
+    assert any(k == "all-gather" and s.startswith(tables)
+               for k, s, _, _ in ops), tables
+    port = dlrm_res[0]["data4"]["counters"][0]
+    rows = _mesh_ranks.DLRM_BATCH // 4
+    T, D = shapes["tables"][0][0], cfg.emb_dim
+    assert port["all_to_all"]["calls"] == 2
+    assert port["all_to_all"]["bytes"] == 2 * rows * T * D * 2   # bf16
+    mlp = [np.prod(v[0]) for part in ("bot", "top")
+           for v in shapes[part].values() if np.prod(v[0]) % 4 == 0]
+    assert port["psum_scatter"]["bytes"] == 4 * sum(mlp)         # float32
+
+
 def lm_cases_rank(rank, npz):
     return {mb: _mesh_ranks.lm_rank(rank, npz, mb) for mb in (None, 2)}
+
+
+def lm_masked_rank(rank, npz):
+    return {mb: _mesh_ranks.lm_rank(rank, npz, mb, masked=True)
+            for mb in (None, 2)}
+
+
+def test_tinyllama_masked_step_matches_reference(ref_dir):
+    d = np.load(ref_dir / "lm_masked.npz")
+    res = lmesh.launch(lm_masked_rank, 4, devices=CPU4,
+                       args=(str(ref_dir / "lm_masked.npz"),),
+                       join_s=JOIN_S)
+    plain = np.load(ref_dir / "lm_train.npz")
+    for mb in (None, 2):
+        r0 = res[0][mb]
+        for r in res:
+            assert r[mb]["losses"] == r0["losses"], mb
+        np.testing.assert_allclose(r0["losses"], d[f"mb{mb}.losses"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(r0["norms"], d[f"mb{mb}.norms"],
+                                   rtol=1e-4)
+        # the mask moves the loss (it is not the unmasked step's)
+        assert abs(r0["losses"][0] / plain[f"mb{mb}.losses"][0] - 1) > 1e-3
+        for name, got in r0["params"].items():
+            np.testing.assert_allclose(got, d[f"mb{mb}.p.{name}"], rtol=0,
+                                       atol=2 * LR * 3, err_msg=name)
 
 
 def test_tinyllama_zero1_step_matches_reference(ref_dir):
